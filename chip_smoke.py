@@ -5,21 +5,33 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
 
-1. build: compile every kernel of the serving path from ``csrc/*.cu`` with
-   ``nvcc`` for sm_90a (one process per source, all at once);
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes and the other shapes the configs use, printing the
-   max abs error beside the tolerance, then the times of the kernel, the
-   plain version and a stock PyTorch yardstick (``library_ms``, never
-   called by the port);
+1. build: compile every kernel of the serving and training paths from
+   ``csrc/*.cu`` with ``nvcc`` for sm_90a (one process per source, all at
+   once);
+2. the serving path's kernels (the fused-layer and gather forwards)
+   against their plain PyTorch versions on the card, at the serving shapes
+   and the other shapes the configs use, printing the max and mean abs
+   error beside the tolerance, then the times of the kernel, the plain
+   version and a stock PyTorch yardstick (``library_ms``, never called by
+   the port);
 3. serving: a synthetic artifact at MovieLens-1M scale (3,706 items with
    384-d text embeddings, 6,040 users) written by ``save_artifact`` for the
    flagship model (4 layers, d=128, 8 heads, FFN 512, seq 32, bf16) with
    weights from a seeded ``torch.Generator``; ``Service(device="cuda")``
    answers all nine APIs, then 256 concurrent ``recommend_with_user_id``
    requests go through the micro-batcher, and the launch counters show the
-   path went through both kernels.  The card's embeddings are held against
-   the plain path on the CPU for a few users.
+   path went through both forward kernels.  The card's embeddings are held
+   against the plain path on the CPU for a few users;
+4. the training path's kernels (the fused-layer and gather backwards, the
+   table-scored InfoNCE forward and backward) against their plain versions
+   at the training shapes, with their times, as in phase 2;
+5. training: the flagship's hot train step
+   (``make_train_step(cfg, full_logs=False)``, configs/ml1m_ssm.yaml,
+   dropout 0.1, batch 128) over the same synthetic catalog: one step's loss
+   and raw gradients on the card against the same step on the CPU's plain
+   path, the launch counts of one step (every kernel of the path), 30 steps
+   on one fixed batch whose loss must fall, the eager step time, and the
+   device time by kernel of a few steps under ``torch.profiler``.
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -53,6 +65,13 @@ H100_BYTES_PER_S = 3.35e12  # HBM3
 # ulps at |y| in [4, 8)), at most 2**-8 on average.
 TOL = {"float32": 2e-5, "bfloat16": 2.0**-4}
 TOL_MEAN = {"float32": 2e-6, "bfloat16": 2.0**-8}
+# backward kernels, each gradient's max abs error relative to its max abs
+# value (the bounds of tests/test_torch_cuda.py).  f32: both sum in f32 in
+# other orders, the parameter gradients over all B*S rows.  bf16: every
+# gradient product rounds its operands to bf16, and a one-ulp flip of a
+# rounding (2**-8 relative) in one of thousands of summands moves a sum by
+# far less than one ulp of its largest term; the H100 runs read up to 6e-3.
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
 
 def log(msg: str) -> None:
@@ -115,7 +134,7 @@ def eager_ms(fn, iters: int = 50) -> float:
     return statistics.median(times)
 
 
-# -- phase 2: kernels against their plain versions ---------------------------
+# -- phases 2 and 4: kernels against their plain versions ----------------------
 
 
 def _layer_params(gen, d: int, f: int, device):
@@ -313,6 +332,319 @@ def check_gather() -> dict:
     return result
 
 
+def compare_grad(name: str, got, want, dtype_name: str) -> tuple[float, float, float]:
+    """Hold one gradient against its plain version: max abs error relative
+    to the plain version's max abs value within ``GRAD_TOL``; returns the
+    max abs, mean abs and relative errors."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    max_err, mean_err = float(err.max()), float(err.mean())
+    rel = max_err / max(float(want.float().abs().max()), 1e-30)
+    ok = bool(torch.isfinite(got.float()).all()) and rel <= GRAD_TOL[dtype_name]
+    if not ok:
+        log(f"  {name}: max_abs_err={max_err:.3g} mean_abs_err={mean_err:.3g} max_rel_err="
+            f"{rel:.3g} tol={GRAD_TOL[dtype_name]} (relative to max abs) FAIL")
+        msg = f"{name}: kernel disagrees with its plain version"
+        raise AssertionError(msg)
+    return max_err, mean_err, rel
+
+
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` operations at ``peak`` and
+    ``nbytes`` of device memory at the HBM rate, and which one binds."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_backward_traps(gen) -> None:
+    """The two places where the JAX bf16 backward is not autograd of its
+    forward, each moving the gradients by less than ``GRAD_TOL`` admits:
+
+    - it divides the hidden-dropout cotangent by the f32 ``1 - rate`` (the
+      forward by its bf16 rounding), 0.38% apart at rate 0.4942.  The
+      least-squares scale of the kernel's ``ffn_out`` gradients against the
+      plain backward must be 1 within 1e-3 (the forward's divisor: 1.0038);
+    - it recomputes the GELU with the A&S erf (Eigen's in the forward).
+      The kernel's deviation from the plain backward, projected on the
+      direction to the plain backward with Eigen's erf, must be within 0.25
+      of 0 (a kernel with Eigen's erf reads about 1)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    x, params, mask, kwargs = layer_case(gen, b=128, s=32, d=128, h=8, f=512,
+                                         dtype=torch.bfloat16, seeds=[5, 6, 7])
+    kwargs["hidden_dropout"] = 0.4942
+    dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+    leaves = [params["ffn_out"][n].requires_grad_() for n in ("w", "b")]
+    fl.fused_layer(x, params, mask, **kwargs).backward(dy)
+    with torch.no_grad():
+        _, want = fl.fused_layer_backward_reference(x, params, mask, dy, **kwargs)
+    scales = {}
+    for n, t in zip(("w", "b"), leaves):
+        got, ref = t.grad.double(), want["ffn_out"][n].double()
+        scales[n] = float((got * ref).sum() / (ref * ref).sum())
+    ok = all(abs(v - 1.0) <= 1e-3 for v in scales.values())
+    log(f"  fused_layer_bwd bf16 hidden dropout 0.4942, least-squares scale of the ffn_out "
+        f"gradients against the plain backward: w {scales['w']:.5f}, b {scales['b']:.5f} "
+        f"(tol 1 +- 1e-3; the forward's bf16 divisor would read 1.0038) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused_layer_bwd divides by the wrong keep rate")
+
+    x, params, mask, kwargs = layer_case(gen, b=128, s=32, d=128, h=8, f=512,
+                                         dtype=torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+    x.requires_grad_()
+    fl.fused_layer(x, params, mask, **kwargs).backward(dy)
+    erf_as = fl._erf_as
+    with torch.no_grad():
+        dx_as, _ = fl.fused_layer_backward_reference(x.detach(), params, mask, dy, **kwargs)
+        fl._erf_as = fl._erf
+        try:
+            dx_eigen, _ = fl.fused_layer_backward_reference(x.detach(), params, mask, dy,
+                                                            **kwargs)
+        finally:
+            fl._erf_as = erf_as
+    got, a, e = x.grad.double(), dx_as.double(), dx_eigen.double()
+    proj = float(((got - a) * (e - a)).sum() / ((e - a) ** 2).sum())
+    ok = abs(proj) <= 0.25
+    log(f"  fused_layer_bwd bf16, dx's deviation from the plain backward projected on the "
+        f"A&S -> Eigen erf direction: {proj:.4f} (tol |p| <= 0.25; Eigen's erf reads about 1) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("fused_layer_bwd does not recompute the GELU with the A&S erf")
+
+
+def check_fused_layer_bwd() -> dict:
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    gen = torch.Generator().manual_seed(5)
+    seeds = [0x2468ACE0, 0x13579BDF, 3000000000]
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal, dropout in ((True, 0.0), (True, 0.1), (False, 0.1)):
+            cases.append(dict(b=128, s=32, d=128, h=8, f=512, dtype=dtype, causal=causal,
+                              dropout=dropout))
+        cases.append(dict(b=4, s=8, d=128, h=8, f=48, dtype=dtype, dropout=0.1))
+        cases.append(dict(b=4, s=48, d=128, h=8, f=512, dtype=dtype))
+        cases.append(dict(b=3, s=64, d=128, h=8, f=512, dtype=dtype, dropout=0.1))
+        cases.append(dict(b=4, s=32, d=384, h=12, f=48, dtype=dtype, dropout=0.1))
+    max_err = 0.0
+    for c in cases:
+        dtype_name = str(c["dtype"]).removeprefix("torch.")
+        dropout = c.get("dropout", 0.0)
+        x, params, mask, kwargs = layer_case(
+            gen, b=c["b"], s=c["s"], d=c["d"], h=c["h"], f=c["f"], dtype=c["dtype"],
+            causal=c.get("causal", True), dropout=dropout, seeds=seeds if dropout else None)
+        leaves = [params[m][n].requires_grad_() for m, n in fl._PARAM_ORDER]
+        x.requires_grad_()
+        dy = torch.randn(x.shape, generator=gen).to("cuda", c["dtype"])
+        fl.fused_layer(x, params, mask, **kwargs).backward(dy)
+        with torch.no_grad():
+            dx_want, grads = fl.fused_layer_backward_reference(x.detach(), params, mask, dy,
+                                                               **kwargs)
+        torch.cuda.synchronize()
+        name = (f"fused_layer_bwd B={c['b']} S={c['s']} D={c['d']} H={c['h']} F={c['f']} "
+                f"{dtype_name} causal={c.get('causal', True)} dropout={dropout}")
+        errs = {"dx": compare_grad(name + " dx", x.grad, dx_want, dtype_name)}
+        for (m, n), t in zip(fl._PARAM_ORDER, leaves):
+            errs[f"{m}/{n}"] = compare_grad(f"{name} {m}/{n}", t.grad, grads[m][n], dtype_name)
+        worst = max(errs, key=lambda k: errs[k][2])
+        log(f"  {name}: dx max_abs_err={errs['dx'][0]:.3g} mean_abs_err={errs['dx'][1]:.3g}; "
+            f"worst of dx and 12 parameter gradients {worst} max_rel_err={errs[worst][2]:.3g} "
+            f"mean_abs_err={errs[worst][1]:.3g}; tol={GRAD_TOL[dtype_name]} (relative to max "
+            "abs) ok")
+        if c["dtype"] == torch.bfloat16 and c["b"] == 128:
+            max_err = max(max_err, max(e[0] for e in errs.values()))
+    check_backward_traps(gen)
+    # times at the train shape: B=128 sequences, bf16, dropout 0.1
+    b, s, d, h, f = 128, 32, 128, 8, 512
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
+                                         dropout=0.1, seeds=seeds)
+    flat = [params[m][n] for m, n in fl._PARAM_ORDER]
+    dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+    ms = time_ms(lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs, layer_norm_eps=1e-12))
+    plain_ms = time_ms(lambda: fl.fused_layer_backward_reference(x, params, mask, dy, **kwargs))
+    xr = x.detach().clone().requires_grad_()
+    leaves = [t.detach().clone().requires_grad_() for t in flat]
+    stock_params = fl._unflatten(leaves)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        stock_layer(xr, stock_params, mask, **kwargs), [xr, *leaves], dy))
+    # the least work: the forward's products once (recompute) and two per
+    # dense and four per attention product in the VJP
+    flops = 6 * b * s * (4 * d * d + 2 * d * f) + 12 * b * s * s * d
+    nparams = 4 * d * d + 2 * d * f + 9 * d + f
+    nbytes = 3 * b * s * d * 2 + 4 * b * s + 2 * 4 * nparams
+    bound_ms, bound_by = bound(flops, nbytes, H100_BF16_FLOPS)
+    log(f"  fused_layer_bwd B={b} S={s} D={d} bf16 dropout 0.1, device time: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, stock layer forward + autograd backward {library_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
+    return {
+        "name": "fused_layer_bwd", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
+        "replaces": "transformer_recommenders_tpu/ops/fused_layer.py:566",
+        "shape": "B=128 S=32 D=128 H=8 F=512 bf16 dropout 0.1",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def check_gather_bwd() -> dict:
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+
+    gen = torch.Generator().manual_seed(2)
+    tol = {"bfloat16": 2.0**-8, "float32": 1e-6}  # of the max abs: one bf16 rounding
+    max_err = 0.0
+    for n, d, r, dtype in ((3707, 128, 4096, torch.bfloat16), (3707, 128, 4096, torch.float32),
+                           (3707, 384, 2048, torch.float32), (3707, 384, 32, torch.float32),
+                           (100, 6, 37, torch.bfloat16)):
+        dtype_name = str(dtype).removeprefix("torch.")
+        table = torch.randn(n, d, generator=gen).to("cuda", dtype).requires_grad_()
+        idx = torch.randint(-5, 40, (r,), generator=gen)  # duplicates and out of range
+        idx[: r // 2] = torch.randint(0, n, (r // 2,), generator=gen)
+        idx = idx.cuda()
+        g = torch.randn(r, d, generator=gen).to("cuda", dtype)
+        gm.gather_rows(table, idx, dtype).backward(g)
+        want = gm.gather_rows_backward_reference(g, idx, n, dtype)
+        torch.cuda.synchronize()
+        err = (table.grad.float() - want.float()).abs()
+        rel = float(err.max() / want.float().abs().max())
+        ok = table.grad.dtype == dtype and rel <= tol[dtype_name]
+        log(f"  gather_rows_bwd N={n} D={d} R={r} {dtype_name}: max_abs_err={float(err.max()):.3g} "
+            f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g} tol={tol[dtype_name]} "
+            f"(relative to max abs) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("gather_rows_bwd disagrees with its plain version")
+        if (n, d, dtype) == (3707, 128, torch.bfloat16):
+            max_err = float(err.max())
+    # times at the train shape: the 128 x 32 history rows of a batch into
+    # the projected 3,707 x 128 bf16 catalog
+    b, s, n, d = 128, 32, 3707, 128
+    hist = train_batch(np.random.default_rng(0), b, s, n - 1)["history_item_idx"]
+    idx = torch.from_numpy(hist.reshape(-1)).long().cuda()
+    g = torch.randn(b * s, d, generator=gen).to("cuda", torch.bfloat16)
+    ms = time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16))
+    plain_ms = time_ms(lambda: gm.gather_rows_backward_reference(g, idx, n, torch.bfloat16))
+    acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
+    library_ms = time_ms(lambda: acc.index_add_(0, idx, g))
+    nbytes = b * s * (d * 2 + 8) + n * d * 2
+    bound_ms, bound_by = bound(0, nbytes, H100_BF16_FLOPS)
+    log(f"  gather_rows_bwd R={b * s} N={n} D={d} bf16, device time: kernel (index sort "
+        f"included) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ (bf16 atomics) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return {
+        "name": "gather_rows_bwd", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "transformer_recommenders_tpu/ops/gather_matmul.py:75",
+        "shape": "R=4096 N=3707 D=128 bf16",
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def composite_table_infonce(q, table, pos_idx, counts, mask_fn: bool):
+    """The yardstick: per-row CE from stock calls, a bf16 ``q @ table.T``
+    and a masked, count-weighted ``logsumexp`` (a composite of library
+    calls, differentiable by autograd)."""
+    import torch
+
+    x = (q.to(torch.bfloat16) @ table.to(torch.bfloat16).T).float()
+    pos = x.gather(1, pos_idx.long()[:, None])
+    w = counts[None, :].expand_as(x)
+    if mask_fn:
+        w = torch.where(x < pos, w, 0.0)
+    lse = torch.logsumexp(torch.cat([pos, x + torch.log(w)], dim=1), dim=1)
+    return lse - pos[:, 0]
+
+
+def check_table_infonce() -> list[dict]:
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+
+    gen = torch.Generator().manual_seed(3)
+    r, n, d = 4096, 3707, 128
+    tol = {"ce": 1e-5, "dq": 1e-2, "dtable": 1e-2}  # of the max abs value
+    max_err = {}
+    for mask_fn in (True, False):
+        q = torch.randn(r, d, generator=gen).cuda().requires_grad_()
+        table = (0.3 * torch.randn(n, d, generator=gen)).to("cuda", torch.bfloat16)
+        table[0] = 0
+        table.requires_grad_()
+        pos = torch.randint(1, n, (r,), generator=gen)
+        neg = torch.randint(1, 64, (r,), generator=gen)  # a duplicate-heavy pool
+        pos[::7] = neg[::7]  # positives with copies in the pool
+        row_valid = torch.rand(r, generator=gen) > 0.1
+        neg_valid = torch.rand(r, generator=gen) > 0.1
+        pos = torch.where(row_valid, pos, 0)
+        pos, neg, row_valid, neg_valid = (t.cuda() for t in (pos, neg, row_valid, neg_valid))
+        counts = fti.neg_pool_counts(neg, neg_valid, n)
+        g = row_valid.float()
+        ce = fti.table_infonce_rowwise(q, table, pos, counts, 1.0, mask_fn)
+        ce.backward(g)
+        with torch.no_grad():
+            ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts,
+                                                            mask_false_negatives=mask_fn)
+            dq_want, dt_want = fti.table_infonce_backward_reference(
+                q, table, pos, counts, lse_want, g, mask_false_negatives=mask_fn)
+        torch.cuda.synchronize()
+        for key, got, want in (("ce", ce.detach(), ce_want), ("dq", q.grad, dq_want),
+                               ("dtable", table.grad, dt_want)):
+            err = (got.float() - want.float()).abs()
+            rel = float(err.max() / want.float().abs().max())
+            ok = bool(torch.isfinite(got.float()).all()) and rel <= tol[key]
+            log(f"  table_infonce {key} R={r} N={n} D={d} mask_false_negatives={mask_fn}: "
+                f"max_abs_err={float(err.max()):.3g} mean_abs_err={float(err.mean()):.3g} "
+                f"max_rel_err={rel:.3g} tol={tol[key]} (relative to max abs) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"table_infonce {key} disagrees with its plain version")
+            max_err[key] = max(max_err.get(key, 0.0), float(err.max()))
+    # times at the train shape, mask_false_negatives on
+    qd, td = q.detach(), table.detach()
+    lse = fti._fwd_cuda(qd, td, pos, counts, 1.0, True)[1]
+    fwd_ms = time_ms(lambda: fti._fwd_cuda(qd, td, pos, counts, 1.0, True))
+    bwd_ms = time_ms(lambda: fti._bwd_cuda(qd, td, pos, counts, lse, g, 1.0, True))
+    with torch.no_grad():
+        fwd_plain = time_ms(lambda: fti.table_infonce_reference(qd, td, pos, counts))
+        bwd_plain = time_ms(lambda: fti.table_infonce_backward_reference(qd, td, pos, counts,
+                                                                         lse, g))
+        fwd_lib = time_ms(lambda: composite_table_infonce(qd, td, pos, counts, True))
+    qr, tr = qd.clone().requires_grad_(), td.clone().requires_grad_()
+    bwd_lib = time_ms(lambda: torch.autograd.grad(
+        (composite_table_infonce(qr, tr, pos, counts, True) * g).sum(), [qr, tr]))
+    io = r * d * 2 + n * d * 2 + n * 4 + r * 4
+    fwd_bound = bound(2 * r * n * d, io + 2 * r * 4, H100_BF16_FLOPS)
+    # the backward's least work: the scores once, then dq and dT
+    bwd_bound = bound(6 * r * n * d, io + 2 * r * 4 + (r + n) * d * 4, H100_BF16_FLOPS)
+    log(f"  table_infonce_fwd R={r} N={n} D={d} bf16, device time: kernel {fwd_ms:.4f} ms, plain "
+        f"{fwd_plain:.4f} ms, composite (bf16 matmul + masked logsumexp) {fwd_lib:.4f} ms, "
+        f"bound {fwd_bound[0]:.5f} ms ({fwd_bound[1]})")
+    log(f"  table_infonce_bwd, device time: kernel {bwd_ms:.4f} ms (two passes), plain "
+        f"{bwd_plain:.4f} ms, composite forward + autograd backward {bwd_lib:.4f} ms, bound "
+        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+    common = {"route": "cuda",
+              "source": "transformer_recommenders_tpu_torch/csrc/fused_table_infonce.cu",
+              "shape": f"R={r} N={n} D={d} bf16"}
+    return [
+        {"name": "table_infonce_fwd", **common,
+         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:83",
+         "max_abs_err": max_err["ce"], "ms": fwd_ms, "plain_ms": fwd_plain,
+         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": fwd_lib},
+        {"name": "table_infonce_bwd", **common,
+         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:137",
+         "max_abs_err": max(max_err["dq"], max_err["dtable"]), "ms": bwd_ms,
+         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+         "library_ms": bwd_lib},
+    ]
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -339,14 +671,27 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: kernels against their plain versions")
+    log("phase 2: the serving path's kernels against their plain versions")
     kernels = [check_fused_layer(), check_gather()]
 
     log("phase 3: serving")
-    launches = serving_phase()
+    serve_launches = serving_phase()
+
+    # after the burst, so the training checks' load does not reach it
+    log("phase 4: the training path's kernels against their plain versions")
+    kernels += [check_fused_layer_bwd(), check_gather_bwd(), *check_table_infonce()]
+
+    log("phase 5: training")
+    train_launches = training_phase()
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        # each kernel's launches on the path it was ported for: the two
+        # forward kernels on serving, the backward and loss kernels on
+        # training (the training step launches the forward kernels too)
+        path = "serving" if k["name"] in ("fused_layer", "gather_rows") else "training"
+        k["launches"] = (serve_launches if path == "serving" else train_launches)[k["name"]]
+        k["launches_by_path"] = {"serving": serve_launches[k["name"]],
+                                 "training": train_launches[k["name"]]}
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -550,6 +895,187 @@ async def embed_queries(service, queries):
         q = await service.process_query(copy.deepcopy(q))
         out.append((await service.embed_query(q)).embedding)
     return np.asarray(out)
+
+
+# -- phase 5: training ---------------------------------------------------------
+
+
+TRAIN = dict(  # configs/ml1m_ssm.yaml (model section; data.batch_size 128)
+    FLAGSHIP, train_loss="InfoNCELoss", learning_rate=0.001, max_epochs=16,
+    hidden_dropout=0.1, attention_dropout=0.1,
+)
+TRAIN_BATCH = 128
+
+
+def train_batch(rng, b: int, s: int, num_items: int) -> dict:
+    """(b, s) int32 ``history/pos/neg_item_idx`` with trailing zero
+    padding, as ``data/dataset.py`` writes them: a history of 1..s distinct
+    items per row (a quarter of the rows full), the positive at a position
+    the next history item (a random later item at the last position, none
+    at one position in ten), a random negative per valid position."""
+    import numpy as np
+
+    hist, pos, neg = (np.zeros((b, s), np.int32) for _ in range(3))
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[: b // 4] = s
+    for row, n in enumerate(lengths):
+        items = rng.choice(num_items, size=n + 1, replace=False) + 1
+        hist[row, :n] = items[:n]
+        p = items[1:].copy()
+        p[rng.random(n) < 0.1] = 0
+        pos[row, :n] = p
+        neg[row, :n] = rng.integers(1, num_items + 1, size=n)
+    return {"history_item_idx": hist, "pos_item_idx": pos, "neg_item_idx": neg}
+
+
+def training_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
+                   batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20) -> dict:
+    """The flagship's hot train step on ``device``: one step against the
+    CPU's plain path, its launch counts, a fixed batch's loss over ``steps``
+    steps and the eager step time; returns the launch counts of one step."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import (
+        init_transformer_params, tree_leaves, tree_unflatten)
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    cfg = TrainConfig(**(config or TRAIN))
+    cuda = device == "cuda"
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim, cfg.max_seq_length)
+    table = build_item_table(emb, device=device)
+    params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device=device)
+    rng = np.random.default_rng(4)
+    batch = train_batch(rng, batch_size, cfg.max_seq_length, num_items)
+    seed_gen = torch.Generator().manual_seed(1)
+    seeds = ts.draw_dropout_seeds(seed_gen, cfg)
+    pool = ts.table_pool_rows(cfg, batch)
+    if not ts._table_loss_enabled(cfg, table.shape[0], pool):
+        raise AssertionError("the flagship step must take the table-scored path")
+    valid = int((batch["history_item_idx"] != 0).sum())
+    log(f"  config {'ml1m_ssm' if config is None else 'given'}: {cfg.num_hidden_layers} layers d={cfg.hidden_size} "
+        f"heads={cfg.num_attention_heads} FFN {cfg.intermediate_size} seq {cfg.max_seq_length} "
+        f"{cfg.compute_dtype}, dropout {cfg.hidden_dropout}; batch {batch_size} "
+        f"({valid} valid positions), catalog {table.shape[0]} rows (pool {pool})")
+
+    # one step's loss and raw gradients, card against the CPU's plain path
+    loss_and_grad = ts.make_loss_and_grad(cfg)
+    loss, grads = loss_and_grad(params, table, batch, seeds)
+    cpu_params = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    errs = {}
+    for i, (got, want) in enumerate(zip(tree_leaves(grads), tree_leaves(cpu_grads))):
+        got = got.cpu()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"non-finite gradient in leaf {i}")
+        scale = float(want.abs().max())
+        errs[i] = (float((got - want).abs().max()) / max(scale, 1e-30),
+                   float((got - want).norm() / max(float(want.norm()), 1e-30)), tuple(got.shape))
+    worst = max(errs, key=lambda i: errs[i][0])
+    worst_norm = max(e[1] for e in errs.values())
+    # bf16 through 4 layers, the projection and the loss: one-ulp flips of
+    # intermediate roundings.  The limits are a few times what the H100 runs
+    # read (loss 2.7e-6 relative, worst leaf 0.0051 of its max abs, worst
+    # norm 0.0021): a backward kernel a few percent off fails them
+    ok = loss_rel <= 1e-4 and errs[worst][0] <= 2.0**-5 and worst_norm <= 2.0**-7
+    log(f"  one step, {device} vs CPU plain path ({cpu_s:.1f} s on the CPU): loss "
+        f"{float(loss):.6f} vs {float(cpu_loss):.6f} (rel err {loss_rel:.3g}, tol 1e-4); "
+        f"raw gradients of {len(errs)} leaves: worst max abs err {errs[worst][0]:.3g} of the "
+        f"leaf's max abs (leaf {worst} {errs[worst][2]}, tol 2**-5), worst relative norm "
+        f"err {worst_norm:.3g} (tol 2**-7) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {device} train step disagrees with the CPU's plain path")
+
+    # the main path, counted: one step of make_train_step
+    step = ts.make_train_step(cfg, full_logs=False)
+    state = ts.init_train_state(cfg, params)
+    sync()
+    cuda_build.reset_launches()
+    state, logs = step(state, table, batch, seeds)
+    sync()
+    launches = dict(cuda_build.LAUNCHES)
+    expected = {"gather_rows": 1, "gather_rows_bwd": 1, "fused_layer": cfg.num_hidden_layers,
+                "fused_layer_bwd": cfg.num_hidden_layers, "table_infonce_fwd": 1,
+                "table_infonce_bwd": 1}
+    if not cuda:  # the plain path launches no kernel
+        expected = dict.fromkeys(expected, 0)
+    log(f"  launches of one train step: {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError("the train step did not go through every kernel once per use")
+    if not (torch.isfinite(logs["loss/InfoNCELoss"]) and torch.isfinite(logs["grad/global_norm"])):
+        raise AssertionError("non-finite train step logs")
+
+    # a fixed batch, fresh dropout seeds each step: the loss must fall
+    losses = [float(logs["loss/InfoNCELoss"])]
+    for _ in range(steps - 1):
+        state, logs = step(state, table, batch, ts.draw_dropout_seeds(seed_gen, cfg))
+        losses.append(float(logs["loss/InfoNCELoss"]))
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"  {steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the "
+        f"first 5 {first:.4f}, of the last 5 {last:.4f}")
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        raise AssertionError("the fixed-batch loss did not fall")
+
+    # eager step time over fresh batches, after the warm-up above
+    times = []
+    for _ in range(timed_steps):
+        b = train_batch(rng, batch_size, cfg.max_seq_length, num_items)
+        seeds = ts.draw_dropout_seeds(seed_gen, cfg)
+        sync()
+        t0 = time.perf_counter()
+        state, logs = step(state, table, b, seeds)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    card = torch.cuda.get_device_name(0) if cuda else "cpu"
+    log(f"  train step on {card}, eager, median of {timed_steps}: {ms:.3f} ms/step, "
+        f"{batch_size / ms * 1e3:.1f} examples/s (min {min(times):.3f} ms, max "
+        f"{max(times):.3f} ms)")
+    if cuda:
+        profile_steps(step, state, table, batch, cfg, seed_gen)
+    return launches
+
+
+def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
+    """Where a train step's device time goes: ``n`` steps under
+    ``torch.profiler``, the device time of each CUDA kernel per step, and
+    the device's busy share of the steps' wall time (one stream, so the
+    kernels do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    seeds = [ts.draw_dropout_seeds(seed_gen, cfg) for _ in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in seeds:
+            state, _ = step(state, table, batch, s)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
+    if busy_ms == 0.0:
+        log("  profiled steps: the profiler recorded no device time (not measured)")
+        return
+    log(f"  profiled {n} steps: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per step "
+        f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); by kernel, per step:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
+            f"{e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ Tolerances (kernel vs plain version, same inputs, same device):
 - f32 fused layer: 2e-5 (both sum in f32, in other orders);
 - bf16 fused layer: at most 2**-4, mean at most 2**-8 (one-ulp flips of
   intermediate bf16 roundings, outputs |y| < 8 after LayerNorm);
-- gather: exact (a copy).
+- gather: exact (a copy);
+- the backward kernels: see ``GRAD_TOL`` below.
 """
 
 import math
@@ -20,13 +21,21 @@ import pytest
 import torch
 
 from transformer_recommenders_tpu_torch.ops import cuda_build
+from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
 from transformer_recommenders_tpu_torch.ops.fused_layer import (
+    _PARAM_ORDER,
     fused_layer,
+    fused_layer_backward_reference,
     fused_layer_reference,
     heads_per_stage,
     smem_bytes,
 )
-from transformer_recommenders_tpu_torch.ops.gather_matmul import gather_rows, gather_rows_reference
+from transformer_recommenders_tpu_torch.ops.gather_matmul import (
+    gather_rows,
+    gather_rows_backward_reference,
+    gather_rows_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,17 +95,19 @@ def test_shared_memory_layouts_agree(cuda):
         assert lib.fused_layer_smem_bytes(s, d, f, hg, elem) == smem_bytes(s, d, f, hg, elem)
 
 
-def test_fused_layer_counts_launches_and_refuses_gradients(cuda):
+def test_fused_layer_counts_launches_forward_and_backward(cuda):
     gen = torch.Generator().manual_seed(0)
     params = _weights(gen, 64, 128, cuda)
     x = torch.randn(2, 8, 64, generator=gen).to(cuda, torch.bfloat16)
     mask = torch.ones(2, 8, dtype=torch.bool, device=cuda)
-    before = cuda_build.LAUNCHES["fused_layer"]
+    cuda_build.reset_launches()
     with torch.no_grad():
         fused_layer(x, params, mask, num_heads=4, causal=True, ffn_dim=128)
-    assert cuda_build.LAUNCHES["fused_layer"] == before + 1
-    with pytest.raises(RuntimeError, match="forward only"):
-        fused_layer(x.requires_grad_(), params, mask, num_heads=4, causal=True, ffn_dim=128)
+    assert cuda_build.LAUNCHES["fused_layer"] == 1
+    y = fused_layer(x.requires_grad_(), params, mask, num_heads=4, causal=True, ffn_dim=128)
+    y.float().sum().backward()
+    assert cuda_build.LAUNCHES == {**cuda_build.LAUNCHES, "fused_layer": 2, "fused_layer_bwd": 1}
+    assert x.grad is not None and x.grad.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -111,3 +122,182 @@ def test_gather_kernel_matches_plain(cuda, out_dtype, idx_dtype):
         torch.cuda.synchronize()
         assert got.dtype == out_dtype
         assert torch.equal(got, want)
+
+
+# Backward kernels against their plain versions, each gradient's max abs
+# error relative to its max abs value:
+# - f32: both sum in f32 in other orders (the parameter gradients over all
+#   B*S rows), ~1e-6 measured;
+# - bf16: every gradient product rounds its operands to bf16, and a
+#   one-ulp flip of a rounding (2**-8 relative) in one of thousands of
+#   summands moves a sum far less than one ulp of its largest term; up to
+#   6e-3 measured on the H100.  The dropout-divisor trap moves gradients by
+#   less than that and has a test of its own;
+# - the gather's gradient sums the same values in another order (f32; a
+#   bf16 table rounds the sum once);
+# - table InfoNCE: the same scores bit for bit (the plain version sums in
+#   the kernel's order), then exp/log and dl's bf16 rounding.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f", "causal", "rate"), [
+    (128, 32, 128, 8, 512, True, 0.0),   # configs/ml1m_ssm.yaml, a train batch
+    (128, 32, 128, 8, 512, True, 0.1),
+    (16, 32, 128, 8, 512, False, 0.1),
+    (4, 8, 128, 8, 48, True, 0.1),
+    (4, 48, 64, 4, 256, True, 0.0),
+    (3, 64, 128, 8, 512, True, 0.1),
+    (4, 32, 384, 12, 48, True, 0.1),     # configs/ml1m_reference.yaml
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_layer_backward_kernel_matches_plain(cuda, b, s, d, h, f, causal, rate, dtype):
+    gen = torch.Generator().manual_seed(b + s + d)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, dtype).requires_grad_()
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    mask[0, s - 3:] = False
+    mask = mask.to(cuda)
+    params = _weights(gen, d, f, cuda)
+    leaves = [params[m][n].requires_grad_() for m, n in _PARAM_ORDER]
+    kw = dict(num_heads=h, causal=causal, attn_dropout=rate, hidden_dropout=rate,
+              dropout_seeds=[5, 6, 7] if rate else None, ffn_dim=f)
+    dy = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    y = fused_layer(x, params, mask, **kw)
+    y.backward(dy)
+    with torch.no_grad():
+        dx_want, grads = fused_layer_backward_reference(x.detach(), params, mask, dy, **kw)
+    torch.cuda.synchronize()
+    errs = {"dx": rel_err(x.grad, dx_want)}
+    errs |= {f"{m}/{n}": rel_err(t.grad, grads[m][n]) for (m, n), t in zip(_PARAM_ORDER, leaves)}
+    print(dict(sorted(errs.items(), key=lambda kv: -kv[1])[:3]))
+    assert x.grad.dtype == dtype
+    assert max(errs.values()) <= GRAD_TOL[dtype], errs
+
+
+def test_bf16_backward_kernel_divides_by_the_f32_keep_rate(cuda):
+    """The JAX backward divides the hidden-dropout cotangent by the f32
+    ``1 - rate``, its bf16 forward by that rounded to bf16: at rate 0.4942,
+    0.5058 against 0.50390625, 0.38% apart.  That sits inside the bf16
+    kernel's rounding noise as ``GRAD_TOL`` reads it, so the least-squares
+    scale of the kernel's ``ffn_out`` gradients against the plain backward
+    is held to 1 within 1e-3; autograd of the plain forward (the wrong
+    divisor) reads 1.0038 and is held to that, so the check can tell them
+    apart."""
+    b, s, d, h, f, rate = 64, 32, 128, 8, 512, 0.4942
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, torch.bfloat16)
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    mask = mask.to(cuda)
+    dy = torch.randn(b, s, d, generator=gen).to(cuda, torch.bfloat16)
+    kw = dict(num_heads=h, causal=True, attn_dropout=0.0, hidden_dropout=rate,
+              dropout_seeds=[5, 6, 7], ffn_dim=f)
+
+    def ffn_out_grads(fn, params):
+        leaves = [params["ffn_out"][n].requires_grad_() for n in ("w", "b")]
+        fn(x, params, mask, **kw).backward(dy)
+        return [t.grad.double() for t in leaves]
+
+    params = _weights(gen, d, f, cuda)
+    got = ffn_out_grads(fused_layer, params)
+    auto = ffn_out_grads(fused_layer_reference, {m: {n: t.detach().clone() for n, t in v.items()}
+                                                 for m, v in params.items()})
+    with torch.no_grad():
+        _, want = fused_layer_backward_reference(x, params, mask, dy, **kw)
+    torch.cuda.synchronize()
+
+    def ls_scale(a, ref):
+        return float((a * ref).sum() / (ref * ref).sum())
+
+    for name, g, a in zip(("w", "b"), got, auto):
+        ref = want["ffn_out"][name].double()
+        print(name, ls_scale(g, ref), ls_scale(a, ref))
+        assert abs(ls_scale(g, ref) - 1.0) <= 1e-3, name
+        assert abs(ls_scale(a, ref) - 1.0038) <= 1e-3, name
+
+
+def test_bf16_backward_kernel_recomputes_with_the_as_erf(cuda, monkeypatch):
+    """The bf16 backward recomputes the GELU with the A&S erf (within
+    2.5e-5 of Eigen's, which the forward uses).  That flips bf16 roundings
+    of the recomputed GELU and its derivative and moves the gradients by
+    about 0.2% of their norm, inside ``GRAD_TOL``.  So the kernel's
+    deviation from the plain backward (A&S) is projected on the direction
+    from that to the plain backward with Eigen's erf: about 0 if the kernel
+    follows the JAX backward, about 1 if it took Eigen's erf."""
+    b, s, d, h, f = 128, 32, 128, 8, 512
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, torch.bfloat16).requires_grad_()
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    mask = mask.to(cuda)
+    dy = torch.randn(b, s, d, generator=gen).to(cuda, torch.bfloat16)
+    params = _weights(gen, d, f, cuda)
+    kw = dict(num_heads=h, causal=True, ffn_dim=f)
+    qkv_w = params["qkv"]["w"].requires_grad_()
+    fused_layer(x, params, mask, **kw).backward(dy)
+    with torch.no_grad():
+        dx_as, g_as = fused_layer_backward_reference(x.detach(), params, mask, dy, **kw)
+        monkeypatch.setattr(fl, "_erf_as", fl._erf)
+        dx_eigen, g_eigen = fused_layer_backward_reference(x.detach(), params, mask, dy, **kw)
+    torch.cuda.synchronize()
+    for name, got, a, e in (("dx", x.grad, dx_as, dx_eigen),
+                            ("qkv/w", qkv_w.grad, g_as["qkv"]["w"], g_eigen["qkv"]["w"])):
+        got, a, e = got.double(), a.double(), e.double()
+        c = float(((got - a) * (e - a)).sum() / ((e - a) ** 2).sum())
+        print(name, c, float((e - a).norm() / a.norm()), float((got - a).norm() / a.norm()))
+        assert abs(c) <= 0.25, (name, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_backward_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(2)
+    for n, d, r in [(3707, 128, 4096), (3707, 384, 2048), (100, 6, 37)]:
+        table = torch.randn(n, d, generator=gen).to(cuda, dtype).requires_grad_()
+        idx = torch.randint(-5, 40, (r,), generator=gen).to(cuda)  # duplicates, out of range
+        idx[: r // 2] = torch.randint(0, n, (r // 2,), generator=gen).to(cuda)
+        g = torch.randn(r, d, generator=gen).to(cuda, dtype)
+        cuda_build.reset_launches()
+        gather_rows(table, idx, dtype).backward(g)
+        want = gather_rows_backward_reference(g, idx, n, dtype)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["gather_rows_bwd"] == 1
+        assert table.grad.dtype == dtype
+        assert rel_err(table.grad, want) <= (2.0**-8 if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.parametrize("mask_fn", [True, False])
+def test_table_infonce_kernels_match_plain(cuda, mask_fn):
+    gen = torch.Generator().manual_seed(3)
+    r, n, d = 4096, 3707, 128
+    q = torch.randn(r, d, generator=gen).to(cuda).requires_grad_()
+    table = (0.3 * torch.randn(n, d, generator=gen)).to(cuda, torch.bfloat16)
+    table[0] = 0
+    table.requires_grad_()
+    pos = torch.randint(1, n, (r,), generator=gen)
+    neg = torch.randint(1, 64, (r,), generator=gen)  # a duplicate-heavy pool
+    pos[::7] = neg[::7]  # positives that sit in the pool
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(r, generator=gen) > 0.1
+    pos = torch.where(row_valid, pos, 0)
+    pos, neg, row_valid, neg_valid = (t.to(cuda) for t in (pos, neg, row_valid, neg_valid))
+    counts = fti.neg_pool_counts(neg, neg_valid, n)
+    cuda_build.reset_launches()
+    ce = fti.table_infonce_rowwise(q, table, pos, counts, 2.0, mask_fn)
+    g = row_valid.float()
+    ce.backward(g)
+    with torch.no_grad():
+        ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, scale=2.0,
+                                                        mask_false_negatives=mask_fn)
+        dq_want, dt_want = fti.table_infonce_backward_reference(
+            q, table, pos, counts, lse_want, g, scale=2.0, mask_false_negatives=mask_fn)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["table_infonce_fwd"] == 1
+    assert cuda_build.LAUNCHES["table_infonce_bwd"] == 1
+    errs = {"ce": rel_err(ce.detach(), ce_want), "dq": rel_err(q.grad, dq_want),
+            "dtable": rel_err(table.grad, dt_want)}
+    print(errs)
+    assert errs["ce"] <= 1e-5 and errs["dq"] <= 1e-2 and errs["dtable"] <= 1e-2, errs

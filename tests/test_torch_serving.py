@@ -24,6 +24,7 @@ import transformer_recommenders_tpu_torch as port_pkg
 from transformer_recommenders_tpu.serving import deploy as jax_deploy
 from transformer_recommenders_tpu.serving.asgi import TestClient as JaxClient
 from transformer_recommenders_tpu.serving.service import Service as JaxService
+from transformer_recommenders_tpu_torch.ops import cuda_build
 from transformer_recommenders_tpu_torch.serving import deploy as port_deploy
 from transformer_recommenders_tpu_torch.serving import asgi
 from transformer_recommenders_tpu_torch.serving.service import Query, Service
@@ -152,7 +153,23 @@ def test_chip_smoke_serving_phase_rehearsal():
     finally:
         sys.path.remove(str(REPO))
     launches = chip_smoke.serving_phase(device="cpu", num_items=120, num_users=50, requests=24)
-    assert launches == {"fused_layer": 0, "gather_rows": 0}  # the plain path runs no kernel
+    assert launches == dict.fromkeys(cuda_build.KERNELS, 0)  # the plain path runs no kernel
+
+
+def test_chip_smoke_training_phase_rehearsal():
+    """chip_smoke.py's training phase (one step against the CPU's plain path,
+    the launch counts, a fixed batch's loss falling, the step time) at a
+    small size on the CPU."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    tiny = dict(input_dim=48, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                intermediate_size=64, max_seq_length=8, learning_rate=1e-2)
+    launches = chip_smoke.training_phase(device="cpu", config=tiny, num_items=60, batch_size=8,
+                                         steps=12, timed_steps=2)
+    assert launches == dict.fromkeys(cuda_build.KERNELS, 0)
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

@@ -1,0 +1,282 @@
+"""The port's train state and hot train step against the JAX package on
+the CPU, from the same numpy weights (``params_from_jax``, at the model's
+own init scale), catalog, batches and dropout seeds (derived from the JAX
+key as ``transformer_encode`` splits it).
+
+- Flat AdamW: ``make_flat_update`` against the JAX one over 3 steps, with
+  and without clipping; f32 elementwise arithmetic, rtol 1e-6.
+- The tiny-config step: the port's loss and raw gradients on the CPU
+  against JAX's ``make_train_step(full_logs=False)`` with the table path,
+  the fused layer and the one-hot gather forced in interpret mode (the
+  TPU's kernels) and the update patched to pass the gradients through
+  (step-1 AdamW turns every element into +-lr and would amplify last-ulp
+  differences into sign flips).
+  - f32, the false-negative mask on: loss rtol 1e-5, gradients 1e-3 of
+    each leaf's max abs value (measured 4.8e-5; <= 1e-6 in most cases).
+    The loss rounds q to bf16 in both packages, and where the two
+    packages' f32 queries (~1e-7 apart) straddle a bf16 rounding boundary,
+    that query's bf16 value moves by one ulp (2**-8 relative).
+  - bf16, the mask off: loss rtol 2**-10, gradients 2**-6 of each leaf's
+    max abs value (measured <= 1e-2 over four seeds and dropout on and
+    off).  Every encoder product rounds to bf16, and Pallas interpret mode
+    rounds its bf16 products unlike the port (see
+    test_torch_fused_layer_grad.py).  The mask is off because it compares
+    two logits for ``<``: where a negative's logit lies within that bf16
+    noise of the positive's, the two packages can decide it differently,
+    and a whole pool term (up to log 2 of that row's loss) flips with it.
+- The unpatched CPU step: the same gradients against JAX's CPU step as it
+  runs untouched (the XLA layer stack, ``jnp.take`` and the pool
+  objective over gathered rows, scored in f32 without the bf16 rounding of
+  the table kernel), the mask off for the same reason, pos and neg from
+  disjoint index ranges.  Loss rtol 2**-10; gradients 2**-7 of each
+  leaf's max abs value in f32 (measured <= 4.7e-3) and 2**-5 in bf16
+  (measured <= 1.4e-2).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from transformer_recommenders_tpu.configs import TrainConfig as JaxTrainConfig
+from transformer_recommenders_tpu.models import recommender as JR
+from transformer_recommenders_tpu.models import transformer as JT
+from transformer_recommenders_tpu.ops import fused_table_infonce as JFT
+from transformer_recommenders_tpu.ops.gather_matmul import gather_rows as jax_gather_rows
+from transformer_recommenders_tpu.training import train_state as JTS
+from transformer_recommenders_tpu_torch.configs import TrainConfig
+from transformer_recommenders_tpu_torch.models import transformer as TT
+from transformer_recommenders_tpu_torch.training import train_state as TTS
+
+LAYERS = 2
+SETTINGS = dict(input_dim=48, hidden_size=32, num_hidden_layers=LAYERS, num_attention_heads=4,
+                intermediate_size=48, max_seq_length=8, hidden_dropout=0.1,
+                attention_dropout=0.1, learning_rate=1e-3)
+
+
+def configs(**overrides):
+    kw = {**SETTINGS, **overrides}
+    return JaxTrainConfig(**kw), TrainConfig(**kw)
+
+
+def make_batch(seed, n_items, b=4, s=8, disjoint=False):
+    """(B, S) int32 batches with trailing zero padding, as
+    ``data/dataset.py`` writes them; some positions have no positive."""
+    rng = np.random.default_rng(seed)
+    half = n_items // 2
+    hist, pos, neg = (np.zeros((b, s), np.int32) for _ in range(3))
+    lengths = rng.integers(2, s + 1, size=b)
+    lengths[0] = s  # one full row
+    for row, length in enumerate(lengths):
+        hist[row, :length] = rng.integers(1, n_items + 1, size=length)
+        pos[row, :length] = rng.integers(1, half + 1 if disjoint else n_items + 1, size=length)
+        pos[row, :length] *= rng.random(length) > 0.2
+        neg[row, :length] = rng.integers(half + 1 if disjoint else 1, n_items + 1, size=length)
+    return {"history_item_idx": hist, "pos_item_idx": pos, "neg_item_idx": neg}
+
+
+def make_case(jcfg, n_items=40, seed=0, disjoint=False):
+    jparams = JT.init_transformer_params(jax.random.key(seed), jcfg)
+    emb = np.random.default_rng(seed + 1).normal(size=(n_items, jcfg.input_dim))
+    emb = (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
+    table = np.concatenate([np.zeros((1, jcfg.input_dim), np.float32), emb])
+    return jparams, table, make_batch(seed + 2, n_items, disjoint=disjoint)
+
+
+def jax_dropout_seeds(key):
+    """The 1 + 3 * layers uint32 site seeds JAX's ``transformer_encode``
+    derives from ``key``."""
+    rngs = jax.random.split(key, 2)
+    layer_keys = jax.random.split(rngs[1], 3 * LAYERS).reshape(LAYERS, 3)
+    return [int(JT._dropout_seed(rngs[0]))] + [
+        int(v) for i in range(LAYERS) for v in np.asarray(JT._dropout_site_seeds(layer_keys[i]))
+    ]
+
+
+def patch_grad_passthrough(monkeypatch):
+    """JAX's updated params become its raw gradients."""
+    monkeypatch.setattr(JTS, "make_flat_update",
+                        lambda config: lambda p, g, opt_state: (g, opt_state, jnp.float32(0.0)))
+
+
+def force_jax_kernels(monkeypatch):
+    """JAX's TPU path on the CPU: the table-scored loss, the fused layer
+    and the one-hot gather, each kernel in interpret mode."""
+    monkeypatch.setattr(JTS, "_fused_loss_enabled", lambda config: True)
+    monkeypatch.setattr(JT, "_fused_layer_mode", lambda cfg, s: "interpret")
+    table_loss = JFT.fused_table_infonce_loss
+    monkeypatch.setattr(JFT, "fused_table_infonce_loss",
+                        lambda *a, **kw: table_loss(*a, **{**kw, "interpret": True,
+                                                           "tile_rows": 16}))
+
+    def lookup(table, idx, *, compute_dtype):
+        if jnp.dtype(compute_dtype) != jnp.bfloat16:
+            return jnp.take(table, idx, axis=0)
+        rows = jax_gather_rows(table, idx.reshape(-1), out_dtype=jnp.bfloat16, interpret=True)
+        return rows.reshape(*idx.shape, table.shape[1])
+
+    monkeypatch.setattr(JR, "fast_table_lookup", lookup)
+
+
+def jax_loss_and_grads(jcfg, jparams, table, batch, key):
+    step = JTS.make_train_step(jcfg, full_logs=False)
+    state, logs = step(JTS.init_train_state(jcfg, jparams), jnp.asarray(table),
+                       {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    return float(logs["loss/InfoNCELoss"]), [np.asarray(a) for a in jax.tree.leaves(state.params)]
+
+
+def port_loss_and_grads(tcfg, jparams, table, batch, seeds):
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    loss, grads = TTS.make_loss_and_grad(tcfg)(params, torch.from_numpy(table), batch, seeds)
+    assert loss.dtype == torch.float32 and loss.dim() == 0
+    return float(loss), [g.numpy() for g in TT.tree_leaves(grads)]
+
+
+def assert_grads_close(got, want, rel):
+    assert len(got) == len(want)
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == np.float32, i
+        scale = np.abs(w).max()
+        assert scale > 0, i  # every leaf gets a gradient
+        errs.append(float(np.abs(g - w).max() / scale))
+    assert max(errs) <= rel, errs
+
+
+@pytest.mark.parametrize("clip", [None, 0.5, 1e3], ids=["noclip", "clipped", "clip-inactive"])
+def test_flat_adamw_matches_jax(clip):
+    n = 1000
+    rng = np.random.default_rng(0)
+    kw = dict(learning_rate=3e-3, weight_decay=0.05, gradient_clip_val=clip)
+    jcfg, tcfg = configs(**kw)
+    jupdate, tupdate = JTS.make_flat_update(jcfg), TTS.make_flat_update(tcfg)
+    p = rng.normal(size=n).astype(np.float32)
+    jp, tp = jnp.asarray(p), torch.from_numpy(p.copy())
+    jstate = JTS.FlatAdamWState(jnp.zeros((), jnp.int32), jnp.zeros(n), jnp.zeros(n))
+    tstate = TTS.init_train_state(tcfg, {"w": tp}).opt_state
+    for _ in range(3):
+        g = (2.0 * rng.normal(size=n)).astype(np.float32)
+        jp, jstate, jnorm = jupdate(jp, jnp.asarray(g), jstate)
+        tp, tstate, tnorm = tupdate(tp, torch.from_numpy(g), tstate)
+        np.testing.assert_allclose(float(tnorm), float(jnorm), rtol=1e-6)
+        for got, want in ((tp, jp), (tstate.mu, jstate.mu), (tstate.nu, jstate.nu)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-9)
+        assert int(tstate.count) == int(jstate.count)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_gradients_match_jax_kernel_path(monkeypatch, dtype):
+    f32 = dtype == "float32"
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=f32)
+    jparams, table, batch = make_case(jcfg)
+    key = jax.random.key(7)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    assert TTS._table_loss_enabled(tcfg, table.shape[0], TTS.table_pool_rows(tcfg, batch))
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5 if f32 else 2.0**-10)
+    assert_grads_close(got, want, 1e-3 if f32 else 2.0**-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_gradients_match_jax_unpatched_cpu_step(monkeypatch, dtype):
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=False)
+    jparams, table, batch = make_case(jcfg, seed=4, disjoint=True)
+    key = jax.random.key(8)
+    patch_grad_passthrough(monkeypatch)
+    assert not JTS._fused_loss_enabled(jcfg)  # the XLA pool objective on the CPU
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=2.0**-10)
+    assert_grads_close(got, want, 2.0**-7 if dtype == "float32" else 2.0**-5)
+
+
+def test_train_step_applies_flat_adamw_to_the_gradients():
+    jcfg, tcfg = configs(gradient_clip_val=0.1)
+    jparams, table, batch = make_case(jcfg, seed=5)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    seeds = TTS.draw_dropout_seeds(torch.Generator().manual_seed(0), tcfg)
+    state = TTS.init_train_state(tcfg, params)
+    new_state, logs = TTS.make_train_step(tcfg)(state, torch.from_numpy(table), batch, seeds)
+    loss, grads = TTS.make_loss_and_grad(tcfg)(params, torch.from_numpy(table), batch, seeds)
+    want_p, want_opt, want_norm = TTS.make_flat_update(tcfg)(
+        TTS.flatten(params), TTS.flatten(grads), state.opt_state)
+    assert set(logs) == {"loss/InfoNCELoss", "grad/global_norm"}
+    assert float(logs["loss/InfoNCELoss"]) == float(loss)
+    assert float(logs["grad/global_norm"]) == float(want_norm) > 0.1  # clipping was active
+    torch.testing.assert_close(TTS.flatten(new_state.params), want_p, rtol=0, atol=0)
+    torch.testing.assert_close(new_state.opt_state.mu, want_opt.mu, rtol=0, atol=0)
+    assert new_state.step == 1 and int(new_state.opt_state.count) == 1
+    for a, b in zip(TT.tree_leaves(new_state.params), TT.tree_leaves(params)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+    # the input state is left as it was
+    torch.testing.assert_close(TTS.flatten(state.params), TTS.flatten(params), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(("n_rows", "pool_rows", "overrides"), [
+    (41, 32, {}),
+    (65, 32, {}),  # the catalog is more than twice the pool
+    (64, 32, {}),
+    (41, 32, {"train_loss": "PairwiseLogisticLoss"}),
+    (41, 32, {"use_table_scored_loss": False}),
+    (41, 32, {"use_fused_loss": False}),
+    (41, 32, {"num_hard_negatives": 2}),
+])
+def test_table_gate_matches_jax_off_the_tpu_vmem_test(monkeypatch, n_rows, pool_rows, overrides):
+    jcfg, tcfg = configs(**overrides)
+    monkeypatch.setattr(JTS, "_fused_loss_enabled",
+                        lambda c: c.use_fused_loss and c.num_hard_negatives == 0)
+    assert TTS._table_loss_enabled(tcfg, n_rows, pool_rows) == \
+        JTS._table_loss_enabled(jcfg, n_rows, pool_rows)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"train_loss": "PairwiseLogisticLoss"}, {"use_table_scored_loss": False},
+    {"num_hard_negatives": 1},
+])
+def test_pool_objective_is_not_ported_yet(overrides):
+    jcfg, tcfg = configs(**overrides)
+    jparams, table, batch = make_case(jcfg)
+    with pytest.raises(NotImplementedError, match="pool objective"):
+        port_loss_and_grads(tcfg, jparams, table, batch, None)
+    # a catalog of more than twice the pool's rows takes the pool objective too
+    jcfg, tcfg = configs()
+    jparams, table, batch = make_case(jcfg, n_items=80)
+    with pytest.raises(NotImplementedError, match="pool objective"):
+        port_loss_and_grads(tcfg, jparams, table, batch, None)
+
+
+def test_full_logs_and_accumulation_are_not_ported_yet():
+    _, tcfg = configs()
+    with pytest.raises(NotImplementedError, match="full_logs"):
+        TTS.make_train_step(tcfg, full_logs=True)
+    acc = tcfg.replace(accumulate_grad_batches=2)
+    with pytest.raises(NotImplementedError, match="accumulate_grad_batches"):
+        TTS.make_train_step(acc)
+
+
+def test_dropout_seeds_from_a_generator():
+    _, tcfg = configs()
+    a = TTS.draw_dropout_seeds(torch.Generator().manual_seed(3), tcfg)
+    b = TTS.draw_dropout_seeds(torch.Generator().manual_seed(3), tcfg)
+    assert a == b and len(a) == 1 + 3 * LAYERS and len(set(a)) == len(a)
+    assert all(0 <= v < 2**32 for v in a)
+
+
+def test_train_config_matches_jax_fields_and_loads_its_json():
+    jcfg = JaxTrainConfig(input_dim=384, hidden_size=128, num_hidden_layers=4,
+                          num_attention_heads=8, intermediate_size=512, max_seq_length=32,
+                          learning_rate=1e-3, max_epochs=16, gradient_clip_val=1.0)
+    tcfg = TrainConfig.from_json(jcfg.model_dump_json())
+    names = {f.name for f in dataclasses.fields(TrainConfig)}
+    assert names == set(JaxTrainConfig.model_fields) - {"items_config", "users_config", "mesh",
+                                                        "top_k"}
+    for name in names:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+        assert getattr(TrainConfig(), name) == getattr(JaxTrainConfig(), name), name
+    with pytest.raises(ValueError, match="train_loss"):
+        TrainConfig(train_loss="BPR")

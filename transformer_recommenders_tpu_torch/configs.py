@@ -1,9 +1,10 @@
-"""Standard-library config surface: ``ModelConfig`` and ``IndexConfig``.
+"""Standard-library config surface: ``ModelConfig``, ``LossConfig``,
+``TrainConfig`` and ``IndexConfig``.
 
 Counterpart of ``transformer_recommenders_tpu/configs.py`` (pydantic there).
 Same fields and defaults; ``from_dict`` reads the JSON the pydantic models
-write (``config.json`` of a serving artifact) and ignores keys it does not
-know, e.g. the training fields a ``TrainConfig`` dump carries.
+write (``config.json`` of a serving artifact, a ``TrainConfig`` dump) and
+ignores keys it does not know.
 """
 
 from __future__ import annotations
@@ -19,6 +20,13 @@ Similarity = Literal["dot", "cosine"]
 ComputeDtype = Literal["bfloat16", "float32"]
 AttentionImpl = Literal["auto", "split", "masked"]
 IndexBackend = Literal["device", "host"]
+TargetPosition = Literal["first", "diagonal"]
+LossType = Literal[
+    "AlignmentLoss", "AlignmentContrastiveLoss", "ContrastiveLoss", "InfoNCELoss",
+    "NCELoss", "PairwiseHingeLoss", "PairwiseLogisticLoss",
+]
+MonitorMode = Literal["max", "min"]
+CheckpointBackend = Literal["npz", "orbax"]
 
 
 def _check_choice(name: str, value: Any, choices) -> None:
@@ -91,6 +99,66 @@ class ModelConfig(_JSONConfig):
         _check_choice("pooling_mode", self.pooling_mode, PoolingMode)
         _check_choice("compute_dtype", self.compute_dtype, ComputeDtype)
         _check_choice("attention_impl", self.attention_impl, AttentionImpl)
+
+
+@dataclasses.dataclass
+class LossConfig(_JSONConfig):
+    """In-batch loss pipeline config (JAX ``LossConfig``)."""
+
+    target_position: TargetPosition | None = "first"
+    mask_false_negatives: bool = True
+    num_hard_negatives: int = 0
+    scale: float = 1.0
+    margin: float = 0.5
+
+    def __post_init__(self) -> None:
+        if self.target_position is not None:
+            _check_choice("target_position", self.target_position, TargetPosition)
+
+
+@dataclasses.dataclass
+class TrainConfig(ModelConfig, LossConfig):
+    """Flattened training config (JAX ``TrainConfig``): the model and loss
+    fields plus the trainer's.  The nested index and mesh sections of a
+    JAX dump are not carried; ``from_dict`` drops them with the other keys
+    it does not know."""
+
+    train_loss: LossType = "InfoNCELoss"
+    use_fused_loss: bool = True
+    use_table_scored_loss: bool = True
+    learning_rate: float = 0.001
+    weight_decay: float = 0.01
+    gradient_clip_val: float | None = None
+    accumulate_grad_batches: int = 1
+    max_epochs: int = 1
+    max_steps: int = -1
+    max_time_seconds: float = 4 * 3600.0
+    early_stopping_patience: int = 3
+    monitor: str = "val/retrieval_normalized_dcg"
+    monitor_mode: MonitorMode = "max"
+    seed: int = 0
+    log_every_n_steps: int = 50
+    val_check_interval: int = -1
+    limit_train_batches: int = -1
+    limit_val_batches: int = -1
+    limit_test_batches: int = -1
+    limit_predict_batches: int = -1
+    eval_batch_size: int = 256
+    ckpt_dir: str = "checkpoints"
+    checkpoint_backend: CheckpointBackend = "npz"
+    use_mlflow: bool = True
+    mlflow_dir: str | None = None
+    mlflow_experiment: str = "transformer-recommenders-tpu"
+    profile_dir: str | None = None
+    steps_per_dispatch: int = 1
+    checkpoint_every_epoch: bool = True
+
+    def __post_init__(self) -> None:
+        ModelConfig.__post_init__(self)
+        LossConfig.__post_init__(self)
+        _check_choice("train_loss", self.train_loss, LossType)
+        _check_choice("monitor_mode", self.monitor_mode, MonitorMode)
+        _check_choice("checkpoint_backend", self.checkpoint_backend, CheckpointBackend)
 
 
 @dataclasses.dataclass

@@ -3,9 +3,9 @@
 Counterpart of ``transformer_recommenders_tpu/models/recommender.py``.  The
 frozen item table (a zero padding row at index 0, then one row per item)
 lives outside the parameters; :class:`RecommenderModel` holds config,
-parameters, the table and the id <-> index map on one device.  Inference
-runs under ``torch.no_grad``: the CUDA kernels of this slice are forward
-only.
+parameters, the table and the id <-> index map on one device, and serves
+under ``torch.no_grad``.  :func:`compute_query_embeds` is the training
+forward of the table-scored objective and is differentiable.
 """
 
 from __future__ import annotations
@@ -56,6 +56,60 @@ def model_forward(
         params, cfg, input_embeds,
         dropout_seeds=dropout_seeds, inputs_projected=inputs_projected,
     )
+
+
+def compute_query_embeds(
+    params: Params,
+    cfg: ModelConfig,
+    item_table: torch.Tensor,
+    history_item_idx: torch.Tensor,
+    pos_item_idx: torch.Tensor,
+    neg_item_idx: torch.Tensor,
+    *,
+    dropout_seeds=None,
+) -> dict[str, torch.Tensor]:
+    """Per-position training queries for a table-scored loss, without
+    gathering candidate rows (JAX ``compute_query_embeds``).
+
+    The whole frozen table is projected into the query space once (when
+    the model has an input projection) with its padding row zeroed, only
+    the history rows are looked up, and the positives and negatives stay
+    index vectors for the loss to score against ``table``.  Returns, with
+    R = batch * seq flattened rows: ``query`` (R, D) f32, ``table`` (N, D)
+    in the compute dtype, ``pos_idx``/``neg_idx`` (R,), ``row_valid``
+    (attention-valid and the positive is not padding) and ``neg_valid``
+    (attention-valid)."""
+    s_max = cfg.max_seq_length
+    hist_t = history_item_idx[:, -s_max:]
+    b, s = hist_t.shape
+    pos_flat = pos_item_idx[:, -s:].reshape(b * s)
+    neg_flat = neg_item_idx[:, -s:].reshape(b * s)
+
+    table_use = item_table
+    projected = "input_proj" in params
+    if projected:
+        table_use = _dense(item_table, params["input_proj"], compute_dtype(cfg))
+        # the JAX .at[0].set(0.0), as a masked write: row 0 gets no gradient
+        pad_row = torch.arange(table_use.shape[0], device=table_use.device)[:, None] == 0
+        table_use = torch.where(pad_row, torch.zeros((), dtype=table_use.dtype,
+                                                     device=table_use.device), table_use)
+    hist_rows = fast_table_lookup(table_use, hist_t.reshape(-1), compute_dtype=cfg.compute_dtype)
+    out = model_forward(
+        params, cfg, None, item_embeds=hist_rows.reshape(b, s, -1),
+        dropout_seeds=dropout_seeds, inputs_projected=projected,
+    )
+    query = out["token_embeddings"].reshape(b * s, -1)
+    if cfg.is_normalized:
+        query = query / torch.linalg.vector_norm(query, dim=-1, keepdim=True).clamp(min=1e-12)
+    neg_valid = out["attention_mask"].reshape(b * s)
+    return {
+        "query": query,
+        "table": table_use,
+        "pos_idx": pos_flat,
+        "neg_idx": neg_flat,
+        "row_valid": (pos_flat != 0) & neg_valid,
+        "neg_valid": neg_valid,
+    }
 
 
 def fast_table_lookup(

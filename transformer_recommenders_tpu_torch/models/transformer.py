@@ -20,7 +20,7 @@ import torch
 
 from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.configs import ModelConfig
-from transformer_recommenders_tpu_torch.ops.fused_layer import fused_layer
+from transformer_recommenders_tpu_torch.ops.fused_layer import _divisor, fused_layer
 from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_mask
 
 Params = dict[str, Any]
@@ -151,8 +151,7 @@ def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
     if seed is None or rate <= 0.0:
         return x
     idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64).view(x.shape)
-    divisor = torch.tensor(1.0 - rate, dtype=x.dtype).float().to(x.device)
-    kept = (x.float() / divisor).to(x.dtype)
+    kept = (x.float() / _divisor(rate, x.dtype, x.device)).to(x.dtype)
     return torch.where(keep_mask(idx, seed, rate), kept, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -12,9 +12,10 @@ never passes silently.
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has no ``nvcc``.
 
-``LAUNCHES`` counts kernel launches by kernel name.  A wrapper adds one
-where it launches its kernel and nowhere else, so a caller can reset the
-counts, drive a path and see which kernels it went through.
+``LAUNCHES`` counts kernel launches by kernel name (``KERNELS``).  A
+wrapper adds one where it launches its kernel and nowhere else, so a
+caller can reset the counts, drive a path and see which kernels it went
+through.
 """
 
 from __future__ import annotations
@@ -50,18 +51,47 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             + [_I] * 8 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _P],
             # S, D, F, heads per stage, bytes per activation
             "fused_layer_smem_bytes": [_I] * 5,
-        },
+            # x, dy, mask, 12 params, dx, 12 param grads, 15 workspace
+            # buffers, B S D H F causal is_bf16, seeds[3], attn/hidden
+            # thresholds, attn keep divisor, hidden keep divisors of the
+            # forward recompute and of the backward, attn/hidden dropout on,
+            # eps, stream
+            "fused_layer_bwd": [_P, _P, _P] + [_P] * 12 + [_P] + [_P] * 12 + [_P] * 15
+            + [_I] * 7 + [_U] * 3 + [_U, _U, _F, _F, _F, _I, _I, _F, _P],        },
     ),
     "gather_rows": (
         "gather_rows.cu",
         {
-            # table, idx, out, N, D, R, out_is_bf16, idx_is_64, stream
-            "gather_rows_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+            # table, idx, out, N, D, R, table_is_bf16, out_is_bf16,
+            # idx_is_64, stream
+            "gather_rows_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+            # g, sorted idx (int64), order (int64), dtable, N, D, R,
+            # g_is_bf16, dtable_is_bf16, stream
+            "gather_rows_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        },
+    ),
+    "fused_table_infonce": (
+        "fused_table_infonce.cu",
+        {
+            # q, table (bf16), pos_idx (int32), counts (f32), ce, lse, R, N,
+            # D, scale, mask_false_negatives, stream
+            "table_infonce_fwd": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
+            # q, table, pos_idx, counts, lse, g, dq (f32), dtable (f32),
+            # pos workspace (f32), R, N, D, scale, mask_false_negatives,
+            # stream
+            "table_infonce_bwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
         },
     ),
 }
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SIGNATURES}
+# the kernels a wrapper counts, by name: a C entry point that launches
+# more than one CUDA kernel for one function (a backward's passes) counts
+# once per call
+KERNELS = (
+    "gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
+    "table_infonce_fwd", "table_infonce_bwd",
+)
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

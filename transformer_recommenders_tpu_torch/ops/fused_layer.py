@@ -17,8 +17,23 @@ with three uint32 site seeds.  The TPU layout (head-masked wide tiles, the
 FFN zero-padded to 128) is not carried over: the plain version uses
 head-split attention and the real FFN width, which give the same output.
 
-The wrapper is forward only (serving); the backward kernel belongs to the
-training slice.
+The backward (``fused_layer_backward_reference`` and the kernel's
+``fused_layer_bwd``) follows the JAX ``_bwd_kernel`` step by step, not
+autograd of the forward, because the JAX backward deliberately differs
+from the exact derivative of its own forward in three places:
+
+- its recompute of the layer uses the Abramowitz-Stegun erf (``_erf_as``)
+  in the GELU under bf16 (``_APPROX_RECOMPUTE_ERF``), so the recomputed
+  GELU and everything after it differ slightly from the forward's;
+- its hidden-dropout VJP divides an f32 cotangent by the f32 ``1 - rate``,
+  where the forward divided a bf16 activation by ``1 - rate`` rounded to
+  bf16 (0.8984375 at rate 0.1);
+- the cotangent is rounded to ``x.dtype`` first.
+
+Every gradient product takes operands rounded to the compute dtype and
+sums in f32; ``dx`` comes out in ``x.dtype`` and the 12 parameter
+gradients in f32, summed over the batch.  :func:`fused_layer` is a
+``torch.autograd.Function`` over the two.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_mask, keep_
 
 _NEG_INF = -1e9
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _ROWS = 16  # csrc/fused_layer.cu kRows: output rows of a dense tile
 _ERF_NUM = (2.77068142495902e-08, -2.10102402082508e-06, -5.69250639462346e-05,
             -7.34990630326855e-04, -2.95459980854025e-03, -1.60960333262415e-02)
@@ -53,6 +69,22 @@ def _erf(x: torch.Tensor) -> torch.Tensor:
     return a / b
 
 
+def _erf_as(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 erf (JAX ``_erf_as``), which the JAX
+    backward's recompute uses under bf16."""
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.47047 * ax)
+    poly = t * (0.3480242 + t * (-0.0958798 + t * 0.7478556))
+    mag = 1.0 - poly * torch.exp(-ax * ax)
+    return torch.where(x < 0.0, -mag, mag)
+
+
+def _gelu_grad(u: torch.Tensor, erf_u: torch.Tensor) -> torch.Tensor:
+    """gelu'(u) = Phi(u) + u phi(u), with the recompute's erf of u/sqrt(2)."""
+    phi = torch.exp(-0.5 * u * u) * _INV_SQRT2PI
+    return 0.5 * (1.0 + erf_u) + u * phi
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
     """``transformer._dense``: operands rounded to ``dtype``, products and
     sums in f32 (a product of two bf16 values is exact in f32), f32 bias,
@@ -69,10 +101,19 @@ def _layer_norm(h: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return (h - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def _keep_divisor(rate: float, dtype) -> torch.Tensor:
+def _keep_divisor(rate: float, dtype) -> float:
     """``1 - rate`` as the JAX kernel divides by it: a Python float meets a
-    ``dtype`` array, so it is rounded to ``dtype`` first."""
-    return torch.tensor(1.0 - rate, dtype=dtype).float()
+    ``dtype`` array, so it is rounded to ``dtype`` first.  Returned as a
+    Python float (exact), so no tensor crosses to the device."""
+    return float(torch.tensor(1.0 - rate, dtype=dtype))
+
+
+def _divisor(rate: float, dtype, device) -> torch.Tensor:
+    """:func:`_keep_divisor` as a 0-dim f32 tensor made on ``device`` (no
+    copy from the host, so a CUDA graph can capture it).  A tensor, not a
+    Python float: CUDA divides by a host scalar as a product with its
+    reciprocal, which is not always the correctly rounded quotient."""
+    return torch.full((), _keep_divisor(rate, dtype), dtype=torch.float32, device=device)
 
 
 def _hidden_dropout(a: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -80,7 +121,7 @@ def _hidden_dropout(a: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     b, s, d = a.shape
     idx = torch.arange(b * s * d, device=a.device, dtype=torch.int64).view(b, s, d)
     keep = keep_mask(idx, seed, rate)
-    kept = (a.float() / _keep_divisor(rate, a.dtype).to(a.device)).to(a.dtype)
+    kept = (a.float() / _divisor(rate, a.dtype, a.device)).to(a.dtype)
     return torch.where(keep, kept, torch.zeros((), dtype=a.dtype, device=a.device))
 
 
@@ -139,7 +180,7 @@ def fused_layer_reference(
     if attn_dropout > 0.0:
         idx = torch.arange(b * h * s * s, device=x.device, dtype=torch.int64)
         keep = keep_mask(idx.view(b, h, s, s), seeds[0], attn_dropout)
-        probs = torch.where(keep, probs / _keep_divisor(attn_dropout, torch.float32).to(x.device), 0.0)
+        probs = torch.where(keep, probs / _divisor(attn_dropout, torch.float32, x.device), 0.0)
     ctx = torch.matmul(probs.to(dtype).float(), v).to(dtype)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
 
@@ -154,6 +195,138 @@ def fused_layer_reference(
     if hidden_dropout > 0.0:
         f = _hidden_dropout(f, hidden_dropout, seeds[2])
     return _layer_norm(x1 + f, p["ln2"]["scale"], p["ln2"]["bias"], layer_norm_eps).to(dtype)
+
+
+def _ln_stats(h32: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, rstd) of JAX ``_ln_fwd``: the pre-affine normalized value."""
+    mean = h32.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((h32 - mean).square().mean(dim=-1, keepdim=True) + eps)
+    return (h32 - mean) * rstd, rstd
+
+
+def _ln_bwd(dy32, n, rstd, scale):
+    """JAX ``_ln_bwd``: dh = rstd * (g - mean(g) - n * mean(g * n)), g = dy * scale."""
+    g = dy32 * scale.float()
+    d = g.shape[-1]
+    gm = g.sum(dim=-1, keepdim=True) / d
+    gnm = (g * n).sum(dim=-1, keepdim=True) / d
+    return rstd * (g - gm - n * gnm)
+
+
+def _hidden_keep(shape, rate: float, seed: int, device) -> torch.Tensor:
+    b, s, d = shape
+    idx = torch.arange(b * s * d, device=device, dtype=torch.int64).view(b, s, d)
+    return keep_mask(idx, seed, rate)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 product of ``dtype``-rounded operands (exact products, f32 sums)."""
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def fused_layer_backward_reference(
+    x: torch.Tensor,
+    layer_params,
+    key_mask: torch.Tensor,
+    dy: torch.Tensor,
+    *,
+    num_heads: int,
+    causal: bool,
+    attn_dropout: float = 0.0,
+    hidden_dropout: float = 0.0,
+    dropout_seeds=None,
+    ffn_dim: int,
+    layer_norm_eps: float = 1e-12,
+):
+    """Plain PyTorch version of the layer's backward: ``(dx, dparams)``.
+
+    Step by step after the JAX ``_bwd_kernel`` (not autograd of
+    :func:`fused_layer_reference`; see the module docstring): the layer is
+    recomputed from ``x`` with the A&S erf under bf16, the cotangent is
+    rounded to ``x.dtype``, the hidden-dropout VJP divides by the f32
+    ``1 - rate``.  ``dx`` is in ``x.dtype``; ``dparams`` has the layout of
+    ``layer_params``, f32, summed over every row of the batch."""
+    del ffn_dim
+    if dropout_seeds is None:
+        attn_dropout = hidden_dropout = 0.0
+    seeds = _seeds(dropout_seeds)
+    p = layer_params
+    dtype = x.dtype
+    b, s, d = x.shape
+    h = num_heads
+    dh = d // h
+    scale = 1.0 / math.sqrt(dh)
+    eps = layer_norm_eps
+
+    # ---- recompute (JAX _layer_fwd_block with want_residuals=True)
+    qkv = _matmul(x, p["qkv"]["w"], p["qkv"]["b"], dtype)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, s, h, dh).permute(0, 2, 1, 3).float()
+               for i in range(3))
+    z = torch.matmul(q, k.transpose(-1, -2)) * scale + attention_bias(key_mask, s, causal)
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    attn_div = _divisor(attn_dropout, torch.float32, x.device)
+    if attn_dropout > 0.0:
+        idx = torch.arange(b * h * s * s, device=x.device, dtype=torch.int64).view(b, h, s, s)
+        dropped = torch.where(keep_mask(idx, seeds[0], attn_dropout), probs / attn_div, 0.0)
+    else:
+        dropped = probs
+    ctx = torch.matmul(dropped.to(dtype).float(), v).to(dtype)
+    ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
+    a = _matmul(ctx, p["out"]["w"], p["out"]["b"], dtype)
+    if hidden_dropout > 0.0:
+        a = _hidden_dropout(a, hidden_dropout, seeds[1])
+    n1, rstd1 = _ln_stats((x + a).float(), eps)
+    x1 = (n1 * p["ln1"]["scale"] + p["ln1"]["bias"]).to(dtype)
+    u32 = _matmul(x1, p["ffn_in"]["w"], p["ffn_in"]["b"], dtype).float()
+    erf_u = (_erf_as if dtype == torch.bfloat16 else _erf)(u32 * _INV_SQRT2)
+    g = (0.5 * u32 * (1.0 + erf_u)).to(dtype)
+    f = _matmul(g, p["ffn_out"]["w"], p["ffn_out"]["b"], dtype)
+    if hidden_dropout > 0.0:
+        f = _hidden_dropout(f, hidden_dropout, seeds[2])
+    n2, rstd2 = _ln_stats((x1 + f).float(), eps)
+
+    # ---- the VJP, row sums over all B*S rows for the parameter gradients
+    def rows(t):
+        return t.reshape(b * s, t.shape[-1])
+
+    hid_div = _divisor(hidden_dropout, torch.float32, x.device)
+    dy32 = dy.to(dtype).float()
+    grads = {"ln2": {"scale": rows(dy32 * n2).sum(0), "bias": rows(dy32).sum(0)}}
+    dh2 = _ln_bwd(dy32, n2, rstd2, p["ln2"]["scale"])
+    df = dh2
+    if hidden_dropout > 0.0:
+        df = torch.where(_hidden_keep(x.shape, hidden_dropout, seeds[2], x.device),
+                         df / hid_div, 0.0)
+    grads["ffn_out"] = {"w": _mm(rows(g).T, rows(df), dtype), "b": rows(df).sum(0)}
+    du = _mm(df, p["ffn_out"]["w"].T, dtype) * _gelu_grad(u32, erf_u)
+    grads["ffn_in"] = {"w": _mm(rows(x1).T, rows(du), dtype), "b": rows(du).sum(0)}
+    dx1 = dh2 + _mm(du, p["ffn_in"]["w"].T, dtype)
+    grads["ln1"] = {"scale": rows(dx1 * n1).sum(0), "bias": rows(dx1).sum(0)}
+    dh1 = _ln_bwd(dx1, n1, rstd1, p["ln1"]["scale"])
+    da = dh1
+    if hidden_dropout > 0.0:
+        da = torch.where(_hidden_keep(x.shape, hidden_dropout, seeds[1], x.device),
+                         da / hid_div, 0.0)
+    grads["out"] = {"w": _mm(rows(ctx).T, rows(da), dtype), "b": rows(da).sum(0)}
+    dctx = _mm(da, p["out"]["w"].T, dtype)
+
+    # attention, per head: gw = T(dctx), dv = T(dropped)^T gw, the dropout
+    # VJP with the keep mask read off ``dropped != 0`` (the JAX kernel's),
+    # the softmax VJP, d_scores rounded to T before dq and dk
+    gw = dctx.to(dtype).float().view(b, s, h, dh).permute(0, 2, 1, 3)
+    dv = torch.matmul(dropped.to(dtype).float().transpose(-1, -2), gw)
+    d_probs = torch.matmul(gw, v.transpose(-1, -2))
+    if attn_dropout > 0.0:
+        d_probs = torch.where(dropped != 0.0, d_probs / attn_div, 0.0)
+    d_scores = probs * (d_probs - (d_probs * probs).sum(dim=-1, keepdim=True))
+    d_scores = (d_scores * scale).to(dtype).float()
+    dq = torch.matmul(d_scores, k)
+    dk = torch.matmul(d_scores.transpose(-1, -2), q)
+    dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(b, s, d) for t in (dq, dk, dv)], dim=-1)
+    grads["qkv"] = {"w": _mm(rows(x).T, rows(dqkv), dtype), "b": rows(dqkv).sum(0)}
+    dx = (dh1 + _mm(dqkv, p["qkv"]["w"].T, dtype)).to(dtype)
+    return dx, grads
 
 
 def smem_bytes(s: int, d: int, f: int, heads_per_stage: int, elem: int) -> int:
@@ -186,6 +359,139 @@ _PARAM_ORDER = (
 )
 
 
+def _unflatten(flat) -> dict:
+    out: dict = {}
+    for (m, n), t in zip(_PARAM_ORDER, flat):
+        out.setdefault(m, {})[n] = t
+    return out
+
+
+def _check_cuda(x, params, key_mask, num_heads: int) -> int:
+    """Validate a CUDA call; returns the FFN width."""
+    b, s, d = x.shape
+    if x.device.type != "cuda":
+        msg = f"fused_layer: unsupported device {x.device}"
+        raise ValueError(msg)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        msg = f"fused_layer: x must be bf16 or f32, got {x.dtype}"
+        raise ValueError(msg)
+    if d % num_heads:
+        msg = f"fused_layer: D={d} not divisible by num_heads={num_heads}"
+        raise ValueError(msg)
+    if key_mask.shape != (b, s):
+        msg = f"fused_layer: key_mask must be {(b, s)}, got {tuple(key_mask.shape)}"
+        raise ValueError(msg)
+    f = params[4].shape[1]
+    expected = [(d, 3 * d), (3 * d,), (d, d), (d,), (d, f), (f,), (f, d), (d,)] + [(d,)] * 4
+    for (m, n), t, shape in zip(_PARAM_ORDER, params, expected):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
+            msg = f"fused_layer: {m}/{n} must be f32 {shape} on {x.device}"
+            raise ValueError(msg)
+    return f
+
+
+def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds):
+    if dropout_seeds is None:
+        attn_dropout = hidden_dropout = 0.0
+    return (*_seeds(dropout_seeds), keep_threshold(attn_dropout),
+            keep_threshold(hidden_dropout), _keep_divisor(attn_dropout, torch.float32),
+            attn_dropout, hidden_dropout)
+
+
+def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dropout,
+              dropout_seeds, ffn_dim, layer_norm_eps):
+    del ffn_dim
+    f = _check_cuda(x, params, key_mask, num_heads)
+    b, s, d = x.shape
+    *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
+        attn_dropout, hidden_dropout, dropout_seeds)
+    elem = x.element_size()
+    hg = heads_per_stage(s, d, f, num_heads, elem, cuda_build.max_shared_memory(x.device))
+    smem = smem_bytes(s, d, f, hg, elem)
+    x = x.contiguous()
+    params = [t.contiguous() for t in params]
+    mask = key_mask.to(torch.int32).contiguous()
+    y = torch.empty_like(x)
+    status = cuda_build.library("fused_layer").fused_layer_fwd(
+        x.data_ptr(), y.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
+        b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16), hg,
+        *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
+        int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
+        smem, cuda_build.stream_handle(x.device),
+    )
+    cuda_build.check(status, "fused_layer_fwd launch")
+    cuda_build.LAUNCHES["fused_layer"] += 1
+    return y
+
+
+def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidden_dropout,
+              dropout_seeds, ffn_dim, layer_norm_eps):
+    """The backward kernel: recompute, dx and the 12 f32 parameter
+    gradients.  Its device-memory workspace (the recomputed activations and
+    the per-sequence partial sums, ~35 MB at B=128, S=32, D=128, F=512 in
+    bf16) is allocated here and freed with the call."""
+    del ffn_dim
+    f = _check_cuda(x, params, key_mask, num_heads)
+    b, s, d = x.shape
+    r = b * s
+    *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
+        attn_dropout, hidden_dropout, dropout_seeds)
+    x = x.contiguous()
+    dy = dy.to(x.dtype).contiguous()  # the JAX kernel's g.astype(x.dtype)
+    params = [t.contiguous() for t in params]
+    mask = key_mask.to(torch.int32).contiguous()
+    dx = torch.empty_like(x)
+    dparams = [torch.empty_like(t) for t in params]
+
+    def act(cols):
+        return torch.empty((r, cols), dtype=x.dtype, device=x.device)
+
+    def f32(rows, cols):
+        return torch.empty((rows, cols), dtype=torch.float32, device=x.device)
+
+    # BwdParams order in csrc/fused_layer.cu: qkv ctx x1 u g h1 h2 stats dfm
+    # dum dam dqm dres dqkv partial
+    ws = [act(3 * d), act(d), act(d), act(f), act(f), act(d), act(d), f32(r, 4), act(d),
+          act(f), act(d), act(3 * d), f32(r, d), f32(r, 3 * d), f32(b, 9 * d + f)]
+    status = cuda_build.library("fused_layer").fused_layer_bwd(
+        x.data_ptr(), dy.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
+        dx.data_ptr(), *(t.data_ptr() for t in dparams), *(t.data_ptr() for t in ws),
+        b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16),
+        *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
+        _keep_divisor(hidden_dropout, torch.float32),
+        int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
+        cuda_build.stream_handle(x.device),
+    )
+    cuda_build.check(status, "fused_layer_bwd launch")
+    cuda_build.LAUNCHES["fused_layer_bwd"] += 1
+    return dx, dparams
+
+
+class _FusedLayer(torch.autograd.Function):
+    """Forward: the kernel (or the plain version on the CPU), saving only
+    ``x``, the mask and the parameters, as the TPU kernel does.  Backward:
+    the backward kernel (or its plain version), which recomputes the layer."""
+
+    @staticmethod
+    def forward(ctx, x, key_mask, opts, *params):
+        ctx.save_for_backward(x, key_mask, *params)
+        ctx.opts = opts
+        if x.device.type == "cpu":
+            return fused_layer_reference(x, _unflatten(params), key_mask, **opts)
+        return _fwd_cuda(x, params, key_mask, **opts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, key_mask, *params = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, grads = fused_layer_backward_reference(
+                x, _unflatten(params), key_mask, dy, **ctx.opts)
+            dparams = [grads[m][n] for m, n in _PARAM_ORDER]
+        else:
+            dx, dparams = _bwd_cuda(x, params, key_mask, dy, **ctx.opts)
+        return (dx, None, None, *dparams)
+
+
 def fused_layer(
     x: torch.Tensor,
     layer_params,
@@ -199,7 +505,7 @@ def fused_layer(
     ffn_dim: int,
     layer_norm_eps: float = 1e-12,
 ) -> torch.Tensor:
-    """One fused post-LN layer.
+    """One fused post-LN layer, differentiable in ``x`` and the parameters.
 
     Args:
         x: (B, S, D) activations in the compute dtype (bf16 or f32).
@@ -210,64 +516,19 @@ def fused_layer(
         dropout_seeds: three uint32 site seeds (attention probs, post-attn
             hidden, post-FFN hidden); ``None`` turns dropout off.
 
-    On a CPU tensor this runs :func:`fused_layer_reference`; on a CUDA
-    tensor it launches the kernel (one block per sequence) or raises.
+    On CPU tensors this runs :func:`fused_layer_reference` and, for the
+    gradient, :func:`fused_layer_backward_reference`; on CUDA tensors it
+    launches the forward kernel (one block per sequence) and the backward
+    kernel, or raises.
     """
-    b, s, d = x.shape
+    s = x.shape[1]
     if s > 64:
         msg = f"fused_layer supports s <= 64 (got s={s})"
         raise ValueError(msg)
-    kwargs = dict(
+    opts = dict(
         num_heads=num_heads, causal=causal, attn_dropout=attn_dropout,
         hidden_dropout=hidden_dropout, dropout_seeds=dropout_seeds,
         ffn_dim=ffn_dim, layer_norm_eps=layer_norm_eps,
     )
-    if x.device.type == "cpu":
-        return fused_layer_reference(x, layer_params, key_mask, **kwargs)
-    if x.device.type != "cuda":
-        msg = f"fused_layer: unsupported device {x.device}"
-        raise ValueError(msg)
     params = [layer_params[m][n] for m, n in _PARAM_ORDER]
-    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in params)):
-        msg = "fused_layer is forward only on CUDA: no backward kernel yet"
-        raise RuntimeError(msg)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        msg = f"fused_layer: x must be bf16 or f32, got {x.dtype}"
-        raise ValueError(msg)
-    if d % num_heads:
-        msg = f"fused_layer: D={d} not divisible by num_heads={num_heads}"
-        raise ValueError(msg)
-    if key_mask.shape != (b, s):
-        msg = f"fused_layer: key_mask must be {(b, s)}, got {tuple(key_mask.shape)}"
-        raise ValueError(msg)
-    f = layer_params["ffn_in"]["w"].shape[1]
-    expected = [(d, 3 * d), (3 * d,), (d, d), (d,), (d, f), (f,), (f, d), (d,)] + [(d,)] * 4
-    for (m, n), t, shape in zip(_PARAM_ORDER, params, expected):
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device:
-            msg = f"fused_layer: {m}/{n} must be f32 {shape} on {x.device}"
-            raise ValueError(msg)
-    if dropout_seeds is None:
-        attn_dropout = hidden_dropout = 0.0
-    seeds = _seeds(dropout_seeds)
-    elem = x.element_size()
-    limit = cuda_build.max_shared_memory(x.device)
-    hg = heads_per_stage(s, d, f, num_heads, elem, limit)
-    smem = smem_bytes(s, d, f, hg, elem)
-
-    x = x.contiguous()
-    params = [t.contiguous() for t in params]
-    mask = key_mask.to(torch.int32).contiguous()
-    y = torch.empty_like(x)
-    lib = cuda_build.library("fused_layer")
-    status = lib.fused_layer_fwd(
-        x.data_ptr(), y.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
-        b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16), hg,
-        *seeds, keep_threshold(attn_dropout), keep_threshold(hidden_dropout),
-        float(_keep_divisor(attn_dropout, torch.float32)),
-        float(_keep_divisor(hidden_dropout, x.dtype)),
-        int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
-        smem, cuda_build.stream_handle(x.device),
-    )
-    cuda_build.check(status, "fused_layer_fwd launch")
-    cuda_build.LAUNCHES["fused_layer"] += 1
-    return y
+    return _FusedLayer.apply(x, key_mask, opts, *params)
