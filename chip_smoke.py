@@ -31,7 +31,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and raw gradients on the card against the same step on the CPU's plain
    path, the launch counts of one step (every kernel of the path), 30 steps
    on one fixed batch whose loss must fall, the eager step time, and the
-   device time by kernel of a few steps under ``torch.profiler``.
+   device time by kernel of a few steps under ``torch.profiler``;
+6. the pool InfoNCE kernels (forward, dq/dp, dn) against their plain
+   versions at the shapes of paths A and B and a ragged one, the mask on
+   and off, scale 1 and 2.5, then their times beside a composite of stock
+   calls (a bf16 matmul and a masked ``logsumexp``, autograd for the
+   backward);
+7. training through the pool objective, as phase 5: path A, the
+   flagship's logging step (``make_train_step(cfg)``, ``full_logs=True``:
+   every loss head, the logits and batch statistics, the pool kernels),
+   its logs held key for key against the CPU's; path B, the
+   reference-equivalent hot step (configs/ml1m_reference.yaml: d=384, one
+   layer, batch 32, whose 3,707-row catalog is more than twice its pool).
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -645,6 +656,165 @@ def check_table_infonce() -> list[dict]:
     ]
 
 
+def composite_pool_infonce(q, p, n, neg_valid, mask_fn: bool, scale: float):
+    """The yardstick: per-row CE from stock calls, a bf16 ``q @ n.T`` and a
+    masked ``logsumexp`` over [positive, pool] (a composite of library
+    calls, differentiable by autograd)."""
+    import torch
+
+    qb, pb, nb = (t.to(torch.bfloat16) for t in (q, p, n))
+    x = (qb @ nb.T).float() * scale
+    pos = (qb.float() * pb.float()).sum(dim=1) * scale
+    valid = (neg_valid[None, :] > 0).expand_as(x)
+    if mask_fn:
+        valid = valid & (x < pos[:, None])
+    lse = torch.logsumexp(torch.cat([pos[:, None], torch.where(valid, x, -math.inf)], dim=1), dim=1)
+    return lse - pos
+
+
+def pool_case(gen, r: int, rn: int, d: int):
+    """Pool InfoNCE operands as the train step gives them (the same as
+    tests/test_torch_cuda.py): f32 queries, bf16 positive and pool rows,
+    every ninth pool row a copy of some positive (the mask must drop it),
+    row 0's positive below every pool score (with the mask on it counts no
+    negative: ce = 0), a tenth of rows and pool rows invalid."""
+    import torch
+
+    q = torch.randn(r, d, generator=gen)
+    p = 0.3 * torch.randn(r, d, generator=gen)
+    n = 0.3 * torch.randn(rn, d, generator=gen)
+    n[::9] = p[torch.randint(0, r, (len(range(0, rn, 9)),), generator=gen)]
+    p[0] = -4.0 * q[0]
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(rn, generator=gen) > 0.1
+    return (q.cuda(), p.to("cuda", torch.bfloat16), n.to("cuda", torch.bfloat16),
+            row_valid.cuda(), neg_valid.cuda())
+
+
+POOL_SHAPES = {  # (R, Rn, D)
+    "A": (4096, 4096, 128),  # the flagship's logging step: B=128, S=32, d=128
+    "B": (1024, 1024, 384),  # ml1m_reference: B=32, S=32, d=384
+    "ragged": (1000, 777, 128),
+}
+
+
+def check_pool_infonce() -> list[dict]:
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    gen = torch.Generator().manual_seed(6)
+    # of the max abs value: the same scores bit for bit (the plain version
+    # sums in the kernels' order), then exp/log for ce and dl's bf16
+    # rounding for the gradients (the bounds of tests/test_torch_cuda.py)
+    tol = {"ce": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
+    max_err = {}
+    for shape, (r, rn, d) in POOL_SHAPES.items():
+        for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5), (False, 2.5)):
+            q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+            q, p, n = (t.requires_grad_() for t in (q, p, n))
+            g = row_valid.float()
+            ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
+            ce.backward(g)
+            ce = ce.detach()
+            kw = dict(scale=scale, mask_false_negatives=mask_fn)
+            with torch.no_grad():
+                ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
+                dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g, **kw)
+                dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
+            torch.cuda.synchronize()
+            if mask_fn and ce[0].item() != 0.0:
+                raise AssertionError("a row with every negative masked must give ce = 0")
+            parts = []
+            for key, got, want in (("ce", ce, ce_want), ("dq", q.grad, dq_want),
+                                   ("dp", p.grad, dp_want), ("dn", n.grad, dn_want)):
+                err = (got.float() - want.float()).abs()
+                rel = float(err.max() / want.float().abs().max())
+                if not (bool(torch.isfinite(got.float()).all()) and rel <= tol[key]):
+                    log(f"  pool_infonce {key} R={r} Rn={rn} D={d} mask={mask_fn} scale={scale}: "
+                        f"max_rel_err={rel:.3g} tol={tol[key]} FAIL")
+                    raise AssertionError(f"pool_infonce {key} disagrees with its plain version")
+                parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
+                             f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
+                if shape != "ragged":
+                    max_err[(shape, key)] = max(max_err.get((shape, key), 0.0), float(err.max()))
+            log(f"  pool_infonce R={r} Rn={rn} D={d} mask_false_negatives={mask_fn} scale={scale}: "
+                + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of the max abs) ok")
+    times = {shape: time_pool_infonce(gen, *POOL_SHAPES[shape]) for shape in ("A", "B")}
+    common = {"route": "cuda", "source": "transformer_recommenders_tpu_torch/csrc/fused_infonce.cu"}
+    rows = []
+    for name, replaces, keys in (
+        ("pool_infonce_fwd", "transformer_recommenders_tpu/ops/fused_infonce.py:85", ("ce",)),
+        ("pool_infonce_dq", "transformer_recommenders_tpu/ops/fused_infonce.py:159", ("dq", "dp")),
+        ("pool_infonce_dn", "transformer_recommenders_tpu/ops/fused_infonce.py:193", ("dn",)),
+    ):
+        a = times["A"][name]
+        rows.append({
+            "name": name, **common, "replaces": replaces,
+            "shape": "R=Rn=4096 D=128 bf16 (path A), mask on",
+            "max_abs_err": max(max_err[(s, k)] for s in ("A", "B") for k in keys),
+            "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+            "by_shape": {s: times[s][name] for s in times},
+        })
+    return rows
+
+
+def time_pool_infonce(gen, r: int, rn: int, d: int) -> dict:
+    """Device times of the three pool kernels, their plain versions and
+    the composite yardstick at one shape, mask on, scale 1, and the
+    bounds from the shapes."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+    g = row_valid.float()
+    _, lse, pos = fi._fwd_cuda(q, p, n, neg_valid, 1.0, True)
+    out = {"pool_infonce_fwd": {}, "pool_infonce_dq": {}, "pool_infonce_dn": {}}
+    out["pool_infonce_fwd"]["ms"] = time_ms(lambda: fi._fwd_cuda(q, p, n, neg_valid, 1.0, True))
+    out["pool_infonce_dq"]["ms"] = time_ms(
+        lambda: fi._dq_cuda(q, p, n, neg_valid, lse, g, pos, 1.0, True))
+    out["pool_infonce_dn"]["ms"] = time_ms(
+        lambda: fi._dn_cuda(q, p, n, neg_valid, lse, g, pos, 1.0, True))
+    with torch.no_grad():
+        out["pool_infonce_fwd"]["plain_ms"] = time_ms(
+            lambda: fi.fused_infonce_reference(q, p, n, neg_valid))
+        out["pool_infonce_dq"]["plain_ms"] = time_ms(
+            lambda: fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g))
+        out["pool_infonce_dn"]["plain_ms"] = time_ms(
+            lambda: fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g))
+        out["pool_infonce_fwd"]["library_ms"] = time_ms(
+            lambda: composite_pool_infonce(q, p, n, neg_valid, True, 1.0))
+    qr, pr, nr = (t.clone().requires_grad_() for t in (q, p, n))
+
+    def composite_grad(wrt):
+        return torch.autograd.grad(
+            (composite_pool_infonce(qr, pr, nr, neg_valid, True, 1.0) * g).sum(), wrt)
+
+    out["pool_infonce_dq"]["library_ms"] = time_ms(lambda: composite_grad([qr, pr]))
+    out["pool_infonce_dn"]["library_ms"] = time_ms(lambda: composite_grad([nr]))
+    # bytes: each input read once (q, p, n as the kernels take them, bf16),
+    # each output written once; operations: the scores (2 R Rn D), and for
+    # each backward kernel one more product of the same size
+    vec = 4 * r  # one (R,) f32 vector
+    ins = 2 * d * (2 * r + rn) + 4 * rn
+    for name, flops, nbytes in (
+        ("pool_infonce_fwd", 2 * r * rn * d + 2 * r * d, ins + 3 * vec),
+        ("pool_infonce_dq", 4 * r * rn * d + 2 * r * d, ins + 3 * vec + 2 * 4 * r * d),
+        ("pool_infonce_dn", 4 * r * rn * d, ins - 2 * d * r + 3 * vec + 4 * rn * d),
+    ):
+        out[name]["bound_ms"], out[name]["bound_by"] = bound(flops, nbytes, H100_BF16_FLOPS)
+        out[name]["gflop"] = flops / 1e9
+        t = out[name]
+        log(f"  {name} R={r} Rn={rn} D={d} bf16 mask on, device time: kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms, composite (bf16 matmul + masked logsumexp"
+            f"{'' if name == 'pool_infonce_fwd' else ', forward + autograd backward'}) "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{t['gflop']:.2f} GFLOP)")
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -681,17 +851,27 @@ def main() -> int:
     log("phase 4: the training path's kernels against their plain versions")
     kernels += [check_fused_layer_bwd(), check_gather_bwd(), *check_table_infonce()]
 
-    log("phase 5: training")
-    train_launches = training_phase()
+    log("phase 5: training, the flagship's hot step")
+    launches = {"serving": serve_launches, "training": training_phase()}
+
+    log("phase 6: the pool InfoNCE kernels against their plain versions")
+    kernels += check_pool_infonce()
+
+    log("phase 7: training through the pool objective")
+    log(" path A: the flagship's logging step (full_logs=True)")
+    launches["logging_A"] = training_phase(full_logs=True, steps=0, timed_steps=10)
+    log(" path B: the reference-equivalent hot step (configs/ml1m_reference.yaml)")
+    launches["reference_B"] = training_phase(config=REFERENCE, batch_size=REFERENCE_BATCH)
 
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
-        # forward kernels on serving, the backward and loss kernels on
-        # training (the training step launches the forward kernels too)
-        path = "serving" if k["name"] in ("fused_layer", "gather_rows") else "training"
-        k["launches"] = (serve_launches if path == "serving" else train_launches)[k["name"]]
-        k["launches_by_path"] = {"serving": serve_launches[k["name"]],
-                                 "training": train_launches[k["name"]]}
+        # forward kernels on serving, the backward and table kernels on the
+        # flagship's hot step, the pool kernels on its logging step (every
+        # training path launches the forward kernels too)
+        path = ("serving" if k["name"] in ("fused_layer", "gather_rows") else
+                "logging_A" if k["name"].startswith("pool_") else "training")
+        k["launches"] = launches[path][k["name"]]
+        k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -928,11 +1108,74 @@ def train_batch(rng, b: int, s: int, num_items: int) -> dict:
     return {"history_item_idx": hist, "pos_item_idx": pos, "neg_item_idx": neg}
 
 
+REFERENCE = dict(  # configs/ml1m_reference.yaml (model section; data.batch_size 32)
+    hidden_size=384, num_hidden_layers=1, num_attention_heads=12, intermediate_size=48,
+    max_seq_length=32, compute_dtype="bfloat16", pooling_mode="mean", train_loss="InfoNCELoss",
+    learning_rate=0.001, max_epochs=16, hidden_dropout=0.1, attention_dropout=0.1,
+)
+REFERENCE_BATCH = 32
+
+
+def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> dict:
+    """Launches of one InfoNCE train step on the card, by kernel: the
+    table-scored objective where the hot step's gate admits it, else the
+    pool kernels; the gather's and the pool's backward only where the
+    gathered rows take a gradient, i.e. when they are rows of the
+    projected table (a catalog of at most 3 * B * S rows is projected
+    before the gather; a frozen, unprojected table takes none)."""
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    table_path = not full_logs and ts._table_loss_enabled(cfg, table_rows, pool_rows)
+    proj = cfg.resolved_input_dim != cfg.hidden_size
+    layers = cfg.num_hidden_layers
+    return {
+        "gather_rows": 1,
+        "gather_rows_bwd": int(proj and (table_path or table_rows <= 3 * pool_rows)),
+        "fused_layer": layers, "fused_layer_bwd": layers,
+        "table_infonce_fwd": int(table_path), "table_infonce_bwd": int(table_path),
+        "pool_infonce_fwd": int(not table_path), "pool_infonce_dq": int(not table_path),
+        "pool_infonce_dn": int(not table_path and proj),
+    }
+
+
+# the logging step's logs, card against the CPU: the loss heads and logit
+# statistics of bf16 embeddings whose values differ by one-ulp flips of
+# intermediate roundings (see the step check below).  A few times what the
+# H100 runs read: 1.5e-4, the hinge head (a relu near zero)
+LOG_TOL = 2.0**-10
+
+
+def compare_logs(logs: dict, want: dict, device: str) -> None:
+    """Every log of a logging step against the CPU's plain path: the same
+    keys, the counts equal, each value within ``LOG_TOL`` of the CPU's
+    relative to max(|value|, 1)."""
+    if set(logs) != set(want):
+        raise AssertionError(f"log keys differ: {sorted(set(logs) ^ set(want))}")
+    errs = {}
+    for k in sorted(want):
+        got, ref = float(logs[k]), float(want[k])
+        errs[k] = abs(got - ref) / max(abs(ref), 1.0)
+        if k.startswith("batch/") and got != ref:
+            raise AssertionError(f"{k}: {got} on {device}, {ref} on the CPU")
+    worst = sorted(errs, key=lambda k: -errs[k])[:4]
+    ok = all(math.isfinite(float(v)) for v in logs.values()) and errs[worst[0]] <= LOG_TOL
+    log(f"  {len(logs)} logs ({', '.join(sorted({k.split('/')[0] for k in logs}))}), {device} vs "
+        f"CPU: worst " + ", ".join(f"{k} {errs[k]:.3g} ({float(logs[k]):.6g} vs "
+                                   f"{float(want[k]):.6g})" for k in worst)
+        + f"; tol {LOG_TOL:.3g} of max(|value|, 1), the batch counts exact {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {device} logging step's logs disagree with the CPU's")
+
+
 def training_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
-                   batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20) -> dict:
-    """The flagship's hot train step on ``device``: one step against the
-    CPU's plain path, its launch counts, a fixed batch's loss over ``steps``
-    steps and the eager step time; returns the launch counts of one step."""
+                   batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20,
+                   full_logs: bool = False) -> dict:
+    """One InfoNCE train step variant on ``device`` (the flagship's hot
+    step by default): one step's loss, raw gradients and, with
+    ``full_logs``, every log against the CPU's plain path; the launch
+    counts of one step; a fixed batch's loss over ``steps`` steps; the
+    eager step time; the device time by kernel.  Returns the launch counts
+    of one step."""
     import numpy as np
     import torch
 
@@ -945,6 +1188,7 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
 
     cfg = TrainConfig(**(config or TRAIN))
     cuda = device == "cuda"
+    loss_key = f"loss/{cfg.train_loss}"
 
     def sync() -> None:
         if cuda:
@@ -958,20 +1202,21 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
     seed_gen = torch.Generator().manual_seed(1)
     seeds = ts.draw_dropout_seeds(seed_gen, cfg)
     pool = ts.table_pool_rows(cfg, batch)
-    if not ts._table_loss_enabled(cfg, table.shape[0], pool):
-        raise AssertionError("the flagship step must take the table-scored path")
+    expected = expected_launches(cfg, table.shape[0], pool, full_logs)
+    objective = "table-scored" if expected["table_infonce_fwd"] else "pool"
     valid = int((batch["history_item_idx"] != 0).sum())
-    log(f"  config {'ml1m_ssm' if config is None else 'given'}: {cfg.num_hidden_layers} layers d={cfg.hidden_size} "
+    log(f"  {cfg.num_hidden_layers} layers d={cfg.hidden_size} (inputs {cfg.resolved_input_dim}) "
         f"heads={cfg.num_attention_heads} FFN {cfg.intermediate_size} seq {cfg.max_seq_length} "
         f"{cfg.compute_dtype}, dropout {cfg.hidden_dropout}; batch {batch_size} "
-        f"({valid} valid positions), catalog {table.shape[0]} rows (pool {pool})")
+        f"({valid} valid positions), catalog {table.shape[0]} rows (pool {pool}); "
+        f"full_logs={full_logs}, the {objective} InfoNCE objective")
 
-    # one step's loss and raw gradients, card against the CPU's plain path
-    loss_and_grad = ts.make_loss_and_grad(cfg)
-    loss, grads = loss_and_grad(params, table, batch, seeds)
+    # one step's loss, raw gradients and logs, card against the CPU's plain path
+    loss_and_grad = ts.make_loss_and_grad(cfg, full_logs=full_logs)
+    loss, grads, logs = loss_and_grad(params, table, batch, seeds)
     cpu_params = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
     t0 = time.perf_counter()
-    cpu_loss, cpu_grads = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
+    cpu_loss, cpu_grads, cpu_logs = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
     errs = {}
@@ -984,10 +1229,11 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
                    float((got - want).norm() / max(float(want.norm()), 1e-30)), tuple(got.shape))
     worst = max(errs, key=lambda i: errs[i][0])
     worst_norm = max(e[1] for e in errs.values())
-    # bf16 through 4 layers, the projection and the loss: one-ulp flips of
-    # intermediate roundings.  The limits are a few times what the H100 runs
-    # read (loss 2.7e-6 relative, worst leaf 0.0051 of its max abs, worst
-    # norm 0.0021): a backward kernel a few percent off fails them
+    # bf16 through the layers, the projection and the loss: one-ulp flips
+    # of intermediate roundings.  The limits are a few times what the H100
+    # runs read (the flagship's table step: loss 2.7e-6 relative, worst
+    # leaf 0.0051 of its max abs, worst norm 0.0021): a backward kernel a
+    # few percent off fails them
     ok = loss_rel <= 1e-4 and errs[worst][0] <= 2.0**-5 and worst_norm <= 2.0**-7
     log(f"  one step, {device} vs CPU plain path ({cpu_s:.1f} s on the CPU): loss "
         f"{float(loss):.6f} vs {float(cpu_loss):.6f} (rel err {loss_rel:.3g}, tol 1e-4); "
@@ -996,36 +1242,36 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         f"err {worst_norm:.3g} (tol 2**-7) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the {device} train step disagrees with the CPU's plain path")
+    if full_logs:
+        compare_logs(logs, cpu_logs, device)
 
     # the main path, counted: one step of make_train_step
-    step = ts.make_train_step(cfg, full_logs=False)
+    step = ts.make_train_step(cfg, full_logs=full_logs)
     state = ts.init_train_state(cfg, params)
     sync()
     cuda_build.reset_launches()
     state, logs = step(state, table, batch, seeds)
     sync()
     launches = dict(cuda_build.LAUNCHES)
-    expected = {"gather_rows": 1, "gather_rows_bwd": 1, "fused_layer": cfg.num_hidden_layers,
-                "fused_layer_bwd": cfg.num_hidden_layers, "table_infonce_fwd": 1,
-                "table_infonce_bwd": 1}
     if not cuda:  # the plain path launches no kernel
         expected = dict.fromkeys(expected, 0)
     log(f"  launches of one train step: {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError("the train step did not go through every kernel once per use")
-    if not (torch.isfinite(logs["loss/InfoNCELoss"]) and torch.isfinite(logs["grad/global_norm"])):
+    if not all(bool(torch.isfinite(v)) for v in logs.values()):
         raise AssertionError("non-finite train step logs")
 
     # a fixed batch, fresh dropout seeds each step: the loss must fall
-    losses = [float(logs["loss/InfoNCELoss"])]
-    for _ in range(steps - 1):
-        state, logs = step(state, table, batch, ts.draw_dropout_seeds(seed_gen, cfg))
-        losses.append(float(logs["loss/InfoNCELoss"]))
-    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
-    log(f"  {steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the "
-        f"first 5 {first:.4f}, of the last 5 {last:.4f}")
-    if not (all(math.isfinite(v) for v in losses) and last < first):
-        raise AssertionError("the fixed-batch loss did not fall")
+    if steps:
+        losses = [float(logs[loss_key])]
+        for _ in range(steps - 1):
+            state, logs = step(state, table, batch, ts.draw_dropout_seeds(seed_gen, cfg))
+            losses.append(float(logs[loss_key]))
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log(f"  {steps} steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of "
+            f"the first 5 {first:.4f}, of the last 5 {last:.4f}")
+        if not (all(math.isfinite(v) for v in losses) and last < first):
+            raise AssertionError("the fixed-batch loss did not fall")
 
     # eager step time over fresh batches, after the warm-up above
     times = []
@@ -1039,9 +1285,9 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         times.append((time.perf_counter() - t0) * 1e3)
     ms = statistics.median(times)
     card = torch.cuda.get_device_name(0) if cuda else "cpu"
-    log(f"  train step on {card}, eager, median of {timed_steps}: {ms:.3f} ms/step, "
-        f"{batch_size / ms * 1e3:.1f} examples/s (min {min(times):.3f} ms, max "
-        f"{max(times):.3f} ms)")
+    log(f"  train step (full_logs={full_logs}) on {card}, eager, median of {timed_steps}: "
+        f"{ms:.3f} ms/step, {batch_size / ms * 1e3:.1f} examples/s (min {min(times):.3f} ms, "
+        f"max {max(times):.3f} ms)")
     if cuda:
         profile_steps(step, state, table, batch, cfg, seed_gen)
     return launches

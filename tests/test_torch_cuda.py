@@ -301,3 +301,73 @@ def test_table_infonce_kernels_match_plain(cuda, mask_fn):
             "dtable": rel_err(table.grad, dt_want)}
     print(errs)
     assert errs["ce"] <= 1e-5 and errs["dq"] <= 1e-2 and errs["dtable"] <= 1e-2, errs
+
+
+def pool_case(gen, cuda, r, rn, d):
+    """Pool InfoNCE operands as the train step gives them: f32 queries,
+    bf16 positive and pool rows; pool rows that copy a positive (the mask
+    must drop them) and a row 0 whose positive is below every pool score
+    (with the mask on it counts no negative: ce = 0)."""
+    q = torch.randn(r, d, generator=gen)
+    p = 0.3 * torch.randn(r, d, generator=gen)
+    n = 0.3 * torch.randn(rn, d, generator=gen)
+    n[::9] = p[torch.randint(0, r, (len(range(0, rn, 9)),), generator=gen)]
+    p[0] = -4.0 * q[0]
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(rn, generator=gen) > 0.1
+    return (q.to(cuda), p.to(cuda, torch.bfloat16), n.to(cuda, torch.bfloat16),
+            row_valid.to(cuda), neg_valid.to(cuda))
+
+
+# Pool InfoNCE kernels against their plain versions: the same scores bit
+# for bit (the plain version sums in the kernels' order), then exp/log
+# (ce, 1e-5 of its max abs) and dl's bf16 rounding (dq, dp, dn, 1e-2 of
+# each gradient's max abs, as the other backward kernels).
+@pytest.mark.parametrize(("r", "rn", "d"), [
+    (4096, 4096, 128),   # configs/ml1m_ssm.yaml: B=128, S=32
+    (1024, 1024, 384),   # configs/ml1m_reference.yaml: B=32, S=32
+    (1000, 777, 128),    # ragged: neither a multiple of a block
+])
+@pytest.mark.parametrize(("mask_fn", "scale"), [(True, 1.0), (False, 2.5)])
+def test_pool_infonce_kernels_match_plain(cuda, r, rn, d, mask_fn, scale):
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    gen = torch.Generator().manual_seed(r + rn + d)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    q, p, n = (a.requires_grad_() for a in (q, p, n))
+    cuda_build.reset_launches()
+    ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
+    g = row_valid.float()
+    ce.backward(g)
+    kw = dict(scale=scale, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        ce_want, lse_want, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse_want, g, **kw)
+        dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse_want, g, **kw)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.LAUNCHES[k] for k in ("pool_infonce_fwd", "pool_infonce_dq",
+                                                "pool_infonce_dn")} == \
+        {"pool_infonce_fwd": 1, "pool_infonce_dq": 1, "pool_infonce_dn": 1}
+    if mask_fn:
+        assert ce[0].item() == 0.0
+    assert (q.grad.dtype, p.grad.dtype, n.grad.dtype) == (torch.float32, torch.bfloat16,
+                                                          torch.bfloat16)
+    errs = {"ce": rel_err(ce.detach(), ce_want), "dq": rel_err(q.grad, dq_want),
+            "dp": rel_err(p.grad, dp_want), "dn": rel_err(n.grad, dn_want)}
+    print(errs)
+    assert errs["ce"] <= 1e-5, errs
+    assert max(errs["dq"], errs["dp"], errs["dn"]) <= 1e-2, errs
+
+
+def test_pool_infonce_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    gen = torch.Generator().manual_seed(9)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, 256, 300, 384)
+    q.requires_grad_()
+    cuda_build.reset_launches()
+    fi.fused_infonce_loss(q, p, n, row_valid, neg_valid).backward()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["pool_infonce_dq"] == 1
+    assert cuda_build.LAUNCHES["pool_infonce_dn"] == 0
+    assert torch.isfinite(q.grad).all()

@@ -172,6 +172,57 @@ def test_chip_smoke_training_phase_rehearsal():
     assert launches == dict.fromkeys(cuda_build.KERNELS, 0)
 
 
+@pytest.mark.parametrize(("config", "num_items", "full_logs", "steps"), [
+    # path A at a small size: the logging step over a catalog the hot
+    # step's table gate admits
+    (dict(input_dim=48, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+          intermediate_size=64, max_seq_length=8, learning_rate=1e-2), 60, True, 0),
+    # path B at a small size: no projection, a catalog of more than twice
+    # the pool, the hot step
+    (dict(hidden_size=32, num_hidden_layers=1, num_attention_heads=4, intermediate_size=8,
+          max_seq_length=8, learning_rate=1e-2), 200, False, 12),
+], ids=["logging-step", "reference-hot-step"])
+def test_chip_smoke_pool_training_rehearsal(config, num_items, full_logs, steps):
+    """chip_smoke.py's phase 7 (the step and, for the logging step, every
+    log against the CPU's plain path, the launch counts, the fixed-batch
+    loss, the step time) at a small size on the CPU."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    launches = chip_smoke.training_phase(device="cpu", config=config, num_items=num_items,
+                                         batch_size=4, steps=steps, timed_steps=1,
+                                         full_logs=full_logs)
+    assert launches == dict.fromkeys(cuda_build.KERNELS, 0)
+
+
+def test_chip_smoke_expects_each_paths_kernels():
+    """The launch counts chip_smoke.py holds each card path to."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+
+    flagship, reference = TrainConfig(**chip_smoke.TRAIN), TrainConfig(**chip_smoke.REFERENCE)
+    common = {"gather_rows": 1, "table_infonce_fwd": 0, "table_infonce_bwd": 0,
+              "pool_infonce_fwd": 1, "pool_infonce_dq": 1}
+    assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=False) == {
+        **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
+        "table_infonce_fwd": 1, "table_infonce_bwd": 1, "pool_infonce_fwd": 0,
+        "pool_infonce_dq": 0, "pool_infonce_dn": 0}
+    assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=True) == {
+        **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
+        "pool_infonce_dn": 1}
+    assert chip_smoke.expected_launches(reference, 3707, 1024, full_logs=False) == {
+        **common, "gather_rows_bwd": 0, "fused_layer": 1, "fused_layer_bwd": 1,
+        "pool_infonce_dn": 0}
+    assert set(chip_smoke.expected_launches(reference, 3707, 1024, False)) == \
+        set(cuda_build.KERNELS)
+
+
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     from transformer_recommenders_tpu_torch.configs import ModelConfig
     from transformer_recommenders_tpu_torch.models.recommender import RecommenderModel

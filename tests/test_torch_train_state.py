@@ -31,6 +31,23 @@ key as ``transformer_encode`` splits it).
   disjoint index ranges.  Loss rtol 2**-10; gradients 2**-7 of each
   leaf's max abs value in f32 (measured <= 4.7e-3) and 2**-5 in bf16
   (measured <= 1.4e-2).
+- The pool objective (a catalog of more than twice the pool's rows, or
+  the logging step): against JAX with its pool kernel in interpret mode
+  patched in beside the other kernels, the same bounds as the table path
+  (both score bf16-rounded operands with f32 sums in other orders).  With
+  the mask on, pos and neg come from disjoint index ranges: the JAX kernel
+  sums a positive's logit in another order than its pool logits, so a
+  copy of the positive in the pool can tie by one ulp there, where the
+  port drops every copy.
+- The plain objectives (hard negatives, ``use_fused_loss=False``): against
+  JAX's unpatched CPU step, which computes the same loss heads in f32;
+  loss rtol 1e-5, gradients 1e-3 of each leaf's max abs value (the XLA
+  layer stack against the fused layer's plain version, f32 sums in other
+  orders).
+- The logging step's logs: key for key against JAX's
+  ``make_train_step(full_logs=True)``; every loss head, statistic and
+  count in f32, rtol 1e-4 (atol 1e-5), a few times the encoder's f32
+  noise carried through the loss heads.
 """
 
 import dataclasses
@@ -44,10 +61,12 @@ import torch
 from transformer_recommenders_tpu.configs import TrainConfig as JaxTrainConfig
 from transformer_recommenders_tpu.models import recommender as JR
 from transformer_recommenders_tpu.models import transformer as JT
+from transformer_recommenders_tpu.ops import fused_infonce as JFI
 from transformer_recommenders_tpu.ops import fused_table_infonce as JFT
 from transformer_recommenders_tpu.ops.gather_matmul import gather_rows as jax_gather_rows
 from transformer_recommenders_tpu.training import train_state as JTS
 from transformer_recommenders_tpu_torch.configs import TrainConfig
+from transformer_recommenders_tpu_torch.models.recommender import RecommenderModel
 from transformer_recommenders_tpu_torch.models import transformer as TT
 from transformer_recommenders_tpu_torch.training import train_state as TTS
 
@@ -119,19 +138,30 @@ def force_jax_kernels(monkeypatch):
         return rows.reshape(*idx.shape, table.shape[1])
 
     monkeypatch.setattr(JR, "fast_table_lookup", lookup)
+    pool_loss = JFI.fused_infonce_loss
+    monkeypatch.setattr(JFI, "fused_infonce_loss",
+                        lambda *a, **kw: pool_loss(*a, **{**kw, "interpret": True}))
+
+
+def jax_step(jcfg, jparams, table, batch, key, full_logs=False):
+    """JAX's logs and raw gradients (under ``patch_grad_passthrough``)."""
+    step = JTS.make_train_step(jcfg, full_logs=full_logs)
+    state, logs = step(JTS.init_train_state(jcfg, jparams), jnp.asarray(table),
+                       {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    return logs, [np.asarray(a) for a in jax.tree.leaves(state.params)]
 
 
 def jax_loss_and_grads(jcfg, jparams, table, batch, key):
-    step = JTS.make_train_step(jcfg, full_logs=False)
-    state, logs = step(JTS.init_train_state(jcfg, jparams), jnp.asarray(table),
-                       {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    return float(logs["loss/InfoNCELoss"]), [np.asarray(a) for a in jax.tree.leaves(state.params)]
+    logs, grads = jax_step(jcfg, jparams, table, batch, key)
+    return float(logs[f"loss/{jcfg.train_loss}"]), grads
 
 
-def port_loss_and_grads(tcfg, jparams, table, batch, seeds):
+def port_loss_and_grads(tcfg, jparams, table, batch, seeds, full_logs=False):
     params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
-    loss, grads = TTS.make_loss_and_grad(tcfg)(params, torch.from_numpy(table), batch, seeds)
+    loss, grads, logs = TTS.make_loss_and_grad(tcfg, full_logs=full_logs)(
+        params, torch.from_numpy(table), batch, seeds)
     assert loss.dtype == torch.float32 and loss.dim() == 0
+    assert float(logs[f"loss/{tcfg.train_loss}"]) == float(loss) or full_logs
     return float(loss), [g.numpy() for g in TT.tree_leaves(grads)]
 
 
@@ -201,8 +231,9 @@ def test_train_step_applies_flat_adamw_to_the_gradients():
     params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     seeds = TTS.draw_dropout_seeds(torch.Generator().manual_seed(0), tcfg)
     state = TTS.init_train_state(tcfg, params)
-    new_state, logs = TTS.make_train_step(tcfg)(state, torch.from_numpy(table), batch, seeds)
-    loss, grads = TTS.make_loss_and_grad(tcfg)(params, torch.from_numpy(table), batch, seeds)
+    new_state, logs = TTS.make_train_step(tcfg, full_logs=False)(state, torch.from_numpy(table),
+                                                                  batch, seeds)
+    loss, grads, _ = TTS.make_loss_and_grad(tcfg)(params, torch.from_numpy(table), batch, seeds)
     want_p, want_opt, want_norm = TTS.make_flat_update(tcfg)(
         TTS.flatten(params), TTS.flatten(grads), state.opt_state)
     assert set(logs) == {"loss/InfoNCELoss", "grad/global_norm"}
@@ -234,29 +265,136 @@ def test_table_gate_matches_jax_off_the_tpu_vmem_test(monkeypatch, n_rows, pool_
         JTS._table_loss_enabled(jcfg, n_rows, pool_rows)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_items", [80, 120], ids=["project-then-gather", "gather-then-project"])
+def test_pool_objective_matches_jax_kernel_path(monkeypatch, dtype, n_items):
+    """A catalog of more than twice the pool's 32 rows takes the pool
+    objective: the pool InfoNCE over compute_embeds' gathered rows, whose
+    catalog of 81 rows is projected whole (at most 3 * B * S = 96 rows) or
+    121 rows gathered first."""
+    f32 = dtype == "float32"
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=f32)
+    jparams, table, batch = make_case(jcfg, n_items=n_items, seed=6, disjoint=True)
+    key = jax.random.key(9)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    assert not TTS._table_loss_enabled(tcfg, table.shape[0], TTS.table_pool_rows(tcfg, batch))
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5 if f32 else 2.0**-10)
+    assert_grads_close(got, want, 1e-3 if f32 else 2.0**-6)
+
+
+@pytest.mark.parametrize("n_items", [80, 120], ids=["project-then-gather", "gather-then-project"])
+def test_compute_embeds_matches_jax(monkeypatch, n_items):
+    """Both branches of compute_embeds, f32, dropout on: the gathered rows
+    within 1e-6 (one product each), the queries within 2e-5 (the fused
+    layer's f32 bound), the masks exactly."""
+    jcfg, tcfg = configs(compute_dtype="float32")
+    jparams, table, batch = make_case(jcfg, n_items=n_items, seed=7)
+    key = jax.random.key(3)
+    monkeypatch.setattr(JT, "_fused_layer_mode", lambda cfg, s: "interpret")
+    want = JR.compute_embeds(jparams, jcfg, jnp.asarray(table),
+                             *(jnp.asarray(batch[k]) for k in TTS._BATCH_KEYS), dropout_rng=key)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    got = RecommenderModel(tcfg, params=params, device="cpu")
+    got.configure_embeddings([str(i) for i in range(n_items)], table[1:])
+    got = got.compute_embeds(*(batch[k] for k in TTS._BATCH_KEYS),
+                             dropout_seeds=jax_dropout_seeds(key))
+    assert set(got) == set(want)
+    for k in ("row_valid", "neg_valid", "attention_mask", "positive_mask"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    for k, tol in (("pos_embed", 1e-6), ("neg_pool", 1e-6), ("query", 2e-5)):
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k].detach().numpy(), np.asarray(want[k]), atol=tol,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("overrides", [
-    {"train_loss": "PairwiseLogisticLoss"}, {"use_table_scored_loss": False},
-    {"num_hard_negatives": 1},
-])
-def test_pool_objective_is_not_ported_yet(overrides):
-    jcfg, tcfg = configs(**overrides)
+    {"num_hard_negatives": 3},
+    {"num_hard_negatives": 2, "train_loss": "NCELoss"},
+    {"use_fused_loss": False},
+    {"use_fused_loss": False, "train_loss": "PairwiseLogisticLoss"},
+    {"use_fused_loss": False, "train_loss": "AlignmentContrastiveLoss"},
+], ids=["hard-infonce", "hard-nce", "plain-infonce", "plain-logistic", "plain-aligncontrastive"])
+def test_plain_objectives_match_jax(monkeypatch, overrides):
+    """Where the fused loss is off the objective is the plain loss head
+    over compute_embeds' rows, as JAX's XLA pipeline computes it."""
+    jcfg, tcfg = configs(compute_dtype="float32", **overrides)
+    jparams, table, batch = make_case(jcfg, seed=8, disjoint=True)
+    key = jax.random.key(10)
+    patch_grad_passthrough(monkeypatch)
+    assert TTS._fused_objective(tcfg, {}) is None
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    assert_grads_close(got, want, 1e-3)
+
+
+def test_alignment_fused_objective_matches_jax(monkeypatch):
+    """AlignmentLoss through the fused loss has no pool term: the plain
+    cosine sum over valid rows, as the JAX ``_fused_objective`` has it."""
+    jcfg, tcfg = configs(compute_dtype="float32", train_loss="AlignmentLoss")
+    jparams, table, batch = make_case(jcfg, seed=9)
+    key = jax.random.key(11)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    assert_grads_close(got, want, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_logs_step_matches_jax(monkeypatch, dtype):
+    """The logging step on a catalog the table gate admits: both take the
+    pool objective, log every head, the logits and the batch statistics
+    under the same keys, and train on the kernel's objective while logging
+    the plain loss head."""
+    f32 = dtype == "float32"
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=f32)
+    jparams, table, batch = make_case(jcfg, seed=10, disjoint=True)
+    key = jax.random.key(12)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    want_logs, want = jax_step(jcfg, jparams, table, batch, key, full_logs=True)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    seeds = jax_dropout_seeds(key)
+    loss, grads, logs = TTS.make_loss_and_grad(tcfg, full_logs=True)(
+        params, torch.from_numpy(table), batch, seeds)
+    assert set(logs) | {"grad/global_norm"} == set(want_logs)
+    assert len(want_logs) == 7 + 7 + 9 + 7 + 1
+    rtol, atol = (1e-4, 1e-5) if f32 else (2.0**-6, 2.0**-8)
+    for k, v in logs.items():
+        assert v.dim() == 0 and v.dtype == torch.float32 and not v.requires_grad, k
+        np.testing.assert_allclose(float(v), float(want_logs[k]), rtol=rtol, atol=atol, err_msg=k)
+    assert_grads_close([g.numpy() for g in TT.tree_leaves(grads)], want, 1e-3 if f32 else 2.0**-6)
+    # the objective is the kernel's, which rounds the queries to bf16
+    # (2**-9 relative; exact under bf16 compute), the log the plain f32
+    # head's
+    np.testing.assert_allclose(float(loss), float(logs["loss/InfoNCELoss"]), rtol=2.0**-8)
+    # the step takes the logging variant by default, as in JAX
+    state = TTS.init_train_state(tcfg, params)
+    _, step_logs = TTS.make_train_step(tcfg)(state, torch.from_numpy(table), batch, seeds)
+    assert set(step_logs) == set(want_logs)
+
+
+@pytest.mark.parametrize("train_loss", ["ContrastiveLoss", "PairwiseHingeLoss",
+                                        "PairwiseLogisticLoss", "NCELoss",
+                                        "AlignmentContrastiveLoss"])
+@pytest.mark.parametrize("full_logs", [False, True])
+def test_pairwise_heads_through_the_fused_loss_are_not_ported_yet(train_loss, full_logs):
+    jcfg, tcfg = configs(train_loss=train_loss)
     jparams, table, batch = make_case(jcfg)
-    with pytest.raises(NotImplementedError, match="pool objective"):
-        port_loss_and_grads(tcfg, jparams, table, batch, None)
-    # a catalog of more than twice the pool's rows takes the pool objective too
-    jcfg, tcfg = configs()
-    jparams, table, batch = make_case(jcfg, n_items=80)
-    with pytest.raises(NotImplementedError, match="pool objective"):
-        port_loss_and_grads(tcfg, jparams, table, batch, None)
+    with pytest.raises(NotImplementedError, match="ops/fused_pairwise.py"):
+        port_loss_and_grads(tcfg, jparams, table, batch, None, full_logs=full_logs)
 
 
-def test_full_logs_and_accumulation_are_not_ported_yet():
-    _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="full_logs"):
-        TTS.make_train_step(tcfg, full_logs=True)
-    acc = tcfg.replace(accumulate_grad_batches=2)
-    with pytest.raises(NotImplementedError, match="accumulate_grad_batches"):
-        TTS.make_train_step(acc)
+def test_accumulation_is_not_ported_yet():
+    _, tcfg = configs(accumulate_grad_batches=2)
+    for full_logs in (False, True):
+        with pytest.raises(NotImplementedError, match="accumulate_grad_batches"):
+            TTS.make_train_step(tcfg, full_logs=full_logs)
 
 
 def test_dropout_seeds_from_a_generator():

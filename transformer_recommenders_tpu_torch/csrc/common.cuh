@@ -67,4 +67,37 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// --- score tiles of the InfoNCE kernels (bf16 operands, f32 sums) ---
+
+__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// rows [row0, row0 + nrows) of a (rows_total, D) bf16 matrix into f32
+// shared memory with leading dimension ld, zero past rows_total
+__device__ inline void load_rows(const __nv_bfloat16* __restrict__ src, int rows_total, int D,
+                                 int row0, int nrows, float* dst, int ld) {
+  for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
+    const int r = i / D, k = i % D;
+    dst[r * ld + k] = row0 + r < rows_total ? bf(src[(size_t)(row0 + r) * D + k]) : 0.f;
+  }
+}
+
+// four scores' chains a . b[j * bstride], each one fmaf chain over k in
+// order.  A product of two bf16 values is exact in f32, so the chain
+// rounds the same wherever it runs and whichever operand comes first.
+__device__ __forceinline__ void dot4(const float* a, const float* b, int bstride, int D,
+                                     float acc[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = 0.f;
+  for (int k = 0; k < D; ++k) {
+    const float av = a[k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] = fmaf(av, b[j * bstride + k], acc[j]);
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace xrt

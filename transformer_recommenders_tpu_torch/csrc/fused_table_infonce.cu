@@ -41,29 +41,10 @@ constexpr int kMaxD = 512;
 constexpr int kAcc = kRowTile * kMaxD / kThreads;  // outputs a thread accumulates
 static_assert(kDtCols * kMaxD / kThreads == kAcc, "both passes hold kAcc outputs a thread");
 
-__device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// rows [row0, row0 + nrows) of a (rows_total, D) bf16 matrix into f32
-// shared memory with leading dimension ld, zero past rows_total
-__device__ void load_rows(const __nv_bfloat16* __restrict__ src, int rows_total, int D, int row0,
-                          int nrows, float* dst, int ld) {
-  for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
-    const int r = i / D, k = i % D;
-    dst[r * ld + k] = row0 + r < rows_total ? bf(src[(size_t)(row0 + r) * D + k]) : 0.f;
-  }
-}
-
-// four scores' chains a . b[j * bstride], each one fmaf chain over k in order
-__device__ __forceinline__ void dot4(const float* a, const float* b, int bstride, int D,
-                                     float acc[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    const float av = a[k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = fmaf(av, b[j * bstride + k], acc[j]);
-  }
-}
+using xrt::allow_smem;
+using xrt::bf;
+using xrt::dot4;
+using xrt::load_rows;
 
 // pos of query rows [r0, r0 + kRowTile), the q rows staged in sq: the
 // same chain as dot4, on the table row read from device memory
@@ -307,11 +288,6 @@ size_t dq_smem(int D) {
 size_t dt_smem(int D) {
   return sizeof(float) * ((size_t)(kDtCols + kDtRows) * (D + 1) + kDtRows * kDtCols + kDtCols +
                           5 * kDtRows);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

@@ -4,8 +4,10 @@ Counterpart of ``transformer_recommenders_tpu/models/recommender.py``.  The
 frozen item table (a zero padding row at index 0, then one row per item)
 lives outside the parameters; :class:`RecommenderModel` holds config,
 parameters, the table and the id <-> index map on one device, and serves
-under ``torch.no_grad``.  :func:`compute_query_embeds` is the training
-forward of the table-scored objective and is differentiable.
+under ``torch.no_grad``.  The training forwards are differentiable:
+:func:`compute_embeds` (queries and the gathered candidate pool) for the
+pool objective and the logged loss heads, :func:`compute_query_embeds`
+(queries and index vectors) for the table-scored objective.
 """
 
 from __future__ import annotations
@@ -58,6 +60,86 @@ def model_forward(
     )
 
 
+def _window(cfg: ModelConfig, history_item_idx, pos_item_idx, neg_item_idx):
+    """The history cut to its LAST ``max_seq_length`` positions, and the
+    positives and negatives of those positions flattened to (B*S,)."""
+    hist_t = history_item_idx[:, -cfg.max_seq_length:]
+    b, s = hist_t.shape
+    return hist_t, pos_item_idx[:, -s:].reshape(b * s), neg_item_idx[:, -s:].reshape(b * s)
+
+
+def _projected_table(params: Params, cfg: ModelConfig, item_table: torch.Tensor) -> torch.Tensor:
+    """The whole table through the input projection, its padding row
+    zeroed (the JAX ``.at[0].set(0.0)``, as a masked write: row 0 gets no
+    gradient)."""
+    table = _dense(item_table, params["input_proj"], compute_dtype(cfg))
+    pad_row = torch.arange(table.shape[0], device=table.device)[:, None] == 0
+    return torch.where(pad_row, torch.zeros((), dtype=table.dtype, device=table.device), table)
+
+
+def _queries(cfg: ModelConfig, out: dict, pos_flat: torch.Tensor):
+    """(R, D) f32 queries, ``row_valid`` (attention-valid and the positive
+    is not padding) and ``neg_valid`` (attention-valid) of an encoder
+    output."""
+    b, s = out["attention_mask"].shape
+    query = out["token_embeddings"].reshape(b * s, -1)
+    if cfg.is_normalized:
+        query = query / torch.linalg.vector_norm(query, dim=-1, keepdim=True).clamp(min=1e-12)
+    neg_valid = out["attention_mask"].reshape(b * s)
+    return query, (pos_flat != 0) & neg_valid, neg_valid
+
+
+def compute_embeds(
+    params: Params,
+    cfg: ModelConfig,
+    item_table: torch.Tensor,
+    history_item_idx: torch.Tensor,
+    pos_item_idx: torch.Tensor,
+    neg_item_idx: torch.Tensor,
+    *,
+    dropout_seeds=None,
+) -> dict[str, torch.Tensor]:
+    """Per-position training queries and the shared candidate pool (JAX
+    ``compute_embeds``), differentiable in ``params``.
+
+    History, positive and negative rows are looked up with ONE gather of
+    3 * B * S rows.  With an input projection, a catalog of at most that
+    many rows is projected whole (its padding row zeroed) and the gather
+    reads the projected rows; a larger catalog is gathered first and only
+    the gathered rows are projected, the padding rows zeroed again by a
+    multiply (the projection's bias would make them nonzero).  Returns,
+    with R = batch * seq flattened rows: ``query`` (R, D) f32,
+    ``pos_embed`` and ``neg_pool`` (R, D) in the compute dtype,
+    ``row_valid`` and ``neg_valid`` (R,) bool, ``attention_mask`` and
+    ``positive_mask`` (B, S) bool."""
+    hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
+    b, s = hist_t.shape
+    all_idx = torch.cat([hist_t.reshape(-1), pos_flat, neg_flat])
+    projected = "input_proj" in params
+    if projected and item_table.shape[0] > all_idx.numel():
+        raw = fast_table_lookup(item_table, all_idx, compute_dtype=cfg.compute_dtype)
+        rows = _dense(raw, params["input_proj"], compute_dtype(cfg))
+        rows = rows * (all_idx != 0)[:, None].to(rows.dtype)
+    else:
+        table = _projected_table(params, cfg, item_table) if projected else item_table
+        rows = fast_table_lookup(table, all_idx, compute_dtype=cfg.compute_dtype)
+    r = b * s
+    out = model_forward(
+        params, cfg, None, item_embeds=rows[:r].reshape(b, s, -1),
+        dropout_seeds=dropout_seeds, inputs_projected=projected,
+    )
+    query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
+    return {
+        "query": query,
+        "pos_embed": rows[r:2 * r],
+        "neg_pool": rows[2 * r:],
+        "row_valid": row_valid,
+        "neg_valid": neg_valid,
+        "attention_mask": out["attention_mask"],
+        "positive_mask": row_valid.reshape(b, s),
+    }
+
+
 def compute_query_embeds(
     params: Params,
     cfg: ModelConfig,
@@ -79,35 +161,22 @@ def compute_query_embeds(
     in the compute dtype, ``pos_idx``/``neg_idx`` (R,), ``row_valid``
     (attention-valid and the positive is not padding) and ``neg_valid``
     (attention-valid)."""
-    s_max = cfg.max_seq_length
-    hist_t = history_item_idx[:, -s_max:]
+    hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
     b, s = hist_t.shape
-    pos_flat = pos_item_idx[:, -s:].reshape(b * s)
-    neg_flat = neg_item_idx[:, -s:].reshape(b * s)
-
-    table_use = item_table
     projected = "input_proj" in params
-    if projected:
-        table_use = _dense(item_table, params["input_proj"], compute_dtype(cfg))
-        # the JAX .at[0].set(0.0), as a masked write: row 0 gets no gradient
-        pad_row = torch.arange(table_use.shape[0], device=table_use.device)[:, None] == 0
-        table_use = torch.where(pad_row, torch.zeros((), dtype=table_use.dtype,
-                                                     device=table_use.device), table_use)
+    table_use = _projected_table(params, cfg, item_table) if projected else item_table
     hist_rows = fast_table_lookup(table_use, hist_t.reshape(-1), compute_dtype=cfg.compute_dtype)
     out = model_forward(
         params, cfg, None, item_embeds=hist_rows.reshape(b, s, -1),
         dropout_seeds=dropout_seeds, inputs_projected=projected,
     )
-    query = out["token_embeddings"].reshape(b * s, -1)
-    if cfg.is_normalized:
-        query = query / torch.linalg.vector_norm(query, dim=-1, keepdim=True).clamp(min=1e-12)
-    neg_valid = out["attention_mask"].reshape(b * s)
+    query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
     return {
         "query": query,
         "table": table_use,
         "pos_idx": pos_flat,
         "neg_idx": neg_flat,
-        "row_valid": (pos_flat != 0) & neg_valid,
+        "row_valid": row_valid,
         "neg_valid": neg_valid,
     }
 
@@ -212,6 +281,20 @@ class RecommenderModel:
         arr = np.zeros((1, self.max_seq_length), np.int64)
         arr[0, : len(idx)] = idx
         return self(arr)["sentence_embedding"][0]
+
+    def compute_embeds(self, history_item_idx, pos_item_idx, neg_item_idx, *,
+                       dropout_seeds=None) -> dict[str, torch.Tensor]:
+        """:func:`compute_embeds` of (B, S) index batches (numpy or
+        tensors) on the model's table; differentiable in ``params``."""
+        if self.item_table is None:
+            msg = "call configure_embeddings first"
+            raise RuntimeError(msg)
+        return compute_embeds(
+            self.params, self.config, self.item_table,
+            *(self._tensor(a, torch.int64) for a in (history_item_idx, pos_item_idx,
+                                                     neg_item_idx)),
+            dropout_seeds=dropout_seeds,
+        )
 
     # -- persistence: config.json + params.npz (leaves p0..pN in sorted-key
     # order, the JAX package's format, so either package loads the other's)

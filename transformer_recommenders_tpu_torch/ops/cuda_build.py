@@ -82,6 +82,20 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             "table_infonce_bwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
         },
     ),
+    "fused_infonce": (
+        "fused_infonce.cu",
+        {
+            # q, p, n (bf16), nv (f32), ce, lse, pos, R, Rn, D, scale,
+            # mask_false_negatives, stream
+            "pool_infonce_fwd": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+            # q, p, n, nv, lse, g, pos, dq, dp (f32), R, Rn, D, scale,
+            # mask_false_negatives, stream
+            "pool_infonce_dq": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+            # q, n, nv, lse, g, pos, dn (f32), R, Rn, D, scale,
+            # mask_false_negatives, stream
+            "pool_infonce_dn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+        },
+    ),
 }
 
 # the kernels a wrapper counts, by name: a C entry point that launches
@@ -90,6 +104,7 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
 KERNELS = (
     "gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
     "table_infonce_fwd", "table_infonce_bwd",
+    "pool_infonce_fwd", "pool_infonce_dq", "pool_infonce_dn",
 )
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

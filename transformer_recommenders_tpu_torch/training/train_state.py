@@ -1,19 +1,27 @@
-"""Train state and the hot train step (JAX ``training/train_state.py``).
+"""Train state and train steps (JAX ``training/train_state.py``).
 
-The ported step is the JAX ``make_train_step(config, full_logs=False)`` on
-its table-scored path: the encoder over the history rows of a projected
-catalog, then the count-weighted catalog InfoNCE
-(``ops/fused_table_infonce.py``), then AdamW over one flat f32 buffer.  On
-the card it runs through the CUDA kernels of the gather, the fused layer
-and the table InfoNCE, forward and backward; on the CPU through their
-plain versions.  The frozen item table is a step argument, never part of
-the state.
+``make_train_step(config, full_logs=...)`` gives the JAX step's two
+variants.  The hot step (``full_logs=False``) differentiates only the
+training objective: the count-weighted catalog InfoNCE
+(``ops/fused_table_infonce.py``) over :func:`compute_query_embeds` when
+the table-scored gate is on, else the pool objective over
+:func:`compute_embeds` (the gathered positives and negatives): the pool
+InfoNCE kernels (``ops/fused_infonce.py``) for InfoNCE, the plain cosine
+sum for AlignmentLoss, and the plain loss heads (``ops/losses.py``) when
+the fused loss is off (``use_fused_loss=False`` or hard negatives).  The
+logging step (``full_logs=True``, the default, as in JAX) takes the pool
+objective whatever the gate and adds every loss head, the logits
+statistics and the batch statistics to its logs, computed on detached
+embeddings.  AdamW runs over one flat f32 buffer.  On the card every
+kernel of the path runs as CUDA, forward and backward; on the CPU their
+plain versions run.  The frozen item table is a step argument, never part
+of the state.
 
-Not ported yet, and refused with ``NotImplementedError``: ``full_logs=True``
-(every loss head and the batch statistics: ``ops/losses.py`` and the pool
-kernels), the pool objective taken when the table-scored gate is off
-(large catalogs, other losses, hard negatives), and gradient accumulation
-(``accumulate_grad_batches > 1``).
+Not ported yet, and refused with ``NotImplementedError``: the fused
+pairwise objectives (ContrastiveLoss, the hinge and logistic pairwise
+losses, NCELoss and the pool term of AlignmentContrastiveLoss through the
+JAX package's ``ops/fused_pairwise.py`` kernels), and gradient
+accumulation (``accumulate_grad_batches > 1``).
 """
 
 from __future__ import annotations
@@ -23,8 +31,13 @@ from typing import Any, NamedTuple
 import torch
 
 from transformer_recommenders_tpu_torch.configs import TrainConfig
-from transformer_recommenders_tpu_torch.models.recommender import compute_query_embeds
+from transformer_recommenders_tpu_torch.models.recommender import (
+    compute_embeds,
+    compute_query_embeds,
+)
 from transformer_recommenders_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+from transformer_recommenders_tpu_torch.ops import losses as loss_lib
+from transformer_recommenders_tpu_torch.ops.fused_infonce import fused_infonce_loss
 from transformer_recommenders_tpu_torch.ops.fused_table_infonce import fused_table_infonce_loss
 
 _BATCH_KEYS = ("history_item_idx", "pos_item_idx", "neg_item_idx")
@@ -102,19 +115,80 @@ def table_pool_rows(config: TrainConfig, batch: dict) -> int:
     return b * min(h, config.max_seq_length)
 
 
+def _fused_loss_enabled(config: TrainConfig) -> bool:
+    """The JAX gate of the fused losses, restated for the card: the fused
+    loss is configured and no hard negatives are mined (the kernels do not
+    mine them).  The JAX package also turns it off on its CPU backend,
+    where Pallas would run interpreted; here the CPU and the card take one
+    path, the CPU through the kernels' plain versions."""
+    return config.use_fused_loss and config.num_hard_negatives == 0
+
+
 def _table_loss_enabled(config: TrainConfig, n_table_rows: int, pool_rows: int) -> bool:
     """The JAX gate of the table-scored InfoNCE, restated for the card: the
-    configured objective is InfoNCE through the fused, table-scored loss
-    without hard negatives, and the catalog is at most twice the pool.  The
-    TPU's 13 MB VMEM test does not apply.  The same gate holds on the CPU,
-    so both devices take one path."""
+    fused loss is on, the configured objective is InfoNCE through the
+    table-scored loss, and the catalog is at most twice the pool.  The
+    TPU's 13 MB VMEM test does not apply."""
     return (
-        config.use_fused_loss
+        _fused_loss_enabled(config)
         and config.use_table_scored_loss
         and config.train_loss == "InfoNCELoss"
-        and config.num_hard_negatives == 0
         and n_table_rows <= 2 * pool_rows
     )
+
+
+def _fused_objective(config: TrainConfig, embeds: dict) -> torch.Tensor | None:
+    """The fused objective of the configured train loss over
+    :func:`compute_embeds` output, or None where the fused loss is off."""
+    if not _fused_loss_enabled(config):
+        return None
+    name = config.train_loss
+    if name == "InfoNCELoss":
+        return fused_infonce_loss(
+            embeds["query"], embeds["pos_embed"], embeds["neg_pool"], embeds["row_valid"],
+            embeds["neg_valid"], scale=config.scale,
+            mask_false_negatives=config.mask_false_negatives,
+        )
+    if name == "AlignmentLoss":  # no pool term: the cosine of each valid row's pair
+        q, p = (loss_lib._l2_normalize(embeds[k]) for k in ("query", "pos_embed"))
+        pos_logit = (q.float() * p.float()).sum(dim=-1)
+        return ((1.0 - pos_logit) * embeds["row_valid"].float()).sum()
+    msg = (f"the fused {name} objective (the pairwise Pallas kernels of the JAX package's "
+           "ops/fused_pairwise.py: _fwd_kernel, _bwd_dq_kernel, _bwd_dn_kernel) is not ported "
+           "yet; use_fused_loss=False trains it through the plain loss heads")
+    raise NotImplementedError(msg)
+
+
+def _loss_args(embeds: dict) -> tuple:
+    return tuple(embeds[k] for k in ("query", "pos_embed", "neg_pool", "row_valid", "neg_valid"))
+
+
+def _full_logs(config: TrainConfig, embeds: dict) -> dict[str, torch.Tensor]:
+    """Every loss head (``loss/{name}`` and ``loss/{name}Mean``, the sum
+    over the positive count), the logits statistics and the batch
+    statistics, with the JAX step's keys."""
+    all_losses = loss_lib.compute_losses(config, *_loss_args(embeds))
+    attn = embeds["attention_mask"]
+    numel = attn.numel()
+    attn_nz = attn.float().sum()
+    pos_nz = embeds["positive_mask"].float().sum()
+
+    def full(v: float) -> torch.Tensor:
+        return torch.full((), float(v), dtype=torch.float32, device=attn.device)
+
+    logs = {f"loss/{k}": v for k, v in all_losses.items()}
+    logs |= {f"loss/{k}Mean": v / (pos_nz + 1e-9) for k, v in all_losses.items()}
+    logs |= loss_lib.logits_statistics(config, *_loss_args(embeds))
+    logs |= {
+        "batch/size": full(attn.shape[0]),
+        "batch/seq_len": full(attn.shape[1]),
+        "batch/numel": full(numel),
+        "batch/attention_non_zero": attn_nz,
+        "batch/attention_density": attn_nz / full(numel + 1e-9),
+        "batch/positive_non_zero": pos_nz,
+        "batch/positive_density": pos_nz / (attn_nz + 1e-9),
+    }
+    return logs
 
 
 def draw_dropout_seeds(generator: torch.Generator, config: TrainConfig) -> list[int]:
@@ -129,66 +203,83 @@ def _batch_on(batch: dict, device) -> dict:
     return {k: torch.as_tensor(batch[k]).to(device=device, dtype=torch.int64) for k in _BATCH_KEYS}
 
 
-def make_loss_and_grad(config: TrainConfig):
-    """``fn(params, item_table, batch, dropout_seeds) -> (loss, grads)``:
-    the step's objective (the InfoNCE sum over valid rows) and its
-    gradient, a tree shaped as ``params``.  Raises ``NotImplementedError``
-    where the table-scored gate is off: the pool objective is not ported."""
-
-    def loss_and_grad(params, item_table: torch.Tensor, batch: dict, dropout_seeds=None):
-        batch = _batch_on(batch, item_table.device)
-        if not _table_loss_enabled(config, item_table.shape[0], table_pool_rows(config, batch)):
-            msg = (
-                "the pool objective (ops/losses.py and the pool InfoNCE/pairwise kernels "
-                "of the JAX package) is not ported yet: this configuration and batch fail the "
-                f"table-scored gate (train_loss={config.train_loss!r}, "
-                f"use_fused_loss={config.use_fused_loss}, use_table_scored_loss="
-                f"{config.use_table_scored_loss}, num_hard_negatives="
-                f"{config.num_hard_negatives}, {item_table.shape[0]} table rows against a "
-                f"pool of {table_pool_rows(config, batch)})"
-            )
-            raise NotImplementedError(msg)
-        leaves = [leaf.detach().requires_grad_() for leaf in tree_leaves(params)]
+def _objective_and_logs(config: TrainConfig, full_logs: bool, params, item_table, batch,
+                        dropout_seeds):
+    """The JAX step's ``loss_fn``: the objective to differentiate and the
+    step's loss logs (detached)."""
+    name = config.train_loss
+    if not full_logs and _table_loss_enabled(config, item_table.shape[0],
+                                             table_pool_rows(config, batch)):
         qe = compute_query_embeds(
-            tree_unflatten(params, leaves), config, item_table, batch["history_item_idx"],
-            batch["pos_item_idx"], batch["neg_item_idx"], dropout_seeds=dropout_seeds,
+            params, config, item_table, batch["history_item_idx"], batch["pos_item_idx"],
+            batch["neg_item_idx"], dropout_seeds=dropout_seeds,
         )
-        loss = fused_table_infonce_loss(
+        objective = fused_table_infonce_loss(
             qe["query"], qe["table"], qe["pos_idx"], qe["neg_idx"], qe["row_valid"],
             qe["neg_valid"], scale=config.scale,
             mask_false_negatives=config.mask_false_negatives,
         )
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return objective, {f"loss/{name}": objective.detach()}
+    embeds = compute_embeds(
+        params, config, item_table, batch["history_item_idx"], batch["pos_item_idx"],
+        batch["neg_item_idx"], dropout_seeds=dropout_seeds,
+    )
+    objective = _fused_objective(config, embeds)
+    if objective is None:
+        objective = loss_lib.compute_losses(config, *_loss_args(embeds), loss_names=(name,))[name]
+    if not full_logs:
+        return objective, {f"loss/{name}": objective.detach()}
+    # the logs are the JAX step's aux: computed alongside, never differentiated
+    with torch.no_grad():
+        logs = _full_logs(config, {k: v.detach() for k, v in embeds.items()})
+    return objective, logs
+
+
+def make_loss_and_grad(config: TrainConfig, *, full_logs: bool = False):
+    """``fn(params, item_table, batch, dropout_seeds) -> (loss, grads,
+    logs)``: the step's objective (a sum over valid rows), its gradient (a
+    tree shaped as ``params``) and the step's loss logs, without the
+    update.  ``full_logs`` picks the step variant as
+    :func:`make_train_step` does.  Under InfoNCE the logging step logs
+    ``loss/InfoNCELoss`` from the plain f32 loss head and trains on the
+    kernel's objective, which scores bf16-rounded operands, as the JAX
+    step does."""
+
+    def loss_and_grad(params, item_table: torch.Tensor, batch: dict, dropout_seeds=None):
+        batch = _batch_on(batch, item_table.device)
+        leaves = [leaf.detach().requires_grad_() for leaf in tree_leaves(params)]
+        objective, logs = _objective_and_logs(config, full_logs, tree_unflatten(params, leaves),
+                                              item_table, batch, dropout_seeds)
+        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
         grads = [torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        return objective.detach(), tree_unflatten(params, grads), logs
 
     return loss_and_grad
 
 
-def make_train_step(config: TrainConfig, *, full_logs: bool = False):
+def make_train_step(config: TrainConfig, *, full_logs: bool = True):
     """``step(state, item_table, batch, dropout_seeds) -> (state, logs)``.
 
     ``batch`` holds (B, S) integer ``history_item_idx``, ``pos_item_idx``
     and ``neg_item_idx`` (numpy or tensors); ``dropout_seeds`` the
     ``1 + 3 * num_hidden_layers`` seeds of :func:`draw_dropout_seeds`, or
-    ``None`` for no dropout.  ``logs`` holds ``loss/{train_loss}`` and
-    ``grad/global_norm`` (before clipping), as 0-dim tensors on the
-    table's device."""
-    if full_logs:
-        msg = ("full_logs=True (every loss head and the batch statistics: ops/losses.py and "
-               "the pool kernels) is not ported yet; use full_logs=False")
-        raise NotImplementedError(msg)
+    ``None`` for no dropout.  ``full_logs=False`` is the hot step, whose
+    logs hold ``loss/{train_loss}``; the default logging step logs every
+    loss head (``loss/{name}``, ``loss/{name}Mean``), the 9 ``logits/...``
+    and the 7 ``batch/...`` statistics.  Both add ``grad/global_norm``
+    (before clipping).  The logs are 0-dim tensors on the table's
+    device."""
     if config.accumulate_grad_batches > 1:
         msg = ("accumulate_grad_batches > 1 (the JAX package's optax.MultiSteps) is not "
                "ported yet")
         raise NotImplementedError(msg)
-    loss_and_grad = make_loss_and_grad(config)
+    loss_and_grad = make_loss_and_grad(config, full_logs=full_logs)
     update = make_flat_update(config)
 
     def train_step(state: TrainState, item_table: torch.Tensor, batch: dict, dropout_seeds=None):
-        loss, grads = loss_and_grad(state.params, item_table, batch, dropout_seeds)
+        _, grads, logs = loss_and_grad(state.params, item_table, batch, dropout_seeds)
         new_p, opt_state, gnorm = update(flatten(state.params), flatten(grads), state.opt_state)
-        logs = {f"loss/{config.train_loss}": loss, "grad/global_norm": gnorm}
+        logs["grad/global_norm"] = gnorm
         return TrainState(unflatten(state.params, new_p), opt_state, state.step + 1), logs
 
     return train_step
