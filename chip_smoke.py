@@ -42,7 +42,20 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    every loss head, the logits and batch statistics, the pool kernels),
    its logs held key for key against the CPU's; path B, the
    reference-equivalent hot step (configs/ml1m_reference.yaml: d=384, one
-   layer, batch 32, whose 3,707-row catalog is more than twice its pool).
+   layer, batch 32, whose 3,707-row catalog is more than twice its pool);
+8. the pairwise kernels (forward, dq/dp, dn) against their plain versions
+   for the four heads at path C's shape (R = Rn = 4,096, D = 64), the
+   flagship's width and a ragged one, the mask on and off, margins 0 and
+   0.5, then their times beside a composite of stock calls (a bf16
+   matmul, a masked softplus mean, autograd for the backward) and a bound
+   that also counts the special functions (exp, log, reciprocal);
+9. training through the pairwise objectives, as phase 5: path C,
+   configs/ml100k_bpr.yaml's hot step (PairwiseLogisticLoss at margin 0,
+   d=64, batch 128, over a synthetic catalog of ML-100K's 1,682 items),
+   and its logging step; one step each of ContrastiveLoss, NCELoss and
+   AlignmentContrastiveLoss at its widths; then two flagship steps with
+   ``accumulate_grad_batches=2``, held against the card's own flat update
+   of the mean gradient.
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -443,6 +456,8 @@ def check_fused_layer_bwd() -> dict:
         cases.append(dict(b=4, s=48, d=128, h=8, f=512, dtype=dtype))
         cases.append(dict(b=3, s=64, d=128, h=8, f=512, dtype=dtype, dropout=0.1))
         cases.append(dict(b=4, s=32, d=384, h=12, f=48, dtype=dtype, dropout=0.1))
+        # ml100k_bpr.yaml, path C's train batch: d=64, 4 heads of 16, FFN 256
+        cases.append(dict(b=128, s=32, d=64, h=4, f=256, dtype=dtype, dropout=0.1))
     max_err = 0.0
     for c in cases:
         dtype_name = str(c["dtype"]).removeprefix("torch.")
@@ -471,8 +486,27 @@ def check_fused_layer_bwd() -> dict:
         if c["dtype"] == torch.bfloat16 and c["b"] == 128:
             max_err = max(max_err, max(e[0] for e in errs.values()))
     check_backward_traps(gen)
-    # times at the train shape: B=128 sequences, bf16, dropout 0.1
-    b, s, d, h, f = 128, 32, 128, 8, 512
+    # times at the train shapes: B=128 sequences, bf16, dropout 0.1, of the
+    # flagship and of path C (ml100k_bpr)
+    times = {"flagship": time_layer_bwd(gen, seeds, b=128, s=32, d=128, h=8, f=512),
+             "C": time_layer_bwd(gen, seeds, b=128, s=32, d=64, h=4, f=256)}
+    return {
+        "name": "fused_layer_bwd", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
+        "replaces": "transformer_recommenders_tpu/ops/fused_layer.py:566",
+        "shape": "B=128 S=32 D=128 H=8 F=512 bf16 dropout 0.1",
+        "max_abs_err": max_err, **times["flagship"], "by_shape": times,
+    }
+
+
+def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
+    """Device times of the layer backward kernel, its plain version and
+    the stock layer's autograd at one bf16 train shape, dropout 0.1, and
+    the bound from the shape."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
     x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
                                          dropout=0.1, seeds=seeds)
     flat = [params[m][n] for m, n in fl._PARAM_ORDER]
@@ -490,17 +524,11 @@ def check_fused_layer_bwd() -> dict:
     nparams = 4 * d * d + 2 * d * f + 9 * d + f
     nbytes = 3 * b * s * d * 2 + 4 * b * s + 2 * 4 * nparams
     bound_ms, bound_by = bound(flops, nbytes, H100_BF16_FLOPS)
-    log(f"  fused_layer_bwd B={b} S={s} D={d} bf16 dropout 0.1, device time: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, stock layer forward + autograd backward {library_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
-    return {
-        "name": "fused_layer_bwd", "route": "cuda",
-        "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
-        "replaces": "transformer_recommenders_tpu/ops/fused_layer.py:566",
-        "shape": "B=128 S=32 D=128 H=8 F=512 bf16 dropout 0.1",
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }
+    log(f"  fused_layer_bwd B={b} S={s} D={d} H={h} F={f} bf16 dropout 0.1, device time: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer forward + autograd backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_gather_bwd() -> dict:
@@ -815,6 +843,215 @@ def time_pool_infonce(gen, r: int, rn: int, d: int) -> dict:
     return out
 
 
+# -- phases 8 and 9: the pairwise heads -------------------------------------------
+
+
+PAIRWISE_SHAPES = {  # (R, Rn, D)
+    "C": (4096, 4096, 64),  # ml100k_bpr's hot step: B=128, S=32, d=64
+    "D128": (4096, 4096, 128),  # the flagship's width
+    "ragged": (1000, 777, 64),
+}
+SMOOTH_HEADS = ("PairwiseLogisticLoss", "NCELoss")  # softplus: exp and log a score
+
+
+def composite_pairwise(q, p, n, neg_valid, head: str, margin: float, mask_fn: bool):
+    """The yardstick: per-row weighted mean from stock calls, a bf16
+    ``q @ n.T``, the head's ``F.softplus`` or ``F.relu`` and a masked mean
+    over the pool (a composite of library calls, differentiable by
+    autograd)."""
+    import torch
+    import torch.nn.functional as F
+
+    qb, pb, nb = (t.to(torch.bfloat16) for t in (q, p, n))
+    x = (qb @ nb.T).float()
+    pos = (qb.float() * pb.float()).sum(dim=1)
+    valid = (neg_valid[None, :] > 0).expand_as(x)
+    if mask_fn:
+        valid = valid & (x < pos[:, None])
+    if head == "ContrastiveLoss":
+        s = x - 1.0 + margin
+    elif head == "NCELoss":
+        s = x
+    else:
+        s = x - pos[:, None] * (1.0 - margin)
+    f = F.softplus(s) if head in SMOOTH_HEADS else F.relu(s)
+    w = valid.float()
+    return (f * w).sum(dim=1) / (w.sum(dim=1) + 1e-9)
+
+
+def special_function_rate() -> tuple[float, str]:
+    """Special-function results per second of the card: 16 per SM per
+    clock (the CUDA C++ Programming Guide's arithmetic-instruction
+    throughput table, compute capability 9.0: exp2, log2, reciprocal), on
+    every SM at the card's maximum SM clock as ``nvidia-smi`` reads it."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6, f"16/SM/clock x {sms} SMs x {mhz:.0f} MHz"
+
+
+def bound3(flops: float, nbytes: float, sfu: float, sfu_rate: float) -> tuple[float, str, str]:
+    """As :func:`bound`, with a third term: ``sfu`` special-function
+    results at ``sfu_rate``.  Returns the least time (ms), ``bytes`` or
+    ``operations``, and which operations: the products or the special
+    functions."""
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "products": flops / H100_BF16_FLOPS * 1e3,
+             "special functions": sfu / sfu_rate * 1e3}
+    kind = max(terms, key=terms.get)
+    return terms[kind], "bytes" if kind == "bytes" else "operations", kind
+
+
+def check_pairwise() -> list[dict]:
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(8)
+    # of the max abs value: the same scores bit for bit (the plain version
+    # sums in the kernels' order), then relu or softplus and a weighted
+    # mean for out, dl's bf16 rounding for the gradients (the bounds of
+    # tests/test_torch_cuda.py).  A gradient that is zero in the plain
+    # version (dp of the heads without pos in the score, everything of the
+    # hinge at margin 0 with the mask on) must be zero in the kernel.
+    tol = {"out": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
+    max_err = {}
+    for shape, (r, rn, d) in PAIRWISE_SHAPES.items():
+        for head in fp.HEADS:
+            for mask_fn, margin in ((True, 0.0), (False, 0.0), (True, 0.5), (False, 0.5)):
+                q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+                q, p, n = (t.requires_grad_() for t in (q, p, n))
+                g = row_valid.float()
+                kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+                out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, **kw)
+                out.backward(g)
+                out = out.detach()
+                with torch.no_grad():
+                    out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
+                    dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g,
+                                                                      **kw)
+                    dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+                torch.cuda.synchronize()
+                name = f"pairwise {head} R={r} Rn={rn} D={d} mask={mask_fn} margin={margin}"
+                if mask_fn and out[0].item() != 0.0:
+                    raise AssertionError(f"{name}: a row with every negative masked must give 0")
+                parts = []
+                for key, got, want in (("out", out, out_want), ("dq", q.grad, dq_want),
+                                       ("dp", p.grad, dp_want), ("dn", n.grad, dn_want)):
+                    err = float((got.float() - want.float()).abs().max())
+                    scale = float(want.float().abs().max())
+                    rel = err / scale if scale else err
+                    ok = bool(torch.isfinite(got.float()).all()) and (
+                        rel <= tol[key] if scale else err == 0.0)
+                    if not ok:
+                        log(f"  {name} {key}: max_abs_err={err:.3g} of max abs {scale:.3g}, "
+                            f"tol {tol[key]} (0 where the plain version is 0) FAIL")
+                        raise AssertionError(f"{name} {key} disagrees with its plain version")
+                    parts.append(f"{key} {err:.3g}" + (f" ({rel:.3g} of max abs)" if scale
+                                                       else " (all 0)"))
+                    if shape != "ragged":
+                        max_err[key] = max(max_err.get(key, 0.0), err)
+                log(f"  {name}: max_abs_err " + ", ".join(parts) + " ok")
+    log("  tol: out 1e-5, dq dp dn 1e-2 of the plain version's max abs; exactly 0 where it is 0")
+    sfu_rate, sfu_src = special_function_rate()
+    log(f"  special-function rate {sfu_rate:.4g}/s ({sfu_src})")
+    c = time_pairwise(gen, *PAIRWISE_SHAPES["C"], sfu_rate, fp.HEADS)
+    d128 = time_pairwise(gen, *PAIRWISE_SHAPES["D128"], sfu_rate, ("PairwiseLogisticLoss",))
+    common = {"route": "cuda",
+              "source": "transformer_recommenders_tpu_torch/csrc/fused_pairwise.cu"}
+    rows = []
+    for name, replaces, keys in (
+        ("pairwise_fwd", "transformer_recommenders_tpu/ops/fused_pairwise.py:66", ("out",)),
+        ("pairwise_dq", "transformer_recommenders_tpu/ops/fused_pairwise.py:93", ("dq", "dp")),
+        ("pairwise_dn", "transformer_recommenders_tpu/ops/fused_pairwise.py:127", ("dn",)),
+    ):
+        t = c[name]["PairwiseLogisticLoss"]
+        rows.append({
+            "name": name, **common, "replaces": replaces,
+            "shape": "R=Rn=4096 D=64 bf16 (path C), PairwiseLogisticLoss, margin 0, mask on",
+            "max_abs_err": max(max_err[k] for k in keys), **t,
+            "by_head": {h: c[name][h]["ms"] for h in fp.HEADS},
+            "by_shape": {"D128": d128[name]["PairwiseLogisticLoss"]},
+        })
+    return rows
+
+
+def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads) -> dict:
+    """Device times of the three pairwise kernels for each of ``heads`` at
+    one shape, mask on, margin 0 (path C's), and the bounds from the shape
+    and this run's counted scores; for PairwiseLogisticLoss also its plain
+    version and the composite yardstick."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+    g = row_valid.float()
+    out = {"pairwise_fwd": {}, "pairwise_dq": {}, "pairwise_dn": {}}
+    # bytes: each input read once (q, p, n as the kernels take them, bf16),
+    # each output written once; products: the scores (2 R Rn D), and for
+    # each backward kernel one more product of the same size; special
+    # functions: two per counted score for the smooth heads
+    vec = 4 * r
+    ins = 2 * d * (2 * r + rn) + 4 * rn
+    work = {"pairwise_fwd": (2 * r * rn * d + 2 * r * d, ins + 3 * vec),
+            "pairwise_dq": (4 * r * rn * d + 2 * r * d, ins + 3 * vec + 2 * 4 * r * d),
+            "pairwise_dn": (4 * r * rn * d, ins - 2 * d * r + 3 * vec + 4 * rn * d)}
+    for head in heads:
+        args = (head, 0.0, True)
+        _, den, pos = fp._fwd_cuda(q, p, n, neg_valid, *args)
+        counted = float(den.sum())
+        times = {
+            "pairwise_fwd": time_ms(lambda: fp._fwd_cuda(q, p, n, neg_valid, *args)),
+            "pairwise_dq": time_ms(lambda: fp._dq_cuda(q, p, n, neg_valid, den, g, pos, *args)),
+            "pairwise_dn": time_ms(lambda: fp._dn_cuda(q, p, n, neg_valid, den, g, pos, *args)),
+        }
+        for name, (flops, nbytes) in work.items():
+            sfu = 2 * counted if head in SMOOTH_HEADS else 0.0
+            bound_ms, bound_by, kind = bound3(flops, nbytes, sfu, sfu_rate)
+            out[name][head] = {"ms": times[name], "bound_ms": bound_ms, "bound_by": bound_by,
+                               "bound_kind": kind, "gflop": flops / 1e9,
+                               "special_functions": sfu}
+        if head == "PairwiseLogisticLoss":
+            kw = dict(head=head, margin=0.0, mask_false_negatives=True)
+            with torch.no_grad():
+                plain = {
+                    "pairwise_fwd": time_ms(
+                        lambda: fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)),
+                    "pairwise_dq": time_ms(
+                        lambda: fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)),
+                    "pairwise_dn": time_ms(
+                        lambda: fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)),
+                }
+                library = {"pairwise_fwd": time_ms(
+                    lambda: composite_pairwise(q, p, n, neg_valid, *args))}
+            qr, pr, nr = (t.clone().requires_grad_() for t in (q, p, n))
+
+            def composite_grad(wrt):
+                return torch.autograd.grad(
+                    (composite_pairwise(qr, pr, nr, neg_valid, *args) * g).sum(), wrt)
+
+            library["pairwise_dq"] = time_ms(lambda: composite_grad([qr, pr]))
+            library["pairwise_dn"] = time_ms(lambda: composite_grad([nr]))
+            for name in out:
+                out[name][head] |= {"plain_ms": plain[name], "library_ms": library[name]}
+        for name in out:
+            t = out[name][head]
+            extra = (f", plain {t['plain_ms']:.4f} ms, composite (bf16 matmul + masked softplus "
+                     f"mean{'' if name == 'pairwise_fwd' else ', forward + autograd backward'}) "
+                     f"{t['library_ms']:.4f} ms" if "plain_ms" in t else "")
+            log(f"  {name} {head} R={r} Rn={rn} D={d} bf16 mask on margin 0 ({counted:.0f} "
+                f"counted scores), device time: kernel {t['ms']:.4f} ms{extra}, bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_kind']}: {t['gflop']:.2f} GFLOP, "
+                f"{t['special_functions'] / 1e6:.1f} M special functions)")
+    return out
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -863,13 +1100,33 @@ def main() -> int:
     log(" path B: the reference-equivalent hot step (configs/ml1m_reference.yaml)")
     launches["reference_B"] = training_phase(config=REFERENCE, batch_size=REFERENCE_BATCH)
 
+    log("phase 8: the pairwise kernels against their plain versions")
+    kernels += check_pairwise()
+
+    log("phase 9: training through the pairwise objectives")
+    log(" path C: ml100k_bpr's hot step (configs/ml100k_bpr.yaml)")
+    launches["ml100k_C"] = training_phase(config=ML100K, num_items=ML100K_ITEMS)
+    log(" path C's logging step (full_logs=True)")
+    launches["ml100k_logging"] = training_phase(config=ML100K, num_items=ML100K_ITEMS,
+                                                full_logs=True, steps=0, timed_steps=10)
+    for name in ("ContrastiveLoss", "NCELoss", "AlignmentContrastiveLoss"):
+        # margin 1: the cosines of a random-weight model are small, and at
+        # ml25m_ccl.yaml's 0.5 almost no pool row would count
+        log(f" {name} at ml100k_bpr's widths, margin 1, batch 32")
+        training_phase(config={**ML100K, "train_loss": name, "margin": 1.0},
+                       num_items=ML100K_ITEMS, batch_size=32, steps=0, timed_steps=0)
+    log(" gradient accumulation: the flagship's hot step, accumulate_grad_batches=2")
+    accumulation_phase()
+
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
         # forward kernels on serving, the backward and table kernels on the
-        # flagship's hot step, the pool kernels on its logging step (every
-        # training path launches the forward kernels too)
+        # flagship's hot step, the pool kernels on its logging step, the
+        # pairwise kernels on path C (every training path launches the
+        # forward kernels too)
         path = ("serving" if k["name"] in ("fused_layer", "gather_rows") else
-                "logging_A" if k["name"].startswith("pool_") else "training")
+                "logging_A" if k["name"].startswith("pool_") else
+                "ml100k_C" if k["name"].startswith("pairwise_") else "training")
         k["launches"] = launches[path][k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
     log(smi)
@@ -1114,28 +1371,42 @@ REFERENCE = dict(  # configs/ml1m_reference.yaml (model section; data.batch_size
     learning_rate=0.001, max_epochs=16, hidden_dropout=0.1, attention_dropout=0.1,
 )
 REFERENCE_BATCH = 32
+ML100K = dict(  # configs/ml100k_bpr.yaml (model section; data.batch_size 128,
+    # embedding_dim 384): BPR, PairwiseLogisticLoss at margin 0
+    input_dim=384, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+    intermediate_size=256, max_seq_length=32, compute_dtype="bfloat16", pooling_mode="mean",
+    train_loss="PairwiseLogisticLoss", margin=0.0, learning_rate=0.001, max_epochs=16,
+    hidden_dropout=0.1, attention_dropout=0.1,
+)
+ML100K_ITEMS = 1682  # MovieLens-100K's published catalog (943 users)
 
 
 def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> dict:
-    """Launches of one InfoNCE train step on the card, by kernel: the
-    table-scored objective where the hot step's gate admits it, else the
-    pool kernels; the gather's and the pool's backward only where the
-    gathered rows take a gradient, i.e. when they are rows of the
-    projected table (a catalog of at most 3 * B * S rows is projected
-    before the gather; a frozen, unprojected table takes none)."""
+    """Launches of one train step on the card under InfoNCE or a pairwise
+    head, by kernel: the table-scored InfoNCE where the hot step's gate
+    admits it, else the pool objective's kernels of the configured loss
+    (the pool InfoNCE or the pairwise ones); the gather's and the pool's
+    backward only where the gathered rows take a gradient, i.e. when they
+    are rows of the projected table (a catalog of at most 3 * B * S rows
+    is projected before the gather; a frozen, unprojected table takes
+    none)."""
     from transformer_recommenders_tpu_torch.training import train_state as ts
 
     table_path = not full_logs and ts._table_loss_enabled(cfg, table_rows, pool_rows)
     proj = cfg.resolved_input_dim != cfg.hidden_size
     layers = cfg.num_hidden_layers
-    return {
+    pool = "pool_infonce" if cfg.train_loss == "InfoNCELoss" else "pairwise"
+    counts = {
         "gather_rows": 1,
         "gather_rows_bwd": int(proj and (table_path or table_rows <= 3 * pool_rows)),
         "fused_layer": layers, "fused_layer_bwd": layers,
         "table_infonce_fwd": int(table_path), "table_infonce_bwd": int(table_path),
-        "pool_infonce_fwd": int(not table_path), "pool_infonce_dq": int(not table_path),
-        "pool_infonce_dn": int(not table_path and proj),
     }
+    for prefix in ("pool_infonce", "pairwise"):
+        on = not table_path and prefix == pool
+        counts |= {f"{prefix}_fwd": int(on), f"{prefix}_dq": int(on),
+                   f"{prefix}_dn": int(on and proj)}
+    return counts
 
 
 # the logging step's logs, card against the CPU: the loss heads and logit
@@ -1170,12 +1441,12 @@ def compare_logs(logs: dict, want: dict, device: str) -> None:
 def training_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
                    batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20,
                    full_logs: bool = False) -> dict:
-    """One InfoNCE train step variant on ``device`` (the flagship's hot
-    step by default): one step's loss, raw gradients and, with
-    ``full_logs``, every log against the CPU's plain path; the launch
-    counts of one step; a fixed batch's loss over ``steps`` steps; the
-    eager step time; the device time by kernel.  Returns the launch counts
-    of one step."""
+    """One train step variant on ``device`` (the flagship's hot step by
+    default): one step's loss, raw gradients and, with ``full_logs``,
+    every log against the CPU's plain path; the launch counts of one step;
+    a fixed batch's loss over ``steps`` steps; the eager step time over
+    ``timed_steps`` and the device time by kernel (where it is timed).
+    Returns the launch counts of one step."""
     import numpy as np
     import torch
 
@@ -1209,7 +1480,8 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         f"heads={cfg.num_attention_heads} FFN {cfg.intermediate_size} seq {cfg.max_seq_length} "
         f"{cfg.compute_dtype}, dropout {cfg.hidden_dropout}; batch {batch_size} "
         f"({valid} valid positions), catalog {table.shape[0]} rows (pool {pool}); "
-        f"full_logs={full_logs}, the {objective} InfoNCE objective")
+        f"full_logs={full_logs}, {cfg.train_loss} (margin {cfg.margin}) through the {objective} "
+        "objective")
 
     # one step's loss, raw gradients and logs, card against the CPU's plain path
     loss_and_grad = ts.make_loss_and_grad(cfg, full_logs=full_logs)
@@ -1273,6 +1545,8 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         if not (all(math.isfinite(v) for v in losses) and last < first):
             raise AssertionError("the fixed-batch loss did not fall")
 
+    if not timed_steps:
+        return launches
     # eager step time over fresh batches, after the warm-up above
     times = []
     for _ in range(timed_steps):
@@ -1291,6 +1565,62 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
     if cuda:
         profile_steps(step, state, table, batch, cfg, seed_gen)
     return launches
+
+
+def accumulation_phase(*, device: str = "cuda", config: dict | None = None,
+                       num_items: int = 3706, batch_size: int = TRAIN_BATCH) -> None:
+    """Two hot steps with ``accumulate_grad_batches=2`` (the flagship's by
+    default) on ``device``, held against the same device: after the first
+    the parameters are bit for bit as they were; after the second they are
+    the flat AdamW update of the mean of the two steps' gradients (from
+    ``make_loss_and_grad``, the mean formed as ``optax.MultiSteps`` forms
+    it).  Not against the CPU: step-1 AdamW turns last-ulp gradient
+    differences into +-lr flips."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    cfg = TrainConfig(**(config or TRAIN), accumulate_grad_batches=2)
+    _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim, cfg.max_seq_length)
+    table = build_item_table(emb, device=device)
+    params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device=device)
+    rng = np.random.default_rng(5)
+    batches = [train_batch(rng, batch_size, cfg.max_seq_length, num_items) for _ in range(2)]
+    seed_gen = torch.Generator().manual_seed(6)
+    seeds = [ts.draw_dropout_seeds(seed_gen, cfg) for _ in batches]
+    loss_and_grad = ts.make_loss_and_grad(cfg)
+    g1, g2 = (ts.flatten(loss_and_grad(params, table, b, s)[1]) for b, s in zip(batches, seeds))
+    step = ts.make_train_step(cfg, full_logs=False)
+    state0 = ts.init_train_state(cfg, params)
+    state1, logs1 = step(state0, table, batches[0], seeds[0])
+    state2, _ = step(state1, table, batches[1], seeds[1])
+    p0 = ts.flatten(params)
+    unchanged = torch.equal(ts.flatten(state1.params), p0)
+    mean = g1 + (g2 - g1) / torch.full((), 2.0, device=device)
+    plain = ts.make_flat_update(dataclasses.replace(cfg, accumulate_grad_batches=1))
+    want, _, _ = plain(p0, mean, state0.opt_state)
+    p2 = ts.flatten(state2.params)
+    diff = float((p2 - want).abs().max())
+    moved = float((p2 - p0).abs().max())
+    counts = (int(state1.opt_state.count), int(state2.opt_state.count))
+    # the same gradients give the same update bit for bit; the limit is a
+    # hundredth of lr, where a step-1 AdamW sign flip moves an element by
+    # 2 lr and a last-ulp gradient difference near 0 by lr * dg / eps
+    ok = (unchanged and diff <= cfg.learning_rate / 100 and moved > 0 and counts == (0, 1)
+          and state2.opt_state.mini_step == 0 and not bool(state2.opt_state.acc.any()))
+    log(f"  step 1: parameters {'bit for bit unchanged' if unchanged else 'CHANGED'}, count "
+        f"{counts[0]}, grad/global_norm {float(logs1['grad/global_norm']):.6g}; step 2: count "
+        f"{counts[1]}, parameters moved by up to {moved:.3g}, max abs diff from the flat update "
+        f"of the mean gradient {diff:.3g} (tol lr/100 = {cfg.learning_rate / 100:.3g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the accumulating step does not apply the mean gradient once")
 
 
 def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:

@@ -150,6 +150,7 @@ def rel_err(got, want) -> float:
     (16, 32, 128, 8, 512, False, 0.1),
     (4, 8, 128, 8, 48, True, 0.1),
     (4, 48, 64, 4, 256, True, 0.0),
+    (128, 32, 64, 4, 256, True, 0.1),    # configs/ml100k_bpr.yaml, a train batch
     (3, 64, 128, 8, 512, True, 0.1),
     (4, 32, 384, 12, 48, True, 0.1),     # configs/ml1m_reference.yaml
 ])
@@ -370,4 +371,68 @@ def test_pool_infonce_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["pool_infonce_dq"] == 1
     assert cuda_build.LAUNCHES["pool_infonce_dn"] == 0
+    assert torch.isfinite(q.grad).all()
+
+
+# Pairwise pool kernels against their plain versions: the same scores bit
+# for bit (the plain version sums in the kernels' order), then relu or
+# softplus and a weighted mean (out, 1e-5 of its max abs) and dl's bf16
+# rounding (dq, dp, dn, 1e-2 of each gradient's max abs).
+@pytest.mark.parametrize(("r", "rn", "d"), [
+    (4096, 4096, 64),    # configs/ml100k_bpr.yaml: B=128, S=32, d=64
+    (4096, 4096, 128),   # the flagship's width
+    (1000, 777, 64),     # ragged: neither a multiple of a block
+])
+@pytest.mark.parametrize("head", ["ContrastiveLoss", "PairwiseHingeLoss", "PairwiseLogisticLoss",
+                                  "NCELoss"])
+@pytest.mark.parametrize(("mask_fn", "margin"), [(True, 0.0), (False, 0.5)])
+def test_pairwise_kernels_match_plain(cuda, r, rn, d, head, mask_fn, margin):
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(r + rn + d)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    q, p, n = (a.requires_grad_() for a in (q, p, n))
+    cuda_build.reset_launches()
+    out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, head=head, margin=margin,
+                                    mask_false_negatives=mask_fn)
+    g = row_valid.float()
+    out.backward(g)
+    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)
+        dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+    torch.cuda.synchronize()
+    assert {k: cuda_build.LAUNCHES[k] for k in ("pairwise_fwd", "pairwise_dq", "pairwise_dn")} \
+        == {"pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1}
+    if mask_fn:
+        assert out[0].item() == 0.0  # row 0 counts no negative
+    assert (q.grad.dtype, p.grad.dtype, n.grad.dtype) == (torch.float32, torch.bfloat16,
+                                                          torch.bfloat16)
+    errs = {"out": rel_err(out.detach(), out_want), "dq": rel_err(q.grad, dq_want),
+            "dn": rel_err(n.grad, dn_want)}
+    if head in ("PairwiseHingeLoss", "PairwiseLogisticLoss"):
+        errs["dp"] = rel_err(p.grad, dp_want)
+    else:  # pos is not in the score: no gradient reaches the positive
+        assert not p.grad.float().abs().max().item()
+    print(errs)
+    if head == "PairwiseHingeLoss" and mask_fn and margin == 0.0:
+        assert not out.abs().max().item()  # every counted score is below its positive
+        return
+    assert errs["out"] <= 1e-5, errs
+    assert max(v for k, v in errs.items() if k != "out") <= 1e-2, errs
+
+
+def test_pairwise_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(10)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, 256, 300, 64)
+    q.requires_grad_()
+    cuda_build.reset_launches()
+    fp.fused_pairwise_loss(q, p, n, row_valid, neg_valid, head="PairwiseLogisticLoss",
+                           margin=0.0).backward()
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["pairwise_dq"] == 1
+    assert cuda_build.LAUNCHES["pairwise_dn"] == 0
     assert torch.isfinite(q.grad).all()

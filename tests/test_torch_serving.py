@@ -207,8 +207,10 @@ def test_chip_smoke_expects_each_paths_kernels():
     from transformer_recommenders_tpu_torch.configs import TrainConfig
 
     flagship, reference = TrainConfig(**chip_smoke.TRAIN), TrainConfig(**chip_smoke.REFERENCE)
+    ml100k = TrainConfig(**chip_smoke.ML100K)
     common = {"gather_rows": 1, "table_infonce_fwd": 0, "table_infonce_bwd": 0,
-              "pool_infonce_fwd": 1, "pool_infonce_dq": 1}
+              "pool_infonce_fwd": 1, "pool_infonce_dq": 1, "pairwise_fwd": 0, "pairwise_dq": 0,
+              "pairwise_dn": 0}
     assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=False) == {
         **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
         "table_infonce_fwd": 1, "table_infonce_bwd": 1, "pool_infonce_fwd": 0,
@@ -219,8 +221,46 @@ def test_chip_smoke_expects_each_paths_kernels():
     assert chip_smoke.expected_launches(reference, 3707, 1024, full_logs=False) == {
         **common, "gather_rows_bwd": 0, "fused_layer": 1, "fused_layer_bwd": 1,
         "pool_infonce_dn": 0}
+    # path C: the 1,683-row catalog is projected whole, then gathered
+    for full_logs in (False, True):
+        assert chip_smoke.expected_launches(ml100k, 1683, 4096, full_logs) == {
+            **common, "gather_rows_bwd": 1, "fused_layer": 2, "fused_layer_bwd": 2,
+            "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0,
+            "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1}
     assert set(chip_smoke.expected_launches(reference, 3707, 1024, False)) == \
         set(cuda_build.KERNELS)
+
+
+@pytest.mark.parametrize("train_loss", ["PairwiseLogisticLoss", "ContrastiveLoss", "NCELoss",
+                                        "AlignmentContrastiveLoss"])
+def test_chip_smoke_pairwise_training_rehearsal(train_loss):
+    """chip_smoke.py's phase 9 (path C's step and the other pairwise
+    heads: one step against the CPU's plain path, the launch counts, the
+    fixed-batch loss) at a small size on the CPU."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    config = {**chip_smoke.ML100K, "input_dim": 48, "hidden_size": 32, "intermediate_size": 64,
+              "max_seq_length": 8, "learning_rate": 1e-2, "train_loss": train_loss,
+              "margin": 0.0 if train_loss == "PairwiseLogisticLoss" else 1.0}
+    steps = 12 if train_loss == "PairwiseLogisticLoss" else 0
+    launches = chip_smoke.training_phase(device="cpu", config=config, num_items=60, batch_size=4,
+                                         steps=steps, timed_steps=1 if steps else 0)
+    assert launches == dict.fromkeys(cuda_build.KERNELS, 0)
+
+
+def test_chip_smoke_accumulation_rehearsal():
+    """chip_smoke.py's accumulation check at a small size on the CPU."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    tiny = dict(input_dim=48, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+                intermediate_size=64, max_seq_length=8)
+    chip_smoke.accumulation_phase(device="cpu", config=tiny, num_items=60, batch_size=4)
 
 
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path):

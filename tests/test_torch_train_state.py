@@ -48,6 +48,13 @@ key as ``transformer_encode`` splits it).
   ``make_train_step(full_logs=True)``; every loss head, statistic and
   count in f32, rtol 1e-4 (atol 1e-5), a few times the encoder's f32
   noise carried through the loss heads.
+- The pairwise objectives (the pairwise pool kernels, JAX's in interpret
+  mode): the pool objective's bounds, f32 with the mask on and disjoint
+  ranges, bf16 with the mask off.
+- Gradient accumulation: the flat update against ``optax.MultiSteps``
+  (the JAX package's optimizer for ``accumulate_grad_batches > 1``) fed
+  the same gradients, rtol 1e-6; the port's step against its own flat
+  update of the mean gradient, bit for bit.
 """
 
 import dataclasses
@@ -55,6 +62,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -62,6 +70,7 @@ from transformer_recommenders_tpu.configs import TrainConfig as JaxTrainConfig
 from transformer_recommenders_tpu.models import recommender as JR
 from transformer_recommenders_tpu.models import transformer as JT
 from transformer_recommenders_tpu.ops import fused_infonce as JFI
+from transformer_recommenders_tpu.ops import fused_pairwise as JFP
 from transformer_recommenders_tpu.ops import fused_table_infonce as JFT
 from transformer_recommenders_tpu.ops.gather_matmul import gather_rows as jax_gather_rows
 from transformer_recommenders_tpu.training import train_state as JTS
@@ -81,28 +90,31 @@ def configs(**overrides):
     return JaxTrainConfig(**kw), TrainConfig(**kw)
 
 
-def make_batch(seed, n_items, b=4, s=8, disjoint=False):
+def make_batch(seed, n_items, b=4, s=8, disjoint=False, full=False):
     """(B, S) int32 batches with trailing zero padding, as
-    ``data/dataset.py`` writes them; some positions have no positive."""
+    ``data/dataset.py`` writes them; some positions have no positive.
+    ``full``: every position valid, with a positive."""
     rng = np.random.default_rng(seed)
     half = n_items // 2
     hist, pos, neg = (np.zeros((b, s), np.int32) for _ in range(3))
     lengths = rng.integers(2, s + 1, size=b)
     lengths[0] = s  # one full row
+    if full:
+        lengths[:] = s
     for row, length in enumerate(lengths):
         hist[row, :length] = rng.integers(1, n_items + 1, size=length)
         pos[row, :length] = rng.integers(1, half + 1 if disjoint else n_items + 1, size=length)
-        pos[row, :length] *= rng.random(length) > 0.2
+        pos[row, :length] *= (rng.random(length) > 0.2) | full
         neg[row, :length] = rng.integers(half + 1 if disjoint else 1, n_items + 1, size=length)
     return {"history_item_idx": hist, "pos_item_idx": pos, "neg_item_idx": neg}
 
 
-def make_case(jcfg, n_items=40, seed=0, disjoint=False):
+def make_case(jcfg, n_items=40, seed=0, disjoint=False, full=False):
     jparams = JT.init_transformer_params(jax.random.key(seed), jcfg)
     emb = np.random.default_rng(seed + 1).normal(size=(n_items, jcfg.input_dim))
     emb = (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float32)
     table = np.concatenate([np.zeros((1, jcfg.input_dim), np.float32), emb])
-    return jparams, table, make_batch(seed + 2, n_items, disjoint=disjoint)
+    return jparams, table, make_batch(seed + 2, n_items, disjoint=disjoint, full=full)
 
 
 def jax_dropout_seeds(key):
@@ -141,6 +153,11 @@ def force_jax_kernels(monkeypatch):
     pool_loss = JFI.fused_infonce_loss
     monkeypatch.setattr(JFI, "fused_infonce_loss",
                         lambda *a, **kw: pool_loss(*a, **{**kw, "interpret": True}))
+    pairwise_loss = JFP.fused_pairwise_loss
+    monkeypatch.setattr(JFP, "fused_pairwise_loss",
+                        lambda *a, **kw: pairwise_loss(*a, **{**kw, "interpret": True,
+                                                              "tile_rows": 16,
+                                                              "tile_cols": 128}))
 
 
 def jax_step(jcfg, jparams, table, batch, key, full_logs=False):
@@ -382,19 +399,122 @@ def test_full_logs_step_matches_jax(monkeypatch, dtype):
 @pytest.mark.parametrize("train_loss", ["ContrastiveLoss", "PairwiseHingeLoss",
                                         "PairwiseLogisticLoss", "NCELoss",
                                         "AlignmentContrastiveLoss"])
-@pytest.mark.parametrize("full_logs", [False, True])
-def test_pairwise_heads_through_the_fused_loss_are_not_ported_yet(train_loss, full_logs):
-    jcfg, tcfg = configs(train_loss=train_loss)
-    jparams, table, batch = make_case(jcfg)
-    with pytest.raises(NotImplementedError, match="ops/fused_pairwise.py"):
-        port_loss_and_grads(tcfg, jparams, table, batch, None, full_logs=full_logs)
+@pytest.mark.parametrize(("full_logs", "dtype"), [(False, "float32"), (True, "float32"),
+                                                  (False, "bfloat16")],
+                         ids=["hot-f32", "logging-f32", "hot-bf16"])
+def test_pairwise_fused_objectives_match_jax_kernel_path(monkeypatch, train_loss, full_logs,
+                                                         dtype):
+    """The pairwise objectives through the fused loss: the pairwise pool
+    kernels over compute_embeds' rows (L2-normalized first for the cosine
+    heads), plus NCELoss's positive term and AlignmentContrastiveLoss's
+    alignment term, against JAX with its pairwise kernel in interpret
+    mode.  f32 with the mask on (pos and neg from disjoint ranges, as for
+    the pool InfoNCE) at the table path's bounds.  bf16 with the mask off
+    at the file's bf16 bounds: loss 2**-10 (measured <= 3.5e-4),
+    gradients 2**-6 (measured <= 9.9e-3).  Margin 0.8 for the heads
+    with the positive in their score: at margin 0 the hinge head with the
+    mask on is zero (every counted score is below its positive).  Margin 1
+    for the cosine heads, which count the cosines above 1 - margin: at 0.8
+    ContrastiveLoss's loss is a sum of a few relu terms of bf16 cosines,
+    1.0e-3 from JAX's.  The logging step logs the plain f32 head
+    (``loss/{name}``) and trains on the kernel's objective over
+    bf16-rounded rows: the two differ, in both packages.
+
+    The bf16 batch has every position valid.  A masked position's
+    positive or pool row is a zero row; JAX's gradient of its L2
+    normalization is NaN there (0 * inf in the norm's VJP), and under bf16
+    JAX's one-hot gather backward spreads it into the input projection's
+    gradient.  Torch's norm takes the subgradient 0, so the port's
+    gradients stay finite."""
+    f32 = dtype == "float32"
+    margin = 1.0 if train_loss in ("ContrastiveLoss", "AlignmentContrastiveLoss") else 0.8
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=f32, train_loss=train_loss,
+                         margin=margin)
+    jparams, table, batch = make_case(jcfg, n_items=80, seed=12, disjoint=True, full=not f32)
+    key = jax.random.key(13)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    want_logs, want = jax_step(jcfg, jparams, table, batch, key, full_logs=full_logs)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    loss, grads, logs = TTS.make_loss_and_grad(tcfg, full_logs=full_logs)(
+        params, torch.from_numpy(table), batch, jax_dropout_seeds(key))
+    name = f"loss/{train_loss}"
+    if full_logs:  # the plain f32 head, logged beside the kernel's objective
+        np.testing.assert_allclose(float(logs[name]), float(want_logs[name]), rtol=1e-4,
+                                   atol=1e-5)
+    else:  # the hot step logs its objective
+        assert float(logs[name]) == float(loss)
+        np.testing.assert_allclose(float(loss), float(want_logs[name]),
+                                   rtol=1e-5 if f32 else 2.0**-10)
+    assert_grads_close([g.numpy() for g in TT.tree_leaves(grads)], want,
+                       1e-3 if f32 else 2.0**-6)
 
 
-def test_accumulation_is_not_ported_yet():
-    _, tcfg = configs(accumulate_grad_batches=2)
-    for full_logs in (False, True):
-        with pytest.raises(NotImplementedError, match="accumulate_grad_batches"):
-            TTS.make_train_step(tcfg, full_logs=full_logs)
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clipped"])
+def test_accumulation_matches_optax_multisteps(k, clip):
+    """The accumulating flat update against the JAX package's optimizer for
+    ``accumulate_grad_batches = k``: ``optax.MultiSteps`` around clipping
+    and ``optax.adamw``, fed the same k + 1 gradients.  The parameters
+    after each step within rtol 1e-6 (f32 elementwise arithmetic), left
+    bit for bit as they were on the steps that only accumulate."""
+    n = 1000
+    rng = np.random.default_rng(k)
+    jcfg, tcfg = configs(learning_rate=3e-3, weight_decay=0.05, gradient_clip_val=clip,
+                         accumulate_grad_batches=k)
+    opt = JTS.make_optimizer(jcfg)
+    p = rng.normal(size=n).astype(np.float32)
+    jp, tp = jnp.asarray(p), torch.from_numpy(p.copy())
+    jstate = opt.init(jp)
+    tstate = TTS.init_train_state(tcfg, {"w": tp}).opt_state
+    tupdate = TTS.make_flat_update(tcfg)
+    for i in range(k + 1):
+        g = (2.0 * rng.normal(size=n)).astype(np.float32)
+        updates, jstate = opt.update(jnp.asarray(g), jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        before = tp
+        tp, tstate, tnorm = tupdate(tp, torch.from_numpy(g), tstate)
+        np.testing.assert_allclose(float(tnorm), float(np.linalg.norm(g)), rtol=1e-6)
+        np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(tstate.acc.numpy(), np.asarray(jstate.acc_grads), rtol=1e-6,
+                                   atol=1e-9)
+        assert tstate.mini_step == int(jstate.mini_step) == (i + 1) % k
+        assert int(tstate.count) == int(optax.tree_utils.tree_get(jstate.inner_opt_state,
+                                                                  "count"))
+        if i != k - 1:
+            assert torch.equal(tp, before)
+
+
+def test_accumulating_step_applies_the_mean_gradient():
+    """The port's CPU step with ``accumulate_grad_batches=2``: the first
+    step leaves the parameters bit for bit as they were and logs its own
+    gradient's norm; the second applies the flat update to the mean of the
+    two steps' gradients from ``make_loss_and_grad``, formed as
+    ``optax.MultiSteps`` forms it (``g1 + (g2 - g1) / 2``)."""
+    jcfg, tcfg = configs(accumulate_grad_batches=2, gradient_clip_val=1.0)
+    jparams, table, _ = make_case(jcfg, seed=14)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    batches = [make_batch(s, 40) for s in (15, 16)]
+    gen = torch.Generator().manual_seed(2)
+    seeds = [TTS.draw_dropout_seeds(gen, tcfg) for _ in batches]
+    tab = torch.from_numpy(table)
+    grads = [TTS.flatten(TTS.make_loss_and_grad(tcfg)(params, tab, b, s)[1])
+             for b, s in zip(batches, seeds)]
+    step = TTS.make_train_step(tcfg, full_logs=False)
+    state0 = TTS.init_train_state(tcfg, params)
+    state1, logs1 = step(state0, tab, batches[0], seeds[0])
+    torch.testing.assert_close(TTS.flatten(state1.params), TTS.flatten(params), rtol=0, atol=0)
+    assert float(logs1["grad/global_norm"]) == float(torch.sqrt(torch.sum(grads[0] * grads[0])))
+    assert int(state1.opt_state.count) == 0 and state1.opt_state.mini_step == 1
+    state2, logs2 = step(state1, tab, batches[1], seeds[1])
+    mean = grads[0] + (grads[1] - grads[0]) / torch.full((), 2.0)
+    plain = TTS.make_flat_update(dataclasses.replace(tcfg, accumulate_grad_batches=1))
+    want_p, want_opt, _ = plain(TTS.flatten(params), mean, state0.opt_state)
+    torch.testing.assert_close(TTS.flatten(state2.params), want_p, rtol=0, atol=0)
+    torch.testing.assert_close(state2.opt_state.mu, want_opt.mu, rtol=0, atol=0)
+    assert int(state2.opt_state.count) == 1 and state2.opt_state.mini_step == 0
+    assert not state2.opt_state.acc.any() and state2.step == 2
+    assert float(logs2["grad/global_norm"]) == float(torch.sqrt(torch.sum(grads[1] * grads[1])))
 
 
 def test_dropout_seeds_from_a_generator():

@@ -95,6 +95,25 @@ __device__ __forceinline__ void dot4(const float* a, const float* b, int bstride
   }
 }
 
+// pos of query rows [r0, r0 + nrows), their q rows staged in sq (leading
+// dimension ld): the chain of products with each row's positive, read
+// from device memory, in the order of dot4, then times scale (one
+// unfused multiply; exact at scale 1).  Zero past R.
+__device__ inline void positives(const float* sq, int ld, const __nv_bfloat16* __restrict__ p,
+                                 int R, int D, int r0, int nrows, float scale, float* spos) {
+  for (int t = threadIdx.x; t < nrows; t += blockDim.x) {
+    const int r = r0 + t;
+    float pos = 0.f;
+    if (r < R) {
+      const __nv_bfloat16* row = p + (size_t)r * D;
+      float acc = 0.f;
+      for (int k = 0; k < D; ++k) acc = fmaf(sq[t * ld + k], bf(row[k]), acc);
+      pos = __fmul_rn(acc, scale);
+    }
+    spos[t] = pos;
+  }
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);

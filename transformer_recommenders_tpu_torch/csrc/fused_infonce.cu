@@ -46,23 +46,7 @@ using xrt::allow_smem;
 using xrt::bf;
 using xrt::dot4;
 using xrt::load_rows;
-
-// pos of query rows [r0, r0 + kRowTile), the q rows staged in sq: the
-// chain of dot4 on the positive row read from device memory
-__device__ void positives(const float* sq, int ld, const __nv_bfloat16* __restrict__ p, int R,
-                          int D, int r0, float scale, float* spos) {
-  for (int t = threadIdx.x; t < kRowTile; t += blockDim.x) {
-    const int r = r0 + t;
-    float pos = 0.f;
-    if (r < R) {
-      const __nv_bfloat16* row = p + (size_t)r * D;
-      float acc = 0.f;
-      for (int k = 0; k < D; ++k) acc = fmaf(sq[t * ld + k], bf(row[k]), acc);
-      pos = __fmul_rn(acc, scale);
-    }
-    spos[t] = pos;
-  }
-}
+using xrt::positives;
 
 // whether a pool score counts as a negative of its row
 __device__ __forceinline__ bool counted(float x, float nv, float pos, int mask_fn) {
@@ -89,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
   const int r0 = blockIdx.x * kRowTile;
   load_rows(q, R, D, r0, kRowTile, sq, ld);
   __syncthreads();
-  positives(sq, ld, p, R, D, r0, scale, spos);
+  positives(sq, ld, p, R, D, r0, kRowTile, scale, spos);
   __syncthreads();
 
   // a half-warp per row, each lane on pool rows c, c + 16, c + 32, c + 48

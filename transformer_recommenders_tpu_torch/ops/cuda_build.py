@@ -96,6 +96,20 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             "pool_infonce_dn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
         },
     ),
+    "fused_pairwise": (
+        "fused_pairwise.cu",
+        {
+            # q, p, n (bf16), nv (f32), out, den, pos, R, Rn, D, head,
+            # margin, 1 - margin, mask_false_negatives, stream
+            "pairwise_fwd": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _I, _P],
+            # q, p, n, nv, den, g, pos, dq, dp (f32), R, Rn, D, head,
+            # margin, 1 - margin, mask_false_negatives, stream
+            "pairwise_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P],
+            # q, n, nv, den, g, pos, dn (f32), R, Rn, D, head, margin,
+            # 1 - margin, mask_false_negatives, stream
+            "pairwise_dn": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _I, _P],
+        },
+    ),
 }
 
 # the kernels a wrapper counts, by name: a C entry point that launches
@@ -105,6 +119,7 @@ KERNELS = (
     "gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
     "table_infonce_fwd", "table_infonce_bwd",
     "pool_infonce_fwd", "pool_infonce_dq", "pool_infonce_dn",
+    "pairwise_fwd", "pairwise_dq", "pairwise_dn",
 )
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

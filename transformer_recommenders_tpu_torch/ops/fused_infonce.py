@@ -29,7 +29,7 @@ import torch
 from transformer_recommenders_tpu_torch.ops import cuda_build
 
 _NEG_BIG = -1e30
-_MAX_D = 512  # csrc/fused_infonce.cu kMaxD
+_MAX_D = 512  # kMaxD of csrc/fused_infonce.cu and csrc/fused_pairwise.cu
 
 
 def _scores(q, p, n, scale: float):
@@ -103,17 +103,19 @@ def fused_infonce_dn_reference(
     return (dl.T @ qm).to(n.dtype)
 
 
-def _check_cuda(q, p, n, neg_valid) -> None:
+def _check_cuda(q, p, n, neg_valid, what: str = "fused_infonce") -> None:
+    """Raise on operands the pool kernels (``what``: this module's or
+    ``fused_pairwise``'s, which share the layout) do not take."""
     r, d = q.shape
     if any(t.device != q.device for t in (p, n, neg_valid)):
-        msg = "fused_infonce: q, p, n and neg_valid must be on one device"
+        msg = f"{what}: q, p, n and neg_valid must be on one device"
         raise ValueError(msg)
     if p.shape != q.shape or n.dim() != 2 or n.shape[1] != d or neg_valid.numel() != n.shape[0]:
-        msg = (f"fused_infonce: q {tuple(q.shape)}, p {tuple(p.shape)}, n {tuple(n.shape)} and "
+        msg = (f"{what}: q {tuple(q.shape)}, p {tuple(p.shape)}, n {tuple(n.shape)} and "
                f"neg_valid {tuple(neg_valid.shape)} do not agree")
         raise ValueError(msg)
     if d > _MAX_D:
-        msg = f"fused_infonce: the kernels take D <= {_MAX_D}, got {d}"
+        msg = f"{what}: the kernels take D <= {_MAX_D}, got {d}"
         raise ValueError(msg)
 
 

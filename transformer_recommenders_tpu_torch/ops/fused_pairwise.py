@@ -1,0 +1,251 @@
+"""Pairwise loss heads over the in-batch pool: each query row's weighted
+mean of a pairwise score over the pool rows it counts as negatives.  The
+plain PyTorch versions and the wrappers around the CUDA kernels of
+``csrc/fused_pairwise.cu``.
+
+Counterpart of ``transformer_recommenders_tpu/ops/fused_pairwise.py``
+(``fused_pairwise_rowwise`` with its Pallas ``_fwd_kernel``,
+``_bwd_dq_kernel`` and ``_bwd_dn_kernel``, and ``fused_pairwise_loss``).
+For a query row with positive score ``pos`` and pool scores ``l``:
+
+- ``ContrastiveLoss``:       f = relu(l - 1 + margin)  (cosine: pass
+  L2-normalized rows)
+- ``PairwiseHingeLoss``:     f = relu(l - pos * (1 - margin))
+- ``PairwiseLogisticLoss``:  f = softplus(l - pos * (1 - margin))  (BPR at
+  margin 0)
+- ``NCELoss``:               f = softplus(l), the pool term only (the
+  positive's term is added by the caller)
+
+each reduced per row as ``sum(f * v) / (sum(v) + 1e-9)``, where a pool row
+counts (``v``) when ``neg_valid > 0`` and, with the false-negative mask,
+when its score is below the positive's.  The same function as the heads of
+``ops.losses`` with their weighted mean.
+
+Numerics follow the JAX kernels: ``q``, ``p`` and ``n`` rounded to bf16
+with f32 sums; ``1 - margin`` taken in Python and rounded to f32 (JAX's
+weak-typed constant); the score gradient ``dl`` rounded to bf16 before
+both products, the positive's ``dpos`` kept in f32; ``dq``, ``dp`` and
+``dn`` cast to the dtypes of ``q``, ``p`` and ``n``.  The positive's score
+and every pool score are one chain of products summed in increasing k (the
+kernels' order), so a copy of the positive in the pool scores exactly
+``pos`` and the mask drops it; the JAX kernel sums the two in other
+orders, and may not.  The TPU version pads R and Rn to its tiles; the
+kernels here mask their own edges.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from transformer_recommenders_tpu_torch.ops import cuda_build
+from transformer_recommenders_tpu_torch.ops.fused_infonce import (
+    _bf16,
+    _check_cuda,
+    _counted,
+    _f32,
+    _scores,
+)
+from transformer_recommenders_tpu_torch.ops.losses import _softplus
+
+# the heads whose pool reduction the kernels implement, in the order of
+# the kernels' head argument; NCELoss's positive term and the alignment
+# term of AlignmentContrastiveLoss are composed by the caller
+# (training.train_state._fused_objective)
+HEADS = (
+    "ContrastiveLoss",
+    "PairwiseHingeLoss",
+    "PairwiseLogisticLoss",
+    "NCELoss",
+)
+_SMOOTH = ("PairwiseLogisticLoss", "NCELoss")  # softplus; the others relu
+_WITH_POS = ("PairwiseHingeLoss", "PairwiseLogisticLoss")  # pos enters the score
+
+
+def _pair_scores(head: str, x: torch.Tensor, pos: torch.Tensor, margin: float) -> torch.Tensor:
+    """(R, Rn) s of the head from the scores ``x`` and the positives'."""
+    if head == "ContrastiveLoss":
+        return (x - 1.0) + margin
+    if head == "NCELoss":
+        return x
+    return x - (pos * (1.0 - margin))[:, None]
+
+
+def _terms(q, p, n, neg_valid, head: str, margin: float, mask_false_negatives: bool):
+    """s (R, Rn), the counted mask v and the positives' scores (R,)."""
+    x, pos = _scores(q, p, n, 1.0)
+    v = _counted(x, pos, neg_valid, mask_false_negatives)
+    return _pair_scores(head, x, pos, margin), v, pos
+
+
+def fused_pairwise_reference(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, neg_valid: torch.Tensor, *, head: str,
+    margin: float = 0.5, mask_false_negatives: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: per-row ``(out, den,
+    pos)``, (R,) f32 each.  A row without a counted negative gets
+    ``out = 0`` exactly."""
+    s, v, pos = _terms(q, p, n, neg_valid, head, margin, mask_false_negatives)
+    f = _softplus(s) if head in _SMOOTH else F.relu(s)
+    vf = v.float()
+    den = vf.sum(dim=1)
+    return (f * vf).sum(dim=1) / (den + 1e-9), den, pos
+
+
+def _weighted_slope(q, p, n, neg_valid, den, g, head, margin, mask_false_negatives):
+    """w f' (R, Rn) unrounded (``w = v g / (den + 1e-9)``) and the bf16
+    operands as f32."""
+    s, v, _ = _terms(q, p, n, neg_valid, head, margin, mask_false_negatives)
+    slope = torch.sigmoid(s) if head in _SMOOTH else (s > 0).float()
+    w = torch.where(v, (g.float() / (den + 1e-9))[:, None], 0.0)
+    return w * slope, tuple(t.to(torch.bfloat16).float() for t in (q, p, n))
+
+
+def fused_pairwise_dq_reference(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, neg_valid: torch.Tensor,
+    den: torch.Tensor, g: torch.Tensor, *, head: str, margin: float = 0.5,
+    mask_false_negatives: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the dq/dp kernel: ``(dq, dp)`` for the
+    cotangent ``g`` of ``out``, in ``q.dtype`` and ``p.dtype``."""
+    wf, (qm, pm, nm) = _weighted_slope(q, p, n, neg_valid, den, g, head, margin,
+                                       mask_false_negatives)
+    dl = wf.to(torch.bfloat16).float()
+    if head in _WITH_POS:
+        dpos = wf.sum(dim=1) * -(1.0 - margin)
+    else:
+        dpos = torch.zeros_like(den)
+    dq = dl @ nm + dpos[:, None] * pm
+    dp = dpos[:, None] * qm
+    return dq.to(q.dtype), dp.to(p.dtype)
+
+
+def fused_pairwise_dn_reference(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, neg_valid: torch.Tensor,
+    den: torch.Tensor, g: torch.Tensor, *, head: str, margin: float = 0.5,
+    mask_false_negatives: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dn kernel: ``dn`` for the cotangent
+    ``g`` of ``out``, in ``n.dtype``."""
+    wf, (qm, _, _) = _weighted_slope(q, p, n, neg_valid, den, g, head, margin,
+                                     mask_false_negatives)
+    return (wf.to(torch.bfloat16).float().T @ qm).to(n.dtype)
+
+
+def _head_args(head: str, margin: float) -> tuple[int, float, float]:
+    """The kernels' head index, margin and ``c = 1 - margin`` (taken in
+    Python's double, rounded to f32 by ctypes)."""
+    return HEADS.index(head), float(margin), 1.0 - float(margin)
+
+
+def _fwd_cuda(q, p, n, neg_valid, head, margin, mask_false_negatives):
+    _check_cuda(q, p, n, neg_valid, "fused_pairwise")
+    qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
+    r, d = qb.shape
+    out, den, pos = (torch.empty(r, dtype=torch.float32, device=q.device) for _ in range(3))
+    status = cuda_build.library("fused_pairwise").pairwise_fwd(
+        qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), out.data_ptr(),
+        den.data_ptr(), pos.data_ptr(), r, nb.shape[0], d, *_head_args(head, margin),
+        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+    )
+    cuda_build.check(status, "pairwise_fwd launch")
+    cuda_build.LAUNCHES["pairwise_fwd"] += 1
+    return out, den, pos
+
+
+def _dq_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_false_negatives):
+    _check_cuda(q, p, n, neg_valid, "fused_pairwise")
+    qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
+    r, d = qb.shape
+    dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
+    dp = torch.empty_like(dq)
+    status = cuda_build.library("fused_pairwise").pairwise_dq(
+        qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(den).data_ptr(),
+        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(), r, nb.shape[0],
+        d, *_head_args(head, margin), int(mask_false_negatives),
+        cuda_build.stream_handle(q.device),
+    )
+    cuda_build.check(status, "pairwise_dq launch")
+    cuda_build.LAUNCHES["pairwise_dq"] += 1
+    return dq.to(q.dtype), dp.to(p.dtype)
+
+
+def _dn_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_false_negatives):
+    _check_cuda(q, p, n, neg_valid, "fused_pairwise")
+    qb, nb, nv = _bf16(q), _bf16(n), _f32(neg_valid)
+    r, d = qb.shape
+    dn = torch.empty((nb.shape[0], d), dtype=torch.float32, device=q.device)
+    status = cuda_build.library("fused_pairwise").pairwise_dn(
+        qb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(den).data_ptr(), _f32(g).data_ptr(),
+        _f32(pos).data_ptr(), dn.data_ptr(), r, nb.shape[0], d, *_head_args(head, margin),
+        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+    )
+    cuda_build.check(status, "pairwise_dn launch")
+    cuda_build.LAUNCHES["pairwise_dn"] += 1
+    return dn.to(n.dtype)
+
+
+class _PairwiseLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, p, n, neg_valid, head, margin, mask_false_negatives):
+        if q.device.type == "cpu":
+            out, den, pos = fused_pairwise_reference(
+                q, p, n, neg_valid, head=head, margin=margin,
+                mask_false_negatives=mask_false_negatives)
+        else:
+            out, den, pos = _fwd_cuda(q, p, n, neg_valid, head, margin, mask_false_negatives)
+        ctx.save_for_backward(q, p, n, neg_valid, den, pos)
+        ctx.args = (head, margin, mask_false_negatives)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, p, n, neg_valid, den, pos = ctx.saved_tensors
+        head, margin, mask_fn = ctx.args
+        kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+        dq = dp = dn = None
+        cpu = q.device.type == "cpu"
+        # each pass runs only for gradients that are needed: pool rows of a
+        # frozen table take none, and the dn kernel is then not launched
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            if cpu:
+                dq, dp = fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)
+            else:
+                dq, dp = _dq_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_fn)
+        if ctx.needs_input_grad[2]:
+            if cpu:
+                dn = fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+            else:
+                dn = _dn_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_fn)
+        return dq, dp, dn, None, None, None, None
+
+
+def fused_pairwise_rowwise(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, neg_valid: torch.Tensor, *, head: str,
+    margin: float = 0.5, mask_false_negatives: bool = True,
+) -> torch.Tensor:
+    """(R,) f32 per-row weighted mean of ``head``'s pairwise score of ``q``
+    (R, D) and its positive ``p`` (R, D) against the shared pool ``n``
+    (Rn, D) with validity ``neg_valid`` (Rn,); the count of counted pool
+    rows and the positives' scores are kept for the backward.
+    Differentiable in ``q``, ``p`` and ``n``.  CPU tensors run the plain
+    versions; CUDA tensors launch the kernels or raise."""
+    if head not in HEADS:
+        msg = f"unsupported head: {head}"
+        raise ValueError(msg)
+    return _PairwiseLoss.apply(q, p, n, neg_valid.reshape(-1), head, float(margin),
+                               bool(mask_false_negatives))
+
+
+def fused_pairwise_loss(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, row_valid: torch.Tensor,
+    neg_valid: torch.Tensor, *, head: str, margin: float = 0.5,
+    mask_false_negatives: bool = True,
+) -> torch.Tensor:
+    """Scalar sum over valid rows: the ContrastiveLoss, hinge and logistic
+    heads of ``ops.losses`` (and NCELoss's pool term) without the (R, Rn)
+    score matrix.  ``ContrastiveLoss`` is a cosine head: pass L2-normalized
+    rows."""
+    rows = fused_pairwise_rowwise(q, p, n, neg_valid, head=head, margin=margin,
+                                  mask_false_negatives=mask_false_negatives)
+    return (rows * row_valid.reshape(-1).float()).sum()

@@ -6,22 +6,20 @@ training objective: the count-weighted catalog InfoNCE
 (``ops/fused_table_infonce.py``) over :func:`compute_query_embeds` when
 the table-scored gate is on, else the pool objective over
 :func:`compute_embeds` (the gathered positives and negatives): the pool
-InfoNCE kernels (``ops/fused_infonce.py``) for InfoNCE, the plain cosine
-sum for AlignmentLoss, and the plain loss heads (``ops/losses.py``) when
-the fused loss is off (``use_fused_loss=False`` or hard negatives).  The
-logging step (``full_logs=True``, the default, as in JAX) takes the pool
-objective whatever the gate and adds every loss head, the logits
+InfoNCE kernels (``ops/fused_infonce.py``) for InfoNCE, the pairwise pool
+kernels (``ops/fused_pairwise.py``) for ContrastiveLoss, the hinge and
+logistic pairwise losses, NCELoss and AlignmentContrastiveLoss, the plain
+cosine sum for AlignmentLoss, and the plain loss heads (``ops/losses.py``)
+when the fused loss is off (``use_fused_loss=False`` or hard negatives).
+The logging step (``full_logs=True``, the default, as in JAX) takes the
+pool objective whatever the gate and adds every loss head, the logits
 statistics and the batch statistics to its logs, computed on detached
-embeddings.  AdamW runs over one flat f32 buffer.  On the card every
+embeddings.  AdamW runs over one flat f32 buffer; with
+``accumulate_grad_batches = k > 1`` it runs every k-th step on the mean
+of the last k gradients, as ``optax.MultiSteps`` does.  On the card every
 kernel of the path runs as CUDA, forward and backward; on the CPU their
 plain versions run.  The frozen item table is a step argument, never part
 of the state.
-
-Not ported yet, and refused with ``NotImplementedError``: the fused
-pairwise objectives (ContrastiveLoss, the hinge and logistic pairwise
-losses, NCELoss and the pool term of AlignmentContrastiveLoss through the
-JAX package's ``ops/fused_pairwise.py`` kernels), and gradient
-accumulation (``accumulate_grad_batches > 1``).
 """
 
 from __future__ import annotations
@@ -38,17 +36,24 @@ from transformer_recommenders_tpu_torch.models.recommender import (
 from transformer_recommenders_tpu_torch.models.transformer import tree_leaves, tree_unflatten
 from transformer_recommenders_tpu_torch.ops import losses as loss_lib
 from transformer_recommenders_tpu_torch.ops.fused_infonce import fused_infonce_loss
+from transformer_recommenders_tpu_torch.ops.fused_pairwise import fused_pairwise_loss
 from transformer_recommenders_tpu_torch.ops.fused_table_infonce import fused_table_infonce_loss
 
 _BATCH_KEYS = ("history_item_idx", "pos_item_idx", "neg_item_idx")
+_COSINE_LOSSES = ("ContrastiveLoss", "AlignmentLoss", "AlignmentContrastiveLoss")
 
 
 class FlatAdamWState(NamedTuple):
-    """Optimizer state over ONE flat f32 buffer (first/second moments)."""
+    """Optimizer state over ONE flat f32 buffer (first/second moments).
+    With gradient accumulation, ``acc`` is the running mean of this
+    window's micro-batch gradients and ``mini_step`` how many it holds
+    (``optax.MultiSteps``' ``acc_grads`` and ``mini_step``)."""
 
     count: torch.Tensor
     mu: torch.Tensor
     nu: torch.Tensor
+    acc: torch.Tensor | None = None
+    mini_step: int = 0
 
 
 class TrainState(NamedTuple):
@@ -78,10 +83,18 @@ def make_flat_update(config: TrainConfig):
     before it), bias correction by ``1 - b**count``, ``eps`` outside the
     square root, the decoupled ``weight_decay * p`` inside the ``lr``
     product.  Not ``torch.optim.AdamW``.  Out of place: new buffers each
-    step, the inputs untouched."""
+    step, the inputs untouched.
+
+    With ``accumulate_grad_batches = k > 1``, ``optax.MultiSteps`` around
+    that update: each step folds its gradient into the running mean
+    ``acc += (g - acc) / (mini_step + 1)``; the k-th runs the update,
+    clipping included, on ``acc`` and clears it; the others leave the
+    parameters, the count and the moments as they are.  ``gnorm`` is then
+    the micro-batch gradient's own norm."""
     lr = config.learning_rate
     wd = config.weight_decay
     clip = config.gradient_clip_val
+    k = config.accumulate_grad_batches
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def update(p: torch.Tensor, g: torch.Tensor, opt_state: FlatAdamWState):
@@ -95,17 +108,34 @@ def make_flat_update(config: TrainConfig):
         mu_hat = mu / (1.0 - torch.pow(b1, cf))
         nu_hat = nu / (1.0 - torch.pow(b2, cf))
         new_p = p - lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + wd * p)
-        return new_p, FlatAdamWState(count, mu, nu), gnorm
+        return new_p, opt_state._replace(count=count, mu=mu, nu=nu), gnorm
 
-    return update
+    if k <= 1:
+        return update
+
+    def accumulate(p: torch.Tensor, g: torch.Tensor, opt_state: FlatAdamWState):
+        gnorm = torch.sqrt(torch.sum(g * g))
+        # a device tensor, not a host scalar: CUDA would multiply by its
+        # reciprocal, where optax divides
+        n = torch.full((), opt_state.mini_step + 1, dtype=g.dtype, device=g.device)
+        acc = opt_state.acc + (g - opt_state.acc) / n
+        if opt_state.mini_step < k - 1:
+            return p, opt_state._replace(acc=acc, mini_step=opt_state.mini_step + 1), gnorm
+        new_p, opt_state, _ = update(p, acc, opt_state)
+        return new_p, opt_state._replace(acc=torch.zeros_like(acc), mini_step=0), gnorm
+
+    return accumulate
 
 
 def init_train_state(config: TrainConfig, params) -> TrainState:
-    del config  # the optimizer state depends only on the parameters' shapes
+    """Zero moments and count over the flat parameters, and a zero
+    accumulator where ``accumulate_grad_batches > 1``."""
     flat = flatten(params)
     zeros = torch.zeros_like(flat)
     count = torch.zeros((), dtype=torch.int32, device=flat.device)
-    return TrainState(params=params, opt_state=FlatAdamWState(count, zeros, zeros.clone()), step=0)
+    acc = zeros.clone() if config.accumulate_grad_batches > 1 else None
+    return TrainState(params=params, opt_state=FlatAdamWState(count, zeros, zeros.clone(), acc),
+                      step=0)
 
 
 def table_pool_rows(config: TrainConfig, batch: dict) -> int:
@@ -143,20 +173,30 @@ def _fused_objective(config: TrainConfig, embeds: dict) -> torch.Tensor | None:
     if not _fused_loss_enabled(config):
         return None
     name = config.train_loss
+    q, p, n = embeds["query"], embeds["pos_embed"], embeds["neg_pool"]
     if name == "InfoNCELoss":
-        return fused_infonce_loss(
-            embeds["query"], embeds["pos_embed"], embeds["neg_pool"], embeds["row_valid"],
-            embeds["neg_valid"], scale=config.scale,
-            mask_false_negatives=config.mask_false_negatives,
-        )
+        return fused_infonce_loss(q, p, n, embeds["row_valid"], embeds["neg_valid"],
+                                  scale=config.scale,
+                                  mask_false_negatives=config.mask_false_negatives)
+    rv = embeds["row_valid"].float()
+    if name in _COSINE_LOSSES:
+        q, p, n = (loss_lib._l2_normalize(x) for x in (q, p, n))
+
+    def pos_logit() -> torch.Tensor:  # f32, of the normalized rows where cosine
+        return (q.float() * p.float()).sum(dim=-1)
+
     if name == "AlignmentLoss":  # no pool term: the cosine of each valid row's pair
-        q, p = (loss_lib._l2_normalize(embeds[k]) for k in ("query", "pos_embed"))
-        pos_logit = (q.float() * p.float()).sum(dim=-1)
-        return ((1.0 - pos_logit) * embeds["row_valid"].float()).sum()
-    msg = (f"the fused {name} objective (the pairwise Pallas kernels of the JAX package's "
-           "ops/fused_pairwise.py: _fwd_kernel, _bwd_dq_kernel, _bwd_dn_kernel) is not ported "
-           "yet; use_fused_loss=False trains it through the plain loss heads")
-    raise NotImplementedError(msg)
+        return ((1.0 - pos_logit()) * rv).sum()
+    pool_term = fused_pairwise_loss(
+        q, p, n, embeds["row_valid"], embeds["neg_valid"],
+        head="ContrastiveLoss" if name == "AlignmentContrastiveLoss" else name,
+        margin=config.margin, mask_false_negatives=config.mask_false_negatives,
+    )
+    if name == "AlignmentContrastiveLoss":
+        return ((1.0 - pos_logit()) * rv).sum() + pool_term
+    if name == "NCELoss":  # the positive's BCE term, labelled 1
+        return (loss_lib._softplus(-pos_logit()) * rv).sum() + pool_term
+    return pool_term
 
 
 def _loss_args(embeds: dict) -> tuple:
@@ -240,10 +280,10 @@ def make_loss_and_grad(config: TrainConfig, *, full_logs: bool = False):
     logs)``: the step's objective (a sum over valid rows), its gradient (a
     tree shaped as ``params``) and the step's loss logs, without the
     update.  ``full_logs`` picks the step variant as
-    :func:`make_train_step` does.  Under InfoNCE the logging step logs
-    ``loss/InfoNCELoss`` from the plain f32 loss head and trains on the
-    kernel's objective, which scores bf16-rounded operands, as the JAX
-    step does."""
+    :func:`make_train_step` does.  Under a pool kernel's objective (InfoNCE
+    or a pairwise head) the logging step logs ``loss/{train_loss}`` from
+    the plain f32 loss head and trains on the kernel's objective, which
+    scores bf16-rounded operands, as the JAX step does."""
 
     def loss_and_grad(params, item_table: torch.Tensor, batch: dict, dropout_seeds=None):
         batch = _batch_on(batch, item_table.device)
@@ -267,12 +307,8 @@ def make_train_step(config: TrainConfig, *, full_logs: bool = True):
     logs hold ``loss/{train_loss}``; the default logging step logs every
     loss head (``loss/{name}``, ``loss/{name}Mean``), the 9 ``logits/...``
     and the 7 ``batch/...`` statistics.  Both add ``grad/global_norm``
-    (before clipping).  The logs are 0-dim tensors on the table's
-    device."""
-    if config.accumulate_grad_batches > 1:
-        msg = ("accumulate_grad_batches > 1 (the JAX package's optax.MultiSteps) is not "
-               "ported yet")
-        raise NotImplementedError(msg)
+    (this step's gradient, before clipping).  The logs are 0-dim tensors
+    on the table's device."""
     loss_and_grad = make_loss_and_grad(config, full_logs=full_logs)
     update = make_flat_update(config)
 
