@@ -55,7 +55,19 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and its logging step; one step each of ContrastiveLoss, NCELoss and
    AlignmentContrastiveLoss at its widths; then two flagship steps with
    ``accumulate_grad_batches=2``, held against the card's own flat update
-   of the mean gradient.
+   of the mean gradient;
+10. the throughput probe (``ops/vpu_calibration.py``) against its plain
+    version for each mix over the one-wave tile and the JAX package's
+    (1024, 512) tile, then the calibration
+    (``tools/calibrate_vpu.py``): the CUDA-core and special-function
+    rates, every timed point gated below 1.5x the card's peak;
+11. the section variants of the fused layer's kernels
+    (``ops/fused_sections.py``) against their plain versions for every
+    stage at the flagship's width and the JAX profile's batch of 256, bf16
+    and f32, dropout 0.1, the full variants bit for bit against the
+    production kernels; then the section profile
+    (``tools/profile_fused_sections.py``) at ``flagship`` (B=256) and
+    ``train`` (B=128).
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -102,44 +114,14 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, iters: int = 20, reps: int = 20) -> float:
-    """Device time of one call of ``fn`` (ms): ``reps`` calls captured in a
-    CUDA graph, the median of ``iters`` CUDA-event timings of a replay,
-    divided by ``reps``.  The graph leaves out the host's Python and
-    launch overhead, which an eager call pays on top; inputs and weights
-    stay L2-resident between calls, as in a serving loop."""
-    import torch
+    """Device time of one call of ``fn`` (ms), from CUDA-graph replays of
+    ``reps`` calls (``tools.graph_ms``): the host's Python and launch
+    overhead, which an eager call pays on top, is left out; inputs and
+    weights stay L2-resident between calls, as in a serving loop."""
+    from transformer_recommenders_tpu_torch.tools import graph_ms
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):  # warm-up: lazy initialization, allocator
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    return graph_ms(fn, iters=iters, reps=reps)
 
 
 def eager_ms(fn, iters: int = 50) -> float:
@@ -1052,6 +1034,211 @@ def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads) -> dict:
     return out
 
 
+# -- phases 10 and 11: the measurement kernels ----------------------------------
+
+
+def ptxas_report(text: str) -> list[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (demangled where ``c++filt`` is there), registers, barriers, shared
+    memory and spills."""
+    import re
+
+    props: dict[str, list[str]] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            props[current] = []
+        elif current and ("registers" in line or "spill" in line):
+            props[current].append(line.split("ptxas info    :")[-1].strip())
+    names = list(props)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True, timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    short = {}
+    for mangled, plain in zip(names, out):
+        plain = plain.replace("(anonymous namespace)::", "").removeprefix("void ")
+        short[mangled] = plain.split("(")[0] if len(out) == len(names) else mangled
+    return [f"{short[n]}: {'; '.join(props[n])}" for n in names]
+
+
+def check_vpu_chain() -> tuple[dict, dict]:
+    """Phase 10: the throughput probe (#13) against its plain version on
+    the card at K = 64 for each mix, over the one-wave tile and the JAX
+    package's (1024, 512) tile; then the calibration (its gate on every
+    timed point, the calibration path's launches counted); returns the
+    kernel's row and the path's launch counts."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import vpu_calibration as vc
+    from transformer_recommenders_tpu_torch.tools import calibrate_vpu
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for shape in (vc.wave_tile(torch.device("cuda")), (1024, 512)):
+        x = torch.rand(shape, generator=gen, device="cuda") + 0.5
+        for mix in vc.MIXES:
+            got = vc.vpu_chain(x, iters=64, mix=mix)
+            want = vc.reference_chain(x, iters=64, mix=mix)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = float(((got - want).abs() / want.abs()).max())
+            # fma, select: the same correctly rounded f32 operations, so
+            # bit for bit; exp: the kernel's expf against torch's exp
+            ok = bool(torch.isfinite(got).all()) and (rel <= 2e-5 if mix == "exp" else err == 0.0)
+            log(f"  vpu_chain {mix} {tuple(shape)} K=64: max_abs_err={err:.3g} "
+                f"max_rel_err={rel:.3g} "
+                f"tol={'2e-5 relative' if mix == 'exp' else '0 (bit for bit)'} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"vpu_chain {mix} disagrees with its plain version")
+    cuda_build.reset_launches()
+    record = calibrate_vpu.calibrate(log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    # the row: the fma mix at K_LO over the one-wave tile; the plain
+    # version is one eager call (K_LO x 3 elementwise launches)
+    shape, k = tuple(record["shape"]), calibrate_vpu.K_LO
+    x = torch.rand(shape, generator=gen, device="cuda") + 0.5
+    vc.reference_chain(x, iters=64, mix="fma")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    vc.reference_chain(x, iters=k, mix="fma")
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    elems = shape[0] * shape[1]
+    fma = record["results"]["fma"]
+    # f32 operations at the data sheet's f32 rate (which counts an FMA as
+    # two: the mix has none, so the kernel can reach at most half of it)
+    bound_ms, bound_by = bound(elems * k * vc.OPS_PER_ITER["fma"], 8 * elems, H100_F32_FLOPS)
+    log(f"  vpu_chain fma {shape} K={k}, device time: kernel {fma['t_lo_ms']:.4f} ms, plain "
+        f"(one eager call) {plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}, 67 TFLOP/s "
+        "f32)")
+    row = {
+        "name": "vpu_chain", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/vpu_calibration.cu",
+        "replaces": "transformer_recommenders_tpu/ops/vpu_calibration.py:47",
+        "shape": f"{shape} f32, fma, K={k}", "max_abs_err": 0.0, "ms": fma["t_lo_ms"],
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "by_mix": {m: {key: r.get(key) for key in ("t_lo_ms", "t_hi_ms", "elemops_per_ms",
+                                                    "share_of_peak", "dispatch_share",
+                                                    "clocks_sm_mhz_median", "power_draw_w_max")}
+                   for m, r in record["results"].items()},
+        "fp32_ops_per_s": record["fp32_ops_per_s"], "mufu_per_s": record["mufu_per_s"],
+    }
+    return row, launches
+
+
+def check_sections() -> tuple[list[dict], dict]:
+    """Phase 11: the section variants of the layer's kernels (#14, #15)
+    against their plain versions at the flagship's width (B=256, the JAX
+    script's), every stage, bf16 (the parameters rounded to bf16, as the
+    profile takes them) and f32, dropout 0.1; the full variants bit for bit
+    against the production kernels; then the section profile at
+    ``flagship`` and ``train`` (the sections path's launches counted);
+    returns the two kernels' rows and the path's launch counts."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+    from transformer_recommenders_tpu_torch.ops import fused_sections as fs
+    from transformer_recommenders_tpu_torch.tools import profile_fused_sections as pfs
+
+    b, s, d, h, f = 256, 32, 128, 8, 512
+    gen = torch.Generator().manual_seed(13)
+    seeds = [1, 2, 3]
+    max_err = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dtype_name = str(dtype).removeprefix("torch.")
+        x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=dtype,
+                                             dropout=0.1, seeds=seeds)
+        if dtype == torch.bfloat16:
+            params = {m: {n: t.to(dtype).float() for n, t in v.items()} for m, v in params.items()}
+        kwargs.pop("ffn_dim")
+        dy = torch.randn(x.shape, generator=gen).to("cuda", dtype)
+        with torch.no_grad():
+            for stage in fs.FWD_STAGES:
+                got = fs.layer_stage_forward(x, params, mask, stage=stage, **kwargs)
+                want = fs.layer_stage_forward_reference(x, params, mask, stage=stage, **kwargs)
+                torch.cuda.synchronize()
+                err = compare(f"fused_layer_stage_fwd {stage} B={b} {dtype_name} dropout 0.1",
+                              got, want, dtype_name)
+                if dtype == torch.bfloat16:
+                    max_err["fwd"] = max(max_err["fwd"], err)
+            for stage in fs.BWD_STAGES:
+                got = fs.layer_stage_backward(x, params, mask, dy, stage=stage, **kwargs)
+                want = fs.layer_stage_backward_reference(x, params, mask, dy, stage=stage, **kwargs)
+                torch.cuda.synchronize()
+                name = f"fused_layer_stage_bwd {stage} B={b} {dtype_name} dropout 0.1"
+                if stage == "recompute":  # the layer's output: the forward's bounds
+                    err = compare(name, got, want, dtype_name)
+                else:
+                    err, mean_err, rel = compare_grad(name, got, want, dtype_name)
+                    log(f"  {name}: max_abs_err={err:.3g} mean_abs_err={mean_err:.3g} "
+                        f"max_rel_err={rel:.3g} tol={GRAD_TOL[dtype_name]} (relative to max "
+                        "abs) ok")
+                if dtype == torch.bfloat16:
+                    max_err["bwd"] = max(max_err["bwd"], err)
+            y_stage = fs.layer_stage_forward(x, params, mask, stage="full", **kwargs)
+            y_prod = fl.fused_layer(x, params, mask, ffn_dim=f, **kwargs)
+            dx_stage = fs.layer_stage_backward(x, params, mask, dy, stage="full", **kwargs)
+        xr = x.detach().clone().requires_grad_()
+        fl.fused_layer(xr, params, mask, ffn_dim=f, **kwargs).backward(dy)
+        torch.cuda.synchronize()
+        same = torch.equal(y_stage, y_prod), torch.equal(dx_stage, xr.grad)
+        log(f"  full stages {dtype_name} against the production kernels: forward "
+            f"{'bit for bit' if same[0] else 'DIFFERENT'}, backward dx "
+            f"{'bit for bit' if same[1] else 'DIFFERENT'}")
+        if not all(same):
+            raise AssertionError("a full section variant is not the production kernel")
+    cuda_build.reset_launches()
+    profiles = {}
+    for name in ("flagship", "train"):
+        profiles[name] = pfs.profile_sections(name, log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    # the rows: the full variants at the flagship shape, beside their
+    # plain versions on the profile's inputs
+    layer, x, dy, mask, opts = pfs.make_inputs(pfs.SHAPES["flagship"], torch.device("cuda"))
+    with torch.no_grad():
+        plain = {
+            "fwd": time_ms(lambda: fs.layer_stage_forward_reference(x, layer, mask, stage="full",
+                                                                    **opts)),
+            "bwd": time_ms(lambda: fs.layer_stage_backward_reference(x, layer, mask, dy,
+                                                                     stage="full", **opts)),
+        }
+    res = profiles["flagship"]["results"]
+    fwd_bound = layer_bound_ms(b, s, d, h, f, 2)
+    flops = 6 * b * s * (4 * d * d + 2 * d * f) + 12 * b * s * s * d
+    nparams = 4 * d * d + 2 * d * f + 9 * d + f
+    bwd_bound = bound(flops, 3 * b * s * d * 2 + 4 * b * s + 2 * 4 * nparams, H100_BF16_FLOPS)
+    common = {"route": "cuda", "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
+              "shape": f"B={b} S={s} D={d} H={h} F={f} bf16 dropout 0.1, the full variant",
+              "library_ms": None}
+    rows = []
+    for direction, replaces, bnd in (("fwd", "scripts/profile_fused_sections.py:68", fwd_bound),
+                                     ("bwd", "scripts/profile_fused_sections.py:141", bwd_bound)):
+        by_stage = {k.split("/")[1]: {m: v[m] for m in ("cumulative_ms", "delta_ms")}
+                    for k, v in res.items() if k.startswith(direction)}
+        rows.append({
+            "name": f"fused_layer_stage_{direction}", **common, "replaces": replaces,
+            "max_abs_err": max_err[direction], "ms": res[f"{direction}/full"]["cumulative_ms"],
+            "plain_ms": plain[direction], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "by_stage": by_stage,
+            "by_shape": {n: {k: v["cumulative_ms"] for k, v in p["results"].items()}
+                         for n, p in profiles.items()},
+        })
+        log(f"  fused_layer_stage_{direction} full B={b}, device time: kernel "
+            f"{rows[-1]['ms']:.4f} ms, plain {plain[direction]:.4f} ms, bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})")
+    rows[1]["bwd_full_passes_ms"] = {n: p["bwd_full_passes_ms"] for n, p in profiles.items()}
+    return rows, launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -1062,73 +1249,94 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.tools import card
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    smi = nvidia_smi()
+    smi = card()
     log(f"device: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    log("phase 1: build")
+    t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase {title}")
+
+    phase("1: build")
     t0 = time.perf_counter()
     cuda_build.build_all()
     for name, text in cuda_build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"  {name}: {line}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
 
-    log("phase 2: the serving path's kernels against their plain versions")
+    phase("2: the serving path's kernels against their plain versions")
     kernels = [check_fused_layer(), check_gather()]
 
-    log("phase 3: serving")
+    phase("3: serving")
     serve_launches = serving_phase()
 
     # after the burst, so the training checks' load does not reach it
-    log("phase 4: the training path's kernels against their plain versions")
+    phase("4: the training path's kernels against their plain versions")
     kernels += [check_fused_layer_bwd(), check_gather_bwd(), *check_table_infonce()]
 
-    log("phase 5: training, the flagship's hot step")
+    phase("5: training, the flagship's hot step")
     launches = {"serving": serve_launches, "training": training_phase()}
 
-    log("phase 6: the pool InfoNCE kernels against their plain versions")
+    phase("6: the pool InfoNCE kernels against their plain versions")
     kernels += check_pool_infonce()
 
-    log("phase 7: training through the pool objective")
+    phase("7: training through the pool objective")
     log(" path A: the flagship's logging step (full_logs=True)")
     launches["logging_A"] = training_phase(full_logs=True, steps=0, timed_steps=10)
     log(" path B: the reference-equivalent hot step (configs/ml1m_reference.yaml)")
     launches["reference_B"] = training_phase(config=REFERENCE, batch_size=REFERENCE_BATCH)
 
-    log("phase 8: the pairwise kernels against their plain versions")
+    phase("8: the pairwise kernels against their plain versions")
     kernels += check_pairwise()
 
-    log("phase 9: training through the pairwise objectives")
+    phase("9: training through the pairwise objectives")
     log(" path C: ml100k_bpr's hot step (configs/ml100k_bpr.yaml)")
     launches["ml100k_C"] = training_phase(config=ML100K, num_items=ML100K_ITEMS)
     log(" path C's logging step (full_logs=True)")
     launches["ml100k_logging"] = training_phase(config=ML100K, num_items=ML100K_ITEMS,
                                                 full_logs=True, steps=0, timed_steps=10)
     for name in ("ContrastiveLoss", "NCELoss", "AlignmentContrastiveLoss"):
-        # margin 1: the cosines of a random-weight model are small, and at
-        # ml25m_ccl.yaml's 0.5 almost no pool row would count
+        # margin 1: the cosines of a random-weight model are small, and
+        # at ml25m_ccl.yaml's 0.5 almost no pool row would count
         log(f" {name} at ml100k_bpr's widths, margin 1, batch 32")
         training_phase(config={**ML100K, "train_loss": name, "margin": 1.0},
                        num_items=ML100K_ITEMS, batch_size=32, steps=0, timed_steps=0)
     log(" gradient accumulation: the flagship's hot step, accumulate_grad_batches=2")
     accumulation_phase()
 
+    phase("10: the throughput probe against its plain version, then the calibration")
+    row, launches["calibration"] = check_vpu_chain()
+    kernels.append(row)
+
+    phase("11: the fused layer's section variants against their plain versions, then the "
+          "section profile")
+    rows, launches["sections"] = check_sections()
+    kernels += rows
+
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
         # forward kernels on serving, the backward and table kernels on the
         # flagship's hot step, the pool kernels on its logging step, the
         # pairwise kernels on path C (every training path launches the
-        # forward kernels too)
+        # forward kernels too), the probe on the calibration, the section
+        # variants on the section profile
         path = ("serving" if k["name"] in ("fused_layer", "gather_rows") else
                 "logging_A" if k["name"].startswith("pool_") else
-                "ml100k_C" if k["name"].startswith("pairwise_") else "training")
+                "ml100k_C" if k["name"].startswith("pairwise_") else
+                "calibration" if k["name"] == "vpu_chain" else
+                "sections" if k["name"].startswith("fused_layer_stage_") else "training")
         k["launches"] = launches[path][k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
+        if not k["launches"]:
+            msg = f"{k['name']} was not launched on its path ({path})"
+            raise AssertionError(msg)
+    log(f"[{time.perf_counter() - t_start:.0f} s] done")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1401,6 +1609,8 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
         "gather_rows_bwd": int(proj and (table_path or table_rows <= 3 * pool_rows)),
         "fused_layer": layers, "fused_layer_bwd": layers,
         "table_infonce_fwd": int(table_path), "table_infonce_bwd": int(table_path),
+        # the measurement kernels: no train step runs them
+        "vpu_chain": 0, "fused_layer_stage_fwd": 0, "fused_layer_stage_bwd": 0,
     }
     for prefix in ("pool_infonce", "pairwise"):
         on = not table_path and prefix == pool

@@ -436,3 +436,85 @@ def test_pairwise_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
     assert cuda_build.LAUNCHES["pairwise_dq"] == 1
     assert cuda_build.LAUNCHES["pairwise_dn"] == 0
     assert torch.isfinite(q.grad).all()
+
+
+# The throughput probe against its plain version: fma and select are the
+# same correctly rounded f32 operations, bit for bit; exp is the kernel's
+# expf against torch's exp (2e-5 relative, the JAX package's bound).
+@pytest.mark.parametrize("mix", ["fma", "exp", "select"])
+def test_vpu_chain_kernel_matches_plain(cuda, mix):
+    from transformer_recommenders_tpu_torch.ops import vpu_calibration as vc
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for shape in (vc.wave_tile(cuda), (1024, 512), (3, 100)):  # one wave, the JAX tile, ragged
+        x = torch.rand(shape, generator=gen, device=cuda) + 0.5
+        cuda_build.reset_launches()
+        got = vc.vpu_chain(x, iters=64, mix=mix)
+        want = vc.reference_chain(x, iters=64, mix=mix)
+        torch.cuda.synchronize()
+        assert cuda_build.LAUNCHES["vpu_chain"] == 1
+        if mix == "exp":
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=0)
+        else:
+            assert torch.equal(got, want)
+
+
+def _section_case(cuda, dtype, b=16, s=32, d=128, h=8, f=512):
+    gen = torch.Generator().manual_seed(b + s + d)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    dy = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    params = _weights(gen, d, f, cuda)
+    kw = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
+              dropout_seeds=[1, 2, 3])
+    return x, params, mask.to(cuda), dy, kw
+
+
+# The section variants of the layer's kernels against the plain stage
+# versions: the forward stages and the recomputed output with the layer's
+# bounds above, the backward's T(dctx) and dx with GRAD_TOL.
+@pytest.mark.parametrize(("direction", "stage"), [
+    ("fwd", "qkv"), ("fwd", "attn"), ("fwd", "out_ln1"), ("fwd", "ffn_gelu"), ("fwd", "full"),
+    ("bwd", "recompute"), ("bwd", "ffn_bwd"), ("bwd", "attn_bwd"), ("bwd", "full"),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_section_kernels_match_plain(cuda, direction, stage, dtype):
+    from transformer_recommenders_tpu_torch.ops import fused_sections as fs
+
+    x, params, mask, dy, kw = _section_case(cuda, dtype)
+    cuda_build.reset_launches()
+    with torch.no_grad():
+        if direction == "fwd":
+            got = fs.layer_stage_forward(x, params, mask, stage=stage, **kw)
+            want = fs.layer_stage_forward_reference(x, params, mask, stage=stage, **kw)
+        else:
+            got = fs.layer_stage_backward(x, params, mask, dy, stage=stage, **kw)
+            want = fs.layer_stage_backward_reference(x, params, mask, dy, stage=stage, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES[f"fused_layer_stage_{direction}"] == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if direction == "bwd" and stage != "recompute":
+        assert rel_err(got, want) <= GRAD_TOL[dtype]
+        return
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        assert err.max().item() <= 2.0**-4 and err.mean().item() <= 2.0**-8
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_full_section_variants_are_the_production_kernels(cuda, dtype):
+    from transformer_recommenders_tpu_torch.ops import fused_sections as fs
+
+    x, params, mask, dy, kw = _section_case(cuda, dtype)
+    with torch.no_grad():
+        y = fs.layer_stage_forward(x, params, mask, stage="full", **kw)
+        dx = fs.layer_stage_backward(x, params, mask, dy, stage="full", **kw)
+    xr = x.clone().requires_grad_()
+    y_prod = fused_layer(xr, params, mask, ffn_dim=512, **kw)
+    y_prod.backward(dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_prod.detach())
+    assert torch.equal(dx, xr.grad)

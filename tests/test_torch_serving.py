@@ -210,7 +210,8 @@ def test_chip_smoke_expects_each_paths_kernels():
     ml100k = TrainConfig(**chip_smoke.ML100K)
     common = {"gather_rows": 1, "table_infonce_fwd": 0, "table_infonce_bwd": 0,
               "pool_infonce_fwd": 1, "pool_infonce_dq": 1, "pairwise_fwd": 0, "pairwise_dq": 0,
-              "pairwise_dn": 0}
+              "pairwise_dn": 0, "vpu_chain": 0, "fused_layer_stage_fwd": 0,
+              "fused_layer_stage_bwd": 0}
     assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=False) == {
         **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
         "table_infonce_fwd": 1, "table_infonce_bwd": 1, "pool_infonce_fwd": 0,

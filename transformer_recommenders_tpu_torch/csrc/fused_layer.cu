@@ -62,6 +62,30 @@
 // so tensor-core time (5 us); this first version runs CUDA-core FMAs, as
 // the forward does, and pays device-memory round trips through the
 // workspace (~60 MB at that shape).
+//
+// Section profile.  The forward and pass 1 of the backward take a
+// compile-time kStop: the kernel stops after that stage and stores the
+// stage's (S, D) tensor in the input's type into its output, so the
+// differences of the cumulative variants' times attribute the layer's time
+// to its sections.  They replace the TPU kernels
+// scripts/profile_fused_sections.py:_stage_fwd_kernel and _stage_bwd_kernel
+// of the JAX package, and store the same tensors:
+//   forward   qkv       the first D columns of qkv (q)
+//             attn      ctx
+//             out_ln1   x1 = LN1(x + dropout(ctx Wout + b))
+//             ffn_gelu  the first D columns of gelu(x1 Win + b) (F >= D)
+//             full      y: the layer (fused_layer_fwd)
+//   backward  recompute the recomputed y (A&S erf under bf16)
+//             ffn_bwd   T(dctx), the VJP through LN2, the FFN and LN1
+//             attn_bwd  dx, through the attention VJP and the qkv product
+//             full      the three passes (fused_layer_bwd)
+// The JAX script's attn_bwd cut (dx0 before any parameter gradient) maps
+// onto pass 1 without the per-sequence partial sums of the bias and
+// LayerNorm gradients; the workspace writes stay, because pass 1 reads each
+// rounded operand back as the input of its next product.  So full minus
+// attn_bwd is those partial sums plus passes 2 and 3.  The full variants
+// are the production kernels: a kStop branch that is not taken compiles to
+// nothing.
 #include "common.cuh"
 
 namespace {
@@ -70,6 +94,18 @@ constexpr int kThreads = 256;
 constexpr int kRows = 16;  // rows of a dense's output tile held in registers
 constexpr float kNegInf = -1e9f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
+
+// where a section-profile variant stops (see above); the order of FWD_STAGES
+// and BWD_STAGES in ops/fused_sections.py
+enum FwdStop { kStopQkv = 0, kStopAttn = 1, kStopOutLn1 = 2, kStopFfnGelu = 3, kFwdFull = 4 };
+enum BwdStop { kStopRecompute = 0, kStopFfnBwd = 1, kStopAttnBwd = 2, kBwdFull = 3 };
+
+// a stage's tensor: the first D columns of rows [0, S) of src (leading
+// dimension ld) into the (S, D) rows of dst
+template <typename T>
+__device__ void store_stage(const T* src, int ld, int S, int D, T* dst) {
+  for (int i = threadIdx.x; i < S * D; i += blockDim.x) dst[i] = src[(i / D) * ld + i % D];
+}
 
 struct Params {
   const void* x;
@@ -187,7 +223,7 @@ __device__ void add_layer_norm(const T* a, int a_ld, const T* b, int b_ld,
   }
 }
 
-template <typename T>
+template <typename T, int kStop>
 __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) {
   using A = xrt::Act<T>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -208,6 +244,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
 
   dense<T>(sx, D, D, p.qkv_w, p.qkv_b, ld3, reg, ld3, S, kPlain, 0, 0, 0, 1.f);
   __syncthreads();
+  if constexpr (kStop == kStopQkv) {
+    store_stage<T>(reg, ld3, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    return;
+  }
 
   const float scale = 1.f / sqrtf((float)dh);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -256,6 +296,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
     }
     __syncthreads();
   }
+  if constexpr (kStop == kStopAttn) {
+    store_stage<T>(reg, ld3, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    return;
+  }
 
   const uint32_t row0 = (uint32_t)b * S;
   // a = dropout(ctx Wout + b) into the dead k columns
@@ -264,10 +308,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   __syncthreads();
   add_layer_norm<T, T>(sx, D, reg + D, ld3, p.ln1_s, p.ln1_b, S, D, p.eps, sx, D);
   __syncthreads();
+  if constexpr (kStop == kStopOutLn1) {
+    store_stage<T>(sx, D, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    return;
+  }
   T* g = reg;
   T* f = reg + (size_t)sp * F;
   dense<T>(sx, D, D, p.ffn_in_w, p.ffn_in_b, F, g, F, S, kGelu, 0, 0, 0, 1.f);
   __syncthreads();
+  if constexpr (kStop == kStopFfnGelu) {
+    store_stage<T>(g, F, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    return;
+  }
   dense<T>(g, F, F, p.ffn_out_w, p.ffn_out_b, D, f, D, S,
            p.hidden_drop ? kDropout : kPlain, row0, p.seed[2], p.hidden_thr, p.hidden_keep);
   __syncthreads();
@@ -437,7 +489,7 @@ __device__ __forceinline__ float hidden_drop_bwd(float d, int drop, uint32_t row
 // operands of the four weight-gradient products go to the workspace for
 // pass 2; the bias and LayerNorm gradients are summed over the sequence's
 // rows into one row of ``partial`` for pass 3.
-template <typename T>
+template <typename T, int kStop>
 __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdParams p) {
   using A = xrt::Act<T>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -588,26 +640,34 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
       stats[row * 4 + 2] = mean;
       stats[row * 4 + 3] = rstd;
     }
+    if constexpr (kStop == kStopRecompute) {  // the recomputed y = T(LN2(h2))
+      T* y = static_cast<T*>(p.dx) + (row_base + row) * D;
+      for (int c = lane; c < D; c += 32)
+        y[c] = A::store((A::load(hr[c]) - mean) * rstd * __ldg(p.ln2_s + c) + __ldg(p.ln2_b + c));
+    }
   }
   __syncthreads();
+  if constexpr (kStop == kStopRecompute) return;
 
   // ---- LN2 backward: dh2 into dres (= dx1 so far), dfm = T(dropout'(dh2))
   ln_bwd_rows<T, T>(dy, h2, stats, 2, p.ln2_s, S, D, dres, dfm, row0, p.hidden_drop, p.seed[2],
                     p.hidden_thr, p.hidden_keep_bwd);
   __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s_scale = 0.f, s_bias = 0.f, s_fb = 0.f;
-    for (int r = 0; r < S; ++r) {
-      const float dyv = A::load(dy[(size_t)r * D + c]);
-      const float n = (A::load(h2[(size_t)r * D + c]) - stats[r * 4 + 2]) * stats[r * 4 + 3];
-      s_scale += dyv * n;
-      s_bias += dyv;
-      s_fb += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, p.seed[2],
-                              p.hidden_thr, p.hidden_keep_bwd);
+  if constexpr (kStop == kBwdFull) {
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float s_scale = 0.f, s_bias = 0.f, s_fb = 0.f;
+      for (int r = 0; r < S; ++r) {
+        const float dyv = A::load(dy[(size_t)r * D + c]);
+        const float n = (A::load(h2[(size_t)r * D + c]) - stats[r * 4 + 2]) * stats[r * 4 + 3];
+        s_scale += dyv * n;
+        s_bias += dyv;
+        s_fb += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D,
+                                p.seed[2], p.hidden_thr, p.hidden_keep_bwd);
+      }
+      part[off.ln2_s + c] = s_scale;
+      part[off.ln2_b + c] = s_bias;
+      part[off.ffn_out_b + c] = s_fb;
     }
-    part[off.ln2_s + c] = s_scale;
-    part[off.ln2_b + c] = s_bias;
-    part[off.ffn_out_b + c] = s_fb;
   }
   __syncthreads();
 
@@ -620,7 +680,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
     dum[(size_t)r * F + n] = A::store(du);
     return du;
   };
-  dense_rows<T, true>(dfm, D, D, p.ffn_out_w, F, S, gelu_bwd, part + off.ffn_in_b);
+  dense_rows<T, true>(dfm, D, D, p.ffn_out_w, F, S, gelu_bwd,
+                      kStop == kBwdFull ? part + off.ffn_in_b : nullptr);
   __syncthreads();
   // dx1 = dh2 + dum Win^T
   auto add_to_dres = [=](int r, int n, float acc) {
@@ -629,16 +690,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
   };
   dense_rows<T, true>(dum, F, F, p.ffn_in_w, D, S, add_to_dres, nullptr);
   __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s_scale = 0.f, s_bias = 0.f;
-    for (int r = 0; r < S; ++r) {
-      const float d = dres[(size_t)r * D + c];
-      const float n = (A::load(h1[(size_t)r * D + c]) - stats[r * 4]) * stats[r * 4 + 1];
-      s_scale += d * n;
-      s_bias += d;
+  if constexpr (kStop == kBwdFull) {
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float s_scale = 0.f, s_bias = 0.f;
+      for (int r = 0; r < S; ++r) {
+        const float d = dres[(size_t)r * D + c];
+        const float n = (A::load(h1[(size_t)r * D + c]) - stats[r * 4]) * stats[r * 4 + 1];
+        s_scale += d * n;
+        s_bias += d;
+      }
+      part[off.ln1_s + c] = s_scale;
+      part[off.ln1_b + c] = s_bias;
     }
-    part[off.ln1_s + c] = s_scale;
-    part[off.ln1_b + c] = s_bias;
   }
   __syncthreads();
 
@@ -646,12 +709,14 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
   ln_bwd_rows<T, float>(dres, h1, stats, 0, p.ln1_s, S, D, dres, dam, row0, p.hidden_drop,
                         p.seed[1], p.hidden_thr, p.hidden_keep_bwd);
   __syncthreads();
-  for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    float s = 0.f;
-    for (int r = 0; r < S; ++r)
-      s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, p.seed[1],
-                           p.hidden_thr, p.hidden_keep_bwd);
-    part[off.out_b + c] = s;
+  if constexpr (kStop == kBwdFull) {
+    for (int c = threadIdx.x; c < D; c += blockDim.x) {
+      float s = 0.f;
+      for (int r = 0; r < S; ++r)
+        s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, p.seed[1],
+                             p.hidden_thr, p.hidden_keep_bwd);
+      part[off.out_b + c] = s;
+    }
   }
   // gw = T(dam Wout^T) into h2 (no longer needed)
   T* gw = h2;
@@ -662,6 +727,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
   __syncthreads();
   dense_rows<T, true>(dam, D, D, p.out_w, D, S, store_round, nullptr);
   __syncthreads();
+  if constexpr (kStop == kStopFfnBwd) {
+    store_stage<T>(gw, D, S, D, static_cast<T*>(p.dx) + row_base * D);
+    return;
+  }
 
   // ---- attention backward, one head at a time, into dqkv (f32)
   for (int hh = 0; hh < H; ++hh) {
@@ -717,7 +786,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
       s += d;
       dqm[(size_t)r * ld3 + c] = A::store(d);
     }
-    part[off.qkv_b + c] = s;
+    if constexpr (kStop == kBwdFull) part[off.qkv_b + c] = s;
   }
   __syncthreads();
   // dx = T(dh1 + dqm Wqkv^T)
@@ -810,14 +879,15 @@ __host__ __device__ inline size_t bwd_smem_bytes(int S) {
   return (size_t)((S + 3) / 4) * 4 * sizeof(int) + (size_t)(2 * S * S + S) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int kStop>
 cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = bwd_smem_bytes(p.S);
-  cudaError_t err = cudaFuncSetAttribute(fused_layer_bwd_rows_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(fused_layer_bwd_rows_kernel<T, kStop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_layer_bwd_rows_kernel<T><<<p.B, kThreads, smem, stream>>>(p);
+  fused_layer_bwd_rows_kernel<T, kStop><<<p.B, kThreads, smem, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (kStop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
   const int tiles = (max(p.F, 3 * p.D) + kTile - 1) / kTile;
   weight_grad_kernel<T><<<dim3(tiles, tiles, 4), 256, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -827,15 +897,38 @@ cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
 }
 
 template <typename T>
+cudaError_t launch_bwd_stage(const BwdParams& p, int stage, cudaStream_t stream) {
+  switch (stage) {
+    case kStopRecompute: return launch_bwd<T, kStopRecompute>(p, stream);
+    case kStopFfnBwd: return launch_bwd<T, kStopFfnBwd>(p, stream);
+    case kStopAttnBwd: return launch_bwd<T, kStopAttnBwd>(p, stream);
+    case kBwdFull: return launch_bwd<T, kBwdFull>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int kStop>
 cudaError_t launch(const Params& p, int B, int smem_bytes, cudaStream_t stream) {
   size_t reg_off, sc_off, mask_off;
   const size_t need = smem_layout(p.S, p.D, p.F, p.hg, sizeof(T), &reg_off, &sc_off, &mask_off);
   if (need > (size_t)smem_bytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_layer_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(fused_layer_fwd_kernel<T, kStop>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  fused_layer_fwd_kernel<T><<<B, kThreads, smem_bytes, stream>>>(p);
+  fused_layer_fwd_kernel<T, kStop><<<B, kThreads, smem_bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stage(const Params& p, int B, int smem_bytes, int stage, cudaStream_t stream) {
+  switch (stage) {
+    case kStopQkv: return launch<T, kStopQkv>(p, B, smem_bytes, stream);
+    case kStopAttn: return launch<T, kStopAttn>(p, B, smem_bytes, stream);
+    case kStopOutLn1: return launch<T, kStopOutLn1>(p, B, smem_bytes, stream);
+    case kStopFfnGelu: return launch<T, kStopFfnGelu>(p, B, smem_bytes, stream);
+    case kFwdFull: return launch<T, kFwdFull>(p, B, smem_bytes, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -845,6 +938,8 @@ extern "C" int fused_layer_smem_bytes(int S, int D, int F, int hg, int elem) {
   return (int)smem_layout(S, D, F, hg, elem, &reg_off, &sc_off, &mask_off);
 }
 
+// The layer, or with stage < kFwdFull a section variant (see the top of
+// this file), for B sequences of S <= 64 rows.
 extern "C" int fused_layer_fwd(
     const void* x, void* y, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -852,20 +947,23 @@ extern "C" int fused_layer_fwd(
     const float* ln2_s, const float* ln2_b, int B, int S, int D, int H, int F, int causal,
     int is_bf16, int heads_per_stage, uint32_t seed0, uint32_t seed1, uint32_t seed2,
     uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep, int attn_drop,
-    int hidden_drop, float eps, int smem_bytes, void* stream) {
+    int hidden_drop, float eps, int smem_bytes, int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (S <= 0 || S > 64 || D % H != 0 || H % heads_per_stage != 0) return cudaErrorInvalidValue;
+  if (stage == kStopFfnGelu && F < D) return cudaErrorInvalidValue;
   Params p{x, y, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
            ln1_s, ln1_b, ln2_s, ln2_b, S, D, H, F, causal, heads_per_stage,
            {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep,
            attn_drop, hidden_drop, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(p, B, smem_bytes, s) : launch<float>(p, B, smem_bytes, s);
+  return is_bf16 ? launch_stage<__nv_bfloat16>(p, B, smem_bytes, stage, s)
+                 : launch_stage<float>(p, B, smem_bytes, stage, s);
 }
 
 // The backward of fused_layer_fwd: dx (T) and the 12 f32 parameter
 // gradients, summed over the batch.  ws[15] is the workspace described in
-// BwdParams, in its order, allocated by the caller.
+// BwdParams, in its order, allocated by the caller.  With stage <
+// kBwdFull, pass 1's section variant alone, its stage's tensor in dx.
 extern "C" int fused_layer_bwd(
     const void* x, const void* dy, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -878,7 +976,7 @@ extern "C" int fused_layer_bwd(
     float* ws_dqkv, float* ws_partial, int B, int S, int D, int H, int F, int causal,
     int is_bf16, uint32_t seed0, uint32_t seed1, uint32_t seed2, uint32_t attn_thr,
     uint32_t hidden_thr, float attn_keep, float hidden_keep_fwd, float hidden_keep_bwd,
-    int attn_drop, int hidden_drop, float eps, void* stream) {
+    int attn_drop, int hidden_drop, float eps, int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (S <= 0 || S > 64 || D % H != 0) return cudaErrorInvalidValue;
   BwdParams p{x, dy, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w,
@@ -889,5 +987,6 @@ extern "C" int fused_layer_bwd(
               {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep_fwd,
               hidden_keep_bwd, attn_drop, hidden_drop, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd<__nv_bfloat16>(p, s) : launch_bwd<float>(p, s);
+  return is_bf16 ? launch_bwd_stage<__nv_bfloat16>(p, stage, s)
+                 : launch_bwd_stage<float>(p, stage, s);
 }

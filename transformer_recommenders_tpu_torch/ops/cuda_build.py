@@ -46,18 +46,24 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
         {
             # x, y, mask, 12 params, B S D H F causal is_bf16 heads_per_stage,
             # seeds[3], attn/hidden thresholds, attn/hidden keep divisors,
-            # attn/hidden dropout on, eps, dynamic smem bytes, stream
+            # attn/hidden dropout on, eps, dynamic smem bytes, stage, stream
             "fused_layer_fwd": [_P, _P, _P] + [_P] * 12
-            + [_I] * 8 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _P],
+            + [_I] * 8 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _I, _P],
             # S, D, F, heads per stage, bytes per activation
             "fused_layer_smem_bytes": [_I] * 5,
             # x, dy, mask, 12 params, dx, 12 param grads, 15 workspace
             # buffers, B S D H F causal is_bf16, seeds[3], attn/hidden
             # thresholds, attn keep divisor, hidden keep divisors of the
             # forward recompute and of the backward, attn/hidden dropout on,
-            # eps, stream
+            # eps, stage, stream
             "fused_layer_bwd": [_P, _P, _P] + [_P] * 12 + [_P] + [_P] * 12 + [_P] * 15
-            + [_I] * 7 + [_U] * 3 + [_U, _U, _F, _F, _F, _I, _I, _F, _P],        },
+            + [_I] * 7 + [_U] * 3 + [_U, _U, _F, _F, _F, _I, _I, _F, _I, _P],
+        },
+    ),
+    "vpu_calibration": (
+        "vpu_calibration.cu",
+        # x, y (f32), n, iters, mix (0 fma, 1 exp, 2 select), stream
+        {"vpu_chain": [_P, _P, _I, _I, _I, _P]},
     ),
     "gather_rows": (
         "gather_rows.cu",
@@ -114,12 +120,14 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
 
 # the kernels a wrapper counts, by name: a C entry point that launches
 # more than one CUDA kernel for one function (a backward's passes) counts
-# once per call
+# once per call; the section-profile variants of the layer's kernels count
+# apart from the layer's own launches
 KERNELS = (
     "gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
     "table_infonce_fwd", "table_infonce_bwd",
     "pool_infonce_fwd", "pool_infonce_dq", "pool_infonce_dn",
     "pairwise_fwd", "pairwise_dq", "pairwise_dn",
+    "vpu_chain", "fused_layer_stage_fwd", "fused_layer_stage_bwd",
 )
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -34,6 +34,10 @@ Every gradient product takes operands rounded to the compute dtype and
 sums in f32; ``dx`` comes out in ``x.dtype`` and the 12 parameter
 gradients in f32, summed over the batch.  :func:`fused_layer` is a
 ``torch.autograd.Function`` over the two.
+
+Both plain versions, and both kernels, also stop after a stage of the
+layer for its section profile (``FWD_STAGES``, ``BWD_STAGES``;
+``ops/fused_sections.py``).
 """
 
 from __future__ import annotations
@@ -161,16 +165,34 @@ def fused_layer_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of the layer (see the module docstring)."""
     del ffn_dim  # the weights carry it
+    return _layer_forward(x, layer_params, key_mask, stage="full", num_heads=num_heads,
+                          causal=causal, attn_dropout=attn_dropout, hidden_dropout=hidden_dropout,
+                          dropout_seeds=dropout_seeds, layer_norm_eps=layer_norm_eps)
+
+
+# the section-profile variants of the kernels (csrc/fused_layer.cu FwdStop
+# and BwdStop, in order): where each stops
+FWD_STAGES = ("qkv", "attn", "out_ln1", "ffn_gelu", "full")
+BWD_STAGES = ("recompute", "ffn_bwd", "attn_bwd", "full")
+
+
+def _layer_forward(x, p, key_mask, *, stage, num_heads, causal, attn_dropout, hidden_dropout,
+                   dropout_seeds, layer_norm_eps):
+    """The layer of :func:`fused_layer_reference`, cut after ``stage`` (one
+    of ``FWD_STAGES``): that stage's (B, S, D) tensor in ``x.dtype``; the
+    first D columns of the (B, S, 3D) qkv and of the (B, S, F) GELU."""
     if dropout_seeds is None:
         attn_dropout = hidden_dropout = 0.0
     seeds = _seeds(dropout_seeds)
-    p = layer_params
     dtype = x.dtype
     b, s, d = x.shape
     h = num_heads
     dh = d // h
 
-    qkv = _matmul(x, p["qkv"]["w"], p["qkv"]["b"], dtype).view(b, s, 3, h, dh)
+    qkv = _matmul(x, p["qkv"]["w"], p["qkv"]["b"], dtype)
+    if stage == "qkv":
+        return qkv[..., :d]
+    qkv = qkv.view(b, s, 3, h, dh)
     q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3).float() for i in range(3))
     scores = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
     # softmax spelled out as jax.nn.softmax computes it: exp(z - max) / sum
@@ -183,14 +205,20 @@ def fused_layer_reference(
         probs = torch.where(keep, probs / _divisor(attn_dropout, torch.float32, x.device), 0.0)
     ctx = torch.matmul(probs.to(dtype).float(), v).to(dtype)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
+    if stage == "attn":
+        return ctx
 
     a = _matmul(ctx, p["out"]["w"], p["out"]["b"], dtype)
     if hidden_dropout > 0.0:
         a = _hidden_dropout(a, hidden_dropout, seeds[1])
     x1 = _layer_norm(x + a, p["ln1"]["scale"], p["ln1"]["bias"], layer_norm_eps).to(dtype)
+    if stage == "out_ln1":
+        return x1
 
     u = _matmul(x1, p["ffn_in"]["w"], p["ffn_in"]["b"], dtype).float()
     g = (0.5 * u * (1.0 + _erf(u * _INV_SQRT2))).to(dtype)
+    if stage == "ffn_gelu":
+        return g[..., :d]
     f = _matmul(g, p["ffn_out"]["w"], p["ffn_out"]["b"], dtype)
     if hidden_dropout > 0.0:
         f = _hidden_dropout(f, hidden_dropout, seeds[2])
@@ -247,10 +275,20 @@ def fused_layer_backward_reference(
     ``1 - rate``.  ``dx`` is in ``x.dtype``; ``dparams`` has the layout of
     ``layer_params``, f32, summed over every row of the batch."""
     del ffn_dim
+    return _layer_backward(x, layer_params, key_mask, dy, stage="full", num_heads=num_heads,
+                           causal=causal, attn_dropout=attn_dropout,
+                           hidden_dropout=hidden_dropout, dropout_seeds=dropout_seeds,
+                           layer_norm_eps=layer_norm_eps)
+
+
+def _layer_backward(x, p, key_mask, dy, *, stage, num_heads, causal, attn_dropout,
+                    hidden_dropout, dropout_seeds, layer_norm_eps):
+    """The backward of :func:`fused_layer_backward_reference`, cut after
+    ``stage`` (one of ``BWD_STAGES``): the recomputed y, ``T(dctx)`` or
+    ``dx`` in ``x.dtype``; at ``full``, ``(dx, dparams)``."""
     if dropout_seeds is None:
         attn_dropout = hidden_dropout = 0.0
     seeds = _seeds(dropout_seeds)
-    p = layer_params
     dtype = x.dtype
     b, s, d = x.shape
     h = num_heads
@@ -285,31 +323,27 @@ def fused_layer_backward_reference(
     if hidden_dropout > 0.0:
         f = _hidden_dropout(f, hidden_dropout, seeds[2])
     n2, rstd2 = _ln_stats((x1 + f).float(), eps)
+    if stage == "recompute":
+        return (n2 * p["ln2"]["scale"] + p["ln2"]["bias"]).to(dtype)
 
-    # ---- the VJP, row sums over all B*S rows for the parameter gradients
-    def rows(t):
-        return t.reshape(b * s, t.shape[-1])
-
+    # ---- the VJP down to dx
     hid_div = _divisor(hidden_dropout, torch.float32, x.device)
     dy32 = dy.to(dtype).float()
-    grads = {"ln2": {"scale": rows(dy32 * n2).sum(0), "bias": rows(dy32).sum(0)}}
     dh2 = _ln_bwd(dy32, n2, rstd2, p["ln2"]["scale"])
     df = dh2
     if hidden_dropout > 0.0:
         df = torch.where(_hidden_keep(x.shape, hidden_dropout, seeds[2], x.device),
                          df / hid_div, 0.0)
-    grads["ffn_out"] = {"w": _mm(rows(g).T, rows(df), dtype), "b": rows(df).sum(0)}
     du = _mm(df, p["ffn_out"]["w"].T, dtype) * _gelu_grad(u32, erf_u)
-    grads["ffn_in"] = {"w": _mm(rows(x1).T, rows(du), dtype), "b": rows(du).sum(0)}
     dx1 = dh2 + _mm(du, p["ffn_in"]["w"].T, dtype)
-    grads["ln1"] = {"scale": rows(dx1 * n1).sum(0), "bias": rows(dx1).sum(0)}
     dh1 = _ln_bwd(dx1, n1, rstd1, p["ln1"]["scale"])
     da = dh1
     if hidden_dropout > 0.0:
         da = torch.where(_hidden_keep(x.shape, hidden_dropout, seeds[1], x.device),
                          da / hid_div, 0.0)
-    grads["out"] = {"w": _mm(rows(ctx).T, rows(da), dtype), "b": rows(da).sum(0)}
     dctx = _mm(da, p["out"]["w"].T, dtype)
+    if stage == "ffn_bwd":
+        return dctx.to(dtype)
 
     # attention, per head: gw = T(dctx), dv = T(dropped)^T gw, the dropout
     # VJP with the keep mask read off ``dropped != 0`` (the JAX kernel's),
@@ -324,8 +358,22 @@ def fused_layer_backward_reference(
     dq = torch.matmul(d_scores, k)
     dk = torch.matmul(d_scores.transpose(-1, -2), q)
     dqkv = torch.cat([t.permute(0, 2, 1, 3).reshape(b, s, d) for t in (dq, dk, dv)], dim=-1)
-    grads["qkv"] = {"w": _mm(rows(x).T, rows(dqkv), dtype), "b": rows(dqkv).sum(0)}
     dx = (dh1 + _mm(dqkv, p["qkv"]["w"].T, dtype)).to(dtype)
+    if stage == "attn_bwd":
+        return dx
+
+    # ---- the parameter gradients, row sums over all B*S rows
+    def rows(t):
+        return t.reshape(b * s, t.shape[-1])
+
+    grads = {
+        "ln2": {"scale": rows(dy32 * n2).sum(0), "bias": rows(dy32).sum(0)},
+        "ffn_out": {"w": _mm(rows(g).T, rows(df), dtype), "b": rows(df).sum(0)},
+        "ffn_in": {"w": _mm(rows(x1).T, rows(du), dtype), "b": rows(du).sum(0)},
+        "ln1": {"scale": rows(dx1 * n1).sum(0), "bias": rows(dx1).sum(0)},
+        "out": {"w": _mm(rows(ctx).T, rows(da), dtype), "b": rows(da).sum(0)},
+        "qkv": {"w": _mm(rows(x).T, rows(dqkv), dtype), "b": rows(dqkv).sum(0)},
+    }
     return dx, grads
 
 
@@ -399,7 +447,9 @@ def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds):
 
 
 def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dropout,
-              dropout_seeds, ffn_dim, layer_norm_eps):
+              dropout_seeds, ffn_dim, layer_norm_eps, stage="full", counter="fused_layer"):
+    """The forward kernel, or with ``stage`` a section variant of it (see
+    ``FWD_STAGES``); adds one to ``LAUNCHES[counter]``."""
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
@@ -417,19 +467,22 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
         b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16), hg,
         *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
-        smem, cuda_build.stream_handle(x.device),
+        smem, FWD_STAGES.index(stage), cuda_build.stream_handle(x.device),
     )
     cuda_build.check(status, "fused_layer_fwd launch")
-    cuda_build.LAUNCHES["fused_layer"] += 1
+    cuda_build.LAUNCHES[counter] += 1
     return y
 
 
 def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidden_dropout,
-              dropout_seeds, ffn_dim, layer_norm_eps):
+              dropout_seeds, ffn_dim, layer_norm_eps, stage="full", counter="fused_layer_bwd"):
     """The backward kernel: recompute, dx and the 12 f32 parameter
     gradients.  Its device-memory workspace (the recomputed activations and
     the per-sequence partial sums, ~35 MB at B=128, S=32, D=128, F=512 in
-    bf16) is allocated here and freed with the call."""
+    bf16) is allocated here and freed with the call.  With ``stage`` a
+    section variant of its first pass alone (see ``BWD_STAGES``): the
+    stage's tensor in ``dx``, the parameter gradients left unwritten.
+    Adds one to ``LAUNCHES[counter]``."""
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
@@ -460,10 +513,10 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
         _keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
-        cuda_build.stream_handle(x.device),
+        BWD_STAGES.index(stage), cuda_build.stream_handle(x.device),
     )
     cuda_build.check(status, "fused_layer_bwd launch")
-    cuda_build.LAUNCHES["fused_layer_bwd"] += 1
+    cuda_build.LAUNCHES[counter] += 1
     return dx, dparams
 
 
