@@ -21,10 +21,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    answers all nine APIs, then 256 concurrent ``recommend_with_user_id``
    requests go through the micro-batcher, and the launch counters show the
    path went through both forward kernels.  The card's embeddings are held
-   against the plain path on the CPU for a few users;
+   against the plain path on the CPU for a few users.  Then retrieval's
+   top-k with ties in ``lax.top_k``'s order, two ways, timed at 3,706 and
+   62,423 items;
 4. the training path's kernels (the fused-layer and gather backwards, the
    table-scored InfoNCE forward and backward) against their plain versions
-   at the training shapes, with their times, as in phase 2;
+   at the training shapes (the gather backward bit for bit: its plain
+   version sums in the kernel's order), with their times, the layer
+   backward's by pass, as in phase 2;
 5. training: the flagship's hot train step
    (``make_train_step(cfg, full_logs=False)``, configs/ml1m_ssm.yaml,
    dropout 0.1, batch 128) over the same synthetic catalog: one step's loss
@@ -51,9 +55,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    that also counts the special functions (exp, log, reciprocal);
 9. training through the pairwise objectives, as phase 5: path C,
    configs/ml100k_bpr.yaml's hot step (PairwiseLogisticLoss at margin 0,
-   d=64, batch 128, over a synthetic catalog of ML-100K's 1,682 items),
-   and its logging step; one step each of ContrastiveLoss, NCELoss and
-   AlignmentContrastiveLoss at its widths; then two flagship steps with
+   d=64, batch 128, over a synthetic catalog of ML-100K's 1,682 items;
+   the fused-layer gate sends d=64 to the layer stack, so the step
+   launches no fused-layer kernel), and its logging step; one step each
+   of ContrastiveLoss, NCELoss and AlignmentContrastiveLoss at its widths
+   and batch; then two flagship steps with
    ``accumulate_grad_batches=2``, held against the card's own flat update
    of the mean gradient;
 10. the throughput probe (``ops/vpu_calibration.py``) against its plain
@@ -488,6 +494,8 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+    from transformer_recommenders_tpu_torch.tools.profile_fused_sections import (
+        backward_passes_ms)
 
     x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
                                          dropout=0.1, seeds=seeds)
@@ -509,63 +517,89 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
     log(f"  fused_layer_bwd B={b} S={s} D={d} H={h} F={f} bf16 dropout 0.1, device time: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer forward + autograd backward "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
+    # the four passes of one call (pass 0 rounds the weights to bf16)
+    passes = backward_passes_ms(
+        lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs, layer_norm_eps=1e-12))
+    if passes is None:
+        log("    by pass: not measured (the profiler recorded no device time)")
+    else:
+        log("    by pass (torch.profiler, per launch): " + ", ".join(
+            f"{p} {v:.4f} ms" for p, v in passes.items()))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "passes_ms": passes}
 
 
 def check_gather_bwd() -> dict:
+    """#2 against its plain version, which sums in the kernel's order: bit
+    for bit, and two calls give the same bits.  Times at the hot step's
+    shape (the 128 x 32 history rows into the projected 3,707 x 128 bf16
+    catalog) and the logging step's (history, positives and negatives:
+    3 x 128 x 32 rows): the kernel (its two passes over indices sorted
+    beforehand), the wrapper's stable sort, the wrapper (sort and kernel),
+    the plain version and ``index_add_``."""
     import numpy as np
     import torch
 
     from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
 
     gen = torch.Generator().manual_seed(2)
-    tol = {"bfloat16": 2.0**-8, "float32": 1e-6}  # of the max abs: one bf16 rounding
-    max_err = 0.0
     for n, d, r, dtype in ((3707, 128, 4096, torch.bfloat16), (3707, 128, 4096, torch.float32),
                            (3707, 384, 2048, torch.float32), (3707, 384, 32, torch.float32),
-                           (100, 6, 37, torch.bfloat16)):
+                           (3707, 128, 12288, torch.bfloat16), (100, 6, 37, torch.bfloat16)):
         dtype_name = str(dtype).removeprefix("torch.")
         table = torch.randn(n, d, generator=gen).to("cuda", dtype).requires_grad_()
         idx = torch.randint(-5, 40, (r,), generator=gen)  # duplicates and out of range
         idx[: r // 2] = torch.randint(0, n, (r // 2,), generator=gen)
+        if r == 12288:  # a 4,608-row padding segment, as in the logging step
+            idx[torch.randperm(r, generator=gen)[:4608]] = 0
         idx = idx.cuda()
         g = torch.randn(r, d, generator=gen).to("cuda", dtype)
         gm.gather_rows(table, idx, dtype).backward(g)
+        again = gm._gather_bwd_cuda(g, idx, n, dtype)
         want = gm.gather_rows_backward_reference(g, idx, n, dtype)
         torch.cuda.synchronize()
-        err = (table.grad.float() - want.float()).abs()
-        rel = float(err.max() / want.float().abs().max())
-        ok = table.grad.dtype == dtype and rel <= tol[dtype_name]
-        log(f"  gather_rows_bwd N={n} D={d} R={r} {dtype_name}: max_abs_err={float(err.max()):.3g} "
-            f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g} tol={tol[dtype_name]} "
-            f"(relative to max abs) {'ok' if ok else 'FAIL'}")
+        err = float((table.grad.float() - want.float()).abs().max())
+        ok = (table.grad.dtype == dtype and torch.equal(table.grad, want)
+              and torch.equal(table.grad, again))
+        log(f"  gather_rows_bwd N={n} D={d} R={r} {dtype_name}: max_abs_err={err:.3g} tol=0 "
+            f"(the plain version sums in the kernel's order), two calls "
+            f"{'bit for bit' if torch.equal(table.grad, again) else 'DIFFERENT'} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("gather_rows_bwd disagrees with its plain version")
-        if (n, d, dtype) == (3707, 128, torch.bfloat16):
-            max_err = float(err.max())
-    # times at the train shape: the 128 x 32 history rows of a batch into
-    # the projected 3,707 x 128 bf16 catalog
-    b, s, n, d = 128, 32, 3707, 128
-    hist = train_batch(np.random.default_rng(0), b, s, n - 1)["history_item_idx"]
-    idx = torch.from_numpy(hist.reshape(-1)).long().cuda()
-    g = torch.randn(b * s, d, generator=gen).to("cuda", torch.bfloat16)
-    ms = time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16))
-    plain_ms = time_ms(lambda: gm.gather_rows_backward_reference(g, idx, n, torch.bfloat16))
-    acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
-    library_ms = time_ms(lambda: acc.index_add_(0, idx, g))
-    nbytes = b * s * (d * 2 + 8) + n * d * 2
-    bound_ms, bound_by = bound(0, nbytes, H100_BF16_FLOPS)
-    log(f"  gather_rows_bwd R={b * s} N={n} D={d} bf16, device time: kernel (index sort "
-        f"included) {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ (bf16 atomics) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    times = {}
+    batch = train_batch(np.random.default_rng(0), 128, 32, 3706)
+    for name, keys in (("hot", ("history_item_idx",)),
+                       ("logging", ("history_item_idx", "pos_item_idx", "neg_item_idx"))):
+        n, d = 3707, 128
+        idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in keys])).long().cuda()
+        r = idx.numel()
+        g = torch.randn(r, d, generator=gen).to("cuda", torch.bfloat16)
+        sorted_idx, order = torch.sort(idx, stable=True)
+        acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
+        t = {
+            "ms": time_ms(lambda: gm._segment_sum_cuda(g, sorted_idx, order, n, torch.bfloat16)),
+            "sort_ms": time_ms(lambda: torch.sort(idx, stable=True)),
+            "with_sort_ms": time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)),
+            "plain_ms": time_ms(lambda: gm.gather_rows_backward_reference(g, idx, n,
+                                                                          torch.bfloat16)),
+            "library_ms": time_ms(lambda: acc.index_add_(0, idx, g)),
+        }
+        # each cotangent row and index read once, each catalog row written once
+        t["bound_ms"], t["bound_by"] = bound(0, r * (d * 2 + 8) + n * d * 2, H100_BF16_FLOPS)
+        t["padding_rows"] = int((idx == 0).sum())
+        times[name] = t
+        log(f"  gather_rows_bwd {name} R={r} ({t['padding_rows']} on the padding row) N={n} "
+            f"D={d} bf16, device time: kernel {t['ms']:.4f} ms, the wrapper's stable sort "
+            f"{t['sort_ms']:.4f} ms, wrapper (sort and kernel) {t['with_sort_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, index_add_ (bf16 atomics) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
     return {
         "name": "gather_rows_bwd", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/gather_rows.cu",
         "replaces": "transformer_recommenders_tpu/ops/gather_matmul.py:75",
-        "shape": "R=4096 N=3707 D=128 bf16",
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "shape": "R=4096 N=3707 D=128 bf16", "max_abs_err": 0.0, **times["hot"],
+        "by_shape": times,
     }
 
 
@@ -1275,6 +1309,8 @@ def main() -> int:
 
     phase("3: serving")
     serve_launches = serving_phase()
+    log(" retrieval's top-k with ties in lax.top_k's order, two ways")
+    check_topk_ties()
 
     # after the burst, so the training checks' load does not reach it
     phase("4: the training path's kernels against their plain versions")
@@ -1303,10 +1339,13 @@ def main() -> int:
                                                 full_logs=True, steps=0, timed_steps=10)
     for name in ("ContrastiveLoss", "NCELoss", "AlignmentContrastiveLoss"):
         # margin 1: the cosines of a random-weight model are small, and
-        # at ml25m_ccl.yaml's 0.5 almost no pool row would count
-        log(f" {name} at ml100k_bpr's widths, margin 1, batch 32")
+        # at ml25m_ccl.yaml's 0.5 almost no pool row would count.  Batch
+        # 128, ml100k_bpr.yaml's: at 32 a few relu terms of the cosines
+        # carry the gradient, and a bf16 rounding that flips one moves it
+        # by more than the step check's bound
+        log(f" {name} at ml100k_bpr's widths, margin 1, batch {TRAIN_BATCH}")
         training_phase(config={**ML100K, "train_loss": name, "margin": 1.0},
-                       num_items=ML100K_ITEMS, batch_size=32, steps=0, timed_steps=0)
+                       num_items=ML100K_ITEMS, steps=0, timed_steps=0)
     log(" gradient accumulation: the flagship's hot step, accumulate_grad_batches=2")
     accumulation_phase()
 
@@ -1542,6 +1581,45 @@ async def embed_queries(service, queries):
     return np.asarray(out)
 
 
+def check_topk_ties() -> dict:
+    """Equal scores lower index first, as ``lax.top_k`` returns them: the
+    two ways, timed at a serving batch (U=64 queries, k=100) over
+    MovieLens-1M's catalog (3,706 items) and MovieLens-25M's (62,423),
+    each item with copies so that scores tie: ``torch.topk`` over int64
+    keys that order by score and then by column (``ops/topk.py``, what the
+    port runs) and a stable descending sort cut to k.  They must return
+    the same columns; ``torch.topk`` of the raw scores (no order among
+    ties) is timed beside them.  Returns the times by catalog size."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import topk
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    times = {}
+    for n in (3706, 62423):
+        base = torch.randn(n // 2, 128, generator=gen, device="cuda")
+        items = base[torch.randint(0, n // 2, (n,), generator=gen, device="cuda")]
+        scores = topk.score_items(torch.randn(64, 128, generator=gen, device="cuda"), items)
+
+        def stable_sort():
+            return torch.sort(scores, dim=-1, descending=True, stable=True).indices[:, :100]
+
+        keyed = topk.top_k_columns(scores, 100)
+        same = torch.equal(keyed, stable_sort())
+        ties = int((scores.gather(-1, keyed).diff(dim=-1) == 0).sum())
+        t = {"keyed_topk_ms": time_ms(lambda: topk.top_k_columns(scores, 100)),
+             "stable_sort_ms": time_ms(stable_sort),
+             "topk_ms": time_ms(lambda: torch.topk(scores, 100, dim=-1))}
+        times[n] = t
+        log(f"  top-k ties, U=64 k=100 over {n} items ({ties} tied neighbours in the top 100): "
+            f"keyed torch.topk {t['keyed_topk_ms']:.4f} ms, stable sort {t['stable_sort_ms']:.4f} "
+            f"ms, torch.topk of the scores (ties unordered) {t['topk_ms']:.4f} ms; the two tie "
+            f"orders {'agree' if same else 'DISAGREE'}")
+        if not same:
+            raise AssertionError("the keyed top-k and the stable sort order ties differently")
+    return times
+
+
 # -- phase 5: training ---------------------------------------------------------
 
 
@@ -1591,7 +1669,9 @@ ML100K_ITEMS = 1682  # MovieLens-100K's published catalog (943 users)
 
 def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> dict:
     """Launches of one train step on the card under InfoNCE or a pairwise
-    head, by kernel: the table-scored InfoNCE where the hot step's gate
+    head, by kernel: the fused layer's where its gate admits the model's
+    width and sequence length (else the layer stack runs, plain PyTorch
+    ops), the table-scored InfoNCE where the hot step's gate
     admits it, else the pool objective's kernels of the configured loss
     (the pool InfoNCE or the pairwise ones); the gather's and the pool's
     backward only where the gathered rows take a gradient, i.e. when they
@@ -1600,9 +1680,12 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
     none)."""
     from transformer_recommenders_tpu_torch.training import train_state as ts
 
+    from transformer_recommenders_tpu_torch.models.transformer import _fused_layer_mode
+
     table_path = not full_logs and ts._table_loss_enabled(cfg, table_rows, pool_rows)
     proj = cfg.resolved_input_dim != cfg.hidden_size
-    layers = cfg.num_hidden_layers
+    # the fused layer where its gate admits the shape, else the layer stack
+    layers = cfg.num_hidden_layers if _fused_layer_mode(cfg, cfg.max_seq_length) else 0
     pool = "pool_infonce" if cfg.train_loss == "InfoNCELoss" else "pairwise"
     counts = {
         "gather_rows": 1,
@@ -1685,13 +1768,14 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
     pool = ts.table_pool_rows(cfg, batch)
     expected = expected_launches(cfg, table.shape[0], pool, full_logs)
     objective = "table-scored" if expected["table_infonce_fwd"] else "pool"
+    layers_path = "the fused layer" if expected["fused_layer"] else "the layer stack"
     valid = int((batch["history_item_idx"] != 0).sum())
     log(f"  {cfg.num_hidden_layers} layers d={cfg.hidden_size} (inputs {cfg.resolved_input_dim}) "
         f"heads={cfg.num_attention_heads} FFN {cfg.intermediate_size} seq {cfg.max_seq_length} "
         f"{cfg.compute_dtype}, dropout {cfg.hidden_dropout}; batch {batch_size} "
         f"({valid} valid positions), catalog {table.shape[0]} rows (pool {pool}); "
         f"full_logs={full_logs}, {cfg.train_loss} (margin {cfg.margin}) through the {objective} "
-        "objective")
+        f"objective, the layers through {layers_path}")
 
     # one step's loss, raw gradients and logs, card against the CPU's plain path
     loss_and_grad = ts.make_loss_and_grad(cfg, full_logs=full_logs)

@@ -270,6 +270,59 @@ def test_gather_backward_kernel_matches_plain(cuda, dtype):
         assert rel_err(table.grad, want) <= (2.0**-8 if dtype == torch.bfloat16 else 1e-6)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_backward_kernel_sums_in_the_plain_order(cuda, dtype):
+    """The logging step's gather (3 x 128 x 32 rows) with a 4,608-row
+    padding segment on row 0, catalog rows no index names, out-of-range
+    indices: the kernel sums in the plain version's order, so the two agree
+    bit for bit, and two calls give the same bits."""
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+
+    gen = torch.Generator().manual_seed(8)
+    n, d, r = 3707, 128, 3 * 128 * 32
+    idx = torch.randint(1, n // 2, (r,), generator=gen)  # the upper half is never named
+    idx[torch.randperm(r, generator=gen)[:4608]] = 0
+    idx[:5] = torch.tensor([-1, n, n + 7, -3, n])
+    idx = idx.to(cuda)
+    g = torch.randn(r, d, generator=gen).to(cuda, dtype)
+    cuda_build.reset_launches()
+    first = gm._gather_bwd_cuda(g, idx, n, dtype)
+    second = gm._gather_bwd_cuda(g, idx, n, dtype)
+    want = gather_rows_backward_reference(g, idx, n, dtype)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["gather_rows_bwd"] == 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, want)
+    assert not first[n // 2:].any() and first[0].abs().sum() > 0
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f"), [
+    (128, 32, 128, 8, 512),   # configs/ml1m_ssm.yaml
+    (32, 32, 384, 12, 48),    # configs/ml1m_reference.yaml (path B)
+    (128, 32, 64, 4, 256),    # configs/ml100k_bpr.yaml's width (D=64)
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_layer_backward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype):
+    """No atomics: two calls of the backward give the same bits, dx and
+    every parameter gradient."""
+    gen = torch.Generator().manual_seed(b + d)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    mask = mask.to(cuda)
+    params = _weights(gen, d, f, cuda)
+    flat = [params[m][n] for m, n in _PARAM_ORDER]
+    dy = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    kw = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
+              dropout_seeds=[5, 6, 7], ffn_dim=f, layer_norm_eps=1e-12)
+    first = fl._bwd_cuda(x, flat, mask, dy, **kw)
+    second = fl._bwd_cuda(x, flat, mask, dy, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    for a, c in zip(first[1], second[1]):
+        assert torch.equal(a, c)
+
+
 @pytest.mark.parametrize("mask_fn", [True, False])
 def test_table_infonce_kernels_match_plain(cuda, mask_fn):
     gen = torch.Generator().manual_seed(3)

@@ -94,11 +94,27 @@ def test_encoder_with_dropout_matches_jax():
 
 
 def test_long_sequences_are_not_ported_yet():
-    _, tcfg = configs(max_seq_length=128, input_dim=None, hidden_size=16,
-                      num_attention_heads=2, intermediate_size=16)
-    params = TT.init_transformer_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="64"):
-        TT.transformer_encode(params, tcfg, torch.ones(1, 65, 16))
+    """Sequences longer than 64 (configs/ml25m_ccl.yaml's 128) no longer
+    raise: the fused-layer gate sends them to the layer stack, which
+    matches JAX's (f32, dropout on; ``test_torch_layer_stack.py`` has the
+    bf16 and gradient cases)."""
+    jcfg, tcfg = configs(max_seq_length=128, input_dim=None, hidden_size=16,
+                         num_attention_heads=2, intermediate_size=16, compute_dtype="float32",
+                         hidden_dropout=0.1, attention_dropout=0.1)
+    jparams = JT.init_transformer_params(jax.random.key(8), jcfg)
+    params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    x = np.random.default_rng(4).normal(size=(2, 128, 16)).astype(np.float32)
+    x[1, 70:] = 0.0
+    key = jax.random.key(9)
+    rngs = jax.random.split(key, 2)
+    layer_keys = jax.random.split(rngs[1], 3 * LAYERS).reshape(LAYERS, 3)
+    seeds = [int(JT._dropout_seed(rngs[0]))] + [
+        int(s) for i in range(LAYERS) for s in np.asarray(JT._dropout_site_seeds(layer_keys[i]))
+    ]
+    want = JT.transformer_encode(jparams, jcfg, jnp.asarray(x), dropout_rng=key)
+    got = TT.transformer_encode(params, tcfg, torch.from_numpy(x), dropout_seeds=seeds)
+    assert got["token_embeddings"].shape == (2, 128, 16)
+    assert_close(got["token_embeddings"], want["token_embeddings"], "float32")
 
 
 def test_param_tree_order_matches_jax_leaves():

@@ -38,8 +38,9 @@ def test_gather_matches_jax_interpret(n, d, r):
 
 
 def test_fast_table_lookup_dtypes():
-    """bf16 compute gets bf16-rounded rows (the TPU lookup's values); f32
-    compute gets exact rows, like the JAX ``jnp.take`` branch."""
+    """bf16 compute gets bf16-rounded rows (the TPU lookup's values) up to
+    the catalog cap; f32 compute gets exact rows, like the JAX ``jnp.take``
+    branch."""
     table = torch.randn(20, 8)
     idx = torch.tensor([[1, 2, 0], [19, 5, 5]])
     rows_bf16 = fast_table_lookup(table, idx, compute_dtype="bfloat16")
@@ -49,3 +50,34 @@ def test_fast_table_lookup_dtypes():
     torch.testing.assert_close(rows_f32, table[idx], rtol=0, atol=0)
     torch.testing.assert_close(rows_bf16, table[idx].bfloat16(), rtol=0, atol=0)
 
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lookup_above_the_catalog_cap_is_jnp_take(dtype):
+    """A 16,385-row catalog (one past ``ONEHOT_LOOKUP_MAX_ITEMS``): exact
+    f32 rows under either compute dtype, equal bit for bit to JAX's
+    ``fast_table_lookup`` (``jnp.take``), their gradient an f32 sum; at
+    16,384 rows bf16 compute still gets bf16-rounded rows."""
+    from transformer_recommenders_tpu.models.recommender import (
+        ONEHOT_LOOKUP_MAX_ITEMS,
+        fast_table_lookup as jax_fast_table_lookup,
+    )
+    from transformer_recommenders_tpu_torch.models import recommender as TR
+
+    assert TR.ONEHOT_LOOKUP_MAX_ITEMS == ONEHOT_LOOKUP_MAX_ITEMS == 16384
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(16385, 8)).astype(np.float32)
+    idx = rng.integers(0, 16385, size=(4, 50))
+    idx[0, :3] = [16384, 16384, 0]
+    want = np.asarray(jax_fast_table_lookup(jnp.asarray(table), jnp.asarray(idx),
+                                            compute_dtype=jnp.dtype(dtype)))
+    t = torch.from_numpy(table).requires_grad_()
+    got = fast_table_lookup(t, torch.from_numpy(idx), compute_dtype=dtype)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.detach().numpy(), want)
+    got.sum().backward()
+    assert t.grad.dtype == torch.float32
+    assert t.grad[16384, 0] == 2.0 and t.grad[0, 0] == float((idx == 0).sum())
+    below = fast_table_lookup(torch.from_numpy(table[:16384]), torch.from_numpy(idx % 16384),
+                              compute_dtype=dtype)
+    assert below.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)

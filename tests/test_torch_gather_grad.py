@@ -75,6 +75,44 @@ def test_f32_rows_gradient_matches_jnp_take(n, d, r):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+def test_backward_reference_sums_in_the_kernels_chunk_order():
+    """The plain backward sums as ``csrc/gather_rows.cu`` does: the rows
+    sorted stably by index and cut into chunks of ``_CHUNK``; each index's
+    run inside a chunk summed in row order; an index whose rows span chunks
+    (here the padding row 0, named by half the rows, as in a padded
+    batch) adds its chunks' run sums in chunk order.  Held bit for bit
+    against that order written out with numpy f32 sums; a long segment
+    summed in plain row order lands elsewhere."""
+    from transformer_recommenders_tpu_torch.ops.gather_matmul import _CHUNK
+
+    rng = np.random.default_rng(9)
+    r, d, n = 5 * _CHUNK + 7, 16, 50
+    idx = rng.integers(-2, n + 2, size=r)
+    idx[rng.random(r) < 0.5] = 0
+    g = (1000.0 * rng.normal(size=(r, d))).astype(np.float32)
+    g[idx == 0] *= 1e-3 * rng.random(((idx == 0).sum(), 1)).astype(np.float32)
+    order = np.argsort(idx, kind="stable")
+    sorted_idx = idx[order]
+    want = np.zeros((n, d), np.float32)
+    for key in range(n):
+        pos = np.flatnonzero(sorted_idx == key)
+        total = None
+        for c in sorted(set(pos // _CHUNK)):
+            run = None
+            for j in pos[pos // _CHUNK == c]:
+                run = g[order[j]].copy() if run is None else np.float32(run + g[order[j]])
+            total = run if total is None else np.float32(total + run)
+        if total is not None:
+            want[key] = total
+    got = gather_rows_backward_reference(torch.from_numpy(g), torch.from_numpy(idx), n,
+                                         torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows_in_order = np.zeros(d, np.float32)
+    for j in np.flatnonzero(idx == 0):
+        rows_in_order = np.float32(rows_in_order + g[j])
+    assert (idx == 0).sum() > 2 * _CHUNK and not np.array_equal(rows_in_order, want[0])
+
+
 def test_backward_reference_sums_in_row_order_and_skips_out_of_range():
     g = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0], [7.0, 8.0]])
     idx = torch.tensor([2, -1, 2, 5])

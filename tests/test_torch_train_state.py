@@ -133,11 +133,19 @@ def patch_grad_passthrough(monkeypatch):
                         lambda config: lambda p, g, opt_state: (g, opt_state, jnp.float32(0.0)))
 
 
+def jax_layer_gate(cfg, s):
+    """JAX's fused-layer gate as on a TPU, the kernel in interpret mode:
+    the fused layer where the shape admits it (the port's gate, which
+    ``test_torch_layer_stack.py`` holds to JAX's), else the XLA stack."""
+    return "interpret" if TT._fused_layer_mode(cfg, s) else None
+
+
 def force_jax_kernels(monkeypatch):
     """JAX's TPU path on the CPU: the table-scored loss, the fused layer
-    and the one-hot gather, each kernel in interpret mode."""
+    where its shape gate admits it and the one-hot gather, each kernel in
+    interpret mode."""
     monkeypatch.setattr(JTS, "_fused_loss_enabled", lambda config: True)
-    monkeypatch.setattr(JT, "_fused_layer_mode", lambda cfg, s: "interpret")
+    monkeypatch.setattr(JT, "_fused_layer_mode", jax_layer_gate)
     table_loss = JFT.fused_table_infonce_loss
     monkeypatch.setattr(JFT, "fused_table_infonce_loss",
                         lambda *a, **kw: table_loss(*a, **{**kw, "interpret": True,
@@ -242,6 +250,28 @@ def test_step_gradients_match_jax_unpatched_cpu_step(monkeypatch, dtype):
     assert_grads_close(got, want, 2.0**-7 if dtype == "float32" else 2.0**-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ml100k_bpr_step_matches_jax_without_forcing_the_layer(monkeypatch, dtype):
+    """configs/ml100k_bpr.yaml's step (d=64, 4 heads, FFN 256, BPR:
+    PairwiseLogisticLoss at margin 0): the fused-layer gate sends d=64 to
+    the layer stack in both packages, so only the loss kernel and the
+    gather are JAX's interpret-mode kernels.  The pairwise objective's
+    bounds (f32 with the mask on and disjoint ranges, bf16 with it off)."""
+    f32 = dtype == "float32"
+    jcfg, tcfg = configs(compute_dtype=dtype, mask_false_negatives=f32, hidden_size=64,
+                         num_attention_heads=4, intermediate_size=256,
+                         train_loss="PairwiseLogisticLoss", margin=0.0)
+    jparams, table, batch = make_case(jcfg, n_items=80, seed=15, disjoint=True, full=not f32)
+    key = jax.random.key(16)
+    patch_grad_passthrough(monkeypatch)
+    force_jax_kernels(monkeypatch)
+    assert jax_layer_gate(jcfg, SETTINGS["max_seq_length"]) is None
+    want_loss, want = jax_loss_and_grads(jcfg, jparams, table, batch, key)
+    got_loss, got = port_loss_and_grads(tcfg, jparams, table, batch, jax_dropout_seeds(key))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5 if f32 else 2.0**-10)
+    assert_grads_close(got, want, 1e-3 if f32 else 2.0**-6)
+
+
 def test_train_step_applies_flat_adamw_to_the_gradients():
     jcfg, tcfg = configs(gradient_clip_val=0.1)
     jparams, table, batch = make_case(jcfg, seed=5)
@@ -310,7 +340,7 @@ def test_compute_embeds_matches_jax(monkeypatch, n_items):
     jcfg, tcfg = configs(compute_dtype="float32")
     jparams, table, batch = make_case(jcfg, n_items=n_items, seed=7)
     key = jax.random.key(3)
-    monkeypatch.setattr(JT, "_fused_layer_mode", lambda cfg, s: "interpret")
+    monkeypatch.setattr(JT, "_fused_layer_mode", jax_layer_gate)
     want = JR.compute_embeds(jparams, jcfg, jnp.asarray(table),
                              *(jnp.asarray(batch[k]) for k in TTS._BATCH_KEYS), dropout_rng=key)
     params = TT.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")

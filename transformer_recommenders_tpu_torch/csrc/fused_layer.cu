@@ -43,25 +43,39 @@
 // it recomputes the layer from its input x and returns dx plus the 12 f32
 // parameter gradients summed over the batch.  The TPU kernel carries the
 // parameter-gradient sums in VMEM across its sequential grid; blocks on the
-// card run in parallel, so the backward is three passes, all deterministic
+// card run in parallel, so the backward is a few passes, all deterministic
 // (no atomics):
+//   0. (bf16) the four weights rounded to bf16 once, as given and
+//      transposed, so that both the recompute's products (with W) and the
+//      VJP's (with W^T) read k-contiguous pairs;
 //   1. one block per sequence recomputes the layer (with the JAX
 //      backward's own numerics: the A&S erf in the GELU under bf16, the
 //      f32 dropout divisor in the VJP) and walks the VJP down to dx.  The
 //      intermediates live in a workspace in device memory (a block's share
 //      is a few hundred KB at the flagship shape, L2-resident), so any
-//      D and F fit; shared memory holds one head's probs and d_scores.  The
-//      rounded operands of the weight-gradient products go to the
-//      workspace, the bias and LayerNorm gradients are summed over the
-//      sequence's rows into one row of a partials buffer;
-//   2. dW = X^T dY for the four weights, one block per 64 x 64 tile of dW
-//      walking all B*S rows in order;
-//   3. the partials summed over the sequences in order.
+//      D and F fit.  The rounded operands of the weight-gradient products
+//      stay there for pass 2; the bias and LayerNorm gradients are summed
+//      over the sequence's rows into one row of a partials buffer;
+//   2. dW = X^T dY for the four weights;
+//   3. the partials summed over the sequences, and (bf16) pass 2's partial
+//      tiles over its row splits, in order.
 // What bounds it: ~3x the forward's products (recompute, then two
 // products per dense), ~5 GFLOP per layer at B=128, S=32, D=128, F=512,
-// so tensor-core time (5 us); this first version runs CUDA-core FMAs, as
-// the forward does, and pays device-memory round trips through the
-// workspace (~60 MB at that shape).
+// so tensor-core time (5 us); the elementwise work (softmax, GELU and its
+// derivative, the dropout hashes, LayerNorms) and the workspace's
+// round trips come on top.  Under bf16 every product runs on the tensor
+// cores (mma.sync m16n8k16, bf16 operands, f32 sums): in pass 1 each
+// dense stages its operand rows in shared memory and the weight fragments
+// come from L2 four k-steps ahead; the attention stages q, k, v (and in
+// the VJP gw) in shared memory and keeps the probs, d_probs, T(dropped)
+// and T(d_scores) of as many heads as fit; pass 2 is a split-K product,
+// one block per 64 x 64 tile of a dW and range of rows, so that hundreds
+// of blocks run.  Only the order of the f32 sums inside a product changes
+// (and inside the column sums of a product's epilogue); every rounding
+// stays where the f32 path has it.  Under f32 the products stay f32 FMAs
+// on CUDA cores (TF32 would break the f32 gradients' 1e-4 bound): one
+// thread per output column, shared memory for one head's probs, pass 2
+// one block per 64 x 64 tile of dW walking all B*S rows in order.
 //
 // Section profile.  The forward and pass 1 of the backward take a
 // compile-time kStop: the kernel stops after that stage and stores the
@@ -86,11 +100,20 @@
 // attn_bwd is those partial sums plus passes 2 and 3.  The full variants
 // are the production kernels: a kStop branch that is not taken compiles to
 // nothing.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// pass 1 of the bf16 backward: twice the warps, so that more of the
+// block's loads from the workspace are in flight (at most 128 registers
+// a thread); every sum keeps its order whatever the thread count
+template <typename T>
+constexpr int bwd_threads() {
+  return std::is_same<T, __nv_bfloat16>::value ? 512 : kThreads;
+}
 constexpr int kRows = 16;  // rows of a dense's output tile held in registers
 constexpr float kNegInf = -1e9f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
@@ -365,6 +388,22 @@ struct BwdParams {
   float attn_keep, hidden_keep_fwd, hidden_keep_bwd;
   int attn_drop, hidden_drop;
   float eps;
+  // bf16 only (the tensor-core path): the four weights rounded to bf16 once
+  // per call, as given (w16) and transposed (wt16), at WOffsets; the
+  // weight-gradient partial tiles, splits x WOffsets::total; the heads whose
+  // attention pass 1 stages at once; pass 2's rows per split
+  __nv_bfloat16 *w16, *wt16;
+  float* wpart;
+  int hg, splits, rows_per_split;
+};
+
+// offsets of the four weights (and of their gradients) laid end to end:
+// qkv (D, 3D), out (D, D), ffn_in (D, F), ffn_out (F, D)
+struct WOffsets {
+  size_t qkv, out, ffn_in, ffn_out, total;
+  __host__ __device__ WOffsets(int D, int F)
+      : qkv(0), out((size_t)3 * D * D), ffn_in((size_t)4 * D * D),
+        ffn_out((size_t)4 * D * D + (size_t)D * F), total((size_t)4 * D * D + (size_t)2 * D * F) {}
 };
 
 // offsets of the per-sequence column sums in a row of BwdParams::partial
@@ -402,6 +441,170 @@ __device__ void dense_rows(const T* in, int in_ld, int K, const float* __restric
       for (int r = 0; r < rows; ++r) total += epi(r0 + r, n, acc[r]);
     }
     if (colsum != nullptr) colsum[n] = total;
+  }
+}
+
+// ---- tensor-core products of the bf16 backward (mma.sync m16n8k16: bf16
+// operands, f32 sums).  Fragment layouts of the PTX ISA: with g = lane / 4
+// and t2 = 2 * (lane % 4), A holds rows g and g + 8 at k = t2, t2 + 1 and
+// t2 + 8, t2 + 9; B columns g at the same k; C rows g and g + 8 at columns
+// t2, t2 + 1.  Each 32-bit register packs two bf16, the lower k (or column)
+// in the low half.
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// {M(r, k), M(r, k + 1)} of M(r, k) = m[r * ld + k]: zero unless r < rows
+// and k < cols, the high half zero unless k + 1 < cols
+__device__ __forceinline__ uint32_t row_pair(const bf16* m, int ld, int r, int k, int rows,
+                                             int cols) {
+  if (r >= rows || k >= cols) return 0u;
+  const bf16* p = m + (size_t)r * ld + k;
+  return pack_bf16(p[0], k + 1 < cols ? p[1] : __float2bfloat16_rn(0.f));
+}
+
+// {M(k, c), M(k + 1, c)} down column c of M(k, c) = m[k * ld + c]: zero
+// unless k < rows and c < cols, the high half zero unless k + 1 < rows
+__device__ __forceinline__ uint32_t col_pair(const bf16* m, int ld, int k, int c, int rows,
+                                             int cols) {
+  if (k >= rows || c >= cols) return 0u;
+  const bf16* p = m + (size_t)k * ld + c;
+  return pack_bf16(p[0], k + 1 < rows ? p[ld] : __float2bfloat16_rn(0.f));
+}
+
+// One warp: C(r, n) = sum_k A(r, k) B(k, n) for rows r < M <= 64 and the
+// eight columns [n0, n0 + 8), k < K, from la(r, k) = {A(r, k), A(r, k + 1)}
+// and lb(n, k) = {B(k, n), B(k + 1, n)} (zero outside the matrices).  Each
+// output in range goes to epi(r, n, c), whose returns for the thread's two
+// columns n0 + t2 and n0 + t2 + 1 are summed into cs[0] and cs[1].
+template <typename LA, typename LB, typename Epi>
+__device__ __forceinline__ void warp_mma(int M, int N, int K, int n0, LA la, LB lb, Epi epi,
+                                         float cs[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const int mtiles = (M + 15) >> 4;
+  float acc[4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    // the B fragments of four k-steps first, so their loads are in flight
+    // together (lb is zero past K)
+    uint32_t b[4][2];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      b[s][0] = lb(n0 + g, k0 + 16 * s + t2);
+      b[s][1] = lb(n0 + g, k0 + 16 * s + 8 + t2);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int k = k0 + 16 * s;
+      if (k < K) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < mtiles) {
+            const int r = mt * 16 + g;
+            const uint32_t a[4] = {la(r, k + t2), la(r + 8, k + t2), la(r, k + 8 + t2),
+                                   la(r + 8, k + 8 + t2)};
+            mma_bf16(acc[mt], a, b[s]);
+          }
+        }
+      }
+    }
+  }
+  cs[0] = cs[1] = 0.f;
+  const int n = n0 + t2;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    if (mt < mtiles) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + g + 8 * half;
+        if (r < M) {
+          if (n < N) cs[0] += epi(r, n, acc[mt][2 * half]);
+          if (n + 1 < N) cs[1] += epi(r, n + 1, acc[mt][2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
+// rows [0, S) x columns [0, K) of a bf16 matrix (leading dimension
+// in_ld) into shared memory with leading dimension K + 8 (fragment loads
+// then fall on distinct banks), 16 bytes at a time where the layout allows
+__device__ void stage_rows(const bf16* in, int in_ld, int S, int K, bf16* dst) {
+  const int ld = K + 8;
+  if (K % 8 == 0 && in_ld % 8 == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0) {
+    const int per_row = K / 8;
+    for (int i = threadIdx.x; i < S * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = (i % per_row) * 8;
+      *reinterpret_cast<uint4*>(dst + r * ld + c) =
+          *reinterpret_cast<const uint4*>(in + (size_t)r * in_ld + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < S * K; i += blockDim.x)
+      dst[(i / K) * ld + i % K] = in[(size_t)(i / K) * in_ld + i % K];
+  }
+}
+
+// dense_rows on the tensor cores for a bf16 ``in`` (leading dimension
+// in_ld, K even): acc(r, n) = sum_k in[r, k] * Wn[n * K + k], Wn the
+// product's weight as an (N, K) bf16 matrix.  ``in`` is staged in the
+// shared scratch ``sa`` first; warps take eight columns at a time, and the
+// column totals of what ``epi`` returns go to colsum[n] when it is given
+// (summed over the 8 row groups of a warp by shuffles, in a fixed order)
+template <typename Epi>
+__device__ void dense_mma(const bf16* in, int in_ld, int K, const bf16* __restrict__ Wn, int N,
+                          int S, Epi epi, float* colsum, bf16* sa) {
+  stage_rows(in, in_ld, S, K, sa);
+  __syncthreads();
+  const int lda = K + 8;
+  auto la = [=](int r, int k) -> uint32_t {
+    return r < S && k < K ? *reinterpret_cast<const uint32_t*>(sa + r * lda + k) : 0u;
+  };
+  auto lb = [=](int n, int k) -> uint32_t {
+    return n < N && k < K ? __ldg(reinterpret_cast<const unsigned int*>(Wn + (size_t)n * K + k))
+                          : 0u;
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int n0 = warp * 8; n0 < N; n0 += nwarps * 8) {
+    float cs[2];
+    warp_mma(S, N, K, n0, la, lb, epi, cs);
+    if (colsum != nullptr) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        cs[0] += __shfl_xor_sync(0xffffffffu, cs[0], off);
+        cs[1] += __shfl_xor_sync(0xffffffffu, cs[1], off);
+      }
+      const int n = n0 + (lane & 3) * 2;
+      if (lane < 4) {
+        if (n < N) colsum[n] = cs[0];
+        if (n + 1 < N) colsum[n + 1] = cs[1];
+      }
+    }
+  }
+}
+
+// a dense product of pass 1: on the tensor cores for bf16 (with the weight
+// rounded once, Wn as dense_mma takes it), else dense_rows
+template <typename T, bool kTransposed, typename Epi>
+__device__ __forceinline__ void dense_prod(const T* in, int in_ld, int K, const float* W,
+                                           const bf16* Wn, int N, int S, Epi epi,
+                                           float* colsum, bf16* sa) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    dense_mma(in, in_ld, K, Wn, N, S, epi, colsum, sa);
+  } else {
+    dense_rows<T, kTransposed>(in, in_ld, K, W, N, S, epi, colsum);
   }
 }
 
@@ -484,21 +687,50 @@ __device__ __forceinline__ float hidden_drop_bwd(float d, int drop, uint32_t row
   return xrt::keep(row * (uint32_t)D + (uint32_t)c, seed, thr) ? d / keep_div : 0.f;
 }
 
+// pass 1's attention buffers: the mask, then hg heads' probs, d_probs and
+// row sums (f32) and, with tc, their T(dropped) and T(d_scores) (bf16)
+__host__ __device__ inline size_t attn_smem_bytes(int S, int hg, bool tc) {
+  const size_t bytes = (size_t)((S + 3) / 4) * 4 * sizeof(int) +
+                       (size_t)hg * (2 * S * S + S) * sizeof(float) +
+                       (tc ? (size_t)hg * 2 * S * S * sizeof(bf16) : 0);
+  return (bytes + 15) / 16 * 16;
+}
+
+// pass 1's shared memory: the attention buffers and, with tc, the scratch
+// sa: S rows of a staged operand, at most max(F, 4D + 8) + 8 wide (qkv and
+// gw side by side in the attention backward)
+__host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int F, int hg, bool tc) {
+  const int width = (F > 4 * D + 8 ? F : 4 * D + 8) + 8;
+  return attn_smem_bytes(S, hg, tc) + (tc ? (size_t)S * width * sizeof(bf16) : 0);
+}
+
 // Pass 1 of the backward, one block per sequence: recompute the layer from
 // x (as the TPU kernel does), then walk the VJP down to dx.  The rounded
 // operands of the four weight-gradient products go to the workspace for
 // pass 2; the bias and LayerNorm gradients are summed over the sequence's
 // rows into one row of ``partial`` for pass 3.
 template <typename T, int kStop>
-__global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdParams p) {
+__global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kernel(BwdParams p) {
   using A = xrt::Act<T>;
+  constexpr bool kTC = std::is_same<T, bf16>::value;  // the products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.S, D = p.D, H = p.H, F = p.F, b = blockIdx.x;
   const int dh = D / H, ld3 = 3 * D;
+  // the attention of hg heads at a time (bf16; f32 one head): probs, d_probs
+  // (f32) and row sums, then (bf16) T(dropped) and T(d_scores)
+  const int hg = kTC ? p.hg : 1;
   int* smask = reinterpret_cast<int*>(smem);
-  float* sp = reinterpret_cast<float*>(smem) + ((S + 3) / 4) * 4;  // S x S probs
-  float* sds = sp + S * S;                                          // S x S
-  float* srow = sds + S * S;                                        // S
+  float* sp = reinterpret_cast<float*>(smem) + ((S + 3) / 4) * 4;  // hg x S x S probs
+  float* sds = sp + hg * S * S;                                     // hg x S x S
+  float* srow = sds + hg * S * S;                                   // hg x S
+  bf16* spb = reinterpret_cast<bf16*>(srow + hg * S);               // hg x S x S
+  bf16* sdsb = spb + hg * S * S;                                    // hg x S x S
+  // (bf16) a product's staged operand; in the attention, qkv (leading
+  // dimension 3D + 8) and then gw (D + 8)
+  bf16* sa = reinterpret_cast<bf16*>(smem + attn_smem_bytes(S, hg, kTC));
+  const WOffsets woff(D, F);
+  const bf16* w16 = p.w16;
+  const bf16* wt16 = p.wt16;
   const size_t row_base = (size_t)b * S;
   const uint32_t row0 = (uint32_t)row_base;
   const T* x = static_cast<const T*>(p.x) + row_base * D;
@@ -530,7 +762,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
       return 0.f;
     };
   };
-  dense_rows<T, false>(x, D, D, p.qkv_w, ld3, S, bias_round(p.qkv_b, qkv, ld3), nullptr);
+  dense_prod<T, false>(x, D, D, p.qkv_w, wt16 + woff.qkv, ld3, S, bias_round(p.qkv_b, qkv, ld3),
+                       nullptr, sa);
   __syncthreads();
 
   const float scale = 1.f / sqrtf((float)dh);
@@ -569,20 +802,89 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
     const uint32_t idx = (((uint32_t)b * H + (uint32_t)hh) * (uint32_t)S + (uint32_t)sq) * (uint32_t)S + t;
     return xrt::keep(idx, p.seed[0], p.attn_thr) ? prob / p.attn_keep : 0.f;
   };
-
-  // ---- recompute: attention, ctx = T(T(dropped) V) per head
-  for (int hh = 0; hh < H; ++hh) {
-    head_scores(hh);
-    for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
-      const int sq = item / dh, j = item % dh;
-      const float* pr = sp + sq * S;
-      float acc = 0.f;
-      for (int t = 0; t < S; ++t)
-        acc = fmaf(A::round(dropped_at(hh, sq, t, pr[t])),
-                   A::load(qkv[(size_t)t * ld3 + 2 * D + hh * dh + j]), acc);
-      ctx[(size_t)sq * D + hh * dh + j] = A::store(acc);
+  // (bf16) the probs of heads [h0, h0 + hg) into sp: the scores on the
+  // tensor cores, then the softmax as head_scores computes it; with
+  // want_dropped also T(dropped) into spb
+  // (bf16) q, k and v read from their copy in sa, leading dimension lq
+  const bf16* qkv16 = reinterpret_cast<const bf16*>(qkv);
+  const int lq = ld3 + 8;
+  const int causal = p.causal;
+  auto group_probs = [&](int h0, bool want_dropped) {
+    const int ntn = (S + 7) / 8;
+    for (int item = warp; item < hg * ntn; item += nwarps) {
+      const int hh = item / ntn;
+      const bf16* q = sa + (h0 + hh) * dh;
+      float* out = sp + hh * S * S;
+      float cs[2];
+      warp_mma(S, S, dh, (item % ntn) * 8,
+               [=](int r, int k) { return row_pair(q, lq, r, k, S, dh); },
+               [=](int t, int k) { return row_pair(q + D, lq, t, k, S, dh); },
+               [=](int sq, int t, float dot) {
+                 const float bias = (smask[t] ? 0.f : kNegInf) +
+                                    ((causal && t > sq) ? kNegInf : 0.f);
+                 out[sq * S + t] = dot * scale + bias;
+                 return 0.f;
+               }, cs);
     }
     __syncthreads();
+    for (int row = warp; row < hg * S; row += nwarps) {
+      float* pr = sp + row * S;
+      float m = -INFINITY;
+      for (int t = lane; t < S; t += 32) m = fmaxf(m, pr[t]);
+      m = xrt::warp_max(m);
+      float sum = 0.f;
+      for (int t = lane; t < S; t += 32) {
+        const float e = expf(pr[t] - m);
+        pr[t] = e;
+        sum += e;
+      }
+      sum = xrt::warp_sum(sum);
+      for (int t = lane; t < S; t += 32) {
+        pr[t] = pr[t] / sum;
+        if (want_dropped)
+          spb[row * S + t] = __float2bfloat16_rn(dropped_at(h0 + row / S, row % S, t, pr[t]));
+      }
+    }
+    __syncthreads();
+  };
+
+  // ---- recompute: attention, ctx = T(T(dropped) V) per head
+  if constexpr (kTC) {
+    const int ntd = (dh + 7) / 8;
+    stage_rows(qkv16, ld3, S, ld3, sa);
+    __syncthreads();
+    for (int h0 = 0; h0 < H; h0 += hg) {
+      group_probs(h0, true);
+      for (int item = warp; item < hg * ntd; item += nwarps) {
+        const int hh = item / ntd, col = (h0 + hh) * dh;
+        const bf16* pb = spb + hh * S * S;
+        const bf16* v = sa + 2 * D + col;
+        T* out = ctx + col;
+        float cs[2];
+        warp_mma(S, dh, S, (item % ntd) * 8,
+                 [=](int sq, int t) { return row_pair(pb, S, sq, t, S, S); },
+                 [=](int j, int t) { return col_pair(v, lq, t, j, S, dh); },
+                 [=](int sq, int j, float acc) {
+                   out[(size_t)sq * D + j] = A::store(acc);
+                   return 0.f;
+                 }, cs);
+      }
+      __syncthreads();
+    }
+  } else {
+    for (int hh = 0; hh < H; ++hh) {
+      head_scores(hh);
+      for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
+        const int sq = item / dh, j = item % dh;
+        const float* pr = sp + sq * S;
+        float acc = 0.f;
+        for (int t = 0; t < S; ++t)
+          acc = fmaf(A::round(dropped_at(hh, sq, t, pr[t])),
+                     A::load(qkv[(size_t)t * ld3 + 2 * D + hh * dh + j]), acc);
+        ctx[(size_t)sq * D + hh * dh + j] = A::store(acc);
+      }
+      __syncthreads();
+    }
   }
 
   // ---- recompute: a = dropout(T(ctx Wout + b)) into h1, then h1 = T(x + a),
@@ -601,14 +903,17 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
       return 0.f;
     };
   };
-  dense_rows<T, false>(ctx, D, D, p.out_w, D, S, dense_dropout(p.out_b, h1, p.seed[1]), nullptr);
+  dense_prod<T, false>(ctx, D, D, p.out_w, wt16 + woff.out, D, S,
+                       dense_dropout(p.out_b, h1, p.seed[1]), nullptr, sa);
   __syncthreads();
   add_ln_save<T>(h1, x, p.ln1_s, p.ln1_b, S, D, p.eps, stats, x1);
   __syncthreads();
 
   // ---- recompute: u = T(x1 Win + b), g = T(gelu(u))
-  dense_rows<T, false>(x1, D, D, p.ffn_in_w, F, S, bias_round(p.ffn_in_b, u, F), nullptr);
+  dense_prod<T, false>(x1, D, D, p.ffn_in_w, wt16 + woff.ffn_in, F, S,
+                       bias_round(p.ffn_in_b, u, F), nullptr, sa);
   __syncthreads();
+#pragma unroll 4
   for (int i = threadIdx.x; i < S * F; i += blockDim.x) {
     const float uv = A::load(u[i]);
     const float e = approx_erf ? erf_as(uv * kInvSqrt2) : erf_eigen(uv * kInvSqrt2);
@@ -618,8 +923,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
 
   // ---- recompute: f = dropout(T(g Wffn_out + b)) into h2, then h2 = T(x1 + f)
   // and the LN2 statistics (its output is not needed)
-  dense_rows<T, false>(g, F, F, p.ffn_out_w, D, S, dense_dropout(p.ffn_out_b, h2, p.seed[2]),
-                       nullptr);
+  dense_prod<T, false>(g, F, F, p.ffn_out_w, wt16 + woff.ffn_out, D, S,
+                       dense_dropout(p.ffn_out_b, h2, p.seed[2]), nullptr, sa);
   __syncthreads();
   for (int row = warp; row < S; row += nwarps) {
     T* hr = h2 + (size_t)row * D;
@@ -656,6 +961,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
   if constexpr (kStop == kBwdFull) {
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
       float s_scale = 0.f, s_bias = 0.f, s_fb = 0.f;
+#pragma unroll 4
       for (int r = 0; r < S; ++r) {
         const float dyv = A::load(dy[(size_t)r * D + c]);
         const float n = (A::load(h2[(size_t)r * D + c]) - stats[r * 4 + 2]) * stats[r * 4 + 3];
@@ -680,19 +986,21 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
     dum[(size_t)r * F + n] = A::store(du);
     return du;
   };
-  dense_rows<T, true>(dfm, D, D, p.ffn_out_w, F, S, gelu_bwd,
-                      kStop == kBwdFull ? part + off.ffn_in_b : nullptr);
+  dense_prod<T, true>(dfm, D, D, p.ffn_out_w, w16 + woff.ffn_out, F, S, gelu_bwd,
+                      kStop == kBwdFull ? part + off.ffn_in_b : nullptr, sa);
   __syncthreads();
   // dx1 = dh2 + dum Win^T
   auto add_to_dres = [=](int r, int n, float acc) {
     dres[(size_t)r * D + n] += acc;
     return 0.f;
   };
-  dense_rows<T, true>(dum, F, F, p.ffn_in_w, D, S, add_to_dres, nullptr);
+  dense_prod<T, true>(dum, F, F, p.ffn_in_w, w16 + woff.ffn_in, D, S, add_to_dres, nullptr,
+                      sa);
   __syncthreads();
   if constexpr (kStop == kBwdFull) {
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
       float s_scale = 0.f, s_bias = 0.f;
+#pragma unroll 4
       for (int r = 0; r < S; ++r) {
         const float d = dres[(size_t)r * D + c];
         const float n = (A::load(h1[(size_t)r * D + c]) - stats[r * 4]) * stats[r * 4 + 1];
@@ -712,6 +1020,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
   if constexpr (kStop == kBwdFull) {
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
       float s = 0.f;
+#pragma unroll 4
       for (int r = 0; r < S; ++r)
         s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, p.seed[1],
                              p.hidden_thr, p.hidden_keep_bwd);
@@ -725,62 +1034,139 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
     return 0.f;
   };
   __syncthreads();
-  dense_rows<T, true>(dam, D, D, p.out_w, D, S, store_round, nullptr);
+  dense_prod<T, true>(dam, D, D, p.out_w, w16 + woff.out, D, S, store_round, nullptr, sa);
   __syncthreads();
   if constexpr (kStop == kStopFfnBwd) {
     store_stage<T>(gw, D, S, D, static_cast<T*>(p.dx) + row_base * D);
     return;
   }
 
-  // ---- attention backward, one head at a time, into dqkv (f32)
-  for (int hh = 0; hh < H; ++hh) {
-    head_scores(hh);  // sp = probs (f32)
-    // sds = d_probs: the dropout VJP of d_dropped = gw V^T
-    for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
-      const int sq = item / S, t = item % S;
-      const T* gr = gw + (size_t)sq * D + hh * dh;
-      const T* v = qkv + (size_t)t * ld3 + 2 * D + hh * dh;
-      float dd = 0.f;
-      for (int j = 0; j < dh; ++j) dd = fmaf(A::load(gr[j]), A::load(v[j]), dd);
-      if (p.attn_drop) dd = dropped_at(hh, sq, t, sp[item]) != 0.f ? dd / p.attn_keep : 0.f;
-      sds[item] = dd;
-    }
+  // ---- attention backward into dqkv (f32): bf16 hg heads at a time on the
+  // tensor cores, f32 one head at a time
+  if constexpr (kTC) {
+    // qkv into sa again (the dense products used it), gw after it
+    bf16* sgw = sa + S * lq;
+    const int lg = D + 8;
+    stage_rows(qkv16, ld3, S, ld3, sa);
+    stage_rows(reinterpret_cast<const bf16*>(gw), D, S, D, sgw);
     __syncthreads();
-    for (int row = warp; row < S; row += nwarps) {
-      float s = 0.f;
-      for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
-      s = xrt::warp_sum(s);
-      if (lane == 0) srow[row] = s;
-    }
-    __syncthreads();
-    // d_scores = T(probs * (d_probs - rowsum) * scale); sp becomes T(dropped)
-    for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
-      const int sq = item / S, t = item % S;
-      const float prob = sp[item];
-      sds[item] = A::round(prob * (sds[item] - srow[sq]) * scale);
-      sp[item] = A::round(dropped_at(hh, sq, t, prob));
-    }
-    __syncthreads();
-    // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
-    for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
-      const int s0 = item / dh, j = item % dh;
-      const int col = hh * dh + j;
-      float aq = 0.f, ak = 0.f, av = 0.f;
-      for (int t = 0; t < S; ++t) {
-        aq = fmaf(sds[s0 * S + t], A::load(qkv[(size_t)t * ld3 + D + col]), aq);
-        ak = fmaf(sds[t * S + s0], A::load(qkv[(size_t)t * ld3 + col]), ak);
-        av = fmaf(sp[t * S + s0], A::load(gw[(size_t)t * D + col]), av);
+    const int attn_drop = p.attn_drop;
+    const float attn_keep = p.attn_keep;
+    const int ntn = (S + 7) / 8, ntd = (dh + 7) / 8;
+    for (int h0 = 0; h0 < H; h0 += hg) {
+      group_probs(h0, false);  // sp = probs (f32)
+      // sds = d_probs: the dropout VJP of d_dropped = gw V^T
+      for (int item = warp; item < hg * ntn; item += nwarps) {
+        const int hh = item / ntn, col = (h0 + hh) * dh;
+        const bf16* gr = sgw + col;
+        const bf16* v = sa + 2 * D + col;
+        const float* pr = sp + hh * S * S;
+        float* out = sds + hh * S * S;
+        float cs[2];
+        warp_mma(S, S, dh, (item % ntn) * 8,
+                 [=](int sq, int j) { return row_pair(gr, lg, sq, j, S, dh); },
+                 [=](int t, int j) { return row_pair(v, lq, t, j, S, dh); },
+                 [=](int sq, int t, float dd) {
+                   if (attn_drop)
+                     dd = dropped_at(h0 + hh, sq, t, pr[sq * S + t]) != 0.f ? dd / attn_keep : 0.f;
+                   out[sq * S + t] = dd;
+                   return 0.f;
+                 }, cs);
       }
-      dqkv[(size_t)s0 * ld3 + col] = aq;
-      dqkv[(size_t)s0 * ld3 + D + col] = ak;
-      dqkv[(size_t)s0 * ld3 + 2 * D + col] = av;
+      __syncthreads();
+      for (int row = warp; row < hg * S; row += nwarps) {
+        float s = 0.f;
+        for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
+        s = xrt::warp_sum(s);
+        if (lane == 0) srow[row] = s;
+      }
+      __syncthreads();
+      // sdsb = T(probs * (d_probs - rowsum) * scale), spb = T(dropped)
+      for (int item = threadIdx.x; item < hg * S * S; item += blockDim.x) {
+        const int row = item / S, t = item % S;
+        const float prob = sp[item];
+        sdsb[item] = A::store(prob * (sds[item] - srow[row]) * scale);
+        spb[item] = A::store(dropped_at(h0 + row / S, row % S, t, prob));
+      }
+      __syncthreads();
+      // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
+      for (int item = warp; item < 3 * hg * ntd; item += nwarps) {
+        const int which = item / (hg * ntd), hh = (item / ntd) % hg, n0 = (item % ntd) * 8;
+        const int col = (h0 + hh) * dh;
+        const bf16* ds = sdsb + hh * S * S;
+        const bf16* pb = spb + hh * S * S;
+        const bf16* q = sa + col;
+        const bf16* k = sa + D + col;
+        float* out = dqkv + which * D + col;
+        auto store = [=](int s0, int j, float acc) {
+          out[(size_t)s0 * ld3 + j] = acc;
+          return 0.f;
+        };
+        float cs[2];
+        if (which == 0) {
+          warp_mma(S, dh, S, n0, [=](int s0, int t) { return row_pair(ds, S, s0, t, S, S); },
+                   [=](int j, int t) { return col_pair(k, lq, t, j, S, dh); }, store, cs);
+        } else if (which == 1) {
+          warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(ds, S, t, s0, S, S); },
+                   [=](int j, int t) { return col_pair(q, lq, t, j, S, dh); }, store, cs);
+        } else {
+          warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(pb, S, t, s0, S, S); },
+                   [=](int j, int t) { return col_pair(sgw + col, lg, t, j, S, dh); }, store, cs);
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
+  } else {
+    for (int hh = 0; hh < H; ++hh) {
+      head_scores(hh);  // sp = probs (f32)
+      // sds = d_probs: the dropout VJP of d_dropped = gw V^T
+      for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
+        const int sq = item / S, t = item % S;
+        const T* gr = gw + (size_t)sq * D + hh * dh;
+        const T* v = qkv + (size_t)t * ld3 + 2 * D + hh * dh;
+        float dd = 0.f;
+        for (int j = 0; j < dh; ++j) dd = fmaf(A::load(gr[j]), A::load(v[j]), dd);
+        if (p.attn_drop) dd = dropped_at(hh, sq, t, sp[item]) != 0.f ? dd / p.attn_keep : 0.f;
+        sds[item] = dd;
+      }
+      __syncthreads();
+      for (int row = warp; row < S; row += nwarps) {
+        float s = 0.f;
+        for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
+        s = xrt::warp_sum(s);
+        if (lane == 0) srow[row] = s;
+      }
+      __syncthreads();
+      // d_scores = T(probs * (d_probs - rowsum) * scale); sp becomes T(dropped)
+      for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
+        const int sq = item / S, t = item % S;
+        const float prob = sp[item];
+        sds[item] = A::round(prob * (sds[item] - srow[sq]) * scale);
+        sp[item] = A::round(dropped_at(hh, sq, t, prob));
+      }
+      __syncthreads();
+      // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
+      for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
+        const int s0 = item / dh, j = item % dh;
+        const int col = hh * dh + j;
+        float aq = 0.f, ak = 0.f, av = 0.f;
+        for (int t = 0; t < S; ++t) {
+          aq = fmaf(sds[s0 * S + t], A::load(qkv[(size_t)t * ld3 + D + col]), aq);
+          ak = fmaf(sds[t * S + s0], A::load(qkv[(size_t)t * ld3 + col]), ak);
+          av = fmaf(sp[t * S + s0], A::load(gw[(size_t)t * D + col]), av);
+        }
+        dqkv[(size_t)s0 * ld3 + col] = aq;
+        dqkv[(size_t)s0 * ld3 + D + col] = ak;
+        dqkv[(size_t)s0 * ld3 + 2 * D + col] = av;
+      }
+      __syncthreads();
+    }
   }
 
   // ---- qkv bias gradient and dqm = T(dqkv)
   for (int c = threadIdx.x; c < ld3; c += blockDim.x) {
     float s = 0.f;
+#pragma unroll 4
     for (int r = 0; r < S; ++r) {
       const float d = dqkv[(size_t)r * ld3 + c];
       s += d;
@@ -795,7 +1181,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_kernel(BwdPa
     dx[(size_t)r * D + n] = A::store(dres[(size_t)r * D + n] + acc);
     return 0.f;
   };
-  dense_rows<T, true>(dqm, ld3, ld3, p.qkv_w, D, S, store_dx, nullptr);
+  dense_prod<T, true>(dqm, ld3, ld3, p.qkv_w, w16 + woff.qkv, D, S, store_dx, nullptr, sa);
 }
 
 constexpr int kTile = 64;     // weight-gradient tile: kTile x kTile outputs
@@ -855,12 +1241,10 @@ __global__ void __launch_bounds__(256) weight_grad_kernel(BwdParams p) {
     }
 }
 
-// Pass 3: the bias and LayerNorm gradients, the per-sequence column sums
-// added over the sequences in order
-__global__ void vector_grad_kernel(BwdParams p) {
+// The bias and LayerNorm gradient i (of VecOffsets::total): the per-sequence
+// column sums added over the sequences in order
+__device__ __forceinline__ void vector_grad(const BwdParams& p, int i) {
   const VecOffsets off(p.D, p.F);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= off.total) return;
   float s = 0.f;
   for (int b = 0; b < p.B; ++b) s += p.partial[(size_t)b * off.total + i];
   float* dst;
@@ -875,24 +1259,195 @@ __global__ void vector_grad_kernel(BwdParams p) {
   *dst = s;
 }
 
-__host__ __device__ inline size_t bwd_smem_bytes(int S) {
-  return (size_t)((S + 3) / 4) * 4 * sizeof(int) + (size_t)(2 * S * S + S) * sizeof(float);
+// Pass 3 (f32): the bias and LayerNorm gradients
+__global__ void vector_grad_kernel(BwdParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < VecOffsets(p.D, p.F).total) vector_grad(p, i);
+}
+
+// ---- bf16: passes 0, 2 and 3 around pass 1 on the tensor cores
+
+// Pass 0: the four f32 weights rounded to bf16 once per call (the rounding
+// A::round gives each load of the f32 path), as given (K, N) into w16 for
+// the backward's products with W^T and transposed (N, K) into wt16 for the
+// recompute's products with W: both read k-contiguous pairs
+__global__ void round_weights_kernel(BwdParams p) {
+  const WOffsets w(p.D, p.F);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w.total) return;
+  const float* W;
+  size_t base;
+  int K, N;
+  if (i < w.out) { W = p.qkv_w; base = w.qkv; K = p.D; N = 3 * p.D; }
+  else if (i < w.ffn_in) { W = p.out_w; base = w.out; K = p.D; N = p.D; }
+  else if (i < w.ffn_out) { W = p.ffn_in_w; base = w.ffn_in; K = p.D; N = p.F; }
+  else { W = p.ffn_out_w; base = w.ffn_out; K = p.F; N = p.D; }
+  const size_t j = i - base;
+  const bf16 v = __float2bfloat16_rn(W[j]);
+  p.w16[i] = v;
+  p.wt16[base + (j % N) * K + j / N] = v;
+}
+
+constexpr int kWgTile = 64;   // pass 2: a kWgTile x kWgTile tile of dW per block
+constexpr int kWgRows = 32;   // rows staged per step, two mma k-steps
+constexpr int kWgLd = kWgRows + 8;  // staged row length (bf16): conflict-free fragment loads
+
+__host__ __device__ inline int wg_tiles(int K, int N) {
+  return ((K + kWgTile - 1) / kWgTile) * ((N + kWgTile - 1) / kWgTile);
+}
+
+// Pass 2: dW = X^T Y for the four weights as a split-K product on the
+// tensor cores.  Block (t, s) owns tile t of the four products' tiles and
+// rows [s * rows_per_split, (s + 1) * rows_per_split); it stages 32 rows of
+// X and Y at a time transposed into shared memory (so the mma's k, here the
+// row, is contiguous), four warps each take 16 rows of the tile across its
+// 64 columns, and the partial tile goes to wpart[s] (no atomics).
+__global__ void __launch_bounds__(128) weight_grad_mma_kernel(BwdParams p) {
+  __shared__ __align__(16) bf16 sx[kWgTile][kWgLd];  // sx[k][r] = X(r, k)
+  __shared__ __align__(16) bf16 sy[kWgTile][kWgLd];  // sy[n][r] = Y(r, n)
+  const WOffsets w(p.D, p.F);
+  const int D = p.D, F = p.F, R = p.B * p.S;
+  int t = blockIdx.x, K = 0, N = 0;
+  const bf16 *X = nullptr, *Y = nullptr;
+  size_t base = 0;
+  for (int prod = 0; prod < 4; ++prod) {
+    switch (prod) {
+      case 0: X = static_cast<const bf16*>(p.x); Y = static_cast<const bf16*>(p.dqm); K = D; N = 3 * D; base = w.qkv; break;
+      case 1: X = static_cast<const bf16*>(p.ctx); Y = static_cast<const bf16*>(p.dam); K = D; N = D; base = w.out; break;
+      case 2: X = static_cast<const bf16*>(p.x1); Y = static_cast<const bf16*>(p.dum); K = D; N = F; base = w.ffn_in; break;
+      default: X = static_cast<const bf16*>(p.g); Y = static_cast<const bf16*>(p.dfm); K = F; N = D; base = w.ffn_out; break;
+    }
+    if (t < wg_tiles(K, N)) break;
+    t -= wg_tiles(K, N);
+  }
+  const int tn = (N + kWgTile - 1) / kWgTile;
+  const int k0 = (t / tn) * kWgTile, n0 = (t % tn) * kWgTile;
+  const int r_begin = blockIdx.y * p.rows_per_split;
+  const int r_end = min(R, r_begin + p.rows_per_split);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t2 = (lane & 3) * 2;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // 16-byte loads of eight columns where the layout allows (D and F are
+  // multiples of 8 at every configured shape)
+  const bool vec = K % 8 == 0 && N % 8 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(Y) & 15) == 0;
+  for (int r0 = r_begin; r0 < r_end; r0 += kWgRows) {
+    if (vec) {
+      for (int i = threadIdx.x; i < kWgRows * (kWgTile / 8); i += blockDim.x) {
+        const int rr = i / (kWgTile / 8), c = (i % (kWgTile / 8)) * 8, r = r0 + rr;
+        uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
+        if (r < r_end && k0 + c < K)
+          xv = *reinterpret_cast<const uint4*>(X + (size_t)r * K + k0 + c);
+        if (r < r_end && n0 + c < N)
+          yv = *reinterpret_cast<const uint4*>(Y + (size_t)r * N + n0 + c);
+        const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+        const bf16* ye = reinterpret_cast<const bf16*>(&yv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sx[c + j][rr] = xe[j];
+          sy[c + j][rr] = ye[j];
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < kWgRows * kWgTile; i += blockDim.x) {
+        const int rr = i / kWgTile, cc = i % kWgTile, r = r0 + rr;
+        sx[cc][rr] = (r < r_end && k0 + cc < K) ? X[(size_t)r * K + k0 + cc] : zero;
+        sy[cc][rr] = (r < r_end && n0 + cc < N) ? Y[(size_t)r * N + n0 + cc] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kWgRows; ks += 16) {
+      const int m = warp * 16 + g;
+      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(&sx[m][ks + t2]),
+                             *reinterpret_cast<const uint32_t*>(&sx[m + 8][ks + t2]),
+                             *reinterpret_cast<const uint32_t*>(&sx[m][ks + 8 + t2]),
+                             *reinterpret_cast<const uint32_t*>(&sx[m + 8][ks + 8 + t2])};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(&sy[j * 8 + g][ks + t2]),
+                                *reinterpret_cast<const uint32_t*>(&sy[j * 8 + g][ks + 8 + t2])};
+        mma_bf16(acc[j], a, bb);
+      }
+    }
+    __syncthreads();
+  }
+  float* out = p.wpart + (size_t)blockIdx.y * w.total + base;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + warp * 16 + g + (i >= 2 ? 8 : 0), n = n0 + j * 8 + t2 + (i & 1);
+      if (k < K && n < N) out[(size_t)k * N + n] = acc[j][i];
+    }
+}
+
+// Pass 3 (bf16): each weight gradient the sum of its partial tiles in split
+// order, then the bias and LayerNorm gradients
+__global__ void grad_reduce_kernel(BwdParams p) {
+  const WOffsets w(p.D, p.F);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w.total) {
+    if (i - w.total < (size_t)VecOffsets(p.D, p.F).total) vector_grad(p, (int)(i - w.total));
+    return;
+  }
+  float s = 0.f;
+  for (int sp = 0; sp < p.splits; ++sp) s += p.wpart[(size_t)sp * w.total + i];
+  float* dst = i < w.out      ? p.d_qkv_w + i
+               : i < w.ffn_in ? p.d_out_w + (i - w.out)
+               : i < w.ffn_out ? p.d_ffn_in_w + (i - w.ffn_in)
+                               : p.d_ffn_out_w + (i - w.ffn_out);
+  *dst = s;
 }
 
 template <typename T, int kStop>
-cudaError_t launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(p.S);
-  cudaError_t err = cudaFuncSetAttribute(fused_layer_bwd_rows_kernel<T, kStop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_bwd(BwdParams p, cudaStream_t stream) {
+  constexpr bool kTC = std::is_same<T, bf16>::value;
+  cudaError_t err;
+  const WOffsets w(p.D, p.F);
+  if constexpr (kTC) {
+    // the most heads (a divisor of H) whose attention buffers fit a block
+    int dev = 0, limit = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    p.hg = 0;
+    for (int hg = p.H; hg >= 1 && !p.hg; --hg)
+      if (p.H % hg == 0 && bwd_smem_bytes(p.S, p.D, p.F, hg, true) <= (size_t)limit)
+        p.hg = hg;
+    if (!p.hg) return cudaErrorInvalidValue;
+    round_weights_kernel<<<(unsigned)((w.total + 255) / 256), 256, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else {
+    p.hg = 1;
+  }
+  const size_t smem = bwd_smem_bytes(p.S, p.D, p.F, p.hg, kTC);
+  err = cudaFuncSetAttribute(fused_layer_bwd_rows_kernel<T, kStop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_layer_bwd_rows_kernel<T, kStop><<<p.B, kThreads, smem, stream>>>(p);
+  fused_layer_bwd_rows_kernel<T, kStop><<<p.B, bwd_threads<T>(), smem, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (kStop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
-  const int tiles = (max(p.F, 3 * p.D) + kTile - 1) / kTile;
-  weight_grad_kernel<T><<<dim3(tiles, tiles, 4), 256, 0, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int total = VecOffsets(p.D, p.F).total;
-  vector_grad_kernel<<<(total + 255) / 256, 256, 0, stream>>>(p);
+  const int vec = VecOffsets(p.D, p.F).total;
+  if constexpr (kTC) {
+    const int R = p.B * p.S;
+    p.rows_per_split = ((R + p.splits - 1) / p.splits + kWgRows - 1) / kWgRows * kWgRows;
+    p.splits = (R + p.rows_per_split - 1) / p.rows_per_split;
+    const int tiles = wg_tiles(p.D, 3 * p.D) + wg_tiles(p.D, p.D) + wg_tiles(p.D, p.F) +
+                      wg_tiles(p.F, p.D);
+    weight_grad_mma_kernel<<<dim3(tiles, p.splits), 128, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    grad_reduce_kernel<<<(unsigned)((w.total + vec + 255) / 256), 256, 0, stream>>>(p);
+  } else {
+    const int tiles = (max(p.F, 3 * p.D) + kTile - 1) / kTile;
+    weight_grad_kernel<T><<<dim3(tiles, tiles, 4), 256, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    vector_grad_kernel<<<(vec + 255) / 256, 256, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -961,9 +1516,11 @@ extern "C" int fused_layer_fwd(
 }
 
 // The backward of fused_layer_fwd: dx (T) and the 12 f32 parameter
-// gradients, summed over the batch.  ws[15] is the workspace described in
-// BwdParams, in its order, allocated by the caller.  With stage <
-// kBwdFull, pass 1's section variant alone, its stage's tensor in dx.
+// gradients, summed over the batch.  ws[17] is the workspace described in
+// BwdParams, in its order, allocated by the caller: bf16 also needs ws_w16
+// (2 x WOffsets::total bf16: w16, then wt16) and ws_wpart (splits x
+// WOffsets::total f32), f32 neither.  With stage < kBwdFull, pass 1's
+// section variant alone, its stage's tensor in dx.
 extern "C" int fused_layer_bwd(
     const void* x, const void* dy, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -973,8 +1530,9 @@ extern "C" int fused_layer_bwd(
     float* d_ffn_out_b, float* d_ln1_s, float* d_ln1_b, float* d_ln2_s, float* d_ln2_b,
     void* ws_qkv, void* ws_ctx, void* ws_x1, void* ws_u, void* ws_g, void* ws_h1, void* ws_h2,
     float* ws_stats, void* ws_dfm, void* ws_dum, void* ws_dam, void* ws_dqm, float* ws_dres,
-    float* ws_dqkv, float* ws_partial, int B, int S, int D, int H, int F, int causal,
-    int is_bf16, uint32_t seed0, uint32_t seed1, uint32_t seed2, uint32_t attn_thr,
+    float* ws_dqkv, float* ws_partial, void* ws_w16, float* ws_wpart, int B, int S, int D,
+    int H, int F, int causal, int is_bf16, int splits, uint32_t seed0, uint32_t seed1,
+    uint32_t seed2, uint32_t attn_thr,
     uint32_t hidden_thr, float attn_keep, float hidden_keep_fwd, float hidden_keep_bwd,
     int attn_drop, int hidden_drop, float eps, int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -986,6 +1544,13 @@ extern "C" int fused_layer_bwd(
               ws_dum, ws_dam, ws_dqm, ws_dres, ws_dqkv, ws_partial, B, S, D, H, F, causal,
               {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep_fwd,
               hidden_keep_bwd, attn_drop, hidden_drop, eps};
+  if (is_bf16) {
+    if (D % 2 || F % 2 || splits <= 0) return cudaErrorInvalidValue;  // k-contiguous pairs
+    p.w16 = static_cast<bf16*>(ws_w16);
+    p.wt16 = p.w16 + WOffsets(D, F).total;
+    p.wpart = ws_wpart;
+    p.splits = splits;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_bwd_stage<__nv_bfloat16>(p, stage, s)
                  : launch_bwd_stage<float>(p, stage, s);

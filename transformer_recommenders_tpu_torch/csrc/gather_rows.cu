@@ -15,13 +15,26 @@
 // gather_rows_bwd: dtable[n, :] = TabT(sum over r with idx[r] == n of
 // g[r, :]), summed in f32.  Replaces ops/gather_matmul.py:_bwd_kernel, the
 // transposed one-hot matmul (scatter-add as onehot^T @ g).  Bound by bytes
-// as well (R*D cotangents read, N*D written).  The kernel is deterministic
-// and uses no atomics: the wrapper sorts the indices once (stable, so equal
-// indices keep their row order), and one warp per table row finds its
-// segment of the sorted indices by binary search and sums the rows of that
-// segment in increasing row order.  Every table row is written exactly
-// once (zero where no index names it), so dtable needs no clearing, and
-// an index outside [0, N) matches no table row.
+// as well (R*D cotangents read, N*D written).  The wrapper sorts the
+// indices once (stable, so equal indices keep their row order); the sorted
+// positions are a list of segments, one per named table row, and a
+// batch's padding row 0 owns a long one (every trailing zero of the batch,
+// about a third of the rows of a train step).  So the sum is a
+// deterministic segmented reduction in two passes, with no atomics:
+//   1. one block per chunk of kChunk sorted positions: the block stages the
+//      chunk's cotangent rows in shared memory, then each thread walks the
+//      chunk in order for its columns, summing each run of equal indices in
+//      f32.  A run that the chunk holds whole is its
+//      table row's sum and is written there; a run that goes on into the
+//      chunk before or after is written to the chunk's partials: slot 0
+//      for its first run, slot 1 for its last;
+//   2. one warp per table row: the segment's bounds by binary search; a
+//      segment inside one chunk was written by pass 1, an empty one is
+//      written zero, and a segment across chunks adds its chunks' partials
+//      in chunk order.
+// Every table row is written exactly once, so dtable needs no clearing,
+// and an index outside [0, N) matches no table row.  The plain version
+// (gather_rows_backward_reference) sums in the same order.
 #include "common.cuh"
 
 namespace {
@@ -55,34 +68,123 @@ __global__ void gather_rows_kernel(const TabT* __restrict__ table,
     dst[c] = xrt::Act<OutT>::store(valid ? xrt::Act<TabT>::load(src[c]) : 0.f);
 }
 
-// first position in sorted[0, R) whose value is >= key
-__device__ __forceinline__ int lower_bound(const long long* __restrict__ sorted, int R,
-                                           long long key) {
-  int lo = 0, hi = R;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (sorted[mid] < key) lo = mid + 1;
-    else hi = mid;
+constexpr int kChunk = 64;        // sorted positions per block of pass 1 (gather_matmul._CHUNK)
+constexpr int kChunkThreads = 128;
+constexpr int kBatch = 8;         // pass 2: partial rows loaded at once
+
+// Pass 1: block c sums the runs of sorted positions [c * kChunk, ...).  The
+// block first stages the chunk's cotangent rows in shared memory (all its
+// loads in flight at once, 16 bytes a thread where D allows), then each
+// thread walks the chunk in order for its columns.  partial is
+// (2 * chunks, D) f32.
+template <typename GT, typename TabT>
+__global__ void __launch_bounds__(kChunkThreads) segment_chunk_kernel(
+    const GT* __restrict__ g, const long long* __restrict__ sorted_idx,
+    const long long* __restrict__ order, TabT* __restrict__ dtable, float* __restrict__ partial,
+    int N, int D, int R) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  GT* rows = reinterpret_cast<GT*>(smem);  // kChunk x D
+  __shared__ long long s_idx[kChunk + 2];  // the chunk's indices and one beyond each end
+  __shared__ long long s_row[kChunk];
+  const int c0 = blockIdx.x * kChunk, len = min(kChunk, R - c0);
+  for (int j = threadIdx.x; j < len; j += blockDim.x) {
+    s_idx[j + 1] = sorted_idx[c0 + j];
+    s_row[j] = order[c0 + j];
   }
-  return lo;
+  if (threadIdx.x == 0) {
+    s_idx[0] = c0 > 0 ? sorted_idx[c0 - 1] : -1;
+    s_idx[len + 1] = c0 + len < R ? sorted_idx[c0 + len] : -1;
+  }
+  __syncthreads();
+  constexpr int kVec = 16 / sizeof(GT);
+  if (D % kVec == 0 && (reinterpret_cast<uintptr_t>(g) & 15) == 0) {
+    const int per_row = D / kVec;
+    for (int i = threadIdx.x; i < len * per_row; i += blockDim.x) {
+      const int j = i / per_row, v = i % per_row;
+      reinterpret_cast<uint4*>(rows)[i] =
+          __ldg(reinterpret_cast<const uint4*>(g + (size_t)s_row[j] * D) + v);
+    }
+  } else {
+    for (int i = threadIdx.x; i < len * D; i += blockDim.x)
+      rows[i] = g[(size_t)s_row[i / D] * D + i % D];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float acc = 0.f;
+    int start = 0;
+    for (int j = 0; j < len; ++j) {
+      const long long idx = s_idx[j + 1];
+      const float v = xrt::Act<GT>::load(rows[j * D + c]);
+      if (j == 0 || idx != s_idx[j]) {
+        acc = v;
+        start = j;
+      } else {
+        acc += v;
+      }
+      const bool run_ends = j + 1 == len || s_idx[j + 2] != idx;
+      if (!run_ends || idx < 0 || idx >= N) continue;
+      const bool open_left = start == 0 && s_idx[0] == idx;
+      const bool open_right = j + 1 == len && s_idx[len + 1] == idx;
+      if (!open_left && !open_right)
+        dtable[(size_t)idx * D + c] = xrt::Act<TabT>::store(acc);
+      else
+        partial[((size_t)blockIdx.x * 2 + (start == 0 ? 0 : 1)) * D + c] = acc;
+    }
+  }
 }
 
-// one warp per table row n; lanes split the D columns
-template <typename GT, typename TabT>
-__global__ void gather_rows_bwd_kernel(const GT* __restrict__ g,
-                                       const long long* __restrict__ sorted_idx,
-                                       const long long* __restrict__ order,
-                                       TabT* __restrict__ dtable, int N, int D, int R) {
+// Pass 2: one warp per table row n; the segment's two bounds searched
+// together; lanes split the D columns, four at a time where D allows,
+// loading kBatch chunks' partials before adding them in chunk order
+template <typename TabT>
+__global__ void segment_rows_kernel(const long long* __restrict__ sorted_idx,
+                                    const float* __restrict__ partial, TabT* __restrict__ dtable,
+                                    int N, int D, int R) {
   const int n = blockIdx.x * kRowsPerBlock + threadIdx.y;
   if (n >= N) return;
-  const int begin = lower_bound(sorted_idx, R, n);
-  const int end = lower_bound(sorted_idx, R, (long long)n + 1);
+  int lo = 0, hi = R, lo2 = 0, hi2 = R;  // first position >= n, first > n
+  while (lo < hi || lo2 < hi2) {
+    if (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (sorted_idx[mid] < n) lo = mid + 1;
+      else hi = mid;
+    }
+    if (lo2 < hi2) {
+      const int mid = (lo2 + hi2) >> 1;
+      if (sorted_idx[mid] <= n) lo2 = mid + 1;
+      else hi2 = mid;
+    }
+  }
+  const int begin = lo, end = lo2;
+  const int cb = begin / kChunk, ce = (end - 1) / kChunk;
+  if (begin < end && cb == ce) return;  // pass 1 wrote the whole run
   TabT* dst = dtable + (size_t)n * D;
-  for (int c = threadIdx.x; c < D; c += 32) {
-    float acc = 0.f;
-    for (int j = begin; j < end; ++j)
-      acc += xrt::Act<GT>::load(g[(size_t)order[j] * D + c]);
-    dst[c] = xrt::Act<TabT>::store(acc);
+  const size_t first = ((size_t)cb * 2 + (begin == cb * kChunk ? 0 : 1)) * D;
+  const int cols = D % 4 == 0 ? 4 : 1;
+  for (int c = threadIdx.x * cols; c < D; c += 32 * cols) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (begin < end) {
+      for (int i = 0; i < cols; ++i) acc[i] = partial[first + c + i];
+      for (int ch0 = cb + 1; ch0 <= ce; ch0 += kBatch) {
+        float v[kBatch][4];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const float* src = partial + (size_t)(ch0 + k) * 2 * D + c;
+          if (ch0 + k > ce) continue;
+          if (cols == 4) {
+            const float4 q = *reinterpret_cast<const float4*>(src);
+            v[k][0] = q.x, v[k][1] = q.y, v[k][2] = q.z, v[k][3] = q.w;
+          } else {
+            v[k][0] = src[0];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k)
+          if (ch0 + k <= ce)
+            for (int i = 0; i < cols; ++i) acc[i] += v[k][i];
+      }
+    }
+    for (int i = 0; i < cols; ++i) dst[c + i] = xrt::Act<TabT>::store(acc[i]);
   }
 }
 
@@ -106,11 +208,16 @@ cudaError_t launch_fwd_idx(const void* table, const void* idx, void* out, int N,
 
 template <typename GT, typename TabT>
 cudaError_t launch_bwd(const void* g, const long long* sorted_idx, const long long* order,
-                       void* dtable, int N, int D, int R, cudaStream_t stream) {
+                       void* dtable, float* partial, int N, int D, int R, cudaStream_t stream) {
+  const size_t smem = (size_t)kChunk * D * sizeof(GT);
+  cudaError_t err = xrt::allow_smem(segment_chunk_kernel<GT, TabT>, smem);
+  if (err != cudaSuccess) return err;
+  segment_chunk_kernel<GT, TabT><<<(R + kChunk - 1) / kChunk, kChunkThreads, smem, stream>>>(
+      static_cast<const GT*>(g), sorted_idx, order, static_cast<TabT*>(dtable), partial, N, D, R);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 block(32, kRowsPerBlock);
-  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock);
-  gather_rows_bwd_kernel<GT, TabT><<<grid, block, 0, stream>>>(
-      static_cast<const GT*>(g), sorted_idx, order, static_cast<TabT*>(dtable), N, D, R);
+  segment_rows_kernel<TabT><<<(N + kRowsPerBlock - 1) / kRowsPerBlock, block, 0, stream>>>(
+      sorted_idx, partial, static_cast<TabT*>(dtable), N, D, R);
   return cudaGetLastError();
 }
 
@@ -133,17 +240,20 @@ extern "C" int gather_rows_fwd(const void* table, const void* idx, void* out, in
 
 // g: (R, D) cotangent rows, f32 or (g_is_bf16) bf16; sorted_idx and order:
 // the indices sorted stably and the row each came from; dtable: (N, D), f32
-// or (dtable_is_bf16) bf16
+// or (dtable_is_bf16) bf16; partial: a (2 * ceil(R / kChunk), D) f32
+// workspace
 extern "C" int gather_rows_bwd(const void* g, const long long* sorted_idx,
-                               const long long* order, void* dtable, int N, int D, int R,
-                               int g_is_bf16, int dtable_is_bf16, void* stream) {
+                               const long long* order, void* dtable, float* partial, int N, int D,
+                               int R, int g_is_bf16, int dtable_is_bf16, void* stream) {
   if (N <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R <= 0) return cudaMemsetAsync(dtable, 0, (size_t)N * D * (dtable_is_bf16 ? 2 : 4), s);
+  using bf = __nv_bfloat16;
   if (g_is_bf16)
     return dtable_is_bf16
-               ? launch_bwd<__nv_bfloat16, __nv_bfloat16>(g, sorted_idx, order, dtable, N, D, R, s)
-               : launch_bwd<__nv_bfloat16, float>(g, sorted_idx, order, dtable, N, D, R, s);
+               ? launch_bwd<bf, bf>(g, sorted_idx, order, dtable, partial, N, D, R, s)
+               : launch_bwd<bf, float>(g, sorted_idx, order, dtable, partial, N, D, R, s);
   return dtable_is_bf16
-             ? launch_bwd<float, __nv_bfloat16>(g, sorted_idx, order, dtable, N, D, R, s)
-             : launch_bwd<float, float>(g, sorted_idx, order, dtable, N, D, R, s);
+             ? launch_bwd<float, bf>(g, sorted_idx, order, dtable, partial, N, D, R, s)
+             : launch_bwd<float, float>(g, sorted_idx, order, dtable, partial, N, D, R, s);
 }

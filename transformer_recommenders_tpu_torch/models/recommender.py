@@ -181,18 +181,23 @@ def compute_query_embeds(
     }
 
 
+# the JAX package's catalog cap on its bf16 lookup: above it, exact f32 rows
+ONEHOT_LOOKUP_MAX_ITEMS = 16384
+
+
 def fast_table_lookup(
     table: torch.Tensor, idx: torch.Tensor, *, compute_dtype: str
 ) -> torch.Tensor:
     """Embedding lookup through ``ops.gather_matmul.gather_rows`` (the CUDA
-    row-copy kernel on the card).  Under bf16 compute the rows come back
-    bf16-rounded, as the TPU's one-hot lookup returns them (lossless for
-    every consumer, which rounds its operands to bf16 anyway); otherwise
-    they are exact f32 rows, as the JAX ``jnp.take`` branch gives.  The
-    TPU's 16,384-row catalog cap is a one-hot matmul cost and does not
-    bind a row copy."""
-    out_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
-    rows = gather_rows(table, idx.reshape(-1), out_dtype=out_dtype)
+    row-copy kernel on the card), with the JAX package's values: under bf16
+    compute and a catalog of at most ``ONEHOT_LOOKUP_MAX_ITEMS`` rows the
+    rows come back bf16-rounded (the TPU's one-hot lookup); otherwise they
+    are exact rows in the table's dtype (JAX's ``jnp.take``), and their
+    gradient flows in that dtype.  The cap matters without an input
+    projection: there an f32 catalog's rows go on as they are into the f32
+    loss heads."""
+    bf16 = compute_dtype == "bfloat16" and table.shape[0] <= ONEHOT_LOOKUP_MAX_ITEMS
+    rows = gather_rows(table, idx.reshape(-1), out_dtype=torch.bfloat16 if bf16 else table.dtype)
     return rows.reshape(*idx.shape, table.shape[1])
 
 

@@ -6,21 +6,40 @@ Parameters are a nested dict of f32 tensors with the JAX pytree's layout
 along a leading (num_layers, ...) axis), so :func:`params_from_jax` carries
 JAX weights across unchanged and ``params.npz`` files are interchangeable.
 
-Every encoder layer goes through ``ops.fused_layer.fused_layer``: the CUDA
-kernel on the card, its plain version on the CPU.  Sequences longer than
-64 (the JAX package's XLA layer stack) are not ported yet and raise.
+The layers run one of two paths, chosen as the JAX package chooses them
+(:func:`_fused_layer_mode`, by configuration and shape alone):
+
+- the fused layer (``ops.fused_layer.fused_layer``: the CUDA kernel on the
+  card, its plain version on the CPU) where ``use_fused_layer`` is set,
+  ``hidden_size`` is a multiple of 128 and the sequence length a multiple
+  of 8 of at most 64;
+- otherwise the layer stack of plain PyTorch ops with autograd for the
+  backward (JAX's XLA path: ``_attention`` in its ``masked`` and ``split``
+  forms, the bf16 attention core with its own backward, ``_ffn``, the
+  one-sweep LayerNorm variance at s > 64, ``remat_layers`` as activation
+  checkpointing).  Its products are ``torch.matmul``, as JAX leaves them
+  to XLA.
+
+The stack rounds to the compute dtype where the JAX source does, op by op
+(as JAX runs its ops one at a time): each dense's output, each residual
+sum before its f32 LayerNorm, and under bf16 every step of the GELU.
+JAX's compiled step fuses some of these and keeps the intermediate in f32
+(the residual sums, the GELU's ``erfc`` argument): one bf16 ulp apart here
+and there, a mean of ~3e-3 on a layer's outputs.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.configs import ModelConfig
-from transformer_recommenders_tpu_torch.ops.fused_layer import _divisor, fused_layer
+from transformer_recommenders_tpu_torch.ops.fused_layer import _divisor, attention_bias, fused_layer
 from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_mask
 
 Params = dict[str, Any]
@@ -126,13 +145,22 @@ def unstack_layer(params: Params, i: int) -> Params:
 
 
 def _layer_norm(
-    x: torch.Tensor, p: Params, eps: float, out_dtype: torch.dtype | None = None
+    x: torch.Tensor,
+    p: Params,
+    eps: float,
+    out_dtype: torch.dtype | None = None,
+    *,
+    fast_variance: bool = False,
 ) -> torch.Tensor:
-    """Two-pass LayerNorm in f32; the output joins the activation stream in
-    ``out_dtype``."""
+    """LayerNorm in f32; the output joins the activation stream in
+    ``out_dtype``.  The variance is two-pass, or with ``fast_variance`` the
+    one-sweep E[x^2] - E[x]^2 clamped at 0 (JAX's form at s > 64)."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    if fast_variance:
+        var = (x32.square().mean(dim=-1, keepdim=True) - mean.square()).clamp(min=0.0)
+    else:
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     out = (x32 - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return out.to(out_dtype) if out_dtype is not None else out
 
@@ -147,12 +175,147 @@ def _dense(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
-    """Hash dropout over the linear index of ``x`` (JAX ``_dropout``)."""
+    """Hash dropout over the linear index of ``x`` (JAX ``_dropout``):
+    kept elements divided by ``1 - rate`` rounded to ``x.dtype``, the
+    quotient rounded to ``x.dtype``."""
     if seed is None or rate <= 0.0:
         return x
     idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64).view(x.shape)
     kept = (x.float() / _divisor(rate, x.dtype, x.device)).to(x.dtype)
     return torch.where(keep_mask(idx, seed, rate), kept, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _fused_layer_mode(cfg: ModelConfig, s: int) -> bool:
+    """Whether the layers run the fused layer (else the layer stack): JAX
+    ``_fused_layer_mode``'s gate, by configuration and shape alone.  JAX
+    also sends the CPU to its stack, because a Pallas kernel does not
+    compile there; the port's fused layer has a plain version on the CPU,
+    so the CPU takes the card's path."""
+    return bool(cfg.use_fused_layer) and cfg.hidden_size % 128 == 0 and s % 8 == 0 and s <= 64
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum, and the
+    transpose of its custom JVP, y * (g - sum(g * y))."""
+
+    @staticmethod
+    def forward(ctx, x):
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        y = e / e.sum(dim=-1, keepdim=True)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return y * (g - (g * y).sum(dim=-1, keepdim=True))
+
+
+class _AttnCoreBf16(torch.autograd.Function):
+    """JAX ``_attn_core_bf16``: q k^T -> softmax -> bf16 -> hash dropout ->
+    P V over (B, S, H, dh) bf16 q, k, v, giving f32 ctx, with one bf16
+    probs residual.  The backward rebuilds the dropped probs from the hash,
+    rounds the cotangent ``g`` and the score gradient to bf16 before their
+    products, and gives bf16 dq, dk, dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, seed, rate, causal):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        scores = (torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+                  + attention_bias(key_mask, q.shape[1], causal))
+        y = _Softmax.apply(scores).to(torch.bfloat16)
+        probs = _dropout(y, rate, seed)
+        ctx.save_for_backward(q, k, v, y)
+        ctx.seed, ctx.rate = seed, rate
+        return torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, y16 = ctx.saved_tensors
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        g16 = g.to(torch.bfloat16).float()
+        probs = _dropout(y16, ctx.rate, ctx.seed).float()
+        dv = torch.einsum("bhst,bshd->bthd", probs, g16).to(v.dtype)
+        dp = _dropout(torch.einsum("bshd,bthd->bhst", g16, v.float()), ctx.rate, ctx.seed)
+        y = y16.float()
+        ds = (y * (dp - (dp * y).sum(dim=-1, keepdim=True)) * scale).to(torch.bfloat16).float()
+        dq = torch.einsum("bhst,bthd->bshd", ds, k.float()).to(q.dtype)
+        dk = torch.einsum("bhst,bshd->bthd", ds, q.float()).to(k.dtype)
+        return dq, dk, dv, None, None, None, None
+
+
+def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Tensor,
+               seed: int | None) -> torch.Tensor:
+    """The stack's attention block (JAX ``_attention``): the qkv dense,
+    then ``masked`` (every head's scores over all D channels of a
+    head-masked q, dropout on the f32 probs) or ``split`` (per-head
+    scores; under bf16 :class:`_AttnCoreBf16`), then the out dense.
+    ``auto`` is ``masked`` at s <= 64."""
+    b, s, d = x.shape
+    h = cfg.num_attention_heads
+    dh = d // h
+    dtype = compute_dtype(cfg)
+    rate = cfg.attention_dropout if seed is not None else 0.0
+    qkv = _dense(x, p["qkv"], dtype)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    scale = 1.0 / math.sqrt(dh)
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "masked" if s <= 64 else "split"
+    if impl == "masked":
+        # channel c belongs to head c // dh: each head's product over all D
+        # channels of q times its 0/1 mask is exact
+        heads = torch.arange(h, device=x.device)[:, None]
+        hmask = (torch.arange(d, device=x.device)[None, :] // dh == heads).to(dtype)
+        qh = q[:, None] * hmask[None, :, None, :]
+        scores = torch.einsum("bhsc,btc->bhst", qh.float(), k.float()) * scale
+        probs = _dropout(_Softmax.apply(scores + attention_bias(key_mask, s, cfg.is_decoder)),
+                         rate, seed)
+        ctx_full = torch.einsum("bhst,btc->bhsc", probs.to(dtype).float(), v.float()).to(dtype)
+        ctx = (ctx_full * hmask[None, :, None, :]).sum(dim=1)
+        return _dense(ctx, p["out"], dtype)
+    q, k, v = (t.reshape(b, s, h, dh) for t in (q, k, v))
+    if dtype == torch.bfloat16:
+        ctx = _AttnCoreBf16.apply(q, k, v, key_mask, seed, rate, cfg.is_decoder)
+    else:
+        scores = torch.einsum("bshd,bthd->bhst", q, k)
+        probs = _Softmax.apply(scores * scale + attention_bias(key_mask, s, cfg.is_decoder))
+        ctx = torch.einsum("bhst,bthd->bshd", _dropout(probs, rate, seed).to(dtype), v)
+    return _dense(ctx.reshape(b, s, d), p["out"], dtype)
+
+
+_SQRT_HALF = math.sqrt(0.5)
+
+
+def _gelu(u: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=False)``, 0.5 * u * erfc(-u * sqrt(0.5)),
+    with the constant in u's dtype and every op's result rounded to u's
+    dtype, as JAX computes it op by op: under bf16 the product -u * c, its
+    ``erfc`` (taken in f32) and the final product each round to bf16.
+    (JAX's compiled CPU step keeps -u * c in f32; it differs from this in
+    about a third of the bf16 outputs, by one ulp.)"""
+    c = torch.tensor(_SQRT_HALF, dtype=u.dtype, device=u.device)
+    e = torch.erfc((-u * c).float()).to(u.dtype)
+    return (0.5 * u) * e
+
+
+def _ffn(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
+    dtype = compute_dtype(cfg)
+    return _dense(_gelu(_dense(x, p["ffn_in"], dtype)), p["ffn_out"], dtype)
+
+
+def _stack_layer(x: torch.Tensor, layer: Params, cfg: ModelConfig, key_mask: torch.Tensor,
+                 seeds, fast_ln: bool) -> torch.Tensor:
+    """One layer of the stack (JAX ``layer_fn``): attention, dropout,
+    post-LN; FFN, dropout, post-LN.  ``seeds``: the layer's three site
+    seeds, or ``None``."""
+    dtype = compute_dtype(cfg)
+    eps = cfg.layer_norm_eps
+    r1, r2, r3 = seeds if seeds is not None else (None, None, None)
+    attn = _dropout(_attention(x, layer, cfg, key_mask, r1), cfg.hidden_dropout, r2)
+    x = _layer_norm(x + attn, layer["ln1"], eps, dtype, fast_variance=fast_ln)
+    ffn = _dropout(_ffn(x, layer, cfg), cfg.hidden_dropout, r3)
+    return _layer_norm(x + ffn, layer["ln2"], eps, dtype, fast_variance=fast_ln)
 
 
 def pool_tokens(
@@ -210,12 +373,6 @@ def transformer_encode(
     if s > cfg.max_seq_length:
         msg = f"sequence length {s} exceeds max_seq_length {cfg.max_seq_length}"
         raise ValueError(msg)
-    if s > 64:
-        msg = (
-            f"sequence length {s} > 64: the long-sequence encoder (the JAX "
-            "package's XLA layer stack) is not ported yet"
-        )
-        raise NotImplementedError(msg)
     dtype = compute_dtype(cfg)
     n_layers = cfg.num_hidden_layers
     seeds = None
@@ -228,26 +385,38 @@ def transformer_encode(
             msg = f"dropout_seeds needs {1 + 3 * n_layers} seeds, got {len(seeds)}"
             raise ValueError(msg)
 
+    fast_ln = s > 64  # JAX's one-sweep variance where no fused layer runs
     x = input_embeds
     if "input_proj" in params and not inputs_projected:
         x = _dense(x, params["input_proj"], dtype)
     x = x.to(dtype) + params["pos_embed"][:s].to(dtype)
-    x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype)
+    x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype, fast_variance=fast_ln)
     x = _dropout(x, cfg.hidden_dropout, seeds[0] if seeds else None)
 
+    fused = _fused_layer_mode(cfg, s)
     for i in range(n_layers):
-        x = fused_layer(
-            x,
-            unstack_layer(params, i),
-            attention_mask,
-            num_heads=cfg.num_attention_heads,
-            causal=cfg.is_decoder,
-            attn_dropout=cfg.attention_dropout if seeds else 0.0,
-            hidden_dropout=cfg.hidden_dropout if seeds else 0.0,
-            dropout_seeds=seeds[1 + 3 * i : 4 + 3 * i] if seeds else None,
-            ffn_dim=cfg.intermediate_size,
-            layer_norm_eps=cfg.layer_norm_eps,
-        )
+        layer = unstack_layer(params, i)
+        layer_seeds = seeds[1 + 3 * i : 4 + 3 * i] if seeds else None
+        if fused:
+            x = fused_layer(
+                x,
+                layer,
+                attention_mask,
+                num_heads=cfg.num_attention_heads,
+                causal=cfg.is_decoder,
+                attn_dropout=cfg.attention_dropout if seeds else 0.0,
+                hidden_dropout=cfg.hidden_dropout if seeds else 0.0,
+                dropout_seeds=layer_seeds,
+                ffn_dim=cfg.intermediate_size,
+                layer_norm_eps=cfg.layer_norm_eps,
+            )
+        elif cfg.remat_layers and torch.is_grad_enabled():
+            # recompute the layer's internals in the backward instead of
+            # keeping them (the hash dropout recomputes the same masks)
+            x = checkpoint(_stack_layer, x, layer, cfg, attention_mask, layer_seeds, fast_ln,
+                           use_reentrant=False)
+        else:
+            x = _stack_layer(x, layer, cfg, attention_mask, layer_seeds, fast_ln)
 
     token_embeddings = x.float()
     sentence_embedding = pool_tokens(token_embeddings, attention_mask, cfg.pooling_mode)

@@ -474,6 +474,20 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
     return y
 
 
+_WG_TILE = 64  # csrc/fused_layer.cu kWgTile: a block's tile of a weight gradient
+_WG_ROWS = 32  # kWgRows: the least rows of a split
+_WG_BLOCKS = 512  # the blocks pass 2 of the bf16 backward aims for
+
+
+def _weight_grad_splits(r: int, d: int, f: int) -> int:
+    """Row splits of the bf16 backward's pass 2 (a split-K product): about
+    ``_WG_BLOCKS`` blocks over the 64 x 64 tiles of the four weight
+    gradients, each split at least 32 rows."""
+    tiles = sum(-(-k // _WG_TILE) * -(-n // _WG_TILE)
+                for k, n in ((d, 3 * d), (d, d), (d, f), (f, d)))
+    return max(1, min(-(-_WG_BLOCKS // tiles), -(-r // _WG_ROWS)))
+
+
 def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidden_dropout,
               dropout_seeds, ffn_dim, layer_norm_eps, stage="full", counter="fused_layer_bwd"):
     """The backward kernel: recompute, dx and the 12 f32 parameter
@@ -486,6 +500,9 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
+    if x.dtype == torch.bfloat16 and (d % 2 or f % 2):
+        msg = f"fused_layer backward: bf16 needs an even D and FFN width, got D={d}, F={f}"
+        raise ValueError(msg)
     r = b * s
     *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
         attn_dropout, hidden_dropout, dropout_seeds)
@@ -506,10 +523,18 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
     # dum dam dqm dres dqkv partial
     ws = [act(3 * d), act(d), act(d), act(f), act(f), act(d), act(d), f32(r, 4), act(d),
           act(f), act(d), act(3 * d), f32(r, d), f32(r, 3 * d), f32(b, 9 * d + f)]
+    bf16 = x.dtype == torch.bfloat16
+    # bf16 (the tensor-core path): the weights rounded to bf16 in both
+    # layouts, and pass 2's partial weight-gradient tiles
+    n_weights = 4 * d * d + 2 * d * f
+    splits = _weight_grad_splits(r, d, f) if bf16 else 1
+    ws += [torch.empty(2 * n_weights, dtype=torch.bfloat16, device=x.device),
+           f32(splits, n_weights)] if bf16 else [None, None]
     status = cuda_build.library("fused_layer").fused_layer_bwd(
         x.data_ptr(), dy.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
-        dx.data_ptr(), *(t.data_ptr() for t in dparams), *(t.data_ptr() for t in ws),
-        b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16),
+        dx.data_ptr(), *(t.data_ptr() for t in dparams),
+        *(None if t is None else t.data_ptr() for t in ws),
+        b, s, d, num_heads, f, int(causal), int(bf16), splits,
         *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
         _keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),

@@ -5,7 +5,9 @@ package computes with plain XLA (no Pallas kernel): one (U, D) x (D, N)
 f32 matmul, exclusion masking, ``top_k``.  Here that is ``torch.matmul``
 (full f32: TF32 is off by default) and ``torch.topk``.  The TPU's two-stage
 blocked top-k (a batch-1 latency trick with identical results) is left
-out.  ``torch.topk`` orders tied scores differently from ``lax.top_k``.
+out.  Equal scores come back lower index first, as ``lax.top_k`` returns
+them (``torch.topk`` alone promises no order among ties): the top-k runs on
+int64 keys that order by score and then by index, so no two tie.
 """
 
 from __future__ import annotations
@@ -65,5 +67,21 @@ def topk_items(
     )
     if exclude_idx is not None:
         scores = mask_excluded(scores, exclude_idx)
-    top_scores, top_cols = torch.topk(scores, k, dim=-1)
-    return top_scores, (top_cols + 1).to(torch.int32)
+    top_cols = top_k_columns(scores, k)
+    return scores.gather(-1, top_cols), (top_cols + 1).to(torch.int32)
+
+
+def top_k_columns(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """(U, k) int64 columns of each row's k largest scores, highest first
+    and, among equal scores, lower column first (``lax.top_k``'s order).
+
+    ``torch.topk`` over int64 keys: the high word the score's f32 bits
+    mapped to an order-preserving int32 (so -0.0 ranks below +0.0, as in
+    ``lax.top_k``), the low word ``n - 1 - column``, so the keys are
+    distinct and their order is the scores' with ties broken by column."""
+    n = scores.shape[-1]
+    bits = scores.float().contiguous().view(torch.int32)
+    # negative floats: flip the magnitude bits so that larger means larger
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    low = n - 1 - torch.arange(n, device=scores.device, dtype=torch.int64)
+    return torch.topk((ordered << 32) | low, k, dim=-1).indices

@@ -11,9 +11,9 @@ difference from the variant before it is the section's time.  For each
 stage it prints the cumulative and the delta ms (CUDA-graph replays,
 ``tools.graph_ms``) and the least time of the delta's products: the
 section's FLOPs from its shapes over 989 TFLOP/s (bf16 tensor cores) and
-over 67 TFLOP/s (f32 CUDA cores; every kernel of the port runs its
-products there today).  The backward's ``full`` stage is three launches;
-``torch.profiler`` splits one call of it by pass.
+over 67 TFLOP/s (f32 CUDA cores).  The backward's ``full`` stage is four
+launches under bf16 (three under f32); ``torch.profiler`` splits one call
+of it by pass.
 
 Shapes: ``flagship`` is the JAX script's (B=256, S=32, D=128, 8 heads, FFN
 512), ``train`` the flagship train step's batch (B=128), ``tiny`` a smoke
@@ -106,6 +106,23 @@ def pass_split(fn, n: int = 5) -> dict | None:
     return out or None
 
 
+# csrc/fused_layer.cu's backward kernels by pass, as the profiler names
+# them: pass 0 (the weights rounded to bf16) runs only under bf16, and the
+# last pass is vector_grad (f32) or grad_reduce (bf16)
+PASS_KERNELS = {"pass0": ("round_weights",), "pass1": ("fused_layer_bwd_rows",),
+                "pass2": ("weight_grad",), "pass3": ("vector_grad", "grad_reduce")}
+
+
+def backward_passes_ms(fn) -> dict | None:
+    """Device ms per launch of each pass of the layer backward that ``fn``
+    calls (:func:`pass_split`), or ``None`` when not measured."""
+    split = pass_split(fn)
+    if split is None:
+        return None
+    return {p: sum(v for k, v in split.items() if any(n in k for n in names))
+            for p, names in PASS_KERNELS.items()}
+
+
 def profile_sections(shape_name: str, *, iters: int = 10, reps: int = 10, log=print) -> dict:
     """Cumulative and delta ms of every stage at ``shape_name``, with the
     least time of each delta's products and the backward's split by pass."""
@@ -140,14 +157,11 @@ def profile_sections(shape_name: str, *, iters: int = 10, reps: int = 10, log=pr
                 f"({r['delta_gflop']:.3f} GFLOP: {r['delta_bound_bf16_ms']:.5f} ms at bf16 "
                 f"tensor-core peak, {r['delta_bound_f32_ms']:.5f} ms at f32 CUDA-core peak)")
             prev = ms
-    split = pass_split(lambda: fs.layer_stage_backward(x, layer, mask, dy, stage="full", **opts))
-    passes = None
-    if split is None:
+    passes = backward_passes_ms(
+        lambda: fs.layer_stage_backward(x, layer, mask, dy, stage="full", **opts))
+    if passes is None:
         log("  bwd/full by pass: not measured (the profiler recorded no device time)")
     else:
-        names = {"pass1": "fused_layer_bwd_rows_kernel", "pass2": "weight_grad_kernel",
-                 "pass3": "vector_grad_kernel"}
-        passes = {p: sum(v for k, v in split.items() if name in k) for p, name in names.items()}
         log("  bwd/full by pass (torch.profiler, per launch): " + ", ".join(
             f"{p} {v:.4f} ms" for p, v in passes.items()))
     return {"card": tools.card(), "device": torch.cuda.get_device_name(0), "shape": shape,
