@@ -38,9 +38,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    device time by kernel of a few steps under ``torch.profiler``;
 6. the pool InfoNCE kernels (forward, dq/dp, dn) against their plain
    versions at the shapes of paths A and B and a ragged one, the mask on
-   and off, scale 1 and 2.5, then their times beside a composite of stock
-   calls (a bf16 matmul and a masked ``logsumexp``, autograd for the
-   backward);
+   and off, scale 1 and 2.5, on Gaussian inputs (ce on the rows without a
+   near-tie, which alone take a cotangent, their count printed) and on
+   exact-sum inputs (every row); with every copy of a shared positive
+   dropped bit for bit, and two calls bit for bit; then their times beside
+   a composite of stock calls (a bf16 matmul and a masked ``logsumexp``,
+   autograd for the backward) and the bound;
 7. training through the pool objective, as phase 5: path A, the
    flagship's logging step (``make_train_step(cfg)``, ``full_logs=True``:
    every loss head, the logits and batch statistics, the pool kernels),
@@ -735,11 +738,92 @@ def pool_case(gen, r: int, rn: int, d: int):
             row_valid.cuda(), neg_valid.cuda())
 
 
+def exact_pool_case(gen, r: int, rn: int, d: int):
+    """Pool InfoNCE operands whose every partial sum is exact in f32 (the
+    same as tests/test_torch_cuda.py): values k/8 with |k| <= 8, so the
+    kernels' tensor-core chain and the plain version's increasing-k chain
+    give the same scores bit for bit; every ninth pool row a copy of some
+    positive; row 0's query +-1 and its positive -4 times it."""
+    import torch
+
+    def draw(*shape):
+        return torch.randint(-8, 9, shape, generator=gen).float() / 8
+
+    q, p, n = draw(r, d), draw(r, d), draw(rn, d)
+    n[::9] = p[torch.randint(0, r, (len(range(0, rn, 9)),), generator=gen)]
+    q[0] = torch.where(torch.rand(d, generator=gen) < 0.5, -1.0, 1.0)
+    p[0] = -4.0 * q[0]
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(rn, generator=gen) > 0.1
+    return (q.cuda(), p.to("cuda", torch.bfloat16), n.to("cuda", torch.bfloat16),
+            row_valid.cuda(), neg_valid.cuda())
+
+
+def near_tie_rows(q, p, n, neg_valid, scale: float):
+    """(R,) bool: rows with a valid pool score within delta of their pos in
+    the plain scores, that pool row not a copy of the row's positive (as
+    tests/test_torch_cuda.py).  The kernels sum on the tensor cores, the
+    plain version in increasing k: a score's two values differ by a few
+    ulps of its partial sums (|s| < 2**5, ulp <= 2**-18; D/16 and D
+    roundings), so only there can the mask x < pos decide otherwise, a
+    chance equality in one version included.  delta = scale * 2**-13 per
+    128 of D; copies of the positive (exactly pos in both) stay in the
+    check."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    x, pos = fi._scores(q, p, n, scale)
+    delta = scale * 2.0**-13 * math.ceil(q.shape[1] / 128)
+    near = ((x - pos[:, None]).abs() <= delta) & (neg_valid.reshape(1, -1) > 0)
+    r, j = near.nonzero(as_tuple=True)
+    copy = (p.to(torch.bfloat16)[r] == n.to(torch.bfloat16)[j]).all(dim=1)
+    near[r[copy], j[copy]] = False
+    return near.any(dim=1)
+
+
+def run_pool_infonce(q, p, n, neg_valid, g, scale: float, mask_fn: bool):
+    """ce and the gradients in q, p and n through the wrapper."""
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    q, p, n = (t.detach().clone().requires_grad_() for t in (q, p, n))
+    ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
+    ce.backward(g)
+    return ce.detach(), q.grad, p.grad, n.grad
+
+
 POOL_SHAPES = {  # (R, Rn, D)
     "A": (4096, 4096, 128),  # the flagship's logging step: B=128, S=32, d=128
     "B": (1024, 1024, 384),  # ml1m_reference: B=32, S=32, d=384
     "ragged": (1000, 777, 128),
 }
+
+
+def check_pool_copies(gen, r: int, rn: int, d: int) -> None:
+    """Every row shares one positive and every seventh pool row copies it:
+    with the mask on, the three kernels give the same bits as with those
+    rows marked invalid (each scores a copy exactly pos); then two calls
+    give the same bits."""
+    import torch
+
+    q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+    g = row_valid.float()
+    first = run_pool_infonce(q, p, n, neg_valid, g, 1.0, True)
+    second = run_pool_infonce(q, p, n, neg_valid, g, 1.0, True)
+    p = p[1].expand_as(p).contiguous()
+    copies = torch.zeros(rn, dtype=torch.bool, device="cuda")
+    copies[::7] = True
+    n = torch.where(copies[:, None], p[0], n)
+    same = {"two calls": all(map(torch.equal, first, second))}
+    for scale in (1.0, 2.5):
+        with_copies = run_pool_infonce(q, p, n, neg_valid | copies, g, scale, True)
+        without = run_pool_infonce(q, p, n, (neg_valid | copies) & ~copies, g, scale, True)
+        same[f"copies dropped, scale {scale}"] = all(map(torch.equal, with_copies, without))
+    torch.cuda.synchronize()
+    log(f"  pool_infonce R={r} Rn={rn} D={d}, bit for bit (ce, dq, dp, dn): "
+        + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError("the pool kernels are not deterministic or count a copy of pos")
 
 
 def check_pool_infonce() -> list[dict]:
@@ -748,42 +832,58 @@ def check_pool_infonce() -> list[dict]:
     from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
 
     gen = torch.Generator().manual_seed(6)
-    # of the max abs value: the same scores bit for bit (the plain version
-    # sums in the kernels' order), then exp/log for ce and dl's bf16
-    # rounding for the gradients (the bounds of tests/test_torch_cuda.py)
+    # of the max abs value: exp/log for ce and dl's bf16 rounding for the
+    # gradients (the bounds of tests/test_torch_cuda.py).  The kernels and
+    # the plain version sum the scores in other orders: on Gaussian inputs
+    # with the mask on, ce is held on the rows without a near-tie and those
+    # rows take no cotangent (a flip of the mask there moves dl by about
+    # exp(-ce) g scale); on exact-sum inputs every row is held
     tol = {"ce": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
     max_err = {}
     for shape, (r, rn, d) in POOL_SHAPES.items():
-        for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5), (False, 2.5)):
-            q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
-            q, p, n = (t.requires_grad_() for t in (q, p, n))
-            g = row_valid.float()
-            ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
-            ce.backward(g)
-            ce = ce.detach()
-            kw = dict(scale=scale, mask_false_negatives=mask_fn)
-            with torch.no_grad():
-                ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
-                dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g, **kw)
-                dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
-            torch.cuda.synchronize()
-            if mask_fn and ce[0].item() != 0.0:
-                raise AssertionError("a row with every negative masked must give ce = 0")
-            parts = []
-            for key, got, want in (("ce", ce, ce_want), ("dq", q.grad, dq_want),
-                                   ("dp", p.grad, dp_want), ("dn", n.grad, dn_want)):
-                err = (got.float() - want.float()).abs()
-                rel = float(err.max() / want.float().abs().max())
-                if not (bool(torch.isfinite(got.float()).all()) and rel <= tol[key]):
-                    log(f"  pool_infonce {key} R={r} Rn={rn} D={d} mask={mask_fn} scale={scale}: "
-                        f"max_rel_err={rel:.3g} tol={tol[key]} FAIL")
-                    raise AssertionError(f"pool_infonce {key} disagrees with its plain version")
-                parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
-                             f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
-                if shape != "ragged":
-                    max_err[(shape, key)] = max(max_err.get((shape, key), 0.0), float(err.max()))
-            log(f"  pool_infonce R={r} Rn={rn} D={d} mask_false_negatives={mask_fn} scale={scale}: "
-                + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of the max abs) ok")
+        for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
+            for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5), (False, 2.5)):
+                q, p, n, row_valid, neg_valid = case(gen, r, rn, d)
+                keep = torch.ones(r, dtype=torch.bool, device="cuda")
+                if mask_fn and inputs == "gaussian":
+                    with torch.no_grad():
+                        keep = ~near_tie_rows(q, p, n, neg_valid, scale)
+                g = (row_valid & keep).float()
+                ce, dq, dp, dn = run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn)
+                kw = dict(scale=scale, mask_false_negatives=mask_fn)
+                with torch.no_grad():
+                    ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
+                    dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g,
+                                                                     **kw)
+                    dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
+                torch.cuda.synchronize()
+                if mask_fn and ce[0].item() != 0.0:
+                    raise AssertionError("a row with every negative masked must give ce = 0")
+                parts = []
+                for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
+                                       ("dp", dp, dp_want), ("dn", dn, dn_want)):
+                    err = (got.float() - want.float()).abs()
+                    rel = float(err.max() / want.float().abs().max())
+                    if not (bool(torch.isfinite(got.float()).all()) and rel <= tol[key]):
+                        log(f"  pool_infonce {key} {inputs} R={r} Rn={rn} D={d} mask={mask_fn} "
+                            f"scale={scale}: max_rel_err={rel:.3g} tol={tol[key]} FAIL")
+                        if key == "ce":
+                            worst = int(keep.nonzero()[int(err.argmax())])
+                            x, pos = fi._scores(q, p, n, scale)
+                            gap = (x[worst] - pos[worst]).abs()[neg_valid > 0]
+                            log(f"  worst row {worst}: ce {float(ce[worst]):.7g}, plain "
+                                f"{float(ce_want[worst]):.7g}, least |x - pos| over its valid "
+                                f"pool in the plain scores {float(gap.min()):.3g}")
+                        raise AssertionError(f"pool_infonce {key} disagrees with its plain version")
+                    parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
+                                 f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
+                    if shape != "ragged":
+                        max_err[(shape, key)] = max(max_err.get((shape, key), 0.0),
+                                                    float(err.max()))
+                log(f"  pool_infonce {inputs} R={r} Rn={rn} D={d} mask_false_negatives={mask_fn} "
+                    f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of "
+                    f"the max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+        check_pool_copies(gen, r, rn, d)
     times = {shape: time_pool_infonce(gen, *POOL_SHAPES[shape]) for shape in ("A", "B")}
     common = {"route": "cuda", "source": "transformer_recommenders_tpu_torch/csrc/fused_infonce.cu"}
     rows = []
@@ -1942,8 +2042,12 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
         log("  profiled steps: the profiler recorded no device time (not measured)")
         return
     log(f"  profiled {n} steps: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per step "
-        f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); by kernel, per step:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); by kernel, per step "
+        "(the twelve longest, then the rest of the port's own):")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    own = [e for e in ranked[12:]
+           if "(anonymous namespace)::" in e.key and "at::native" not in e.key]
+    for e in ranked[:12] + own:
         log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
             f"{e.key[:90]}")
 

@@ -373,25 +373,86 @@ def pool_case(gen, cuda, r, rn, d):
             row_valid.to(cuda), neg_valid.to(cuda))
 
 
-# Pool InfoNCE kernels against their plain versions: the same scores bit
-# for bit (the plain version sums in the kernels' order), then exp/log
-# (ce, 1e-5 of its max abs) and dl's bf16 rounding (dq, dp, dn, 1e-2 of
-# each gradient's max abs, as the other backward kernels).
-@pytest.mark.parametrize(("r", "rn", "d"), [
+def exact_pool_case(gen, cuda, r, rn, d):
+    """Pool InfoNCE operands whose every partial sum is exact in f32:
+    values k/8 with |k| <= 8, so the kernels' tensor-core chain and the
+    plain version's increasing-k chain give the same scores bit for bit.
+    Every ninth pool row copies a positive; row 0's query is +-1 and its
+    positive -4 times it, below every pool score but its own copies."""
+    def draw(*shape):
+        return torch.randint(-8, 9, shape, generator=gen).float() / 8
+
+    q, p, n = draw(r, d), draw(r, d), draw(rn, d)
+    n[::9] = p[torch.randint(0, r, (len(range(0, rn, 9)),), generator=gen)]
+    q[0] = torch.where(torch.rand(d, generator=gen) < 0.5, -1.0, 1.0)
+    p[0] = -4.0 * q[0]
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(rn, generator=gen) > 0.1
+    return (q.to(cuda), p.to(cuda, torch.bfloat16), n.to(cuda, torch.bfloat16),
+            row_valid.to(cuda), neg_valid.to(cuda))
+
+
+def near_tie_rows(q, p, n, neg_valid, scale):
+    """(R,) bool: the rows with a valid pool score within delta of their
+    pos in the plain scores, that pool row not a copy of the row's
+    positive.  The kernels sum on the tensor cores, the plain version in
+    increasing k: each score's two values differ by a few ulps of its
+    partial sums (|s| < 2**5, ulp <= 2**-18, D/16 and D roundings), so only
+    there can the mask x < pos decide otherwise, a chance equality in one
+    version included.  delta = scale * 2**-13 per 128 of D; copies of the
+    positive (exactly pos in both) stay in the check."""
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    x, pos = fi._scores(q, p, n, scale)
+    delta = scale * 2.0**-13 * math.ceil(q.shape[1] / 128)
+    near = ((x - pos[:, None]).abs() <= delta) & (neg_valid.reshape(1, -1) > 0)
+    r, j = near.nonzero(as_tuple=True)
+    copy = (p.to(torch.bfloat16)[r] == n.to(torch.bfloat16)[j]).all(dim=1)
+    near[r[copy], j[copy]] = False
+    return near.any(dim=1)
+
+
+def run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn):
+    """ce and the gradients in q, p and n through the wrapper."""
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    q, p, n = (a.detach().clone().requires_grad_() for a in (q, p, n))
+    ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
+    ce.backward(g)
+    return ce.detach(), q.grad, p.grad, n.grad
+
+
+POOL_SHAPES = [
     (4096, 4096, 128),   # configs/ml1m_ssm.yaml: B=128, S=32
     (1024, 1024, 384),   # configs/ml1m_reference.yaml: B=32, S=32
     (1000, 777, 128),    # ragged: neither a multiple of a block
-])
+]
+
+
+# Pool InfoNCE kernels against their plain versions: exp/log (ce, 1e-5 of
+# its max abs) and dl's bf16 rounding (dq, dp, dn, 1e-2 of each gradient's
+# max abs, as the other backward kernels).  The two sum the scores in other
+# orders: on Gaussian inputs with the mask on, a score within a rounding
+# step of pos may count in one and not in the other, so ce is held on the
+# rows without a near-tie (near_tie_rows) and those rows take no cotangent
+# (every element of dq, dp and dn is still compared); on exact-sum inputs
+# every row is held and takes its cotangent.
+@pytest.mark.parametrize(("r", "rn", "d"), POOL_SHAPES)
 @pytest.mark.parametrize(("mask_fn", "scale"), [(True, 1.0), (False, 2.5)])
-def test_pool_infonce_kernels_match_plain(cuda, r, rn, d, mask_fn, scale):
+@pytest.mark.parametrize("inputs", ["gaussian", "exact"])
+def test_pool_infonce_kernels_match_plain(cuda, r, rn, d, mask_fn, scale, inputs):
     from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
 
     gen = torch.Generator().manual_seed(r + rn + d)
-    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    case = pool_case if inputs == "gaussian" else exact_pool_case
+    q, p, n, row_valid, neg_valid = case(gen, cuda, r, rn, d)
+    keep = torch.ones(r, dtype=torch.bool, device=cuda)
+    if mask_fn and inputs == "gaussian":
+        keep = ~near_tie_rows(q, p, n, neg_valid, scale)
     q, p, n = (a.requires_grad_() for a in (q, p, n))
     cuda_build.reset_launches()
     ce = fi.fused_infonce_rowwise(q, p, n, neg_valid, scale, mask_fn)
-    g = row_valid.float()
+    g = (row_valid & keep).float()
     ce.backward(g)
     kw = dict(scale=scale, mask_false_negatives=mask_fn)
     with torch.no_grad():
@@ -406,11 +467,43 @@ def test_pool_infonce_kernels_match_plain(cuda, r, rn, d, mask_fn, scale):
         assert ce[0].item() == 0.0
     assert (q.grad.dtype, p.grad.dtype, n.grad.dtype) == (torch.float32, torch.bfloat16,
                                                           torch.bfloat16)
-    errs = {"ce": rel_err(ce.detach(), ce_want), "dq": rel_err(q.grad, dq_want),
+    errs = {"ce": rel_err(ce.detach()[keep], ce_want[keep]), "dq": rel_err(q.grad, dq_want),
             "dp": rel_err(p.grad, dp_want), "dn": rel_err(n.grad, dn_want)}
-    print(errs)
+    print(errs, f"near-tie rows left out: {int((~keep).sum())} of {r}")
     assert errs["ce"] <= 1e-5, errs
     assert max(errs["dq"], errs["dp"], errs["dn"]) <= 1e-2, errs
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), POOL_SHAPES)
+@pytest.mark.parametrize("scale", [1.0, 2.5])
+def test_pool_infonce_kernels_drop_every_copy_of_the_positive(cuda, r, rn, d, scale):
+    """Every row shares one positive, and every seventh pool row is a copy
+    of it: with the mask on, the three kernels give the same bits as with
+    those rows marked invalid (each scores a copy exactly pos)."""
+    gen = torch.Generator().manual_seed(r + rn + d + 1)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    p = p[1].expand_as(p).contiguous()
+    copies = torch.zeros(rn, dtype=torch.bool, device=cuda)
+    copies[::7] = True
+    n = torch.where(copies[:, None], p[0], n)
+    g = row_valid.float()
+    with_copies = run_pool_infonce(q, p, n, neg_valid | copies, g, scale, True)
+    without = run_pool_infonce(q, p, n, (neg_valid | copies) & ~copies, g, scale, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ce", "dq", "dp", "dn"), with_copies, without):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), POOL_SHAPES)
+def test_pool_infonce_kernels_are_deterministic(cuda, r, rn, d):
+    gen = torch.Generator().manual_seed(r + rn + d + 2)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    g = row_valid.float()
+    first = run_pool_infonce(q, p, n, neg_valid, g, 1.0, True)
+    second = run_pool_infonce(q, p, n, neg_valid, g, 1.0, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ce", "dq", "dp", "dn"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_pool_infonce_skips_the_dn_kernel_for_frozen_pool_rows(cuda):

@@ -76,6 +76,50 @@ def test_loss_and_gradients_match_jax_kernel(mask_fn, scale):
         assert err <= 2.0**-7, (name, err)
 
 
+def make_exact_case(seed, r=50, rn=37, d=32):
+    """Values k/8 with |k| <= 8: every partial sum of a score is exact in
+    f32, so any order of summing gives the same scores (the JAX kernel's
+    VPU and MXU sums, the plain version's increasing k, the card's tensor
+    cores).  Every fifth pool row, valid, copies some row's positive."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-8, 9, size=(r, d)) / 8
+    p = rng.integers(-8, 9, size=(r, d)) / 8
+    n = rng.integers(-8, 9, size=(rn, d)) / 8
+    n[::5] = p[rng.integers(0, r, size=len(range(0, rn, 5)))]
+    row_valid = rng.random(r) > 0.2
+    neg_valid = rng.random(rn) > 0.2
+    neg_valid[::5] = True
+    return q.astype(np.float32), p.astype(np.float32), n.astype(np.float32), row_valid, neg_valid
+
+
+@pytest.mark.parametrize(("mask_fn", "scale"), [(True, 1.0), (True, 2.5), (False, 1.0)])
+def test_exact_sums_with_copies_of_positives_match_jax_kernel(mask_fn, scale):
+    """Pool rows that copy a positive score exactly pos in both packages,
+    so the mask drops them in both and the two agree with no disjoint
+    pos/neg ranges: the premise of the card's exact-sum check."""
+    q, p, n, row_valid, neg_valid = make_exact_case(11)
+    x, pos = TFI._scores(t(q), t(p), t(n), scale)
+    np.testing.assert_array_equal(x.numpy(), (q.astype(np.float64) @ n.T * scale).astype(np.float32))
+    ties = (x == pos[:, None]) & t(neg_valid)[None, :]
+    assert int(ties.sum()) >= len(range(0, n.shape[0], 5))  # each copy ties its positive's row
+
+    def jax_loss(q_, p_, n_):
+        return JFI.fused_infonce_loss(q_, p_, n_, jnp.asarray(row_valid), jnp.asarray(neg_valid),
+                                      scale=scale, mask_false_negatives=mask_fn, interpret=True)
+
+    want, want_grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(p), jnp.asarray(n))
+    tq, tp, tn = (t(a).requires_grad_() for a in (q, p, n))
+    got = TFI.fused_infonce_loss(tq, tp, tn, t(row_valid), t(neg_valid), scale=scale,
+                                 mask_false_negatives=mask_fn)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    for name, g, w in zip("qpn", (tq.grad, tp.grad, tn.grad), want_grads):
+        w = np.asarray(w)
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= 2.0**-7, (name, err)
+
+
 @pytest.mark.parametrize("mask_fn", [True, False], ids=["fnmask", "nofnmask"])
 def test_rowwise_ce_and_lse_match_jax(mask_fn):
     q, p, n, _, neg_valid = make_case(7)

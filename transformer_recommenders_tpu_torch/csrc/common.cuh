@@ -1,6 +1,9 @@
 // Shared device helpers for the port's kernels: activation-type traits
-// (bf16 or f32 storage, f32 arithmetic), the counter-based dropout hash
-// and warp reductions.
+// (bf16 or f32 storage, f32 arithmetic), the counter-based dropout hash,
+// warp reductions, the CUDA-core score chain of the pairwise and table
+// InfoNCE kernels, the tensor-core fragments (mma.sync, ldmatrix),
+// cp.async staging and the tensor-core score chain of the pool InfoNCE
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,7 +70,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// --- score tiles of the InfoNCE kernels (bf16 operands, f32 sums) ---
+// --- score tiles of the pairwise and table InfoNCE kernels (bf16
+// operands, f32 fmaf chains on CUDA cores) ---
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -112,6 +116,159 @@ __device__ inline void positives(const float* sq, int ld, const __nv_bfloat16* _
     }
     spos[t] = pos;
   }
+}
+
+// ---- tensor-core products (mma.sync m16n8k16: bf16 operands, f32 sums).
+// Fragment layouts of the PTX ISA: with g = lane / 4 and t2 = 2 * (lane % 4),
+// A holds rows g and g + 8 at k = t2, t2 + 1 and t2 + 8, t2 + 9; B columns g
+// at the same k; C rows g and g + 8 at columns t2, t2 + 1.  Each 32-bit
+// register packs two bf16, the lower k (or column) in the low half.
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// {M(r, k), M(r, k + 1)} of M(r, k) = m[r * ld + k]: zero unless r < rows
+// and k < cols, the high half zero unless k + 1 < cols
+__device__ __forceinline__ uint32_t row_pair(const __nv_bfloat16* m, int ld, int r, int k,
+                                             int rows, int cols) {
+  if (r >= rows || k >= cols) return 0u;
+  const __nv_bfloat16* p = m + (size_t)r * ld + k;
+  return pack_bf16(p[0], k + 1 < cols ? p[1] : __float2bfloat16_rn(0.f));
+}
+
+// {M(k, c), M(k + 1, c)} down column c of M(k, c) = m[k * ld + c]: zero
+// unless k < rows and c < cols, the high half zero unless k + 1 < rows
+__device__ __forceinline__ uint32_t col_pair(const __nv_bfloat16* m, int ld, int k, int c,
+                                             int rows, int cols) {
+  if (k >= rows || c >= cols) return 0u;
+  const __nv_bfloat16* p = m + (size_t)k * ld + c;
+  return pack_bf16(p[0], k + 1 < rows ? p[ld] : __float2bfloat16_rn(0.f));
+}
+
+// the two bf16 at m (4-byte aligned) as one word
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* m) {
+  return *reinterpret_cast<const uint32_t*>(m);
+}
+
+// the A fragment of k-step [k, k + 16) of the 16 rows m[r * ld + ...]
+__device__ __forceinline__ void load_a(const __nv_bfloat16* m, int ld, int k, uint32_t a[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  a[0] = ld32(m + g * ld + k + t2);
+  a[1] = ld32(m + (g + 8) * ld + k + t2);
+  a[2] = ld32(m + g * ld + k + 8 + t2);
+  a[3] = ld32(m + (g + 8) * ld + k + 8 + t2);
+}
+
+// B fragments of a 16 x 16 block of a row-major matrix in shared memory,
+// B(k, n) = m[k * ld + n] (16-byte aligned rows): b[0..1] the n8 tile of
+// columns [0, 8), b[2..3] that of [8, 16)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t b[4], const __nv_bfloat16* m, int ld) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const __nv_bfloat16* row = m + ((lane & 7) + (mi & 1) * 8) * ld + (mi >> 1) * 8;
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// ---- asynchronous copies into shared memory (cp.async, 16 bytes)
+
+// 16 bytes from src to dst, or 16 zero bytes when !full (src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// ---- the score chain of the pool InfoNCE kernels (on the tensor cores)
+
+// D zero-padded to whole k-steps of 16 (exact: the padding adds 0)
+__host__ __device__ __forceinline__ int pad16(int D) { return (D + 15) / 16 * 16; }
+
+// rows [row0, row0 + nrows) x columns [0, D) of a (rows_total, D) bf16
+// matrix into shared memory with leading dimension ld (a multiple of 8),
+// zero past rows_total: 16-byte cp.async copies where D and src allow (the
+// caller commits and waits), else plain loads
+__device__ inline void stage_rows_async(const __nv_bfloat16* __restrict__ src, int rows_total,
+                                        int D, int row0, int nrows, __nv_bfloat16* dst, int ld) {
+  if (D % 8 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int per_row = D / 8;
+    for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = (i % per_row) * 8;
+      const bool in = row0 + r < rows_total;
+      cp_async16(dst + r * ld + c, in ? src + (size_t)(row0 + r) * D + c : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
+      const int r = i / D, k = i % D;
+      dst[r * ld + k] =
+          row0 + r < rows_total ? src[(size_t)(row0 + r) * D + k] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// zero columns [D, pad16(D)) of nrows staged rows (never written by
+// stage_rows_async, so once per kernel)
+__device__ inline void zero_pad_cols(__nv_bfloat16* dst, int nrows, int D, int ld) {
+  const int w = pad16(D) - D;
+  for (int i = threadIdx.x; i < nrows * w; i += blockDim.x)
+    dst[(i / w) * ld + D + i % w] = __float2bfloat16_rn(0.f);
+}
+
+// The one chain of every pool score and every pos: a warp's 16 x 8 tile
+//   x(i, j) = scale * sum_k A(i, k) B(j, k)
+// with the query rows as A (a(ks, frag) gives the A fragment of k-step ks)
+// and the pool (or positive) rows as B, b[j * ldb + k] in shared memory,
+// bf16, zero in [D, 16 nks).  The accumulator starts at 0 and takes the
+// k-steps of 16 in increasing order, then one unfused multiply by scale.
+// A product of two bf16 values is exact in f32, and the tensor core's sum
+// for one output depends only on that output's row, column and
+// accumulator, so a pool row equal to a row's positive scores exactly that
+// row's pos in every kernel that calls this.  kKs > 0: the loop unrolled
+// over at most kKs steps (A fragments held in registers); 0: a plain loop.
+// x[0], x[1]: row g, columns t2, t2 + 1; x[2], x[3]: row g + 8.
+template <int kKs, typename LoadA>
+__device__ __forceinline__ void score_tile(const LoadA& a, const __nv_bfloat16* b, int ldb,
+                                           int nks, float scale, float x[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const __nv_bfloat16* bg = b + g * ldb + t2;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  auto step = [&](int ks) {
+    uint32_t af[4];
+    a(ks, af);
+    const uint32_t bfrag[2] = {ld32(bg + 16 * ks), ld32(bg + 16 * ks + 8)};
+    mma_bf16(c, af, bfrag);
+  };
+  if constexpr (kKs > 0) {
+#pragma unroll
+    for (int ks = 0; ks < kKs; ++ks)
+      if (ks < nks) step(ks);
+  } else {
+#pragma unroll 4
+    for (int ks = 0; ks < nks; ++ks) step(ks);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __fmul_rn(c[i], scale);
 }
 
 template <typename Kernel>

@@ -13,40 +13,78 @@
 //   dpos = g scale (exp(pos - lse) - 1)           (f32, not rounded)
 //   dq = dl N + dpos p,  dp = dpos q,  dn = dl^T Q   (f32)
 //
-// pos and every pool score are one fixed chain of fmaf over k = 0..D-1
-// on the same bf16 values (xrt::dot4), then an unfused multiply by scale,
-// so a pool row that is a copy of the positive scores exactly pos and the
-// mask x < pos drops it.  The forward writes each row's pos; both
-// backward kernels read it back instead of recomputing it.
+// pos and every pool score come from one device function, xrt::score_tile
+// (common.cuh): mma.sync m16n8k16 over the same bf16 values with the query
+// row as the A operand, k zero-padded to a multiple of 16 and taken in
+// increasing steps of 16 from a zero accumulator, then one unfused
+// multiply by scale.  A pool row that is a copy of a row's positive
+// therefore scores exactly that row's pos in all three kernels, and the
+// mask x < pos drops it in each.  The forward writes each row's pos; both
+// backward kernels read it back.
 //
-// What bounds it on the H100: 2 R Rn D operations forward, 4 R Rn D for
-// each backward kernel (the scores again, then one product), tensor-core
-// work: 4.3 us forward and 8.7 us for each backward kernel at
-// R = Rn = 4096, D = 128.  This first version runs the products as f32
-// FMAs on CUDA cores with the operands staged in shared memory, far from
-// that bound; the (R, Rn) scores never reach device memory.  The TPU's
-// sequential grid carries its accumulators across pool tiles; here a
-// block loops over the tiles itself: dq/dp by blocks of query rows over
-// every pool tile, dn by blocks of pool rows over every query tile in
-// order.  No atomics, so both backward results are deterministic.
+// What bounds it on the H100: 2 R Rn D operations forward and 4 R Rn D for
+// each backward kernel on the tensor cores (0.8 and 1.6 us at path B's
+// R = Rn = 1024, D = 384; 4.3 and 8.7 us at path A's R = Rn = 4096,
+// D = 128), and R Rn exponentials (0.3 us at B, 5 us at A at the card's
+// measured expf rate).  At these sizes the launches, the staging of the
+// tiles and the split combine set the time more than the products do.
+// The design:
+// - forward and dq/dp: a block takes kRows = 32 query rows and one split
+//   of the pool tiles (grid (R / 32, splits); the splits fill the card's
+//   resident blocks, at least two pool tiles each).  Its 8 warps each
+//   score a 16 x 8 tile of every 32 x 32 tile of scores.  q and the pool
+//   tiles are staged in shared memory as bf16 (leading dimension D + 8:
+//   conflict-free fragment loads), the pool tiles double-buffered with
+//   cp.async so that the next one loads while the current one multiplies;
+//   the query fragments stay in registers up to D = 384.
+// - forward: each lane keeps an online (max, sum) of its rows' counted
+//   scores, its max starting at pos; the lanes of a quad, then the four
+//   warps of a row, merge in a fixed order, and each block writes its
+//   split's (max, sum) to a workspace.  A second kernel merges the splits
+//   in split order from (pos, 0) and writes lse and ce (a row with no
+//   counted negative gets ce = 0 exactly); split 0's blocks write pos.
+// - dq/dp: dl = bf16(exp(x - lse) g scale) goes to shared memory as bf16,
+//   then the split's dq += dl N_tile runs on the tensor cores (B fragments
+//   by ldmatrix.trans from the row-major pool tile) into an f32 workspace;
+//   a final kernel sums the splits in order, adds dpos p and writes dq and
+//   dp.
+// - dn: one block per 16 pool rows over every 64-row query tile in order;
+//   its scores are score_tile's (the 64 x 16 tile Q N^T), its dl^T Q
+//   product f32 FMAs on CUDA cores.
+// No atomics: every sum runs in a fixed order, so two calls give the same
+// bits.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowTile = 16;  // query rows of a block (forward and the dq pass)
-constexpr int kColTile = 64;  // pool rows staged per step (forward and the dq pass)
-constexpr int kDnCols = 16;   // pool rows of a block (the dn pass)
-constexpr int kDnRows = 64;   // query rows staged per step (the dn pass)
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kRows = 32;         // query rows of a block (forward and dq/dp)
+constexpr int kPool = 32;         // pool rows staged per step (forward and dq/dp)
+constexpr int kDlLd = kPool + 8;  // dl's leading dimension in shared memory (bf16)
+constexpr int kMinTilesPerSplit = 2;
+constexpr int kDnCols = 16;  // pool rows of a block (the dn pass)
+constexpr int kDnRows = 64;  // query rows staged per step (the dn pass)
 constexpr int kMaxD = 512;
-constexpr int kAcc = kRowTile * kMaxD / kThreads;  // outputs a thread accumulates
-static_assert(kDnCols * kMaxD / kThreads == kAcc, "both passes hold kAcc outputs a thread");
+constexpr int kAcc = kDnCols * kMaxD / kThreads;  // dn outputs a thread accumulates
+static_assert(kRows <= kPool, "the positives are staged in a pool buffer");
+static_assert(kRows == 2 * 16 && kPool == 4 * 8 && kThreads == 8 * 32,
+              "8 warps, one 16 x 8 score tile each");
+static_assert(kDnRows == 4 * 16 && kDnCols == 2 * 8, "8 warps, one 16 x 8 score tile each");
 
 using xrt::allow_smem;
 using xrt::bf;
-using xrt::dot4;
-using xrt::load_rows;
-using xrt::positives;
+using xrt::cp_async_commit;
+using xrt::cp_async_wait;
+using xrt::load_a;
+using xrt::mma_bf16;
+using xrt::pad16;
+using xrt::score_tile;
+using xrt::stage_rows_async;
+using xrt::zero_pad_cols;
 
 // whether a pool score counts as a negative of its row
 __device__ __forceinline__ bool counted(float x, float nv, float pos, int mask_fn) {
@@ -56,169 +94,329 @@ __device__ __forceinline__ bool counted(float x, float nv, float pos, int mask_f
 // dl of one pool score, rounded to bf16 (the JAX kernels' dl.astype(bf16))
 __device__ __forceinline__ float grad_logit(float x, float nv, float pos, float lse, float gs,
                                             int mask_fn) {
-  return counted(x, nv, pos, mask_fn) ? xrt::Act<__nv_bfloat16>::round(expf(x - lse) * gs) : 0.f;
+  return counted(x, nv, pos, mask_fn) ? xrt::Act<bf16>::round(expf(x - lse) * gs) : 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ p,
-    const __nv_bfloat16* __restrict__ n, const float* __restrict__ nv, float* __restrict__ ce,
-    float* __restrict__ lse_out, float* __restrict__ pos_out, int R, int Rn, int D, float scale,
-    int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;  // odd stride: the 16 rows a half-warp reads hit 16 banks
-  float* sq = smem;
-  float* sn = sq + kRowTile * ld;
-  float* snv = sn + kColTile * ld;
-  float* spos = snv + kColTile;
-  const int r0 = blockIdx.x * kRowTile;
-  load_rows(q, R, D, r0, kRowTile, sq, ld);
-  __syncthreads();
-  positives(sq, ld, p, R, D, r0, kRowTile, scale, spos);
-  __syncthreads();
+// a running (max, sum of exp(x - max)) takes the counted ones of xa, xb
+__device__ __forceinline__ void online(float& m, float& s, float xa, bool ca, float xb, bool cb) {
+  const float neg_inf = -__int_as_float(0x7f800000);
+  const float mx = fmaxf(ca ? xa : neg_inf, cb ? xb : neg_inf);
+  if (mx > m) {
+    s *= expf(m - mx);
+    m = mx;
+  }
+  if (ca) s += expf(xa - m);
+  if (cb) s += expf(xb - m);
+}
 
-  // a half-warp per row, each lane on pool rows c, c + 16, c + 32, c + 48
-  // of a tile, keeping a running (max, sum) over the counted scores; the
-  // max starts at the positive's score, whose term is added at the end
-  const int rr = threadIdx.x / 16, c = threadIdx.x % 16;
-  const float pos = spos[rr];
-  float m = pos, s = 0.f;
-  for (int n0 = 0; n0 < Rn; n0 += kColTile) {
-    load_rows(n, Rn, D, n0, kColTile, sn, ld);
-    for (int i = threadIdx.x; i < kColTile; i += blockDim.x)
-      snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
-    __syncthreads();
-    float acc[4];
-    dot4(sq + rr * ld, sn + c * ld, 16 * ld, D, acc);
+// (m, s) merged with another running (max, sum)
+__device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+
+// the pool tiles [t0, t1) of split blockIdx.y
+__device__ __forceinline__ void split_tiles(int Rn, int splits, int& t0, int& t1) {
+  const long long nt = (Rn + kPool - 1) / kPool;
+  t0 = (int)(blockIdx.y * nt / splits);
+  t1 = (int)((blockIdx.y + 1) * nt / splits);
+}
+
+// The query fragments of a warp's 16 rows (qw, leading dimension ld):
+// held in registers for kKs > 0 (nks <= kKs), else loaded per k-step.
+template <int kKs>
+struct QueryFrags {
+  uint32_t held[kKs > 0 ? kKs : 1][4];
+  const bf16* qw;
+  int ld;
+
+  __device__ __forceinline__ QueryFrags(const bf16* qw_, int ld_, int nks) : qw(qw_), ld(ld_) {
+    if constexpr (kKs > 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x = __fmul_rn(acc[j], scale);
-      if (counted(x, snv[c + 16 * j], pos, mask_fn)) {
-        if (x > m) {
-          s = s * expf(m - x) + 1.f;
-          m = x;
-        } else {
-          s += expf(x - m);
-        }
-      }
+      for (int ks = 0; ks < kKs; ++ks)
+        if (ks < nks) load_a(qw, ld, 16 * ks, held[ks]);
     }
+  }
+  __device__ __forceinline__ void operator()(int ks, uint32_t a[4]) const {
+    if constexpr (kKs > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = held[ks][i];
+    } else {
+      load_a(qw, ld, 16 * ks, a);
+    }
+  }
+};
+
+// Forward, block (row tile, split): the split's partial (max, sum) per row
+// into part[split][r], and pos (split 0).
+template <int kKs>
+__global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ p, const bf16* __restrict__ n,
+    const float* __restrict__ nv, float* __restrict__ part, float* __restrict__ pos_out, int R,
+    int Rn, int D, float scale, int mask_fn, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nks = pad16(D) / 16, ld = pad16(D) + 8;
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
+  float* spos = reinterpret_cast<float*>(sn + 2 * kPool * ld);
+  float* sred = spos + kRows;  // [n-tile][row][max, sum]
+  const int r0 = blockIdx.x * kRows;
+  int t0, t1;
+  split_tiles(Rn, splits, t0, t1);
+  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
+  stage_rows_async(q, R, D, r0, kRows, sq, ld);
+  stage_rows_async(p, R, D, r0, kRows, sn + kPool * ld, ld);  // the positives into buffer 1
+  cp_async_commit();
+  if (t0 < t1) stage_rows_async(n, Rn, D, t0 * kPool, kPool, sn, ld);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
+
+  // pos: the block's query rows against their own positives, on the
+  // diagonal (row 16 mt + g (+ 8) meets column 8 nt + t2 (+ 1))
+  float x[4];
+  score_tile<kKs>(qa, sn + (kPool + 8 * nt) * ld, ld, nks, scale, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (16 * mt + g + 8 * (i >> 1) == 8 * nt + t2 + (i & 1)) spos[8 * nt + t2 + (i & 1)] = x[i];
+  __syncthreads();
+
+  float pos[2], m[2], s[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    pos[h] = spos[16 * mt + g + 8 * h];
+    m[h] = pos[h];
+    s[h] = 0.f;
+  }
+  for (int t = t0; t < t1; ++t) {
+    const bf16* cur = sn + ((t - t0) & 1) * kPool * ld;
+    if (t + 1 < t1)
+      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1 - t0) & 1) * kPool * ld, ld);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
+    const int j = t * kPool + 8 * nt + t2;
+    const float v0 = j < Rn ? nv[j] : 0.f, v1 = j + 1 < Rn ? nv[j + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      online(m[h], s[h], x[2 * h], counted(x[2 * h], v0, pos[h], mask_fn), x[2 * h + 1],
+             counted(x[2 * h + 1], v1, pos[h], mask_fn));
     __syncthreads();
   }
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-    const float mn = fmaxf(m, m2);
-    s = s * expf(m - mn) + s2 * expf(m2 - mn);
-    m = mn;
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, m[h], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, s[h], off);
+      merge(m[h], s[h], m2, s2);
+    }
   }
-  const int r = r0 + rr;
-  if (c == 0 && r < R) {
-    // a row with no counted negative: m = pos, s = 0, so ce = 0 exactly
-    const float lse = m + logf(expf(pos - m) + s);
-    lse_out[r] = lse;
-    ce[r] = lse - pos;
-    pos_out[r] = pos;
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* at = sred + (nt * kRows + 16 * mt + g + 8 * h) * 2;
+      at[0] = m[h];
+      at[1] = s[h];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {
+    const int row = threadIdx.x, r = r0 + row;
+    float mm = sred[row * 2], ss = sred[row * 2 + 1];
+    for (int w = 1; w < 4; ++w) merge(mm, ss, sred[(w * kRows + row) * 2], sred[(w * kRows + row) * 2 + 1]);
+    if (r < R) {
+      float* at = part + ((size_t)blockIdx.y * R + r) * 2;
+      at[0] = mm;
+      at[1] = ss;
+      if (blockIdx.y == 0) pos_out[r] = spos[row];
+    }
   }
 }
 
-// Backward, one block per kRowTile query rows: dq = dl N + dpos p and
-// dp = dpos q, over every pool tile.
+// The forward's second kernel: each row's splits merged in split order
+// from (pos, 0); a row with no counted negative keeps m = pos, s = 0, so
+// lse = pos and ce = 0 exactly.
+__global__ void pool_infonce_combine_kernel(const float* __restrict__ part,
+                                            const float* __restrict__ pos, float* __restrict__ ce,
+                                            float* __restrict__ lse, int R, int splits) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float pr = pos[r];
+  float m = pr, s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* at = part + ((size_t)sp * R + r) * 2;
+    merge(m, s, at[0], at[1]);
+  }
+  const float l = m + logf(expf(pr - m) + s);
+  lse[r] = l;
+  ce[r] = l - pr;
+}
+
+// Backward, block (row tile, split): the split's dl N into part[split],
+// (R, D) f32.
+template <int kKs>
 __global__ void __launch_bounds__(kThreads) pool_infonce_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ p,
-    const __nv_bfloat16* __restrict__ n, const float* __restrict__ nv,
+    const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
     const float* __restrict__ lse, const float* __restrict__ g, const float* __restrict__ pos_in,
-    float* __restrict__ dq, float* __restrict__ dp, int R, int Rn, int D, float scale,
-    int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sq = smem;
-  float* sn = sq + kRowTile * ld;
-  float* sdl = sn + kColTile * ld;
-  float* snv = sdl + kRowTile * kColTile;
-  float* spos = snv + kColTile;
-  float* slse = spos + kRowTile;
-  float* sgs = slse + kRowTile;
-  const int r0 = blockIdx.x * kRowTile;
-  load_rows(q, R, D, r0, kRowTile, sq, ld);
-  for (int t = threadIdx.x; t < kRowTile; t += blockDim.x) {
+    float* __restrict__ part, int R, int Rn, int D, float scale, int mask_fn, int splits) {
+  // dq columns of warp w: the 16-column blocks 16 w + 128 jb, jb < kJ
+  constexpr int kJ = kKs > 0 ? kKs / 8 : kMaxD / 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
+  bf16* sdl = sn + 2 * kPool * ld;
+  float* spos = reinterpret_cast<float*>(sdl + kRows * kDlLd);
+  float* slse = spos + kRows;
+  float* sgs = slse + kRows;
+  const int r0 = blockIdx.x * kRows;
+  int t0, t1;
+  split_tiles(Rn, splits, t0, t1);
+  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
+  stage_rows_async(q, R, D, r0, kRows, sq, ld);
+  cp_async_commit();
+  if (t0 < t1) stage_rows_async(n, Rn, D, t0 * kPool, kPool, sn, ld);
+  cp_async_commit();
+  for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
     const int r = r0 + t;
     spos[t] = r < R ? pos_in[r] : 0.f;
     slse[t] = r < R ? lse[r] : 0.f;
     sgs[t] = r < R ? g[r] * scale : 0.f;
   }
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int rr = threadIdx.x / 16, c = threadIdx.x % 16;
-  float acc[kAcc];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
+  float acc[kJ][2][2][4];  // [column block][m-tile][n8 half][fragment]
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < Rn; n0 += kColTile) {
-    load_rows(n, Rn, D, n0, kColTile, sn, ld);
-    for (int i = threadIdx.x; i < kColTile; i += blockDim.x)
-      snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[jb][i / 8][(i / 4) % 2][i % 4] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const bf16* cur = sn + ((t - t0) & 1) * kPool * ld;
+    if (t + 1 < t1)
+      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1 - t0) & 1) * kPool * ld, ld);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    float x4[4];
-    dot4(sq + rr * ld, sn + c * ld, 16 * ld, D, x4);
+    float x[4];
+    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
+    const int j = t * kPool + 8 * nt + t2;
+    const float v0 = j < Rn ? nv[j] : 0.f, v1 = j + 1 < Rn ? nv[j + 1] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = c + 16 * j;
-      const bool live = n0 + jj < Rn && r0 + rr < R;
-      sdl[rr * kColTile + jj] =
-          live ? grad_logit(__fmul_rn(x4[j], scale), snv[jj], spos[rr], slse[rr], sgs[rr], mask_fn)
-               : 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + gr + 8 * h;
+      const bool live = r0 + row < R;
+      const float d0 =
+          live ? grad_logit(x[2 * h], v0, spos[row], slse[row], sgs[row], mask_fn) : 0.f;
+      const float d1 =
+          live ? grad_logit(x[2 * h + 1], v1, spos[row], slse[row], sgs[row], mask_fn) : 0.f;
+      *reinterpret_cast<uint32_t*>(sdl + row * kDlLd + 8 * nt + t2) =
+          xrt::pack_bf16(__float2bfloat16_rn(d0), __float2bfloat16_rn(d1));
     }
     __syncthreads();
+    // dq += dl (32 x 32) N_tile (32 x Dp), k the tile's pool rows in order
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int o = threadIdx.x + kThreads * i;
-      if (o < kRowTile * D) {
-        const int r = o / D, d = o % D;
-        for (int j = 0; j < kColTile; ++j) acc[i] = fmaf(sdl[r * kColTile + j], sn[j * ld + d], acc[i]);
+    for (int kk = 0; kk < kPool / 16; ++kk) {
+      uint32_t a0[4], a1[4];
+      load_a(sdl, kDlLd, 16 * kk, a0);
+      load_a(sdl + 16 * kDlLd, kDlLd, 16 * kk, a1);
+#pragma unroll
+      for (int jb = 0; jb < kJ; ++jb) {
+        const int c = 16 * warp + 128 * jb;
+        if (c < Dp) {
+          uint32_t b[4];
+          xrt::ldmatrix_x4_trans(b, cur + 16 * kk * ld + c, ld);
+          mma_bf16(acc[jb][0][0], a0, b);
+          mma_bf16(acc[jb][0][1], a0, b + 2);
+          mma_bf16(acc[jb][1][0], a1, b);
+          mma_bf16(acc[jb][1][1], a1, b + 2);
+        }
       }
     }
     __syncthreads();
   }
+  float* out = part + (size_t)blockIdx.y * R * D;
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int o = threadIdx.x + kThreads * i;
-    if (o < kRowTile * D && r0 + o / D < R) {
-      const int r = o / D, d = o % D;
-      const size_t at = (size_t)r0 * D + o;
-      const float dpos = sgs[r] * (expf(spos[r] - slse[r]) - 1.f);
-      dq[at] = __fadd_rn(acc[i], __fmul_rn(dpos, bf(p[at])));
-      dp[at] = __fmul_rn(dpos, sq[r * ld + d]);
-    }
-  }
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 16 * mi + gr + 8 * h, col = 16 * warp + 128 * jb + 8 * half + t2;
+          if (r < R) {
+            if (col < D) out[(size_t)r * D + col] = acc[jb][mi][half][2 * h];
+            if (col + 1 < D) out[(size_t)r * D + col + 1] = acc[jb][mi][half][2 * h + 1];
+          }
+        }
+}
+
+// The dq pass's second kernel: dq = (the splits' dl N, summed in split
+// order) + dpos p and dp = dpos q, one thread per element.
+__global__ void pool_infonce_dq_sum_kernel(const float* __restrict__ part,
+                                           const bf16* __restrict__ q, const bf16* __restrict__ p,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ g,
+                                           const float* __restrict__ pos, float* __restrict__ dq,
+                                           float* __restrict__ dp, int R, int D, float scale,
+                                           int splits) {
+  const size_t total = (size_t)R * D;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int r = (int)(i / D);
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
+  const float gs = g[r] * scale;
+  const float dpos = gs * (expf(pos[r] - lse[r]) - 1.f);
+  dq[i] = __fadd_rn(s, __fmul_rn(dpos, bf(p[i])));
+  dp[i] = __fmul_rn(dpos, bf(q[i]));
 }
 
 // Backward, one block per kDnCols pool rows: dn = dl^T Q over every query
 // row, in order.
 __global__ void __launch_bounds__(kThreads) pool_infonce_dn_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ n,
-    const float* __restrict__ nv, const float* __restrict__ lse, const float* __restrict__ g,
-    const float* __restrict__ pos_in, float* __restrict__ dn, int R, int Rn, int D, float scale,
-    int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sn = smem;
-  float* sq = sn + kDnCols * ld;
-  float* sdl = sq + kDnRows * ld;
+    const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
+    const float* __restrict__ lse, const float* __restrict__ g, const float* __restrict__ pos_in,
+    float* __restrict__ dn, int R, int Rn, int D, float scale, int mask_fn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nks = pad16(D) / 16, ld = pad16(D) + 8;
+  bf16* sn = reinterpret_cast<bf16*>(smem);
+  bf16* sq = sn + kDnCols * ld;
+  float* sdl = reinterpret_cast<float*>(sq + kDnRows * ld);
   float* snv = sdl + kDnRows * kDnCols;
   float* spos = snv + kDnCols;
   float* slse = spos + kDnRows;
   float* sgs = slse + kDnRows;
   const int n0 = blockIdx.x * kDnCols;
-  load_rows(n, Rn, D, n0, kDnCols, sn, ld);
+  zero_pad_cols(sn, kDnCols + kDnRows, D, ld);
+  stage_rows_async(n, Rn, D, n0, kDnCols, sn, ld);
   for (int i = threadIdx.x; i < kDnCols; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
 
-  // scores: lane jn = t % 16 on pool row jn, query rows rb + 16 j of the tile
-  const int jn = threadIdx.x % kDnCols, rb = threadIdx.x / kDnCols;
+  // scores: warp w on the 16 x 8 tile of query rows 16 (w % 4) and pool
+  // rows 8 (w / 4), the query rows as A
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g4 = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 3, nt = warp >> 2;
+  const bf16* qw = sq + 16 * mt * ld;
+  auto qa = [=](int ks, uint32_t a[4]) { load_a(qw, ld, 16 * ks, a); };
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   for (int r0 = 0; r0 < R; r0 += kDnRows) {
     __syncthreads();
-    load_rows(q, R, D, r0, kDnRows, sq, ld);
+    stage_rows_async(q, R, D, r0, kDnRows, sq, ld);
+    cp_async_commit();
     for (int t = threadIdx.x; t < kDnRows; t += blockDim.x) {
       const int r = r0 + t;
       const bool in = r < R;
@@ -226,16 +424,16 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_dn_kernel(
       slse[t] = in ? lse[r] : 0.f;
       sgs[t] = in ? g[r] * scale : 0.f;
     }
+    cp_async_wait<0>();
     __syncthreads();
-    float x4[4];
-    dot4(sn + jn * ld, sq + rb * ld, 16 * ld, D, x4);
+    float x[4];
+    score_tile<0>(qa, sn + 8 * nt * ld, ld, nks, scale, x);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = rb + 16 * j;
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * mt + g4 + 8 * (i >> 1), jn = 8 * nt + t2 + (i & 1);
       const bool live = n0 + jn < Rn && r0 + r < R;
       sdl[r * kDnCols + jn] =
-          live ? grad_logit(__fmul_rn(x4[j], scale), snv[jn], spos[r], slse[r], sgs[r], mask_fn)
-               : 0.f;
+          live ? grad_logit(x[i], snv[jn], spos[r], slse[r], sgs[r], mask_fn) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -243,10 +441,12 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_dn_kernel(
       const int o = threadIdx.x + kThreads * i;
       if (o < kDnCols * D) {
         const int cc = o / D, d = o % D;
-        for (int r = 0; r < kDnRows; ++r) acc[i] = fmaf(sdl[r * kDnCols + cc], sq[r * ld + d], acc[i]);
+        for (int r = 0; r < kDnRows; ++r)
+          acc[i] = fmaf(sdl[r * kDnCols + cc], bf(sq[r * ld + d]), acc[i]);
       }
     }
   }
+  cp_async_wait<0>();  // R = 0: the pool rows' copy is still in flight
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     const int o = threadIdx.x + kThreads * i;
@@ -255,53 +455,116 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_dn_kernel(
 }
 
 size_t fwd_smem(int D) {
-  return sizeof(float) * ((size_t)(kRowTile + kColTile) * (D + 1) + kColTile + kRowTile);
+  return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
+         sizeof(float) * (kRows + 4 * kRows * 2);
 }
 size_t dq_smem(int D) {
-  return sizeof(float) * ((size_t)(kRowTile + kColTile) * (D + 1) + kRowTile * kColTile +
-                          kColTile + 3 * kRowTile);
+  return sizeof(bf16) * ((size_t)(kRows + 2 * kPool) * (pad16(D) + 8) + kRows * kDlLd) +
+         sizeof(float) * 3 * kRows;
 }
 size_t dn_smem(int D) {
-  return sizeof(float) * ((size_t)(kDnCols + kDnRows) * (D + 1) + kDnRows * kDnCols + kDnCols +
-                          3 * kDnRows);
+  return sizeof(bf16) * (size_t)(kDnCols + kDnRows) * (pad16(D) + 8) +
+         sizeof(float) * (kDnRows * kDnCols + kDnCols + 3 * kDnRows);
+}
+
+// f(kernel) with the instantiation for D: the query fragments in
+// registers up to D = 384
+template <typename F>
+cudaError_t with_fwd_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pool_infonce_fwd_kernel<8>);
+  if (pad16(D) <= 384) return f(pool_infonce_fwd_kernel<24>);
+  return f(pool_infonce_fwd_kernel<0>);
+}
+template <typename F>
+cudaError_t with_dq_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pool_infonce_dq_kernel<8>);
+  if (pad16(D) <= 384) return f(pool_infonce_dq_kernel<24>);
+  return f(pool_infonce_dq_kernel<0>);
 }
 
 bool bad_shape(int Rn, int D) { return Rn < 0 || D <= 0 || D > kMaxD; }
 
+// the pool splits of a launch: enough blocks over the row tiles to fill
+// the blocks the card holds at once, at least kMinTilesPerSplit pool
+// tiles a split
+template <typename Kernel>
+cudaError_t plan_splits(Kernel kernel, size_t smem, int R, int Rn, int* splits) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int row_tiles = R > 0 ? (R + kRows - 1) / kRows : 1;
+  const int cap = std::max(1, (Rn + kPool - 1) / kPool / kMinTilesPerSplit);
+  *splits = std::max(1, std::min(cap, sms * per_sm / row_tiles));
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// the pool splits that pool_infonce_fwd (pass 0) or pool_infonce_dq
+// (pass 1) takes at this shape on the current device, or -1 on an error;
+// the caller sizes the workspace by it
+extern "C" int pool_infonce_splits(int R, int Rn, int D, int pass) {
+  if (bad_shape(Rn, D) || R < 0) return -1;
+  int splits = 0;
+  const cudaError_t err =
+      pass == 0 ? with_fwd_kernel(D, [&](auto kernel) {
+        return plan_splits(kernel, fwd_smem(D), R, Rn, &splits);
+      })
+                : with_dq_kernel(D, [&](auto kernel) {
+                    return plan_splits(kernel, dq_smem(D), R, Rn, &splits);
+                  });
+  return err == cudaSuccess ? splits : -1;
+}
+
 // q, p: (R, D) bf16, n: (Rn, D) bf16, nv: (Rn,) f32; writes ce, lse and
-// pos, (R,) f32
+// pos, (R,) f32; part: an f32 workspace of splits * R * 2
 extern "C" int pool_infonce_fwd(const void* q, const void* p, const void* n, const float* nv,
-                                float* ce, float* lse, float* pos, int R, int Rn, int D,
-                                float scale, int mask_fn, void* stream) {
-  if (bad_shape(Rn, D)) return cudaErrorInvalidValue;
+                                float* ce, float* lse, float* pos, float* part, int R, int Rn,
+                                int D, float scale, int mask_fn, int splits, void* stream) {
+  if (bad_shape(Rn, D) || splits < 1) return cudaErrorInvalidValue;
   if (R <= 0) return cudaSuccess;
   const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(pool_infonce_fwd_kernel, smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = with_fwd_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((R + kRows - 1) / kRows, splits), kThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(p), static_cast<const bf16*>(n),
+        nv, part, pos, R, Rn, D, scale, mask_fn, splits);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  pool_infonce_fwd_kernel<<<(R + kRowTile - 1) / kRowTile, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(p),
-      static_cast<const __nv_bfloat16*>(n), nv, ce, lse, pos, R, Rn, D, scale, mask_fn);
+  pool_infonce_combine_kernel<<<(R + 255) / 256, 256, 0, s>>>(part, pos, ce, lse, R, splits);
   return cudaGetLastError();
 }
 
 // dq and dp, (R, D) f32, for the cotangent g of ce; lse and pos are the
-// forward's
+// forward's; part: an f32 workspace of splits * R * D
 extern "C" int pool_infonce_dq(const void* q, const void* p, const void* n, const float* nv,
                                const float* lse, const float* g, const float* pos, float* dq,
-                               float* dp, int R, int Rn, int D, float scale, int mask_fn,
-                               void* stream) {
-  if (bad_shape(Rn, D)) return cudaErrorInvalidValue;
+                               float* dp, float* part, int R, int Rn, int D, float scale,
+                               int mask_fn, int splits, void* stream) {
+  if (bad_shape(Rn, D) || splits < 1) return cudaErrorInvalidValue;
   if (R <= 0) return cudaSuccess;
   const size_t smem = dq_smem(D);
-  cudaError_t err = allow_smem(pool_infonce_dq_kernel, smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  cudaError_t err = with_dq_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((R + kRows - 1) / kRows, splits), kThreads, smem, s>>>(
+        qb, static_cast<const bf16*>(n), nv, lse, g, pos, part, R, Rn, D, scale, mask_fn,
+        splits);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  pool_infonce_dq_kernel<<<(R + kRowTile - 1) / kRowTile, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(p),
-      static_cast<const __nv_bfloat16*>(n), nv, lse, g, pos, dq, dp, R, Rn, D, scale, mask_fn);
+  const size_t total = (size_t)R * D;
+  pool_infonce_dq_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part, qb, static_cast<const bf16*>(p), lse, g, pos, dq, dp, R, D, scale, splits);
   return cudaGetLastError();
 }
 
@@ -316,7 +579,7 @@ extern "C" int pool_infonce_dn(const void* q, const void* n, const float* nv, co
   if (err != cudaSuccess) return err;
   pool_infonce_dn_kernel<<<(Rn + kDnCols - 1) / kDnCols, kThreads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(n), nv, lse, g, pos,
-      dn, R, Rn, D, scale, mask_fn);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(n), nv, lse, g, pos, dn, R, Rn, D,
+      scale, mask_fn);
   return cudaGetLastError();
 }

@@ -444,43 +444,13 @@ __device__ void dense_rows(const T* in, int in_ld, int K, const float* __restric
   }
 }
 
-// ---- tensor-core products of the bf16 backward (mma.sync m16n8k16: bf16
-// operands, f32 sums).  Fragment layouts of the PTX ISA: with g = lane / 4
-// and t2 = 2 * (lane % 4), A holds rows g and g + 8 at k = t2, t2 + 1 and
-// t2 + 8, t2 + 9; B columns g at the same k; C rows g and g + 8 at columns
-// t2, t2 + 1.  Each 32-bit register packs two bf16, the lower k (or column)
-// in the low half.
+// ---- tensor-core products of the bf16 backward: mma.sync m16n8k16 and its
+// fragment loaders, shared with the pool InfoNCE kernels (common.cuh)
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// {M(r, k), M(r, k + 1)} of M(r, k) = m[r * ld + k]: zero unless r < rows
-// and k < cols, the high half zero unless k + 1 < cols
-__device__ __forceinline__ uint32_t row_pair(const bf16* m, int ld, int r, int k, int rows,
-                                             int cols) {
-  if (r >= rows || k >= cols) return 0u;
-  const bf16* p = m + (size_t)r * ld + k;
-  return pack_bf16(p[0], k + 1 < cols ? p[1] : __float2bfloat16_rn(0.f));
-}
-
-// {M(k, c), M(k + 1, c)} down column c of M(k, c) = m[k * ld + c]: zero
-// unless k < rows and c < cols, the high half zero unless k + 1 < rows
-__device__ __forceinline__ uint32_t col_pair(const bf16* m, int ld, int k, int c, int rows,
-                                             int cols) {
-  if (k >= rows || c >= cols) return 0u;
-  const bf16* p = m + (size_t)k * ld + c;
-  return pack_bf16(p[0], k + 1 < rows ? p[ld] : __float2bfloat16_rn(0.f));
-}
+using xrt::col_pair;
+using xrt::mma_bf16;
+using xrt::row_pair;
 
 // One warp: C(r, n) = sum_k A(r, k) B(k, n) for rows r < M <= 64 and the
 // eight columns [n0, n0 + 8), k < K, from la(r, k) = {A(r, k), A(r, k + 1)}

@@ -36,11 +36,13 @@
 // reciprocal) per counted score, about as long again at 16 results per
 // SM per clock.  This first version runs the products as f32 FMAs on
 // CUDA cores with the operands staged in shared memory, far from either
-// bound; the (R, Rn) scores never reach device memory.  As in
-// fused_infonce.cu, a block loops over the tiles that the TPU's
-// sequential grid walks: the forward and dq/dp by blocks of query rows
-// over every pool tile, dn by blocks of pool rows over every query tile in
-// order.  No atomics, so every result is deterministic.
+// bound; the (R, Rn) scores never reach device memory.  A block loops over
+// the tiles that the TPU's sequential grid walks: the forward and dq/dp by
+// blocks of query rows over every pool tile, dn by blocks of pool rows over
+// every query tile in order.  No atomics, so every result is
+// deterministic.  (fused_infonce.cu, the pool InfoNCE kernels of the same
+// layout, scores on the tensor cores (xrt::score_tile) and splits the pool
+// across blocks; these kernels keep the fmaf chain.)
 #include "common.cuh"
 
 namespace {

@@ -91,12 +91,14 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_infonce": (
         "fused_infonce.cu",
         {
-            # q, p, n (bf16), nv (f32), ce, lse, pos, R, Rn, D, scale,
-            # mask_false_negatives, stream
-            "pool_infonce_fwd": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
-            # q, p, n, nv, lse, g, pos, dq, dp (f32), R, Rn, D, scale,
-            # mask_false_negatives, stream
-            "pool_infonce_dq": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+            # R, Rn, D, pass (0 forward, 1 dq): the pool splits of a launch
+            "pool_infonce_splits": [_I] * 4,
+            # q, p, n (bf16), nv (f32), ce, lse, pos, split workspace (f32),
+            # R, Rn, D, scale, mask_false_negatives, splits, stream
+            "pool_infonce_fwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+            # q, p, n, nv, lse, g, pos, dq, dp (f32), split workspace (f32),
+            # R, Rn, D, scale, mask_false_negatives, splits, stream
+            "pool_infonce_dq": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
             # q, n, nv, lse, g, pos, dn (f32), R, Rn, D, scale,
             # mask_false_negatives, stream
             "pool_infonce_dn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],

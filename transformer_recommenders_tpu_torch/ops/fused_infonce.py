@@ -14,15 +14,25 @@ Numerics follow the JAX kernels: ``q``, ``p`` and ``n`` rounded to bf16
 with f32 sums, times ``scale``; uncounted scores guarded by ``_NEG_BIG``
 before ``exp``; the logit gradient ``dl`` rounded to bf16 before both
 products, the positive's ``dpos`` kept in f32; ``dq``, ``dp`` and ``dn``
-cast to the dtypes of ``q``, ``p`` and ``n``.  The positive's score and
-every pool score are one chain of products summed in increasing k (the
-kernels' order), so a copy of the positive in the pool scores exactly
-``pos`` and the mask drops it; the JAX kernel sums the two in other
-orders, and may not.  The TPU version pads R and Rn to its tiles; the
-kernels here mask their own edges.
+cast to the dtypes of ``q``, ``p`` and ``n``.
+
+Each version scores the positive and every pool row by one chain, so a
+copy of the positive in the pool scores exactly ``pos`` and the mask
+drops it.  The kernels' chain is the tensor cores' (``xrt::score_tile``:
+k-steps of 16 in increasing order); the plain version's is one exact
+bf16 product at a time in increasing k.  The two sum in other orders, so
+their scores agree to rounding, not bit for bit: a pool score within a
+rounding step of ``pos`` may count in one and not in the other.  Where
+every partial sum is exact in f32 (small multiples of a power of two)
+they agree bit for bit.  The JAX kernel sums the positive on the VPU and
+the pool on the MXU, so a copy may escape its mask there.  The TPU
+version pads R and Rn to its tiles; the kernels here mask their own
+edges.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,8 +43,8 @@ _MAX_D = 512  # kMaxD of csrc/fused_infonce.cu and csrc/fused_pairwise.cu
 
 
 def _scores(q, p, n, scale: float):
-    """x (R, Rn) and pos (R,): each the kernels' chain, one exact bf16
-    product at a time in increasing k, then times ``scale``."""
+    """x (R, Rn) and pos (R,): each one chain, one exact bf16 product at a
+    time in increasing k, then times ``scale``."""
     qm, pm, nm = (t.to(torch.bfloat16).float() for t in (q, p, n))
     x = torch.zeros((qm.shape[0], nm.shape[0]), dtype=torch.float32, device=q.device)
     pos = torch.zeros(qm.shape[0], dtype=torch.float32, device=q.device)
@@ -127,15 +137,30 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).float().contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _splits(device_index: int, r: int, rn: int, d: int, kernel_pass: int) -> int:
+    """The pool splits of the forward (pass 0) or dq (pass 1) kernel at
+    this shape on this card, as the kernel plans them; the wrapper sizes
+    the split workspace by it."""
+    with torch.cuda.device(device_index):
+        splits = cuda_build.library("fused_infonce").pool_infonce_splits(r, rn, d, kernel_pass)
+    if splits < 1:
+        msg = f"pool_infonce_splits: CUDA error planning R={r} Rn={rn} D={d}"
+        raise RuntimeError(msg)
+    return splits
+
+
 def _fwd_cuda(q, p, n, neg_valid, scale, mask_false_negatives):
     _check_cuda(q, p, n, neg_valid)
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
     ce, lse, pos = (torch.empty(r, dtype=torch.float32, device=q.device) for _ in range(3))
+    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 0)
+    part = torch.empty(splits * r * 2, dtype=torch.float32, device=q.device)
     status = cuda_build.library("fused_infonce").pool_infonce_fwd(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), ce.data_ptr(),
-        lse.data_ptr(), pos.data_ptr(), r, nb.shape[0], d, float(scale),
-        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        lse.data_ptr(), pos.data_ptr(), part.data_ptr(), r, nb.shape[0], d, float(scale),
+        int(mask_false_negatives), splits, cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pool_infonce_fwd launch")
     cuda_build.LAUNCHES["pool_infonce_fwd"] += 1
@@ -148,10 +173,13 @@ def _dq_cuda(q, p, n, neg_valid, lse, g, pos, scale, mask_false_negatives):
     r, d = qb.shape
     dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
     dp = torch.empty_like(dq)
+    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 1)
+    part = torch.empty(splits * r * d, dtype=torch.float32, device=q.device)
     status = cuda_build.library("fused_infonce").pool_infonce_dq(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(lse).data_ptr(),
-        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(), r, nb.shape[0],
-        d, float(scale), int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(), part.data_ptr(),
+        r, nb.shape[0], d, float(scale), int(mask_false_negatives), splits,
+        cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pool_infonce_dq launch")
     cuda_build.LAUNCHES["pool_infonce_dq"] += 1
