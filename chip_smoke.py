@@ -13,7 +13,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and the other shapes the configs use, printing the max and mean abs
    error beside the tolerance, then the times of the kernel, the plain
    version and a stock PyTorch yardstick (``library_ms``, never called by
-   the port);
+   the port), the layer at each batch the paths launch it with (serving's
+   64, training's 128, path B's 32 at D=384) and two calls bit for bit;
 3. serving: a synthetic artifact at MovieLens-1M scale (3,706 items with
    384-d text embeddings, 6,040 users) written by ``save_artifact`` for the
    flagship model (4 layers, d=128, 8 heads, FFN 512, seq 32, bf16) with
@@ -27,8 +28,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 4. the training path's kernels (the fused-layer and gather backwards, the
    table-scored InfoNCE forward and backward) against their plain versions
    at the training shapes (the gather backward bit for bit: its plain
-   version sums in the kernel's order), with their times, the layer
-   backward's by pass, as in phase 2;
+   version sums in the kernel's order; the table kernels as the pool
+   kernels in phase 6: on Gaussian inputs ce on the rows without a
+   near-tie, which alone take a cotangent, their count printed, and on
+   exact-sum inputs every row; two calls bit for bit), with their times,
+   the layer backward's by pass, as in phase 2;
 5. training: the flagship's hot train step
    (``make_train_step(cfg, full_logs=False)``, configs/ml1m_ssm.yaml,
    dropout 0.1, batch 128) over the same synthetic catalog: one step's loss
@@ -233,12 +237,50 @@ def compare(name: str, got, want, dtype_name: str) -> float:
     return max_err
 
 
+LAYER_SHAPES = {  # (B, S, D, H, F): where the bf16 forward is launched
+    "serving": (64, 32, 128, 8, 512),  # the flagship, a serving batch (clusters of 2)
+    "hot": (128, 32, 128, 8, 512),  # its training batch, the hot step and path A
+    "B": (32, 32, 384, 12, 48),  # ml1m_reference.yaml's training batch (clusters of 4)
+}
+
+
+def time_fused_layer(gen, b, s, d, h, f) -> dict:
+    """Device times of the bf16 forward, its plain version and the stock
+    layer at one shape, dropout off, and the bound; then two calls
+    (dropout 0.1) held bit for bit."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16)
+    with torch.no_grad():
+        ms = time_ms(lambda: fl.fused_layer(x, params, mask, **kwargs))
+        plain_ms = time_ms(lambda: fl.fused_layer_reference(x, params, mask, **kwargs))
+        library_ms = time_ms(lambda: stock_layer(x, params, mask, **kwargs))
+        call_ms = eager_ms(lambda: fl.fused_layer(x, params, mask, **kwargs))
+        drop = dict(kwargs, attn_dropout=0.1, hidden_dropout=0.1, dropout_seeds=[9, 8, 7])
+        first = fl.fused_layer(x, params, mask, **drop)
+        second = fl.fused_layer(x, params, mask, **drop)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"fused_layer B={b} D={d}: two calls differ")
+    bound_ms, bound_by = layer_bound_ms(b, s, d, h, f, 2)
+    cluster = fl.cluster_size(b, d, h, cuda_build.sm_count(x.device))
+    log(f"  fused_layer B={b} S={s} D={d} H={h} F={f} bf16 (clusters of {cluster}), device time: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer {library_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}); one eager wrapper call {call_ms:.4f} ms; two calls "
+        "bit for bit")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "cluster": cluster, "eager_call_ms": call_ms}
+
+
 def check_fused_layer() -> dict:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import cuda_build
     from transformer_recommenders_tpu_torch.ops.fused_layer import (
-        fused_layer, fused_layer_reference, heads_per_stage, smem_bytes)
+        cluster_size, fused_layer, fused_layer_reference, heads_per_stage, smem_bytes)
 
     lib = cuda_build.library("fused_layer")
     gen = torch.Generator().manual_seed(0)
@@ -257,14 +299,16 @@ def check_fused_layer() -> dict:
         cases.append(dict(b=4, s=48, d=64, h=4, f=256, dtype=dtype))
         cases.append(dict(b=4, s=64, d=128, h=8, f=512, dtype=dtype, dropout=0.1, seeds=seeds))
     max_err = 0.0
+    sms = cuda_build.sm_count(torch.device("cuda"))
     for c in cases:
         dtype_name = str(c["dtype"]).removeprefix("torch.")
         x, params, mask, kwargs = layer_case(
             gen, b=c["b"], s=c["s"], d=c["d"], h=c["h"], f=c["f"], dtype=c["dtype"],
             causal=c.get("causal", True), dropout=c.get("dropout", 0.0), seeds=c.get("seeds"))
         elem = x.element_size()
+        cluster = cluster_size(c["b"], c["d"], c["h"], sms) if elem == 2 else 1
         hg = heads_per_stage(c["s"], c["d"], c["f"], c["h"], elem,
-                             cuda_build.max_shared_memory(x.device))
+                             cuda_build.max_shared_memory(x.device), cluster)
         c_smem = lib.fused_layer_smem_bytes(c["s"], c["d"], c["f"], hg, elem)
         if c_smem != smem_bytes(c["s"], c["d"], c["f"], hg, elem):
             raise AssertionError("the kernel's and the wrapper's shared-memory layouts disagree")
@@ -274,29 +318,21 @@ def check_fused_layer() -> dict:
         torch.cuda.synchronize()
         name = (f"fused_layer B={c['b']} S={c['s']} D={c['d']} H={c['h']} F={c['f']} "
                 f"{dtype_name} causal={c.get('causal', True)} dropout={c.get('dropout', 0.0)} "
-                f"heads/stage={hg} smem={c_smem}B")
+                f"cluster={cluster} heads/stage={hg} smem={c_smem}B")
         err = compare(name, got, want, dtype_name)
         if c["dtype"] == torch.bfloat16 and c["d"] == 128 and c["b"] == 64 and "seeds" not in c:
             max_err = err
-    # times at the serving shape: B=64 sequences, bf16, dropout off
-    x, params, mask, kwargs = layer_case(gen, b=64, s=32, d=128, h=8, f=512,
-                                         dtype=torch.bfloat16)
-    with torch.no_grad():
-        ms = time_ms(lambda: fused_layer(x, params, mask, **kwargs))
-        plain_ms = time_ms(lambda: fused_layer_reference(x, params, mask, **kwargs))
-        library_ms = time_ms(lambda: stock_layer(x, params, mask, **kwargs))
-        call_ms = eager_ms(lambda: fused_layer(x, params, mask, **kwargs))
-    bound_ms, bound_by = layer_bound_ms(64, 32, 128, 8, 512, 2)
-    log(f"  fused_layer B=64 S=32 D=128 bf16, device time: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, stock layer {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by}); one eager wrapper call {call_ms:.4f} ms")
+    # times where the paths launch it: serving's B=64, training's B=128,
+    # path B's B=32 at D=384; bf16, dropout off
+    times = {name: time_fused_layer(gen, *shape) for name, shape in LAYER_SHAPES.items()}
     return {
         "name": "fused_layer", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
         "replaces": "transformer_recommenders_tpu/ops/fused_layer.py:552",
         "shape": "B=64 S=32 D=128 H=8 F=512 bf16",
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "max_abs_err": max_err, **{k: times["serving"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_shape": times,
     }
 
 
@@ -621,6 +657,67 @@ def composite_table_infonce(q, table, pos_idx, counts, mask_fn: bool):
     return lse - pos[:, 0]
 
 
+def table_case(gen, r: int, n: int, d: int, exact: bool = False):
+    """Table InfoNCE operands as the hot step gives them (the same as
+    tests/test_torch_cuda.py): f32 queries, a bf16 catalog with a zero pad
+    row, a duplicate-heavy pool whose every seventh entry is its row's
+    positive (both kernels must drop that column), a tenth of rows and
+    pool entries invalid.  exact: values k/8 with |k| <= 8, every partial
+    sum of a score exact in f32, so the kernels' tensor-core chain and the
+    plain version's increasing-k chain give the same scores bit for bit."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+
+    def draw(*shape):
+        if exact:
+            return torch.randint(-8, 9, shape, generator=gen).float() / 8
+        return torch.randn(shape, generator=gen)
+
+    q = draw(r, d)
+    table = draw(n, d) * (1.0 if exact else 0.3)
+    table[0] = 0
+    pos = torch.randint(1, n, (r,), generator=gen)
+    neg = torch.randint(1, 64, (r,), generator=gen)
+    pos[::7] = neg[::7]  # positives with copies in the pool
+    row_valid = torch.rand(r, generator=gen) > 0.1
+    neg_valid = torch.rand(r, generator=gen) > 0.1
+    pos = torch.where(row_valid, pos, 0)
+    pos, neg, row_valid, neg_valid = (t.cuda() for t in (pos, neg, row_valid, neg_valid))
+    counts = fti.neg_pool_counts(neg, neg_valid, n)
+    return q.cuda(), table.to("cuda", torch.bfloat16), pos, counts, row_valid
+
+
+def table_near_tie_rows(q, table, pos_idx, counts, scale: float):
+    """(R,) bool: rows with a counted column within delta of their pos in
+    the plain scores, that column neither pos_idx nor a copy of the
+    positive's row (as tests/test_torch_cuda.py; delta as near_tie_rows:
+    the kernels sum on the tensor cores, the plain version in increasing
+    k)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+
+    x, pos, sel, _ = fti._scores(q, table, pos_idx, counts, scale, False)
+    delta = scale * 2.0**-13 * math.ceil(q.shape[1] / 128)
+    near = ((x - pos[:, None]).abs() <= delta) & (counts.reshape(1, -1) > 0) & ~sel
+    r, j = near.nonzero(as_tuple=True)
+    tb = table.to(torch.bfloat16)
+    copy = (tb[pos_idx.long()[r]] == tb[j]).all(dim=1)
+    near[r[copy], j[copy]] = False
+    return near.any(dim=1)
+
+
+def run_table_infonce(q, table, pos, counts, g, scale: float, mask_fn: bool):
+    """ce and the gradients in q and the table through the wrapper."""
+    from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+
+    q, table = (t.detach().clone().requires_grad_() for t in (q, table))
+    ce = fti.table_infonce_rowwise(q, table, pos, counts, scale, mask_fn)
+    ce.backward(g)
+    return ce.detach(), q.grad, table.grad
+
+
 def check_table_infonce() -> list[dict]:
     import torch
 
@@ -628,44 +725,55 @@ def check_table_infonce() -> list[dict]:
 
     gen = torch.Generator().manual_seed(3)
     r, n, d = 4096, 3707, 128
-    tol = {"ce": 1e-5, "dq": 1e-2, "dtable": 1e-2}  # of the max abs value
+    # of the max abs value: exp/log for ce and dl's bf16 rounding for the
+    # gradients.  The kernels and the plain version sum the scores in other
+    # orders: on Gaussian inputs with the mask on, ce is held on the rows
+    # without a near-tie and those rows take no cotangent (a flip of the
+    # mask there moves dl by about exp(-ce) g scale); on exact-sum inputs
+    # every row is held
+    tol = {"ce": 1e-5, "dq": 1e-2, "dtable": 1e-2}
     max_err = {}
-    for mask_fn in (True, False):
-        q = torch.randn(r, d, generator=gen).cuda().requires_grad_()
-        table = (0.3 * torch.randn(n, d, generator=gen)).to("cuda", torch.bfloat16)
-        table[0] = 0
-        table.requires_grad_()
-        pos = torch.randint(1, n, (r,), generator=gen)
-        neg = torch.randint(1, 64, (r,), generator=gen)  # a duplicate-heavy pool
-        pos[::7] = neg[::7]  # positives with copies in the pool
-        row_valid = torch.rand(r, generator=gen) > 0.1
-        neg_valid = torch.rand(r, generator=gen) > 0.1
-        pos = torch.where(row_valid, pos, 0)
-        pos, neg, row_valid, neg_valid = (t.cuda() for t in (pos, neg, row_valid, neg_valid))
-        counts = fti.neg_pool_counts(neg, neg_valid, n)
-        g = row_valid.float()
-        ce = fti.table_infonce_rowwise(q, table, pos, counts, 1.0, mask_fn)
-        ce.backward(g)
-        with torch.no_grad():
-            ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts,
-                                                            mask_false_negatives=mask_fn)
-            dq_want, dt_want = fti.table_infonce_backward_reference(
-                q, table, pos, counts, lse_want, g, mask_false_negatives=mask_fn)
-        torch.cuda.synchronize()
-        for key, got, want in (("ce", ce.detach(), ce_want), ("dq", q.grad, dq_want),
-                               ("dtable", table.grad, dt_want)):
-            err = (got.float() - want.float()).abs()
-            rel = float(err.max() / want.float().abs().max())
-            ok = bool(torch.isfinite(got.float()).all()) and rel <= tol[key]
-            log(f"  table_infonce {key} R={r} N={n} D={d} mask_false_negatives={mask_fn}: "
-                f"max_abs_err={float(err.max()):.3g} mean_abs_err={float(err.mean()):.3g} "
-                f"max_rel_err={rel:.3g} tol={tol[key]} (relative to max abs) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"table_infonce {key} disagrees with its plain version")
-            max_err[key] = max(max_err.get(key, 0.0), float(err.max()))
+    for inputs in ("gaussian", "exact"):
+        for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5)):
+            q, table, pos, counts, row_valid = table_case(gen, r, n, d, exact=inputs == "exact")
+            keep = torch.ones_like(row_valid)
+            if mask_fn and inputs == "gaussian":
+                with torch.no_grad():
+                    keep = ~table_near_tie_rows(q, table, pos, counts, scale)
+            g = (row_valid & keep).float()
+            ce, dq, dt = run_table_infonce(q, table, pos, counts, g, scale, mask_fn)
+            kw = dict(scale=scale, mask_false_negatives=mask_fn)
+            with torch.no_grad():
+                ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, **kw)
+                dq_want, dt_want = fti.table_infonce_backward_reference(
+                    q, table, pos, counts, lse_want, g, **kw)
+            torch.cuda.synchronize()
+            parts = []
+            for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
+                                   ("dtable", dt, dt_want)):
+                err = (got.float() - want.float()).abs()
+                rel = float(err.max() / want.float().abs().max())
+                ok = bool(torch.isfinite(got.float()).all()) and rel <= tol[key]
+                parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
+                             f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
+                if not ok:
+                    log(f"  table_infonce {key} {inputs} mask={mask_fn} scale={scale}: "
+                        f"max_rel_err={rel:.3g} tol={tol[key]} FAIL")
+                    raise AssertionError(f"table_infonce {key} disagrees with its plain version")
+                max_err[key] = max(max_err.get(key, 0.0), float(err.max()))
+            log(f"  table_infonce {inputs} R={r} N={n} D={d} mask_false_negatives={mask_fn} "
+                f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of the "
+                f"max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+    q, table, pos, counts, row_valid = table_case(gen, r, n, d)
+    g = row_valid.float()
+    first = run_table_infonce(q, table, pos, counts, g, 1.0, True)
+    second = run_table_infonce(q, table, pos, counts, g, 1.0, True)
+    torch.cuda.synchronize()
+    if not all(map(torch.equal, first, second)):
+        raise AssertionError("the table kernels are not deterministic")
+    log(f"  table_infonce R={r} N={n} D={d}: two calls bit for bit (ce, dq, dtable)")
     # times at the train shape, mask_false_negatives on
-    qd, td = q.detach(), table.detach()
+    qd, td = q, table
     lse = fti._fwd_cuda(qd, td, pos, counts, 1.0, True)[1]
     fwd_ms = time_ms(lambda: fti._fwd_cuda(qd, td, pos, counts, 1.0, True))
     bwd_ms = time_ms(lambda: fti._bwd_cuda(qd, td, pos, counts, lse, g, 1.0, True))
@@ -681,15 +789,16 @@ def check_table_infonce() -> list[dict]:
     fwd_bound = bound(2 * r * n * d, io + 2 * r * 4, H100_BF16_FLOPS)
     # the backward's least work: the scores once, then dq and dT
     bwd_bound = bound(6 * r * n * d, io + 2 * r * 4 + (r + n) * d * 4, H100_BF16_FLOPS)
-    log(f"  table_infonce_fwd R={r} N={n} D={d} bf16, device time: kernel {fwd_ms:.4f} ms, plain "
-        f"{fwd_plain:.4f} ms, composite (bf16 matmul + masked logsumexp) {fwd_lib:.4f} ms, "
-        f"bound {fwd_bound[0]:.5f} ms ({fwd_bound[1]})")
-    log(f"  table_infonce_bwd, device time: kernel {bwd_ms:.4f} ms (two passes), plain "
-        f"{bwd_plain:.4f} ms, composite forward + autograd backward {bwd_lib:.4f} ms, bound "
-        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+    splits = {k: fti._splits(0, r, n, d, i) for i, k in enumerate(("fwd", "dq", "dt"))}
+    log(f"  table_infonce_fwd R={r} N={n} D={d} bf16 ({splits['fwd']} splits), device time: kernel "
+        f"{fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, composite (bf16 matmul + masked logsumexp) "
+        f"{fwd_lib:.4f} ms, bound {fwd_bound[0]:.5f} ms ({fwd_bound[1]})")
+    log(f"  table_infonce_bwd ({splits['dq']} dq splits, {splits['dt']} dT splits), device time: "
+        f"kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, composite forward + autograd "
+        f"backward {bwd_lib:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
     common = {"route": "cuda",
               "source": "transformer_recommenders_tpu_torch/csrc/fused_table_infonce.cu",
-              "shape": f"R={r} N={n} D={d} bf16"}
+              "shape": f"R={r} N={n} D={d} bf16", "splits": splits}
     return [
         {"name": "table_infonce_fwd", **common,
          "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:83",

@@ -61,8 +61,10 @@ def _weights(gen, d, f, device):
 
 
 @pytest.mark.parametrize(("b", "s", "d", "h", "f"), [
-    (64, 32, 128, 8, 512),   # configs/ml1m_ssm.yaml, a serving batch
+    (64, 32, 128, 8, 512),   # configs/ml1m_ssm.yaml, a serving batch (bf16: clusters of 2)
+    (128, 32, 128, 8, 512),  # its training batch (clusters of 1)
     (8, 32, 384, 12, 48),    # configs/ml1m_reference.yaml
+    (32, 32, 384, 12, 48),   # its training batch, path B (clusters of 4)
     (4, 8, 64, 4, 256),      # configs/ml100k_bpr.yaml at seq 8
     (3, 64, 128, 8, 512),
 ])
@@ -88,11 +90,65 @@ def test_fused_layer_kernel_matches_plain(cuda, b, s, d, h, f, dtype, rate):
         assert err.max().item() <= 2.0**-4 and err.mean().item() <= 2.0**-8
 
 
+def _layer_inputs(cuda, b, s, d, h, f, dtype=torch.bfloat16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, s, d, generator=gen).to(cuda, dtype)
+    mask = torch.ones(b, s, dtype=torch.bool)
+    mask[-1, s // 2:] = False
+    mask[0, s - 3:] = False
+    return x, _weights(gen, d, f, cuda), mask.to(cuda)
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f"), [
+    (64, 32, 128, 8, 512),   # the serving batch
+    (32, 32, 384, 12, 48),   # path B
+    (5, 8, 64, 4, 256),      # S=8, a ragged batch
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_fused_layer_forward_bits_do_not_depend_on_the_cluster(cuda, monkeypatch, b, s, d, h, f,
+                                                              rate):
+    """The bf16 forward split across clusters of 1, 2 and 4 CTAs matches
+    its plain version under the layer's bounds and gives the same bits
+    for every cluster size (each output's k-sum stays in one warp)."""
+    x, params, mask = _layer_inputs(cuda, b, s, d, h, f, seed=b + d)
+    kw = dict(num_heads=h, causal=True, attn_dropout=rate, hidden_dropout=rate,
+              dropout_seeds=[1, 2, 3] if rate else None, ffn_dim=f)
+    with torch.no_grad():
+        want = fused_layer_reference(x, params, mask, **kw)
+        outs = {}
+        for c in fl.CLUSTER_SIZES:
+            monkeypatch.setattr(fl, "cluster_size", lambda *_, c=c: c)
+            outs[c] = fused_layer(x, params, mask, **kw)
+    torch.cuda.synchronize()
+    for c, got in outs.items():
+        err = (got.float() - want.float()).abs()
+        assert err.max().item() <= 2.0**-4 and err.mean().item() <= 2.0**-8, c
+        assert torch.equal(got, outs[1]), c
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f"), [
+    (64, 32, 128, 8, 512), (128, 32, 128, 8, 512), (32, 32, 384, 12, 48),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_layer_forward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype):
+    """No atomics: two calls of the forward give the same bits."""
+    x, params, mask = _layer_inputs(cuda, b, s, d, h, f, dtype, seed=b + d + 1)
+    kw = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
+              dropout_seeds=[5, 6, 7], ffn_dim=f)
+    with torch.no_grad():
+        first = fused_layer(x, params, mask, **kw)
+        second = fused_layer(x, params, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_shared_memory_layouts_agree(cuda):
     lib = cuda_build.library("fused_layer")
-    for s, d, f, h, elem in [(32, 128, 512, 8, 2), (32, 384, 48, 12, 4), (8, 64, 256, 4, 2)]:
-        hg = heads_per_stage(s, d, f, h, elem, cuda_build.max_shared_memory(cuda))
-        assert lib.fused_layer_smem_bytes(s, d, f, hg, elem) == smem_bytes(s, d, f, hg, elem)
+    for s, d, f, h, elem in [(32, 128, 512, 8, 2), (32, 384, 48, 12, 4), (8, 64, 256, 4, 2),
+                             (32, 384, 48, 12, 2), (64, 128, 512, 8, 2)]:
+        for cluster in (1, 2, 4) if elem == 2 else (1,):
+            hg = heads_per_stage(s, d, f, h, elem, cuda_build.max_shared_memory(cuda), cluster)
+            assert lib.fused_layer_smem_bytes(s, d, f, hg, elem) == smem_bytes(s, d, f, hg, elem)
 
 
 def test_fused_layer_counts_launches_forward_and_backward(cuda):
@@ -323,26 +379,73 @@ def test_fused_layer_backward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("mask_fn", [True, False])
-def test_table_infonce_kernels_match_plain(cuda, mask_fn):
-    gen = torch.Generator().manual_seed(3)
-    r, n, d = 4096, 3707, 128
-    q = torch.randn(r, d, generator=gen).to(cuda).requires_grad_()
-    table = (0.3 * torch.randn(n, d, generator=gen)).to(cuda, torch.bfloat16)
+def table_case(gen, cuda, r=4096, n=3707, d=128, exact=False):
+    """Table InfoNCE operands as the hot step gives them: f32 queries, a
+    bf16 catalog with a zero pad row, a duplicate-heavy pool whose every
+    seventh entry is its row's positive (the mask must drop that column),
+    a tenth of rows and pool entries invalid.  exact: values k/8 with
+    |k| <= 8, so every partial sum of a score is exact in f32 and the
+    kernels' tensor-core chain and the plain version's increasing-k chain
+    give the same scores bit for bit."""
+    def draw(*shape):
+        if exact:
+            return torch.randint(-8, 9, shape, generator=gen).float() / 8
+        return torch.randn(shape, generator=gen)
+
+    q = draw(r, d)
+    table = draw(n, d) * (1.0 if exact else 0.3)
     table[0] = 0
-    table.requires_grad_()
     pos = torch.randint(1, n, (r,), generator=gen)
-    neg = torch.randint(1, 64, (r,), generator=gen)  # a duplicate-heavy pool
-    pos[::7] = neg[::7]  # positives that sit in the pool
+    neg = torch.randint(1, 64, (r,), generator=gen)
+    pos[::7] = neg[::7]
     row_valid = torch.rand(r, generator=gen) > 0.1
     neg_valid = torch.rand(r, generator=gen) > 0.1
     pos = torch.where(row_valid, pos, 0)
     pos, neg, row_valid, neg_valid = (t.to(cuda) for t in (pos, neg, row_valid, neg_valid))
     counts = fti.neg_pool_counts(neg, neg_valid, n)
-    cuda_build.reset_launches()
-    ce = fti.table_infonce_rowwise(q, table, pos, counts, 2.0, mask_fn)
-    g = row_valid.float()
+    return q.to(cuda), table.to(cuda, torch.bfloat16), pos, counts, row_valid
+
+
+def table_near_tie_rows(q, table, pos_idx, counts, scale):
+    """(R,) bool: rows with a counted column within delta of their pos in
+    the plain scores, that column neither pos_idx nor a copy of the
+    positive's row (delta as near_tie_rows below: the kernels sum on the
+    tensor cores, the plain version in increasing k)."""
+    x, pos, sel, _ = fti._scores(q, table, pos_idx, counts, scale, False)
+    delta = scale * 2.0**-13 * math.ceil(q.shape[1] / 128)
+    near = ((x - pos[:, None]).abs() <= delta) & (counts.reshape(1, -1) > 0) & ~sel
+    r, j = near.nonzero(as_tuple=True)
+    tb = table.to(torch.bfloat16)
+    copy = (tb[pos_idx.long()[r]] == tb[j]).all(dim=1)
+    near[r[copy], j[copy]] = False
+    return near.any(dim=1)
+
+
+def run_table_infonce(q, table, pos, counts, g, scale, mask_fn):
+    """ce and the gradients in q and the table through the wrapper."""
+    q, table = (a.detach().clone().requires_grad_() for a in (q, table))
+    ce = fti.table_infonce_rowwise(q, table, pos, counts, scale, mask_fn)
     ce.backward(g)
+    return ce.detach(), q.grad, table.grad
+
+
+# Table InfoNCE kernels against their plain versions: exp/log (ce, 1e-5 of
+# its max abs) and dl's bf16 rounding (dq, dT, 1e-2 of each gradient's max
+# abs).  The two sum the scores in other orders: on Gaussian inputs with
+# the mask on, a column within a rounding step of pos may count in one and
+# not in the other, so ce is held on the rows without a near-tie
+# (table_near_tie_rows) and those rows take no cotangent; on exact-sum
+# inputs every row is held and takes its cotangent.
+@pytest.mark.parametrize("mask_fn", [True, False])
+def test_table_infonce_kernels_match_plain(cuda, mask_fn):
+    gen = torch.Generator().manual_seed(3)
+    q, table, pos, counts, row_valid = table_case(gen, cuda)
+    keep = torch.ones_like(row_valid)
+    if mask_fn:
+        keep = ~table_near_tie_rows(q, table, pos, counts, 2.0)
+    g = (row_valid & keep).float()
+    cuda_build.reset_launches()
+    ce, dq, dt = run_table_infonce(q, table, pos, counts, g, 2.0, mask_fn)
     with torch.no_grad():
         ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, scale=2.0,
                                                         mask_false_negatives=mask_fn)
@@ -351,10 +454,41 @@ def test_table_infonce_kernels_match_plain(cuda, mask_fn):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["table_infonce_fwd"] == 1
     assert cuda_build.LAUNCHES["table_infonce_bwd"] == 1
-    errs = {"ce": rel_err(ce.detach(), ce_want), "dq": rel_err(q.grad, dq_want),
-            "dtable": rel_err(table.grad, dt_want)}
-    print(errs)
+    errs = {"ce": rel_err(ce[keep], ce_want[keep]), "dq": rel_err(dq, dq_want),
+            "dtable": rel_err(dt, dt_want)}
+    print(errs, f"near-tie rows left out: {int((~keep).sum())} of {len(keep)}")
     assert errs["ce"] <= 1e-5 and errs["dq"] <= 1e-2 and errs["dtable"] <= 1e-2, errs
+
+
+@pytest.mark.parametrize(("r", "n", "d"), [(4096, 3707, 128), (1000, 777, 384), (300, 41, 64)])
+def test_table_infonce_kernels_match_plain_on_exact_sums(cuda, r, n, d):
+    """Mask on, every row held: on values k/8 both chains give the same
+    scores, so both drop the same columns.  Rows whose pos_idx lies outside
+    [0, N) get pos 0 and no positive column."""
+    gen = torch.Generator().manual_seed(r + n + d)
+    q, table, pos, counts, row_valid = table_case(gen, cuda, r, n, d, exact=True)
+    pos[1::11] = -1
+    pos[2::11] = n
+    g = row_valid.float()
+    ce, dq, dt = run_table_infonce(q, table, pos, counts, g, 2.0, True)
+    with torch.no_grad():
+        ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, scale=2.0)
+        dq_want, dt_want = fti.table_infonce_backward_reference(q, table, pos, counts, lse_want,
+                                                                g, scale=2.0)
+    torch.cuda.synchronize()
+    errs = {"ce": rel_err(ce, ce_want), "dq": rel_err(dq, dq_want), "dtable": rel_err(dt, dt_want)}
+    assert errs["ce"] <= 1e-5 and errs["dq"] <= 1e-2 and errs["dtable"] <= 1e-2, errs
+
+
+def test_table_infonce_kernels_are_deterministic(cuda):
+    gen = torch.Generator().manual_seed(4)
+    q, table, pos, counts, row_valid = table_case(gen, cuda)
+    g = row_valid.float()
+    first = run_table_infonce(q, table, pos, counts, g, 1.0, True)
+    second = run_table_infonce(q, table, pos, counts, g, 1.0, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ce", "dq", "dtable"), first, second):
+        assert torch.equal(a, b), name
 
 
 def pool_case(gen, cuda, r, rn, d):

@@ -165,6 +165,42 @@ def test_shared_memory_plan():
         tfl.heads_per_stage(64, 384, 1536, 12, 4, limit)
 
 
+def test_tensor_core_shared_memory_plan():
+    """The bf16 forward's layout (``TcLayout`` in csrc/fused_layer.cu):
+    the activations at whole m-tiles of 16 rows and the mask, 59,520 bytes
+    at the flagship shape and 149,632 at path B's D=384; its scores stay
+    in registers, so every head of a CTA's share runs at once."""
+    limit = 232448  # an H100 block's opt-in maximum
+    assert tfl.smem_bytes(32, 128, 512, 8, 2) == 3 * 32 * 136 * 2 + 32 * 520 * 2 + 32 * 4 == 59520
+    assert tfl.smem_bytes(32, 384, 48, 12, 2) == 149632
+    assert tfl.smem_bytes(8, 128, 48, 8, 2) == 3 * 16 * 136 * 2 + 16 * 392 * 2 + 8 * 4
+    assert tfl.heads_per_stage(32, 128, 512, 8, 2, limit) == 8
+    assert tfl.heads_per_stage(32, 128, 512, 8, 2, limit, cluster=2) == 4
+    assert tfl.heads_per_stage(32, 384, 48, 12, 2, limit, cluster=4) == 3
+    assert tfl.heads_per_stage(64, 128, 512, 8, 2, limit) == 8
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl.heads_per_stage(64, 1024, 4096, 8, 2, limit)
+
+
+@pytest.mark.parametrize(("b", "d", "h", "want"), [
+    (64, 128, 8, 2),    # serving's batch: 128 CTAs on 132 SMs
+    (128, 128, 8, 1),   # training's batch already fills the card
+    (32, 384, 12, 4),   # path B
+    (33, 128, 8, 4),    # 132 CTAs exactly
+    (34, 128, 8, 2),
+    (8, 96, 6, 2),      # 6 heads do not split in 4
+    (8, 48, 4, 2),      # 12 q columns a CTA would cut an 8-column block
+    (1, 40, 5, 1),
+])
+def test_cluster_plan(b, d, h, want):
+    assert tfl.cluster_size(b, d, h, 132) == want
+
+
+def test_forward_workspace_holds_the_four_weights():
+    d, f = 128, 512
+    assert tfl.forward_workspace_elems(d, f) == d * 3 * d + d * d + d * f + f * d == 196608
+
+
 def test_wrapper_rejects_long_sequences():
     weights, x, mask = make_case(3, 1, 8, 16, 16)
     with pytest.raises(ValueError, match="s <= 64"):

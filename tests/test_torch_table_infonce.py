@@ -128,3 +128,36 @@ def test_every_copy_of_the_positive_is_masked():
     without[int(neg[0])] = 0.0
     ce_without = TFT.table_infonce_rowwise(t(q), t(table), t(pos), without, 1.0, True)
     torch.testing.assert_close(ce, ce_without, rtol=0, atol=0)
+
+
+def test_workspace_sizes():
+    """The wrappers' f32 workspaces: the forward's pos and per-split (max,
+    sum); the backward's pos and per-split partial dq and dT, none where a
+    pass takes one split."""
+    assert TFT.workspace_elems(4096, 3707, 128, 4, 3, 1) == {
+        "fwd_pos": 4096, "fwd_part": 4 * 4096 * 2, "bwd_pos": 4096,
+        "dq_part": 3 * 4096 * 128, "dt_part": 0}
+    assert TFT.workspace_elems(10, 7, 4, 1, 1, 2) == {
+        "fwd_pos": 10, "fwd_part": 20, "bwd_pos": 10, "dq_part": 0, "dt_part": 2 * 7 * 4}
+
+
+def test_plain_scores_do_not_depend_on_summation_order():
+    """On values k/8 every partial sum of a score is exact in f32, so the
+    plain version's increasing-k chain gives the scores of any other order
+    (a matmul in f64, k in reverse, the kernels' steps of 16) bit for bit:
+    the card checks' exact-sum inputs hold every row."""
+    rng = np.random.default_rng(8)
+    q = (rng.integers(-8, 9, size=(48, 128)) / 8).astype(np.float32)
+    table = (rng.integers(-8, 9, size=(37, 128)) / 8).astype(np.float32)
+    pos = rng.integers(0, 37, size=48).astype(np.int32)
+    counts = torch.ones(37)
+    x, p, _, _ = TFT._scores(t(q), t(table), t(pos), counts, 2.0, True)
+    want = (torch.from_numpy(q).double() @ torch.from_numpy(table).double().T * 2.0).float()
+    assert torch.equal(x, want)
+    rev = torch.zeros_like(x)
+    for k in reversed(range(128)):
+        rev.addcmul_(t(q)[:, k:k + 1], t(table)[None, :, k])
+    assert torch.equal(x, rev * 2.0)
+    steps = sum(t(q)[:, k:k + 16] @ t(table)[:, k:k + 16].T for k in range(0, 128, 16))
+    assert torch.equal(x, steps * 2.0)
+    assert torch.equal(p, x[torch.arange(48), t(pos).long()])

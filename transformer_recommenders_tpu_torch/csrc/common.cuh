@@ -1,9 +1,8 @@
 // Shared device helpers for the port's kernels: activation-type traits
 // (bf16 or f32 storage, f32 arithmetic), the counter-based dropout hash,
-// warp reductions, the CUDA-core score chain of the pairwise and table
-// InfoNCE kernels, the tensor-core fragments (mma.sync, ldmatrix),
-// cp.async staging and the tensor-core score chain of the pool InfoNCE
-// kernels.
+// warp reductions, the CUDA-core score chain of the pairwise kernels, the
+// tensor-core fragments (mma.sync, ldmatrix), cp.async staging and the
+// tensor-core score chain of the pool and table InfoNCE kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,8 +69,8 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// --- score tiles of the pairwise and table InfoNCE kernels (bf16
-// operands, f32 fmaf chains on CUDA cores) ---
+// --- score tiles of the pairwise kernels (bf16 operands, f32 fmaf
+// chains on CUDA cores) ---
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
 
@@ -167,6 +166,18 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* m, int ld, int k, ui
   a[3] = ld32(m + (g + 8) * ld + k + 8 + t2);
 }
 
+// the A fragment of the 16 x 16 block at m (row-major in shared memory,
+// leading dimension ld, 16-byte aligned rows): a[0..3] as load_a gives them
+__device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], const __nv_bfloat16* m, int ld) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row = m + (lane & 15) * ld + (lane >> 4) * 8;
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // B fragments of a 16 x 16 block of a row-major matrix in shared memory,
 // B(k, n) = m[k * ld + n] (16-byte aligned rows): b[0..1] the n8 tile of
 // columns [0, 8), b[2..3] that of [8, 16)
@@ -200,7 +211,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// ---- the score chain of the pool InfoNCE kernels (on the tensor cores)
+// ---- the score chain of the pool and table InfoNCE kernels (on the tensor cores)
 
 // D zero-padded to whole k-steps of 16 (exact: the padding adds 0)
 __host__ __device__ __forceinline__ int pad16(int D) { return (D + 15) / 16 * 16; }
@@ -269,6 +280,40 @@ __device__ __forceinline__ void score_tile(const LoadA& a, const __nv_bfloat16* 
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) x[i] = __fmul_rn(c[i], scale);
+}
+
+// The query fragments of a warp's 16 rows of a score_tile (qw, leading dimension ld):
+// held in registers for kKs > 0 (nks <= kKs), else loaded per k-step.
+template <int kKs>
+struct QueryFrags {
+  uint32_t held[kKs > 0 ? kKs : 1][4];
+  const __nv_bfloat16* qw;
+  int ld;
+
+  __device__ __forceinline__ QueryFrags(const __nv_bfloat16* qw_, int ld_, int nks)
+      : qw(qw_), ld(ld_) {
+    if constexpr (kKs > 0) {
+#pragma unroll
+      for (int ks = 0; ks < kKs; ++ks)
+        if (ks < nks) load_a(qw, ld, 16 * ks, held[ks]);
+    }
+  }
+  __device__ __forceinline__ void operator()(int ks, uint32_t a[4]) const {
+    if constexpr (kKs > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = held[ks][i];
+    } else {
+      load_a(qw, ld, 16 * ks, a);
+    }
+  }
+};
+
+// a running (max, sum of exp(x - max)) merged with another: (m, s) takes
+// (m2, s2)
+__device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
 }
 
 template <typename Kernel>

@@ -79,8 +79,10 @@ using xrt::allow_smem;
 using xrt::bf;
 using xrt::cp_async_commit;
 using xrt::cp_async_wait;
+using xrt::QueryFrags;
 using xrt::load_a;
 using xrt::mma_bf16;
+using xrt::merge;
 using xrt::pad16;
 using xrt::score_tile;
 using xrt::stage_rows_async;
@@ -109,44 +111,12 @@ __device__ __forceinline__ void online(float& m, float& s, float xa, bool ca, fl
   if (cb) s += expf(xb - m);
 }
 
-// (m, s) merged with another running (max, sum)
-__device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
-  const float mn = fmaxf(m, m2);
-  s = s * expf(m - mn) + s2 * expf(m2 - mn);
-  m = mn;
-}
-
 // the pool tiles [t0, t1) of split blockIdx.y
 __device__ __forceinline__ void split_tiles(int Rn, int splits, int& t0, int& t1) {
   const long long nt = (Rn + kPool - 1) / kPool;
   t0 = (int)(blockIdx.y * nt / splits);
   t1 = (int)((blockIdx.y + 1) * nt / splits);
 }
-
-// The query fragments of a warp's 16 rows (qw, leading dimension ld):
-// held in registers for kKs > 0 (nks <= kKs), else loaded per k-step.
-template <int kKs>
-struct QueryFrags {
-  uint32_t held[kKs > 0 ? kKs : 1][4];
-  const bf16* qw;
-  int ld;
-
-  __device__ __forceinline__ QueryFrags(const bf16* qw_, int ld_, int nks) : qw(qw_), ld(ld_) {
-    if constexpr (kKs > 0) {
-#pragma unroll
-      for (int ks = 0; ks < kKs; ++ks)
-        if (ks < nks) load_a(qw, ld, 16 * ks, held[ks]);
-    }
-  }
-  __device__ __forceinline__ void operator()(int ks, uint32_t a[4]) const {
-    if constexpr (kKs > 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = held[ks][i];
-    } else {
-      load_a(qw, ld, 16 * ks, a);
-    }
-  }
-};
 
 // Forward, block (row tile, split): the split's partial (max, sum) per row
 // into part[split][r], and pos (split 0).

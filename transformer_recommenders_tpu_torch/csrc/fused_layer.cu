@@ -12,23 +12,53 @@
 // a few dozen sequences) the layer needs ~13 MFLOP and ~16 KB of
 // activations per sequence against 0.79 MB of f32 weights shared by all
 // sequences, so the work is tiny against both the tensor-core rate and
-// HBM; what matters is that no intermediate goes to device memory and that
-// the layer is one launch.  This first version keeps every intermediate in
-// shared memory (one block = one sequence, 256 threads) and does the
-// matmuls as f32 FMAs on CUDA cores over bf16-rounded operands, which is
-// far from the tensor-core bound: moving the five products onto mma/wgmma
-// tiles is the next step for speed.  Weights are read from global memory
-// (L2-resident across blocks) and rounded to the compute type on load.
+// HBM; what matters is that no intermediate goes to device memory, that
+// the layer is one launch, and that enough of the card works on it.
+//
+// bf16 (fused_layer_fwd_tc_kernel, 12 warps): every product on the
+// tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums): the five
+// dense products, each head's scores q k^T and its P V.  A pre-pass
+// rounds the four f32 weights to bf16 once per call, packed in B-fragment
+// order so that a warp's fragments of one k-step are one coalesced load
+// (pack_weights_kernel, into a workspace the wrapper allocates); the A
+// fragments come from shared memory by ldmatrix.  Every activation stays
+// in shared memory.  The attention runs a warp per (head, 16 query rows)
+// with the scores in registers, the softmax across the four lanes that
+// hold a row, and the probs repacked as P V's A fragments.  Where the
+// batch leaves SMs idle (B < 132: serving's B=64, the reference config's
+// B=32) a sequence is split across a thread-block cluster of 2 or 4 CTAs:
+// each computes its slice of every product's output columns and its share
+// of the heads, and writes what the others read into every CTA's copy
+// through distributed shared memory, with a cluster barrier before each
+// LayerNorm and each next product; each CTA runs the LayerNorms of every
+// row on its own copy.  Each output's k-sum stays inside one warp's mma
+// chain, so the bits do not depend on the cluster size.  The wrapper
+// plans the cluster size (ops/fused_layer.py: cluster_size).
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's section
+// profile): latency, not the tensor cores.  A CTA holds one sequence's 32
+// rows, so it reads every weight from L2 for 32 rows of work, and its 12
+// warps run long dependent chains (fragment loads, mma, the softmax's
+// exp and divide, the LayerNorms' shuffles) with little to hide them.
+//
+// f32 (fused_layer_fwd_kernel<float>): the products stay f32 FMAs on CUDA
+// cores (TF32 would break the f32 bound), one thread per output column,
+// one block per sequence, weights read from global memory (L2-resident
+// across blocks).
 //
 // Numerics follow the JAX kernel: T-rounded (bf16 or f32) activations,
 // f32 accumulation plus an f32 bias then rounding to T after each dense,
 // residual adds rounded to T before a two-pass f32 LayerNorm, probs
-// divided then rounded to T before P V, the additive -1e9 key-padding and
-// causal bias, the Eigen erf polynomial in the GELU, and the fmix32
-// dropout over the global element index.  There is no TPU layout here: no
-// head-masked wide tiles and no FFN padding to 128.
+// divided, dropped, then rounded to T before P V, the additive -1e9
+// key-padding and causal bias, the Eigen erf polynomial in the GELU, the
+// bf16-rounded hidden-dropout divisor, and the fmix32 dropout over the
+// global element index.  A product of two bf16 values is exact in f32, so
+// the tensor cores change only the order of the f32 sums inside a product.
+// There is no TPU layout here: no head-masked wide tiles and no FFN
+// padding to 128.
 //
-// Shared memory (elements of T unless noted), Sp = S rounded up to kRows:
+// Shared memory of the f32 kernel (elements of T unless noted), Sp = S
+// rounded up to kRows:
 //   sx   Sp x D          layer input, then x1 = LN1(...)
 //   reg  Sp x max(3D, F+D)
 //        qkv (ld 3D); ctx overwrites q head by head; a = ctx Wout goes
@@ -36,8 +66,11 @@
 //        f = g Wffn_out (ld D) after it
 //   sc   hg x S x S f32  scores/probs of a stage of hg heads
 //   mask S int
-// At S=32, D=128, F=512 that is 58 KB in bf16; at D=384 (H=12, F=48) the
-// scores are staged a few heads at a time so f32 activations fit too.
+// and of the bf16 kernel (TcLayout; rows rounded up to 16): sx, ctx and hb
+// (the out and FFN-out products) at leading dimension D + 8, big at
+// max(3D, F) + 8 (qkv, then the GELU output g), bf16; the mask.  The
+// scores and probs stay in registers.  At S=32, D=128, F=512 that is
+// 59,520 bytes; at D=384 (H=12, F=48) 149,632.
 //
 // The backward (fused_layer_bwd) replaces ops/fused_layer.py:_bwd_kernel:
 // it recomputes the layer from its input x and returns dx plus the 12 f32
@@ -100,6 +133,8 @@
 // attn_bwd is those partial sums plus passes 2 and 3.  The full variants
 // are the production kernels: a kStop branch that is not taken compiles to
 // nothing.
+#include <cooperative_groups.h>
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -123,11 +158,16 @@ constexpr float kInvSqrt2 = 0.70710678118654752f;
 enum FwdStop { kStopQkv = 0, kStopAttn = 1, kStopOutLn1 = 2, kStopFfnGelu = 3, kFwdFull = 4 };
 enum BwdStop { kStopRecompute = 0, kStopFfnBwd = 1, kStopAttnBwd = 2, kBwdFull = 3 };
 
-// a stage's tensor: the first D columns of rows [0, S) of src (leading
-// dimension ld) into the (S, D) rows of dst
+// a stage's tensor: rows row0, row0 + step, ... < S, columns [c0, c1) of
+// src (leading dimension ld) into the (S, D) rows of dst
 template <typename T>
-__device__ void store_stage(const T* src, int ld, int S, int D, T* dst) {
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) dst[i] = src[(i / D) * ld + i % D];
+__device__ void store_rows(const T* src, int ld, int S, int D, int c0, int c1, int row0,
+                           int step, T* dst) {
+  const int w = c1 - c0;
+  for (int i = threadIdx.x; i < S * w; i += blockDim.x) {
+    const int r = i / w, c = c0 + i % w;
+    if (r % step == row0) dst[(size_t)r * D + c] = src[r * ld + c];
+  }
 }
 
 struct Params {
@@ -142,6 +182,7 @@ struct Params {
   float attn_keep, hidden_keep;
   int attn_drop, hidden_drop;
   float eps;
+  int cluster;  // CTAs a sequence is split across (bf16; 1 in f32)
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -217,16 +258,17 @@ __device__ void dense(const T* in, int in_ld, int K, const float* __restrict__ W
   }
 }
 
-// out[r] = T(LN(T(a[r] + b[r]))) over D features, one warp per row; out
-// may alias a (each row is read in full before it is written).
+// out[r] = T(LN(T(a[r] + b[r]))) over D features for rows r = row0,
+// row0 + step, ... < S, one warp per row; out may alias a (each row is
+// read in full before it is written).
 template <typename T, typename O>
 __device__ void add_layer_norm(const T* a, int a_ld, const T* b, int b_ld,
                                const float* __restrict__ gamma,
                                const float* __restrict__ beta, int S, int D,
-                               float eps, O* out, int out_ld) {
+                               float eps, O* out, int out_ld, int row0 = 0, int step = 1) {
   using A = xrt::Act<T>;
   const int lane = threadIdx.x & 31;
-  for (int row = threadIdx.x >> 5; row < S; row += blockDim.x >> 5) {
+  for (int row = row0 + (threadIdx.x >> 5) * step; row < S; row += (blockDim.x >> 5) * step) {
     float sum = 0.f;
     for (int c = lane; c < D; c += 32)
       sum += A::round(A::load(a[row * a_ld + c]) + A::load(b[row * b_ld + c]));
@@ -268,7 +310,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   dense<T>(sx, D, D, p.qkv_w, p.qkv_b, ld3, reg, ld3, S, kPlain, 0, 0, 0, 1.f);
   __syncthreads();
   if constexpr (kStop == kStopQkv) {
-    store_stage<T>(reg, ld3, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    store_rows<T>(reg, ld3, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
     return;
   }
 
@@ -320,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
     __syncthreads();
   }
   if constexpr (kStop == kStopAttn) {
-    store_stage<T>(reg, ld3, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    store_rows<T>(reg, ld3, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
     return;
   }
 
@@ -332,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   add_layer_norm<T, T>(sx, D, reg + D, ld3, p.ln1_s, p.ln1_b, S, D, p.eps, sx, D);
   __syncthreads();
   if constexpr (kStop == kStopOutLn1) {
-    store_stage<T>(sx, D, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    store_rows<T>(sx, D, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
     return;
   }
   T* g = reg;
@@ -340,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   dense<T>(sx, D, D, p.ffn_in_w, p.ffn_in_b, F, g, F, S, kGelu, 0, 0, 0, 1.f);
   __syncthreads();
   if constexpr (kStop == kStopFfnGelu) {
-    store_stage<T>(g, F, S, D, static_cast<T*>(p.y) + (size_t)b * S * D);
+    store_rows<T>(g, F, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
     return;
   }
   dense<T>(g, F, F, p.ffn_out_w, p.ffn_out_b, D, f, D, S,
@@ -1007,7 +1049,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   dense_prod<T, true>(dam, D, D, p.out_w, w16 + woff.out, D, S, store_round, nullptr, sa);
   __syncthreads();
   if constexpr (kStop == kStopFfnBwd) {
-    store_stage<T>(gw, D, S, D, static_cast<T*>(p.dx) + row_base * D);
+    store_rows<T>(gw, D, S, D, 0, D, 0, 1, static_cast<T*>(p.dx) + row_base * D);
     return;
   }
 
@@ -1432,6 +1474,397 @@ cudaError_t launch_bwd_stage(const BwdParams& p, int stage, cudaStream_t stream)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 forward on the tensor cores (see the top of this file)
+// ---------------------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 4;
+
+constexpr int kTcThreads = 384;  // 12 warps: the bf16 forward is latency-bound
+
+// byte offsets of the bf16 forward's shared memory: sx at 0, then ctx, hb
+// and big (qkv, then g), each of round_up(S, 16) rows (ldmatrix reads
+// whole m-tiles; rows past S only feed outputs that are dropped), then the
+// key mask; total bytes.  ops/fused_layer.py:smem_bytes mirrors it.
+struct TcLayout {
+  size_t ctx, hb, big, mask, total;
+  __host__ __device__ TcLayout(int S, int D, int F) {
+    const int sp = round_up(S, 16);
+    const size_t rows = (size_t)sp * (D + 8) * sizeof(bf16);
+    const int wb = (3 * D > F ? 3 * D : F) + 8;
+    ctx = rows;
+    hb = 2 * rows;
+    big = 3 * rows;
+    mask = big + (size_t)sp * wb * sizeof(bf16);
+    total = mask + (size_t)S * sizeof(int);
+  }
+};
+
+// a buffer of every CTA of the cluster: put2() writes two adjacent values
+// into each copy (distributed shared memory; the CTA's own copy with a
+// cluster of 1)
+struct Copies {
+  bf16* at[kMaxCluster];
+  int n;
+  __device__ Copies(bf16* local, int cluster) : n(cluster) {
+    for (int r = 0; r < kMaxCluster; ++r)
+      at[r] = r < cluster ? (cluster > 1 ? cg::this_cluster().map_shared_rank(local, r) : local)
+                          : local;
+  }
+  // elements off and off + 1 (off even)
+  __device__ __forceinline__ void put2(int off, float v0, float v1) const {
+    const uint32_t w = xrt::pack_bf16(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n) *reinterpret_cast<uint32_t*>(at[r] + off) = w;
+  }
+};
+
+// epi(r, n, v0, v1) with v0, v1 = sum_k a[r, k] W[k, n (+ 1)], for rows
+// r < S and even n in the 8-column blocks [blk0, blk1) of each of
+// ``parts`` parts, part i starting at block i * part_blocks (qkv: its q, k
+// and v thirds).  a (leading dimension lda, a multiple of 8) in shared
+// memory, its A fragments by ldmatrix; Wp the weight packed in fragment
+// order (pack_weights_kernel), so a warp's B fragments of one k-step are
+// one coalesced 8-byte load a lane.  A warp item is two column blocks, or
+// one where that leaves warps idle, or one block of one m-tile where even
+// that does; its B fragments come four k-steps ahead.  Each output's sum
+// runs over the k-steps in order inside one warp, whatever the item.
+template <typename Epi>
+__device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict__ Wp, int S,
+                         int parts, int part_blocks, int blk0, int blk1, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, nks = K / 16, mtiles = (S + 15) / 16;
+  const int nb = blk1 - blk0;
+  const int width = parts * ((nb + 1) / 2) >= nwarps ? 2 : 1;
+  const int mg = width == 1 && parts * nb < nwarps ? mtiles : 1;  // m-tile groups
+  const int groups = (nb + width - 1) / width;
+  for (int item = warp; item < parts * groups * mg; item += nwarps) {
+    const int mi = item % mg, rest = item / mg;
+    const int b0 = blk0 + width * (rest % groups), part = rest / groups;
+    const bool two = width == 2 && b0 + 1 < blk1;
+    const int mt0 = mg > 1 ? mi : 0, mt1 = mg > 1 ? mi + 1 : mtiles;
+    const int cb = part * part_blocks + b0;
+    const uint2* w0 = Wp + (size_t)cb * nks * 32 + lane;
+    const uint2* w1 = w0 + (size_t)nks * 32;
+    float acc[4][2][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i / 8][(i / 4) % 2][i % 4] = 0.f;
+    for (int ks0 = 0; ks0 < nks; ks0 += 4) {
+      uint2 b[4][2];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int ks = ks0 + s;
+        b[s][0] = ks < nks ? __ldg(w0 + ks * 32) : make_uint2(0u, 0u);
+        b[s][1] = ks < nks && two ? __ldg(w1 + ks * 32) : make_uint2(0u, 0u);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int ks = ks0 + s;
+        if (ks < nks) {
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            if (mt >= mt0 && mt < mt1) {
+              uint32_t af[4];
+              xrt::ldmatrix_x4(af, a + 16 * mt * lda + 16 * ks, lda);
+              const uint32_t bf0[2] = {b[s][0].x, b[s][0].y}, bf1[2] = {b[s][1].x, b[s][1].y};
+              mma_bf16(acc[mt][0], af, bf0);
+              if (two) mma_bf16(acc[mt][1], af, bf1);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt >= mt0 && mt < mt1) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (j == 0 || two) {
+            const int n = 8 * (cb + j) + t2;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 16 * mt + g + 8 * h;
+              if (r < S) epi(r, n, acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The attention of heads [h0, h1) for the S rows of sequence b, qkv in
+// ``big`` (leading dimension lbig), ctx into every copy: a warp per (head,
+// 16-row m-tile).  The scores stay in the mma accumulators (the query rows
+// as A, the key rows as B, k-steps of 16 over dh in order), the softmax
+// runs across the quad of lanes that holds a row, and the rounded,
+// dropped probs are repacked as P V's A fragments (a C fragment of the
+// scores is an A fragment of the next product); V's B fragments come from
+// shared memory.  S <= 64 and dh <= 64: at most 8 column tiles each.
+__device__ __forceinline__ void attention_tc(const Params& p, int b, int h0, int h1,
+                                             const bf16* big, int lbig, const int* smask,
+                                             const Copies& ctx_all, int ldx) {
+  const int S = p.S, D = p.D, H = p.H, dh = D / H;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+  const int mtiles = (S + 15) / 16, ntn = (S + 7) / 8, nkh = (dh + 15) / 16, ntd = (dh + 7) / 8;
+  const float scale = 1.f / sqrtf((float)dh);
+  const float neg_inf = -__int_as_float(0x7f800000);
+  for (int item = warp; item < (h1 - h0) * mtiles; item += nwarps) {
+    const int h = h0 + item / mtiles, mt = item % mtiles;
+    const bf16* q = big + h * dh;
+    const bf16* k = q + D;
+    const bf16* v = q + 2 * D;
+    const int r0 = 16 * mt + g, r1 = r0 + 8;
+    // scores x[j][.]: rows r0 (0, 1) and r1 (2, 3), columns 8 j + t2 (+ 1)
+    float x[8][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i / 4][i % 4] = 0.f;
+    for (int ks = 0; ks < nkh; ++ks) {
+      const int kc = 16 * ks + t2;
+      const uint32_t af[4] = {row_pair(q, lbig, r0, kc, S, dh), row_pair(q, lbig, r1, kc, S, dh),
+                              row_pair(q, lbig, r0, kc + 8, S, dh),
+                              row_pair(q, lbig, r1, kc + 8, S, dh)};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < ntn) {
+          const uint32_t bf[2] = {row_pair(k, lbig, 8 * j + g, kc, S, dh),
+                                  row_pair(k, lbig, 8 * j + g, kc + 8, S, dh)};
+          mma_bf16(x[j], af, bf);
+        }
+      }
+    }
+    // scores plus the key-padding and causal bias; columns past S out
+    float m[2] = {neg_inf, neg_inf};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < ntn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+          if (t < S) {
+            const float bias = (smask[t] ? 0.f : kNegInf) + ((p.causal && t > sq) ? kNegInf : 0.f);
+            x[j][e] = x[j][e] * scale + bias;
+            m[e >> 1] = fmaxf(m[e >> 1], x[j][e]);
+          }
+        }
+      }
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+      m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < ntn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 8 * j + t2 + (e & 1);
+          x[j][e] = t < S ? expf(x[j][e] - m[e >> 1]) : 0.f;
+          sum[e >> 1] += x[j][e];
+        }
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
+      sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+    }
+    // probs divided, dropped, rounded (zero past S and in rows past S)
+    const uint32_t base = ((uint32_t)b * H + (uint32_t)h) * (uint32_t)(S * S);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < ntn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+          float pv = x[j][e] / sum[e >> 1];
+          if (p.attn_drop)
+            pv = xrt::keep(base + (uint32_t)(sq * S + t), p.seed[0], p.attn_thr) ? pv / p.attn_keep
+                                                                                   : 0.f;
+          x[j][e] = t < S && sq < S ? xrt::Act<bf16>::round(pv) : 0.f;
+        }
+      }
+    }
+    // ctx = P V over the keys in k-steps of 16, in order
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      if (jn < ntd) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (2 * kk < ntn) {
+            const bool hi = 2 * kk + 1 < ntn;
+            auto pair = [&](int j, int e) {
+              return xrt::pack_bf16(__float2bfloat16_rn(x[j][e]), __float2bfloat16_rn(x[j][e + 1]));
+            };
+            const uint32_t af[4] = {pair(2 * kk, 0), pair(2 * kk, 2),
+                                    hi ? pair(2 * kk + 1, 0) : 0u, hi ? pair(2 * kk + 1, 2) : 0u};
+            const int kt = 16 * kk + t2;
+            const uint32_t bf[2] = {col_pair(v, lbig, kt, 8 * jn + g, S, dh),
+                                    col_pair(v, lbig, kt + 8, 8 * jn + g, S, dh)};
+            mma_bf16(acc, af, bf);
+          }
+        }
+        const int c = 8 * jn + t2;
+        if (c < dh) {  // dh even: c + 1 < dh too
+          if (r0 < S) ctx_all.put2(r0 * ldx + h * dh + c, acc[0], acc[1]);
+          if (r1 < S) ctx_all.put2(r1 * ldx + h * dh + c, acc[2], acc[3]);
+        }
+      }
+    }
+  }
+}
+
+// The layer for one sequence, split across the p.cluster CTAs of a
+// cluster (blockIdx.x / cluster is the sequence).  CTA ``rank`` computes
+// the qkv columns of heads [rank H / C, (rank + 1) H / C) (q, k and v: it
+// alone reads them), those heads' attention, and the rank-th share of the
+// 8-column blocks of the other products; ctx, hb and g go to every CTA's
+// copy.
+template <int kStop>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    fused_layer_fwd_tc_kernel(Params p, const uint2* __restrict__ wp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = p.S, D = p.D, H = p.H, F = p.F, C = p.cluster;
+  const int ldx = D + 8, lbig = (3 * D > F ? 3 * D : F) + 8;
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / C;
+  const TcLayout L(S, D, F);
+  bf16* sx = reinterpret_cast<bf16*>(smem);
+  bf16* ctx = reinterpret_cast<bf16*>(smem + L.ctx);
+  bf16* hb = reinterpret_cast<bf16*>(smem + L.hb);
+  bf16* big = reinterpret_cast<bf16*>(smem + L.big);
+  int* smask = reinterpret_cast<int*>(smem + L.mask);
+  // every CTA of the cluster has started (so its shared memory may be
+  // written) and this CTA's loads are done
+  auto cluster_sync = [&]() {
+    if (C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+  };
+  const Copies ctx_all(ctx, C), hb_all(hb, C), big_all(big, C);
+  // the packed weights (uint2 units; WOffsets counts bf16)
+  const WOffsets woff(D, F);
+  const uint2* wqkv = wp + woff.qkv / 4;
+  const uint2* wout = wp + woff.out / 4;
+  const uint2* wffn_in = wp + woff.ffn_in / 4;
+  const uint2* wffn_out = wp + woff.ffn_out / 4;
+  bf16* yg = static_cast<bf16*>(p.y) + (size_t)b * S * D;
+
+  stage_rows(static_cast<const bf16*>(p.x) + (size_t)b * S * D, D, S, D, sx);
+  for (int i = threadIdx.x; i < S; i += blockDim.x) smask[i] = p.mask[b * S + i] != 0;
+  cluster_sync();
+
+  // qkv: this CTA's heads' columns of q, k and v, kept local
+  const int hpc = H / C, cols = D / C;
+  const float* qkv_b = p.qkv_b;
+  dense_tc(sx, ldx, D, wqkv, S, 3, D / 8, rank * cols / 8, (rank + 1) * cols / 8,
+           [=](int r, int n, float v0, float v1) {
+             *reinterpret_cast<uint32_t*>(big + r * lbig + n) = xrt::pack_bf16(
+                 __float2bfloat16_rn(v0 + __ldg(qkv_b + n)),
+                 __float2bfloat16_rn(v1 + __ldg(qkv_b + n + 1)));
+           });
+  __syncthreads();
+  if constexpr (kStop == kStopQkv) {
+    store_rows(big, lbig, S, D, rank * cols, (rank + 1) * cols, 0, 1, yg);
+    return;
+  }
+
+  // attention of this CTA's heads
+  attention_tc(p, b, rank * hpc, (rank + 1) * hpc, big, lbig, smask, ctx_all, ldx);
+  cluster_sync();
+  if constexpr (kStop == kStopAttn) {
+    store_rows(ctx, ldx, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // a = dropout(T(ctx Wout + b)) into hb, then x1 = T(LN1(T(x + a)))
+  const uint32_t row0 = (uint32_t)b * S;
+  const int nbd = D / 8, nbf = F / 8;
+  const int hidden_drop = p.hidden_drop;
+  const uint32_t hidden_thr = p.hidden_thr;
+  const float hidden_keep = p.hidden_keep;
+  auto dropout_into = [=](const Copies& dst, const float* bias, uint32_t seed) {
+    return [=](int r, int n, float v0, float v1) {
+      float v[2] = {v0, v1};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        v[i] = xrt::Act<bf16>::round(v[i] + __ldg(bias + n + i));
+        if (hidden_drop) {
+          const uint32_t idx = (row0 + (uint32_t)r) * (uint32_t)D + (uint32_t)(n + i);
+          v[i] = xrt::keep(idx, seed, hidden_thr) ? xrt::Act<bf16>::round(v[i] / hidden_keep)
+                                                  : 0.f;
+        }
+      }
+      dst.put2(r * ldx + n, v[0], v[1]);
+    };
+  };
+  dense_tc(ctx, ldx, D, wout, S, 1, 0, rank * nbd / C, (rank + 1) * nbd / C,
+           dropout_into(hb_all, p.out_b, p.seed[1]));
+  cluster_sync();
+  add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln1_s, p.ln1_b, S, D, p.eps, sx, ldx);
+  __syncthreads();
+  if constexpr (kStop == kStopOutLn1) {
+    store_rows(sx, ldx, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // g = T(gelu(T(x1 Win + b))) into big
+  const float* ffn_in_b = p.ffn_in_b;
+  dense_tc(sx, ldx, D, wffn_in, S, 1, 0, rank * nbf / C, (rank + 1) * nbf / C,
+           [&](int r, int n, float v0, float v1) {
+             const float u0 = xrt::Act<bf16>::round(v0 + __ldg(ffn_in_b + n));
+             const float u1 = xrt::Act<bf16>::round(v1 + __ldg(ffn_in_b + n + 1));
+             big_all.put2(r * lbig + n, 0.5f * u0 * (1.f + erf_eigen(u0 * kInvSqrt2)),
+                          0.5f * u1 * (1.f + erf_eigen(u1 * kInvSqrt2)));
+           });
+  cluster_sync();
+  if constexpr (kStop == kStopFfnGelu) {
+    store_rows(big, lbig, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // f = dropout(T(g Wffn_out + b)) into hb, then y = T(LN2(T(x1 + f)))
+  dense_tc(big, lbig, F, wffn_out, S, 1, 0, rank * nbd / C, (rank + 1) * nbd / C,
+           dropout_into(hb_all, p.ffn_out_b, p.seed[2]));
+  cluster_sync();
+  add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D, rank, C);
+}
+
+// The four f32 weights rounded to bf16 once per call into wp at WOffsets,
+// each (K, N) weight packed in mma.sync's B-fragment order: for column
+// block nb = n / 8 and k-step ks = k / 16, 32 lanes x 2 words, lane
+// 4 (n % 8) + t holding the pairs (k, k + 1) at k = 16 ks + 2 t and
+// 16 ks + 2 t + 8, so dense_tc loads a warp's fragments of one k-step as
+// 256 contiguous bytes.  One thread writes one lane's 8 bytes.  K % 16 ==
+// 0 and N % 8 == 0.
+__global__ void pack_weights_kernel(const float* __restrict__ qkv_w,
+                                    const float* __restrict__ out_w,
+                                    const float* __restrict__ ffn_in_w,
+                                    const float* __restrict__ ffn_out_w, int D, int F,
+                                    uint2* __restrict__ wp) {
+  const WOffsets w(D, F);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;  // in uint2 (4 bf16)
+  if (i >= w.total / 4) return;
+  const float* W;
+  size_t base;
+  int K, N;
+  if (i < w.out / 4) { W = qkv_w; base = w.qkv; K = D; N = 3 * D; }
+  else if (i < w.ffn_in / 4) { W = out_w; base = w.out; K = D; N = D; }
+  else if (i < w.ffn_out / 4) { W = ffn_in_w; base = w.ffn_in; K = D; N = F; }
+  else { W = ffn_out_w; base = w.ffn_out; K = F; N = D; }
+  const size_t j = i - base / 4;
+  const int nks = K / 16, lane = (int)(j % 32), ks = (int)(j / 32 % nks), nb = (int)(j / 32 / nks);
+  const int n = 8 * nb + lane / 4, k = 16 * ks + 2 * (lane % 4);
+  auto at = [&](int kk) { return __float2bfloat16_rn(W[(size_t)kk * N + n]); };
+  wp[i] = make_uint2(xrt::pack_bf16(at(k), at(k + 1)), xrt::pack_bf16(at(k + 8), at(k + 9)));
+}
+
 template <typename T, int kStop>
 cudaError_t launch(const Params& p, int B, int smem_bytes, cudaStream_t stream) {
   size_t reg_off, sc_off, mask_off;
@@ -1444,45 +1877,102 @@ cudaError_t launch(const Params& p, int B, int smem_bytes, cudaStream_t stream) 
   return cudaGetLastError();
 }
 
+// the bf16 forward: the weight pre-pass, then the layer on B clusters of
+// p.cluster CTAs
+template <int kStop>
+cudaError_t launch_tc(const Params& p, int B, int smem_bytes, bf16* wp, cudaStream_t stream) {
+  if (TcLayout(p.S, p.D, p.F).total > (size_t)smem_bytes) return cudaErrorInvalidValue;
+  const WOffsets w(p.D, p.F);
+  pack_weights_kernel<<<(unsigned)((w.total / 4 + 255) / 256), 256, 0, stream>>>(
+      p.qkv_w, p.out_w, p.ffn_in_w, p.ffn_out_w, p.D, p.F, reinterpret_cast<uint2*>(wp));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_layer_fwd_tc_kernel<kStop>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * p.cluster));
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, fused_layer_fwd_tc_kernel<kStop>, p,
+                           reinterpret_cast<const uint2*>(wp));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, int kStop>
+cudaError_t launch_any(const Params& p, int B, int smem_bytes, bf16* wp, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) return launch_tc<kStop>(p, B, smem_bytes, wp, stream);
+  else return launch<T, kStop>(p, B, smem_bytes, stream);
+}
+
 template <typename T>
-cudaError_t launch_stage(const Params& p, int B, int smem_bytes, int stage, cudaStream_t stream) {
+cudaError_t launch_stage(const Params& p, int B, int smem_bytes, int stage, bf16* wp,
+                         cudaStream_t stream) {
   switch (stage) {
-    case kStopQkv: return launch<T, kStopQkv>(p, B, smem_bytes, stream);
-    case kStopAttn: return launch<T, kStopAttn>(p, B, smem_bytes, stream);
-    case kStopOutLn1: return launch<T, kStopOutLn1>(p, B, smem_bytes, stream);
-    case kStopFfnGelu: return launch<T, kStopFfnGelu>(p, B, smem_bytes, stream);
-    case kFwdFull: return launch<T, kFwdFull>(p, B, smem_bytes, stream);
+    case kStopQkv: return launch_any<T, kStopQkv>(p, B, smem_bytes, wp, stream);
+    case kStopAttn: return launch_any<T, kStopAttn>(p, B, smem_bytes, wp, stream);
+    case kStopOutLn1: return launch_any<T, kStopOutLn1>(p, B, smem_bytes, wp, stream);
+    case kStopFfnGelu: return launch_any<T, kStopFfnGelu>(p, B, smem_bytes, wp, stream);
+    case kFwdFull: return launch_any<T, kFwdFull>(p, B, smem_bytes, wp, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// bytes of dynamic shared memory of one block of the forward: elem 2 the
+// bf16 kernel's TcLayout (hg unused: its scores stay in registers), 4 the
+// f32 kernel's (hg heads a stage)
 extern "C" int fused_layer_smem_bytes(int S, int D, int F, int hg, int elem) {
+  if (elem == 2) return (int)TcLayout(S, D, F).total;
   size_t reg_off, sc_off, mask_off;
   return (int)smem_layout(S, D, F, hg, elem, &reg_off, &sc_off, &mask_off);
 }
 
 // The layer, or with stage < kFwdFull a section variant (see the top of
-// this file), for B sequences of S <= 64 rows.
+// this file), for B sequences of S <= 64 rows.  bf16: each sequence on a
+// cluster of ``cluster`` (1, 2 or 4) CTAs, heads_per_stage a divisor of
+// H / cluster; wp a workspace of WOffsets::total bf16.  f32: cluster 1,
+// wp unused.
 extern "C" int fused_layer_fwd(
     const void* x, void* y, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
     const float* ffn_out_w, const float* ffn_out_b, const float* ln1_s, const float* ln1_b,
     const float* ln2_s, const float* ln2_b, int B, int S, int D, int H, int F, int causal,
-    int is_bf16, int heads_per_stage, uint32_t seed0, uint32_t seed1, uint32_t seed2,
-    uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep, int attn_drop,
-    int hidden_drop, float eps, int smem_bytes, int stage, void* stream) {
+    int is_bf16, int heads_per_stage, int cluster, uint32_t seed0, uint32_t seed1,
+    uint32_t seed2, uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep,
+    int attn_drop, int hidden_drop, float eps, int smem_bytes, int stage, void* wp,
+    void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (S <= 0 || S > 64 || D % H != 0 || H % heads_per_stage != 0) return cudaErrorInvalidValue;
+  if (S <= 0 || S > 64 || H <= 0 || D % H != 0 || heads_per_stage <= 0)
+    return cudaErrorInvalidValue;
   if (stage == kStopFfnGelu && F < D) return cudaErrorInvalidValue;
+  if (is_bf16) {
+    // whole k-steps of the products and 8-column blocks of each CTA's
+    // qkv columns; k-contiguous pairs in the attention
+    if ((cluster != 1 && cluster != 2 && cluster != 4) || H % cluster || D % 16 ||
+        D % (8 * cluster) || (D / H) % 2 || D / H > 64 || F % 16 || wp == nullptr)
+      return cudaErrorInvalidValue;
+  } else if (cluster != 1 || H % heads_per_stage) {
+    return cudaErrorInvalidValue;
+  }
   Params p{x, y, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
            ln1_s, ln1_b, ln2_s, ln2_b, S, D, H, F, causal, heads_per_stage,
            {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep,
-           attn_drop, hidden_drop, eps};
+           attn_drop, hidden_drop, eps, cluster};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_stage<__nv_bfloat16>(p, B, smem_bytes, stage, s)
-                 : launch_stage<float>(p, B, smem_bytes, stage, s);
+  bf16* w = static_cast<bf16*>(wp);
+  return is_bf16 ? launch_stage<bf16>(p, B, smem_bytes, stage, w, s)
+                 : launch_stage<float>(p, B, smem_bytes, stage, w, s);
 }
 
 // The backward of fused_layer_fwd: dx (T) and the 12 f32 parameter

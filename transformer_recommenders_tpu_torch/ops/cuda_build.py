@@ -44,11 +44,12 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_layer": (
         "fused_layer.cu",
         {
-            # x, y, mask, 12 params, B S D H F causal is_bf16 heads_per_stage,
-            # seeds[3], attn/hidden thresholds, attn/hidden keep divisors,
-            # attn/hidden dropout on, eps, dynamic smem bytes, stage, stream
+            # x, y, mask, 12 params, B S D H F causal is_bf16 heads_per_stage
+            # cluster, seeds[3], attn/hidden thresholds, attn/hidden keep
+            # divisors, attn/hidden dropout on, eps, dynamic smem bytes,
+            # stage, bf16 weight workspace, stream
             "fused_layer_fwd": [_P, _P, _P] + [_P] * 12
-            + [_I] * 8 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _I, _P],
+            + [_I] * 9 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _I, _P, _P],
             # S, D, F, heads per stage, bytes per activation
             "fused_layer_smem_bytes": [_I] * 5,
             # x, dy, mask, 12 params, dx, 12 param grads, 17 workspace
@@ -79,13 +80,16 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_table_infonce": (
         "fused_table_infonce.cu",
         {
-            # q, table (bf16), pos_idx (int32), counts (f32), ce, lse, R, N,
-            # D, scale, mask_false_negatives, stream
-            "table_infonce_fwd": [_P] * 6 + [_I, _I, _I, _F, _I, _P],
-            # q, table, pos_idx, counts, lse, g, dq (f32), dtable (f32),
-            # pos workspace (f32), R, N, D, scale, mask_false_negatives,
-            # stream
-            "table_infonce_bwd": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+            # R, N, D, pass (0 forward, 1 dq, 2 dT): the splits of a launch
+            "table_infonce_splits": [_I] * 4,
+            # q, table (bf16), pos_idx (int32), counts (f32), ce, lse, pos,
+            # split workspace (f32), R, N, D, scale, mask_false_negatives,
+            # splits, stream
+            "table_infonce_fwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+            # q, table, pos_idx, counts, lse, g, dq (f32), dtable (f32), pos
+            # workspace, dq and dT split workspaces (f32), R, N, D, scale,
+            # mask_false_negatives, dq splits, dT splits, stream
+            "table_infonce_bwd": [_P] * 11 + [_I, _I, _I, _F, _I, _I, _I, _P],
         },
     ),
     "fused_infonce": (
@@ -226,3 +230,13 @@ def _max_shared_memory(index: int) -> int:
 def max_shared_memory(device: torch.device) -> int:
     """Dynamic shared memory one block may opt into on ``device``."""
     return _max_shared_memory(torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return int(torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``."""
+    return _sm_count(torch.device(device).index or 0)

@@ -378,19 +378,29 @@ def _layer_backward(x, p, key_mask, dy, *, stage, num_heads, causal, attn_dropou
 
 
 def smem_bytes(s: int, d: int, f: int, heads_per_stage: int, elem: int) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel (the layout
-    described in ``csrc/fused_layer.cu``)."""
+    """Dynamic shared memory of one block of the forward kernel (the
+    layouts described in ``csrc/fused_layer.cu``): ``elem`` 2 the bf16
+    tensor-core kernel's ``TcLayout``, 4 the f32 kernel's, which stages
+    the scores of ``heads_per_stage`` heads."""
+    if elem == 2:  # the scores stay in registers: no heads_per_stage
+        sp = -(-s // 16) * 16  # whole m-tiles of rows
+        rows = sp * (d + 8) * 2  # sx, ctx, hb: bf16 at leading dimension D + 8
+        big = sp * (max(3 * d, f) + 8) * 2  # qkv, then the GELU output
+        return 3 * rows + big + s * 4  # and the mask
     sp = -(-s // _ROWS) * _ROWS
     reg_off = sp * d * elem
     sc_off = -(-(reg_off + sp * max(3 * d, f + d) * elem) // 16) * 16
     return sc_off + heads_per_stage * s * s * 4 + s * 4
 
 
-def heads_per_stage(s: int, d: int, f: int, num_heads: int, elem: int, limit: int) -> int:
+def heads_per_stage(s: int, d: int, f: int, num_heads: int, elem: int, limit: int,
+                    cluster: int = 1) -> int:
     """The most heads whose scores fit beside the activations in ``limit``
-    bytes (a divisor of ``num_heads``); raises when not even one does."""
-    for hg in range(num_heads, 0, -1):
-        if num_heads % hg == 0 and smem_bytes(s, d, f, hg, elem) <= limit:
+    bytes (a divisor of the ``num_heads // cluster`` heads of one CTA);
+    raises when not even one does."""
+    share = num_heads // cluster
+    for hg in range(share, 0, -1):
+        if share % hg == 0 and smem_bytes(s, d, f, hg, elem) <= limit:
             return hg
     msg = (
         f"fused_layer: S={s}, D={d}, F={f} needs {smem_bytes(s, d, f, 1, elem)} "
@@ -398,6 +408,28 @@ def heads_per_stage(s: int, d: int, f: int, num_heads: int, elem: int, limit: in
         f"more than the {limit} this device allows"
     )
     raise ValueError(msg)
+
+
+CLUSTER_SIZES = (4, 2, 1)  # csrc/fused_layer.cu kMaxCluster and its divisors
+
+
+def cluster_size(b: int, d: int, num_heads: int, sms: int) -> int:
+    """CTAs of the bf16 forward's cluster for one sequence: the largest of
+    4, 2, 1 that keeps ``b * cluster`` within the card's ``sms`` (one CTA
+    an SM: the layer's shared memory leaves room for one or two), splits
+    the heads evenly and gives each CTA whole 8-column blocks of q, k and
+    v.  B=64 on 132 SMs takes 2, B=32 takes 4, B >= 67 takes 1."""
+    for c in CLUSTER_SIZES:
+        if b * c <= sms and num_heads % c == 0 and d % (8 * c) == 0:
+            return c
+    return 1
+
+
+def forward_workspace_elems(d: int, f: int) -> int:
+    """bf16 elements of the forward's weight workspace: the four weights
+    rounded once, packed in B-fragment order (csrc/fused_layer.cu
+    WOffsets, pack_weights_kernel)."""
+    return 4 * d * d + 2 * d * f
 
 
 _PARAM_ORDER = (
@@ -456,18 +488,28 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
     *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
         attn_dropout, hidden_dropout, dropout_seeds)
     elem = x.element_size()
-    hg = heads_per_stage(s, d, f, num_heads, elem, cuda_build.max_shared_memory(x.device))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (d % 16 or f % 16 or (d // num_heads) % 2 or d // num_heads > 64):
+        msg = (f"fused_layer: bf16 needs D and the FFN width multiples of 16 and an even head "
+               f"width of at most 64, got D={d}, H={num_heads}, F={f}")
+        raise ValueError(msg)
+    cluster = cluster_size(b, d, num_heads, cuda_build.sm_count(x.device)) if bf16 else 1
+    hg = heads_per_stage(s, d, f, num_heads, elem, cuda_build.max_shared_memory(x.device),
+                         cluster)
     smem = smem_bytes(s, d, f, hg, elem)
     x = x.contiguous()
     params = [t.contiguous() for t in params]
     mask = key_mask.to(torch.int32).contiguous()
     y = torch.empty_like(x)
+    wt16 = (torch.empty(forward_workspace_elems(d, f), dtype=torch.bfloat16, device=x.device)
+            if bf16 else None)
     status = cuda_build.library("fused_layer").fused_layer_fwd(
         x.data_ptr(), y.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
-        b, s, d, num_heads, f, int(causal), int(x.dtype == torch.bfloat16), hg,
+        b, s, d, num_heads, f, int(causal), int(bf16), hg, cluster,
         *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
-        smem, FWD_STAGES.index(stage), cuda_build.stream_handle(x.device),
+        smem, FWD_STAGES.index(stage), None if wt16 is None else wt16.data_ptr(),
+        cuda_build.stream_handle(x.device),
     )
     cuda_build.check(status, "fused_layer_fwd launch")
     cuda_build.LAUNCHES[counter] += 1
@@ -596,8 +638,8 @@ def fused_layer(
 
     On CPU tensors this runs :func:`fused_layer_reference` and, for the
     gradient, :func:`fused_layer_backward_reference`; on CUDA tensors it
-    launches the forward kernel (one block per sequence) and the backward
-    kernel, or raises.
+    launches the forward kernel (bf16: a cluster of :func:`cluster_size`
+    CTAs per sequence; f32: one block) and the backward kernel, or raises.
     """
     s = x.shape[1]
     if s > 64:

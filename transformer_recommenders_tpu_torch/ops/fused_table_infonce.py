@@ -18,6 +18,15 @@ f32 sums, times ``scale``; masked columns guarded by ``_NEG_BIG`` before
 products; ``dq`` cast to ``q.dtype`` and ``dT`` to the table's.  The TPU
 version pads rows to its tile and the catalog to 128; the kernels here
 mask their own edges and need no padding.
+
+Each version scores ``pos`` and every column by one chain, so the mask
+drops column ``pos_idx`` and every copy of it.  The kernels' chain is the
+tensor cores' (``xrt::score_tile``: k-steps of 16 in increasing order);
+the plain version's is one exact bf16 product at a time in increasing k.
+The two sum in other orders, so their scores agree to rounding, not bit
+for bit: a column within a rounding step of ``pos`` may count in one and
+not in the other.  Where every partial sum is exact in f32 (small
+multiples of a power of two) they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -48,10 +57,9 @@ def neg_pool_counts(neg_idx: torch.Tensor, neg_valid: torch.Tensor, num_rows: in
 def _scores(q, table, pos_idx, counts, scale: float, mask_false_negatives: bool):
     """x (R, N), pos (R,), sel (R, N) and the masked weights w (R, N).
 
-    The scores are summed one product at a time in increasing k, the
-    kernel's order: a product of two bf16 values is exact in f32, so the
-    two get the same scores bit for bit and agree on every near-tie of the
-    false-negative mask (a matmul sums in another order and may not)."""
+    The scores are summed one exact bf16 product at a time in increasing
+    k, and pos is read off them, so pos is the score at ``pos_idx`` bit
+    for bit and the mask drops every copy of the positive."""
     qm, tm = q.to(torch.bfloat16).float(), table.to(torch.bfloat16).float()
     x = torch.zeros((qm.shape[0], tm.shape[0]), dtype=torch.float32, device=q.device)
     for k in range(qm.shape[1]):
@@ -119,15 +127,49 @@ def _cuda_operands(q, table, pos_idx, counts):
             counts.reshape(-1).float().contiguous())
 
 
+def _splits(device_index: int, r: int, n: int, d: int, kernel_pass: int) -> int:
+    """The splits of the forward (pass 0, over the catalog), the dq pass
+    (1, over the catalog) or the dT pass (2, over the query rows) at this
+    shape on the current device, planned by the kernel's library."""
+    with torch.cuda.device(device_index):
+        splits = cuda_build.library("fused_table_infonce").table_infonce_splits(
+            r, n, d, kernel_pass)
+    if splits < 1:
+        msg = f"table_infonce_splits: CUDA error planning R={r} N={n} D={d}"
+        raise RuntimeError(msg)
+    return splits
+
+
+def workspace_elems(r: int, n: int, d: int, splits_fwd: int, splits_dq: int,
+                    splits_dt: int) -> dict[str, int]:
+    """f32 elements of the kernels' workspaces: the forward's pos and
+    per-split (max, sum); the backward's pos, and the partial dq and dT of
+    each split (none with one split: the kernel writes dq or dT itself)."""
+    return {
+        "fwd_pos": r, "fwd_part": splits_fwd * r * 2, "bwd_pos": r,
+        "dq_part": splits_dq * r * d if splits_dq > 1 else 0,
+        "dt_part": splits_dt * n * d if splits_dt > 1 else 0,
+    }
+
+
+def _empty(elems: int, device) -> torch.Tensor | None:
+    return torch.empty(elems, dtype=torch.float32, device=device) if elems else None
+
+
 def _fwd_cuda(q, table, pos_idx, counts, scale, mask_false_negatives):
     _check_cuda(q, table, pos_idx, counts)
     qb, tb, pidx, cnt = _cuda_operands(q, table, pos_idx, counts)
     r, d = qb.shape
+    n = tb.shape[0]
+    splits = _splits(q.device.index or 0, r, n, d, 0)
+    ws = workspace_elems(r, n, d, splits, 1, 1)
     ce = torch.empty(r, dtype=torch.float32, device=q.device)
     lse = torch.empty_like(ce)
+    pos, part = (_empty(ws[k], q.device) for k in ("fwd_pos", "fwd_part"))
     status = cuda_build.library("fused_table_infonce").table_infonce_fwd(
         qb.data_ptr(), tb.data_ptr(), pidx.data_ptr(), cnt.data_ptr(), ce.data_ptr(),
-        lse.data_ptr(), r, tb.shape[0], d, float(scale), int(mask_false_negatives),
+        lse.data_ptr(), *(None if t is None else t.data_ptr() for t in (pos, part)),
+        r, n, d, float(scale), int(mask_false_negatives), splits,
         cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "table_infonce_fwd launch")
@@ -140,15 +182,20 @@ def _bwd_cuda(q, table, pos_idx, counts, lse, g, scale, mask_false_negatives):
     qb, tb, pidx, cnt = _cuda_operands(q, table, pos_idx, counts)
     r, d = qb.shape
     n = tb.shape[0]
+    index = q.device.index or 0
+    splits_dq, splits_dt = _splits(index, r, n, d, 1), _splits(index, r, n, d, 2)
+    ws = workspace_elems(r, n, d, 1, splits_dq, splits_dt)
     lse = lse.float().contiguous()
     g = g.float().contiguous()
     dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
     dt = torch.empty((n, d), dtype=torch.float32, device=q.device)
-    pos = torch.empty(r, dtype=torch.float32, device=q.device)
+    pos, part_dq, part_dt = (_empty(ws[k], q.device) for k in ("bwd_pos", "dq_part", "dt_part"))
     status = cuda_build.library("fused_table_infonce").table_infonce_bwd(
         qb.data_ptr(), tb.data_ptr(), pidx.data_ptr(), cnt.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dt.data_ptr(), pos.data_ptr(), r, n, d, float(scale),
-        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        g.data_ptr(), dq.data_ptr(), dt.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (pos, part_dq, part_dt)),
+        r, n, d, float(scale), int(mask_false_negatives), splits_dq, splits_dt,
+        cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "table_infonce_bwd launch")
     cuda_build.LAUNCHES["table_infonce_bwd"] += 1
