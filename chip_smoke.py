@@ -57,9 +57,14 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 8. the pairwise kernels (forward, dq/dp, dn) against their plain versions
    for the four heads at path C's shape (R = Rn = 4,096, D = 64), the
    flagship's width and a ragged one, the mask on and off, margins 0 and
-   0.5, then their times beside a composite of stock calls (a bf16
-   matmul, a masked softplus mean, autograd for the backward) and a bound
-   that also counts the special functions (exp, log, reciprocal);
+   0.5, as the pool kernels in phase 6: on Gaussian inputs out on the rows
+   without a near tie (of the mask, or of a relu head's f' at s = 0),
+   which alone take a cotangent, their count printed, and on exact-sum
+   inputs every row; the copies of a shared positive dropped bit for bit,
+   and two calls bit for bit; then their times beside a composite of
+   stock calls (a bf16 matmul, a masked softplus mean, autograd for the
+   backward) and a bound that also counts the special functions (exp,
+   log, reciprocal);
 9. training through the pairwise objectives, as phase 5: path C,
    configs/ml100k_bpr.yaml's hot step (PairwiseLogisticLoss at margin 0,
    d=64, batch 128, over a synthetic catalog of ML-100K's 1,682 items;
@@ -1132,63 +1137,121 @@ def bound3(flops: float, nbytes: float, sfu: float, sfu_rate: float) -> tuple[fl
     return terms[kind], "bytes" if kind == "bytes" else "operations", kind
 
 
+def run_pairwise(q, p, n, neg_valid, g, head: str, margin: float, mask_fn: bool):
+    """out and the gradients in q, p and n through the wrapper."""
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    q, p, n = (t.detach().clone().requires_grad_() for t in (q, p, n))
+    out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, head=head, margin=margin,
+                                    mask_false_negatives=mask_fn)
+    out.backward(g)
+    return out.detach(), q.grad, p.grad, n.grad
+
+
+def check_pairwise_copies(gen, r: int, rn: int, d: int) -> None:
+    """check_pool_copies for the pairwise kernels, each head at margins 0
+    and 0.5: the copies of a shared positive dropped bit for bit against
+    the same rows marked invalid, and two calls bit for bit."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
+    g = row_valid.float()
+    same = {}
+    for head in fp.HEADS:
+        first = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
+        second = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
+        same[f"{head} two calls"] = all(map(torch.equal, first, second))
+    ps = p[1].expand_as(p).contiguous()
+    copies = torch.zeros(rn, dtype=torch.bool, device="cuda")
+    copies[::7] = True
+    ns = torch.where(copies[:, None], ps[0], n)
+    for head in fp.HEADS:
+        for margin in (0.0, 0.5):
+            with_copies = run_pairwise(q, ps, ns, neg_valid | copies, g, head, margin, True)
+            without = run_pairwise(q, ps, ns, (neg_valid | copies) & ~copies, g, head, margin,
+                                   True)
+            same[f"{head} copies dropped, margin {margin}"] = all(
+                map(torch.equal, with_copies, without))
+    torch.cuda.synchronize()
+    log(f"  pairwise R={r} Rn={rn} D={d}, bit for bit (out, dq, dp, dn): "
+        + ", ".join(f"{k} {'yes' if v else 'NO'}" for k, v in same.items()))
+    if not all(same.values()):
+        raise AssertionError("the pairwise kernels are not deterministic or count a copy of pos")
+
+
 def check_pairwise() -> list[dict]:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
 
     gen = torch.Generator().manual_seed(8)
-    # of the max abs value: the same scores bit for bit (the plain version
-    # sums in the kernels' order), then relu or softplus and a weighted
-    # mean for out, dl's bf16 rounding for the gradients (the bounds of
-    # tests/test_torch_cuda.py).  A gradient that is zero in the plain
-    # version (dp of the heads without pos in the score, everything of the
-    # hinge at margin 0 with the mask on) must be zero in the kernel.
+    # of the max abs value: relu or softplus and a weighted mean for out,
+    # dl's bf16 rounding for the gradients (the bounds of
+    # tests/test_torch_cuda.py).  The kernels sum the scores on the tensor
+    # cores and the plain version in increasing k: on Gaussian inputs, out
+    # is held on the rows without a near tie (fp.near_tie_rows: a pool
+    # score within 2**-13 per 128 of D of pos with the mask on, a relu
+    # head's s within that of 0, times 1 + |c| for the hinge's s = l - pos
+    # c) and those rows take no cotangent; on exact-sum inputs every row is
+    # held.  A gradient that is zero in the plain version (dp of the heads
+    # without pos in the score, everything of the hinge at margin 0 with
+    # the mask on) must be zero in the kernel.
     tol = {"out": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
     max_err = {}
     for shape, (r, rn, d) in PAIRWISE_SHAPES.items():
-        for head in fp.HEADS:
-            for mask_fn, margin in ((True, 0.0), (False, 0.0), (True, 0.5), (False, 0.5)):
-                q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
-                q, p, n = (t.requires_grad_() for t in (q, p, n))
-                g = row_valid.float()
-                kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
-                out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, **kw)
-                out.backward(g)
-                out = out.detach()
-                with torch.no_grad():
-                    out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
-                    dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g,
-                                                                      **kw)
-                    dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
-                torch.cuda.synchronize()
-                name = f"pairwise {head} R={r} Rn={rn} D={d} mask={mask_fn} margin={margin}"
-                if mask_fn and out[0].item() != 0.0:
-                    raise AssertionError(f"{name}: a row with every negative masked must give 0")
-                parts = []
-                for key, got, want in (("out", out, out_want), ("dq", q.grad, dq_want),
-                                       ("dp", p.grad, dp_want), ("dn", n.grad, dn_want)):
-                    err = float((got.float() - want.float()).abs().max())
-                    scale = float(want.float().abs().max())
-                    rel = err / scale if scale else err
-                    ok = bool(torch.isfinite(got.float()).all()) and (
-                        rel <= tol[key] if scale else err == 0.0)
-                    if not ok:
-                        log(f"  {name} {key}: max_abs_err={err:.3g} of max abs {scale:.3g}, "
-                            f"tol {tol[key]} (0 where the plain version is 0) FAIL")
-                        raise AssertionError(f"{name} {key} disagrees with its plain version")
-                    parts.append(f"{key} {err:.3g}" + (f" ({rel:.3g} of max abs)" if scale
-                                                       else " (all 0)"))
-                    if shape != "ragged":
-                        max_err[key] = max(max_err.get(key, 0.0), err)
-                log(f"  {name}: max_abs_err " + ", ".join(parts) + " ok")
-    log("  tol: out 1e-5, dq dp dn 1e-2 of the plain version's max abs; exactly 0 where it is 0")
+        for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
+            for head in fp.HEADS:
+                for mask_fn, margin in ((True, 0.0), (False, 0.0), (True, 0.5), (False, 0.5)):
+                    q, p, n, row_valid, neg_valid = case(gen, r, rn, d)
+                    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+                    keep = torch.ones(r, dtype=torch.bool, device="cuda")
+                    if inputs == "gaussian":
+                        with torch.no_grad():
+                            keep = ~fp.near_tie_rows(q, p, n, neg_valid, **kw)
+                    g = (row_valid & keep).float()
+                    out, dq, dp, dn = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
+                    with torch.no_grad():
+                        out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
+                        dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid,
+                                                                          den, g, **kw)
+                        dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+                    torch.cuda.synchronize()
+                    name = (f"pairwise {head} {inputs} R={r} Rn={rn} D={d} mask={mask_fn} "
+                            f"margin={margin}")
+                    if mask_fn and out[0].item() != 0.0:
+                        raise AssertionError(f"{name}: a row with every negative masked must "
+                                             "give 0")
+                    parts = []
+                    for key, got, want in (("out", out[keep], out_want[keep]), ("dq", dq, dq_want),
+                                           ("dp", dp, dp_want), ("dn", dn, dn_want)):
+                        err = float((got.float() - want.float()).abs().max())
+                        scale = float(want.float().abs().max())
+                        rel = err / scale if scale else err
+                        ok = bool(torch.isfinite(got.float()).all()) and (
+                            rel <= tol[key] if scale else err == 0.0)
+                        if not ok:
+                            log(f"  {name} {key}: max_abs_err={err:.3g} of max abs {scale:.3g}, "
+                                f"tol {tol[key]} (0 where the plain version is 0) FAIL")
+                            raise AssertionError(f"{name} {key} disagrees with its plain version")
+                        parts.append(f"{key} {err:.3g}" + (f" ({rel:.3g} of max abs)" if scale
+                                                           else " (all 0)"))
+                        if shape != "ragged":
+                            max_err[key] = max(max_err.get(key, 0.0), err)
+                    log(f"  {name}: max_abs_err " + ", ".join(parts)
+                        + f"; near-tie rows left out: {int((~keep).sum())} of {r} ok")
+        check_pairwise_copies(gen, r, rn, d)
+    log("  tol: out 1e-5 (Gaussian inputs: on the rows without a near tie), dq dp dn 1e-2 of "
+        "the plain version's max abs; exactly 0 where it is 0")
     sfu_rate, sfu_src = special_function_rate()
     log(f"  special-function rate {sfu_rate:.4g}/s ({sfu_src})")
     c = time_pairwise(gen, *PAIRWISE_SHAPES["C"], sfu_rate, fp.HEADS)
     d128 = time_pairwise(gen, *PAIRWISE_SHAPES["D128"], sfu_rate, ("PairwiseLogisticLoss",))
+    r, rn, d = PAIRWISE_SHAPES["C"]
     common = {"route": "cuda",
-              "source": "transformer_recommenders_tpu_torch/csrc/fused_pairwise.cu"}
+              "source": "transformer_recommenders_tpu_torch/csrc/fused_pairwise.cu",
+              "splits": {"fwd": fp._splits(0, r, rn, d, 0), "dn": fp._splits(0, r, rn, d, 1)}}
     rows = []
     for name, replaces, keys in (
         ("pairwise_fwd", "transformer_recommenders_tpu/ops/fused_pairwise.py:66", ("out",)),

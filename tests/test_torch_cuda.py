@@ -191,8 +191,8 @@ def test_gather_kernel_matches_plain(cuda, out_dtype, idx_dtype):
 #   less than that and has a test of its own;
 # - the gather's gradient sums the same values in another order (f32; a
 #   bf16 table rounds the sum once);
-# - table InfoNCE: the same scores bit for bit (the plain version sums in
-#   the kernel's order), then exp/log and dl's bf16 rounding.
+# - table InfoNCE: exp/log and dl's bf16 rounding, near-tie rows left out
+#   as for the pool kernels below.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
@@ -654,30 +654,54 @@ def test_pool_infonce_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
     assert torch.isfinite(q.grad).all()
 
 
-# Pairwise pool kernels against their plain versions: the same scores bit
-# for bit (the plain version sums in the kernels' order), then relu or
-# softplus and a weighted mean (out, 1e-5 of its max abs) and dl's bf16
-# rounding (dq, dp, dn, 1e-2 of each gradient's max abs).
-@pytest.mark.parametrize(("r", "rn", "d"), [
+PAIRWISE_SHAPES = [
     (4096, 4096, 64),    # configs/ml100k_bpr.yaml: B=128, S=32, d=64
     (4096, 4096, 128),   # the flagship's width
     (1000, 777, 64),     # ragged: neither a multiple of a block
-])
-@pytest.mark.parametrize("head", ["ContrastiveLoss", "PairwiseHingeLoss", "PairwiseLogisticLoss",
-                                  "NCELoss"])
+]
+PAIRWISE_HEADS = ["ContrastiveLoss", "PairwiseHingeLoss", "PairwiseLogisticLoss", "NCELoss"]
+
+
+def run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn):
+    """out and the gradients in q, p and n through the wrapper."""
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    q, p, n = (a.detach().clone().requires_grad_() for a in (q, p, n))
+    out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, head=head, margin=margin,
+                                    mask_false_negatives=mask_fn)
+    out.backward(g)
+    return out.detach(), q.grad, p.grad, n.grad
+
+
+# Pairwise pool kernels against their plain versions: relu or softplus and
+# a weighted mean (out, 1e-5 of its max abs) and dl's bf16 rounding (dq,
+# dp, dn, 1e-2 of each gradient's max abs).  The kernels sum the scores on
+# the tensor cores, the plain version in increasing k: on Gaussian inputs
+# a pool score within a rounding step of pos (the mask) or, for the relu
+# heads, an s within a rounding step of 0 (f' steps there) may be decided
+# otherwise, so out is held on the rows without such a near tie
+# (fused_pairwise.near_tie_rows) and those rows take no cotangent (every
+# element of dq, dp and dn is still compared); on exact-sum inputs every
+# row is held and takes its cotangent.
+@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize("head", PAIRWISE_HEADS)
 @pytest.mark.parametrize(("mask_fn", "margin"), [(True, 0.0), (False, 0.5)])
-def test_pairwise_kernels_match_plain(cuda, r, rn, d, head, mask_fn, margin):
+@pytest.mark.parametrize("inputs", ["gaussian", "exact"])
+def test_pairwise_kernels_match_plain(cuda, r, rn, d, head, mask_fn, margin, inputs):
     from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
 
     gen = torch.Generator().manual_seed(r + rn + d)
-    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    case = pool_case if inputs == "gaussian" else exact_pool_case
+    q, p, n, row_valid, neg_valid = case(gen, cuda, r, rn, d)
+    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+    keep = torch.ones(r, dtype=torch.bool, device=cuda)
+    if inputs == "gaussian":
+        keep = ~fp.near_tie_rows(q, p, n, neg_valid, **kw)
     q, p, n = (a.requires_grad_() for a in (q, p, n))
     cuda_build.reset_launches()
-    out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, head=head, margin=margin,
-                                    mask_false_negatives=mask_fn)
-    g = row_valid.float()
+    out = fp.fused_pairwise_rowwise(q, p, n, neg_valid, **kw)
+    g = (row_valid & keep).float()
     out.backward(g)
-    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
     with torch.no_grad():
         out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
         dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)
@@ -689,18 +713,52 @@ def test_pairwise_kernels_match_plain(cuda, r, rn, d, head, mask_fn, margin):
         assert out[0].item() == 0.0  # row 0 counts no negative
     assert (q.grad.dtype, p.grad.dtype, n.grad.dtype) == (torch.float32, torch.bfloat16,
                                                           torch.bfloat16)
-    errs = {"out": rel_err(out.detach(), out_want), "dq": rel_err(q.grad, dq_want),
+    errs = {"out": rel_err(out.detach()[keep], out_want[keep]), "dq": rel_err(q.grad, dq_want),
             "dn": rel_err(n.grad, dn_want)}
     if head in ("PairwiseHingeLoss", "PairwiseLogisticLoss"):
         errs["dp"] = rel_err(p.grad, dp_want)
     else:  # pos is not in the score: no gradient reaches the positive
         assert not p.grad.float().abs().max().item()
-    print(errs)
+    print(errs, f"near-tie rows left out: {int((~keep).sum())} of {r}")
     if head == "PairwiseHingeLoss" and mask_fn and margin == 0.0:
         assert not out.abs().max().item()  # every counted score is below its positive
         return
     assert errs["out"] <= 1e-5, errs
     assert max(v for k, v in errs.items() if k != "out") <= 1e-2, errs
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize("head", PAIRWISE_HEADS)
+@pytest.mark.parametrize("margin", [0.0, 0.5])
+def test_pairwise_kernels_drop_every_copy_of_the_positive(cuda, r, rn, d, head, margin):
+    """Every row shares one positive, and every seventh pool row is a copy
+    of it: with the mask on, the three kernels give the same bits as with
+    those rows marked invalid (each scores a copy exactly pos)."""
+    gen = torch.Generator().manual_seed(r + rn + d + 1)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    p = p[1].expand_as(p).contiguous()
+    copies = torch.zeros(rn, dtype=torch.bool, device=cuda)
+    copies[::7] = True
+    n = torch.where(copies[:, None], p[0], n)
+    g = row_valid.float()
+    with_copies = run_pairwise(q, p, n, neg_valid | copies, g, head, margin, True)
+    without = run_pairwise(q, p, n, (neg_valid | copies) & ~copies, g, head, margin, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dp", "dn"), with_copies, without):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize("head", PAIRWISE_HEADS)
+def test_pairwise_kernels_are_deterministic(cuda, r, rn, d, head):
+    gen = torch.Generator().manual_seed(r + rn + d + 2)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    g = row_valid.float()
+    first = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
+    second = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dp", "dn"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_pairwise_skips_the_dn_kernel_for_frozen_pool_rows(cuda):

@@ -187,3 +187,48 @@ def test_wrapper_rejects_heads_and_shapes_it_does_not_take():
         TFP.fused_pairwise_rowwise(q, q, q, torch.ones(4), head="InfoNCELoss")
     with pytest.raises(ValueError, match="fused_pairwise: .* do not agree"):
         TFP._check_cuda(q, torch.zeros(4, 8), torch.zeros(5, 7), torch.ones(5), "fused_pairwise")
+
+
+def near_tie_case():
+    """Rows built for near_tie_rows (D=16, bf16 values): row 1 scores 0.5
+    against pool row 7 (ContrastiveLoss's s = 0 at margin 0.5); pool row 3
+    copies row 2's positive; pool row 5 scores row 4's pos + 2**-14 (a near
+    tie of the mask, and of the hinge's s at margin 0); invalid pool row 9
+    does the same for row 5."""
+    gen = torch.Generator().manual_seed(21)
+    q, p, n = (torch.randn(*shape, generator=gen).bfloat16().float()
+               for shape in ((6, 16), (6, 16), (10, 16)))
+    q[1] = 0.0
+    q[1, 0] = 1.0
+    n[7] = 0.0
+    n[7, 0] = 0.5
+    n[3] = p[2]
+    for row, j in ((4, 5), (5, 9)):
+        q[row, 0], p[row, 0] = 2.0**-14, 1.0
+        n[j] = p[row]
+        n[j, 0] = 2.0
+    neg_valid = torch.ones(10, dtype=torch.bool)
+    neg_valid[9] = False
+    return q, p, n, neg_valid
+
+
+@pytest.mark.parametrize(("head", "margin", "mask_fn", "want"), [
+    ("PairwiseLogisticLoss", 0.0, True, [4]),
+    ("PairwiseLogisticLoss", 0.0, False, []),
+    ("NCELoss", 0.5, True, [4]),
+    ("PairwiseHingeLoss", 0.0, True, [4]),
+    ("PairwiseHingeLoss", 0.0, False, [4]),  # row 2's copy: s = 0 exactly in both
+    ("PairwiseHingeLoss", 0.5, False, []),
+    ("ContrastiveLoss", 0.5, False, [1]),
+    ("ContrastiveLoss", 0.5, True, [1, 4]),
+    ("ContrastiveLoss", 0.0, False, []),
+])
+def test_near_tie_rows_flags_what_two_sum_orders_may_decide_otherwise(head, margin, mask_fn,
+                                                                     want):
+    """The rows the card checks leave out of ``out`` on Gaussian inputs: a
+    valid pool score within delta of pos that is no copy of the positive
+    (mask on), or a relu head's s within its delta of 0."""
+    q, p, n, neg_valid = near_tie_case()
+    rows = TFP.near_tie_rows(q, p, n, neg_valid, head=head, margin=margin,
+                             mask_false_negatives=mask_fn)
+    assert rows.nonzero().flatten().tolist() == want

@@ -1,13 +1,15 @@
 // Shared device helpers for the port's kernels: activation-type traits
 // (bf16 or f32 storage, f32 arithmetic), the counter-based dropout hash,
-// warp reductions, the CUDA-core score chain of the pairwise kernels, the
-// tensor-core fragments (mma.sync, ldmatrix), cp.async staging and the
-// tensor-core score chain of the pool and table InfoNCE kernels.
+// warp reductions, the tensor-core fragments (mma.sync, ldmatrix),
+// cp.async staging and the tensor-core score chain of the pool, table and
+// pairwise kernels.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace xrt {
 
@@ -69,53 +71,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// --- score tiles of the pairwise kernels (bf16 operands, f32 fmaf
-// chains on CUDA cores) ---
-
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// rows [row0, row0 + nrows) of a (rows_total, D) bf16 matrix into f32
-// shared memory with leading dimension ld, zero past rows_total
-__device__ inline void load_rows(const __nv_bfloat16* __restrict__ src, int rows_total, int D,
-                                 int row0, int nrows, float* dst, int ld) {
-  for (int i = threadIdx.x; i < nrows * D; i += blockDim.x) {
-    const int r = i / D, k = i % D;
-    dst[r * ld + k] = row0 + r < rows_total ? bf(src[(size_t)(row0 + r) * D + k]) : 0.f;
-  }
-}
-
-// four scores' chains a . b[j * bstride], each one fmaf chain over k in
-// order.  A product of two bf16 values is exact in f32, so the chain
-// rounds the same wherever it runs and whichever operand comes first.
-__device__ __forceinline__ void dot4(const float* a, const float* b, int bstride, int D,
-                                     float acc[4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc[j] = 0.f;
-  for (int k = 0; k < D; ++k) {
-    const float av = a[k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = fmaf(av, b[j * bstride + k], acc[j]);
-  }
-}
-
-// pos of query rows [r0, r0 + nrows), their q rows staged in sq (leading
-// dimension ld): the chain of products with each row's positive, read
-// from device memory, in the order of dot4, then times scale (one
-// unfused multiply; exact at scale 1).  Zero past R.
-__device__ inline void positives(const float* sq, int ld, const __nv_bfloat16* __restrict__ p,
-                                 int R, int D, int r0, int nrows, float scale, float* spos) {
-  for (int t = threadIdx.x; t < nrows; t += blockDim.x) {
-    const int r = r0 + t;
-    float pos = 0.f;
-    if (r < R) {
-      const __nv_bfloat16* row = p + (size_t)r * D;
-      float acc = 0.f;
-      for (int k = 0; k < D; ++k) acc = fmaf(sq[t * ld + k], bf(row[k]), acc);
-      pos = __fmul_rn(acc, scale);
-    }
-    spos[t] = pos;
-  }
-}
 
 // ---- tensor-core products (mma.sync m16n8k16: bf16 operands, f32 sums).
 // Fragment layouts of the PTX ISA: with g = lane / 4 and t2 = 2 * (lane % 4),
@@ -211,7 +167,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-// ---- the score chain of the pool and table InfoNCE kernels (on the tensor cores)
+// ---- the score chain of the pool, table and pairwise kernels (on the tensor cores)
 
 // D zero-padded to whole k-steps of 16 (exact: the padding adds 0)
 __host__ __device__ __forceinline__ int pad16(int D) { return (D + 15) / 16 * 16; }
@@ -308,6 +264,23 @@ struct QueryFrags {
   }
 };
 
+// pos of a block's 32 query rows into spos, in the 8-warp tiling of the
+// pool, table and pairwise kernels (warp w scores rows 16 (w & 1) and
+// columns 8 (w >> 1) of each 32 x 32 tile): score_tile of the rows (qa)
+// against their own positives staged in sp, read off the diagonal (row
+// 16 mt + g (+ 8) meets column 8 nt + t2 (+ 1))
+template <int kKs, typename QA>
+__device__ __forceinline__ void diagonal_pos(const QA& qa, const __nv_bfloat16* sp, int ld,
+                                             int nks, float scale, float* spos) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  float x[4];
+  score_tile<kKs>(qa, sp + 8 * nt * ld, ld, nks, scale, x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (16 * mt + g + 8 * (i >> 1) == 8 * nt + t2 + (i & 1)) spos[8 * nt + t2 + (i & 1)] = x[i];
+}
+
 // a running (max, sum of exp(x - max)) merged with another: (m, s) takes
 // (m2, s2)
 __device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
@@ -319,6 +292,38 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---- loops of tiles split across blocks (blockIdx.y), the splits' partial
+// results added in split order by the caller
+
+// the tiles [t0, t1) of split blockIdx.y of ``total`` rows in tiles of
+// ``tile``
+__device__ __forceinline__ void split_tiles(int total, int tile, int splits, int& t0, int& t1) {
+  const long long nt = (total + tile - 1) / tile;
+  t0 = (int)(blockIdx.y * nt / splits);
+  t1 = (int)((blockIdx.y + 1) * nt / splits);
+}
+
+constexpr int kMinTilesPerSplit = 2;
+
+// the splits of a launch of ``kernel`` (``threads`` a block, ``smem`` bytes
+// of dynamic shared memory) over ``tiles`` blocks of the split dimension:
+// enough to fill the blocks the card holds at once, each split at least
+// kMinTilesPerSplit of the ``steps`` tiles it walks
+template <typename Kernel>
+cudaError_t plan_splits(Kernel kernel, size_t smem, int threads, int tiles, int steps,
+                        int* splits) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const int cap = std::max(1, steps / kMinTilesPerSplit);
+  *splits = std::max(1, std::min(cap, sms * per_sm / std::max(1, tiles)));
+  return cudaSuccess;
 }
 
 }  // namespace xrt

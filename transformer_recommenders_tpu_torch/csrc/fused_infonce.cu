@@ -53,8 +53,6 @@
 //   product f32 FMAs on CUDA cores.
 // No atomics: every sum runs in a fixed order, so two calls give the same
 // bits.
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace {
@@ -65,7 +63,6 @@ constexpr int kThreads = 256;     // 8 warps
 constexpr int kRows = 32;         // query rows of a block (forward and dq/dp)
 constexpr int kPool = 32;         // pool rows staged per step (forward and dq/dp)
 constexpr int kDlLd = kPool + 8;  // dl's leading dimension in shared memory (bf16)
-constexpr int kMinTilesPerSplit = 2;
 constexpr int kDnCols = 16;  // pool rows of a block (the dn pass)
 constexpr int kDnRows = 64;  // query rows staged per step (the dn pass)
 constexpr int kMaxD = 512;
@@ -79,12 +76,15 @@ using xrt::allow_smem;
 using xrt::bf;
 using xrt::cp_async_commit;
 using xrt::cp_async_wait;
+using xrt::diagonal_pos;
 using xrt::QueryFrags;
 using xrt::load_a;
 using xrt::mma_bf16;
 using xrt::merge;
 using xrt::pad16;
+using xrt::plan_splits;
 using xrt::score_tile;
+using xrt::split_tiles;
 using xrt::stage_rows_async;
 using xrt::zero_pad_cols;
 
@@ -111,13 +111,6 @@ __device__ __forceinline__ void online(float& m, float& s, float xa, bool ca, fl
   if (cb) s += expf(xb - m);
 }
 
-// the pool tiles [t0, t1) of split blockIdx.y
-__device__ __forceinline__ void split_tiles(int Rn, int splits, int& t0, int& t1) {
-  const long long nt = (Rn + kPool - 1) / kPool;
-  t0 = (int)(blockIdx.y * nt / splits);
-  t1 = (int)((blockIdx.y + 1) * nt / splits);
-}
-
 // Forward, block (row tile, split): the split's partial (max, sum) per row
 // into part[split][r], and pos (split 0).
 template <int kKs>
@@ -133,7 +126,7 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
   float* sred = spos + kRows;  // [n-tile][row][max, sum]
   const int r0 = blockIdx.x * kRows;
   int t0, t1;
-  split_tiles(Rn, splits, t0, t1);
+  split_tiles(Rn, kPool, splits, t0, t1);
   zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
   stage_rows_async(q, R, D, r0, kRows, sq, ld);
   stage_rows_async(p, R, D, r0, kRows, sn + kPool * ld, ld);  // the positives into buffer 1
@@ -146,14 +139,7 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
   const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
-
-  // pos: the block's query rows against their own positives, on the
-  // diagonal (row 16 mt + g (+ 8) meets column 8 nt + t2 (+ 1))
-  float x[4];
-  score_tile<kKs>(qa, sn + (kPool + 8 * nt) * ld, ld, nks, scale, x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (16 * mt + g + 8 * (i >> 1) == 8 * nt + t2 + (i & 1)) spos[8 * nt + t2 + (i & 1)] = x[i];
+  diagonal_pos<kKs>(qa, sn + kPool * ld, ld, nks, scale, spos);
   __syncthreads();
 
   float pos[2], m[2], s[2];
@@ -170,6 +156,7 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_fwd_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    float x[4];
     score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
     const int j = t * kPool + 8 * nt + t2;
     const float v0 = j < Rn ? nv[j] : 0.f, v1 = j + 1 < Rn ? nv[j + 1] : 0.f;
@@ -248,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) pool_infonce_dq_kernel(
   float* sgs = slse + kRows;
   const int r0 = blockIdx.x * kRows;
   int t0, t1;
-  split_tiles(Rn, splits, t0, t1);
+  split_tiles(Rn, kPool, splits, t0, t1);
   zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
   stage_rows_async(q, R, D, r0, kRows, sq, ld);
   cp_async_commit();
@@ -454,24 +441,6 @@ cudaError_t with_dq_kernel(int D, F f) {
 
 bool bad_shape(int Rn, int D) { return Rn < 0 || D <= 0 || D > kMaxD; }
 
-// the pool splits of a launch: enough blocks over the row tiles to fill
-// the blocks the card holds at once, at least kMinTilesPerSplit pool
-// tiles a split
-template <typename Kernel>
-cudaError_t plan_splits(Kernel kernel, size_t smem, int R, int Rn, int* splits) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  const int row_tiles = R > 0 ? (R + kRows - 1) / kRows : 1;
-  const int cap = std::max(1, (Rn + kPool - 1) / kPool / kMinTilesPerSplit);
-  *splits = std::max(1, std::min(cap, sms * per_sm / row_tiles));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // the pool splits that pool_infonce_fwd (pass 0) or pool_infonce_dq
@@ -479,13 +448,15 @@ cudaError_t plan_splits(Kernel kernel, size_t smem, int R, int Rn, int* splits) 
 // the caller sizes the workspace by it
 extern "C" int pool_infonce_splits(int R, int Rn, int D, int pass) {
   if (bad_shape(Rn, D) || R < 0) return -1;
+  const int row_tiles = (R + kRows - 1) / kRows, pool_tiles = (Rn + kPool - 1) / kPool;
   int splits = 0;
   const cudaError_t err =
       pass == 0 ? with_fwd_kernel(D, [&](auto kernel) {
-        return plan_splits(kernel, fwd_smem(D), R, Rn, &splits);
+        return plan_splits(kernel, fwd_smem(D), kThreads, row_tiles, pool_tiles, &splits);
       })
                 : with_dq_kernel(D, [&](auto kernel) {
-                    return plan_splits(kernel, dq_smem(D), R, Rn, &splits);
+                    return plan_splits(kernel, dq_smem(D), kThreads, row_tiles, pool_tiles,
+                                       &splits);
                   });
   return err == cudaSuccess ? splits : -1;
 }

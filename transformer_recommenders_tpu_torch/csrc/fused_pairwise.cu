@@ -23,46 +23,81 @@
 // c is 1 - margin taken in double by the caller and rounded to f32, as
 // JAX's weak-typed constant is.
 //
-// pos and every pool score are one fixed chain of fmaf over k = 0..D-1 on
-// the same bf16 values (xrt::dot4, xrt::positives), so a pool row that is
-// a copy of the positive scores exactly pos and the mask drops it.  The
-// forward writes each row's pos and den; both backward kernels read them
-// back.
+// pos and every pool score come from one device function, xrt::score_tile
+// (common.cuh), the chain of the pool and table InfoNCE kernels: mma.sync
+// m16n8k16 over the same bf16 values with the query row as the A operand,
+// k zero-padded to a multiple of 16 and taken in increasing steps of 16
+// from a zero accumulator (scale 1).  pos is the same chain against the
+// gathered positive rows, on the diagonal of a block's rows against their
+// own positives.  A pool row that is a copy of a row's positive therefore
+// scores exactly that row's pos in all three kernels, and the mask l < pos
+// drops it in each.  The forward writes each row's pos and den; both
+// backward kernels read them back.
 //
 // What bounds it on the H100: 2 R Rn D operations forward and 4 R Rn D
-// for each backward kernel (the scores again, then one product), tensor-
-// core work: 2.2 us and 4.3 us at R = Rn = 4096, D = 64; and for the
-// smooth heads two special-function results (exp and log, or exp and a
-// reciprocal) per counted score, about as long again at 16 results per
-// SM per clock.  This first version runs the products as f32 FMAs on
-// CUDA cores with the operands staged in shared memory, far from either
-// bound; the (R, Rn) scores never reach device memory.  A block loops over
-// the tiles that the TPU's sequential grid walks: the forward and dq/dp by
-// blocks of query rows over every pool tile, dn by blocks of pool rows over
-// every query tile in order.  No atomics, so every result is
-// deterministic.  (fused_infonce.cu, the pool InfoNCE kernels of the same
-// layout, scores on the tensor cores (xrt::score_tile) and splits the pool
-// across blocks; these kernels keep the fmaf chain.)
+// for each backward kernel (the scores again, then one product) on the
+// tensor cores, 2.2 us and 4.3 us at path C's R = Rn = 4096, D = 64; and
+// for the smooth heads two special-function results per counted score
+// (exp and log forward, exp and a reciprocal backward), 3.6 us at 16
+// results per SM per clock.  The (R, Rn) scores never reach device memory.
+// The design is the pool InfoNCE kernels' (fused_infonce.cu) and the table
+// InfoNCE dT pass's (fused_table_infonce.cu):
+// - forward: a block takes kRows = 32 query rows and one split of the pool
+//   tiles of kPool = 32 rows (grid (R / 32, splits), the splits filling the
+//   card's resident blocks, at least two tiles each); its 8 warps each
+//   score a 16 x 8 tile of every 32 x 32 tile of scores.  q and the pool
+//   tiles are staged in shared memory as bf16 (leading dimension D + 8),
+//   the pool double-buffered with cp.async; the query fragments stay in
+//   registers up to D = 384.  Each lane sums f(s) and the count of its
+//   counted scores; the lanes of a quad, then the four warps of a row,
+//   add in a fixed order into the split's (num, den).  A second kernel
+//   adds the splits in split order and writes out and den (a row with no
+//   counted negative gets out = 0 exactly); split 0's blocks write pos.
+// - dq/dp: the forward's tile over every pool tile (one block per 32
+//   query rows).  dl goes to shared memory (f32 values of bf16, transposed)
+//   and dq += dl N_tile runs as f32 FMAs on CUDA cores, each thread four
+//   rows by two columns; the block ends with dpos, dq and dp.
+// - dn: a block takes kPool = 32 pool rows and one split of the query-row
+//   tiles of 32, walking them in order, double-buffered with cp.async
+//   (grid (Rn / 32, splits)); its scores are score_tile's with the query
+//   rows as A, dl goes to shared memory transposed as bf16, and dl^T Q_tile
+//   runs on the tensor cores (B fragments by ldmatrix.trans from the
+//   row-major query tile); a last kernel adds the splits' partial dn in
+//   split order.
+// No atomics: every sum runs in a fixed order, so two calls give the same
+// bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowTile = 16;  // query rows of a block (forward and the dq pass)
-constexpr int kColTile = 64;  // pool rows staged per step (forward and the dq pass)
-constexpr int kDnCols = 16;   // pool rows of a block (the dn pass)
-constexpr int kDnRows = 64;   // query rows staged per step (the dn pass)
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kRows = 32;      // query rows of a block (forward, dq) or of a step (dn)
+constexpr int kPool = 32;      // pool rows of a step (forward, dq) or of a block (dn)
+constexpr int kDlLd = kRows + 8;  // dn's transposed dl in shared memory (bf16)
+constexpr int kDlTLd = kRows + 4;  // dq's transposed dl in shared memory (f32, float4 rows)
 constexpr int kMaxD = 512;
-constexpr int kAcc = kRowTile * kMaxD / kThreads;  // outputs a thread accumulates
-static_assert(kDnCols * kMaxD / kThreads == kAcc, "both passes hold kAcc outputs a thread");
+static_assert(kRows == 2 * 16 && kPool == 4 * 8 && kThreads == 8 * 32,
+              "8 warps, one 16 x 8 score tile each");
+static_assert(kRows <= kPool, "the positives are staged in a pool buffer");
 
 constexpr int kContrastive = 0, kHinge = 1, kLogistic = 2, kNce = 3;
 
 using xrt::allow_smem;
-using xrt::bf;
-using xrt::dot4;
-using xrt::load_rows;
-using xrt::positives;
+using xrt::cp_async_commit;
+using xrt::cp_async_wait;
+using xrt::diagonal_pos;
+using xrt::ld32;
+using xrt::load_a;
+using xrt::mma_bf16;
+using xrt::pad16;
+using xrt::plan_splits;
+using xrt::QueryFrags;
+using xrt::score_tile;
+using xrt::split_tiles;
+using xrt::stage_rows_async;
+using xrt::zero_pad_cols;
 
 // the head's arguments, one value for the whole launch
 struct Head {
@@ -94,233 +129,434 @@ __device__ __forceinline__ bool counted(float l, float nv, float pos, int mask_f
 }
 
 // w f' of one pool score, unrounded: gs is the row's g / (den + 1e-9)
-__device__ __forceinline__ float weighted_slope(const Head& h, float l, float nv, float pos,
+__device__ __forceinline__ float weighted_slope(const Head& hd, float l, float nv, float pos,
                                                 float gs, int mask_fn) {
-  return counted(l, nv, pos, mask_fn) ? __fmul_rn(gs, h.slope(h.score(l, pos))) : 0.f;
+  return counted(l, nv, pos, mask_fn) ? __fmul_rn(gs, hd.slope(hd.score(l, pos))) : 0.f;
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// the lanes of a quad (lane & ~3 .. + 3) add v, every lane getting the same bits
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// Forward, block (row tile, split): the split's partial (sum of f v, sum
+// of v) per row into part[split][r], and pos (split 0).
+template <int kKs>
 __global__ void __launch_bounds__(kThreads) pairwise_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ p,
-    const __nv_bfloat16* __restrict__ n, const float* __restrict__ nv, float* __restrict__ out,
-    float* __restrict__ den_out, float* __restrict__ pos_out, int R, int Rn, int D, Head h,
-    int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;  // odd stride: the 16 rows a half-warp reads hit 16 banks
-  float* sq = smem;
-  float* sn = sq + kRowTile * ld;
-  float* snv = sn + kColTile * ld;
-  float* spos = snv + kColTile;
-  const int r0 = blockIdx.x * kRowTile;
-  load_rows(q, R, D, r0, kRowTile, sq, ld);
-  __syncthreads();
-  positives(sq, ld, p, R, D, r0, kRowTile, 1.f, spos);
+    const bf16* __restrict__ q, const bf16* __restrict__ p, const bf16* __restrict__ n,
+    const float* __restrict__ nv, float* __restrict__ part, float* __restrict__ pos_out, int R,
+    int Rn, int D, Head hd, int mask_fn, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nks = pad16(D) / 16, ld = pad16(D) + 8;
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
+  float* spos = reinterpret_cast<float*>(sn + 2 * kPool * ld);
+  float* sred = spos + kRows;  // [n-tile][row][num, den]
+  const int r0 = blockIdx.x * kRows;
+  int t0, t1;
+  split_tiles(Rn, kPool, splits, t0, t1);
+  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
+  stage_rows_async(q, R, D, r0, kRows, sq, ld);
+  stage_rows_async(p, R, D, r0, kRows, sn + kPool * ld, ld);  // the positives into buffer 1
+  cp_async_commit();
+  if (t0 < t1) stage_rows_async(n, Rn, D, t0 * kPool, kPool, sn, ld);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  // a half-warp per row, each lane on pool rows lane, lane + 16, lane +
-  // 32, lane + 48 of a tile, keeping partial sums of f v and v
-  const int rr = threadIdx.x / 16, lane = threadIdx.x % 16;
-  const float pos = spos[rr];
-  float num = 0.f, den = 0.f;
-  for (int n0 = 0; n0 < Rn; n0 += kColTile) {
-    load_rows(n, Rn, D, n0, kColTile, sn, ld);
-    for (int i = threadIdx.x; i < kColTile; i += blockDim.x)
-      snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
-    __syncthreads();
-    float l4[4];
-    dot4(sq + rr * ld, sn + lane * ld, 16 * ld, D, l4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
+  diagonal_pos<kKs>(qa, sn + kPool * ld, ld, nks, 1.f, spos);
+  __syncthreads();
+
+  float pos[2], num[2] = {0.f, 0.f}, den[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (counted(l4[j], snv[lane + 16 * j], pos, mask_fn)) {
-        num += h.value(h.score(l4[j], pos));
-        den += 1.f;
-      }
-    }
+  for (int h = 0; h < 2; ++h) pos[h] = spos[16 * mt + g + 8 * h];
+  for (int t = t0; t < t1; ++t) {
+    const bf16* cur = sn + ((t - t0) & 1) * kPool * ld;
+    if (t + 1 < t1)
+      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1 - t0) & 1) * kPool * ld, ld);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float x[4];
+    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, 1.f, x);
+    const int j = t * kPool + 8 * nt + t2;
+    const float v[2] = {j < Rn ? nv[j] : 0.f, j + 1 < Rn ? nv[j + 1] : 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (counted(x[2 * h + e], v[e], pos[h], mask_fn)) {
+          num[h] += hd.value(hd.score(x[2 * h + e], pos[h]));
+          den[h] += 1.f;
+        }
     __syncthreads();
   }
-  num = half_warp_sum(num);
-  den = half_warp_sum(den);
-  const int r = r0 + rr;
-  if (lane == 0 && r < R) {
-    // a row with no counted negative: num = den = 0, so out = 0 exactly
-    out[r] = num / (den + 1e-9f);
-    den_out[r] = den;
-    pos_out[r] = pos;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    num[h] = quad_sum(num[h]);
+    den[h] = quad_sum(den[h]);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* at = sred + (nt * kRows + 16 * mt + g + 8 * h) * 2;
+      at[0] = num[h];
+      at[1] = den[h];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {
+    const int row = threadIdx.x, r = r0 + row;
+    float nn = sred[row * 2], dd = sred[row * 2 + 1];
+    for (int w = 1; w < 4; ++w) {
+      nn += sred[(w * kRows + row) * 2];
+      dd += sred[(w * kRows + row) * 2 + 1];
+    }
+    if (r < R) {
+      float* at = part + ((size_t)blockIdx.y * R + r) * 2;
+      at[0] = nn;
+      at[1] = dd;
+      if (blockIdx.y == 0) pos_out[r] = spos[row];
+    }
   }
 }
 
-// Backward, one block per kRowTile query rows: dq = dl N + dpos p and
-// dp = dpos q, over every pool tile.
+// The forward's second kernel: each row's splits added in split order; a
+// row with no counted negative has num = den = 0, so out = 0 exactly.
+__global__ void pairwise_combine_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                        float* __restrict__ den_out, int R, int splits) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  float num = 0.f, den = 0.f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* at = part + ((size_t)sp * R + r) * 2;
+    num += at[0];
+    den += at[1];
+  }
+  out[r] = num / (den + 1e-9f);
+  den_out[r] = den;
+}
+
+// Backward, one block per kRows query rows over every pool tile:
+// dq = dl N + dpos p and dp = dpos q.
+template <int kKs>
 __global__ void __launch_bounds__(kThreads) pairwise_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ p,
-    const __nv_bfloat16* __restrict__ n, const float* __restrict__ nv,
-    const float* __restrict__ den, const float* __restrict__ g, const float* __restrict__ pos_in,
-    float* __restrict__ dq, float* __restrict__ dp, int R, int Rn, int D, Head h, int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sq = smem;
-  float* sn = sq + kRowTile * ld;
-  float* sdl = sn + kColTile * ld;
-  float* snv = sdl + kRowTile * kColTile;
-  float* spos = snv + kColTile;
-  float* sgs = spos + kRowTile;
-  float* sdpos = sgs + kRowTile;
-  const int r0 = blockIdx.x * kRowTile;
-  load_rows(q, R, D, r0, kRowTile, sq, ld);
-  for (int t = threadIdx.x; t < kRowTile; t += blockDim.x) {
+    const bf16* __restrict__ q, const bf16* __restrict__ p, const bf16* __restrict__ n,
+    const float* __restrict__ nv, const float* __restrict__ den, const float* __restrict__ g,
+    const float* __restrict__ pos_in, float* __restrict__ dq, float* __restrict__ dp, int R,
+    int Rn, int D, Head hd, int mask_fn) {
+  // the product's items, (four rows, two columns) each: kItems a thread
+  constexpr int kItems = (kKs > 0 ? kKs : kMaxD / 16) / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8, pairs = Dp / 2;
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
+  float* sdl = reinterpret_cast<float*>(sn + 2 * kPool * ld);  // dl transposed: [j][row]
+  float* spos = sdl + kPool * kDlTLd;
+  float* sgs = spos + kRows;
+  float* sred = sgs + kRows;  // [n-tile][row]: the warps' sums of w f'
+  float* sdpos = sred + 4 * kRows;
+  const int r0 = blockIdx.x * kRows;
+  const int tiles = (Rn + kPool - 1) / kPool;
+  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
+  stage_rows_async(q, R, D, r0, kRows, sq, ld);
+  cp_async_commit();
+  if (tiles > 0) stage_rows_async(n, Rn, D, 0, kPool, sn, ld);
+  cp_async_commit();
+  for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
     const int r = r0 + t;
     spos[t] = r < R ? pos_in[r] : 0.f;
     sgs[t] = r < R ? g[r] / (den[r] + 1e-9f) : 0.f;
   }
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int rr = threadIdx.x / 16, lane = threadIdx.x % 16;
-  float acc[kAcc];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
+  float acc[kItems][4][2];  // [item][row][column]
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  float wsum = 0.f;  // this lane's part of sum_j w f' of row rr
-  for (int n0 = 0; n0 < Rn; n0 += kColTile) {
-    load_rows(n, Rn, D, n0, kColTile, sn, ld);
-    for (int i = threadIdx.x; i < kColTile; i += blockDim.x)
-      snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
+  for (int i = 0; i < kItems; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[i][k / 2][k % 2] = 0.f;
+  float wsum[2] = {0.f, 0.f};  // this lane's part of sum_j w f' of rows gr, gr + 8 (of 16 mt)
+
+  for (int t = 0; t < tiles; ++t) {
+    const bf16* cur = sn + (t & 1) * kPool * ld;
+    if (t + 1 < tiles)
+      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1) & 1) * kPool * ld, ld);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    float l4[4];
-    dot4(sq + rr * ld, sn + lane * ld, 16 * ld, D, l4);
+    float x[4];
+    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, 1.f, x);
+    const int j = t * kPool + 8 * nt + t2;
+    const float v[2] = {j < Rn ? nv[j] : 0.f, j + 1 < Rn ? nv[j + 1] : 0.f};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = lane + 16 * j;
-      const bool live = n0 + jj < Rn && r0 + rr < R;
-      const float wf = live ? weighted_slope(h, l4[j], snv[jj], spos[rr], sgs[rr], mask_fn) : 0.f;
-      wsum += wf;
-      sdl[rr * kColTile + jj] = xrt::Act<__nv_bfloat16>::round(wf);
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + gr + 8 * h;
+      const bool live = r0 + row < R;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float wf =
+            live ? weighted_slope(hd, x[2 * h + e], v[e], spos[row], sgs[row], mask_fn) : 0.f;
+        wsum[h] += wf;
+        sdl[(8 * nt + t2 + e) * kDlTLd + row] = xrt::Act<bf16>::round(wf);
+      }
     }
     __syncthreads();
+    // dq += dl (32 x 32) N_tile (32 x Dp), k the tile's pool rows in order:
+    // item (rows 4 rg .. 4 rg + 3, columns 2 cp, 2 cp + 1)
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int o = threadIdx.x + kThreads * i;
-      if (o < kRowTile * D) {
-        const int r = o / D, d = o % D;
-        for (int j = 0; j < kColTile; ++j)
-          acc[i] = fmaf(sdl[r * kColTile + j], sn[j * ld + d], acc[i]);
+    for (int i = 0; i < kItems; ++i) {
+      const int item = threadIdx.x + kThreads * i;
+      if (item < 8 * pairs) {
+        const int cp = item % pairs, rg = item / pairs;
+#pragma unroll 8
+        for (int jj = 0; jj < kPool; ++jj) {
+          const float4 d4 = *reinterpret_cast<const float4*>(sdl + jj * kDlTLd + 4 * rg);
+          const uint32_t nn = ld32(cur + jj * ld + 2 * cp);
+          const float n0 = __uint_as_float(nn << 16), n1 = __uint_as_float(nn & 0xffff0000u);
+          const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            acc[i][k][0] = fmaf(dv[k], n0, acc[i][k][0]);
+            acc[i][k][1] = fmaf(dv[k], n1, acc[i][k][1]);
+          }
+        }
       }
     }
     __syncthreads();
   }
-  wsum = half_warp_sum(wsum);
-  if (lane == 0) sdpos[rr] = h.has_dpos() ? __fmul_rn(wsum, -h.c) : 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) wsum[h] = quad_sum(wsum[h]);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sred[nt * kRows + 16 * mt + gr + 8 * h] = wsum[h];
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows) {
+    const int row = threadIdx.x;
+    float s = sred[row];
+    for (int w = 1; w < 4; ++w) s += sred[w * kRows + row];
+    sdpos[row] = hd.has_dpos() ? __fmul_rn(s, -hd.c) : 0.f;
+  }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int o = threadIdx.x + kThreads * i;
-    if (o < kRowTile * D && r0 + o / D < R) {
-      const int r = o / D, d = o % D;
-      const size_t at = (size_t)r0 * D + o;
-      dq[at] = __fadd_rn(acc[i], __fmul_rn(sdpos[r], bf(p[at])));
-      dp[at] = __fmul_rn(sdpos[r], sq[r * ld + d]);
+  for (int i = 0; i < kItems; ++i) {
+    const int item = threadIdx.x + kThreads * i;
+    if (item < 8 * pairs) {
+      const int cp = item % pairs, rg = item / pairs;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int row = 4 * rg + k, r = r0 + row;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * cp + e;
+          if (r < R && col < D) {
+            const size_t at = (size_t)r * D + col;
+            dq[at] = __fadd_rn(acc[i][k][e], __fmul_rn(sdpos[row], xrt::bf(p[at])));
+            dp[at] = __fmul_rn(sdpos[row], xrt::bf(sq[row * ld + col]));
+          }
+        }
+      }
     }
   }
 }
 
-// Backward, one block per kDnCols pool rows: dn = dl^T Q over every query
-// row, in order.
+// dn, block (pool tile, split): the split's dl^T Q over its query-row tiles
+// in order into out (dn itself with one split, else part[split], (Rn, D)
+// f32)
+template <int kJ>
 __global__ void __launch_bounds__(kThreads) pairwise_dn_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ n,
-    const float* __restrict__ nv, const float* __restrict__ den, const float* __restrict__ g,
-    const float* __restrict__ pos_in, float* __restrict__ dn, int R, int Rn, int D, Head h,
-    int mask_fn) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = D + 1;
-  float* sn = smem;
-  float* sq = sn + kDnCols * ld;
-  float* sdl = sq + kDnRows * ld;
-  float* snv = sdl + kDnRows * kDnCols;
-  float* spos = snv + kDnCols;
-  float* sgs = spos + kDnRows;
-  const int n0 = blockIdx.x * kDnCols;
-  load_rows(n, Rn, D, n0, kDnCols, sn, ld);
-  for (int i = threadIdx.x; i < kDnCols; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
+    const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
+    const float* __restrict__ den, const float* __restrict__ g, const float* __restrict__ pos_in,
+    float* __restrict__ out, int R, int Rn, int D, Head hd, int mask_fn, int splits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
+  bf16* sn = reinterpret_cast<bf16*>(smem);  // the block's kPool pool rows
+  bf16* sq = sn + kPool * ld;                // two query buffers of kRows rows
+  bf16* sdl = sq + 2 * kRows * ld;           // dl transposed: sdl[j * kDlLd + r]
+  float* snv = reinterpret_cast<float*>(sdl + kPool * kDlLd);
+  float* spos = snv + kPool;
+  float* sgs = spos + kRows;
+  const int n0 = blockIdx.x * kPool;
+  int t0, t1;
+  split_tiles(R, kRows, splits, t0, t1);
+  zero_pad_cols(sn, kPool + 2 * kRows, D, ld);
+  stage_rows_async(n, Rn, D, n0, kPool, sn, ld);
+  if (t0 < t1) stage_rows_async(q, R, D, t0 * kRows, kRows, sq, ld);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kPool; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
 
-  // scores: lane jn = t % 16 on pool row jn, query rows rb + 16 j of the tile
-  const int jn = threadIdx.x % kDnCols, rb = threadIdx.x / kDnCols;
-  float acc[kAcc];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  float acc[kJ][2][2][4];  // [column block][m-tile][n8 half][fragment]
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kDnRows) {
-    __syncthreads();
-    load_rows(q, R, D, r0, kDnRows, sq, ld);
-    for (int t = threadIdx.x; t < kDnRows; t += blockDim.x) {
-      const int r = r0 + t;
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[jb][i / 8][(i / 4) % 2][i % 4] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const bf16* cur = sq + ((t - t0) & 1) * kRows * ld;
+    if (t + 1 < t1)
+      stage_rows_async(q, R, D, (t + 1) * kRows, kRows, sq + ((t + 1 - t0) & 1) * kRows * ld, ld);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
+      const int r = t * kRows + i;
       const bool in = r < R;
-      spos[t] = in ? pos_in[r] : 0.f;
-      sgs[t] = in ? g[r] / (den[r] + 1e-9f) : 0.f;
+      spos[i] = in ? pos_in[r] : 0.f;
+      sgs[i] = in ? g[r] / (den[r] + 1e-9f) : 0.f;
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    // scores: the query rows 16 mt (+ 16) as A against pool rows 8 nt
+    const bf16* qw = cur + 16 * mt * ld;
+    float x[4];
+    score_tile<0>([=](int ks, uint32_t a[4]) { load_a(qw, ld, 16 * ks, a); }, sn + 8 * nt * ld,
+                  ld, nks, 1.f, x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * mt + gr + 8 * (i >> 1), jn = 8 * nt + t2 + (i & 1);
+      const bool live = n0 + jn < Rn && t * kRows + row < R;
+      const float d =
+          live ? weighted_slope(hd, x[i], snv[jn], spos[row], sgs[row], mask_fn) : 0.f;
+      sdl[jn * kDlLd + row] = __float2bfloat16_rn(d);
     }
     __syncthreads();
-    float l4[4];
-    dot4(sn + jn * ld, sq + rb * ld, 16 * ld, D, l4);
+    // dn += dl^T (32 x 32) Q_tile (32 x Dp), k the tile's query rows in order
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = rb + 16 * j;
-      const bool live = n0 + jn < Rn && r0 + r < R;
-      sdl[r * kDnCols + jn] = live ? xrt::Act<__nv_bfloat16>::round(weighted_slope(
-                                         h, l4[j], snv[jn], spos[r], sgs[r], mask_fn))
-                                   : 0.f;
-    }
-    __syncthreads();
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      uint32_t a0[4], a1[4];
+      load_a(sdl, kDlLd, 16 * kk, a0);
+      load_a(sdl + 16 * kDlLd, kDlLd, 16 * kk, a1);
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int o = threadIdx.x + kThreads * i;
-      if (o < kDnCols * D) {
-        const int cc = o / D, d = o % D;
-        for (int r = 0; r < kDnRows; ++r)
-          acc[i] = fmaf(sdl[r * kDnCols + cc], sq[r * ld + d], acc[i]);
+      for (int jb = 0; jb < kJ; ++jb) {
+        const int c = 16 * warp + 128 * jb;
+        if (c < Dp) {
+          uint32_t b[4];
+          xrt::ldmatrix_x4_trans(b, cur + 16 * kk * ld + c, ld);
+          mma_bf16(acc[jb][0][0], a0, b);
+          mma_bf16(acc[jb][0][1], a0, b + 2);
+          mma_bf16(acc[jb][1][0], a1, b);
+          mma_bf16(acc[jb][1][1], a1, b + 2);
+        }
       }
     }
+    __syncthreads();
   }
+  cp_async_wait<0>();  // no query tile: the pool rows' copy is still in flight
+  float* o = out + (splits > 1 ? (size_t)blockIdx.y * Rn * D : 0);
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int o = threadIdx.x + kThreads * i;
-    if (o < kDnCols * D && n0 + o / D < Rn) dn[(size_t)n0 * D + o] = acc[i];
-  }
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = n0 + 16 * mi + gr + 8 * h, col = 16 * warp + 128 * jb + 8 * half + t2;
+          if (j < Rn) {
+            if (col < D) o[(size_t)j * D + col] = acc[jb][mi][half][2 * h];
+            if (col + 1 < D) o[(size_t)j * D + col + 1] = acc[jb][mi][half][2 * h + 1];
+          }
+        }
+}
+
+// out[i] = the splits' partial sums part[sp * total + i], added in split
+// order
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  size_t total, int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
+  out[i] = s;
 }
 
 size_t fwd_smem(int D) {
-  return sizeof(float) * ((size_t)(kRowTile + kColTile) * (D + 1) + kColTile + kRowTile);
+  return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
+         sizeof(float) * (kRows + 4 * kRows * 2);
 }
 size_t dq_smem(int D) {
-  return sizeof(float) * ((size_t)(kRowTile + kColTile) * (D + 1) + kRowTile * kColTile +
-                          kColTile + 3 * kRowTile);
+  return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
+         sizeof(float) * ((size_t)kPool * kDlTLd + 7 * kRows);
 }
 size_t dn_smem(int D) {
-  return sizeof(float) * ((size_t)(kDnCols + kDnRows) * (D + 1) + kDnRows * kDnCols + kDnCols +
-                          2 * kDnRows);
+  return sizeof(bf16) * ((size_t)(kPool + 2 * kRows) * (pad16(D) + 8) + kPool * kDlLd) +
+         sizeof(float) * (kPool + 2 * kRows);
 }
 
-bool bad_args(int Rn, int D, int head) {
-  return Rn < 0 || D <= 0 || D > kMaxD || head < kContrastive || head > kNce;
+// f(kernel) with the instantiation for D: the query fragments in
+// registers up to D = 384 (forward, dq); dn's column blocks a warp
+template <typename F>
+cudaError_t with_fwd_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pairwise_fwd_kernel<8>);
+  if (pad16(D) <= 384) return f(pairwise_fwd_kernel<24>);
+  return f(pairwise_fwd_kernel<0>);
+}
+template <typename F>
+cudaError_t with_dq_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pairwise_dq_kernel<8>);
+  if (pad16(D) <= 384) return f(pairwise_dq_kernel<24>);
+  return f(pairwise_dq_kernel<0>);
+}
+template <typename F>
+cudaError_t with_dn_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pairwise_dn_kernel<1>);
+  if (pad16(D) <= 384) return f(pairwise_dn_kernel<3>);
+  return f(pairwise_dn_kernel<4>);
+}
+
+bool bad_args(int R, int Rn, int D, int head) {
+  return R < 0 || Rn < 0 || D <= 0 || D > kMaxD || head < kContrastive || head > kNce;
 }
 
 }  // namespace
 
+// the splits that pairwise_fwd (pass 0) takes over the pool or pairwise_dn
+// (pass 1) over the query rows, at this shape on the current device, or
+// -1 on an error; the caller sizes the workspaces by them
+extern "C" int pairwise_splits(int R, int Rn, int D, int pass) {
+  if (bad_args(R, Rn, D, kContrastive) || pass < 0 || pass > 1) return -1;
+  const int row_tiles = (R + kRows - 1) / kRows, pool_tiles = (Rn + kPool - 1) / kPool;
+  int splits = 0;
+  const cudaError_t err =
+      pass == 0 ? with_fwd_kernel(D, [&](auto kernel) {
+        return plan_splits(kernel, fwd_smem(D), kThreads, row_tiles, pool_tiles, &splits);
+      })
+                : with_dn_kernel(D, [&](auto kernel) {
+                    return plan_splits(kernel, dn_smem(D), kThreads, pool_tiles, row_tiles,
+                                       &splits);
+                  });
+  return err == cudaSuccess ? splits : -1;
+}
+
 // q, p: (R, D) bf16, n: (Rn, D) bf16, nv: (Rn,) f32; head 0-3 as above,
-// c = 1 - margin; writes out, den and pos, (R,) f32
+// c = 1 - margin; writes out, den and pos, (R,) f32; part: an f32
+// workspace of splits * R * 2
 extern "C" int pairwise_fwd(const void* q, const void* p, const void* n, const float* nv,
-                            float* out, float* den, float* pos, int R, int Rn, int D, int head,
-                            float margin, float c, int mask_fn, void* stream) {
-  if (bad_args(Rn, D, head)) return cudaErrorInvalidValue;
-  if (R <= 0) return cudaSuccess;
+                            float* out, float* den, float* pos, float* part, int R, int Rn, int D,
+                            int head, float margin, float c, int mask_fn, int splits,
+                            void* stream) {
+  if (bad_args(R, Rn, D, head) || splits < 1) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
   const size_t smem = fwd_smem(D);
-  cudaError_t err = allow_smem(pairwise_fwd_kernel, smem);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = with_fwd_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((R + kRows - 1) / kRows, splits), kThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(p), static_cast<const bf16*>(n),
+        nv, part, pos, R, Rn, D, Head{head, margin, c}, mask_fn, splits);
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
-  pairwise_fwd_kernel<<<(R + kRowTile - 1) / kRowTile, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(p),
-      static_cast<const __nv_bfloat16*>(n), nv, out, den, pos, R, Rn, D, Head{head, margin, c},
-      mask_fn);
+  pairwise_combine_kernel<<<(R + 255) / 256, 256, 0, s>>>(part, out, den, R, splits);
   return cudaGetLastError();
 }
 
@@ -330,31 +566,42 @@ extern "C" int pairwise_dq(const void* q, const void* p, const void* n, const fl
                            const float* den, const float* g, const float* pos, float* dq,
                            float* dp, int R, int Rn, int D, int head, float margin, float c,
                            int mask_fn, void* stream) {
-  if (bad_args(Rn, D, head)) return cudaErrorInvalidValue;
-  if (R <= 0) return cudaSuccess;
+  if (bad_args(R, Rn, D, head)) return cudaErrorInvalidValue;
+  if (R == 0) return cudaSuccess;
   const size_t smem = dq_smem(D);
-  cudaError_t err = allow_smem(pairwise_dq_kernel, smem);
-  if (err != cudaSuccess) return err;
-  pairwise_dq_kernel<<<(R + kRowTile - 1) / kRowTile, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(p),
-      static_cast<const __nv_bfloat16*>(n), nv, den, g, pos, dq, dp, R, Rn, D,
-      Head{head, margin, c}, mask_fn);
-  return cudaGetLastError();
+  return with_dq_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<(R + kRows - 1) / kRows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(p), static_cast<const bf16*>(n),
+        nv, den, g, pos, dq, dp, R, Rn, D, Head{head, margin, c}, mask_fn);
+    return cudaGetLastError();
+  });
 }
 
-// dn, (Rn, D) f32, for the cotangent g of out
+// dn, (Rn, D) f32, for the cotangent g of out; den and pos are the
+// forward's; part: an f32 workspace of splits * Rn * D, unused (may be
+// null) with one split
 extern "C" int pairwise_dn(const void* q, const void* n, const float* nv, const float* den,
-                           const float* g, const float* pos, float* dn, int R, int Rn, int D,
-                           int head, float margin, float c, int mask_fn, void* stream) {
-  if (bad_args(Rn, D, head)) return cudaErrorInvalidValue;
+                           const float* g, const float* pos, float* dn, float* part, int R, int Rn,
+                           int D, int head, float margin, float c, int mask_fn, int splits,
+                           void* stream) {
+  if (bad_args(R, Rn, D, head) || splits < 1 || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   if (Rn == 0) return cudaSuccess;
   const size_t smem = dn_smem(D);
-  cudaError_t err = allow_smem(pairwise_dn_kernel, smem);
-  if (err != cudaSuccess) return err;
-  pairwise_dn_kernel<<<(Rn + kDnCols - 1) / kDnCols, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(n), nv, den, g, pos,
-      dn, R, Rn, D, Head{head, margin, c}, mask_fn);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = splits > 1 ? part : dn;
+  cudaError_t err = with_dn_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((Rn + kPool - 1) / kPool, splits), kThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(n), nv, den, g, pos, o, R, Rn, D,
+        Head{head, margin, c}, mask_fn, splits);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = (size_t)Rn * D;
+  sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, dn, total, splits);
   return cudaGetLastError();
 }

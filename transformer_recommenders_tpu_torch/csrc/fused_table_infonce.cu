@@ -55,8 +55,6 @@
 //   summed in order as in dq.
 // No atomics: every sum runs in a fixed order, so two calls give the same
 // bits.
-#include <algorithm>
-
 #include "common.cuh"
 
 namespace {
@@ -67,7 +65,6 @@ constexpr int kThreads = 256;     // 8 warps
 constexpr int kRows = 32;         // query rows of a block (forward, dq) or of a step (dT)
 constexpr int kCols = 32;         // catalog rows of a step (forward, dq) or of a block (dT)
 constexpr int kDlLd = kCols + 8;  // dl's leading dimension in shared memory (bf16)
-constexpr int kMinTilesPerSplit = 2;
 constexpr int kMaxD = 512;
 static_assert(kRows == 2 * 16 && kCols == 4 * 8 && kThreads == 8 * 32,
               "8 warps, one 16 x 8 score tile each");
@@ -76,12 +73,15 @@ using xrt::allow_smem;
 using xrt::cp_async16;
 using xrt::cp_async_commit;
 using xrt::cp_async_wait;
+using xrt::diagonal_pos;
 using xrt::QueryFrags;
 using xrt::load_a;
 using xrt::mma_bf16;
 using xrt::merge;
 using xrt::pad16;
+using xrt::plan_splits;
 using xrt::score_tile;
+using xrt::split_tiles;
 using xrt::stage_rows_async;
 using xrt::zero_pad_cols;
 
@@ -110,14 +110,6 @@ __device__ __forceinline__ void online(float& m, float& s, float x, float w) {
   }
 }
 
-// the tiles [t0, t1) of ``total`` rows in tiles of ``tile`` of split
-// blockIdx.y
-__device__ __forceinline__ void split_tiles(int total, int tile, int splits, int& t0, int& t1) {
-  const long long nt = (total + tile - 1) / tile;
-  t0 = (int)(blockIdx.y * nt / splits);
-  t1 = (int)((blockIdx.y + 1) * nt / splits);
-}
-
 // the positive rows table[pos_idx[r]] of query rows [r0, r0 + nrows) into
 // shared memory (leading dimension ld), a zero row where r >= R or
 // pos_idx[r] is outside [0, N); cp.async where D and table allow (the
@@ -141,21 +133,6 @@ __device__ void stage_positives_async(const bf16* __restrict__ table, int N, int
       dst[r * ld + k] = p >= 0 ? table[(size_t)p * D + k] : __float2bfloat16_rn(0.f);
     }
   }
-}
-
-// pos of the block's kRows query rows into spos: score_tile of the rows
-// (qa) against their positives staged in sp, on the diagonal (row
-// 16 mt + g (+ 8) meets column 8 nt + t2 (+ 1))
-template <int kKs, typename QA>
-__device__ __forceinline__ void diagonal_pos(const QA& qa, const bf16* sp, int ld, int nks,
-                                             float scale, float* spos) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
-  float x[4];
-  score_tile<kKs>(qa, sp + 8 * nt * ld, ld, nks, scale, x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (16 * mt + g + 8 * (i >> 1) == 8 * nt + t2 + (i & 1)) spos[8 * nt + t2 + (i & 1)] = x[i];
 }
 
 // Forward, block (row tile, split): the split's partial (max, sum) per row
@@ -537,23 +514,6 @@ cudaError_t with_dt_kernel(int D, F f) {
 
 bool bad_shape(int R, int N, int D) { return R < 0 || N <= 0 || D <= 0 || D > kMaxD; }
 
-// the splits of a launch over ``tiles`` blocks of the split dimension:
-// enough to fill the blocks the card holds at once, each split at least
-// kMinTilesPerSplit of the ``steps`` tiles it walks
-template <typename Kernel>
-cudaError_t plan_splits(Kernel kernel, size_t smem, int tiles, int steps, int* splits) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  const int cap = std::max(1, steps / kMinTilesPerSplit);
-  *splits = std::max(1, std::min(cap, sms * per_sm / std::max(1, tiles)));
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // the splits that table_infonce_fwd (pass 0) takes over the catalog, the
@@ -565,7 +525,9 @@ extern "C" int table_infonce_splits(int R, int N, int D, int pass) {
   const int row_tiles = (R + kRows - 1) / kRows, col_tiles = (N + kCols - 1) / kCols;
   int splits = 0;
   auto plan = [&](size_t smem, int tiles, int steps) {
-    return [=, &splits](auto kernel) { return plan_splits(kernel, smem, tiles, steps, &splits); };
+    return [=, &splits](auto kernel) {
+      return plan_splits(kernel, smem, kThreads, tiles, steps, &splits);
+    };
   };
   const cudaError_t err =
       pass == 0   ? with_fwd_kernel(D, plan(fwd_smem(D), row_tiles, col_tiles))

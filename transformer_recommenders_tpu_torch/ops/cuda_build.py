@@ -111,15 +111,19 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_pairwise": (
         "fused_pairwise.cu",
         {
-            # q, p, n (bf16), nv (f32), out, den, pos, R, Rn, D, head,
-            # margin, 1 - margin, mask_false_negatives, stream
-            "pairwise_fwd": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _I, _P],
+            # R, Rn, D, pass (0 forward, 1 dn): the splits of a launch
+            "pairwise_splits": [_I] * 4,
+            # q, p, n (bf16), nv (f32), out, den, pos, split workspace (f32),
+            # R, Rn, D, head, margin, 1 - margin, mask_false_negatives,
+            # splits, stream
+            "pairwise_fwd": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
             # q, p, n, nv, den, g, pos, dq, dp (f32), R, Rn, D, head,
             # margin, 1 - margin, mask_false_negatives, stream
             "pairwise_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P],
-            # q, n, nv, den, g, pos, dn (f32), R, Rn, D, head, margin,
-            # 1 - margin, mask_false_negatives, stream
-            "pairwise_dn": [_P] * 7 + [_I, _I, _I, _I, _F, _F, _I, _P],
+            # q, n, nv, den, g, pos, dn (f32), split workspace (f32; null
+            # with one split), R, Rn, D, head, margin, 1 - margin,
+            # mask_false_negatives, splits, stream
+            "pairwise_dn": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
         },
     ),
 }
@@ -209,6 +213,20 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def splits(name: str, planner: str, device_index: int, *shape: int) -> int:
+    """The splits that the C function ``planner`` of kernel library
+    ``name`` plans for ``shape`` (its rows, pool or catalog rows, D and
+    pass) on card ``device_index``; a wrapper sizes its split workspace by
+    it."""
+    with torch.cuda.device(device_index):
+        planned = getattr(library(name), planner)(*shape)
+    if planned < 1:
+        msg = f"{planner}: CUDA error planning {shape}"
+        raise RuntimeError(msg)
+    return planned
 
 
 def check(status: int, what: str) -> None:

@@ -32,8 +32,6 @@ edges.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from transformer_recommenders_tpu_torch.ops import cuda_build
@@ -137,17 +135,10 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1).float().contiguous()
 
 
-@functools.lru_cache(maxsize=None)
 def _splits(device_index: int, r: int, rn: int, d: int, kernel_pass: int) -> int:
-    """The pool splits of the forward (pass 0) or dq (pass 1) kernel at
-    this shape on this card, as the kernel plans them; the wrapper sizes
-    the split workspace by it."""
-    with torch.cuda.device(device_index):
-        splits = cuda_build.library("fused_infonce").pool_infonce_splits(r, rn, d, kernel_pass)
-    if splits < 1:
-        msg = f"pool_infonce_splits: CUDA error planning R={r} Rn={rn} D={d}"
-        raise RuntimeError(msg)
-    return splits
+    """The pool splits of the forward (pass 0) or dq (pass 1) kernel."""
+    return cuda_build.splits("fused_infonce", "pool_infonce_splits", device_index, r, rn, d,
+                             kernel_pass)
 
 
 def _fwd_cuda(q, p, n, neg_valid, scale, mask_false_negatives):

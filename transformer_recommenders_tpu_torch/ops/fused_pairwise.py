@@ -25,15 +25,26 @@ Numerics follow the JAX kernels: ``q``, ``p`` and ``n`` rounded to bf16
 with f32 sums; ``1 - margin`` taken in Python and rounded to f32 (JAX's
 weak-typed constant); the score gradient ``dl`` rounded to bf16 before
 both products, the positive's ``dpos`` kept in f32; ``dq``, ``dp`` and
-``dn`` cast to the dtypes of ``q``, ``p`` and ``n``.  The positive's score
-and every pool score are one chain of products summed in increasing k (the
-kernels' order), so a copy of the positive in the pool scores exactly
-``pos`` and the mask drops it; the JAX kernel sums the two in other
-orders, and may not.  The TPU version pads R and Rn to its tiles; the
-kernels here mask their own edges.
+``dn`` cast to the dtypes of ``q``, ``p`` and ``n``.
+
+Each version scores the positive and every pool row by one chain, so a
+copy of the positive in the pool scores exactly ``pos`` and the mask
+drops it.  The kernels' chain is the tensor cores' (``xrt::score_tile``,
+the pool InfoNCE kernels' chain: k-steps of 16 in increasing order); the
+plain version's is one exact bf16 product at a time in increasing k.  The
+two agree to rounding, not bit for bit: a pool score within a rounding
+step of ``pos`` may count in one and not in the other, and a relu head's
+score within a rounding step of 0 may take f' = 1 in one and 0 in the
+other (:func:`near_tie_rows` finds such rows).  Where every partial sum
+is exact in f32 they agree bit for bit.  The JAX kernel sums the positive
+on the VPU and the pool on the MXU, so a copy may escape its mask there.
+The TPU version pads R and Rn to its tiles; the kernels here mask their
+own edges.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -132,10 +143,55 @@ def fused_pairwise_dn_reference(
     return (wf.to(torch.bfloat16).float().T @ qm).to(n.dtype)
 
 
+def near_tie_rows(
+    q: torch.Tensor, p: torch.Tensor, n: torch.Tensor, neg_valid: torch.Tensor, *, head: str,
+    margin: float = 0.5, mask_false_negatives: bool = True,
+) -> torch.Tensor:
+    """(R,) bool: the rows where the kernels and the plain version may
+    decide a valid pool row differently, from the plain scores.  The two
+    sum a score in other orders (the tensor cores' k-steps of 16, or one
+    product at a time), so its two values differ by a few ulps of its
+    partial sums (|l| < 2**5 at D <= 512: ulp <= 2**-18, D/16 and D
+    roundings).  delta = 2**-13 per 128 of D bounds that with room.  A row
+    is a near tie where a valid pool row that is not a copy of the row's
+    positive has, with the mask on, |l - pos| <= delta (the mask l < pos
+    may decide otherwise), or, for the relu heads, |s| <= delta_s (f'
+    steps from 0 to 1 at s = 0): delta for ContrastiveLoss, whose s is l
+    shifted, and delta (1 + |c|) for the hinge, whose s = l - pos c carries
+    pos's error times c.  A copy of the positive scores exactly pos in
+    each version; under the hinge with c = 1 its s is exactly 0 in both."""
+    x, pos = _scores(q, p, n, 1.0)
+    delta = 2.0**-13 * math.ceil(q.shape[1] / 128)
+    c = 1.0 - margin
+    valid = neg_valid.reshape(1, -1) > 0
+    none = torch.zeros_like(x, dtype=torch.bool)
+    by_mask = (x - pos[:, None]).abs() <= delta if mask_false_negatives else none
+    by_slope = none
+    if head in ("ContrastiveLoss", "PairwiseHingeLoss"):
+        delta_s = delta * (1.0 + abs(c)) if head == "PairwiseHingeLoss" else delta
+        by_slope = _pair_scores(head, x, pos, margin).abs() <= delta_s
+    copies_alike = head == "PairwiseHingeLoss" and c == 1.0
+    # the ties a copy of the positive cannot make: drop the copies there
+    near = (by_mask | (by_slope if copies_alike else none)) & valid
+    r, j = near.nonzero(as_tuple=True)
+    copy = (p.to(torch.bfloat16)[r] == n.to(torch.bfloat16)[j]).all(dim=1)
+    near[r[copy], j[copy]] = False
+    if not copies_alike:
+        near = near | (by_slope & valid)
+    return near.any(dim=1)
+
+
 def _head_args(head: str, margin: float) -> tuple[int, float, float]:
     """The kernels' head index, margin and ``c = 1 - margin`` (taken in
     Python's double, rounded to f32 by ctypes)."""
     return HEADS.index(head), float(margin), 1.0 - float(margin)
+
+
+def _splits(device_index: int, r: int, rn: int, d: int, kernel_pass: int) -> int:
+    """The splits of the forward (pass 0, over the pool) or the dn kernel
+    (1, over the query rows)."""
+    return cuda_build.splits("fused_pairwise", "pairwise_splits", device_index, r, rn, d,
+                             kernel_pass)
 
 
 def _fwd_cuda(q, p, n, neg_valid, head, margin, mask_false_negatives):
@@ -143,10 +199,13 @@ def _fwd_cuda(q, p, n, neg_valid, head, margin, mask_false_negatives):
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
     out, den, pos = (torch.empty(r, dtype=torch.float32, device=q.device) for _ in range(3))
+    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 0)
+    part = torch.empty(splits * r * 2, dtype=torch.float32, device=q.device)
     status = cuda_build.library("fused_pairwise").pairwise_fwd(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), out.data_ptr(),
-        den.data_ptr(), pos.data_ptr(), r, nb.shape[0], d, *_head_args(head, margin),
-        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        den.data_ptr(), pos.data_ptr(), part.data_ptr(), r, nb.shape[0], d,
+        *_head_args(head, margin), int(mask_false_negatives), splits,
+        cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pairwise_fwd launch")
     cuda_build.LAUNCHES["pairwise_fwd"] += 1
@@ -174,11 +233,16 @@ def _dn_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_false_negatives
     _check_cuda(q, p, n, neg_valid, "fused_pairwise")
     qb, nb, nv = _bf16(q), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
-    dn = torch.empty((nb.shape[0], d), dtype=torch.float32, device=q.device)
+    rn = nb.shape[0]
+    dn = torch.empty((rn, d), dtype=torch.float32, device=q.device)
+    splits = _splits(q.device.index or 0, r, rn, d, 1)
+    part = (torch.empty(splits * rn * d, dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     status = cuda_build.library("fused_pairwise").pairwise_dn(
         qb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(den).data_ptr(), _f32(g).data_ptr(),
-        _f32(pos).data_ptr(), dn.data_ptr(), r, nb.shape[0], d, *_head_args(head, margin),
-        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        _f32(pos).data_ptr(), dn.data_ptr(), None if part is None else part.data_ptr(), r, rn,
+        d, *_head_args(head, margin), int(mask_false_negatives), splits,
+        cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pairwise_dn launch")
     cuda_build.LAUNCHES["pairwise_dn"] += 1

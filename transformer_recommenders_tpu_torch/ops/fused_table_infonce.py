@@ -129,15 +129,9 @@ def _cuda_operands(q, table, pos_idx, counts):
 
 def _splits(device_index: int, r: int, n: int, d: int, kernel_pass: int) -> int:
     """The splits of the forward (pass 0, over the catalog), the dq pass
-    (1, over the catalog) or the dT pass (2, over the query rows) at this
-    shape on the current device, planned by the kernel's library."""
-    with torch.cuda.device(device_index):
-        splits = cuda_build.library("fused_table_infonce").table_infonce_splits(
-            r, n, d, kernel_pass)
-    if splits < 1:
-        msg = f"table_infonce_splits: CUDA error planning R={r} N={n} D={d}"
-        raise RuntimeError(msg)
-    return splits
+    (1, over the catalog) or the dT pass (2, over the query rows)."""
+    return cuda_build.splits("fused_table_infonce", "table_infonce_splits", device_index, r, n,
+                             d, kernel_pass)
 
 
 def workspace_elems(r: int, n: int, d: int, splits_fwd: int, splits_dq: int,
