@@ -45,9 +45,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    and off, scale 1 and 2.5, on Gaussian inputs (ce on the rows without a
    near-tie, which alone take a cotangent, their count printed) and on
    exact-sum inputs (every row); with every copy of a shared positive
-   dropped bit for bit, and two calls bit for bit; then their times beside
-   a composite of stock calls (a bf16 matmul and a masked ``logsumexp``,
-   autograd for the backward) and the bound;
+   dropped bit for bit, and two calls bit for bit; then each kernel's
+   ptxas registers and spills, and its splits and times beside a composite
+   of stock calls (a bf16 matmul and a masked ``logsumexp``, autograd for
+   the backward) and the bound;
 7. training through the pool objective, as phase 5: path A, the
    flagship's logging step (``make_train_step(cfg)``, ``full_logs=True``:
    every loss head, the logits and batch statistics, the pool kernels),
@@ -61,10 +62,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    without a near tie (of the mask, or of a relu head's f' at s = 0),
    which alone take a cotangent, their count printed, and on exact-sum
    inputs every row; the copies of a shared positive dropped bit for bit,
-   and two calls bit for bit; then their times beside a composite of
-   stock calls (a bf16 matmul, a masked softplus mean, autograd for the
-   backward) and a bound that also counts the special functions (exp,
-   log, reciprocal);
+   and two calls bit for bit; then each kernel's splits and ptxas
+   registers and spills, and its times beside a composite of stock calls
+   (a bf16 matmul, a masked softplus mean, autograd for the backward) and
+   a bound that also counts the special functions (exp, log, reciprocal);
 9. training through the pairwise objectives, as phase 5: path C,
    configs/ml100k_bpr.yaml's hot step (PairwiseLogisticLoss at margin 0,
    d=64, batch 128, over a synthetic catalog of ML-100K's 1,682 items;
@@ -998,6 +999,7 @@ def check_pool_infonce() -> list[dict]:
                     f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of "
                     f"the max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
         check_pool_copies(gen, r, rn, d)
+    log_registers("fused_infonce", ("pool_infonce_", "xrt::"))
     times = {shape: time_pool_infonce(gen, *POOL_SHAPES[shape]) for shape in ("A", "B")}
     common = {"route": "cuda", "source": "transformer_recommenders_tpu_torch/csrc/fused_infonce.cu"}
     rows = []
@@ -1012,7 +1014,7 @@ def check_pool_infonce() -> list[dict]:
             "shape": "R=Rn=4096 D=128 bf16 (path A), mask on",
             "max_abs_err": max(max_err[(s, k)] for s in ("A", "B") for k in keys),
             "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-            "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+            "bound_by": a["bound_by"], "library_ms": a["library_ms"], "splits": a["splits"],
             "by_shape": {s: times[s][name] for s in times},
         })
     return rows
@@ -1057,15 +1059,18 @@ def time_pool_infonce(gen, r: int, rn: int, d: int) -> dict:
     # each backward kernel one more product of the same size
     vec = 4 * r  # one (R,) f32 vector
     ins = 2 * d * (2 * r + rn) + 4 * rn
-    for name, flops, nbytes in (
+    for i, (name, flops, nbytes) in enumerate((
         ("pool_infonce_fwd", 2 * r * rn * d + 2 * r * d, ins + 3 * vec),
         ("pool_infonce_dq", 4 * r * rn * d + 2 * r * d, ins + 3 * vec + 2 * 4 * r * d),
         ("pool_infonce_dn", 4 * r * rn * d, ins - 2 * d * r + 3 * vec + 4 * rn * d),
-    ):
+    )):
         out[name]["bound_ms"], out[name]["bound_by"] = bound(flops, nbytes, H100_BF16_FLOPS)
         out[name]["gflop"] = flops / 1e9
+        out[name]["splits"] = fi._splits(0, r, rn, d, i)
         t = out[name]
-        log(f"  {name} R={r} Rn={rn} D={d} bf16 mask on, device time: kernel {t['ms']:.4f} ms, "
+        log(f"  {name} R={r} Rn={rn} D={d} bf16 mask on ({t['splits']} splits of the "
+            f"{'query rows' if name == 'pool_infonce_dn' else 'pool'}), device time: kernel "
+            f"{t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, composite (bf16 matmul + masked logsumexp"
             f"{'' if name == 'pool_infonce_fwd' else ', forward + autograd backward'}) "
             f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
@@ -1249,9 +1254,12 @@ def check_pairwise() -> list[dict]:
     c = time_pairwise(gen, *PAIRWISE_SHAPES["C"], sfu_rate, fp.HEADS)
     d128 = time_pairwise(gen, *PAIRWISE_SHAPES["D128"], sfu_rate, ("PairwiseLogisticLoss",))
     r, rn, d = PAIRWISE_SHAPES["C"]
+    splits = {k: fp._splits(0, r, rn, d, i) for i, k in enumerate(("fwd", "dn", "dq"))}
+    log(f"  pairwise R={r} Rn={rn} D={d}: {splits['fwd']} forward and {splits['dq']} dq splits "
+        f"of the pool, {splits['dn']} dn splits of the query rows")
+    log_registers("fused_pairwise", ("pairwise_", "xrt::"))
     common = {"route": "cuda",
-              "source": "transformer_recommenders_tpu_torch/csrc/fused_pairwise.cu",
-              "splits": {"fwd": fp._splits(0, r, rn, d, 0), "dn": fp._splits(0, r, rn, d, 1)}}
+              "source": "transformer_recommenders_tpu_torch/csrc/fused_pairwise.cu"}
     rows = []
     for name, replaces, keys in (
         ("pairwise_fwd", "transformer_recommenders_tpu/ops/fused_pairwise.py:66", ("out",)),
@@ -1263,6 +1271,7 @@ def check_pairwise() -> list[dict]:
             "name": name, **common, "replaces": replaces,
             "shape": "R=Rn=4096 D=64 bf16 (path C), PairwiseLogisticLoss, margin 0, mask on",
             "max_abs_err": max(max_err[k] for k in keys), **t,
+            "splits": splits[name.removeprefix("pairwise_")],
             "by_head": {h: c[name][h]["ms"] for h in fp.HEADS},
             "by_shape": {"D128": d128[name]["PairwiseLogisticLoss"]},
         })
@@ -1369,6 +1378,16 @@ def ptxas_report(text: str) -> list[str]:
         plain = plain.replace("(anonymous namespace)::", "").removeprefix("void ")
         short[mangled] = plain.split("(")[0] if len(out) == len(names) else mangled
     return [f"{short[n]}: {'; '.join(props[n])}" for n in names]
+
+
+def log_registers(library: str, kernels: tuple[str, ...]) -> None:
+    """The ptxas lines (registers, spills) of ``library``'s kernels whose
+    names start with one of ``kernels``, from phase 1's build log."""
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+
+    for line in ptxas_report(cuda_build.BUILD_LOGS.get(library, "")):
+        if line.startswith(kernels):
+            log(f"  ptxas {library}: {line}")
 
 
 def check_vpu_chain() -> tuple[dict, dict]:
@@ -1554,8 +1573,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from transformer_recommenders_tpu_torch.ops import cuda_build
-    from transformer_recommenders_tpu_torch.tools import card
+    try:
+        from transformer_recommenders_tpu_torch.ops import cuda_build
+        from transformer_recommenders_tpu_torch.tools import card
+    except ModuleNotFoundError as e:  # the script alone, without the port beside it
+        print(f"chip_smoke: {e}: run it from a checkout of the repository", file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2218,7 +2241,8 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
         "(the twelve longest, then the rest of the port's own):")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     own = [e for e in ranked[12:]
-           if "(anonymous namespace)::" in e.key and "at::native" not in e.key]
+           if ("(anonymous namespace)::" in e.key or "xrt::" in e.key)
+           and "at::native" not in e.key]
     for e in ranked[:12] + own:
         log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
             f"{e.key[:90]}")

@@ -480,6 +480,21 @@ def test_table_infonce_kernels_match_plain_on_exact_sums(cuda, r, n, d):
     assert errs["ce"] <= 1e-5 and errs["dq"] <= 1e-2 and errs["dtable"] <= 1e-2, errs
 
 
+def test_table_infonce_kernels_take_no_query_rows(cuda):
+    """R = 0: ce and dq are empty and dT is 0, whatever the splits the
+    planner gives the dq pass (its workspace is then empty)."""
+    gen = torch.Generator().manual_seed(5)
+    q, table, pos, counts, row_valid = table_case(gen, cuda, 0, 300, 64, exact=True)
+    ce, dq, dt = run_table_infonce(q, table, pos, counts, row_valid.float(), 2.0, True)
+    with torch.no_grad():
+        ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, scale=2.0)
+        dq_want, dt_want = fti.table_infonce_backward_reference(
+            q, table, pos, counts, lse_want, row_valid.float(), scale=2.0)
+    torch.cuda.synchronize()
+    for name, a, b in (("ce", ce, ce_want), ("dq", dq, dq_want), ("dtable", dt, dt_want)):
+        assert_agree(name, a, b, 0.0)
+
+
 def test_table_infonce_kernels_are_deterministic(cuda):
     gen = torch.Generator().manual_seed(4)
     q, table, pos, counts, row_valid = table_case(gen, cuda)
@@ -640,6 +655,82 @@ def test_pool_infonce_kernels_are_deterministic(cuda, r, rn, d):
         assert torch.equal(a, b), name
 
 
+def assert_agree(name, got, want, tol):
+    """got within tol of want's max abs value, or exactly 0 where want is
+    all 0; empty tensors by shape."""
+    assert got.shape == want.shape, name
+    if not want.numel():
+        return
+    if not want.float().abs().max().item():
+        assert not got.float().abs().max().item(), name
+        return
+    assert bool(torch.isfinite(got.float()).all()), name
+    assert rel_err(got, want) <= tol, (name, rel_err(got, want))
+
+
+# One split against the planned splits: the same scores, only the order in
+# which the splits' f32 partial sums add differs (the forward's (max, sum)
+# merges too, so lse, and with it a dl's bf16 rounding, may move by an
+# ulp).  The stated tolerances of the plain-version checks: ce 1e-5, the
+# gradients 1e-2 of each one's max abs.
+@pytest.mark.parametrize(("r", "rn", "d"), POOL_SHAPES)
+@pytest.mark.parametrize(("mask_fn", "scale"), [(True, 1.0), (False, 2.5)])
+def test_pool_infonce_kernels_agree_over_splits(cuda, monkeypatch, r, rn, d, mask_fn, scale):
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    gen = torch.Generator().manual_seed(r + rn + d + 3)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    g = row_valid.float()
+    splits = {k: fi._splits(cuda.index or 0, r, rn, d, i)
+              for i, k in enumerate(("fwd", "dq", "dn"))}
+    assert splits["dq"] > 1 and splits["dn"] > 1, splits
+    planned = run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn)
+    monkeypatch.setattr(fi, "_splits", lambda *args: 1)
+    one = run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn)
+    torch.cuda.synchronize()
+    print(splits, {k: rel_err(a, b) for k, a, b in zip(("ce", "dq", "dp", "dn"), one, planned)})
+    for name, a, b, tol in zip(("ce", "dq", "dp", "dn"), one, planned, (1e-5, 1e-2, 1e-2, 1e-2)):
+        assert_agree(name, a, b, tol)
+
+
+def exact_case(gen, cuda, r, rn, d):
+    """Values k/8 (every partial sum of a score exact in f32: the kernels
+    and the plain version score alike on every row), any R and Rn."""
+    def draw(*shape):
+        return torch.randint(-8, 9, shape, generator=gen).float() / 8
+
+    q, p, n = draw(r, d), draw(r, d), draw(rn, d)
+    neg_valid = torch.rand(rn, generator=gen) > 0.1
+    g = (torch.rand(r, generator=gen) > 0.1).float()
+    return (q.to(cuda), p.to(cuda, torch.bfloat16), n.to(cuda, torch.bfloat16), neg_valid.to(cuda),
+            g.to(cuda))
+
+
+# Degenerate shapes: no query row (dn = 0), no pool row (ce = 0, dq = dp =
+# 0), a pool of fewer rows than a tile (one pool tile, the dn pass split
+# over the query rows), against the plain versions on exact-sum inputs.
+DEGENERATE_SHAPES = [(0, 300, 64), (300, 0, 64), (300, 20, 64)]
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), DEGENERATE_SHAPES)
+@pytest.mark.parametrize("mask_fn", [True, False])
+def test_pool_infonce_kernels_take_degenerate_shapes(cuda, r, rn, d, mask_fn):
+    from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
+
+    gen = torch.Generator().manual_seed(r + rn + d + 4)
+    q, p, n, neg_valid, g = exact_case(gen, cuda, r, rn, d)
+    ce, dq, dp, dn = run_pool_infonce(q, p, n, neg_valid, g, 1.0, mask_fn)
+    kw = dict(scale=1.0, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g, **kw)
+        dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, tol in (("ce", ce, ce_want, 1e-5), ("dq", dq, dq_want, 1e-2),
+                            ("dp", dp, dp_want, 1e-2), ("dn", dn, dn_want, 1e-2)):
+        assert_agree(name, a, b, tol)
+
+
 def test_pool_infonce_skips_the_dn_kernel_for_frozen_pool_rows(cuda):
     from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
 
@@ -759,6 +850,52 @@ def test_pairwise_kernels_are_deterministic(cuda, r, rn, d, head):
     torch.cuda.synchronize()
     for name, a, b in zip(("out", "dq", "dp", "dn"), first, second):
         assert torch.equal(a, b), name
+
+
+# One split against the planned splits, as for the pool kernels: the dq
+# kernel's splits' partial dq and sums of w f' add in its last kernel, in
+# place on dq with one split.
+@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize("head", PAIRWISE_HEADS)
+@pytest.mark.parametrize(("mask_fn", "margin"), [(True, 0.0), (False, 0.5)])
+def test_pairwise_kernels_agree_over_splits(cuda, monkeypatch, r, rn, d, head, mask_fn, margin):
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(r + rn + d + 3)
+    q, p, n, row_valid, neg_valid = pool_case(gen, cuda, r, rn, d)
+    g = row_valid.float()
+    splits = {k: fp._splits(cuda.index or 0, r, rn, d, i)
+              for i, k in enumerate(("fwd", "dn", "dq"))}
+    assert splits["dq"] > 1 and splits["dn"] > 1, splits
+    planned = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
+    monkeypatch.setattr(fp, "_splits", lambda *args: 1)
+    one = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
+    torch.cuda.synchronize()
+    print(splits, {k: rel_err(a, b) for k, a, b in zip(("out", "dq", "dp", "dn"), one, planned)})
+    for name, a, b, tol in zip(("out", "dq", "dp", "dn"), one, planned, (1e-5, 1e-2, 1e-2, 1e-2)):
+        assert_agree(name, a, b, tol)
+
+
+@pytest.mark.parametrize(("r", "rn", "d"), DEGENERATE_SHAPES)
+@pytest.mark.parametrize("head", PAIRWISE_HEADS)
+@pytest.mark.parametrize(("mask_fn", "margin"), [(True, 0.0), (False, 0.5)])
+def test_pairwise_kernels_take_degenerate_shapes(cuda, r, rn, d, head, mask_fn, margin):
+    """As the pool kernels' degenerate shapes; with no pool row dq = dpos p
+    with dpos = 0."""
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(r + rn + d + 4)
+    q, p, n, neg_valid, g = exact_case(gen, cuda, r, rn, d)
+    out, dq, dp, dn = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
+    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)
+        dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, b, tol in (("out", out, out_want, 1e-5), ("dq", dq, dq_want, 1e-2),
+                            ("dp", dp, dp_want, 1e-2), ("dn", dn, dn_want, 1e-2)):
+        assert_agree(name, a, b, tol)
 
 
 def test_pairwise_skips_the_dn_kernel_for_frozen_pool_rows(cuda):

@@ -178,3 +178,14 @@ def test_wrapper_rejects_mismatched_shapes():
     with pytest.raises(ValueError, match="D <= 512"):
         TFI._check_cuda(torch.zeros(2, 600), torch.zeros(2, 600), torch.zeros(3, 600),
                         torch.ones(3))
+
+
+def test_workspace_sizes():
+    """The wrappers' f32 workspaces: the forward's per-split (max, sum),
+    and the partial dq and dn of each split, none where a pass takes one
+    split."""
+    assert TFI.workspace_elems(4096, 4096, 128, 4, 3, 7) == {
+        "fwd_part": 4 * 4096 * 2, "dq_part": 3 * 4096 * 128, "dn_part": 7 * 4096 * 128}
+    assert TFI.workspace_elems(10, 7, 4, 1, 1, 1) == {"fwd_part": 20, "dq_part": 0, "dn_part": 0}
+    assert TFI.workspace_elems(1000, 777, 384, 2, 1, 3) == {
+        "fwd_part": 2 * 1000 * 2, "dq_part": 0, "dn_part": 3 * 777 * 384}

@@ -232,3 +232,16 @@ def test_near_tie_rows_flags_what_two_sum_orders_may_decide_otherwise(head, marg
     rows = TFP.near_tie_rows(q, p, n, neg_valid, head=head, margin=margin,
                              mask_false_negatives=mask_fn)
     assert rows.nonzero().flatten().tolist() == want
+
+
+def test_workspace_sizes():
+    """The wrappers' f32 workspaces: the forward's per-split (sum of f v,
+    sum of v); the per-row sums of w f' of each dq split, and its partial
+    dq where the dq pass takes more than one split; the partial dn of each
+    dn split, none where it takes one."""
+    assert TFP.workspace_elems(4096, 4096, 64, 4, 3, 5) == {
+        "fwd_part": 4 * 4096 * 2, "dq_part": 3 * 4096 * 65, "dn_part": 5 * 4096 * 64}
+    assert TFP.workspace_elems(10, 7, 4, 1, 1, 1) == {"fwd_part": 20, "dq_part": 10, "dn_part": 0}
+    assert TFP.workspace_elems(0, 7, 4, 1, 1, 1) == {"fwd_part": 0, "dq_part": 0, "dn_part": 0}
+    assert TFP.workspace_elems(1000, 777, 64, 2, 2, 1) == {
+        "fwd_part": 2 * 1000 * 2, "dq_part": 2 * 1000 * 65, "dn_part": 0}

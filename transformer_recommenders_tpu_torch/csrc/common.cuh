@@ -1,8 +1,9 @@
 // Shared device helpers for the port's kernels: activation-type traits
 // (bf16 or f32 storage, f32 arithmetic), the counter-based dropout hash,
 // warp reductions, the tensor-core fragments (mma.sync, ldmatrix),
-// cp.async staging and the tensor-core score chain of the pool, table and
-// pairwise kernels.
+// cp.async staging, the tensor-core score chain of the pool, table and
+// pairwise kernels, and the backward loops of the pool and pairwise
+// kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -303,6 +304,225 @@ __device__ __forceinline__ void split_tiles(int total, int tile, int splits, int
   const long long nt = (total + tile - 1) / tile;
   t0 = (int)(blockIdx.y * nt / splits);
   t1 = (int)((blockIdx.y + 1) * nt / splits);
+}
+
+// out[i] = the splits' partial sums part[sp * total + i], added in split
+// order (a template, so that only the sources that launch it compile it)
+template <typename T>
+__global__ void sum_splits_kernel(const T* __restrict__ part, T* __restrict__ out, size_t total,
+                                  int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  T s = 0;
+  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
+  out[i] = s;
+}
+
+// ---- the backward passes of the pool and pairwise kernels: the scores
+// again, then dl N (dq) or dl^T Q (dn) on the tensor cores
+//
+// A block of kBwdThreads (8 warps) holds kBwdTile rows of one side and
+// walks the tiles of kBwdTile rows of the other side in order; its warp w
+// scores the 16 x 8 tile (query rows 16 (w & 1), pool rows 8 (w >> 1)) of
+// every 32 x 32 tile of scores through score_tile, the query rows as A.
+// The per-score dl comes from a functor of the kernel:
+//   dl.stage(row0, R)        the threads stage what dl needs of the query
+//                            rows [row0, row0 + kBwdTile) (zero past R)
+//   dl(x, nv, row)           the unrounded dl of score x of the staged
+//                            query row ``row`` at a pool row of validity nv
+// dl goes to shared memory rounded to bf16; its product with the other
+// side's tile runs on mma.sync m16n8k16 with B fragments by
+// ldmatrix.trans from the row-major tile, k the tile's rows in order, into
+// each warp's acc[kJ][2][2][4]: output rows 16 mi + g (+ 8 for fragment
+// elements 2, 3) of the block's, columns 16 w + 128 jb + 8 half + t2 (+ 1
+// for odd elements), kJ column blocks covering pad16(D).
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdTile = 32;
+constexpr int kBwdDlLd = kBwdTile + 8;  // dl's leading dimension in shared memory (bf16)
+
+// the shared memory the loops below carve from the front of the kernel's:
+// one tile of the block's rows, two of the walked side's, dl, and (dn) the
+// block's pool validity; a kernel puts its functor's arrays after it
+__host__ __device__ __forceinline__ size_t bwd_tiles_bytes(int D) {
+  return sizeof(__nv_bfloat16) * ((size_t)3 * kBwdTile * (pad16(D) + 8) + kBwdTile * kBwdDlLd) +
+         sizeof(float) * kBwdTile;
+}
+
+template <int kJ>
+__device__ __forceinline__ void zero_acc(float acc[kJ][2][2][4]) {
+#pragma unroll
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[jb][i / 8][(i / 4) % 2][i % 4] = 0.f;
+}
+
+// acc += A B: A the 32 x 32 bf16 dl at a (row-major, leading dimension
+// kBwdDlLd), B the 32 x Dp bf16 tile at b (row-major, leading dimension ld)
+template <int kJ>
+__device__ __forceinline__ void dl_product(const __nv_bfloat16* a, const __nv_bfloat16* b, int ld,
+                                           int Dp, float acc[kJ][2][2][4]) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int kk = 0; kk < kBwdTile / 16; ++kk) {
+    uint32_t a0[4], a1[4];
+    load_a(a, kBwdDlLd, 16 * kk, a0);
+    load_a(a + 16 * kBwdDlLd, kBwdDlLd, 16 * kk, a1);
+#pragma unroll
+    for (int jb = 0; jb < kJ; ++jb) {
+      const int c = 16 * warp + 128 * jb;
+      if (c < Dp) {
+        uint32_t bfrag[4];
+        ldmatrix_x4_trans(bfrag, b + 16 * kk * ld + c, ld);
+        mma_bf16(acc[jb][0][0], a0, bfrag);
+        mma_bf16(acc[jb][0][1], a0, bfrag + 2);
+        mma_bf16(acc[jb][1][0], a1, bfrag);
+        mma_bf16(acc[jb][1][1], a1, bfrag + 2);
+      }
+    }
+  }
+}
+
+// the block's rows of a warp's acc, inside rows [0, rows - row0) and
+// columns [0, D), into out, (rows, D) f32
+template <int kJ>
+__device__ __forceinline__ void store_acc(const float acc[kJ][2][2][4], float* out, int row0,
+                                          int rows, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int jb = 0; jb < kJ; ++jb)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 16 * mi + g + 8 * h, col = 16 * warp + 128 * jb + 8 * half + t2;
+          if (row < rows) {
+            if (col < D) out[(size_t)row * D + col] = acc[jb][mi][half][2 * h];
+            if (col + 1 < D) out[(size_t)row * D + col + 1] = acc[jb][mi][half][2 * h + 1];
+          }
+        }
+}
+
+// dq, block (query-row tile, split): the block's kBwdTile rows of q (the
+// query fragments in registers for kKs > 0) against the split's pool
+// tiles of n in order, double-buffered with cp.async; acc += dl N_tile
+// with dl row-major in shared memory.  rowsum[h] is this lane's sum of the
+// unrounded dl of its row 16 (w & 1) + g + 8 h, tile by tile, column t2
+// then t2 + 1.
+template <int kKs, int kJ, typename Dl>
+__device__ __forceinline__ void dq_tiles(const __nv_bfloat16* __restrict__ q,
+                                         const __nv_bfloat16* __restrict__ n,
+                                         const float* __restrict__ nv, int R, int Rn, int D,
+                                         float scale, const Dl& dl, unsigned char* smem,
+                                         int splits, float acc[kJ][2][2][4], float rowsum[2]) {
+  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sn = sq + kBwdTile * ld;  // two pool buffers
+  __nv_bfloat16* sdl = sn + 2 * kBwdTile * ld;
+  const int r0 = blockIdx.x * kBwdTile;
+  int t0, t1;
+  split_tiles(Rn, kBwdTile, splits, t0, t1);
+  zero_pad_cols(sq, 3 * kBwdTile, D, ld);
+  stage_rows_async(q, R, D, r0, kBwdTile, sq, ld);
+  cp_async_commit();
+  if (t0 < t1) stage_rows_async(n, Rn, D, t0 * kBwdTile, kBwdTile, sn, ld);
+  cp_async_commit();
+  dl.stage(r0, R);
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
+  zero_acc<kJ>(acc);
+  rowsum[0] = rowsum[1] = 0.f;
+  for (int t = t0; t < t1; ++t) {
+    const __nv_bfloat16* cur = sn + ((t - t0) & 1) * kBwdTile * ld;
+    if (t + 1 < t1)
+      stage_rows_async(n, Rn, D, (t + 1) * kBwdTile, kBwdTile,
+                       sn + ((t + 1 - t0) & 1) * kBwdTile * ld, ld);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    float x[4];
+    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
+    const int j = t * kBwdTile + 8 * nt + t2;
+    const float v0 = j < Rn ? nv[j] : 0.f, v1 = j + 1 < Rn ? nv[j + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = 16 * mt + gr + 8 * h;
+      const bool live = r0 + row < R;
+      const float d0 = live ? dl(x[2 * h], v0, row) : 0.f;
+      const float d1 = live ? dl(x[2 * h + 1], v1, row) : 0.f;
+      rowsum[h] += d0;
+      rowsum[h] += d1;
+      *reinterpret_cast<uint32_t*>(sdl + row * kBwdDlLd + 8 * nt + t2) =
+          pack_bf16(__float2bfloat16_rn(d0), __float2bfloat16_rn(d1));
+    }
+    __syncthreads();
+    dl_product<kJ>(sdl, cur, ld, Dp, acc);  // dq += dl (32 x 32) N_tile (32 x Dp)
+    __syncthreads();
+  }
+}
+
+// dn, block (pool-row tile, split): the block's kBwdTile rows of n against
+// the split's query-row tiles of q in order, double-buffered with
+// cp.async; dl.stage for each query tile; dl transposed in shared memory
+// and dn += dl^T Q_tile.  Writes the block's rows of dn into out (dn
+// itself with one split, else part[split], (Rn, D) f32).
+template <int kJ, typename Dl>
+__device__ __forceinline__ void dn_block(const __nv_bfloat16* __restrict__ q,
+                                         const __nv_bfloat16* __restrict__ n,
+                                         const float* __restrict__ nv, int R, int Rn, int D,
+                                         float scale, const Dl& dl, unsigned char* smem,
+                                         float* __restrict__ out, int splits) {
+  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
+  __nv_bfloat16* sn = reinterpret_cast<__nv_bfloat16*>(smem);  // the block's pool rows
+  __nv_bfloat16* sq = sn + kBwdTile * ld;                       // two query buffers
+  __nv_bfloat16* sdl = sq + 2 * kBwdTile * ld;                  // dl transposed: [j][row]
+  float* snv = reinterpret_cast<float*>(sdl + kBwdTile * kBwdDlLd);
+  const int n0 = blockIdx.x * kBwdTile;
+  int t0, t1;
+  split_tiles(R, kBwdTile, splits, t0, t1);
+  zero_pad_cols(sn, 3 * kBwdTile, D, ld);
+  stage_rows_async(n, Rn, D, n0, kBwdTile, sn, ld);
+  if (t0 < t1) stage_rows_async(q, R, D, t0 * kBwdTile, kBwdTile, sq, ld);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kBwdTile; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
+  float acc[kJ][2][2][4];
+  zero_acc<kJ>(acc);
+  for (int t = t0; t < t1; ++t) {
+    const __nv_bfloat16* cur = sq + ((t - t0) & 1) * kBwdTile * ld;
+    if (t + 1 < t1)
+      stage_rows_async(q, R, D, (t + 1) * kBwdTile, kBwdTile,
+                       sq + ((t + 1 - t0) & 1) * kBwdTile * ld, ld);
+    cp_async_commit();
+    dl.stage(t * kBwdTile, R);
+    cp_async_wait<1>();
+    __syncthreads();
+    // scores: the query rows 16 mt (+ 16) as A against pool rows 8 nt
+    const __nv_bfloat16* qw = cur + 16 * mt * ld;
+    float x[4];
+    score_tile<0>([=](int ks, uint32_t a[4]) { load_a(qw, ld, 16 * ks, a); }, sn + 8 * nt * ld,
+                  ld, nks, scale, x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 16 * mt + gr + 8 * (i >> 1), jn = 8 * nt + t2 + (i & 1);
+      const bool live = n0 + jn < Rn && t * kBwdTile + row < R;
+      sdl[jn * kBwdDlLd + row] = __float2bfloat16_rn(live ? dl(x[i], snv[jn], row) : 0.f);
+    }
+    __syncthreads();
+    dl_product<kJ>(sdl, cur, ld, Dp, acc);  // dn += dl^T (32 x 32) Q_tile (32 x Dp)
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // no query tile: the pool rows' copy is still in flight
+  store_acc<kJ>(acc, out + (splits > 1 ? (size_t)blockIdx.y * Rn * D : 0), n0, Rn, D);
 }
 
 constexpr int kMinTilesPerSplit = 2;

@@ -27,7 +27,7 @@
 // R = Rn = 1024, D = 384; 4.3 and 8.7 us at path A's R = Rn = 4096,
 // D = 128), and R Rn exponentials (0.3 us at B, 5 us at A at the card's
 // measured expf rate).  At these sizes the launches, the staging of the
-// tiles and the split combine set the time more than the products do.
+// tiles and the split sums set the time more than the products do.
 // The design:
 // - forward and dq/dp: a block takes kRows = 32 query rows and one split
 //   of the pool tiles (grid (R / 32, splits); the splits fill the card's
@@ -43,14 +43,20 @@
 //   split's (max, sum) to a workspace.  A second kernel merges the splits
 //   in split order from (pos, 0) and writes lse and ce (a row with no
 //   counted negative gets ce = 0 exactly); split 0's blocks write pos.
-// - dq/dp: dl = bf16(exp(x - lse) g scale) goes to shared memory as bf16,
-//   then the split's dq += dl N_tile runs on the tensor cores (B fragments
-//   by ldmatrix.trans from the row-major pool tile) into an f32 workspace;
-//   a final kernel sums the splits in order, adds dpos p and writes dq and
-//   dp.
-// - dn: one block per 16 pool rows over every 64-row query tile in order;
-//   its scores are score_tile's (the 64 x 16 tile Q N^T), its dl^T Q
-//   product f32 FMAs on CUDA cores.
+// - dq/dp (xrt::dq_tiles): dl = bf16(exp(x - lse) g scale) goes to shared
+//   memory as bf16, then the split's dq += dl N_tile runs on the tensor
+//   cores (B fragments by ldmatrix.trans from the row-major pool tile)
+//   into an f32 workspace (dq itself with one split); a final kernel sums
+//   the splits in order, adds dpos p and writes dq and dp.
+// - dn (xrt::dn_block, the pairwise dn kernel's loop): a block takes
+//   kPool = 32 pool rows and one split of the query-row tiles of 32,
+//   walking them in order, double-buffered with cp.async (grid (Rn / 32,
+//   splits)); its scores are score_tile's with the query rows as A, dl
+//   goes to shared memory transposed as bf16 (it is bf16 already), and
+//   dn += dl^T Q_tile runs on the tensor cores (B fragments by
+//   ldmatrix.trans from the row-major query tile); with more than one
+//   split the partial dn go to a workspace and a last kernel sums them in
+//   split order.
 // No atomics: every sum runs in a fixed order, so two calls give the same
 // bits.
 #include "common.cuh"
@@ -59,18 +65,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kRows = 32;         // query rows of a block (forward and dq/dp)
-constexpr int kPool = 32;         // pool rows staged per step (forward and dq/dp)
-constexpr int kDlLd = kPool + 8;  // dl's leading dimension in shared memory (bf16)
-constexpr int kDnCols = 16;  // pool rows of a block (the dn pass)
-constexpr int kDnRows = 64;  // query rows staged per step (the dn pass)
+constexpr int kThreads = xrt::kBwdThreads;  // 8 warps
+constexpr int kRows = xrt::kBwdTile;  // query rows of a block (forward, dq) or of a step (dn)
+constexpr int kPool = xrt::kBwdTile;  // pool rows of a step (forward, dq) or of a block (dn)
 constexpr int kMaxD = 512;
-constexpr int kAcc = kDnCols * kMaxD / kThreads;  // dn outputs a thread accumulates
 static_assert(kRows <= kPool, "the positives are staged in a pool buffer");
 static_assert(kRows == 2 * 16 && kPool == 4 * 8 && kThreads == 8 * 32,
               "8 warps, one 16 x 8 score tile each");
-static_assert(kDnRows == 4 * 16 && kDnCols == 2 * 8, "8 warps, one 16 x 8 score tile each");
 
 using xrt::allow_smem;
 using xrt::bf;
@@ -78,8 +79,6 @@ using xrt::cp_async_commit;
 using xrt::cp_async_wait;
 using xrt::diagonal_pos;
 using xrt::QueryFrags;
-using xrt::load_a;
-using xrt::mma_bf16;
 using xrt::merge;
 using xrt::pad16;
 using xrt::plan_splits;
@@ -216,117 +215,65 @@ __global__ void pool_infonce_combine_kernel(const float* __restrict__ part,
   ce[r] = l - pr;
 }
 
-// Backward, block (row tile, split): the split's dl N into part[split],
-// (R, D) f32.
+// What the backward kernels need of the query rows: pos, lse and g scale,
+// staged in shared memory, and dl of one score from them.
+struct InfonceDl {
+  const float* pos;
+  const float* lse;
+  const float* g;
+  float scale;
+  int mask_fn;
+  float* spos;  // kRows each
+  float* slse;
+  float* sgs;
+
+  __device__ __forceinline__ void stage(int row0, int R) const {
+    for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
+      const int r = row0 + t;
+      const bool in = r < R;
+      spos[t] = in ? pos[r] : 0.f;
+      slse[t] = in ? lse[r] : 0.f;
+      sgs[t] = in ? g[r] * scale : 0.f;
+    }
+  }
+  __device__ __forceinline__ float operator()(float x, float nv, int row) const {
+    return grad_logit(x, nv, spos[row], slse[row], sgs[row], mask_fn);
+  }
+};
+
+__device__ __forceinline__ InfonceDl infonce_dl(unsigned char* smem, int D, const float* pos,
+                                                const float* lse, const float* g, float scale,
+                                                int mask_fn) {
+  float* s = reinterpret_cast<float*>(smem + xrt::bwd_tiles_bytes(D));
+  return InfonceDl{pos, lse, g, scale, mask_fn, s, s + kRows, s + 2 * kRows};
+}
+
+// dq, block (row tile, split): the split's dl N into out (dq itself with
+// one split, else part[split], (R, D) f32).
 template <int kKs>
 __global__ void __launch_bounds__(kThreads) pool_infonce_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
     const float* __restrict__ lse, const float* __restrict__ g, const float* __restrict__ pos_in,
-    float* __restrict__ part, int R, int Rn, int D, float scale, int mask_fn, int splits) {
+    float* __restrict__ out, int R, int Rn, int D, float scale, int mask_fn, int splits) {
   // dq columns of warp w: the 16-column blocks 16 w + 128 jb, jb < kJ
   constexpr int kJ = kKs > 0 ? kKs / 8 : kMaxD / 128;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
-  bf16* sdl = sn + 2 * kPool * ld;
-  float* spos = reinterpret_cast<float*>(sdl + kRows * kDlLd);
-  float* slse = spos + kRows;
-  float* sgs = slse + kRows;
-  const int r0 = blockIdx.x * kRows;
-  int t0, t1;
-  split_tiles(Rn, kPool, splits, t0, t1);
-  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
-  stage_rows_async(q, R, D, r0, kRows, sq, ld);
-  cp_async_commit();
-  if (t0 < t1) stage_rows_async(n, Rn, D, t0 * kPool, kPool, sn, ld);
-  cp_async_commit();
-  for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
-    const int r = r0 + t;
-    spos[t] = r < R ? pos_in[r] : 0.f;
-    slse[t] = r < R ? lse[r] : 0.f;
-    sgs[t] = r < R ? g[r] * scale : 0.f;
-  }
-  cp_async_wait<1>();
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
-  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
-  float acc[kJ][2][2][4];  // [column block][m-tile][n8 half][fragment]
-#pragma unroll
-  for (int jb = 0; jb < kJ; ++jb)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[jb][i / 8][(i / 4) % 2][i % 4] = 0.f;
-
-  for (int t = t0; t < t1; ++t) {
-    const bf16* cur = sn + ((t - t0) & 1) * kPool * ld;
-    if (t + 1 < t1)
-      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1 - t0) & 1) * kPool * ld, ld);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float x[4];
-    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
-    const int j = t * kPool + 8 * nt + t2;
-    const float v0 = j < Rn ? nv[j] : 0.f, v1 = j + 1 < Rn ? nv[j + 1] : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * mt + gr + 8 * h;
-      const bool live = r0 + row < R;
-      const float d0 =
-          live ? grad_logit(x[2 * h], v0, spos[row], slse[row], sgs[row], mask_fn) : 0.f;
-      const float d1 =
-          live ? grad_logit(x[2 * h + 1], v1, spos[row], slse[row], sgs[row], mask_fn) : 0.f;
-      *reinterpret_cast<uint32_t*>(sdl + row * kDlLd + 8 * nt + t2) =
-          xrt::pack_bf16(__float2bfloat16_rn(d0), __float2bfloat16_rn(d1));
-    }
-    __syncthreads();
-    // dq += dl (32 x 32) N_tile (32 x Dp), k the tile's pool rows in order
-#pragma unroll
-    for (int kk = 0; kk < kPool / 16; ++kk) {
-      uint32_t a0[4], a1[4];
-      load_a(sdl, kDlLd, 16 * kk, a0);
-      load_a(sdl + 16 * kDlLd, kDlLd, 16 * kk, a1);
-#pragma unroll
-      for (int jb = 0; jb < kJ; ++jb) {
-        const int c = 16 * warp + 128 * jb;
-        if (c < Dp) {
-          uint32_t b[4];
-          xrt::ldmatrix_x4_trans(b, cur + 16 * kk * ld + c, ld);
-          mma_bf16(acc[jb][0][0], a0, b);
-          mma_bf16(acc[jb][0][1], a0, b + 2);
-          mma_bf16(acc[jb][1][0], a1, b);
-          mma_bf16(acc[jb][1][1], a1, b + 2);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * R * D;
-#pragma unroll
-  for (int jb = 0; jb < kJ; ++jb)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = r0 + 16 * mi + gr + 8 * h, col = 16 * warp + 128 * jb + 8 * half + t2;
-          if (r < R) {
-            if (col < D) out[(size_t)r * D + col] = acc[jb][mi][half][2 * h];
-            if (col + 1 < D) out[(size_t)r * D + col + 1] = acc[jb][mi][half][2 * h + 1];
-          }
-        }
+  float acc[kJ][2][2][4], rowsum[2];
+  xrt::dq_tiles<kKs, kJ>(q, n, nv, R, Rn, D, scale,
+                         infonce_dl(smem, D, pos_in, lse, g, scale, mask_fn), smem, splits, acc,
+                         rowsum);
+  xrt::store_acc<kJ>(acc, out + (splits > 1 ? (size_t)blockIdx.y * R * D : 0),
+                     blockIdx.x * kRows, R, D);
 }
 
 // The dq pass's second kernel: dq = (the splits' dl N, summed in split
-// order) + dpos p and dp = dpos q, one thread per element.
-__global__ void pool_infonce_dq_sum_kernel(const float* __restrict__ part,
-                                           const bf16* __restrict__ q, const bf16* __restrict__ p,
+// order) + dpos p and dp = dpos q, one thread per element.  With one split
+// part is dq itself: each thread reads its element before it writes it.
+__global__ void pool_infonce_dq_sum_kernel(const float* part, const bf16* __restrict__ q,
+                                           const bf16* __restrict__ p,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ g,
-                                           const float* __restrict__ pos, float* __restrict__ dq,
+                                           const float* __restrict__ pos, float* dq,
                                            float* __restrict__ dp, int R, int D, float scale,
                                            int splits) {
   const size_t total = (size_t)R * D;
@@ -341,91 +288,28 @@ __global__ void pool_infonce_dq_sum_kernel(const float* __restrict__ part,
   dp[i] = __fmul_rn(dpos, bf(q[i]));
 }
 
-// Backward, one block per kDnCols pool rows: dn = dl^T Q over every query
-// row, in order.
+// dn, block (pool tile, split): the split's dl^T Q over its query-row
+// tiles in order into out (dn itself with one split, else part[split],
+// (Rn, D) f32).
+template <int kJ>
 __global__ void __launch_bounds__(kThreads) pool_infonce_dn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
     const float* __restrict__ lse, const float* __restrict__ g, const float* __restrict__ pos_in,
-    float* __restrict__ dn, int R, int Rn, int D, float scale, int mask_fn) {
+    float* __restrict__ out, int R, int Rn, int D, float scale, int mask_fn, int splits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int nks = pad16(D) / 16, ld = pad16(D) + 8;
-  bf16* sn = reinterpret_cast<bf16*>(smem);
-  bf16* sq = sn + kDnCols * ld;
-  float* sdl = reinterpret_cast<float*>(sq + kDnRows * ld);
-  float* snv = sdl + kDnRows * kDnCols;
-  float* spos = snv + kDnCols;
-  float* slse = spos + kDnRows;
-  float* sgs = slse + kDnRows;
-  const int n0 = blockIdx.x * kDnCols;
-  zero_pad_cols(sn, kDnCols + kDnRows, D, ld);
-  stage_rows_async(n, Rn, D, n0, kDnCols, sn, ld);
-  for (int i = threadIdx.x; i < kDnCols; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
-
-  // scores: warp w on the 16 x 8 tile of query rows 16 (w % 4) and pool
-  // rows 8 (w / 4), the query rows as A
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g4 = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 3, nt = warp >> 2;
-  const bf16* qw = sq + 16 * mt * ld;
-  auto qa = [=](int ks, uint32_t a[4]) { load_a(qw, ld, 16 * ks, a); };
-  float acc[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  for (int r0 = 0; r0 < R; r0 += kDnRows) {
-    __syncthreads();
-    stage_rows_async(q, R, D, r0, kDnRows, sq, ld);
-    cp_async_commit();
-    for (int t = threadIdx.x; t < kDnRows; t += blockDim.x) {
-      const int r = r0 + t;
-      const bool in = r < R;
-      spos[t] = in ? pos_in[r] : 0.f;
-      slse[t] = in ? lse[r] : 0.f;
-      sgs[t] = in ? g[r] * scale : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    float x[4];
-    score_tile<0>(qa, sn + 8 * nt * ld, ld, nks, scale, x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 16 * mt + g4 + 8 * (i >> 1), jn = 8 * nt + t2 + (i & 1);
-      const bool live = n0 + jn < Rn && r0 + r < R;
-      sdl[r * kDnCols + jn] =
-          live ? grad_logit(x[i], snv[jn], spos[r], slse[r], sgs[r], mask_fn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int o = threadIdx.x + kThreads * i;
-      if (o < kDnCols * D) {
-        const int cc = o / D, d = o % D;
-        for (int r = 0; r < kDnRows; ++r)
-          acc[i] = fmaf(sdl[r * kDnCols + cc], bf(sq[r * ld + d]), acc[i]);
-      }
-    }
-  }
-  cp_async_wait<0>();  // R = 0: the pool rows' copy is still in flight
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int o = threadIdx.x + kThreads * i;
-    if (o < kDnCols * D && n0 + o / D < Rn) dn[(size_t)n0 * D + o] = acc[i];
-  }
+  xrt::dn_block<kJ>(q, n, nv, R, Rn, D, scale,
+                    infonce_dl(smem, D, pos_in, lse, g, scale, mask_fn), smem, out, splits);
 }
 
 size_t fwd_smem(int D) {
   return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
          sizeof(float) * (kRows + 4 * kRows * 2);
 }
-size_t dq_smem(int D) {
-  return sizeof(bf16) * ((size_t)(kRows + 2 * kPool) * (pad16(D) + 8) + kRows * kDlLd) +
-         sizeof(float) * 3 * kRows;
-}
-size_t dn_smem(int D) {
-  return sizeof(bf16) * (size_t)(kDnCols + kDnRows) * (pad16(D) + 8) +
-         sizeof(float) * (kDnRows * kDnCols + kDnCols + 3 * kDnRows);
-}
+// the backward kernels: the shared loops' tiles, then pos, lse and g scale
+size_t bwd_smem(int D) { return xrt::bwd_tiles_bytes(D) + sizeof(float) * 3 * kRows; }
 
 // f(kernel) with the instantiation for D: the query fragments in
-// registers up to D = 384
+// registers up to D = 384 (forward, dq); dn's column blocks a warp
 template <typename F>
 cudaError_t with_fwd_kernel(int D, F f) {
   if (pad16(D) <= 128) return f(pool_infonce_fwd_kernel<8>);
@@ -438,26 +322,34 @@ cudaError_t with_dq_kernel(int D, F f) {
   if (pad16(D) <= 384) return f(pool_infonce_dq_kernel<24>);
   return f(pool_infonce_dq_kernel<0>);
 }
+template <typename F>
+cudaError_t with_dn_kernel(int D, F f) {
+  if (pad16(D) <= 128) return f(pool_infonce_dn_kernel<1>);
+  if (pad16(D) <= 384) return f(pool_infonce_dn_kernel<3>);
+  return f(pool_infonce_dn_kernel<4>);
+}
 
 bool bad_shape(int Rn, int D) { return Rn < 0 || D <= 0 || D > kMaxD; }
 
 }  // namespace
 
-// the pool splits that pool_infonce_fwd (pass 0) or pool_infonce_dq
-// (pass 1) takes at this shape on the current device, or -1 on an error;
-// the caller sizes the workspace by it
+// the splits that pool_infonce_fwd (pass 0) or pool_infonce_dq (pass 1)
+// takes over the pool, or pool_infonce_dn (pass 2) over the query rows, at
+// this shape on the current device, or -1 on an error; the caller sizes
+// the workspaces by them
 extern "C" int pool_infonce_splits(int R, int Rn, int D, int pass) {
-  if (bad_shape(Rn, D) || R < 0) return -1;
+  if (bad_shape(Rn, D) || R < 0 || pass < 0 || pass > 2) return -1;
   const int row_tiles = (R + kRows - 1) / kRows, pool_tiles = (Rn + kPool - 1) / kPool;
   int splits = 0;
+  auto plan = [&](size_t smem, int tiles, int steps) {
+    return [=, &splits](auto kernel) {
+      return plan_splits(kernel, smem, kThreads, tiles, steps, &splits);
+    };
+  };
   const cudaError_t err =
-      pass == 0 ? with_fwd_kernel(D, [&](auto kernel) {
-        return plan_splits(kernel, fwd_smem(D), kThreads, row_tiles, pool_tiles, &splits);
-      })
-                : with_dq_kernel(D, [&](auto kernel) {
-                    return plan_splits(kernel, dq_smem(D), kThreads, row_tiles, pool_tiles,
-                                       &splits);
-                  });
+      pass == 0   ? with_fwd_kernel(D, plan(fwd_smem(D), row_tiles, pool_tiles))
+      : pass == 1 ? with_dq_kernel(D, plan(bwd_smem(D), row_tiles, pool_tiles))
+                  : with_dn_kernel(D, plan(bwd_smem(D), pool_tiles, row_tiles));
   return err == cudaSuccess ? splits : -1;
 }
 
@@ -484,43 +376,56 @@ extern "C" int pool_infonce_fwd(const void* q, const void* p, const void* n, con
 }
 
 // dq and dp, (R, D) f32, for the cotangent g of ce; lse and pos are the
-// forward's; part: an f32 workspace of splits * R * D
+// forward's; part: an f32 workspace of splits * R * D, unused (may be
+// null) with one split
 extern "C" int pool_infonce_dq(const void* q, const void* p, const void* n, const float* nv,
                                const float* lse, const float* g, const float* pos, float* dq,
                                float* dp, float* part, int R, int Rn, int D, float scale,
                                int mask_fn, int splits, void* stream) {
   if (bad_shape(Rn, D) || splits < 1) return cudaErrorInvalidValue;
   if (R <= 0) return cudaSuccess;
-  const size_t smem = dq_smem(D);
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* qb = static_cast<const bf16*>(q);
+  float* out = splits > 1 ? part : dq;
   cudaError_t err = with_dq_kernel(D, [&](auto kernel) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3((R + kRows - 1) / kRows, splits), kThreads, smem, s>>>(
-        qb, static_cast<const bf16*>(n), nv, lse, g, pos, part, R, Rn, D, scale, mask_fn,
-        splits);
+        qb, static_cast<const bf16*>(n), nv, lse, g, pos, out, R, Rn, D, scale, mask_fn, splits);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)R * D;
   pool_infonce_dq_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      part, qb, static_cast<const bf16*>(p), lse, g, pos, dq, dp, R, D, scale, splits);
+      out, qb, static_cast<const bf16*>(p), lse, g, pos, dq, dp, R, D, scale, splits);
   return cudaGetLastError();
 }
 
-// dn, (Rn, D) f32, for the cotangent g of ce
+// dn, (Rn, D) f32, for the cotangent g of ce; part: an f32 workspace of
+// splits * Rn * D, unused (may be null) with one split
 extern "C" int pool_infonce_dn(const void* q, const void* n, const float* nv, const float* lse,
-                               const float* g, const float* pos, float* dn, int R, int Rn, int D,
-                               float scale, int mask_fn, void* stream) {
-  if (bad_shape(Rn, D)) return cudaErrorInvalidValue;
+                               const float* g, const float* pos, float* dn, float* part, int R,
+                               int Rn, int D, float scale, int mask_fn, int splits,
+                               void* stream) {
+  if (bad_shape(Rn, D) || R < 0 || splits < 1) return cudaErrorInvalidValue;
   if (Rn == 0) return cudaSuccess;
-  const size_t smem = dn_smem(D);
-  cudaError_t err = allow_smem(pool_infonce_dn_kernel, smem);
-  if (err != cudaSuccess) return err;
-  pool_infonce_dn_kernel<<<(Rn + kDnCols - 1) / kDnCols, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(n), nv, lse, g, pos, dn, R, Rn, D,
-      scale, mask_fn);
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(D);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = splits > 1 ? part : dn;
+  cudaError_t err = with_dn_kernel(D, [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3((Rn + kPool - 1) / kPool, splits), kThreads, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(n), nv, lse, g, pos, out, R, Rn, D,
+        scale, mask_fn, splits);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t total = (size_t)Rn * D;
+  xrt::sum_splits_kernel<float>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, dn, total, splits);
   return cudaGetLastError();
 }

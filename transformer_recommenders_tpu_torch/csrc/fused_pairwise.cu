@@ -53,17 +53,23 @@
 //   add in a fixed order into the split's (num, den).  A second kernel
 //   adds the splits in split order and writes out and den (a row with no
 //   counted negative gets out = 0 exactly); split 0's blocks write pos.
-// - dq/dp: the forward's tile over every pool tile (one block per 32
-//   query rows).  dl goes to shared memory (f32 values of bf16, transposed)
-//   and dq += dl N_tile runs as f32 FMAs on CUDA cores, each thread four
-//   rows by two columns; the block ends with dpos, dq and dp.
-// - dn: a block takes kPool = 32 pool rows and one split of the query-row
-//   tiles of 32, walking them in order, double-buffered with cp.async
-//   (grid (Rn / 32, splits)); its scores are score_tile's with the query
-//   rows as A, dl goes to shared memory transposed as bf16, and dl^T Q_tile
-//   runs on the tensor cores (B fragments by ldmatrix.trans from the
-//   row-major query tile); a last kernel adds the splits' partial dn in
-//   split order.
+// - dq/dp (xrt::dq_tiles, the pool InfoNCE dq kernel's loop): a block
+//   takes 32 query rows, their fragments in registers, and one split of
+//   the pool tiles, double-buffered with cp.async (grid (R / 32, splits));
+//   dl goes to shared memory row-major as bf16 and dq += dl N_tile runs on
+//   the tensor cores (B fragments by ldmatrix.trans from the row-major
+//   pool tile).  Each lane sums its rows' unrounded w f'; the quad, then
+//   the four warps of a row, add in a fixed order.  Each split writes its
+//   partial dq (into dq itself with one split) and its rows' sums to a
+//   workspace; a last kernel adds them in split order and writes dpos =
+//   -c sum w f', dq and dp.
+// - dn (xrt::dn_block): a block takes kPool = 32 pool rows and one split
+//   of the query-row tiles of 32, walking them in order, double-buffered
+//   with cp.async (grid (Rn / 32, splits)); its scores are score_tile's
+//   with the query rows as A, dl goes to shared memory transposed as bf16,
+//   and dl^T Q_tile runs on the tensor cores (B fragments by
+//   ldmatrix.trans from the row-major query tile); a last kernel adds the
+//   splits' partial dn in split order.
 // No atomics: every sum runs in a fixed order, so two calls give the same
 // bits.
 #include "common.cuh"
@@ -72,11 +78,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kRows = 32;      // query rows of a block (forward, dq) or of a step (dn)
-constexpr int kPool = 32;      // pool rows of a step (forward, dq) or of a block (dn)
-constexpr int kDlLd = kRows + 8;  // dn's transposed dl in shared memory (bf16)
-constexpr int kDlTLd = kRows + 4;  // dq's transposed dl in shared memory (f32, float4 rows)
+constexpr int kThreads = xrt::kBwdThreads;  // 8 warps
+constexpr int kRows = xrt::kBwdTile;  // query rows of a block (forward, dq) or of a step (dn)
+constexpr int kPool = xrt::kBwdTile;  // pool rows of a step (forward, dq) or of a block (dn)
 constexpr int kMaxD = 512;
 static_assert(kRows == 2 * 16 && kPool == 4 * 8 && kThreads == 8 * 32,
               "8 warps, one 16 x 8 score tile each");
@@ -88,9 +92,6 @@ using xrt::allow_smem;
 using xrt::cp_async_commit;
 using xrt::cp_async_wait;
 using xrt::diagonal_pos;
-using xrt::ld32;
-using xrt::load_a;
-using xrt::mma_bf16;
 using xrt::pad16;
 using xrt::plan_splits;
 using xrt::QueryFrags;
@@ -241,97 +242,61 @@ __global__ void pairwise_combine_kernel(const float* __restrict__ part, float* _
   den_out[r] = den;
 }
 
-// Backward, one block per kRows query rows over every pool tile:
-// dq = dl N + dpos p and dp = dpos q.
+// What the backward kernels need of the query rows: pos and g / (den +
+// 1e-9), staged in shared memory, and w f' of one score from them.
+struct PairwiseDl {
+  Head hd;
+  const float* pos;
+  const float* den;
+  const float* g;
+  int mask_fn;
+  float* spos;  // kRows each
+  float* sgs;
+
+  __device__ __forceinline__ void stage(int row0, int R) const {
+    for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
+      const int r = row0 + t;
+      const bool in = r < R;
+      spos[t] = in ? pos[r] : 0.f;
+      sgs[t] = in ? g[r] / (den[r] + 1e-9f) : 0.f;
+    }
+  }
+  __device__ __forceinline__ float operator()(float l, float nv, int row) const {
+    return weighted_slope(hd, l, nv, spos[row], sgs[row], mask_fn);
+  }
+};
+
+__device__ __forceinline__ PairwiseDl pairwise_dl(unsigned char* smem, int D, const Head& hd,
+                                                  const float* pos, const float* den,
+                                                  const float* g, int mask_fn) {
+  float* s = reinterpret_cast<float*>(smem + xrt::bwd_tiles_bytes(D));
+  return PairwiseDl{hd, pos, den, g, mask_fn, s, s + kRows};
+}
+
+// dq, block (row tile, split): the split's dl N into out (dq itself with
+// one split, else part[split], (R, D) f32) and, per row, its sum of w f'
+// (lane, quad, then the four warps of a row, in order) into
+// wpart[split][r].  Up to D = 128 it is held to 3 blocks an SM (80
+// registers, 32 bytes spilled): left free, ptxas takes 86 and fits 2, and
+// the third block pays for the spill.
 template <int kKs>
-__global__ void __launch_bounds__(kThreads) pairwise_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ p, const bf16* __restrict__ n,
-    const float* __restrict__ nv, const float* __restrict__ den, const float* __restrict__ g,
-    const float* __restrict__ pos_in, float* __restrict__ dq, float* __restrict__ dp, int R,
-    int Rn, int D, Head hd, int mask_fn) {
-  // the product's items, (four rows, two columns) each: kItems a thread
-  constexpr int kItems = (kKs > 0 ? kKs : kMaxD / 16) / 4;
+__global__ void __launch_bounds__(kThreads, kKs == 8 ? 3 : 1) pairwise_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ n, const float* __restrict__ nv,
+    const float* __restrict__ den, const float* __restrict__ g, const float* __restrict__ pos_in,
+    float* __restrict__ out, float* __restrict__ wpart, int R, int Rn, int D, Head hd,
+    int mask_fn, int splits) {
+  // dq columns of warp w: the 16-column blocks 16 w + 128 jb, jb < kJ
+  constexpr int kJ = kKs > 0 ? kKs / 8 : kMaxD / 128;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8, pairs = Dp / 2;
-  bf16* sq = reinterpret_cast<bf16*>(smem);
-  bf16* sn = sq + kRows * ld;  // two pool buffers of kPool rows
-  float* sdl = reinterpret_cast<float*>(sn + 2 * kPool * ld);  // dl transposed: [j][row]
-  float* spos = sdl + kPool * kDlTLd;
-  float* sgs = spos + kRows;
-  float* sred = sgs + kRows;  // [n-tile][row]: the warps' sums of w f'
-  float* sdpos = sred + 4 * kRows;
-  const int r0 = blockIdx.x * kRows;
-  const int tiles = (Rn + kPool - 1) / kPool;
-  zero_pad_cols(sq, kRows + 2 * kPool, D, ld);
-  stage_rows_async(q, R, D, r0, kRows, sq, ld);
-  cp_async_commit();
-  if (tiles > 0) stage_rows_async(n, Rn, D, 0, kPool, sn, ld);
-  cp_async_commit();
-  for (int t = threadIdx.x; t < kRows; t += blockDim.x) {
-    const int r = r0 + t;
-    spos[t] = r < R ? pos_in[r] : 0.f;
-    sgs[t] = r < R ? g[r] / (den[r] + 1e-9f) : 0.f;
-  }
-  cp_async_wait<1>();
-  __syncthreads();
-
+  // after the functor's arrays: the warps' sums of w f' ([n-tile][row])
+  float* sred = reinterpret_cast<float*>(smem + xrt::bwd_tiles_bytes(D)) + 2 * kRows;
+  float acc[kJ][2][2][4], wsum[2];
+  xrt::dq_tiles<kKs, kJ>(q, n, nv, R, Rn, D, 1.f,
+                         pairwise_dl(smem, D, hd, pos_in, den, g, mask_fn), smem, splits, acc,
+                         wsum);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
-  const QueryFrags<kKs> qa(sq + 16 * mt * ld, ld, nks);
-  float acc[kItems][4][2];  // [item][row][column]
-#pragma unroll
-  for (int i = 0; i < kItems; ++i)
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[i][k / 2][k % 2] = 0.f;
-  float wsum[2] = {0.f, 0.f};  // this lane's part of sum_j w f' of rows gr, gr + 8 (of 16 mt)
-
-  for (int t = 0; t < tiles; ++t) {
-    const bf16* cur = sn + (t & 1) * kPool * ld;
-    if (t + 1 < tiles)
-      stage_rows_async(n, Rn, D, (t + 1) * kPool, kPool, sn + ((t + 1) & 1) * kPool * ld, ld);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    float x[4];
-    score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, 1.f, x);
-    const int j = t * kPool + 8 * nt + t2;
-    const float v[2] = {j < Rn ? nv[j] : 0.f, j + 1 < Rn ? nv[j + 1] : 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 16 * mt + gr + 8 * h;
-      const bool live = r0 + row < R;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float wf =
-            live ? weighted_slope(hd, x[2 * h + e], v[e], spos[row], sgs[row], mask_fn) : 0.f;
-        wsum[h] += wf;
-        sdl[(8 * nt + t2 + e) * kDlTLd + row] = xrt::Act<bf16>::round(wf);
-      }
-    }
-    __syncthreads();
-    // dq += dl (32 x 32) N_tile (32 x Dp), k the tile's pool rows in order:
-    // item (rows 4 rg .. 4 rg + 3, columns 2 cp, 2 cp + 1)
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int item = threadIdx.x + kThreads * i;
-      if (item < 8 * pairs) {
-        const int cp = item % pairs, rg = item / pairs;
-#pragma unroll 8
-        for (int jj = 0; jj < kPool; ++jj) {
-          const float4 d4 = *reinterpret_cast<const float4*>(sdl + jj * kDlTLd + 4 * rg);
-          const uint32_t nn = ld32(cur + jj * ld + 2 * cp);
-          const float n0 = __uint_as_float(nn << 16), n1 = __uint_as_float(nn & 0xffff0000u);
-          const float dv[4] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            acc[i][k][0] = fmaf(dv[k], n0, acc[i][k][0]);
-            acc[i][k][1] = fmaf(dv[k], n1, acc[i][k][1]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
+  const int gr = lane >> 2, mt = warp & 1, nt = warp >> 1;
+  const int r0 = blockIdx.x * kRows;
 #pragma unroll
   for (int h = 0; h < 2; ++h) wsum[h] = quad_sum(wsum[h]);
   if ((lane & 3) == 0) {
@@ -343,29 +308,31 @@ __global__ void __launch_bounds__(kThreads) pairwise_dq_kernel(
     const int row = threadIdx.x;
     float s = sred[row];
     for (int w = 1; w < 4; ++w) s += sred[w * kRows + row];
-    sdpos[row] = hd.has_dpos() ? __fmul_rn(s, -hd.c) : 0.f;
+    if (r0 + row < R) wpart[(size_t)blockIdx.y * R + r0 + row] = s;
   }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int item = threadIdx.x + kThreads * i;
-    if (item < 8 * pairs) {
-      const int cp = item % pairs, rg = item / pairs;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int row = 4 * rg + k, r = r0 + row;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 2 * cp + e;
-          if (r < R && col < D) {
-            const size_t at = (size_t)r * D + col;
-            dq[at] = __fadd_rn(acc[i][k][e], __fmul_rn(sdpos[row], xrt::bf(p[at])));
-            dp[at] = __fmul_rn(sdpos[row], xrt::bf(sq[row * ld + col]));
-          }
-        }
-      }
-    }
+  xrt::store_acc<kJ>(acc, out + (splits > 1 ? (size_t)blockIdx.y * R * D : 0), r0, R, D);
+}
+
+// The dq pass's last kernel, one thread per element: the partial dl N and
+// sums of w f' added in split order, dpos = -c (sum w f') where the head
+// has one, dq = dl N + dpos p, dp = dpos q.  With one split part is dq
+// itself: each thread reads its element before it writes it.
+__global__ void pairwise_dq_sum_kernel(const float* part, const float* __restrict__ wpart,
+                                       const bf16* __restrict__ q, const bf16* __restrict__ p,
+                                       float* dq, float* __restrict__ dp, int R, int D, Head hd,
+                                       int splits) {
+  const size_t total = (size_t)R * D;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int r = (int)(i / D);
+  float s = part[i], w = wpart[r];
+  for (int sp = 1; sp < splits; ++sp) {
+    s += part[sp * total + i];
+    w += wpart[(size_t)sp * R + r];
   }
+  const float dpos = hd.has_dpos() ? __fmul_rn(w, -hd.c) : 0.f;
+  dq[i] = __fadd_rn(s, __fmul_rn(dpos, xrt::bf(p[i])));
+  dp[i] = __fmul_rn(dpos, xrt::bf(q[i]));
 }
 
 // dn, block (pool tile, split): the split's dl^T Q over its query-row tiles
@@ -377,119 +344,18 @@ __global__ void __launch_bounds__(kThreads) pairwise_dn_kernel(
     const float* __restrict__ den, const float* __restrict__ g, const float* __restrict__ pos_in,
     float* __restrict__ out, int R, int Rn, int D, Head hd, int mask_fn, int splits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Dp = pad16(D), nks = Dp / 16, ld = Dp + 8;
-  bf16* sn = reinterpret_cast<bf16*>(smem);  // the block's kPool pool rows
-  bf16* sq = sn + kPool * ld;                // two query buffers of kRows rows
-  bf16* sdl = sq + 2 * kRows * ld;           // dl transposed: sdl[j * kDlLd + r]
-  float* snv = reinterpret_cast<float*>(sdl + kPool * kDlLd);
-  float* spos = snv + kPool;
-  float* sgs = spos + kRows;
-  const int n0 = blockIdx.x * kPool;
-  int t0, t1;
-  split_tiles(R, kRows, splits, t0, t1);
-  zero_pad_cols(sn, kPool + 2 * kRows, D, ld);
-  stage_rows_async(n, Rn, D, n0, kPool, sn, ld);
-  if (t0 < t1) stage_rows_async(q, R, D, t0 * kRows, kRows, sq, ld);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < kPool; i += blockDim.x) snv[i] = n0 + i < Rn ? nv[n0 + i] : 0.f;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, t2 = (lane & 3) * 2, mt = warp & 1, nt = warp >> 1;
-  float acc[kJ][2][2][4];  // [column block][m-tile][n8 half][fragment]
-#pragma unroll
-  for (int jb = 0; jb < kJ; ++jb)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[jb][i / 8][(i / 4) % 2][i % 4] = 0.f;
-
-  for (int t = t0; t < t1; ++t) {
-    const bf16* cur = sq + ((t - t0) & 1) * kRows * ld;
-    if (t + 1 < t1)
-      stage_rows_async(q, R, D, (t + 1) * kRows, kRows, sq + ((t + 1 - t0) & 1) * kRows * ld, ld);
-    cp_async_commit();
-    for (int i = threadIdx.x; i < kRows; i += blockDim.x) {
-      const int r = t * kRows + i;
-      const bool in = r < R;
-      spos[i] = in ? pos_in[r] : 0.f;
-      sgs[i] = in ? g[r] / (den[r] + 1e-9f) : 0.f;
-    }
-    cp_async_wait<1>();
-    __syncthreads();
-    // scores: the query rows 16 mt (+ 16) as A against pool rows 8 nt
-    const bf16* qw = cur + 16 * mt * ld;
-    float x[4];
-    score_tile<0>([=](int ks, uint32_t a[4]) { load_a(qw, ld, 16 * ks, a); }, sn + 8 * nt * ld,
-                  ld, nks, 1.f, x);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 16 * mt + gr + 8 * (i >> 1), jn = 8 * nt + t2 + (i & 1);
-      const bool live = n0 + jn < Rn && t * kRows + row < R;
-      const float d =
-          live ? weighted_slope(hd, x[i], snv[jn], spos[row], sgs[row], mask_fn) : 0.f;
-      sdl[jn * kDlLd + row] = __float2bfloat16_rn(d);
-    }
-    __syncthreads();
-    // dn += dl^T (32 x 32) Q_tile (32 x Dp), k the tile's query rows in order
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      uint32_t a0[4], a1[4];
-      load_a(sdl, kDlLd, 16 * kk, a0);
-      load_a(sdl + 16 * kDlLd, kDlLd, 16 * kk, a1);
-#pragma unroll
-      for (int jb = 0; jb < kJ; ++jb) {
-        const int c = 16 * warp + 128 * jb;
-        if (c < Dp) {
-          uint32_t b[4];
-          xrt::ldmatrix_x4_trans(b, cur + 16 * kk * ld + c, ld);
-          mma_bf16(acc[jb][0][0], a0, b);
-          mma_bf16(acc[jb][0][1], a0, b + 2);
-          mma_bf16(acc[jb][1][0], a1, b);
-          mma_bf16(acc[jb][1][1], a1, b + 2);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();  // no query tile: the pool rows' copy is still in flight
-  float* o = out + (splits > 1 ? (size_t)blockIdx.y * Rn * D : 0);
-#pragma unroll
-  for (int jb = 0; jb < kJ; ++jb)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = n0 + 16 * mi + gr + 8 * h, col = 16 * warp + 128 * jb + 8 * half + t2;
-          if (j < Rn) {
-            if (col < D) o[(size_t)j * D + col] = acc[jb][mi][half][2 * h];
-            if (col + 1 < D) o[(size_t)j * D + col + 1] = acc[jb][mi][half][2 * h + 1];
-          }
-        }
-}
-
-// out[i] = the splits' partial sums part[sp * total + i], added in split
-// order
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  size_t total, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
-  out[i] = s;
+  xrt::dn_block<kJ>(q, n, nv, R, Rn, D, 1.f, pairwise_dl(smem, D, hd, pos_in, den, g, mask_fn),
+                    smem, out, splits);
 }
 
 size_t fwd_smem(int D) {
   return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
          sizeof(float) * (kRows + 4 * kRows * 2);
 }
-size_t dq_smem(int D) {
-  return sizeof(bf16) * (size_t)(kRows + 2 * kPool) * (pad16(D) + 8) +
-         sizeof(float) * ((size_t)kPool * kDlTLd + 7 * kRows);
-}
-size_t dn_smem(int D) {
-  return sizeof(bf16) * ((size_t)(kPool + 2 * kRows) * (pad16(D) + 8) + kPool * kDlLd) +
-         sizeof(float) * (kPool + 2 * kRows);
-}
+// the backward kernels: the shared loops' tiles, then pos and g / (den +
+// 1e-9), and (dq) the warps' sums of w f'
+size_t dq_smem(int D) { return xrt::bwd_tiles_bytes(D) + sizeof(float) * 6 * kRows; }
+size_t dn_smem(int D) { return xrt::bwd_tiles_bytes(D) + sizeof(float) * 2 * kRows; }
 
 // f(kernel) with the instantiation for D: the query fragments in
 // registers up to D = 384 (forward, dq); dn's column blocks a warp
@@ -518,21 +384,23 @@ bool bad_args(int R, int Rn, int D, int head) {
 
 }  // namespace
 
-// the splits that pairwise_fwd (pass 0) takes over the pool or pairwise_dn
-// (pass 1) over the query rows, at this shape on the current device, or
-// -1 on an error; the caller sizes the workspaces by them
+// the splits that pairwise_fwd (pass 0) or pairwise_dq (pass 2) takes
+// over the pool, or pairwise_dn (pass 1) over the query rows, at this
+// shape on the current device, or -1 on an error; the caller sizes the
+// workspaces by them
 extern "C" int pairwise_splits(int R, int Rn, int D, int pass) {
-  if (bad_args(R, Rn, D, kContrastive) || pass < 0 || pass > 1) return -1;
+  if (bad_args(R, Rn, D, kContrastive) || pass < 0 || pass > 2) return -1;
   const int row_tiles = (R + kRows - 1) / kRows, pool_tiles = (Rn + kPool - 1) / kPool;
   int splits = 0;
+  auto plan = [&](size_t smem, int tiles, int steps) {
+    return [=, &splits](auto kernel) {
+      return plan_splits(kernel, smem, kThreads, tiles, steps, &splits);
+    };
+  };
   const cudaError_t err =
-      pass == 0 ? with_fwd_kernel(D, [&](auto kernel) {
-        return plan_splits(kernel, fwd_smem(D), kThreads, row_tiles, pool_tiles, &splits);
-      })
-                : with_dn_kernel(D, [&](auto kernel) {
-                    return plan_splits(kernel, dn_smem(D), kThreads, pool_tiles, row_tiles,
-                                       &splits);
-                  });
+      pass == 0   ? with_fwd_kernel(D, plan(fwd_smem(D), row_tiles, pool_tiles))
+      : pass == 1 ? with_dn_kernel(D, plan(dn_smem(D), pool_tiles, row_tiles))
+                  : with_dq_kernel(D, plan(dq_smem(D), row_tiles, pool_tiles));
   return err == cudaSuccess ? splits : -1;
 }
 
@@ -561,22 +429,35 @@ extern "C" int pairwise_fwd(const void* q, const void* p, const void* n, const f
 }
 
 // dq and dp, (R, D) f32, for the cotangent g of out; den and pos are the
-// forward's
+// forward's; part: an f32 workspace of splits * R * (D + 1) with more
+// than one split, else of R (the sums of w f')
 extern "C" int pairwise_dq(const void* q, const void* p, const void* n, const float* nv,
                            const float* den, const float* g, const float* pos, float* dq,
-                           float* dp, int R, int Rn, int D, int head, float margin, float c,
-                           int mask_fn, void* stream) {
-  if (bad_args(R, Rn, D, head)) return cudaErrorInvalidValue;
+                           float* dp, float* part, int R, int Rn, int D, int head, float margin,
+                           float c, int mask_fn, int splits, void* stream) {
+  if (bad_args(R, Rn, D, head) || splits < 1) return cudaErrorInvalidValue;
   if (R == 0) return cudaSuccess;
+  if (part == nullptr) return cudaErrorInvalidValue;
   const size_t smem = dq_smem(D);
-  return with_dq_kernel(D, [&](auto kernel) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* pb = static_cast<const bf16*>(p);
+  const Head hd{head, margin, c};
+  const size_t total = (size_t)R * D;
+  float* dl_part = splits > 1 ? part : dq;
+  float* wpart = splits > 1 ? part + (size_t)splits * total : part;
+  cudaError_t err = with_dq_kernel(D, [&](auto kernel) {
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    kernel<<<(R + kRows - 1) / kRows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(p), static_cast<const bf16*>(n),
-        nv, den, g, pos, dq, dp, R, Rn, D, Head{head, margin, c}, mask_fn);
+    kernel<<<dim3((R + kRows - 1) / kRows, splits), kThreads, smem, s>>>(
+        qb, static_cast<const bf16*>(n), nv, den, g, pos, dl_part, wpart, R, Rn, D, hd, mask_fn,
+        splits);
     return cudaGetLastError();
   });
+  if (err != cudaSuccess) return err;
+  pairwise_dq_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(dl_part, wpart, qb, pb,
+                                                                         dq, dp, R, D, hd, splits);
+  return cudaGetLastError();
 }
 
 // dn, (Rn, D) f32, for the cotangent g of out; den and pos are the
@@ -586,9 +467,9 @@ extern "C" int pairwise_dn(const void* q, const void* n, const float* nv, const 
                            const float* g, const float* pos, float* dn, float* part, int R, int Rn,
                            int D, int head, float margin, float c, int mask_fn, int splits,
                            void* stream) {
-  if (bad_args(R, Rn, D, head) || splits < 1 || (splits > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
+  if (bad_args(R, Rn, D, head) || splits < 1) return cudaErrorInvalidValue;
   if (Rn == 0) return cudaSuccess;
+  if (splits > 1 && part == nullptr) return cudaErrorInvalidValue;
   const size_t smem = dn_smem(D);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = splits > 1 ? part : dn;
@@ -602,6 +483,7 @@ extern "C" int pairwise_dn(const void* q, const void* n, const float* nv, const 
   });
   if (err != cudaSuccess || splits == 1) return err;
   const size_t total = (size_t)Rn * D;
-  sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, dn, total, splits);
+  xrt::sum_splits_kernel<float>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, dn, total, splits);
   return cudaGetLastError();
 }

@@ -302,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) table_infonce_dq_kernel(
                        ld);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();  // also: spp written, the buffer about to be restaged read
+    __syncthreads();  // also: spp written
     float x[4];
     score_tile<kKs>(qa, cur + 8 * nt * ld, ld, nks, scale, x);
     const int j = t * kCols + 8 * nt + t2;
@@ -341,6 +341,7 @@ __global__ void __launch_bounds__(kThreads) table_infonce_dq_kernel(
         }
       }
     }
+    __syncthreads();  // every warp done with cur before the next step restages it
   }
   cp_async_wait<0>();
   float* o = out + (splits > 1 ? (size_t)blockIdx.y * R * D : 0);
@@ -467,17 +468,6 @@ __global__ void __launch_bounds__(kThreads) table_infonce_dt_kernel(
         }
 }
 
-// out[i] = the splits' partial sums part[sp * total + i], added in split
-// order
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  size_t total, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
-  out[i] = s;
-}
-
 size_t fwd_smem(int D) {
   return sizeof(bf16) * (size_t)(kRows + 2 * kCols) * (pad16(D) + 8) +
          sizeof(float) * (kRows + 4 * kRows * 2);
@@ -570,7 +560,7 @@ extern "C" int table_infonce_bwd(const void* q, const void* table, const int* po
                                  int R, int N, int D, float scale, int mask_fn, int splits_dq,
                                  int splits_dt, void* stream) {
   if (bad_shape(R, N, D) || splits_dq < 1 || splits_dt < 1) return cudaErrorInvalidValue;
-  if ((splits_dq > 1 && part_dq == nullptr) || (splits_dt > 1 && part_dt == nullptr))
+  if ((R > 0 && splits_dq > 1 && part_dq == nullptr) || (splits_dt > 1 && part_dt == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* qb = static_cast<const bf16*>(q);
@@ -589,8 +579,8 @@ extern "C" int table_infonce_bwd(const void* q, const void* table, const int* po
     if (err != cudaSuccess) return err;
     if (splits_dq > 1) {
       const size_t total = (size_t)R * D;
-      sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part_dq, dq, total,
-                                                                         splits_dq);
+      xrt::sum_splits_kernel<float>
+          <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part_dq, dq, total, splits_dq);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
   }
@@ -606,8 +596,8 @@ extern "C" int table_infonce_bwd(const void* q, const void* table, const int* po
   if (err != cudaSuccess) return err;
   if (splits_dt > 1) {
     const size_t total = (size_t)N * D;
-    sum_splits_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part_dt, dtable, total,
-                                                                       splits_dt);
+    xrt::sum_splits_kernel<float>
+        <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part_dt, dtable, total, splits_dt);
   }
   return cudaGetLastError();
 }

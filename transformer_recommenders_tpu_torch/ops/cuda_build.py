@@ -95,31 +95,34 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_infonce": (
         "fused_infonce.cu",
         {
-            # R, Rn, D, pass (0 forward, 1 dq): the pool splits of a launch
+            # R, Rn, D, pass (0 forward, 1 dq, 2 dn): the splits of a launch
             "pool_infonce_splits": [_I] * 4,
             # q, p, n (bf16), nv (f32), ce, lse, pos, split workspace (f32),
             # R, Rn, D, scale, mask_false_negatives, splits, stream
             "pool_infonce_fwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
-            # q, p, n, nv, lse, g, pos, dq, dp (f32), split workspace (f32),
-            # R, Rn, D, scale, mask_false_negatives, splits, stream
+            # q, p, n, nv, lse, g, pos, dq, dp (f32), split workspace (f32;
+            # null with one split), R, Rn, D, scale, mask_false_negatives,
+            # splits, stream
             "pool_infonce_dq": [_P] * 10 + [_I, _I, _I, _F, _I, _I, _P],
-            # q, n, nv, lse, g, pos, dn (f32), R, Rn, D, scale,
-            # mask_false_negatives, stream
-            "pool_infonce_dn": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+            # q, n, nv, lse, g, pos, dn (f32), split workspace (f32; null
+            # with one split), R, Rn, D, scale, mask_false_negatives,
+            # splits, stream
+            "pool_infonce_dn": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
         },
     ),
     "fused_pairwise": (
         "fused_pairwise.cu",
         {
-            # R, Rn, D, pass (0 forward, 1 dn): the splits of a launch
+            # R, Rn, D, pass (0 forward, 1 dn, 2 dq): the splits of a launch
             "pairwise_splits": [_I] * 4,
             # q, p, n (bf16), nv (f32), out, den, pos, split workspace (f32),
             # R, Rn, D, head, margin, 1 - margin, mask_false_negatives,
             # splits, stream
             "pairwise_fwd": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
-            # q, p, n, nv, den, g, pos, dq, dp (f32), R, Rn, D, head,
-            # margin, 1 - margin, mask_false_negatives, stream
-            "pairwise_dq": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _I, _P],
+            # q, p, n, nv, den, g, pos, dq, dp (f32), split workspace (f32;
+            # null with one split), R, Rn, D, head, margin, 1 - margin,
+            # mask_false_negatives, splits, stream
+            "pairwise_dq": [_P] * 10 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
             # q, n, nv, den, g, pos, dn (f32), split workspace (f32; null
             # with one split), R, Rn, D, head, margin, 1 - margin,
             # mask_false_negatives, splits, stream
@@ -233,6 +236,17 @@ def check(status: int, what: str) -> None:
     if status != 0:
         msg = f"{what}: CUDA error {status}"
         raise RuntimeError(msg)
+
+
+def workspace(elems: int, device) -> torch.Tensor | None:
+    """An f32 workspace of ``elems`` elements for a kernel, or None (a null
+    pointer: the kernel takes none) for 0."""
+    return torch.empty(elems, dtype=torch.float32, device=device) if elems else None
+
+
+def pointer(t: torch.Tensor | None) -> int | None:
+    """The address a C entry point takes for ``t``; None (null) for none."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_handle(device: torch.device) -> int:

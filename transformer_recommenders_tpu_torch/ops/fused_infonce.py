@@ -136,21 +136,35 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _splits(device_index: int, r: int, rn: int, d: int, kernel_pass: int) -> int:
-    """The pool splits of the forward (pass 0) or dq (pass 1) kernel."""
+    """The splits of the forward (pass 0, over the pool), the dq kernel (1,
+    over the pool) or the dn kernel (2, over the query rows)."""
     return cuda_build.splits("fused_infonce", "pool_infonce_splits", device_index, r, rn, d,
                              kernel_pass)
+
+
+def workspace_elems(r: int, rn: int, d: int, splits_fwd: int, splits_dq: int,
+                    splits_dn: int) -> dict[str, int]:
+    """f32 elements of the kernels' workspaces: the forward's per-split
+    (max, sum), and the partial dq and dn of each split (none with one
+    split: the kernel writes dq or dn itself)."""
+    return {
+        "fwd_part": splits_fwd * r * 2,
+        "dq_part": splits_dq * r * d if splits_dq > 1 else 0,
+        "dn_part": splits_dn * rn * d if splits_dn > 1 else 0,
+    }
 
 
 def _fwd_cuda(q, p, n, neg_valid, scale, mask_false_negatives):
     _check_cuda(q, p, n, neg_valid)
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
+    rn = nb.shape[0]
     ce, lse, pos = (torch.empty(r, dtype=torch.float32, device=q.device) for _ in range(3))
-    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 0)
-    part = torch.empty(splits * r * 2, dtype=torch.float32, device=q.device)
+    splits = _splits(q.device.index or 0, r, rn, d, 0)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, splits, 1, 1)["fwd_part"], q.device)
     status = cuda_build.library("fused_infonce").pool_infonce_fwd(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), ce.data_ptr(),
-        lse.data_ptr(), pos.data_ptr(), part.data_ptr(), r, nb.shape[0], d, float(scale),
+        lse.data_ptr(), pos.data_ptr(), cuda_build.pointer(part), r, rn, d, float(scale),
         int(mask_false_negatives), splits, cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pool_infonce_fwd launch")
@@ -162,14 +176,15 @@ def _dq_cuda(q, p, n, neg_valid, lse, g, pos, scale, mask_false_negatives):
     _check_cuda(q, p, n, neg_valid)
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
+    rn = nb.shape[0]
     dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
     dp = torch.empty_like(dq)
-    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 1)
-    part = torch.empty(splits * r * d, dtype=torch.float32, device=q.device)
+    splits = _splits(q.device.index or 0, r, rn, d, 1)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, 1, splits, 1)["dq_part"], q.device)
     status = cuda_build.library("fused_infonce").pool_infonce_dq(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(lse).data_ptr(),
-        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(), part.data_ptr(),
-        r, nb.shape[0], d, float(scale), int(mask_false_negatives), splits,
+        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(),
+        cuda_build.pointer(part), r, rn, d, float(scale), int(mask_false_negatives), splits,
         cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pool_infonce_dq launch")
@@ -181,11 +196,14 @@ def _dn_cuda(q, p, n, neg_valid, lse, g, pos, scale, mask_false_negatives):
     _check_cuda(q, p, n, neg_valid)
     qb, nb, nv = _bf16(q), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
-    dn = torch.empty((nb.shape[0], d), dtype=torch.float32, device=q.device)
+    rn = nb.shape[0]
+    dn = torch.empty((rn, d), dtype=torch.float32, device=q.device)
+    splits = _splits(q.device.index or 0, r, rn, d, 2)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, 1, 1, splits)["dn_part"], q.device)
     status = cuda_build.library("fused_infonce").pool_infonce_dn(
         qb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(lse).data_ptr(), _f32(g).data_ptr(),
-        _f32(pos).data_ptr(), dn.data_ptr(), r, nb.shape[0], d, float(scale),
-        int(mask_false_negatives), cuda_build.stream_handle(q.device),
+        _f32(pos).data_ptr(), dn.data_ptr(), cuda_build.pointer(part), r, rn, d, float(scale),
+        int(mask_false_negatives), splits, cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pool_infonce_dn launch")
     cuda_build.LAUNCHES["pool_infonce_dn"] += 1

@@ -188,22 +188,37 @@ def _head_args(head: str, margin: float) -> tuple[int, float, float]:
 
 
 def _splits(device_index: int, r: int, rn: int, d: int, kernel_pass: int) -> int:
-    """The splits of the forward (pass 0, over the pool) or the dn kernel
-    (1, over the query rows)."""
+    """The splits of the forward (pass 0, over the pool), the dn kernel (1,
+    over the query rows) or the dq kernel (2, over the pool)."""
     return cuda_build.splits("fused_pairwise", "pairwise_splits", device_index, r, rn, d,
                              kernel_pass)
+
+
+def workspace_elems(r: int, rn: int, d: int, splits_fwd: int, splits_dq: int,
+                    splits_dn: int) -> dict[str, int]:
+    """f32 elements of the kernels' workspaces: the forward's per-split
+    (sum of f v, sum of v); each dq split's per-row sums of w f' and, with
+    more than one split, its partial dq (one split writes dq itself); the
+    partial dn of each dn split (none with one split: the kernel writes dn
+    itself)."""
+    return {
+        "fwd_part": splits_fwd * r * 2,
+        "dq_part": splits_dq * r * (d + 1) if splits_dq > 1 else r,
+        "dn_part": splits_dn * rn * d if splits_dn > 1 else 0,
+    }
 
 
 def _fwd_cuda(q, p, n, neg_valid, head, margin, mask_false_negatives):
     _check_cuda(q, p, n, neg_valid, "fused_pairwise")
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
+    rn = nb.shape[0]
     out, den, pos = (torch.empty(r, dtype=torch.float32, device=q.device) for _ in range(3))
-    splits = _splits(q.device.index or 0, r, nb.shape[0], d, 0)
-    part = torch.empty(splits * r * 2, dtype=torch.float32, device=q.device)
+    splits = _splits(q.device.index or 0, r, rn, d, 0)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, splits, 1, 1)["fwd_part"], q.device)
     status = cuda_build.library("fused_pairwise").pairwise_fwd(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), out.data_ptr(),
-        den.data_ptr(), pos.data_ptr(), part.data_ptr(), r, nb.shape[0], d,
+        den.data_ptr(), pos.data_ptr(), cuda_build.pointer(part), r, rn, d,
         *_head_args(head, margin), int(mask_false_negatives), splits,
         cuda_build.stream_handle(q.device),
     )
@@ -216,12 +231,16 @@ def _dq_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_false_negatives
     _check_cuda(q, p, n, neg_valid, "fused_pairwise")
     qb, pb, nb, nv = _bf16(q), _bf16(p), _bf16(n), _f32(neg_valid)
     r, d = qb.shape
+    rn = nb.shape[0]
     dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
     dp = torch.empty_like(dq)
+    splits = _splits(q.device.index or 0, r, rn, d, 2)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, 1, splits, 1)["dq_part"], q.device)
     status = cuda_build.library("fused_pairwise").pairwise_dq(
         qb.data_ptr(), pb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(den).data_ptr(),
-        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(), r, nb.shape[0],
-        d, *_head_args(head, margin), int(mask_false_negatives),
+        _f32(g).data_ptr(), _f32(pos).data_ptr(), dq.data_ptr(), dp.data_ptr(),
+        cuda_build.pointer(part), r, rn, d, *_head_args(head, margin), int(mask_false_negatives),
+        splits,
         cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pairwise_dq launch")
@@ -236,12 +255,11 @@ def _dn_cuda(q, p, n, neg_valid, den, g, pos, head, margin, mask_false_negatives
     rn = nb.shape[0]
     dn = torch.empty((rn, d), dtype=torch.float32, device=q.device)
     splits = _splits(q.device.index or 0, r, rn, d, 1)
-    part = (torch.empty(splits * rn * d, dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    part = cuda_build.workspace(workspace_elems(r, rn, d, 1, 1, splits)["dn_part"], q.device)
     status = cuda_build.library("fused_pairwise").pairwise_dn(
         qb.data_ptr(), nb.data_ptr(), nv.data_ptr(), _f32(den).data_ptr(), _f32(g).data_ptr(),
-        _f32(pos).data_ptr(), dn.data_ptr(), None if part is None else part.data_ptr(), r, rn,
-        d, *_head_args(head, margin), int(mask_false_negatives), splits,
+        _f32(pos).data_ptr(), dn.data_ptr(), cuda_build.pointer(part), r, rn, d,
+        *_head_args(head, margin), int(mask_false_negatives), splits,
         cuda_build.stream_handle(q.device),
     )
     cuda_build.check(status, "pairwise_dn launch")

@@ -146,10 +146,6 @@ def workspace_elems(r: int, n: int, d: int, splits_fwd: int, splits_dq: int,
     }
 
 
-def _empty(elems: int, device) -> torch.Tensor | None:
-    return torch.empty(elems, dtype=torch.float32, device=device) if elems else None
-
-
 def _fwd_cuda(q, table, pos_idx, counts, scale, mask_false_negatives):
     _check_cuda(q, table, pos_idx, counts)
     qb, tb, pidx, cnt = _cuda_operands(q, table, pos_idx, counts)
@@ -159,10 +155,10 @@ def _fwd_cuda(q, table, pos_idx, counts, scale, mask_false_negatives):
     ws = workspace_elems(r, n, d, splits, 1, 1)
     ce = torch.empty(r, dtype=torch.float32, device=q.device)
     lse = torch.empty_like(ce)
-    pos, part = (_empty(ws[k], q.device) for k in ("fwd_pos", "fwd_part"))
+    pos, part = (cuda_build.workspace(ws[k], q.device) for k in ("fwd_pos", "fwd_part"))
     status = cuda_build.library("fused_table_infonce").table_infonce_fwd(
         qb.data_ptr(), tb.data_ptr(), pidx.data_ptr(), cnt.data_ptr(), ce.data_ptr(),
-        lse.data_ptr(), *(None if t is None else t.data_ptr() for t in (pos, part)),
+        lse.data_ptr(), cuda_build.pointer(pos), cuda_build.pointer(part),
         r, n, d, float(scale), int(mask_false_negatives), splits,
         cuda_build.stream_handle(q.device),
     )
@@ -183,11 +179,12 @@ def _bwd_cuda(q, table, pos_idx, counts, lse, g, scale, mask_false_negatives):
     g = g.float().contiguous()
     dq = torch.empty((r, d), dtype=torch.float32, device=q.device)
     dt = torch.empty((n, d), dtype=torch.float32, device=q.device)
-    pos, part_dq, part_dt = (_empty(ws[k], q.device) for k in ("bwd_pos", "dq_part", "dt_part"))
+    pos, part_dq, part_dt = (cuda_build.workspace(ws[k], q.device)
+                             for k in ("bwd_pos", "dq_part", "dt_part"))
     status = cuda_build.library("fused_table_infonce").table_infonce_bwd(
         qb.data_ptr(), tb.data_ptr(), pidx.data_ptr(), cnt.data_ptr(), lse.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dt.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in (pos, part_dq, part_dt)),
+        *(cuda_build.pointer(t) for t in (pos, part_dq, part_dt)),
         r, n, d, float(scale), int(mask_false_negatives), splits_dq, splits_dt,
         cuda_build.stream_handle(q.device),
     )
