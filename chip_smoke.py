@@ -15,6 +15,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
    version and a stock PyTorch yardstick (``library_ms``, never called by
    the port), the layer at each batch the paths launch it with (serving's
    64, training's 128, path B's 32 at D=384) and two calls bit for bit;
+   the gather at every shape the paths and the bench give it (serving's
+   f32 -> bf16 rows, the hot steps' and the pool objective's bf16 rows at
+   B=128 and 256), beside an empty kernel on its grid (the launch floor)
+   and a bound with int64 indices at 8 bytes;
 3. serving: a synthetic artifact at MovieLens-1M scale (3,706 items with
    384-d text embeddings, 6,040 users) written by ``save_artifact`` for the
    flagship model (4 layers, d=128, 8 heads, FFN 512, seq 32, bf16) with
@@ -86,7 +90,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     and f32, dropout 0.1, the full variants bit for bit against the
     production kernels; then the section profile
     (``tools/profile_fused_sections.py``) at ``flagship`` (B=256) and
-    ``train`` (B=128).
+    ``train`` (B=128);
+12. the multi-step driver (``training/scan_steps.py``) for the flagship's
+    and path C's hot steps at batch 128: K=8 steps as CUDA-graph replays
+    bit for bit against 8 eager steps with the same batches and seeds,
+    one counted call whose launches must be K times one eager step's, ms
+    per step graphed and eager in turns in this call, and a graphed call's
+    idle share under ``torch.profiler``;
+13. one short window of each part of the bench
+    (``python -m transformer_recommenders_tpu_torch.bench``): flagship
+    examples/s at B=256 graphed and eager, retrieval top-100 over 62,000
+    items at batches 1, 32 and 256.
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -342,6 +356,52 @@ def check_fused_layer() -> dict:
     }
 
 
+GATHER_SHAPES = {  # name: (R, N, D, table dtype, output dtype, parts), where the paths
+    # launch #1; parts: the rows are a train batch's histories (1) or its
+    # histories, positives and negatives (3), or random (0)
+    "serving": (2048, 3707, 384, "float32", "bfloat16", 0),  # a (64, 32) batch of histories
+    "hot": (4096, 3707, 128, "bfloat16", "bfloat16", 1),  # B*S history rows, projected table
+    "pool_B128": (12288, 3707, 128, "bfloat16", "bfloat16", 3),  # 3*B*S: path A, pool objective
+    "bench": (8192, 4097, 128, "bfloat16", "bfloat16", 1),  # the bench's B=256 table-path step
+    "pool_B256": (24576, 4097, 128, "bfloat16", "bfloat16", 3),  # 3*B*S rows at B=256
+}
+
+
+def time_gather(gen, r: int, n: int, d: int, table_dtype, out_dtype, parts: int) -> dict:
+    """Device times of #1 at one shape (CUDA-graph replays): the kernel,
+    an empty kernel on its grid (the launch floor), the plain version and
+    ``index_select``; the bound counts each int64 index (8 bytes), each
+    distinct table row and each output row once."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+
+    tdt, odt = getattr(torch, table_dtype), getattr(torch, out_dtype)
+    table = torch.randn(n, d, generator=gen).to("cuda", tdt)
+    if not parts:
+        idx = torch.randint(0, n, (r,), generator=gen)
+    else:  # a (B, 32) train batch with its padding
+        batch = train_batch(np.random.default_rng(r), r // 32 // parts, 32, n - 1)
+        keys = ("history_item_idx", "pos_item_idx", "neg_item_idx")[:parts]
+        idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in keys])).long()
+    idx = idx.cuda()
+    t = {"ms": time_ms(lambda: gm.gather_rows(table, idx, odt)),
+         "floor_ms": time_ms(lambda: gm.launch_floor(d, r, odt, "cuda")),
+         "plain_ms": time_ms(lambda: gm.gather_rows_reference(table, idx, odt)),
+         "library_ms": time_ms(lambda: torch.index_select(table, 0, idx))}
+    unique = int(torch.unique(idx[(idx >= 0) & (idx < n)]).numel())
+    nbytes = r * 8 + unique * d * table.element_size() + r * d * odt.itemsize
+    t["bound_ms"], t["bound_by"] = nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    log(f"  gather_rows R={r} of {n}x{d} {table_dtype}->{out_dtype} ({unique} distinct rows), "
+        f"device time: kernel {t['ms']:.4f} ms, empty launch on its grid {t['floor_ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, index_select ({table_dtype} rows) {t['library_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms (bytes, int64 indices at 8 bytes): {t['share_of_bound']:.2f} "
+        "of the bound")
+    return t
+
+
 def check_gather() -> dict:
     import torch
 
@@ -349,44 +409,32 @@ def check_gather() -> dict:
         gather_rows, gather_rows_reference)
 
     gen = torch.Generator().manual_seed(1)
-    result = None
     for n, d, r in ((3707, 128, 2048), (3707, 384, 2048), (3707, 384, 32), (100, 6, 37)):
-        table = torch.randn(n, d, generator=gen).cuda()
-        idx = torch.randint(-5, n + 5, (r,), generator=gen).cuda()  # some out of range
-        for out_dtype, idx_dtype in ((torch.bfloat16, torch.int64), (torch.float32, torch.int64),
-                                     (torch.bfloat16, torch.int32)):
-            got = gather_rows(table, idx.to(idx_dtype), out_dtype)
-            want = gather_rows_reference(table, idx, out_dtype)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            ok = err == 0.0 and got.dtype == out_dtype
-            log(f"  gather_rows N={n} D={d} R={r} {out_dtype} {idx_dtype} idx: max_abs_err={err} "
-                f"tol=0 (a copy) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError("gather_rows disagrees with its plain version")
-    # times at the serving shape: a (64, 32) batch of histories from the
-    # 3,707 x 384 input-space table, bf16 rows
-    table = torch.randn(3707, 384, generator=gen).cuda()
-    idx = torch.randint(0, 3707, (64 * 32,), generator=gen).cuda()
-    ms = time_ms(lambda: gather_rows(table, idx, torch.bfloat16))
-    plain_ms = time_ms(lambda: gather_rows_reference(table, idx, torch.bfloat16))
-    library_ms = time_ms(lambda: torch.index_select(table, 0, idx))
-    call_ms = eager_ms(lambda: gather_rows(table, idx, torch.bfloat16))
-    unique = int(torch.unique(idx).numel())
-    nbytes = idx.numel() * 4 + unique * 384 * 4 + idx.numel() * 384 * 2
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    log(f"  gather_rows R=2048 N=3707 D=384 bf16, device time: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_select (f32 rows) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms (bytes); one eager wrapper call {call_ms:.4f} ms")
-    result = {
+        for table_dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(n, d, generator=gen).to("cuda", table_dtype)
+            idx = torch.randint(-5, n + 5, (r,), generator=gen).cuda()  # some out of range
+            for out_dtype, idx_dtype in ((torch.bfloat16, torch.int64),
+                                         (torch.float32, torch.int64),
+                                         (torch.bfloat16, torch.int32)):
+                got = gather_rows(table, idx.to(idx_dtype), out_dtype)
+                want = gather_rows_reference(table, idx, out_dtype)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                ok = torch.equal(got, want) and got.dtype == out_dtype
+                log(f"  gather_rows N={n} D={d} R={r} {table_dtype}->{out_dtype} {idx_dtype} idx: "
+                    f"max_abs_err={err} tol=0 (a copy) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("gather_rows disagrees with its plain version")
+    times = {name: time_gather(gen, *shape) for name, shape in GATHER_SHAPES.items()}
+    return {
         "name": "gather_rows", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/gather_rows.cu",
         "replaces": "transformer_recommenders_tpu/ops/gather_matmul.py:52",
         "shape": "R=2048 N=3707 D=384 f32->bf16",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        "max_abs_err": 0.0, **{k: times["serving"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_shape": times,
     }
-    return result
 
 
 def compare_grad(name: str, got, want, dtype_name: str) -> tuple[float, float, float]:
@@ -539,11 +587,15 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+    from transformer_recommenders_tpu_torch.ops.hash_dropout import seed_tensor
     from transformer_recommenders_tpu_torch.tools.profile_fused_sections import (
         backward_passes_ms)
 
     x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
                                          dropout=0.1, seeds=seeds)
+    # the seeds on the card, as the encoder passes them: the timed call is
+    # the kernel alone, with no fill writing a list of seeds there
+    kwargs["dropout_seeds"] = seed_tensor(seeds, "cuda")
     flat = [params[m][n] for m, n in fl._PARAM_ORDER]
     dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
     ms = time_ms(lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs, layer_norm_eps=1e-12))
@@ -1653,6 +1705,15 @@ def main() -> int:
     rows, launches["sections"] = check_sections()
     kernels += rows
 
+    phase("12: the multi-step driver, K steps as CUDA-graph replays")
+    log(" the flagship's hot step (configs/ml1m_ssm.yaml, batch 128)")
+    launches["scan_flagship"] = scan_phase()
+    log(" path C's hot step (configs/ml100k_bpr.yaml, batch 128)")
+    launches["scan_C"] = scan_phase(config=ML100K, num_items=ML100K_ITEMS)
+
+    phase("13: the bench, one short window of each part")
+    bench_phase()
+
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
         # forward kernels on serving, the backward and table kernels on the
@@ -2210,6 +2271,137 @@ def accumulation_phase(*, device: str = "cuda", config: dict | None = None,
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the accumulating step does not apply the mean gradient once")
+
+
+def scan_phase(*, config: dict | None = None, num_items: int = 3706,
+               batch_size: int = TRAIN_BATCH, k: int = 8, calls: int = 5) -> dict:
+    """The multi-step driver (``training/scan_steps.py``) on the card: K
+    hot steps as CUDA-graph replays against K eager ``make_train_step``
+    steps with the same batches and seeds, bit for bit (parameters,
+    moments, count, logs); then, counted, one more call of K replays,
+    whose launches must be K times one eager step's; ms per step graphed
+    and eager from this call; a graphed call under ``torch.profiler``.
+    Returns the launch counts of that one graphed call."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+    from transformer_recommenders_tpu_torch.training.scan_steps import (
+        make_scanned_train_steps, stack_batches)
+
+    cfg = TrainConfig(**(config or TRAIN))
+    _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim, cfg.max_seq_length)
+    table = build_item_table(emb, device="cuda")
+    state0 = ts.init_train_state(cfg, init_transformer_params(torch.Generator().manual_seed(0),
+                                                              cfg, device="cuda"))
+    rng = np.random.default_rng(7)
+    batches = [train_batch(rng, batch_size, cfg.max_seq_length, num_items) for _ in range(k)]
+    stacked = stack_batches(batches)
+    gen = torch.Generator().manual_seed(8)
+    seeds = [ts.draw_dropout_seeds(gen, cfg) for _ in range(k)]
+    expected = expected_launches(cfg, table.shape[0], ts.table_pool_rows(cfg, batches[0]), False)
+    step = ts.make_train_step(cfg, full_logs=False)
+    loss_key = f"loss/{cfg.train_loss}"
+
+    def eager(state):
+        losses = []
+        for batch, s in zip(batches, seeds):
+            state, logs = step(state, table, batch, s)
+            losses.append(logs[loss_key])
+        return state, torch.stack(losses)
+
+    steps = make_scanned_train_steps(cfg)
+    t0 = time.perf_counter()
+    got, logs = steps(state0, table, stacked, torch.tensor(seeds))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    want, want_losses = eager(state0)
+    torch.cuda.synchronize()
+    same = {"parameters": torch.equal(ts.flatten(got.params), ts.flatten(want.params)),
+            "mu": torch.equal(got.opt_state.mu, want.opt_state.mu),
+            "nu": torch.equal(got.opt_state.nu, want.opt_state.nu),
+            "count": torch.equal(got.opt_state.count, want.opt_state.count),
+            "losses": torch.equal(logs[loss_key], want_losses)}
+    positives = [float((b["pos_item_idx"] != 0).sum()) for b in batches]
+    same["positives"] = logs["batch/positive_non_zero"].tolist() == positives
+    log(f"  {k} graphed steps (first call: warm-up, capture and replays {capture_s:.2f} s) vs "
+        f"{k} eager steps, same batches and seeds: "
+        + ", ".join(f"{n} {'bit for bit' if v else 'DIFFER'}" for n, v in same.items())
+        + f"; losses {[round(float(v), 4) for v in logs[loss_key]]}")
+    if not all(same.values()):
+        raise AssertionError("the graphed window differs from the eager steps")
+
+    # the main path, counted: one call of K replays
+    cuda_build.reset_launches()
+    steps(state0, table, stacked, torch.tensor(seeds))
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    want_counts = {n: k * c for n, c in expected.items()}
+    log(f"  launches of one call of {k} graphed steps: {launches} (expected {k} x one step's)")
+    if launches != want_counts:
+        raise AssertionError("the graphed steps' launch counts are not K times one step's")
+
+    graphed_ms, eager_ms_ = [], []
+    state = got
+    for _ in range(calls):  # turns: graphed, eager
+        t0 = time.perf_counter()
+        state, _ = steps(state, table, stacked, torch.tensor(seeds))
+        torch.cuda.synchronize()
+        graphed_ms.append((time.perf_counter() - t0) * 1e3 / k)
+        t0 = time.perf_counter()
+        eager(state)
+        torch.cuda.synchronize()
+        eager_ms_.append((time.perf_counter() - t0) * 1e3 / k)
+    g, e = statistics.median(graphed_ms), statistics.median(eager_ms_)
+    log(f"  ms per step, median of {calls} calls of {k} steps, in turns: graphed {g:.3f} "
+        f"({batch_size / g * 1e3:.1f} examples/s; min {min(graphed_ms):.3f}, max "
+        f"{max(graphed_ms):.3f}), eager {e:.3f} ({batch_size / e * 1e3:.1f} examples/s; min "
+        f"{min(eager_ms_):.3f}, max {max(eager_ms_):.3f}): {e / g:.2f}x")
+    profile_call(lambda: steps(state, table, stacked, torch.tensor(seeds)), k)
+    return launches
+
+
+def profile_call(fn, k: int) -> None:
+    """Device busy and idle share of one call of ``k`` graphed steps under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / k
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / k / 1e3
+    if busy_ms == 0.0:
+        log("  profiled graphed call: the profiler recorded no device time (not measured)")
+        return
+    log(f"  profiled graphed call: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per step "
+        f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on)")
+
+
+def bench_phase() -> None:
+    """One short window of each part of the port's bench
+    (``transformer_recommenders_tpu_torch/bench.py``): the flagship at
+    B=256 graphed and eager, retrieval at batches 1, 32 and 256."""
+    from transformer_recommenders_tpu_torch import bench
+
+    graphed = bench.bench_train(graphed=True, windows=1, reps=3, burn=1)
+    eager = bench.bench_train(graphed=False, windows=1, reps=1, burn=1)
+    retrieval = bench.bench_retrieval(windows=1, reps=20)
+    log(f"  bench, one window each: graphed {graphed[0]:.1f} examples/s, eager {eager[0]:.1f} "
+        "examples/s; retrieval " + ", ".join(
+            f"batch {q}: {retrieval[f'qps_batch{q}']} QPS, {retrieval[f'latency_ms_batch{q}']} ms"
+            for q in bench.RETRIEVAL_BATCHES))
+    if not (graphed[0] > 0 and eager[0] > 0):
+        raise AssertionError("the bench measured no throughput")
 
 
 def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:

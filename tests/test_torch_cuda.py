@@ -23,6 +23,7 @@ import torch
 from transformer_recommenders_tpu_torch.ops import cuda_build
 from transformer_recommenders_tpu_torch.ops import fused_layer as fl
 from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
 from transformer_recommenders_tpu_torch.ops.fused_layer import (
     _PARAM_ORDER,
     fused_layer,
@@ -166,18 +167,47 @@ def test_fused_layer_counts_launches_forward_and_backward(cuda):
     assert x.grad is not None and x.grad.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("d", [6, 128, 384])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
-def test_gather_kernel_matches_plain(cuda, out_dtype, idx_dtype):
-    gen = torch.Generator().manual_seed(1)
-    for n, d, r in [(3707, 384, 2048), (3707, 128, 2048), (100, 6, 37)]:
-        table = torch.randn(n, d, generator=gen).to(cuda)
-        idx = torch.randint(-5, n + 5, (r,), generator=gen).to(cuda, idx_dtype)
-        got = gather_rows(table, idx, out_dtype)
-        want = gather_rows_reference(table, idx, out_dtype)
-        torch.cuda.synchronize()
-        assert got.dtype == out_dtype
-        assert torch.equal(got, want)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset-view"])
+def test_gather_kernel_matches_plain(cuda, d, table_dtype, out_dtype, idx_dtype, aligned):
+    """Every dtype pair of the 16-byte path and its scalar tail, exactly:
+    widths 6 (no whole 16-byte item), 128 and 384; indices out of range
+    on both sides; and a table view whose base is one element past a
+    16-byte boundary, which no row of can take a 16-byte access."""
+    gen = torch.Generator().manual_seed(d)
+    n, r = 777, 3001
+    base = torch.randn(n * d + 1, generator=gen).to(cuda, table_dtype)
+    table = (base[:-1] if aligned else base[1:]).view(n, d)
+    assert (table.data_ptr() % 16 == 0) == aligned
+    idx = torch.randint(-5, n + 5, (r,), generator=gen).to(cuda, idx_dtype)
+    got = gather_rows(table, idx, out_dtype)
+    want = gather_rows_reference(table, idx, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (r, d)
+    assert torch.equal(got, want)
+    assert not got[(idx < 0) | (idx >= n)].any()
+
+
+def test_gather_kernel_takes_more_than_2_31_items(cuda):
+    """A gather of more than 2**31 16-byte output items (R = 16,387 bf16
+    rows of width 2**20: 32 GiB) takes the kernel's 64-bit item indexing;
+    rows on both sides of item 2**31 and every row, in chunks, are exact."""
+    n, d, r = 4, 2**20, 16387
+    assert r * (d // 8) > 2**31
+    gen = torch.Generator().manual_seed(11)
+    table = torch.randn(n, d, generator=gen).to(cuda, torch.bfloat16)
+    idx = torch.randint(-1, n + 1, (r,), generator=gen).to(cuda)
+    out = gather_rows(table, idx, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert out.shape == (r, d)
+    for start in range(0, r, 1024):
+        rows = slice(start, min(start + 1024, r))
+        assert torch.equal(out[rows], gather_rows_reference(table, idx[rows], torch.bfloat16))
+    del out
+    torch.cuda.empty_cache()
 
 
 # Backward kernels against their plain versions, each gradient's max abs
@@ -332,8 +362,6 @@ def test_gather_backward_kernel_sums_in_the_plain_order(cuda, dtype):
     padding segment on row 0, catalog rows no index names, out-of-range
     indices: the kernel sums in the plain version's order, so the two agree
     bit for bit, and two calls give the same bits."""
-    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
-
     gen = torch.Generator().manual_seed(8)
     n, d, r = 3707, 128, 3 * 128 * 32
     idx = torch.randint(1, n // 2, (r,), generator=gen)  # the upper half is never named
@@ -993,3 +1021,114 @@ def test_full_section_variants_are_the_production_kernels(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(y, y_prod.detach())
     assert torch.equal(dx, xr.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_layer_device_seeds_equal_list_seeds(cuda, dtype):
+    """The kernels read their three seeds from device memory: a tensor of
+    seeds on the card (a view into a longer buffer, as the encoder passes
+    a layer's three, or a strided view, which the wrapper makes
+    contiguous) gives the forward's and the backward's bits of the list
+    form; the same buffer rewritten gives the other seeds' bits."""
+    x, params, mask = _layer_inputs(cuda, 128, 32, 128, 8, 512, dtype, seed=11)
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(12)).to(cuda, dtype)
+    kw = dict(num_heads=8, causal=True, attn_dropout=0.1, hidden_dropout=0.1, ffn_dim=512)
+    seeds = [0x12345678, 4000000000, 7]
+    buf = torch.tensor([1, *seeds, 2], dtype=torch.int64, device=cuda)
+
+    def run(s):
+        xr = x.clone().requires_grad_()
+        y = fused_layer(xr, params, mask, dropout_seeds=s, **kw)
+        y.backward(dy)
+        return y.detach(), xr.grad
+
+    want_y, want_dx = run(seeds)
+    got_y, got_dx = run(buf[1:4])
+    spaced = torch.tensor([seeds[0], 9, seeds[1], 9, seeds[2]], dtype=torch.int64, device=cuda)
+    strided_y, strided_dx = run(spaced[::2])
+    buf[1:4] = torch.tensor([5, 6, 7], device=cuda)
+    other_y, _ = run(buf[1:4])
+    again_y, _ = run([5, 6, 7])
+    torch.cuda.synchronize()
+    assert torch.equal(got_y, want_y) and torch.equal(got_dx, want_dx)
+    assert torch.equal(strided_y, want_y) and torch.equal(strided_dx, want_dx)
+    assert torch.equal(other_y, again_y) and not torch.equal(other_y, want_y)
+
+
+def _scan_case(cuda, config, n_items, b, k, seed=0):
+    import numpy as np
+
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    cfg = TrainConfig(**config)
+    rng = np.random.default_rng(seed)
+    emb = rng.normal(size=(n_items, cfg.resolved_input_dim)).astype(np.float32)
+    table = build_item_table(emb / np.linalg.norm(emb, axis=1, keepdims=True), device=cuda)
+    params = init_transformer_params(torch.Generator().manual_seed(seed), cfg, device=cuda)
+    s = cfg.max_seq_length
+    batches = []
+    for _ in range(k):
+        lengths = rng.integers(1, s + 1, size=b)
+        valid = np.arange(s)[None, :] < lengths[:, None]
+        batch = {key: (rng.integers(1, n_items + 1, size=(b, s)) * valid).astype(np.int32)
+                 for key in ("history_item_idx", "pos_item_idx", "neg_item_idx")}
+        batch["pos_item_idx"][rng.random((b, s)) < 0.1] = 0
+        batches.append(batch)
+    gen = torch.Generator().manual_seed(seed + 1)
+    seeds = [ts.draw_dropout_seeds(gen, cfg) for _ in range(k)]
+    return cfg, table, ts.init_train_state(cfg, params), batches, seeds
+
+
+SCAN_CONFIGS = {
+    # configs/ml1m_ssm.yaml: the fused layer, the table-scored InfoNCE
+    "flagship": (dict(input_dim=384, hidden_size=128, num_hidden_layers=4,
+                      num_attention_heads=8, intermediate_size=512, max_seq_length=32,
+                      train_loss="InfoNCELoss"), 3706, 128),
+    # configs/ml100k_bpr.yaml (path C): the layer stack, the pairwise kernels
+    "ml100k_bpr": (dict(input_dim=384, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=256, max_seq_length=32,
+                        train_loss="PairwiseLogisticLoss", margin=0.0), 1682, 128),
+}
+
+
+@pytest.mark.parametrize(("name", "k", "accumulate"), [
+    ("flagship", 4, 1), ("flagship", 4, 2), ("ml100k_bpr", 3, 1),
+])
+def test_graphed_window_equals_eager_steps(cuda, name, k, accumulate):
+    """K graphed steps against K eager ``make_train_step(full_logs=False)``
+    steps with the same batches and seeds: parameters, moments, count,
+    accumulator and logs bit for bit; a second call's launch counts are K
+    times one eager step's (the replays counted, not the capture)."""
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+    from transformer_recommenders_tpu_torch.training.scan_steps import (
+        make_scanned_train_steps, stack_batches)
+
+    config, n_items, b = SCAN_CONFIGS[name]
+    cfg, table, state0, batches, seeds = _scan_case(
+        cuda, {**config, "accumulate_grad_batches": accumulate}, n_items, b, k)
+    step = ts.make_train_step(cfg, full_logs=False)
+    eager, losses = state0, []
+    cuda_build.reset_launches()
+    for batch, s in zip(batches, seeds):
+        eager, logs = step(eager, table, batch, s)
+        losses.append(logs[f"loss/{cfg.train_loss}"])
+    per_k_steps = dict(cuda_build.LAUNCHES)
+    steps = make_scanned_train_steps(cfg)
+    stacked = stack_batches(batches)
+    got, got_logs = steps(state0, table, stacked, torch.tensor(seeds))
+    torch.cuda.synchronize()
+    assert torch.equal(ts.flatten(got.params), ts.flatten(eager.params))
+    for field in ("count", "mu", "nu", "acc"):
+        a, e = getattr(got.opt_state, field), getattr(eager.opt_state, field)
+        assert (a is None and e is None) or torch.equal(a, e), field
+    assert torch.equal(got_logs[f"loss/{cfg.train_loss}"], torch.stack(losses))
+    assert got_logs["batch/positive_non_zero"].tolist() == [
+        float((bt["pos_item_idx"] != 0).sum()) for bt in batches]
+    cuda_build.reset_launches()
+    again, _ = steps(state0, table, stacked, torch.tensor(seeds))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES == per_k_steps
+    assert torch.equal(ts.flatten(again.params), ts.flatten(got.params))

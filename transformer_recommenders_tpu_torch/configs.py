@@ -178,3 +178,17 @@ class IndexConfig(_JSONConfig):
     def __post_init__(self) -> None:
         _check_choice("metric", self.metric, Similarity)
         _check_choice("backend", self.backend, IndexBackend)
+
+
+def flagship_config(**overrides) -> TrainConfig:
+    """The benchmark's flagship: ``__graft_entry__._flagship_config`` of the
+    JAX repository (``configs/ml1m_ssm.yaml``'s model: 384-d inputs
+    projected to d=128, 4 causal layers, 8 heads, FFN 512, seq 32, mean
+    pooling, InfoNCE; bf16 and dropout 0.1 by default), copied here."""
+    base = dict(
+        input_dim=384, hidden_size=128, num_hidden_layers=4, num_attention_heads=8,
+        intermediate_size=512, max_seq_length=32, is_decoder=True, pooling_mode="mean",
+        train_loss="InfoNCELoss",
+    )
+    base.update(overrides)
+    return TrainConfig(**base)

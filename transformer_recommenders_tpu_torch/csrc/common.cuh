@@ -34,6 +34,17 @@ __device__ __forceinline__ bool keep(uint32_t idx, uint32_t seed,
   return fmix32(idx * kPremixIdx + seed * kPremixSeed) >= threshold;
 }
 
+// A layer's three dropout site seeds (attention probs, post-attention
+// hidden, post-FFN hidden), uint32 values held as int64 in device memory
+// and read by the kernel, so that a CUDA graph replayed with new seeds in
+// that memory draws new masks; a null pointer reads 0 (dropout off)
+struct Seeds {
+  const long long* ptr;
+  __device__ __forceinline__ uint32_t operator[](int i) const {
+    return ptr ? static_cast<uint32_t>(__ldg(ptr + i)) : 0u;
+  }
+};
+
 // Activations are stored as T and computed on in f32; ``round`` gives the
 // f32 value of the nearest T (round-to-nearest-even, as a JAX astype).
 template <typename T>

@@ -177,7 +177,7 @@ struct Params {
   const float *qkv_w, *qkv_b, *out_w, *out_b, *ffn_in_w, *ffn_in_b;
   const float *ffn_out_w, *ffn_out_b, *ln1_s, *ln1_b, *ln2_s, *ln2_b;
   int S, D, H, F, causal, hg;
-  uint32_t seed[3];
+  xrt::Seeds seed;  // the three site seeds, read from device memory
   uint32_t attn_thr, hidden_thr;
   float attn_keep, hidden_keep;
   int attn_drop, hidden_drop;
@@ -293,6 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   using A = xrt::Act<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.S, D = p.D, H = p.H, F = p.F, hg = p.hg;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
   const int dh = D / H, ld3 = 3 * D, b = blockIdx.x;
   size_t reg_off, sc_off, mask_off;
   smem_layout(S, D, F, hg, sizeof(T), &reg_off, &sc_off, &mask_off);
@@ -345,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
           ((uint32_t)b * H + (uint32_t)(h0 + row / S)) * (uint32_t)(S * S) + (uint32_t)(row % S) * S;
       for (int t = lane; t < S; t += 32) {
         float v = pr[t] / sum;
-        if (p.attn_drop) v = xrt::keep(base + t, p.seed[0], p.attn_thr) ? v / p.attn_keep : 0.f;
+        if (p.attn_drop) v = xrt::keep(base + t, seed[0], p.attn_thr) ? v / p.attn_keep : 0.f;
         pr[t] = A::round(v);
       }
     }
@@ -369,7 +370,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
   const uint32_t row0 = (uint32_t)b * S;
   // a = dropout(ctx Wout + b) into the dead k columns
   dense<T>(reg, ld3, D, p.out_w, p.out_b, D, reg + D, ld3, S,
-           p.hidden_drop ? kDropout : kPlain, row0, p.seed[1], p.hidden_thr, p.hidden_keep);
+           p.hidden_drop ? kDropout : kPlain, row0, seed[1], p.hidden_thr, p.hidden_keep);
   __syncthreads();
   add_layer_norm<T, T>(sx, D, reg + D, ld3, p.ln1_s, p.ln1_b, S, D, p.eps, sx, D);
   __syncthreads();
@@ -386,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) 
     return;
   }
   dense<T>(g, F, F, p.ffn_out_w, p.ffn_out_b, D, f, D, S,
-           p.hidden_drop ? kDropout : kPlain, row0, p.seed[2], p.hidden_thr, p.hidden_keep);
+           p.hidden_drop ? kDropout : kPlain, row0, seed[2], p.hidden_thr, p.hidden_keep);
   __syncthreads();
   T* yg = static_cast<T*>(p.y) + (size_t)b * S * D;
   add_layer_norm<T, T>(sx, D, f, D, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D);
@@ -425,7 +426,7 @@ struct BwdParams {
   float *dres, *dqkv;                      // R x D, R x 3D
   float* partial;                          // B x (9D + F) column sums
   int B, S, D, H, F, causal;
-  uint32_t seed[3];
+  xrt::Seeds seed;  // the three site seeds, read from device memory
   uint32_t attn_thr, hidden_thr;
   float attn_keep, hidden_keep_fwd, hidden_keep_bwd;
   int attn_drop, hidden_drop;
@@ -727,6 +728,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   constexpr bool kTC = std::is_same<T, bf16>::value;  // the products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.S, D = p.D, H = p.H, F = p.F, b = blockIdx.x;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
   const int dh = D / H, ld3 = 3 * D;
   // the attention of hg heads at a time (bf16; f32 one head): probs, d_probs
   // (f32) and row sums, then (bf16) T(dropped) and T(d_scores)
@@ -812,7 +814,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   auto dropped_at = [&](int hh, int sq, int t, float prob) {
     if (!p.attn_drop) return prob;
     const uint32_t idx = (((uint32_t)b * H + (uint32_t)hh) * (uint32_t)S + (uint32_t)sq) * (uint32_t)S + t;
-    return xrt::keep(idx, p.seed[0], p.attn_thr) ? prob / p.attn_keep : 0.f;
+    return xrt::keep(idx, seed[0], p.attn_thr) ? prob / p.attn_keep : 0.f;
   };
   // (bf16) the probs of heads [h0, h0 + hg) into sp: the scores on the
   // tensor cores, then the softmax as head_scores computes it; with
@@ -916,7 +918,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
     };
   };
   dense_prod<T, false>(ctx, D, D, p.out_w, wt16 + woff.out, D, S,
-                       dense_dropout(p.out_b, h1, p.seed[1]), nullptr, sa);
+                       dense_dropout(p.out_b, h1, seed[1]), nullptr, sa);
   __syncthreads();
   add_ln_save<T>(h1, x, p.ln1_s, p.ln1_b, S, D, p.eps, stats, x1);
   __syncthreads();
@@ -936,7 +938,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   // ---- recompute: f = dropout(T(g Wffn_out + b)) into h2, then h2 = T(x1 + f)
   // and the LN2 statistics (its output is not needed)
   dense_prod<T, false>(g, F, F, p.ffn_out_w, wt16 + woff.ffn_out, D, S,
-                       dense_dropout(p.ffn_out_b, h2, p.seed[2]), nullptr, sa);
+                       dense_dropout(p.ffn_out_b, h2, seed[2]), nullptr, sa);
   __syncthreads();
   for (int row = warp; row < S; row += nwarps) {
     T* hr = h2 + (size_t)row * D;
@@ -967,7 +969,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   if constexpr (kStop == kStopRecompute) return;
 
   // ---- LN2 backward: dh2 into dres (= dx1 so far), dfm = T(dropout'(dh2))
-  ln_bwd_rows<T, T>(dy, h2, stats, 2, p.ln2_s, S, D, dres, dfm, row0, p.hidden_drop, p.seed[2],
+  ln_bwd_rows<T, T>(dy, h2, stats, 2, p.ln2_s, S, D, dres, dfm, row0, p.hidden_drop, seed[2],
                     p.hidden_thr, p.hidden_keep_bwd);
   __syncthreads();
   if constexpr (kStop == kBwdFull) {
@@ -980,7 +982,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
         s_scale += dyv * n;
         s_bias += dyv;
         s_fb += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D,
-                                p.seed[2], p.hidden_thr, p.hidden_keep_bwd);
+                                seed[2], p.hidden_thr, p.hidden_keep_bwd);
       }
       part[off.ln2_s + c] = s_scale;
       part[off.ln2_b + c] = s_bias;
@@ -1027,14 +1029,14 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
 
   // ---- LN1 backward: dh1 over dres, dam = T(dropout'(dh1))
   ln_bwd_rows<T, float>(dres, h1, stats, 0, p.ln1_s, S, D, dres, dam, row0, p.hidden_drop,
-                        p.seed[1], p.hidden_thr, p.hidden_keep_bwd);
+                        seed[1], p.hidden_thr, p.hidden_keep_bwd);
   __syncthreads();
   if constexpr (kStop == kBwdFull) {
     for (int c = threadIdx.x; c < D; c += blockDim.x) {
       float s = 0.f;
 #pragma unroll 4
       for (int r = 0; r < S; ++r)
-        s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, p.seed[1],
+        s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, seed[1],
                              p.hidden_thr, p.hidden_keep_bwd);
       part[off.out_b + c] = s;
     }
@@ -1604,8 +1606,8 @@ __device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict_
 // dropped probs are repacked as P V's A fragments (a C fragment of the
 // scores is an A fragment of the next product); V's B fragments come from
 // shared memory.  S <= 64 and dh <= 64: at most 8 column tiles each.
-__device__ __forceinline__ void attention_tc(const Params& p, int b, int h0, int h1,
-                                             const bf16* big, int lbig, const int* smask,
+__device__ __forceinline__ void attention_tc(const Params& p, uint32_t attn_seed, int b, int h0,
+                                             int h1, const bf16* big, int lbig, const int* smask,
                                              const Copies& ctx_all, int ldx) {
   const int S = p.S, D = p.D, H = p.H, dh = D / H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -1685,7 +1687,7 @@ __device__ __forceinline__ void attention_tc(const Params& p, int b, int h0, int
           const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
           float pv = x[j][e] / sum[e >> 1];
           if (p.attn_drop)
-            pv = xrt::keep(base + (uint32_t)(sq * S + t), p.seed[0], p.attn_thr) ? pv / p.attn_keep
+            pv = xrt::keep(base + (uint32_t)(sq * S + t), attn_seed, p.attn_thr) ? pv / p.attn_keep
                                                                                    : 0.f;
           x[j][e] = t < S && sq < S ? xrt::Act<bf16>::round(pv) : 0.f;
         }
@@ -1732,6 +1734,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fused_layer_fwd_tc_kernel(Params p, const uint2* __restrict__ wp) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.S, D = p.D, H = p.H, F = p.F, C = p.cluster;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
   const int ldx = D + 8, lbig = (3 * D > F ? 3 * D : F) + 8;
   const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
   const int b = blockIdx.x / C;
@@ -1776,7 +1779,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   // attention of this CTA's heads
-  attention_tc(p, b, rank * hpc, (rank + 1) * hpc, big, lbig, smask, ctx_all, ldx);
+  attention_tc(p, seed[0], b, rank * hpc, (rank + 1) * hpc, big, lbig, smask, ctx_all, ldx);
   cluster_sync();
   if constexpr (kStop == kStopAttn) {
     store_rows(ctx, ldx, S, D, 0, D, rank, C, yg);
@@ -1805,7 +1808,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     };
   };
   dense_tc(ctx, ldx, D, wout, S, 1, 0, rank * nbd / C, (rank + 1) * nbd / C,
-           dropout_into(hb_all, p.out_b, p.seed[1]));
+           dropout_into(hb_all, p.out_b, seed[1]));
   cluster_sync();
   add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln1_s, p.ln1_b, S, D, p.eps, sx, ldx);
   __syncthreads();
@@ -1831,7 +1834,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
   // f = dropout(T(g Wffn_out + b)) into hb, then y = T(LN2(T(x1 + f)))
   dense_tc(big, lbig, F, wffn_out, S, 1, 0, rank * nbd / C, (rank + 1) * nbd / C,
-           dropout_into(hb_all, p.ffn_out_b, p.seed[2]));
+           dropout_into(hb_all, p.ffn_out_b, seed[2]));
   cluster_sync();
   add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D, rank, C);
 }
@@ -1948,8 +1951,8 @@ extern "C" int fused_layer_fwd(
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
     const float* ffn_out_w, const float* ffn_out_b, const float* ln1_s, const float* ln1_b,
     const float* ln2_s, const float* ln2_b, int B, int S, int D, int H, int F, int causal,
-    int is_bf16, int heads_per_stage, int cluster, uint32_t seed0, uint32_t seed1,
-    uint32_t seed2, uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep,
+    int is_bf16, int heads_per_stage, int cluster, const long long* seeds,
+    uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep,
     int attn_drop, int hidden_drop, float eps, int smem_bytes, int stage, void* wp,
     void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -1967,7 +1970,7 @@ extern "C" int fused_layer_fwd(
   }
   Params p{x, y, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
            ln1_s, ln1_b, ln2_s, ln2_b, S, D, H, F, causal, heads_per_stage,
-           {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep,
+           {seeds}, attn_thr, hidden_thr, attn_keep, hidden_keep,
            attn_drop, hidden_drop, eps, cluster};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* w = static_cast<bf16*>(wp);
@@ -1991,9 +1994,8 @@ extern "C" int fused_layer_bwd(
     void* ws_qkv, void* ws_ctx, void* ws_x1, void* ws_u, void* ws_g, void* ws_h1, void* ws_h2,
     float* ws_stats, void* ws_dfm, void* ws_dum, void* ws_dam, void* ws_dqm, float* ws_dres,
     float* ws_dqkv, float* ws_partial, void* ws_w16, float* ws_wpart, int B, int S, int D,
-    int H, int F, int causal, int is_bf16, int splits, uint32_t seed0, uint32_t seed1,
-    uint32_t seed2, uint32_t attn_thr,
-    uint32_t hidden_thr, float attn_keep, float hidden_keep_fwd, float hidden_keep_bwd,
+    int H, int F, int causal, int is_bf16, int splits, const long long* seeds,
+    uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep_fwd, float hidden_keep_bwd,
     int attn_drop, int hidden_drop, float eps, int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
   if (S <= 0 || S > 64 || D % H != 0) return cudaErrorInvalidValue;
@@ -2002,7 +2004,7 @@ extern "C" int fused_layer_bwd(
               d_ffn_in_w, d_ffn_in_b, d_ffn_out_w, d_ffn_out_b, d_ln1_s, d_ln1_b, d_ln2_s,
               d_ln2_b, ws_qkv, ws_ctx, ws_x1, ws_u, ws_g, ws_h1, ws_h2, ws_stats, ws_dfm,
               ws_dum, ws_dam, ws_dqm, ws_dres, ws_dqkv, ws_partial, B, S, D, H, F, causal,
-              {seed0, seed1, seed2}, attn_thr, hidden_thr, attn_keep, hidden_keep_fwd,
+              {seeds}, attn_thr, hidden_thr, attn_keep, hidden_keep_fwd,
               hidden_keep_bwd, attn_drop, hidden_drop, eps};
   if (is_bf16) {
     if (D % 2 || F % 2 || splits <= 0) return cudaErrorInvalidValue;  // k-contiguous pairs

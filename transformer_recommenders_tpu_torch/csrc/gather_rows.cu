@@ -4,13 +4,26 @@
 // [0, N) gives a zero row.  Replaces the TPU Pallas kernel
 // ops/gather_matmul.py:_fwd_kernel of the JAX package, which computes the
 // same rows as a one-hot (rows x N) MXU matmul because row gathers are slow
-// on a TPU.  On the H100 a gather is a plain copy: it is bound by
-// device-memory bytes (R*D table entries read, R*D OutT written, R int32 or
-// int64 indices), so the kernel is a row copy with one warp per row and
-// 16-byte vector loads where an f32 row allows them.  A bf16 output of an
-// f32 table rounds each entry to nearest even, exactly what the one-hot
-// matmul's f32 accumulation of bf16 table values gives; a bf16 table is
-// copied as it is.
+// on a TPU.  On the H100 a gather is a plain copy, bound by device-memory
+// bytes (each index read once, each distinct table row read once, R*D OutT
+// written) and, at the main path's sizes (1-6 MB), by the latency of one
+// launch and two dependent memory round trips (the index, then the row).
+// So the kernel works on a flat space of items, each 16 bytes of output
+// (8 bf16 or 4 f32 values of one row), with every access 16 bytes wide
+// whatever the dtypes: an f32 -> bf16 item loads two float4 and stores one
+// uint4 of 8 values rounded to nearest even (__float22bfloat162_rn, what
+// the one-hot matmul's f32 accumulation of bf16 table values gives), a
+// bf16 -> bf16 or f32 -> f32 item is a uint4 copy.  The grid is at most one
+// wave (about two blocks an SM, up to eight where the work is larger), and
+// each thread takes kGatherItems items a pass: it loads all their indices,
+// then issues all their row loads (read-only path, __ldg) before any store,
+// so every load of a thread is in flight at once.  An item whose row or
+// output does not allow a 16-byte access (a width that is not a multiple
+// of the item, a table view not 16-byte aligned) is copied element by
+// element with the same rounding, so the rows are the same bits either way.
+//
+// gather_rows_launch_floor launches an empty kernel with the forward's
+// grid: the launch cost under the kernel's time.
 //
 // gather_rows_bwd: dtable[n, :] = TabT(sum over r with idx[r] == n of
 // g[r, :]), summed in f32.  Replaces ops/gather_matmul.py:_bwd_kernel, the
@@ -35,38 +48,110 @@
 // Every table row is written exactly once, so dtable needs no clearing,
 // and an index outside [0, N) matches no table row.  The plain version
 // (gather_rows_backward_reference) sums in the same order.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kRowsPerBlock = 8;
+constexpr int kRowsPerBlock = 8;  // pass 2 of the backward: table rows a block
+constexpr int kGatherThreads = 256;
+constexpr int kGatherItems = 4;  // items a thread has in flight
 
-template <typename TabT, typename OutT, typename IdxT>
-__global__ void gather_rows_kernel(const TabT* __restrict__ table,
-                                   const IdxT* __restrict__ idx, OutT* __restrict__ out,
-                                   int N, int D, int R) {
-  const int r = blockIdx.x * kRowsPerBlock + threadIdx.y;
-  if (r >= R) return;
-  const IdxT i = idx[r];
-  const bool valid = i >= 0 && i < N;
-  const TabT* src = table + (size_t)(valid ? i : 0) * D;
-  OutT* dst = out + (size_t)r * D;
-  if constexpr (sizeof(TabT) == 4) {
-    if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(table) & 15) == 0) {
-      const float4* src4 = reinterpret_cast<const float4*>(src);
-      for (int c = threadIdx.x; c < D / 4; c += 32) {
-        const float4 v = valid ? __ldg(src4 + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-        dst[4 * c + 0] = xrt::Act<OutT>::store(v.x);
-        dst[4 * c + 1] = xrt::Act<OutT>::store(v.y);
-        dst[4 * c + 2] = xrt::Act<OutT>::store(v.z);
-        dst[4 * c + 3] = xrt::Act<OutT>::store(v.w);
-      }
-      return;
+// One item: the 16 output bytes at elements [e0, e0 + kE) of output row r.
+template <typename TabT, typename OutT>
+struct GatherItem {
+  static constexpr int kE = 16 / sizeof(OutT);          // output elements an item
+  static constexpr int kLoad = kE * (int)sizeof(TabT);  // table bytes an item
+  uint4 raw[kLoad > 16 ? 2 : 1];
+
+  __device__ __forceinline__ void load(const TabT* src) {
+    if constexpr (kLoad == 32) {
+      raw[0] = __ldg(reinterpret_cast<const uint4*>(src));
+      raw[1] = __ldg(reinterpret_cast<const uint4*>(src) + 1);
+    } else if constexpr (kLoad == 16) {
+      raw[0] = __ldg(reinterpret_cast<const uint4*>(src));
+    } else {  // bf16 -> f32: 8 table bytes
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+      raw[0] = make_uint4(v.x, v.y, 0u, 0u);
     }
   }
-  for (int c = threadIdx.x; c < D; c += 32)
-    dst[c] = xrt::Act<OutT>::store(valid ? xrt::Act<TabT>::load(src[c]) : 0.f);
+  __device__ __forceinline__ void zero() {
+    for (auto& v : raw) v = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ uint4 out() const {
+    if constexpr (std::is_same<TabT, OutT>::value) {
+      return raw[0];
+    } else if constexpr (kLoad == 32) {  // f32 -> bf16: 8 values, 4 pairs
+      uint4 o;
+      uint32_t* w = &o.x;
+      const float* f = reinterpret_cast<const float*>(raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 h = __float22bfloat162_rn(make_float2(f[2 * i], f[2 * i + 1]));
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      return o;
+    } else {  // bf16 -> f32: 4 values
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(raw);
+      return make_uint4(__float_as_uint(xrt::bf(h[0])), __float_as_uint(xrt::bf(h[1])),
+                        __float_as_uint(xrt::bf(h[2])), __float_as_uint(xrt::bf(h[3])));
+    }
+  }
+};
+
+// ItT indexes the items: uint32_t where they all fit in 31 bits (the
+// main path's gathers, where a 64-bit division would cost), else 64-bit
+template <typename TabT, typename OutT, typename IdxT, typename ItT>
+__global__ void __launch_bounds__(kGatherThreads) gather_rows_kernel(
+    const TabT* __restrict__ table, const IdxT* __restrict__ idx, OutT* __restrict__ out, int N,
+    int D, ItT per_row, ItT total) {
+  using Item = GatherItem<TabT, OutT>;
+  constexpr int kE = Item::kE;
+  const ItT stride = (ItT)gridDim.x * blockDim.x;
+  for (ItT base = (ItT)blockIdx.x * blockDim.x + threadIdx.x; base < total;
+       base += stride * kGatherItems) {
+    IdxT ix[kGatherItems];
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) {
+      const ItT it = base + u * stride;
+      ix[u] = it < total ? __ldg(idx + it / per_row) : IdxT(-1);
+    }
+    Item v[kGatherItems];
+    bool vec[kGatherItems];
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) {
+      const ItT it = base + u * stride;
+      const ItT r = it / per_row;
+      const int e0 = (int)(it - r * per_row) * kE;
+      const TabT* src = table + (size_t)ix[u] * D + e0;
+      const OutT* dst = out + (size_t)r * D + e0;
+      vec[u] = it < total && e0 + kE <= D &&
+               (reinterpret_cast<uintptr_t>(src) & (Item::kLoad >= 16 ? 15 : 7)) == 0 &&
+               (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+      if (vec[u] && ix[u] >= 0 && ix[u] < N) v[u].load(src);
+      else v[u].zero();
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherItems; ++u) {
+      const ItT it = base + u * stride;
+      if (it >= total) break;
+      const ItT r = it / per_row;
+      const int e0 = (int)(it - r * per_row) * kE;
+      OutT* dst = out + (size_t)r * D + e0;
+      if (vec[u]) {
+        *reinterpret_cast<uint4*>(dst) = v[u].out();
+      } else {  // the scalar tail: a partial item, or an unaligned row
+        const bool valid = ix[u] >= 0 && ix[u] < N;
+        const TabT* src = table + (size_t)(valid ? ix[u] : 0) * D + e0;
+        for (int e = 0; e < kE && e0 + e < D; ++e)
+          dst[e] = xrt::Act<OutT>::store(valid ? xrt::Act<TabT>::load(src[e]) : 0.f);
+      }
+    }
+  }
 }
+
+__global__ void empty_kernel() {}
 
 constexpr int kChunk = 64;        // sorted positions per block of pass 1 (gather_matmul._CHUNK)
 constexpr int kChunkThreads = 128;
@@ -188,14 +273,43 @@ __global__ void segment_rows_kernel(const long long* __restrict__ sorted_idx,
   }
 }
 
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms > 0 ? sms : 132;
+}
+
+// The register path's items and grid: at least two blocks an SM where
+// every thread gets an item, at most one wave of eight blocks an SM, and
+// kGatherItems items a thread in between.
+void fwd_grid(int D, int R, size_t out_elem, long long* per_row, long long* total,
+              int* blocks) {
+  const int e = (int)(16 / out_elem);
+  *per_row = (D + e - 1) / e;
+  *total = *per_row * R;
+  const long long sms = sm_count();
+  const long long want = std::max(
+      (*total + kGatherThreads * kGatherItems - 1) / (kGatherThreads * kGatherItems), 2 * sms);
+  const long long most = (*total + kGatherThreads - 1) / kGatherThreads;
+  *blocks = (int)std::max(1LL, std::min({want, most, 8 * sms}));
+}
+
 template <typename TabT, typename OutT, typename IdxT>
 cudaError_t launch_fwd(const void* table, const void* idx, void* out, int N, int D, int R,
                        cudaStream_t stream) {
-  const dim3 block(32, kRowsPerBlock);
-  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
-  gather_rows_kernel<TabT, OutT, IdxT><<<grid, block, 0, stream>>>(
-      static_cast<const TabT*>(table), static_cast<const IdxT*>(idx),
-      static_cast<OutT*>(out), N, D, R);
+  long long per_row, total;
+  int blocks;
+  fwd_grid(D, R, sizeof(OutT), &per_row, &total, &blocks);
+  const TabT* t = static_cast<const TabT*>(table);
+  const IdxT* i = static_cast<const IdxT*>(idx);
+  OutT* o = static_cast<OutT*>(out);
+  if (total < (1LL << 31))
+    gather_rows_kernel<TabT, OutT, IdxT, uint32_t><<<blocks, kGatherThreads, 0, stream>>>(
+        t, i, o, N, D, (uint32_t)per_row, (uint32_t)total);
+  else
+    gather_rows_kernel<TabT, OutT, IdxT, unsigned long long>
+        <<<blocks, kGatherThreads, 0, stream>>>(t, i, o, N, D, per_row, total);
   return cudaGetLastError();
 }
 
@@ -236,6 +350,15 @@ extern "C" int gather_rows_fwd(const void* table, const void* idx, void* out, in
                : launch_fwd_idx<__nv_bfloat16, float>(table, idx, out, N, D, R, idx_is_64, s);
   return out_is_bf16 ? launch_fwd_idx<float, __nv_bfloat16>(table, idx, out, N, D, R, idx_is_64, s)
                      : launch_fwd_idx<float, float>(table, idx, out, N, D, R, idx_is_64, s);
+}
+
+// an empty kernel on gather_rows_fwd's grid for (D, R, output dtype)
+extern "C" int gather_rows_launch_floor(int D, int R, int out_is_bf16, void* stream) {
+  long long per_row, total;
+  int blocks;
+  fwd_grid(D, R, out_is_bf16 ? 2 : 4, &per_row, &total, &blocks);
+  empty_kernel<<<blocks, kGatherThreads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
 }
 
 // g: (R, D) cotangent rows, f32 or (g_is_bf16) bf16; sorted_idx and order:

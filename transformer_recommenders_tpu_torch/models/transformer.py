@@ -40,7 +40,11 @@ from torch.utils.checkpoint import checkpoint
 from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.configs import ModelConfig
 from transformer_recommenders_tpu_torch.ops.fused_layer import _divisor, attention_bias, fused_layer
-from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_mask
+from transformer_recommenders_tpu_torch.ops.hash_dropout import (
+    premixed_keep_mask,
+    seed_tensor,
+    seed_terms,
+)
 
 Params = dict[str, Any]
 
@@ -174,15 +178,18 @@ def _dense(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
     return out.to(dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed_term: int | torch.Tensor | None) -> torch.Tensor:
     """Hash dropout over the linear index of ``x`` (JAX ``_dropout``):
     kept elements divided by ``1 - rate`` rounded to ``x.dtype``, the
-    quotient rounded to ``x.dtype``."""
-    if seed is None or rate <= 0.0:
+    quotient rounded to ``x.dtype``.  ``seed_term``: the site seed's
+    ``seed_terms`` value (an int or a 0-dim tensor), or ``None`` for no
+    dropout."""
+    if seed_term is None or rate <= 0.0:
         return x
     idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64).view(x.shape)
     kept = (x.float() / _divisor(rate, x.dtype, x.device)).to(x.dtype)
-    return torch.where(keep_mask(idx, seed, rate), kept, torch.zeros((), dtype=x.dtype, device=x.device))
+    keep = premixed_keep_mask(idx, seed_term, rate)
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _fused_layer_mode(cfg: ModelConfig, s: int) -> bool:
@@ -219,14 +226,14 @@ class _AttnCoreBf16(torch.autograd.Function):
     products, and gives bf16 dq, dk, dv."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed, rate, causal):
+    def forward(ctx, q, k, v, key_mask, seed_term, rate, causal):
         scale = 1.0 / math.sqrt(q.shape[-1])
         scores = (torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
                   + attention_bias(key_mask, q.shape[1], causal))
         y = _Softmax.apply(scores).to(torch.bfloat16)
-        probs = _dropout(y, rate, seed)
+        probs = _dropout(y, rate, seed_term)
         ctx.save_for_backward(q, k, v, y)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.seed_term, ctx.rate = seed_term, rate
         return torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
 
     @staticmethod
@@ -234,9 +241,10 @@ class _AttnCoreBf16(torch.autograd.Function):
         q, k, v, y16 = ctx.saved_tensors
         scale = 1.0 / math.sqrt(q.shape[-1])
         g16 = g.to(torch.bfloat16).float()
-        probs = _dropout(y16, ctx.rate, ctx.seed).float()
+        probs = _dropout(y16, ctx.rate, ctx.seed_term).float()
         dv = torch.einsum("bhst,bshd->bthd", probs, g16).to(v.dtype)
-        dp = _dropout(torch.einsum("bshd,bthd->bhst", g16, v.float()), ctx.rate, ctx.seed)
+        dp = _dropout(torch.einsum("bshd,bthd->bhst", g16, v.float()), ctx.rate,
+                      ctx.seed_term)
         y = y16.float()
         ds = (y * (dp - (dp * y).sum(dim=-1, keepdim=True)) * scale).to(torch.bfloat16).float()
         dq = torch.einsum("bhst,bthd->bshd", ds, k.float()).to(q.dtype)
@@ -245,7 +253,7 @@ class _AttnCoreBf16(torch.autograd.Function):
 
 
 def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Tensor,
-               seed: int | None) -> torch.Tensor:
+               seed_term: int | torch.Tensor | None) -> torch.Tensor:
     """The stack's attention block (JAX ``_attention``): the qkv dense,
     then ``masked`` (every head's scores over all D channels of a
     head-masked q, dropout on the f32 probs) or ``split`` (per-head
@@ -255,7 +263,7 @@ def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Ten
     h = cfg.num_attention_heads
     dh = d // h
     dtype = compute_dtype(cfg)
-    rate = cfg.attention_dropout if seed is not None else 0.0
+    rate = cfg.attention_dropout if seed_term is not None else 0.0
     qkv = _dense(x, p["qkv"], dtype)
     q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
     scale = 1.0 / math.sqrt(dh)
@@ -270,17 +278,17 @@ def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Ten
         qh = q[:, None] * hmask[None, :, None, :]
         scores = torch.einsum("bhsc,btc->bhst", qh.float(), k.float()) * scale
         probs = _dropout(_Softmax.apply(scores + attention_bias(key_mask, s, cfg.is_decoder)),
-                         rate, seed)
+                         rate, seed_term)
         ctx_full = torch.einsum("bhst,btc->bhsc", probs.to(dtype).float(), v.float()).to(dtype)
         ctx = (ctx_full * hmask[None, :, None, :]).sum(dim=1)
         return _dense(ctx, p["out"], dtype)
     q, k, v = (t.reshape(b, s, h, dh) for t in (q, k, v))
     if dtype == torch.bfloat16:
-        ctx = _AttnCoreBf16.apply(q, k, v, key_mask, seed, rate, cfg.is_decoder)
+        ctx = _AttnCoreBf16.apply(q, k, v, key_mask, seed_term, rate, cfg.is_decoder)
     else:
         scores = torch.einsum("bshd,bthd->bhst", q, k)
         probs = _Softmax.apply(scores * scale + attention_bias(key_mask, s, cfg.is_decoder))
-        ctx = torch.einsum("bhst,bthd->bshd", _dropout(probs, rate, seed).to(dtype), v)
+        ctx = torch.einsum("bhst,bthd->bshd", _dropout(probs, rate, seed_term).to(dtype), v)
     return _dense(ctx.reshape(b, s, d), p["out"], dtype)
 
 
@@ -294,7 +302,7 @@ def _gelu(u: torch.Tensor) -> torch.Tensor:
     ``erfc`` (taken in f32) and the final product each round to bf16.
     (JAX's compiled CPU step keeps -u * c in f32; it differs from this in
     about a third of the bf16 outputs, by one ulp.)"""
-    c = torch.tensor(_SQRT_HALF, dtype=u.dtype, device=u.device)
+    c = torch.full((), _SQRT_HALF, dtype=u.dtype, device=u.device)  # no copy from the host
     e = torch.erfc((-u * c).float()).to(u.dtype)
     return (0.5 * u) * e
 
@@ -305,13 +313,13 @@ def _ffn(x: torch.Tensor, p: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _stack_layer(x: torch.Tensor, layer: Params, cfg: ModelConfig, key_mask: torch.Tensor,
-                 seeds, fast_ln: bool) -> torch.Tensor:
+                 terms, fast_ln: bool) -> torch.Tensor:
     """One layer of the stack (JAX ``layer_fn``): attention, dropout,
-    post-LN; FFN, dropout, post-LN.  ``seeds``: the layer's three site
-    seeds, or ``None``."""
+    post-LN; FFN, dropout, post-LN.  ``terms``: the ``seed_terms``
+    values of the layer's three site seeds, or ``None``."""
     dtype = compute_dtype(cfg)
     eps = cfg.layer_norm_eps
-    r1, r2, r3 = seeds if seeds is not None else (None, None, None)
+    r1, r2, r3 = terms if terms is not None else (None, None, None)
     attn = _dropout(_attention(x, layer, cfg, key_mask, r1), cfg.hidden_dropout, r2)
     x = _layer_norm(x + attn, layer["ln1"], eps, dtype, fast_variance=fast_ln)
     ffn = _dropout(_ffn(x, layer, cfg), cfg.hidden_dropout, r3)
@@ -360,7 +368,8 @@ def transformer_encode(
             position is valid when any component of the UNPROJECTED input
             is nonzero.
         dropout_seeds: ``None`` (inference) or ``1 + 3 * num_layers`` uint32
-            seeds: the embedding site, then each layer's three sites.
+            seeds: the embedding site, then each layer's three sites; a
+            list or an integer tensor.
 
     Returns:
         ``token_embeddings`` (B, S, D) f32, ``sentence_embedding`` (B, D)
@@ -375,15 +384,21 @@ def transformer_encode(
         raise ValueError(msg)
     dtype = compute_dtype(cfg)
     n_layers = cfg.num_hidden_layers
-    seeds = None
+    seeds = terms = None
     if dropout_seeds is not None:
-        seeds = [int(v) for v in (
-            dropout_seeds.reshape(-1).tolist()
-            if isinstance(dropout_seeds, torch.Tensor) else dropout_seeds
-        )]
+        # a tensor becomes one int64 tensor on the inputs' device, read
+        # there by every dropout site (no copy to the host: a CUDA graph of
+        # the step reads each replay's seeds); a list stays host ints.  The
+        # plain sites take their seeds' share of the hash, worked out here
+        # once for all of them
+        if isinstance(dropout_seeds, torch.Tensor):
+            seeds = seed_tensor(dropout_seeds, input_embeds.device)
+        else:
+            seeds = [int(v) for v in dropout_seeds]
         if len(seeds) != 1 + 3 * n_layers:
             msg = f"dropout_seeds needs {1 + 3 * n_layers} seeds, got {len(seeds)}"
             raise ValueError(msg)
+        terms = seed_terms(seeds)
 
     fast_ln = s > 64  # JAX's one-sweep variance where no fused layer runs
     x = input_embeds
@@ -391,12 +406,13 @@ def transformer_encode(
         x = _dense(x, params["input_proj"], dtype)
     x = x.to(dtype) + params["pos_embed"][:s].to(dtype)
     x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype, fast_variance=fast_ln)
-    x = _dropout(x, cfg.hidden_dropout, seeds[0] if seeds else None)
+    x = _dropout(x, cfg.hidden_dropout, terms[0] if terms is not None else None)
 
     fused = _fused_layer_mode(cfg, s)
     for i in range(n_layers):
         layer = unstack_layer(params, i)
-        layer_seeds = seeds[1 + 3 * i : 4 + 3 * i] if seeds else None
+        layer_seeds = seeds[1 + 3 * i : 4 + 3 * i] if seeds is not None else None
+        layer_terms = terms[1 + 3 * i : 4 + 3 * i] if terms is not None else None
         if fused:
             x = fused_layer(
                 x,
@@ -404,8 +420,8 @@ def transformer_encode(
                 attention_mask,
                 num_heads=cfg.num_attention_heads,
                 causal=cfg.is_decoder,
-                attn_dropout=cfg.attention_dropout if seeds else 0.0,
-                hidden_dropout=cfg.hidden_dropout if seeds else 0.0,
+                attn_dropout=cfg.attention_dropout if seeds is not None else 0.0,
+                hidden_dropout=cfg.hidden_dropout if seeds is not None else 0.0,
                 dropout_seeds=layer_seeds,
                 ffn_dim=cfg.intermediate_size,
                 layer_norm_eps=cfg.layer_norm_eps,
@@ -413,10 +429,10 @@ def transformer_encode(
         elif cfg.remat_layers and torch.is_grad_enabled():
             # recompute the layer's internals in the backward instead of
             # keeping them (the hash dropout recomputes the same masks)
-            x = checkpoint(_stack_layer, x, layer, cfg, attention_mask, layer_seeds, fast_ln,
+            x = checkpoint(_stack_layer, x, layer, cfg, attention_mask, layer_terms, fast_ln,
                            use_reentrant=False)
         else:
-            x = _stack_layer(x, layer, cfg, attention_mask, layer_seeds, fast_ln)
+            x = _stack_layer(x, layer, cfg, attention_mask, layer_terms, fast_ln)
 
     token_embeddings = x.float()
     sentence_embedding = pool_tokens(token_embeddings, attention_mask, cfg.pooling_mode)

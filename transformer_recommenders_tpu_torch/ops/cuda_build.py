@@ -45,20 +45,20 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
         "fused_layer.cu",
         {
             # x, y, mask, 12 params, B S D H F causal is_bf16 heads_per_stage
-            # cluster, seeds[3], attn/hidden thresholds, attn/hidden keep
-            # divisors, attn/hidden dropout on, eps, dynamic smem bytes,
-            # stage, bf16 weight workspace, stream
+            # cluster, seeds (3 int64 on the card, or null), attn/hidden
+            # thresholds, attn/hidden keep divisors, attn/hidden dropout on,
+            # eps, dynamic smem bytes, stage, bf16 weight workspace, stream
             "fused_layer_fwd": [_P, _P, _P] + [_P] * 12
-            + [_I] * 9 + [_U] * 3 + [_U, _U, _F, _F, _I, _I, _F, _I, _I, _P, _P],
+            + [_I] * 9 + [_P] + [_U, _U, _F, _F, _I, _I, _F, _I, _I, _P, _P],
             # S, D, F, heads per stage, bytes per activation
             "fused_layer_smem_bytes": [_I] * 5,
             # x, dy, mask, 12 params, dx, 12 param grads, 17 workspace
-            # buffers, B S D H F causal is_bf16 splits, seeds[3], attn/hidden
-            # thresholds, attn keep divisor, hidden keep divisors of the
-            # forward recompute and of the backward, attn/hidden dropout on,
-            # eps, stage, stream
+            # buffers, B S D H F causal is_bf16 splits, seeds (as the
+            # forward's), attn/hidden thresholds, attn keep divisor, hidden
+            # keep divisors of the forward recompute and of the backward,
+            # attn/hidden dropout on, eps, stage, stream
             "fused_layer_bwd": [_P, _P, _P] + [_P] * 12 + [_P] + [_P] * 12 + [_P] * 17
-            + [_I] * 8 + [_U] * 3 + [_U, _U, _F, _F, _F, _I, _I, _F, _I, _P],
+            + [_I] * 8 + [_P] + [_U, _U, _F, _F, _F, _I, _I, _F, _I, _P],
         },
     ),
     "vpu_calibration": (
@@ -72,6 +72,9 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             # table, idx, out, N, D, R, table_is_bf16, out_is_bf16,
             # idx_is_64, stream
             "gather_rows_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+            # an empty kernel on gather_rows_fwd's grid: D, R, out_is_bf16,
+            # stream
+            "gather_rows_launch_floor": [_I, _I, _I, _P],
             # g, sorted idx (int64), order (int64), dtable, partial sums
             # (f32 workspace), N, D, R, g_is_bf16, dtable_is_bf16, stream
             "gather_rows_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -47,7 +47,11 @@ import math
 import torch
 
 from transformer_recommenders_tpu_torch.ops import cuda_build
-from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_mask, keep_threshold
+from transformer_recommenders_tpu_torch.ops.hash_dropout import (
+    keep_mask,
+    keep_threshold,
+    seed_tensor,
+)
 
 _NEG_INF = -1e9
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
@@ -138,12 +142,16 @@ def attention_bias(key_mask: torch.Tensor, s: int, causal: bool) -> torch.Tensor
     return bias
 
 
-def _seeds(dropout_seeds) -> list[int]:
+def _seeds(dropout_seeds):
+    """The three site seeds as ``keep_mask`` takes them: ints from a list,
+    0-dim int64 tensors from a tensor (read on its device, never copied to
+    the host)."""
     if dropout_seeds is None:
         return [0, 0, 0]
     if isinstance(dropout_seeds, torch.Tensor):
-        dropout_seeds = dropout_seeds.reshape(-1).tolist()
-    seeds = [int(v) & 0xFFFFFFFF for v in dropout_seeds]
+        seeds = list(dropout_seeds.reshape(-1).to(torch.int64))
+    else:
+        seeds = [int(v) & 0xFFFFFFFF for v in dropout_seeds]
     if len(seeds) != 3:
         msg = f"dropout_seeds needs 3 site seeds, got {len(seeds)}"
         raise ValueError(msg)
@@ -470,10 +478,20 @@ def _check_cuda(x, params, key_mask, num_heads: int) -> int:
     return f
 
 
-def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds):
+def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds, device):
+    """The kernels' dropout arguments: the address of the three seeds on
+    ``device`` (an int64 tensor the kernel reads; a list is written there
+    by fills, so a CUDA graph captures its values; null for none), the
+    keep thresholds and divisors, the two rates."""
     if dropout_seeds is None:
         attn_dropout = hidden_dropout = 0.0
-    return (*_seeds(dropout_seeds), keep_threshold(attn_dropout),
+        seeds = None
+    else:
+        seeds = seed_tensor(dropout_seeds, device)
+        if seeds.numel() != 3:
+            msg = f"dropout_seeds needs 3 site seeds, got {seeds.numel()}"
+            raise ValueError(msg)
+    return (seeds, keep_threshold(attn_dropout),
             keep_threshold(hidden_dropout), _keep_divisor(attn_dropout, torch.float32),
             attn_dropout, hidden_dropout)
 
@@ -485,8 +503,8 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
-    *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
-        attn_dropout, hidden_dropout, dropout_seeds)
+    seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
+        attn_dropout, hidden_dropout, dropout_seeds, x.device)
     elem = x.element_size()
     bf16 = x.dtype == torch.bfloat16
     if bf16 and (d % 16 or f % 16 or (d // num_heads) % 2 or d // num_heads > 64):
@@ -506,9 +524,9 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
     status = cuda_build.library("fused_layer").fused_layer_fwd(
         x.data_ptr(), y.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
         b, s, d, num_heads, f, int(causal), int(bf16), hg, cluster,
-        *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
-        int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
-        smem, FWD_STAGES.index(stage), None if wt16 is None else wt16.data_ptr(),
+        cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
+        _keep_divisor(hidden_dropout, x.dtype), int(attn_dropout > 0.0),
+        int(hidden_dropout > 0.0), float(layer_norm_eps), smem, FWD_STAGES.index(stage), None if wt16 is None else wt16.data_ptr(),
         cuda_build.stream_handle(x.device),
     )
     cuda_build.check(status, "fused_layer_fwd launch")
@@ -546,8 +564,8 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         msg = f"fused_layer backward: bf16 needs an even D and FFN width, got D={d}, F={f}"
         raise ValueError(msg)
     r = b * s
-    *seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
-        attn_dropout, hidden_dropout, dropout_seeds)
+    seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
+        attn_dropout, hidden_dropout, dropout_seeds, x.device)
     x = x.contiguous()
     dy = dy.to(x.dtype).contiguous()  # the JAX kernel's g.astype(x.dtype)
     params = [t.contiguous() for t in params]
@@ -577,8 +595,8 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         dx.data_ptr(), *(t.data_ptr() for t in dparams),
         *(None if t is None else t.data_ptr() for t in ws),
         b, s, d, num_heads, f, int(causal), int(bf16), splits,
-        *seeds, attn_thr, hidden_thr, attn_div, _keep_divisor(hidden_dropout, x.dtype),
-        _keep_divisor(hidden_dropout, torch.float32),
+        cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
+        _keep_divisor(hidden_dropout, x.dtype), _keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
         BWD_STAGES.index(stage), cuda_build.stream_handle(x.device),
     )
@@ -634,7 +652,10 @@ def fused_layer(
             ``scale``/``bias``), f32.
         key_mask: (B, S) key validity.
         dropout_seeds: three uint32 site seeds (attention probs, post-attn
-            hidden, post-FFN hidden); ``None`` turns dropout off.
+            hidden, post-FFN hidden), a list or an int64 tensor (the
+            kernels read a tensor on the card where it lies, so a CUDA
+            graph replays with the seeds written there); ``None`` turns
+            dropout off.
 
     On CPU tensors this runs :func:`fused_layer_reference` and, for the
     gradient, :func:`fused_layer_backward_reference`; on CUDA tensors it

@@ -50,7 +50,7 @@ def neg_pool_counts(neg_idx: torch.Tensor, neg_valid: torch.Tensor, num_rows: in
     w = torch.where(keep, neg_valid.reshape(-1).float(), 0.0)
     counts = torch.zeros(num_rows, dtype=torch.float32, device=idx.device)
     counts.index_add_(0, torch.where(keep, idx, 0), w)
-    counts[0] = 0.0
+    counts[:1].zero_()  # a fill on the device: no scalar copied from the host
     return counts
 
 

@@ -116,6 +116,14 @@ def _gather_cuda(table: torch.Tensor, idx: torch.Tensor, out_dtype) -> torch.Ten
     return out
 
 
+def launch_floor(d: int, r: int, out_dtype, device) -> None:
+    """An empty kernel launched on the forward kernel's grid for ``r`` rows
+    of width ``d``: the launch cost under the kernel's time."""
+    status = cuda_build.library("gather_rows").gather_rows_launch_floor(
+        d, r, int(out_dtype == torch.bfloat16), cuda_build.stream_handle(torch.device(device)))
+    cuda_build.check(status, "gather_rows_launch_floor launch")
+
+
 def _gather_bwd_cuda(g: torch.Tensor, idx: torch.Tensor, num_rows: int, table_dtype):
     sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
     return _segment_sum_cuda(g, sorted_idx, order, num_rows, table_dtype)

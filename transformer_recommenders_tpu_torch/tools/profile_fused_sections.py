@@ -80,8 +80,10 @@ def make_inputs(shape: dict, device):
     x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
     dy = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
     mask = torch.ones(b, s, dtype=torch.bool, device=device)
+    # the seeds on the device, as the encoder passes them: a timed call is
+    # the kernels alone, with no fill writing a list of seeds there
     opts = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
-                dropout_seeds=[1, 2, 3], layer_norm_eps=1e-12)
+                dropout_seeds=torch.tensor([1, 2, 3], device=device), layer_norm_eps=1e-12)
     return layer, x, dy, mask, opts
 
 

@@ -245,8 +245,9 @@ def _batch_on(batch: dict, device) -> dict:
 
 def _objective_and_logs(config: TrainConfig, full_logs: bool, params, item_table, batch,
                         dropout_seeds):
-    """The JAX step's ``loss_fn``: the objective to differentiate and the
-    step's loss logs (detached)."""
+    """The JAX step's ``loss_fn``: the objective to differentiate, the
+    step's loss logs (detached) and the (R,) ``row_valid`` mask (the
+    positions with a positive; JAX's ``positive_mask``)."""
     name = config.train_loss
     if not full_logs and _table_loss_enabled(config, item_table.shape[0],
                                              table_pool_rows(config, batch)):
@@ -259,7 +260,7 @@ def _objective_and_logs(config: TrainConfig, full_logs: bool, params, item_table
             qe["neg_valid"], scale=config.scale,
             mask_false_negatives=config.mask_false_negatives,
         )
-        return objective, {f"loss/{name}": objective.detach()}
+        return objective, {f"loss/{name}": objective.detach()}, qe["row_valid"]
     embeds = compute_embeds(
         params, config, item_table, batch["history_item_idx"], batch["pos_item_idx"],
         batch["neg_item_idx"], dropout_seeds=dropout_seeds,
@@ -268,11 +269,25 @@ def _objective_and_logs(config: TrainConfig, full_logs: bool, params, item_table
     if objective is None:
         objective = loss_lib.compute_losses(config, *_loss_args(embeds), loss_names=(name,))[name]
     if not full_logs:
-        return objective, {f"loss/{name}": objective.detach()}
+        return objective, {f"loss/{name}": objective.detach()}, embeds["row_valid"]
     # the logs are the JAX step's aux: computed alongside, never differentiated
     with torch.no_grad():
         logs = _full_logs(config, {k: v.detach() for k, v in embeds.items()})
-    return objective, logs
+    return objective, logs, embeds["row_valid"]
+
+
+def loss_grads_and_positives(config: TrainConfig, full_logs: bool, params, item_table, batch,
+                             dropout_seeds=None):
+    """``(loss, grads, logs, row_valid)``: :func:`make_loss_and_grad`'s
+    three, and the positions with a positive (the scanned driver logs
+    their count)."""
+    batch = _batch_on(batch, item_table.device)
+    leaves = [leaf.detach().requires_grad_() for leaf in tree_leaves(params)]
+    objective, logs, row_valid = _objective_and_logs(
+        config, full_logs, tree_unflatten(params, leaves), item_table, batch, dropout_seeds)
+    grads = torch.autograd.grad(objective, leaves, allow_unused=True)
+    grads = [torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads)]
+    return objective.detach(), tree_unflatten(params, grads), logs, row_valid
 
 
 def make_loss_and_grad(config: TrainConfig, *, full_logs: bool = False):
@@ -286,13 +301,9 @@ def make_loss_and_grad(config: TrainConfig, *, full_logs: bool = False):
     scores bf16-rounded operands, as the JAX step does."""
 
     def loss_and_grad(params, item_table: torch.Tensor, batch: dict, dropout_seeds=None):
-        batch = _batch_on(batch, item_table.device)
-        leaves = [leaf.detach().requires_grad_() for leaf in tree_leaves(params)]
-        objective, logs = _objective_and_logs(config, full_logs, tree_unflatten(params, leaves),
-                                              item_table, batch, dropout_seeds)
-        grads = torch.autograd.grad(objective, leaves, allow_unused=True)
-        grads = [torch.zeros_like(leaf) if g is None else g for leaf, g in zip(leaves, grads)]
-        return objective.detach(), tree_unflatten(params, grads), logs
+        loss, grads, logs, _ = loss_grads_and_positives(config, full_logs, params, item_table,
+                                                        batch, dropout_seeds)
+        return loss, grads, logs
 
     return loss_and_grad
 
