@@ -100,7 +100,18 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 13. one short window of each part of the bench
     (``python -m transformer_recommenders_tpu_torch.bench``): flagship
     examples/s at B=256 graphed and eager, retrieval top-100 over 62,000
-    items at batches 1, 32 and 256.
+    items at batches 1, 32 and 256;
+14. the trainer: the flagship (configs/ml1m_ssm.yaml, bf16, dropout 0.1,
+    batch 128) on synthetic data at MovieLens-1M's scale (3,706 items,
+    6,040 users, 1,000,209 events, the hash embedder at 384-d) through
+    ``SeqDataModule``: validate the untrained model, ``fit()`` 2 epochs
+    with ``steps_per_dispatch=8`` (graphed windows, the logging steps,
+    validation each epoch; every kernel of the flagship's path must
+    launch), then test, predict and save; the card's ``Evaluator`` against
+    the CPU's plain path on the first 256 val users; the deploy smoke on
+    the saved artifact; a fresh trainer restored from the best checkpoint
+    validates bit for bit as the fit did; one eager epoch of 50 batches
+    (``steps_per_dispatch=1``) beside the graphed ones.
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -1714,6 +1725,9 @@ def main() -> int:
     phase("13: the bench, one short window of each part")
     bench_phase()
 
+    phase("14: the trainer, the flagship at MovieLens-1M scale")
+    launches["fit_flagship"] = trainer_phase()
+
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
         # forward kernels on serving, the backward and table kernels on the
@@ -1728,6 +1742,9 @@ def main() -> int:
                 "sections" if k["name"].startswith("fused_layer_stage_") else "training")
         k["launches"] = launches[path][k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
+        if k["name"] in FLAGSHIP_PATH and not launches["fit_flagship"][k["name"]]:
+            msg = f"{k['name']} was not launched in the flagship's fit"
+            raise AssertionError(msg)
         if not k["launches"]:
             msg = f"{k['name']} was not launched on its path ({path})"
             raise AssertionError(msg)
@@ -2362,6 +2379,223 @@ def scan_phase(*, config: dict | None = None, num_items: int = 3706,
         f"{max(graphed_ms):.3f}), eager {e:.3f} ({batch_size / e * 1e3:.1f} examples/s; min "
         f"{min(eager_ms_):.3f}, max {max(eager_ms_):.3f}): {e / g:.2f}x")
     profile_call(lambda: steps(state, table, stacked, torch.tensor(seeds)), k)
+    return launches
+
+
+# -- phase 14: the trainer -----------------------------------------------------
+
+ML1M_SCALE = dict(synthetic_num_users=6040, synthetic_num_items=3706,
+                  synthetic_num_events=1_000_209)  # MovieLens-1M's published counts
+# the kernels of the flagship's training path: the forward and backward
+# kernels and the table InfoNCE on hot steps, the pool InfoNCE on logging
+# steps (the gather and the layer forward also on validation)
+FLAGSHIP_PATH = ("gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
+                 "table_infonce_fwd", "table_infonce_bwd", "pool_infonce_fwd",
+                 "pool_infonce_dq", "pool_infonce_dn")
+EVAL_USERS = 256
+
+
+def eval_scores(evaluator, params, table, arrays):
+    """(U, N) f32 scores of ``arrays``' users over the catalog, history
+    masked, as the evaluator's step computes them before its top-k."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.models.recommender import model_forward
+    from transformer_recommenders_tpu_torch.ops.topk import mask_excluded, score_items
+
+    with torch.no_grad():
+        items = evaluator._prepare_items(params, table)
+        window = torch.from_numpy(arrays.history_window).to(table.device, torch.int64)
+        full = torch.from_numpy(arrays.history_full).to(table.device, torch.int64)
+        q = model_forward(params, evaluator.config, table, window)["sentence_embedding"]
+        scores = score_items(q, items, metric="cosine", items_prenormalized=True)
+        return mask_excluded(scores, full).cpu()
+
+
+def check_evaluator_against_cpu(trainer, arrays) -> None:
+    """The card's ``Evaluator`` against the CPU's plain path on the same
+    parameters and users.
+
+    The bound: let c and s be a user's card and CPU scores and eps their
+    largest difference over the catalog (measured here).  The p-th largest
+    of c and of s differ by at most eps, so the item the card ranks p-th
+    has a CPU score within 2 eps of the CPU's p-th largest: every rank of
+    every user is held to that.  Where eps exceeds half a gap between
+    neighbouring scores (the bf16 encoder moves scores by ulps, so near
+    ties swap), the lists may differ; each per-user metric lies in [0, 1],
+    so a metric's mean over the users with targets may move by at most the
+    share of those users whose lists differ.  Scores are cosines: eps is
+    also held below 2**-4, the serving phase's bound on bf16 embeddings."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+    from transformer_recommenders_tpu_torch.ops.topk import top_k_columns
+    from transformer_recommenders_tpu_torch.training.evaluator import Evaluator
+
+    params, table = trainer.model.params, trainer.model.item_table
+    cpu_params = tree_unflatten(params, [leaf.detach().cpu() for leaf in tree_leaves(params)])
+    card_ev, cpu_ev = trainer._evaluator, Evaluator(trainer.config)
+    k = trainer.config.top_k
+    card = card_ev.run(params, table, arrays, stage="val")
+    cpu = cpu_ev.run(cpu_params, table.cpu(), arrays, stage="val")
+    card_idx, _ = card_ev.recommend_batch(params, table, arrays)
+    cpu_idx, _ = cpu_ev.recommend_batch(cpu_params, table.cpu(), arrays)
+    c = eval_scores(card_ev, params, table, arrays)
+    s = eval_scores(cpu_ev, cpu_params, table.cpu(), arrays)
+    if not np.array_equal(card_idx, (top_k_columns(c, k) + 1).numpy()):
+        raise AssertionError("the card's recommendations are not the top-k of its own scores")
+    finite = torch.isfinite(s)
+    if not torch.equal(finite, torch.isfinite(c)):
+        raise AssertionError("the card and the CPU mask different items")
+    eps = torch.where(finite, (c - s).abs(), torch.zeros(())).amax(dim=1)
+    s_sorted = torch.sort(s, dim=1, descending=True).values[:, :k]
+    s_of_card = s.gather(1, torch.from_numpy(card_idx).long() - 1)
+    slack = (s_of_card - s_sorted).abs().amax(dim=1)
+    valid = arrays.n_targets > 0
+    differ = (card_idx != cpu_idx).any(axis=1)
+    share = float((differ & valid).sum()) / max(int(valid.sum()), 1)
+    worst = max(abs(card[name] - cpu[name]) for name in card)
+    log(f"  card vs CPU evaluator, first {len(arrays)} val users: max |score diff| "
+        f"{float(eps.max()):.3g} (median {float(eps.median()):.3g}); top-{k} lists identical "
+        f"for {int((~differ).sum())} of {len(arrays)} users; max |metric diff| {worst:.3g} "
+        f"(bound: share of users with targets whose lists differ, {share:.3f})")
+    log("    " + ", ".join(f"{n.split('/')[-1]} {card[n]:.4f}/{cpu[n]:.4f}" for n in sorted(card)))
+    if not bool((slack <= 2 * eps + 1e-6).all()):
+        raise AssertionError("a card rank is further from the CPU's than the score error allows")
+    if not float(eps.max()) <= 2**-4:
+        raise AssertionError("the card's scores differ from the CPU's beyond 2**-4")
+    if not worst <= share + 1e-6:
+        raise AssertionError("the card's metrics differ beyond the share of differing lists")
+
+
+def trainer_phase() -> dict:
+    """The port's trainer on the flagship at MovieLens-1M scale (see the
+    module docstring, phase 14); returns the fit's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import (
+        parse_yaml,
+        SeqDataModuleConfig,
+        TrainConfig,
+    )
+    from transformer_recommenders_tpu_torch.data.module import SeqDataModule
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.serving import deploy
+    from transformer_recommenders_tpu_torch.training.trainer import Trainer
+
+    yaml_cfg = parse_yaml((REPO / "configs" / "ml1m_ssm.yaml").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        dm = SeqDataModule(SeqDataModuleConfig(**{
+            **yaml_cfg["data"], "data_dir": str(tmp / "data"), "dataset": "synthetic",
+            "embedder": "hash", **ML1M_SCALE}))
+        dm.prepare_data()
+        t_prep = time.perf_counter() - t0
+        dm.setup()
+        sampler = "native" if dm.train_data._native is not None else "numpy"
+        log(f"  data: {len(dm.items)} items, {len(dm.users)} users, "
+            f"{len(dm.train_data)} train rows, {dm.config.batch_size}-row batches, "
+            f"{sampler} sampler; generated and processed in {t_prep:.1f} s, set up in "
+            f"{time.perf_counter() - t0 - t_prep:.1f} s")
+        cfg = TrainConfig(**{**yaml_cfg["model"], "max_epochs": 2, "steps_per_dispatch": 8,
+                             "log_every_n_steps": 50, "use_mlflow": False,
+                             "ckpt_dir": str(tmp / "ckpt")})
+        trainer = Trainer(cfg, dm, log_dir=str(tmp / "logs"))
+        t0 = time.perf_counter()
+        val0, test0 = trainer.validate(), trainer.test()
+        log(f"  splits: {len(dm.eval_arrays('val'))} val users, "
+            f"{len(dm.eval_arrays('test'))} test users")
+        log(f"  untrained: val ndcg {val0['val/retrieval_normalized_dcg']:.5f}, hit rate "
+            f"{val0['val/retrieval_hit_rate']:.5f}; test ndcg "
+            f"{test0['test/retrieval_normalized_dcg']:.5f} ({time.perf_counter() - t0:.1f} s)")
+
+        # the main path, counted: the fit
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        steps = trainer._host_step
+        per_epoch = steps // cfg.max_epochs
+        vals = [json.loads(line) for line in (tmp / "logs" / "metrics.jsonl").read_text()
+                .splitlines()]
+        val_rows = [r for r in vals if "val/retrieval_normalized_dcg" in r]
+        train_rows = [r for r in vals if "loss/InfoNCELoss" in r]
+        log(f"  fit: {cfg.max_epochs} epochs, {steps} steps, K={cfg.steps_per_dispatch}, "
+            f"{fit_s:.1f} s; {result['train/examples_per_s']:.1f} examples/s over the fit "
+            f"(validation included); epoch walls {trainer.epoch_walls} s "
+            f"({[round(w * 1e3 / per_epoch, 3) for w in trainer.epoch_walls]} ms per step)")
+        log("  phase_seconds: " + json.dumps({k: round(v, 3)
+                                               for k, v in trainer.phase_seconds.items()}))
+        log(f"  phase_counts: {trainer.phase_counts}; logged train rows at steps "
+            f"{[r['step'] for r in train_rows]}, loss/InfoNCELoss "
+            f"{[round(r['loss/InfoNCELoss'], 2) for r in train_rows]}")
+        log("  val per epoch: " + ", ".join(
+            f"step {r['step']}: ndcg {r['val/retrieval_normalized_dcg']:.5f} hit rate "
+            f"{r['val/retrieval_hit_rate']:.5f}" for r in val_rows))
+        log(f"  launches in the fit: {launches}")
+        missing = [n for n in FLAGSHIP_PATH if not launches[n]]
+        if missing:
+            raise AssertionError(f"the fit launched no {missing}")
+
+        best = tmp / "ckpt" / "best"
+        best_meta = json.loads((best / "meta.json").read_text())
+        best_val = best_meta["metrics"]
+        test1 = trainer.test()
+        log(f"  trained (best epoch {best_meta['epoch']}, step {best_meta['step']}): val ndcg "
+            f"{best_val['val/retrieval_normalized_dcg']:.5f} (untrained "
+            f"{val0['val/retrieval_normalized_dcg']:.5f}), test ndcg "
+            f"{test1['test/retrieval_normalized_dcg']:.5f} (untrained "
+            f"{test0['test/retrieval_normalized_dcg']:.5f})")
+        if not best_val["val/retrieval_normalized_dcg"] > val0["val/retrieval_normalized_dcg"]:
+            raise AssertionError("the fit did not raise val ndcg above the untrained model's")
+        if trainer.validate() != best_val:
+            raise AssertionError("the fit's restored best weights do not validate as they did")
+
+        t0 = time.perf_counter()
+        recs = trainer.predict()
+        u = len(recs["user_ids"])
+        if recs["item_idx"].shape != (u, cfg.top_k) or not np.isfinite(recs["scores"]).all():
+            raise AssertionError("predict gave malformed recommendations")
+        log(f"  predict: {u} users x top-{cfg.top_k} in {time.perf_counter() - t0:.2f} s")
+
+        check_evaluator_against_cpu(trainer, dm.eval_arrays("val").head(EVAL_USERS))
+
+        t0 = time.perf_counter()
+        trainer.save(tmp / "artifact")
+        deploy.main(artifact_dir=tmp / "artifact")
+        log(f"  saved and served through the nine APIs in {time.perf_counter() - t0:.1f} s")
+
+        fresh = Trainer(cfg, dm, log_dir=str(tmp / "logs_restored"))
+        meta = fresh.restore(str(best))
+        resumed = fresh.validate()
+        same = resumed == best_val
+        log(f"  a fresh trainer restored at step {meta['step']}: validation "
+            f"{'bit for bit the fit best' if same else 'DIFFERS from the fit best'}")
+        if not same:
+            raise AssertionError(f"resumed validation {resumed} != the fit's best {best_val}")
+        fresh.close()
+        trainer.close()
+
+        eager_cfg = dataclasses.replace(cfg, max_epochs=1, steps_per_dispatch=1,
+                                        limit_train_batches=50, limit_val_batches=1,
+                                        ckpt_dir=str(tmp / "ckpt_eager"))
+        eager = Trainer(eager_cfg, dm, log_dir=str(tmp / "logs_eager"))
+        eager.fit()
+        wall, n = eager.epoch_walls[0], eager._host_step
+        graphed_ms = [w * 1e3 / per_epoch for w in trainer.epoch_walls]
+        log(f"  eager epoch of {n} batches: {wall:.3f} s, {wall * 1e3 / n:.3f} ms per step, "
+            f"{n * dm.config.batch_size / wall:.1f} examples/s; graphed epochs "
+            f"{[round(ms, 3) for ms in graphed_ms]} ms per step, "
+            f"{[round(dm.config.batch_size / ms * 1e3, 1) for ms in graphed_ms]} examples/s")
+        eager.close()
     return launches
 
 

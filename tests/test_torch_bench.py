@@ -34,7 +34,10 @@ def test_flagship_config_is_the_graft_entry_config():
     jcfg = __graft_entry__._flagship_config()
     tcfg = flagship_config()
     for f in dataclasses.fields(tcfg):
-        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+        got, want = getattr(tcfg, f.name), getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(got):  # the nested index configs
+            got, want = dataclasses.asdict(got), want.model_dump()
+        assert got == want, f.name
     assert flagship_config(hidden_dropout=0.0).hidden_dropout == 0.0
 
 

@@ -1132,3 +1132,36 @@ def test_graphed_window_equals_eager_steps(cuda, name, k, accumulate):
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES == per_k_steps
     assert torch.equal(ts.flatten(again.params), ts.flatten(got.params))
+
+
+def test_fit_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
+    """A short fit of the trainer on the card (synthetic data, a d=128
+    model that takes the fused layer, K=4 graphed windows with logging
+    steps); a fresh trainer restored from the best checkpoint validates
+    bit for bit as the fit's best validation did."""
+    import json
+
+    from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig, TrainConfig
+    from transformer_recommenders_tpu_torch.data.module import SeqDataModule
+    from transformer_recommenders_tpu_torch.training.trainer import Trainer
+
+    dm = SeqDataModule(SeqDataModuleConfig(
+        data_dir=str(tmp_path / "data"), dataset="synthetic", embedder="hash",
+        embedding_dim=64, max_seq_length=16, batch_size=32, synthetic_num_users=120,
+        synthetic_num_items=200, synthetic_num_events=8000))
+    cfg = TrainConfig(input_dim=64, hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
+                      intermediate_size=256, max_seq_length=16, max_epochs=2,
+                      steps_per_dispatch=4, log_every_n_steps=8, use_mlflow=False,
+                      ckpt_dir=str(tmp_path / "ckpt"))
+    trainer = Trainer(cfg, dm, log_dir=str(tmp_path / "logs"))
+    assert trainer.device.type == "cuda"
+    trainer.fit()
+    assert trainer.phase_counts["windows"] > 0 and trainer.phase_counts["log_events"] > 0
+    best = tmp_path / "ckpt" / "best"
+    best_val = json.loads((best / "meta.json").read_text())["metrics"]
+    fresh = Trainer(cfg, dm, log_dir=str(tmp_path / "logs2"))
+    fresh.restore(str(best))
+    assert fresh.validate() == best_val
+    assert trainer.validate() == best_val
+    trainer.close()
+    fresh.close()

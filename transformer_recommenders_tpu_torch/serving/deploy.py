@@ -11,11 +11,14 @@ item/user records in the JAX trainer's layout (``Trainer.save``)::
     manifest.json
 
 (the JAX package writes ``records.parquet``; the port reads either).
-:func:`main` loads an artifact into ``Service`` and drives all nine APIs
-through the in-process ASGI client::
+:func:`main` gets an artifact (the one in ``artifact_dir``; else one
+exported from the checkpoint ``ckpt_path`` through a trainer rebuilt from
+its ``config.json``; else one from a one-batch synthetic fit), loads it
+into ``Service`` and drives all nine APIs through the in-process ASGI
+client::
 
-    python -m transformer_recommenders_tpu_torch.serving.deploy ARTIFACT_DIR \\
-        [--device cuda|cpu] [--serve --port 3000]
+    python -m transformer_recommenders_tpu_torch.serving.deploy [ARTIFACT_DIR] \\
+        [--ckpt_path CKPT] [--device cuda|cpu] [--serve --port 3000]
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import argparse
 import datetime
 import json
 import pathlib
+import tempfile
 from typing import Any
 
 import numpy as np
@@ -53,8 +57,11 @@ def save_artifact(
     items: list[dict[str, Any]],
     users: list[dict[str, Any]],
     path: str | pathlib.Path,
+    *,
+    step: int = 0,
 ) -> None:
-    """Persist model + item index + user store + manifest.
+    """Persist model + item index + user store + manifest (``step``: the
+    train step of the parameters).
 
     ``items`` are the item records (``item_id``, ``item_text``, ...) in the
     order of the model's item table (``configure_embeddings``); ``users``
@@ -115,7 +122,7 @@ def save_artifact(
             {
                 "name": MODEL_NAME,
                 "version": datetime.datetime.now(datetime.UTC).strftime("%Y%m%d%H%M%S"),
-                "step": 0,
+                "step": int(step),
             },
             indent=2,
         )
@@ -173,21 +180,74 @@ def test_queries(service: Service) -> None:
     check(isinstance(name, str) and isinstance(version, str), (name, version))
 
 
-def main(artifact_dir: str | pathlib.Path, device=None) -> Service:
-    service = Service(artifact_dir, device=device)
-    test_queries(service)
-    print(f"deploy OK: artifact={artifact_dir} device={service.device}")
-    return service
+def _fast_dev_trainer(work_dir: str, device=None):
+    """A one-batch synthetic fit (the JAX package's fast-dev trainer)."""
+    from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig, TrainConfig
+    from transformer_recommenders_tpu_torch.data.module import SeqDataModule
+    from transformer_recommenders_tpu_torch.training.trainer import Trainer
+
+    data_config = SeqDataModuleConfig(
+        data_dir=str(pathlib.Path(work_dir) / "data"), dataset="synthetic", embedder="hash",
+        embedding_dim=64, max_seq_length=8, batch_size=8, synthetic_num_users=40,
+        synthetic_num_items=60, synthetic_num_events=2000,
+    )
+    config = TrainConfig(
+        hidden_size=64, num_hidden_layers=1, num_attention_heads=4, intermediate_size=64,
+        max_seq_length=8, compute_dtype="float32", max_epochs=1, limit_train_batches=1,
+        eval_batch_size=16, top_k=TOP_K, log_every_n_steps=1000,
+        ckpt_dir=str(pathlib.Path(work_dir) / "ckpt"),
+    )
+    trainer = Trainer(config, SeqDataModule(data_config),
+                      log_dir=str(pathlib.Path(work_dir) / "logs"), device=device)
+    trainer.fit()
+    return trainer
+
+
+def _trainer_from_checkpoint(ckpt_path: str, device=None):
+    """A trainer and datamodule rebuilt from the ``config.json`` beside the
+    checkpoint, restored from it."""
+    from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig, TrainConfig
+    from transformer_recommenders_tpu_torch.data.module import SeqDataModule
+    from transformer_recommenders_tpu_torch.training.trainer import Trainer
+
+    ckpt = pathlib.Path(ckpt_path)
+    payload = json.loads((ckpt.parent / "config.json").read_text())
+    trainer = Trainer(TrainConfig.from_dict(payload["model"]),
+                      SeqDataModule(SeqDataModuleConfig.from_dict(payload["data"])),
+                      log_dir=str(ckpt.parent / "deploy_logs"), device=device)
+    trainer.restore(str(ckpt))
+    return trainer
+
+
+def main(artifact_dir: str | pathlib.Path = "", device=None, *, ckpt_path: str = "") -> Service:
+    """Serve an artifact and drive all nine APIs.  Without ``ckpt_path``,
+    an artifact already in ``artifact_dir`` is served as it is; otherwise
+    the artifact is exported first (into ``artifact_dir``, or a temporary
+    directory), from ``ckpt_path`` or a one-batch synthetic fit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = pathlib.Path(artifact_dir or pathlib.Path(tmp) / "artifact")
+        if ckpt_path or not (artifact / "manifest.json").exists():
+            trainer = (_trainer_from_checkpoint(ckpt_path, device) if ckpt_path
+                       else _fast_dev_trainer(tmp, device))
+            try:
+                trainer.save(artifact)
+            finally:
+                trainer.close()
+        service = Service(artifact, device=device)
+        test_queries(service)
+        print(f"deploy OK: artifact={artifact} device={service.device}")
+        return service
 
 
 def cli_main() -> None:
     parser = argparse.ArgumentParser(prog="xrt-torch-deploy")
-    parser.add_argument("artifact_dir")
+    parser.add_argument("artifact_dir", nargs="?", default="")
+    parser.add_argument("--ckpt_path", default="", help="checkpoint to export the artifact from")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--serve", action="store_true", help="start the HTTP server")
     parser.add_argument("--port", type=int, default=3000)
     args = parser.parse_args()
-    service = main(args.artifact_dir, args.device)
+    service = main(args.artifact_dir, args.device, ckpt_path=args.ckpt_path)
     if args.serve:
         from transformer_recommenders_tpu_torch.serving.asgi import serve
 
