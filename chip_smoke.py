@@ -111,7 +111,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the CPU's plain path on the first 256 val users; the deploy smoke on
     the saved artifact; a fresh trainer restored from the best checkpoint
     validates bit for bit as the fit did; one eager epoch of 50 batches
-    (``steps_per_dispatch=1``) beside the graphed ones.
+    (``steps_per_dispatch=1``) beside the graphed ones;
+15. the serving worker pool: ``serve_workers(workers=2)`` on the card over
+    phase 3's artifact, on a free port; the nine APIs (item ids equal,
+    floats within 1e-5) and 64 concurrent ``recommend_with_user_id`` (scores
+    within 2**-10, ids equal but at near ties: the pool encodes them in
+    batches of other sizes) over HTTP, held against the in-process
+    ``Service``, QPS and p50/p95; the pool interrupted, no worker left, their launch counts
+    read from their exit lines; ``ItemIndexService.search`` against the
+    batched path; the batch-1 two-stage top-k over 62,000 x 384 bit for bit
+    against the direct one, both timed;
+16. the parallel layer on a 1x1 mesh over a real NCCL group: the sharded
+    lookup and top-k against the dense ones, the flagship's sharded hot
+    step (the table branch) and logging step (the pool branch) at B=128
+    against the one-device steps bit for bit, a graphed sharded window of
+    K=8 against eager sharded steps bit for bit with ms per step beside the
+    unsharded window's, ``ShardedEvaluator`` against ``Evaluator`` on 256
+    users.
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -123,6 +139,7 @@ import argparse
 import asyncio
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -1665,8 +1682,10 @@ def main() -> int:
     phase("2: the serving path's kernels against their plain versions")
     kernels = [check_fused_layer(), check_gather()]
 
+    work = tempfile.TemporaryDirectory()  # phase 3's artifact, served again in phase 15
+    artifact = pathlib.Path(work.name) / "artifact"
     phase("3: serving")
-    serve_launches = serving_phase()
+    serve_launches = serving_phase(artifact=artifact)
     log(" retrieval's top-k with ties in lax.top_k's order, two ways")
     check_topk_ties()
 
@@ -1727,6 +1746,14 @@ def main() -> int:
 
     phase("14: the trainer, the flagship at MovieLens-1M scale")
     launches["fit_flagship"] = trainer_phase()
+
+    phase("15: the serving worker pool, the unbatched search, the two-stage top-k")
+    launches["serving_workers"] = workers_phase(artifact)
+    check_two_stage_topk()
+    work.cleanup()
+
+    phase("16: the parallel layer on a 1x1 mesh over NCCL")
+    launches |= parallel_phase()
 
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
@@ -1847,10 +1874,11 @@ async def concurrent_requests(service, user_ids: list[str]) -> tuple[list[float]
 
 
 def serving_phase(*, device: str = "cuda", num_items: int = 3706, num_users: int = 6040,
-                  requests: int = 256, config: dict | None = None) -> dict:
-    """Build the artifact, serve all nine APIs and a burst of concurrent
-    requests on ``device``, hold the card's embeddings against the plain
-    path on the CPU; returns the launch counts of the serving run."""
+                  requests: int = 256, config: dict | None = None, artifact=None) -> dict:
+    """Build the artifact (at ``artifact``, kept, or in a temporary
+    directory), serve all nine APIs and a burst of concurrent requests on
+    ``device``, hold the card's embeddings against the plain path on the
+    CPU; returns the launch counts of the serving run."""
     import numpy as np
     import torch
 
@@ -1859,7 +1887,7 @@ def serving_phase(*, device: str = "cuda", num_items: int = 3706, num_users: int
     from transformer_recommenders_tpu_torch.serving.service import Query, Service
 
     with tempfile.TemporaryDirectory() as tmp:
-        artifact = pathlib.Path(tmp) / "artifact"
+        artifact = pathlib.Path(artifact or pathlib.Path(tmp) / "artifact")
         t0 = time.perf_counter()
         model = build_artifact(artifact, device=device, num_items=num_items,
                                num_users=num_users, config=config)
@@ -2672,6 +2700,429 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
     for e in ranked[:12] + own:
         log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
             f"{e.key[:90]}")
+
+
+
+# -- phase 15: the serving worker pool, the unbatched search, the two-stage top-k -------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_pool(artifact, port: int, *, workers: int = 2, device: str = "cuda"):
+    """``serve_workers(artifact, workers=...)`` in a process of its own;
+    its workers' launch lines come back on its standard output."""
+    code = ("import sys\nfrom transformer_recommenders_tpu_torch.serving.asgi import "
+            "serve_workers\ntry:\n    serve_workers(sys.argv[1], '127.0.0.1', int(sys.argv[2]), "
+            "workers=int(sys.argv[3]), device=sys.argv[4])\nexcept KeyboardInterrupt:\n    pass")
+    return subprocess.Popen([sys.executable, "-c", code, str(artifact), str(port), str(workers),
+                             device], cwd=REPO, stdout=subprocess.PIPE, text=True)
+
+
+def same_answer(got, want, where: str = "") -> None:
+    """Equal structure and strings (item ids in order); floats within 1e-5."""
+    if isinstance(want, float) or isinstance(got, float):
+        if not abs(got - want) <= 1e-5 * max(1.0, abs(want)):
+            raise AssertionError(f"{where}: {got} vs {want}")
+    elif isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{where}: keys {sorted(set(got) ^ set(want))}")
+        for k in want:
+            same_answer(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: {len(got)} vs {len(want)} entries")
+        for i, (g, w) in enumerate(zip(got, want)):
+            same_answer(g, w, f"{where}[{i}]")
+    elif got != want:
+        raise AssertionError(f"{where}: {got!r} vs {want!r}")
+
+
+# a burst's scores, pool against the in-process Service: the fused layer
+# splits a sequence over a cluster of 4, 2 or 1 CTAs by the batch size
+# (``ops/fused_layer.cluster_size``), so a user's query, encoded in one of
+# the pool's micro-batches rather than alone, differs by bf16 roundings
+# (1.3e-4 in a score on the H100); a few times that
+BURST_SCORE_TOL = 2.0**-10
+
+
+def same_recommendations(got: list, want: list, where: str) -> bool:
+    """Two top-k lists of one query encoded in batches of other sizes:
+    scores within ``BURST_SCORE_TOL`` rank by rank, and the item ids equal
+    but where two of the in-process scores lie within twice that of each
+    other (a near tie that the encoder's rounding may swap).  True when the
+    lists are identical."""
+    tol = BURST_SCORE_TOL
+    if len(got) != len(want):
+        raise AssertionError(f"{where}: {len(got)} vs {len(want)} recommendations")
+    scores = [w["score"] for w in want]
+    for p, (g, w) in enumerate(zip(got, want)):
+        if not abs(g["score"] - w["score"]) <= tol:
+            raise AssertionError(f"{where}[{p}].score: {g['score']} vs {w['score']}")
+        near_tie = any(abs(scores[q] - scores[p]) <= 2 * tol for q in range(len(scores)) if q != p)
+        if g["item_id"] != w["item_id"] and not near_tie:
+            raise AssertionError(f"{where}[{p}].item_id: {g['item_id']} vs {w['item_id']}")
+    return [g["item_id"] for g in got] == [w["item_id"] for w in want]
+
+
+def workers_phase(artifact, *, device: str = "cuda", workers: int = 2, requests: int = 64,
+                  start_timeout: float = 240.0) -> dict:
+    """``serve_workers`` over phase 3's artifact: the nine APIs and a burst of
+    ``requests`` concurrent ``recommend_with_user_id`` over HTTP (after one
+    burst to warm the workers up), every answer held against the in-process
+    ``Service``: the nine APIs, sent one at a time as the in-process calls
+    are, item ids equal and floats within 1e-5; the burst, whose queries the
+    pool encodes in batches of other sizes, by ``same_recommendations``;
+    QPS and latency percentiles; then the pool interrupted, every worker
+    gone.  Returns the
+    workers' launch counts, summed (each worker prints its own on the way
+    out)."""
+    import concurrent.futures
+    import signal
+
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.serving import asgi, deploy
+    from transformer_recommenders_tpu_torch.serving.service import Service
+
+    service = Service(artifact, device=device)
+    users = [str(r["user_id"]) for r in service.user_index.index.store.records[:requests]]
+    want_burst = {u: deploy.test_service(service, "recommend_with_user_id", {"user_id": u})
+                  for u in users}
+    port = free_port()
+    t0 = time.perf_counter()
+    pool = start_pool(artifact, port, workers=workers, device=device)
+    pids: set[int] = set()
+    try:
+        # up when every worker has answered (fresh connections, which the
+        # kernel spreads over the workers' sockets)
+        while len(pids) < workers:
+            if pool.poll() is not None:
+                raise AssertionError(f"the pool exited with code {pool.returncode}")
+            try:
+                status, _, headers = asgi.http_post("127.0.0.1", port, "model_name", {},
+                                                    timeout=5)
+                if status == 200:
+                    pids.add(int(headers["x-worker-pid"]))
+                    continue
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > start_timeout:
+                raise AssertionError(f"{len(pids)} of {workers} workers answered within "
+                                     f"{start_timeout:.0f} s")
+            time.sleep(0.2)
+        log(f"  {workers} workers up in {time.perf_counter() - t0:.1f} s")
+        for name, payload in deploy.api_requests(service):
+            status, body, headers = asgi.http_post("127.0.0.1", port, name, payload)
+            if status != 200:
+                raise AssertionError(f"{name}: {status} {body}")
+            same_answer(body, deploy.test_service(service, name, payload), name)
+            pids.add(int(headers["x-worker-pid"]))
+        log("  the nine APIs through the pool answer as the in-process Service")
+
+        def one(user: str):
+            t = time.perf_counter()
+            status, body, headers = asgi.http_post("127.0.0.1", port, "recommend_with_user_id",
+                                                   {"user_id": user})
+            return user, status, body, int(headers["x-worker-pid"]), time.perf_counter() - t
+
+        with concurrent.futures.ThreadPoolExecutor(requests) as ex:
+            list(ex.map(one, users))  # warm-up: each worker's first batch shapes
+            t_burst = time.perf_counter()
+            results = list(ex.map(one, users))
+            wall = time.perf_counter() - t_burst
+        identical = 0
+        for user, status, body, pid, _ in results:
+            if status != 200:
+                raise AssertionError(f"user {user}: {status} {body}")
+            identical += same_recommendations(body, want_burst[user],
+                                              f"recommend_with_user_id({user})")
+            pids.add(pid)
+        lat = sorted(r[-1] for r in results)
+        pct = {q: lat[min(len(lat) - 1, math.ceil(q / 100 * len(lat)) - 1)] for q in (50, 95)}
+        served = {pid: sum(r[3] == pid for r in results) for pid in pids}
+        log(f"  {requests} concurrent recommend_with_user_id through {workers} workers on "
+            f"{torch.cuda.get_device_name(0) if device == 'cuda' else 'cpu'}: "
+            f"{requests / wall:.1f} QPS ({wall:.3f} s wall), p50 {pct[50] * 1e3:.2f} ms, "
+            f"p95 {pct[95] * 1e3:.2f} ms; answers per worker {sorted(served.values())}; "
+            f"{identical} of {requests} lists identical to the in-process Service's, scores "
+            f"within {BURST_SCORE_TOL:.3g}, ids equal but at near ties")
+    finally:
+        pool.send_signal(signal.SIGINT)
+        out, _ = pool.communicate(timeout=60)
+    launches = {name: 0 for name in cuda_build.KERNELS}
+    reported = set()
+    for line in out.splitlines():
+        if line.startswith("worker ") and " launches " in line:
+            pid, counts = line.split(" launches ", 1)
+            reported.add(int(pid.split()[1]))
+            for name, n in json.loads(counts).items():
+                launches[name] += n
+    alive = []
+    for pid in pids | reported:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except ProcessLookupError:
+            pass
+    log(f"  pool stopped: {len(reported)} workers reported their launches {launches}; "
+        f"{len(alive)} left running")
+    if alive or len(reported) != workers:
+        raise AssertionError(f"workers left running {alive}, {len(reported)} reported")
+    if device == "cuda" and not launches["fused_layer"]:
+        # the APIs encode stored embeddings: the layer kernel, not the gather
+        raise AssertionError("the pool's requests did not go through the fused layer")
+    check_unbatched_search(service)
+    return launches
+
+
+def check_unbatched_search(service, n: int = 8) -> None:
+    """``ItemIndexService.search`` (one query, one device search) against
+    the batched path on the same queries: equal candidates."""
+    import numpy as np
+
+    from transformer_recommenders_tpu_torch.serving.service import Query
+
+    rng = np.random.default_rng(15)
+    dim = service.item_index.index.embeddings.shape[1]
+    ids = [str(r["item_id"]) for r in service.item_index.index.store.records]
+    for i in range(n):
+        q = dict(embedding=[float(x) for x in rng.normal(size=dim)],
+                 exclude_item_ids=list(rng.choice(ids, size=i, replace=False)), top_k=20)
+        got = [c.to_dict() for c in service.item_index.search(Query(**q))]
+        want = [c.to_dict() for c in asyncio.run(service.item_index.search_batched(Query(**q)))]
+        if got != want:
+            raise AssertionError("the unbatched search differs from the batched one")
+    log(f"  ItemIndexService.search equals search_batched on {n} queries")
+
+
+def check_two_stage_topk(n: int = 62000, d: int = 384, k: int = 100) -> dict:
+    """The batch-1 two-stage top-k (JAX's gate: ``ops/topk.use_two_stage``)
+    against the direct top-k over a 62,000 x 384 catalog, bit for bit, on
+    Gaussian scores and on scores with many ties and -0.0; then both timed,
+    the top-k alone and the whole retrieval (score, top-k, gather)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import topk
+
+    if not topk.use_two_stage(1, n, k):
+        raise AssertionError("the gate does not route batch 1 at this catalog to two stages")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    items = topk.normalize_rows(torch.randn(n, d, generator=gen, device="cuda"))
+    query = torch.randn(1, d, generator=gen, device="cuda")
+    scores = topk.score_items(query, items, items_prenormalized=True)
+    ties = (torch.randint(-4, 5, (1, n), generator=gen, device="cuda") / 4.0).float()
+    ties[torch.rand(1, n, generator=gen, device="cuda") < 0.2] = -0.0
+    for name, s in (("gaussian", scores), ("ties and -0.0", ties)):
+        if not torch.equal(topk._two_stage_topk(s, k), topk.top_k_columns(s, k)):
+            raise AssertionError(f"the two-stage top-k differs from the direct one ({name})")
+
+    def direct_retrieval():
+        s = topk.score_items(query, items, items_prenormalized=True)
+        cols = topk.top_k_columns(s, k)
+        return s.gather(-1, cols), cols
+
+    t = {"two_stage_topk_ms": time_ms(lambda: topk._two_stage_topk(scores, k)),
+         "direct_topk_ms": time_ms(lambda: topk.top_k_columns(scores, k)),
+         "two_stage_retrieval_ms": time_ms(
+             lambda: topk.topk_items(query, items, k, items_prenormalized=True)),
+         "direct_retrieval_ms": time_ms(direct_retrieval)}
+    log(f"  batch-1 top-{k} over {n} x {d}, two stages vs direct, bit for bit on Gaussian and "
+        f"tied scores: top-k alone {t['two_stage_topk_ms']:.4f} vs {t['direct_topk_ms']:.4f} "
+        f"ms; the whole retrieval {t['two_stage_retrieval_ms']:.4f} vs "
+        f"{t['direct_retrieval_ms']:.4f} ms")
+    return t
+
+
+# -- phase 16: the parallel layer on a 1x1 mesh over NCCL --------------------------------------
+
+
+def eval_arrays(rng, users: int, num_items: int, s: int):
+    """``EvalArrays`` of ``users`` synthetic users over the catalog."""
+    import numpy as np
+
+    from transformer_recommenders_tpu_torch.data.module import EvalArrays
+
+    hists, targets = [], []
+    for _ in range(users):
+        hists.append(rng.choice(num_items, size=int(rng.integers(1, 3 * s)), replace=False) + 1)
+        targets.append(rng.choice(num_items, size=int(rng.integers(0, 6)), replace=False) + 1)
+    window = np.zeros((users, s), np.int32)
+    for i, h in enumerate(hists):
+        window[i, : len(h[-s:])] = h[-s:]
+    return EvalArrays(user_ids=[f"u{i}" for i in range(users)],
+                      histories=[h.astype(np.int32) for h in hists], history_window=window,
+                      target_lists=[t.astype(np.int32) for t in targets],
+                      n_targets=np.asarray([len(t) for t in targets], np.int32))
+
+
+def parallel_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
+                   batch_size: int = TRAIN_BATCH, k: int = 8, calls: int = 5,
+                   users: int = 256) -> dict:
+    """The parallel layer over a real NCCL group of one rank (a 1x1 mesh:
+    every collective an NCCL call that leaves its values as they are),
+    against the one-device path: the sharded lookup and top-k; the
+    flagship's sharded hot step (the table branch) and logging step (the
+    pool branch) at B=128, loss, gradients and logs bit for bit, launches
+    as one-device steps'; a graphed sharded window of K steps bit for bit
+    against K eager sharded steps, its launches K times one step's, ms per
+    step beside the unsharded window's; ``ShardedEvaluator`` against
+    ``Evaluator`` on ``users`` users.  Returns the launch counts by step.
+    (``device="cpu"``: a gloo group, the eager window, nothing timed.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from transformer_recommenders_tpu_torch.configs import MeshConfig, TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.ops import cuda_build, topk
+    from transformer_recommenders_tpu_torch.ops.gather_matmul import gather_rows_reference
+    from transformer_recommenders_tpu_torch.parallel.embedding import (
+        place_table, sharded_table_lookup)
+    from transformer_recommenders_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    from transformer_recommenders_tpu_torch.parallel.topk_sharded import sharded_topk
+    from transformer_recommenders_tpu_torch.parallel import train as ptrain
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+    from transformer_recommenders_tpu_torch.training.evaluator import Evaluator, ShardedEvaluator
+    from transformer_recommenders_tpu_torch.training.scan_steps import (
+        make_scanned_train_steps, stack_batches)
+
+    cuda = device == "cuda"
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    backend = "nccl" if cuda else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1,
+                            **({"device_id": torch.device("cuda", 0)} if cuda else {}))
+    try:
+        mesh = create_mesh(MeshConfig(), device)
+        log(f"  {backend} group of 1 rank, mesh {mesh.shape}, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        cfg = TrainConfig(**(config or TRAIN))
+        _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim,
+                                      cfg.max_seq_length)
+        table = build_item_table(emb, device=device)
+        shard = place_table(table, mesh)
+        rng = np.random.default_rng(17)
+
+        idx = torch.from_numpy(rng.integers(-2, num_items + 3, size=(batch_size, 32))).to(device)
+        rows = sharded_table_lookup(shard, idx, mesh)
+        if not torch.equal(rows, gather_rows_reference(table, idx).view(*idx.shape, -1)):
+            raise AssertionError("the sharded lookup differs from the dense rows")
+        queries = torch.randn(64, table.shape[1], device=device)
+        exclude = torch.from_numpy(rng.integers(0, num_items + 1, size=(64, 16))).to(device)
+        items = place_table(table[1:], mesh)
+        got = sharded_topk(queries, items, min(100, num_items), mesh, exclude_idx=exclude)
+        want = topk.topk_items(queries, table[1:], min(100, num_items), exclude_idx=exclude)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("the sharded top-k differs from the dense one")
+        log("  sharded lookup and top-k (64 queries, k=100) bit for bit against the dense ones")
+
+        params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device=device)
+        batch = train_batch(rng, batch_size, cfg.max_seq_length, num_items)
+        seeds = ts.draw_dropout_seeds(torch.Generator().manual_seed(18), cfg)
+        launches = {}
+        for name, full_logs in (("parallel_hot", False), ("parallel_logging", True)):
+            one = ts.make_loss_and_grad(cfg, full_logs=full_logs)
+            sharded = ptrain.make_sharded_loss_and_grad(cfg, mesh, full_logs=full_logs)
+            loss, grads, logs = one(params, table, batch, seeds)
+            sync()
+            cuda_build.reset_launches()  # the main path, counted: one sharded step
+            s_loss, s_grad, s_logs, _ = sharded(params, shard, shard_batch(batch, mesh), seeds)
+            sync()
+            launches[name] = dict(cuda_build.LAUNCHES)
+            expected = expected_launches(cfg, table.shape[0],
+                                         ts.table_pool_rows(cfg, batch), full_logs)
+            flat = ts.flatten(grads)
+            same = {"loss": torch.equal(s_loss, loss), "gradients": torch.equal(s_grad, flat),
+                    "logs": set(s_logs) == set(logs)
+                    and all(torch.equal(s_logs[key], logs[key]) for key in logs)}
+            err = float((s_grad - flat).abs().max())
+            log(f"  {'logging' if full_logs else 'hot'} step, sharded vs one device: "
+                + ", ".join(f"{n} {'bit for bit' if v else 'DIFFER'}" for n, v in same.items())
+                + f" ({len(logs)} logs; max |grad diff| {err:.3g}); launches {launches[name]}")
+            if not all(same.values()):
+                raise AssertionError("the sharded step differs from the one-device step")
+            if cuda and launches[name] != expected:
+                raise AssertionError(f"the sharded step's launches differ from {expected}")
+
+        # the graphed sharded window against eager sharded steps
+        batches = [train_batch(rng, batch_size, cfg.max_seq_length, num_items) for _ in range(k)]
+        gen = torch.Generator().manual_seed(19)
+        step_seeds = torch.tensor([ts.draw_dropout_seeds(gen, cfg) for _ in range(k)])
+        local = [shard_batch(b, mesh) for b in batches]
+        stacked = {key: torch.stack([b[key] for b in local]) for key in local[0]}
+        state0 = ptrain.place_state(ts.init_train_state(cfg, params), mesh)
+        steps = make_scanned_train_steps(cfg, mesh=mesh)
+        got, got_logs = steps(state0, shard, stacked, step_seeds)
+        step = ptrain.make_sharded_train_step(cfg, mesh, full_logs=False)
+        eager, losses = state0, []
+        for b, s in zip(local, step_seeds):
+            eager, logs = step(eager, shard, b, s)
+            losses.append(logs[f"loss/{cfg.train_loss}"])
+        sync()
+        same = {"parameters": torch.equal(ts.flatten(got.params), ts.flatten(eager.params)),
+                "mu": torch.equal(got.opt_state.mu, eager.opt_state.mu),
+                "nu": torch.equal(got.opt_state.nu, eager.opt_state.nu),
+                "losses": torch.equal(got_logs[f"loss/{cfg.train_loss}"], torch.stack(losses))}
+        log(f"  {k} graphed sharded steps vs {k} eager sharded steps: "
+            + ", ".join(f"{n} {'bit for bit' if v else 'DIFFER'}" for n, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError("the graphed sharded window differs from the eager steps")
+        cuda_build.reset_launches()  # the main path, counted: one call of K replays
+        steps(state0, shard, stacked, step_seeds)
+        sync()
+        launches["parallel_scan"] = dict(cuda_build.LAUNCHES)
+        one_step = expected_launches(cfg, table.shape[0], ts.table_pool_rows(cfg, batches[0]),
+                                     False)
+        if cuda and launches["parallel_scan"] != {n: k * c for n, c in one_step.items()}:
+            raise AssertionError("the graphed sharded window's launches are not K steps'")
+        plain_steps = make_scanned_train_steps(cfg)
+        host_stacked = stack_batches(batches)
+        plain_steps(ts.init_train_state(cfg, params), table, host_stacked, step_seeds)
+        sharded_ms, plain_ms = [], []
+        for _ in range(calls):  # in turns
+            for fn, out in ((lambda: steps(state0, shard, stacked, step_seeds), sharded_ms),
+                            (lambda: plain_steps(state0, table, host_stacked, step_seeds),
+                             plain_ms)):
+                sync()
+                t = time.perf_counter()
+                fn()
+                sync()
+                out.append((time.perf_counter() - t) * 1e3 / k)
+        sh, pl = statistics.median(sharded_ms), statistics.median(plain_ms)
+        log(f"  ms per step, graphed windows of {k}, median of {calls} calls in turns: sharded "
+            f"(1x1 mesh, {backend}) {sh:.3f}, unsharded {pl:.3f}: the collectives cost "
+            f"{sh - pl:.3f} ms a step at world size 1")
+
+        # the sharded evaluator against the one-device one
+        arrays = eval_arrays(rng, users, num_items, cfg.max_seq_length)
+        ev, sev = Evaluator(cfg), ShardedEvaluator(cfg, mesh, num_items)
+        want = ev.run(params, table, arrays)
+        got = sev.run(params, (shard, items), arrays)
+        want_idx, want_scores = ev.recommend_batch(params, table, arrays)
+        got_idx, got_scores = sev.recommend_batch(params, (shard, items), arrays)
+        same = (got == want and np.array_equal(got_idx, want_idx)
+                and np.array_equal(got_scores, want_scores))
+        log(f"  ShardedEvaluator vs Evaluator, {users} users: metric means and top-"
+            f"{cfg.top_k} lists {'bit for bit' if same else 'DIFFER'} ("
+            + ", ".join(f"{n.split('/')[-1]} {v:.4f}" for n, v in sorted(got.items())) + ")")
+        if not same:
+            raise AssertionError("the sharded evaluator differs from the one-device one")
+        return launches
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

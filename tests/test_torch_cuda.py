@@ -1165,3 +1165,44 @@ def test_fit_on_the_card_resumes_bit_for_bit(cuda, tmp_path):
     assert trainer.validate() == best_val
     trainer.close()
     fresh.close()
+
+
+# -- the parallel layer and the serving pool on the card ----------------------------------------
+
+
+def _chip_smoke():
+    import pathlib
+    import sys
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    return chip_smoke
+
+
+def test_parallel_layer_on_a_1x1_nccl_mesh(cuda):
+    """The parallel layer over a real NCCL group of one rank
+    (``chip_smoke.parallel_phase``): the flagship's sharded hot step (the
+    table branch) and logging step (the pool branch) at B=128 bit for bit
+    against the one-device steps, with their launches; a graphed sharded
+    window of K=4 bit for bit against eager sharded steps (its NCCL calls
+    inside the capture); the sharded evaluator against the one-device
+    one."""
+    launches = _chip_smoke().parallel_phase(k=4, calls=1, users=64)
+    assert launches["parallel_hot"]["table_infonce_fwd"] == 1
+    assert launches["parallel_logging"]["pool_infonce_fwd"] == 1
+    assert launches["parallel_scan"]["fused_layer"] == 4 * 4
+
+
+def test_worker_pool_on_the_card(cuda, tmp_path):
+    """``serve_workers`` with two workers on the card
+    (``chip_smoke.workers_phase``): the nine APIs and a concurrent burst
+    over HTTP answer as the in-process Service, the pool stops, and its
+    requests went through the fused layer."""
+    smoke = _chip_smoke()
+    smoke.build_artifact(tmp_path / "artifact", device="cuda", num_items=500, num_users=100)
+    launches = smoke.workers_phase(tmp_path / "artifact", requests=16)
+    assert launches["fused_layer"] > 0

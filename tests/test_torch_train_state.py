@@ -561,7 +561,7 @@ def test_train_config_matches_jax_fields_and_loads_its_json():
                           learning_rate=1e-3, max_epochs=16, gradient_clip_val=1.0)
     tcfg = TrainConfig.from_json(jcfg.model_dump_json())
     names = {f.name for f in dataclasses.fields(TrainConfig)}
-    assert names == set(JaxTrainConfig.model_fields) - {"mesh"}
+    assert names == set(JaxTrainConfig.model_fields)
 
     def plain(value):  # the nested index configs as dicts
         if dataclasses.is_dataclass(value):

@@ -12,13 +12,17 @@ PyTorch version only for tensors on the CPU.  Entry points default to the
 ``cuda`` device and raise when no card is present.
 """
 
-import torch
+from __future__ import annotations
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
+def resolve_device(device: str | torch.device | None) -> torch.device:  # noqa: F821
     """``None`` means ``cuda``.  A CUDA device without a card raises: the
     port never carries on silently on the CPU (pass ``device="cpu"`` for
     that, as the tests do)."""
+    # torch is imported here, not with the package: a serving worker sets
+    # its CPU affinity before torch loads (``serving/worker.py``)
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         msg = (

@@ -1,5 +1,5 @@
 """Standard-library config surface: ``ModelConfig``, ``LossConfig``,
-``TrainConfig``, ``IndexConfig``, ``SeqDataConfig`` and
+``TrainConfig``, ``IndexConfig``, ``MeshConfig``, ``SeqDataConfig`` and
 ``SeqDataModuleConfig``, and :func:`load_yaml_config`.
 
 Counterpart of ``transformer_recommenders_tpu/configs.py`` (pydantic there).
@@ -52,6 +52,8 @@ def _coerce_field(annotation: str, value: Any) -> Any:
     annotation = str(annotation)
     if isinstance(value, dict) and "IndexConfig" in annotation:
         return IndexConfig.from_dict(value)
+    if isinstance(value, dict) and "MeshConfig" in annotation:
+        return MeshConfig.from_dict(value)
     if isinstance(value, bool) or value is None:
         return value
     if "float" in annotation and isinstance(value, (int, str)):
@@ -180,11 +182,19 @@ class IndexConfig(_JSONConfig):
 
 
 @dataclasses.dataclass
+class MeshConfig(_JSONConfig):
+    """The (data, model) process mesh (JAX ``MeshConfig``): data parallel
+    over the batch, the item table row-sharded over ``model``.
+    ``data_axis_size=-1`` takes every rank the model axis leaves."""
+
+    data_axis_size: int = -1
+    model_axis_size: int = 1
+
+
+@dataclasses.dataclass
 class TrainConfig(ModelConfig, LossConfig):
     """Flattened training config (JAX ``TrainConfig``): the model and loss
-    fields plus the trainer's and the nested index sections.  The mesh
-    section (the JAX package's multi-chip layout) is not carried;
-    ``from_dict`` drops it with the other keys it does not know."""
+    fields plus the trainer's and the nested index and mesh sections."""
 
     train_loss: LossType = "InfoNCELoss"
     use_fused_loss: bool = True
@@ -223,6 +233,7 @@ class TrainConfig(ModelConfig, LossConfig):
         table_name=USERS_TABLE_NAME, id_col="user_id", text_col="user_text",
         embedding_col=None))
     top_k: int = TOP_K
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def __post_init__(self) -> None:
         ModelConfig.__post_init__(self)

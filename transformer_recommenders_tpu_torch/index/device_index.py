@@ -1,11 +1,12 @@
 """Exact MIPS retrieval index on a torch device.
 
-Counterpart of ``transformer_recommenders_tpu/index/device_index.py``
-(single device; the mesh-sharded variant belongs to the parallel layer,
-not ported yet).  The catalog is L2-normalized once at build time for the
-cosine metric, kept on the device, and searched by ``ops.topk.topk_items``:
-one f32 matmul, exclusion masking, ``torch.topk``.  Scores are cosine
-similarities.
+Counterpart of ``transformer_recommenders_tpu/index/device_index.py``.
+The catalog is L2-normalized once at build time for the cosine metric,
+kept on the device, and searched by ``ops.topk.topk_items``: one f32
+matmul, exclusion masking, ``torch.topk``.  Scores are cosine
+similarities.  With a mesh (``parallel.mesh.create_mesh``) the catalog is
+row-sharded over its ``model`` axis and searched by
+``parallel.topk_sharded.sharded_topk``.
 """
 
 from __future__ import annotations
@@ -18,26 +19,42 @@ import torch
 from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.index.store import TableIndex
 from transformer_recommenders_tpu_torch.ops.topk import normalize_rows, topk_items
+from transformer_recommenders_tpu_torch.parallel.collectives import gather
+from transformer_recommenders_tpu_torch.parallel.embedding import place_table
+from transformer_recommenders_tpu_torch.parallel.topk_sharded import sharded_topk
+from transformer_recommenders_tpu_torch.params import MODEL_AXIS
 
 
 class DeviceIndex(TableIndex):
     backend = "device"
 
-    def __init__(self, config, *, device=None) -> None:
+    def __init__(self, config, *, device=None, mesh=None) -> None:
+        """``mesh``: search a catalog row-sharded over the mesh's ``model``
+        axis, on the mesh's device.  The search is then SPMD: every rank of
+        the mesh calls :meth:`search` and :meth:`search_batch` with the same
+        queries, in the same order, and gets the same results."""
         super().__init__(config)
-        self.device = resolve_device(device)
-        self.embeddings: torch.Tensor | None = None  # (N, D) on self.device
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # (N, D) on self.device; with a mesh this rank's row shard
+        self.embeddings: torch.Tensor | None = None
 
     def _set_embeddings(self, embeddings: np.ndarray) -> None:
         if not self.config.embedding_col:
             return
         emb = torch.from_numpy(np.ascontiguousarray(embeddings)).to(self.device)
-        self.embeddings = normalize_rows(emb) if self.config.metric == "cosine" else emb
+        emb = normalize_rows(emb) if self.config.metric == "cosine" else emb
+        if self.mesh is not None:
+            emb = place_table(emb, self.mesh)
+        self.embeddings = emb
 
     def _embeddings_numpy(self) -> np.ndarray | None:
         if self.embeddings is None:
             return None
-        return self.embeddings[: self._num_items].cpu().numpy()
+        emb = self.embeddings
+        if self.mesh is not None:  # every rank's shard (a collective)
+            emb = gather(emb, self.mesh.group(MODEL_AXIS))
+        return emb[: self._num_items].cpu().numpy()
 
     def search(
         self,
@@ -76,11 +93,15 @@ class DeviceIndex(TableIndex):
         k = min(top_k, self._num_items)
         if k <= 0:
             return [[] for _ in range(b)]
-        scores, idx = topk_items(
-            torch.from_numpy(queries).to(self.device), self.embeddings, k,
-            exclude_idx=torch.from_numpy(padded).to(self.device),
-            metric=self.config.metric, items_prenormalized=True,
-        )
+        queries_t = torch.from_numpy(queries).to(self.device)
+        exclude = torch.from_numpy(padded).to(self.device)
+        if self.mesh is not None:
+            scores, idx = sharded_topk(queries_t, self.embeddings, k, self.mesh,
+                                       exclude_idx=exclude, metric=self.config.metric,
+                                       num_items=self._num_items, items_prenormalized=True)
+        else:
+            scores, idx = topk_items(queries_t, self.embeddings, k, exclude_idx=exclude,
+                                     metric=self.config.metric, items_prenormalized=True)
         scores = scores[:b].cpu().numpy()
         idx = idx[:b].cpu().numpy()
         out: list[list[dict[str, Any]]] = []

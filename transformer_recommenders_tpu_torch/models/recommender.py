@@ -98,6 +98,8 @@ def compute_embeds(
     neg_item_idx: torch.Tensor,
     *,
     dropout_seeds=None,
+    table_lookup=None,
+    lookup_projected: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Per-position training queries and the shared candidate pool (JAX
     ``compute_embeds``), differentiable in ``params``.
@@ -107,7 +109,15 @@ def compute_embeds(
     many rows is projected whole (its padding row zeroed) and the gather
     reads the projected rows; a larger catalog is gathered first and only
     the gathered rows are projected, the padding rows zeroed again by a
-    multiply (the projection's bias would make them nonzero).  Returns,
+    multiply (the projection's bias would make them nonzero).
+
+    ``table_lookup(idx)`` replaces the gather (the parallel layer passes
+    its row-sharded lookup, ``parallel/embedding.py``); it is called once,
+    on the 3 * B * S indices.  ``lookup_projected`` says its rows are
+    already in the query space; otherwise, with an input projection, the
+    encoder projects the history rows and the positives and negatives are
+    projected here (JAX's branch, without re-zeroing their padding rows).
+    Returns,
     with R = batch * seq flattened rows: ``query`` (R, D) f32,
     ``pos_embed`` and ``neg_pool`` (R, D) in the compute dtype,
     ``row_valid`` and ``neg_valid`` (R,) bool, ``attention_mask`` and
@@ -115,15 +125,25 @@ def compute_embeds(
     hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
     b, s = hist_t.shape
     all_idx = torch.cat([hist_t.reshape(-1), pos_flat, neg_flat])
-    projected = "input_proj" in params
-    if projected and item_table.shape[0] > all_idx.numel():
-        raw = fast_table_lookup(item_table, all_idx, compute_dtype=cfg.compute_dtype)
-        rows = _dense(raw, params["input_proj"], compute_dtype(cfg))
-        rows = rows * (all_idx != 0)[:, None].to(rows.dtype)
-    else:
-        table = _projected_table(params, cfg, item_table) if projected else item_table
-        rows = fast_table_lookup(table, all_idx, compute_dtype=cfg.compute_dtype)
     r = b * s
+    if table_lookup is not None:
+        rows = table_lookup(all_idx)
+        projected = lookup_projected
+        pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
+        if "input_proj" in params and not projected:
+            dtype = compute_dtype(cfg)
+            pos_embed = _dense(pos_embed, params["input_proj"], dtype)
+            neg_pool = _dense(neg_pool, params["input_proj"], dtype)
+    else:
+        projected = "input_proj" in params
+        if projected and item_table.shape[0] > all_idx.numel():
+            raw = fast_table_lookup(item_table, all_idx, compute_dtype=cfg.compute_dtype)
+            rows = _dense(raw, params["input_proj"], compute_dtype(cfg))
+            rows = rows * (all_idx != 0)[:, None].to(rows.dtype)
+        else:
+            table = _projected_table(params, cfg, item_table) if projected else item_table
+            rows = fast_table_lookup(table, all_idx, compute_dtype=cfg.compute_dtype)
+        pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
     out = model_forward(
         params, cfg, None, item_embeds=rows[:r].reshape(b, s, -1),
         dropout_seeds=dropout_seeds, inputs_projected=projected,
@@ -131,8 +151,8 @@ def compute_embeds(
     query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
     return {
         "query": query,
-        "pos_embed": rows[r:2 * r],
-        "neg_pool": rows[2 * r:],
+        "pos_embed": pos_embed,
+        "neg_pool": neg_pool,
         "row_valid": row_valid,
         "neg_valid": neg_valid,
         "attention_mask": out["attention_mask"],
@@ -149,6 +169,7 @@ def compute_query_embeds(
     neg_item_idx: torch.Tensor,
     *,
     dropout_seeds=None,
+    table_projected: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Per-position training queries for a table-scored loss, without
     gathering candidate rows (JAX ``compute_query_embeds``).
@@ -156,15 +177,20 @@ def compute_query_embeds(
     The whole frozen table is projected into the query space once (when
     the model has an input projection) with its padding row zeroed, only
     the history rows are looked up, and the positives and negatives stay
-    index vectors for the loss to score against ``table``.  Returns, with
+    index vectors for the loss to score against ``table``.
+    ``table_projected`` says ``item_table`` is in the query space already
+    (the parallel layer projects each row shard and all-gathers them, so
+    the projection's gradient flows through the shards).  Returns, with
     R = batch * seq flattened rows: ``query`` (R, D) f32, ``table`` (N, D)
     in the compute dtype, ``pos_idx``/``neg_idx`` (R,), ``row_valid``
     (attention-valid and the positive is not padding) and ``neg_valid``
     (attention-valid)."""
     hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
     b, s = hist_t.shape
-    projected = "input_proj" in params
-    table_use = _projected_table(params, cfg, item_table) if projected else item_table
+    projected = table_projected or "input_proj" in params
+    table_use = item_table
+    if "input_proj" in params and not table_projected:
+        table_use = _projected_table(params, cfg, item_table)
     hist_rows = fast_table_lookup(table_use, hist_t.reshape(-1), compute_dtype=cfg.compute_dtype)
     out = model_forward(
         params, cfg, None, item_embeds=hist_rows.reshape(b, s, -1),

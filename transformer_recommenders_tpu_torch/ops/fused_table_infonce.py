@@ -234,10 +234,13 @@ def table_infonce_rowwise(
 def fused_table_infonce_loss(
     q: torch.Tensor, table: torch.Tensor, pos_idx: torch.Tensor, neg_idx: torch.Tensor,
     row_valid: torch.Tensor, neg_valid: torch.Tensor, *, scale: float = 1.0,
-    mask_false_negatives: bool = True,
+    mask_false_negatives: bool = True, counts: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Scalar InfoNCE sum over valid rows: the pool objective over
-    ``table[neg_idx]`` without gathering a pool row."""
-    counts = neg_pool_counts(neg_idx, neg_valid, table.shape[0])
+    ``table[neg_idx]`` without gathering a pool row.  ``counts`` (N,), where
+    given, is used as is in place of the pool's histogram (the parallel
+    layer sums the ranks' histograms, so the pool is the global batch's)."""
+    if counts is None:
+        counts = neg_pool_counts(neg_idx, neg_valid, table.shape[0])
     ce = table_infonce_rowwise(q, table, pos_idx, counts, scale, mask_false_negatives)
     return (ce * row_valid.reshape(-1).float()).sum()

@@ -11,11 +11,14 @@ provides the minimal equivalent with zero dependencies:
 - :class:`TestClient`: drives any ASGI app in-process (own event loop),
   starlette-TestClient style;
 - :func:`serve`: a tiny threaded HTTP server for real serving without
-  uvicorn (stdlib ``http.server`` bridging into the ASGI app).
+  uvicorn (stdlib ``http.server`` bridging into the ASGI app);
+- :func:`serve_workers`: a pool of such servers, one fresh process each,
+  sharing one port.
 
 A copy of ``transformer_recommenders_tpu/serving/asgi.py`` for the PyTorch
 port: the accelerator check in :func:`serve` asks torch instead of jax,
-and the multi-process ``serve_workers`` pool is not carried over.
+the server's listen backlog is the system's maximum (not socketserver's
+5), and the pool's workers run on the card unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -305,9 +308,9 @@ def serve(
 
     Passing ``workers > 1`` raises: the process that owns the CUDA device
     must not fan out, and forking a process whose runtime has started
-    threads is unsafe.  Several servers each started fresh (each loading
-    the artifact) can share one port with ``reuse_port``, which sets
-    SO_REUSEPORT before bind (kernel load-balancing).
+    threads is unsafe.  :func:`serve_workers` starts each worker fresh
+    (each loading the artifact); they share one port with ``reuse_port``,
+    which sets SO_REUSEPORT before bind (kernel load-balancing).
     """
     import http.server
     import socket
@@ -319,14 +322,15 @@ def serve(
         if torch.cuda.is_available():
             msg = (
                 f"workers={workers} needs worker processes, but this process "
-                "drives a CUDA device, which one process should own. Run with "
-                "workers=1 (the device-owning process)."
+                "drives a CUDA device, which it must not fork. Run with "
+                "workers=1, or start a pool of fresh worker processes with "
+                "serve_workers()."
             )
             raise RuntimeError(msg)
         msg = (
             f"serve(workers={workers}) cannot fork an already-initialized "
-            "app: run one server process per worker, each loading the "
-            "artifact itself."
+            "app. Use serve_workers(artifact_dir, ...), which spawns fresh "
+            "worker processes that each load the artifact."
         )
         raise RuntimeError(msg)
 
@@ -365,6 +369,9 @@ def serve(
 
     class Server(socketserver.ThreadingTCPServer):
         allow_reuse_address = True
+        # socketserver's backlog of 5 drops the connections of a burst, which
+        # the clients retry after 1 s and 3 s (a pool's p50 of 1.1 s on the H100)
+        request_queue_size = socket.SOMAXCONN
 
         def server_bind(self) -> None:
             if reuse_port and hasattr(socket, "SO_REUSEPORT"):
@@ -374,3 +381,115 @@ def serve(
     with Server((host, port), Bridge) as server:
         server.serve_forever()
 
+
+def http_post(host: str, port: int, name: str, payload: Any = None, *,
+              timeout: float = 60.0) -> tuple[int, Any, dict[str, str]]:
+    """POST ``payload`` as JSON to ``http://host:port/name`` (a server of
+    :func:`serve` or :func:`serve_workers`): ``(status, decoded body,
+    headers)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout)
+    try:
+        body = json.dumps(payload or {}).encode()
+        conn.request("POST", f"/{name}", body, {"content-type": "application/json"})
+        response = conn.getresponse()
+        data = response.read()
+        return response.status, json.loads(data) if data else None, dict(response.getheaders())
+    finally:
+        conn.close()
+
+
+# the kernel libraries a Service loads: the encoder's layer and the gather
+SERVING_KERNELS = ("fused_layer", "gather_rows")
+
+
+def serve_workers(
+    artifact_dir: str,
+    host: str = "0.0.0.0",
+    port: int = 3000,
+    *,
+    workers: int = 2,
+    pin_cpus: bool = False,
+    device: str | None = None,
+) -> None:
+    """Multi-worker serving: spawn ``workers`` fresh processes of
+    ``python -m transformer_recommenders_tpu_torch.serving.worker``, each
+    loading the Service artifact and binding the same port with
+    SO_REUSEPORT (the kernel balances connections).  Blocks until every
+    worker has exited; a worker that exits with a non-zero code raises
+    ``RuntimeError``.  On the way out (an interrupt included) every worker
+    still running gets SIGTERM.
+
+    Unlike JAX's pool, whose workers run on the CPU because a TPU cannot
+    be shared between processes, these run on the card (``device=None``
+    means ``cuda``, the port's rule for entry points): processes can share
+    a CUDA card.  ``device="cpu"`` runs them on the plain path.  On the
+    card the serving kernels are compiled here first
+    (``cuda_build.build_all``), so the workers load them instead of each
+    starting its own ``nvcc`` run.
+
+    ``pin_cpus`` gives each worker a disjoint set of cores
+    (``XRT_WORKER_CPUS``, applied by the worker before torch loads, with
+    ``torch.set_num_threads`` to match), so N workers' thread pools do not
+    oversubscribe the host.
+    """
+    import signal
+    import subprocess
+    import sys
+
+    from transformer_recommenders_tpu_torch import resolve_device
+
+    if not hasattr(socket, "SO_REUSEPORT"):  # pragma: no cover - non-Linux
+        msg = "serve_workers needs SO_REUSEPORT (Linux)"
+        raise RuntimeError(msg)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from transformer_recommenders_tpu_torch.ops import cuda_build
+
+        cuda_build.build_all(SERVING_KERNELS)
+
+    def worker_env(i: int) -> dict[str, str]:
+        env = dict(os.environ)
+        if pin_cpus:
+            env["XRT_WORKER_CPUS"] = ",".join(str(c) for c in worker_cores(i, workers))
+        return env
+
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "transformer_recommenders_tpu_torch.serving.worker",
+             str(artifact_dir), host, str(port), "--device", str(dev)],
+            env=worker_env(i),
+        )
+        for i in range(workers)
+    ]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [c for c in codes if c not in (None, 0, -signal.SIGTERM)]
+            if bad:
+                msg = f"serving worker exited with code {bad[0]}"
+                raise RuntimeError(msg)
+            if all(c is not None for c in codes):
+                return  # every worker exited cleanly
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:  # pragma: no cover
+                p.kill()
+                p.wait()
+
+
+def worker_cores(i: int, workers: int) -> list[int]:
+    """Worker ``i``'s cores under ``pin_cpus``: a block of the cores this
+    process may run on, ``len(cores) // workers`` of them, disjoint from the
+    other workers' (wrapping only where there are more workers than
+    cores)."""
+    cores = sorted(os.sched_getaffinity(0))
+    per = max(1, len(cores) // workers)
+    return [cores[(i * per + j) % len(cores)] for j in range(per)]

@@ -139,6 +139,26 @@ def test_service(service: Service, name: str, payload: dict):
     return response.json()
 
 
+def api_requests(service: Service) -> list[tuple[str, dict]]:
+    """One request for each of the nine APIs, on the artifact's first item
+    and user: ``(name, payload)`` pairs, for a client of a running server."""
+    item_id = str(service.item_index.index.store.records[0]["item_id"])
+    user_id = str(service.user_index.index.store.records[0]["user_id"])
+    item_ids = [str(r["item_id"]) for r in service.item_index.index.store.records[:3]]
+    text = service.item_index.get_id(item_id).item_text
+    return [
+        ("item_id", {"item_id": item_id}),
+        ("user_id", {"user_id": user_id}),
+        ("recommend_with_item_id", {"item_id": item_id}),
+        ("recommend_with_user_id", {"user_id": user_id}),
+        ("recommend_with_query", {"query": {"item_ids": [item_id], "top_k": 7}}),
+        ("embed_query", {"query": {"item_ids": item_ids}}),
+        ("search_item_text", {"text": text, "top_k": TOP_K}),
+        ("model_name", {}),
+        ("model_version", {}),
+    ]
+
+
 def test_queries(service: Service) -> None:
     """Smoke assertions over all nine APIs."""
     first_item_id = str(service.item_index.index.store.records[0]["item_id"])

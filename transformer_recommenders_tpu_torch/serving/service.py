@@ -266,9 +266,11 @@ class ModelService:
 
 
 class ItemIndexService:
-    """Item retrieval service."""
+    """Item retrieval service.  With ``mesh``, the device index is
+    row-sharded over the mesh (``DeviceIndex(mesh=)``), and every rank
+    must search the same queries in the same order."""
 
-    def __init__(self, artifact_dir: str | pathlib.Path, *, device=None) -> None:
+    def __init__(self, artifact_dir: str | pathlib.Path, *, device=None, mesh=None) -> None:
         config = IndexConfig(
             index_path=str(pathlib.Path(artifact_dir) / INDEX_PATH),
             table_name=ITEMS_TABLE_NAME,
@@ -277,7 +279,7 @@ class ItemIndexService:
             embedding_col="embedding",
         )
         backend = INDEX_BACKENDS[config.backend]
-        kwargs = {"device": device} if config.backend == "device" else {}
+        kwargs = {"device": device, "mesh": mesh} if config.backend == "device" else {}
         self.index = backend.load(config, **kwargs)
         # frozen INPUT-space embeddings back the query-normalization chain;
         # the index's own embeddings are the query-space retrieval matrix,
@@ -328,6 +330,20 @@ class ItemIndexService:
         if isinstance(res, Exception):
             raise res
         return res
+
+    def search(self, query: Query) -> list[ItemCandidate]:
+        """The unbatched search: one query, one device search (a batch of
+        one, so the two-stage top-k at a large catalog)."""
+        assert query.embedding is not None
+        results = self.index.search(
+            np.asarray(query.embedding, np.float32),
+            exclude_item_ids=query.exclude_item_ids,
+            top_k=query.top_k,
+        )
+        return [
+            ItemCandidate(item_id=r["item_id"], item_text=r["item_text"], score=r["score"])
+            for r in results
+        ]
 
     def search_text(
         self, text: str, exclude_item_ids: list[str] | None = None, top_k: int = TOP_K
@@ -397,13 +413,14 @@ def _activity(struct: dict | None) -> Activity | None:
 
 class Service:
     """Composite service.  ``device=None`` means ``cuda``; without a card
-    that raises (pass ``device="cpu"`` for the plain path)."""
+    that raises (pass ``device="cpu"`` for the plain path).  ``mesh``
+    shards the item index (see :class:`ItemIndexService`)."""
 
-    def __init__(self, artifact_dir: str | pathlib.Path, *, device=None) -> None:
+    def __init__(self, artifact_dir: str | pathlib.Path, *, device=None, mesh=None) -> None:
         self.artifact_dir = pathlib.Path(artifact_dir)
         self.device = resolve_device(device)
         self.model = ModelService(artifact_dir, device=self.device)
-        self.item_index = ItemIndexService(artifact_dir, device=self.device)
+        self.item_index = ItemIndexService(artifact_dir, device=self.device, mesh=mesh)
         self.user_index = UserIndexService(artifact_dir)
         manifest_path = self.artifact_dir / "manifest.json"
         self.manifest = (

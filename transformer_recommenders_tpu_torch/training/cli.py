@@ -7,6 +7,10 @@
 A subcommand, a YAML file (``configs/*.yaml``: ``model`` and ``data``
 sections), dotted overrides of any field, ``--ckpt_path`` to resume.  The
 run goes on ``--device`` (default ``cuda``, which raises without a card).
+Under ``torchrun --nproc_per_node N -m
+transformer_recommenders_tpu_torch.training.cli ...`` the N ranks train
+over a (data, model) mesh (``--model.mesh.model_axis_size`` sets its model
+axis), and rank 0 writes.
 ``predict --predict_output`` writes one JSON line per user (``user_id``,
 ``item_ids``, ``scores``), or parquet with those columns where the path
 ends in ``.parquet`` and pandas imports.
@@ -114,7 +118,7 @@ def _dispatch(trainer: Trainer, args) -> dict[str, Any]:
         result = trainer.test()
     else:
         recs = trainer.predict()
-        if args.predict_output:
+        if args.predict_output and trainer.primary:  # rank 0 writes
             write_predictions(recs, args.predict_output)
         result = {"num_users": float(len(recs["user_ids"]))}
     print(json.dumps({k: float(v) for k, v in result.items()}, indent=2))

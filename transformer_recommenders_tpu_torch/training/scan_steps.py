@@ -25,6 +25,12 @@ once whatever the replays: the driver takes back the capture's counts and
 adds a graph's counts at each replay.
 
 On the CPU (the tests) the same step runs eagerly, K times.
+
+With a mesh (``mesh=``) each step is the sharded hot step of
+``parallel/train.py``, its collectives inside the graph.  NCCL creates a
+communicator at a group's first collective, which a capture cannot do:
+the eager warm-up step on the side stream makes every collective of the
+step first.  Under gloo (the CPU) the window is the eager loop.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from transformer_recommenders_tpu_torch.configs import TrainConfig
 from transformer_recommenders_tpu_torch.models.transformer import tree_leaves
 from transformer_recommenders_tpu_torch.ops import cuda_build
+from transformer_recommenders_tpu_torch.parallel.train import make_sharded_loss_and_grad
 from transformer_recommenders_tpu_torch.training import train_state as ts
 
 
@@ -126,7 +133,7 @@ class _GraphedWindow:
                 cuda_build.LAUNCHES[name] += n
 
 
-def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True):
+def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True, mesh=None):
     """``steps(state, item_table, batches, dropout_seeds) -> (state,
     logs)``: K hot train steps per call.
 
@@ -142,17 +149,33 @@ def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True):
     On a CUDA table the K steps are CUDA-graph replays (see the module
     docstring); the graphs are captured at the first call for a table, K,
     batch shape and parameter layout, and kept for later calls.  On the
-    CPU they run eagerly."""
+    CPU they run eagerly.
+
+    With ``mesh`` (``parallel.mesh.create_mesh``) each step is the sharded
+    hot step: ``item_table`` is this rank's row shard
+    (``parallel.embedding.place_table``), ``batches`` this rank's (K, B /
+    data, S) rows, and the positives' count is the global batch's."""
     update = ts.make_flat_update(config)
     positions = max(1, config.accumulate_grad_batches)
     windows: dict[tuple, _GraphedWindow] = {}
 
+    if mesh is None:
+        def loss_and_grad(params, item_table, batch, seeds):
+            loss, grads, _, row_valid = ts.loss_grads_and_positives(config, False, params,
+                                                                    item_table, batch, seeds)
+            return loss, ts.flatten(grads), row_valid.float().sum()
+    else:
+        sharded = make_sharded_loss_and_grad(config, mesh, full_logs=False)
+
+        def loss_and_grad(params, item_table, batch, seeds):
+            loss, flat_grad, _, positives = sharded(params, item_table, batch, seeds)
+            return loss, flat_grad, positives
+
     def one_step(flat, template, opt_state, item_table, batch, seeds):
-        params = ts.unflatten(template, flat)
-        loss, grads, _, row_valid = ts.loss_grads_and_positives(config, False, params,
-                                                                item_table, batch, seeds)
-        new_p, opt_state, _ = update(flat, ts.flatten(grads), opt_state)
-        return new_p, opt_state, loss, row_valid.float().sum()
+        loss, flat_grad, positives = loss_and_grad(ts.unflatten(template, flat), item_table,
+                                                   batch, seeds)
+        new_p, opt_state, _ = update(flat, flat_grad, opt_state)
+        return new_p, opt_state, loss, positives
 
     def steps(state: ts.TrainState, item_table: torch.Tensor, batches: dict, dropout_seeds):
         batches = {k: torch.as_tensor(batches[k]) for k in ts._BATCH_KEYS}

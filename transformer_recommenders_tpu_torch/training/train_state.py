@@ -203,24 +203,37 @@ def _loss_args(embeds: dict) -> tuple:
     return tuple(embeds[k] for k in ("query", "pos_embed", "neg_pool", "row_valid", "neg_valid"))
 
 
-def _full_logs(config: TrainConfig, embeds: dict) -> dict[str, torch.Tensor]:
+def _full_logs(config: TrainConfig, embeds: dict, reduce=None,
+               data_ranks: int = 1) -> dict[str, torch.Tensor]:
     """Every loss head (``loss/{name}`` and ``loss/{name}Mean``, the sum
     over the positive count), the logits statistics and the batch
-    statistics, with the JAX step's keys."""
-    all_losses = loss_lib.compute_losses(config, *_loss_args(embeds))
+    statistics, with the JAX step's keys.  The parallel layer passes
+    ``reduce(kind, x)``, which combines a rank's partial result over the
+    data axis (``kind`` ``"sum"``, ``"min"`` or ``"max"``), and the data
+    axis's size, by which the batch's shape counts grow; on one device both
+    leave the values as they are."""
+    if reduce is None:
+        def reduce(kind: str, x: torch.Tensor) -> torch.Tensor:
+            return x
+
+    all_losses = {k: reduce("sum", v)
+                  for k, v in loss_lib.compute_losses(config, *_loss_args(embeds)).items()}
     attn = embeds["attention_mask"]
-    numel = attn.numel()
-    attn_nz = attn.float().sum()
-    pos_nz = embeds["positive_mask"].float().sum()
+    numel = attn.numel() * data_ranks
+    attn_nz = reduce("sum", attn.float().sum())
+    pos_nz = reduce("sum", embeds["positive_mask"].float().sum())
+    moments = loss_lib.logits_statistics_moments(config, *_loss_args(embeds))
+    moments = {k: reduce(k.rsplit("_", 1)[-1] if k.endswith(("_min", "_max")) else "sum", v)
+               for k, v in moments.items()}
 
     def full(v: float) -> torch.Tensor:
         return torch.full((), float(v), dtype=torch.float32, device=attn.device)
 
     logs = {f"loss/{k}": v for k, v in all_losses.items()}
     logs |= {f"loss/{k}Mean": v / (pos_nz + 1e-9) for k, v in all_losses.items()}
-    logs |= loss_lib.logits_statistics(config, *_loss_args(embeds))
+    logs |= loss_lib.finish_logits_statistics(moments)
     logs |= {
-        "batch/size": full(attn.shape[0]),
+        "batch/size": full(attn.shape[0] * data_ranks),
         "batch/seq_len": full(attn.shape[1]),
         "batch/numel": full(numel),
         "batch/attention_non_zero": attn_nz,

@@ -33,8 +33,18 @@ JAX folds ``jax.random.key(seed)`` with the step instead; the two streams
 differ by design (the port cannot compute JAX's without JAX), so a fit
 with dropout matches JAX's in distribution, not bit for bit.
 
-The JAX trainer's multi-chip branch (a device mesh with a row-sharded
-table) is not part of the port: one card takes the single-device path.
+The mesh path (JAX's multi-chip branch): where the process group that
+``torchrun`` describes has more than one rank, or ``config.mesh`` asks for
+a model axis above 1, the trainer builds the (data, model) mesh
+(``parallel/``).  Every rank draws the same global batches and keeps its
+rows; the steps are the sharded ones (``parallel/train.py``), the windows
+capture the sharded hot step, and validation, test and predict run
+through ``ShardedEvaluator``, whose metrics every rank holds alike, so
+early stopping and the best checkpoint decide alike on every rank.  Rank 0
+alone writes the logs, the MLflow run, the checkpoints and the saved
+artifact; every rank restores.  Launch::
+
+    torchrun --nproc_per_node N -m transformer_recommenders_tpu_torch.training.cli fit ...
 """
 
 from __future__ import annotations
@@ -55,9 +65,13 @@ from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.configs import TrainConfig
 from transformer_recommenders_tpu_torch.data.module import EvalArrays, SeqDataModule
 from transformer_recommenders_tpu_torch.models.recommender import RecommenderModel
+from transformer_recommenders_tpu_torch.parallel import mesh as pmesh
+from transformer_recommenders_tpu_torch.parallel.embedding import place_table
+from transformer_recommenders_tpu_torch.parallel.train import make_sharded_train_step, place_state
+from transformer_recommenders_tpu_torch.params import DATA_AXIS
 from transformer_recommenders_tpu_torch.training import checkpoint as ckpt_lib
 from transformer_recommenders_tpu_torch.training import train_state as ts
-from transformer_recommenders_tpu_torch.training.evaluator import Evaluator
+from transformer_recommenders_tpu_torch.training.evaluator import Evaluator, ShardedEvaluator
 from transformer_recommenders_tpu_torch.training.logging import MetricsLogger
 from transformer_recommenders_tpu_torch.training.scan_steps import (
     make_scanned_train_steps,
@@ -80,9 +94,12 @@ class Trainer:
         self.datamodule = datamodule
         self.device = resolve_device(device)
         self.log_dir = pathlib.Path(log_dir or "runs/default")
+        # rank 0 alone writes (read from the launcher's environment: the
+        # group is joined later, in configure)
+        self.primary = pmesh.is_primary()
         sinks = []
         self.mlflow_run = None
-        if self.config.use_mlflow:
+        if self.config.use_mlflow and self.primary:
             from transformer_recommenders_tpu_torch.training.mlflow_logging import MLflowRun
 
             self.mlflow_run = MLflowRun(
@@ -90,15 +107,18 @@ class Trainer:
                 experiment_name=self.config.mlflow_experiment,
             )
             sinks.append(self.mlflow_run)
-        self.logger = MetricsLogger(self.log_dir, sinks=sinks)
+        self.logger = MetricsLogger(self.log_dir, sinks=sinks) if self.primary else _NoLogger()
         self.model: RecommenderModel | None = None
+        self.mesh: pmesh.Mesh | None = None
+        # this rank's row shards of the item table and of the catalog
+        self._tables: tuple[torch.Tensor, torch.Tensor] | None = None
         self.state: ts.TrainState | None = None
         self._train_step = None  # the logging step
         self._fast_step = None  # the hot step
         self._scan_step = None
         self._host_step: int | None = None
         self._midepoch_validate = None
-        self._evaluator: Evaluator | None = None
+        self._evaluator: Evaluator | ShardedEvaluator | None = None
         self._seed_gen: torch.Generator | None = None
         # wall seconds per phase of the LAST fit(): host_sample (producer
         # thread), queue_wait (the card waiting for a window), upload,
@@ -131,8 +151,11 @@ class Trainer:
     # -- setup ---------------------------------------------------------------
 
     def configure(self) -> None:
-        """Build the datamodule's artifacts, the model on the device, the
-        train state and the steps.  Idempotent."""
+        """Join the launcher's process group, if any, then build the
+        datamodule's artifacts, the model on the device, the mesh where
+        there is more than one rank (or a model axis), the train state and
+        the steps.  Idempotent."""
+        pmesh.maybe_initialize_distributed(self.device)
         dm = self.datamodule
         dm.prepare_data()
         dm.setup()
@@ -147,12 +170,39 @@ class Trainer:
             self.model = RecommenderModel(
                 cfg, generator=torch.Generator().manual_seed(cfg.seed), device=self.device)
         self.model.configure_embeddings(dm.item_ids, dm.item_embeddings)
+        if self.mesh is None and (pmesh.world_size() > 1 or cfg.mesh.model_axis_size > 1):
+            self.mesh = pmesh.create_mesh(cfg.mesh, self.device)
+            if dm.config.batch_size % self.mesh.shape[DATA_AXIS] != 0:
+                msg = (f"batch_size={dm.config.batch_size} must be divisible by the data axis "
+                       f"({self.mesh.shape[DATA_AXIS]})")
+                raise ValueError(msg)
+            table = self.model.item_table
+            self._tables = (place_table(table, self.mesh), place_table(table[1:], self.mesh))
         if self.state is None:
             self.state = ts.init_train_state(cfg, self.model.params)
+            if self.mesh is not None:
+                self.state = place_state(self.state, self.mesh)
+                self.model.params = self.state.params
         if self._train_step is None:
-            self._train_step = ts.make_train_step(cfg)
+            self._train_step = self._make_step(full_logs=True)
         if self._evaluator is None:
-            self._evaluator = Evaluator(cfg)
+            self._evaluator = (Evaluator(cfg) if self.mesh is None else
+                               ShardedEvaluator(cfg, self.mesh, self.model.item_table.shape[0] - 1))
+
+    def _make_step(self, *, full_logs: bool):
+        if self.mesh is None:
+            return ts.make_train_step(self.config, full_logs=full_logs)
+        return make_sharded_train_step(self.config, self.mesh, full_logs=full_logs)
+
+    @property
+    def _step_table(self) -> torch.Tensor:
+        """The table the train steps read: the item table, or this rank's
+        row shard of it."""
+        return self.model.item_table if self.mesh is None else self._tables[0]
+
+    @property
+    def _eval_tables(self):
+        return self.model.item_table if self.mesh is None else self._tables
 
     def close(self) -> None:
         """Close the logger's sinks (marks the MLflow run FINISHED).
@@ -171,8 +221,25 @@ class Trainer:
         """The next step's dropout site seeds."""
         return ts.draw_dropout_seeds(self._seed_gen, self.config)
 
-    def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in batch.items()}
+    def _to_device(self, batch: dict, *, window: bool = False) -> dict:
+        """A host batch (B, S), or a window of them (K, B, S), on the
+        device: with a mesh, this rank's rows of the batch dimension."""
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            if self.mesh is not None:
+                v = v.swapaxes(0, 1) if window else v
+                v = pmesh.shard_rows(v, self.mesh)
+                v = np.ascontiguousarray(v.swapaxes(0, 1) if window else v)
+            out[k] = torch.from_numpy(v).to(self.device)
+        return out
+
+    def _save_checkpoint(self, path: pathlib.Path, state, *, epoch: int, metrics: dict) -> None:
+        """Rank 0 writes; every rank waits for it."""
+        if self.primary:
+            ckpt_lib.save_checkpoint(path, state, epoch=epoch, metrics=metrics,
+                                     backend=self.config.checkpoint_backend)
+        pmesh.barrier()
 
     # -- fit -----------------------------------------------------------------
 
@@ -187,9 +254,10 @@ class Trainer:
         best_ckpt = pathlib.Path(cfg.ckpt_dir) / "best"
         # the configs beside the checkpoints, so deploy can rebuild the
         # trainer and datamodule from a checkpoint alone
-        best_ckpt.parent.mkdir(parents=True, exist_ok=True)
         configs = {"model": dataclasses.asdict(cfg), "data": dataclasses.asdict(dm.config)}
-        (best_ckpt.parent / "config.json").write_text(json.dumps(configs, indent=2))
+        if self.primary:
+            best_ckpt.parent.mkdir(parents=True, exist_ok=True)
+            (best_ckpt.parent / "config.json").write_text(json.dumps(configs, indent=2))
         if self.mlflow_run is not None:
             self.mlflow_run.log_params(configs)
             self.mlflow_run.log_artifact(best_ckpt.parent / "config.json")
@@ -240,8 +308,7 @@ class Trainer:
                 patience_left = cfg.early_stopping_patience
                 if cfg.checkpoint_every_epoch:
                     t_ck = time.time()
-                    ckpt_lib.save_checkpoint(best_ckpt, self.state, epoch=at_epoch, metrics=val,
-                                             backend=cfg.checkpoint_backend)
+                    self._save_checkpoint(best_ckpt, self.state, epoch=at_epoch, metrics=val)
                     self.phase_seconds["checkpoint"] += time.time() - t_ck
                 else:  # a reference to the device state: no transfer
                     best_device_state = (self.state, at_epoch, dict(val))
@@ -296,9 +363,8 @@ class Trainer:
                     stop = on_validation(val, epoch) or stop
                 if cfg.checkpoint_every_epoch:
                     t_ck = time.time()
-                    ckpt_lib.save_checkpoint(pathlib.Path(cfg.ckpt_dir) / "last", self.state,
-                                             epoch=epoch, metrics=last_val,
-                                             backend=cfg.checkpoint_backend)
+                    self._save_checkpoint(pathlib.Path(cfg.ckpt_dir) / "last", self.state,
+                                          epoch=epoch, metrics=last_val)
                     self.phase_seconds["checkpoint"] += time.time() - t_ck
                 if stop:
                     break
@@ -308,13 +374,11 @@ class Trainer:
 
         if not cfg.checkpoint_every_epoch:
             t_ck = time.time()
-            ckpt_lib.save_checkpoint(pathlib.Path(cfg.ckpt_dir) / "last", self.state,
-                                     epoch=epoch, metrics=last_val,
-                                     backend=cfg.checkpoint_backend)
+            self._save_checkpoint(pathlib.Path(cfg.ckpt_dir) / "last", self.state, epoch=epoch,
+                                  metrics=last_val)
             if best_device_state is not None:
                 state, best_epoch, best_val = best_device_state
-                ckpt_lib.save_checkpoint(best_ckpt, state, epoch=best_epoch, metrics=best_val,
-                                         backend=cfg.checkpoint_backend)
+                self._save_checkpoint(best_ckpt, state, epoch=best_epoch, metrics=best_val)
                 self.state = state
             self.phase_seconds["final_checkpoint"] += time.time() - t_ck
 
@@ -358,16 +422,17 @@ class Trainer:
         if self._host_step is None:
             self._host_step = int(self.state.step)
         if self._fast_step is None:
-            self._fast_step = ts.make_train_step(cfg, full_logs=False)
+            self._fast_step = self._make_step(full_logs=False)
+        data_ranks = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
 
         batches = _prefetch(_limit(self.datamodule.train_batches(epoch), cfg.limit_train_batches),
                             self._to_device)
         for batch in batches:
             will_log = (self._host_step + 1) % cfg.log_every_n_steps == 0
             step_fn = self._train_step if will_log else self._fast_step
-            self.state, logs = step_fn(self.state, self.model.item_table, batch,
+            self.state, logs = step_fn(self.state, self._step_table, batch,
                                        self._dropout_seeds())
-            examples += batch["history_item_idx"].shape[0]
+            examples += batch["history_item_idx"].shape[0] * data_ranks
             self._host_step += 1
             if will_log:
                 logs = self._fetch_log_means(logs)
@@ -388,7 +453,7 @@ class Trainer:
         stacks the next windows while the card runs the current one."""
         cfg = self.config
         if self._scan_step is None:
-            self._scan_step = make_scanned_train_steps(cfg)
+            self._scan_step = make_scanned_train_steps(cfg, mesh=self.mesh)
         if self._host_step is None:
             self._host_step = int(self.state.step)
         k = cfg.steps_per_dispatch
@@ -446,7 +511,7 @@ class Trainer:
         def bump(name: str, n: int = 1) -> None:
             counts[name] = counts.get(name, 0) + n
 
-        table = self.model.item_table
+        table = self._step_table
         while True:
             t0, c0 = time.perf_counter(), time.thread_time()
             item = window_queue.get()
@@ -460,7 +525,7 @@ class Trainer:
             kind, payload, n_steps, n_examples = item
             seeds = torch.tensor([self._dropout_seeds() for _ in range(n_steps)])
             t0, c0 = time.perf_counter(), time.thread_time()
-            payload = self._to_device(payload)
+            payload = self._to_device(payload, window=True)
             phases["upload" if kind == "full" else "tail_dispatch"] += time.perf_counter() - t0
             cpu["upload" if kind == "full" else "tail_dispatch"] += time.thread_time() - c0
             if kind == "full":
@@ -548,7 +613,7 @@ class Trainer:
         self.configure()
         arrays = self.datamodule.eval_arrays(stage)
         limit = self.config.limit_val_batches if stage == "val" else self.config.limit_test_batches
-        return self._evaluator.run(self.model.params, self.model.item_table,
+        return self._evaluator.run(self.model.params, self._eval_tables,
                                    self._limited(arrays, limit), stage=stage)
 
     def test(self) -> dict[str, float]:
@@ -560,7 +625,7 @@ class Trainer:
         self.configure()
         arrays = self._limited(self.datamodule.eval_arrays(split),
                                self.config.limit_predict_batches)
-        idx, scores = self._evaluator.recommend_batch(self.model.params, self.model.item_table,
+        idx, scores = self._evaluator.recommend_batch(self.model.params, self._eval_tables,
                                                       arrays)
         item_ids = np.asarray(self.datamodule.item_ids, object)
         return {
@@ -575,13 +640,28 @@ class Trainer:
     def save(self, path: str | pathlib.Path) -> None:
         """The serving artifact (``serving/deploy.save_artifact``): the
         model, the item index in the query space, the user store and the
-        manifest, which the port's ``Service`` serves."""
+        manifest, which the port's ``Service`` serves.  Rank 0 writes; every
+        rank waits for it."""
         from transformer_recommenders_tpu_torch.serving.deploy import save_artifact
 
         assert self.model is not None
+        if not self.primary:
+            pmesh.barrier()
+            return
         dm = self.datamodule
         save_artifact(self.model, dm.items, dm.users, path,
                       step=int(self.state.step) if self.state is not None else 0)
+        pmesh.barrier()
+
+
+class _NoLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, metrics, *, step: int, prefix: str = "") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _examples(batches: list[dict]) -> int:
