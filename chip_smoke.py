@@ -127,7 +127,36 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     against the one-device steps bit for bit, a graphed sharded window of
     K=8 against eager sharded steps bit for bit with ms per step beside the
     unsharded window's, ``ShardedEvaluator`` against ``Evaluator`` on 256
-    users.
+    users;
+17. the scale configuration, configs/ml25m_ccl.yaml (6 layers, d=256, FFN
+    1024, 8 heads, seq 128, ContrastiveLoss at margin 0.5, batch 256, a
+    62k-item catalog behind a learned 384 -> 256 projection) at full width
+    on a 1x1 mesh, as scripts/quality_run_25m.py overrides it: (a) the
+    pairwise kernels at D=256 over R = Rn = 8,192 and 32,768 (B=64 and 256
+    at seq 128) against their plain versions as phase 8 holds them, with
+    splits, registers, times, the composite and the bounds; (b) the gather
+    at the path's shapes (98,304 bf16 rows of the projected catalog at
+    B=256, 24,576 f32 rows of the raw one at B=64, the evaluator's 65,536)
+    and #2 at B=256, bit for bit, timed; (c) the hot step: loss and raw
+    gradients against the CPU's plain path at B=8, one counted step at
+    B=256 (#1, #2 and #10-#12; the layer stack, no fused layer), the zero
+    rows at the cosine normalization, 30 fixed-batch steps whose loss must
+    fall, the device time by kernel, by PyTorch op and by part, the
+    multi-step driver's K=8 graphed window bit for bit against eager at
+    B=64 and 256 with ms per step graphed and eager in turns, peak memory;
+    (d) the logging step: its logs against the CPU's at B=8, its eager
+    time and peak memory at B=256; (e) a fit through ``SeqDataModule``
+    and ``Trainer`` (``steps_per_dispatch=8``; 96 of the epoch's batches)
+    on synthetic data at ML-25M's users and items (162,000 and 62,000; 10M
+    of its 25M events, for the smoke's time; the hash embedder; generated
+    by a child process started before phase 1), validating the full val
+    set, testing and predicting (4,096 users each), saving, serving the
+    nine APIs over the artifact, and a fresh trainer restored from the
+    checkpoint validating bit for bit.
+
+``--only-scale`` runs phases 1 and 17 alone (and prints no kernels line);
+``--scale-uncut`` runs phase 17's fit over all 25M events and the whole
+epoch, and tests and predicts every user (~9 minutes more).
 
 The last lines are the ``nvidia-smi`` name and power limit, one JSON object
 with a ``kernels`` list, and ``{"ok": true, "device": {...}}``.
@@ -137,6 +166,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import itertools
 import json
 import math
 import os
@@ -395,11 +425,13 @@ GATHER_SHAPES = {  # name: (R, N, D, table dtype, output dtype, parts), where th
 }
 
 
-def time_gather(gen, r: int, n: int, d: int, table_dtype, out_dtype, parts: int) -> dict:
+def time_gather(gen, r: int, n: int, d: int, table_dtype, out_dtype, parts: int,
+                seq: int = 32) -> dict:
     """Device times of #1 at one shape (CUDA-graph replays): the kernel,
     an empty kernel on its grid (the launch floor), the plain version and
     ``index_select``; the bound counts each int64 index (8 bytes), each
-    distinct table row and each output row once."""
+    distinct table row and each output row once.  ``parts`` of a (B,
+    ``seq``) train batch give the rows (0: random rows)."""
     import numpy as np
     import torch
 
@@ -409,8 +441,8 @@ def time_gather(gen, r: int, n: int, d: int, table_dtype, out_dtype, parts: int)
     table = torch.randn(n, d, generator=gen).to("cuda", tdt)
     if not parts:
         idx = torch.randint(0, n, (r,), generator=gen)
-    else:  # a (B, 32) train batch with its padding
-        batch = train_batch(np.random.default_rng(r), r // 32 // parts, 32, n - 1)
+    else:  # a (B, seq) train batch with its padding
+        batch = train_batch(np.random.default_rng(r), r // seq // parts, seq, n - 1)
         keys = ("history_item_idx", "pos_item_idx", "neg_item_idx")[:parts]
         idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in keys])).long()
     idx = idx.cuda()
@@ -1233,18 +1265,20 @@ def run_pairwise(q, p, n, neg_valid, g, head: str, margin: float, mask_fn: bool)
     return out.detach(), q.grad, p.grad, n.grad
 
 
-def check_pairwise_copies(gen, r: int, rn: int, d: int) -> None:
-    """check_pool_copies for the pairwise kernels, each head at margins 0
-    and 0.5: the copies of a shared positive dropped bit for bit against
-    the same rows marked invalid, and two calls bit for bit."""
+def check_pairwise_copies(gen, r: int, rn: int, d: int, heads=None) -> None:
+    """check_pool_copies for the pairwise kernels, each of ``heads`` (every
+    head by default) at margins 0 and 0.5: the copies of a shared positive
+    dropped bit for bit against the same rows marked invalid, and two calls
+    bit for bit."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
 
+    heads = heads or fp.HEADS
     q, p, n, row_valid, neg_valid = pool_case(gen, r, rn, d)
     g = row_valid.float()
     same = {}
-    for head in fp.HEADS:
+    for head in heads:
         first = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
         second = run_pairwise(q, p, n, neg_valid, g, head, 0.5, True)
         same[f"{head} two calls"] = all(map(torch.equal, first, second))
@@ -1252,7 +1286,7 @@ def check_pairwise_copies(gen, r: int, rn: int, d: int) -> None:
     copies = torch.zeros(rn, dtype=torch.bool, device="cuda")
     copies[::7] = True
     ns = torch.where(copies[:, None], ps[0], n)
-    for head in fp.HEADS:
+    for head in heads:
         for margin in (0.0, 0.5):
             with_copies = run_pairwise(q, ps, ns, neg_valid | copies, g, head, margin, True)
             without = run_pairwise(q, ps, ns, (neg_valid | copies) & ~copies, g, head, margin,
@@ -1266,69 +1300,83 @@ def check_pairwise_copies(gen, r: int, rn: int, d: int) -> None:
         raise AssertionError("the pairwise kernels are not deterministic or count a copy of pos")
 
 
+# of the max abs value: relu or softplus and a weighted mean for out,
+# dl's bf16 rounding for the gradients (the bounds of
+# tests/test_torch_cuda.py).  The kernels sum the scores on the tensor
+# cores and the plain version in increasing k: on Gaussian inputs, out is
+# held on the rows without a near tie (fp.near_tie_rows: a pool score
+# within 2**-13 per 128 of D of pos with the mask on, a relu head's s
+# within that of 0, times 1 + |c| for the hinge's s = l - pos c) and those
+# rows take no cotangent; on exact-sum inputs every row is held.  A
+# gradient that is zero in the plain version (dp of the heads without pos
+# in the score, everything of the hinge at margin 0 with the mask on) must
+# be zero in the kernel.
+PAIRWISE_TOL = {"out": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
+PAIRWISE_TOL_TEXT = ("  tol: out 1e-5 (Gaussian inputs: on the rows without a near tie), dq dp "
+                     "dn 1e-2 of the plain version's max abs; exactly 0 where it is 0")
+
+
+def hold_pairwise(operands, inputs: str, head: str, margin: float, mask_fn: bool) -> dict:
+    """The three pairwise kernels through the wrapper against their plain
+    versions on ``operands`` (``pool_case``'s), within ``PAIRWISE_TOL``;
+    returns each output's max abs error."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    q, p, n, row_valid, neg_valid = operands
+    r, d = q.shape
+    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
+    keep = torch.ones(r, dtype=torch.bool, device="cuda")
+    if inputs == "gaussian":
+        with torch.no_grad():
+            keep = ~fp.near_tie_rows(q, p, n, neg_valid, **kw)
+    g = (row_valid & keep).float()
+    out, dq, dp, dn = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
+    with torch.no_grad():
+        out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)
+        dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
+    torch.cuda.synchronize()
+    name = f"pairwise {head} {inputs} R={r} Rn={n.shape[0]} D={d} mask={mask_fn} margin={margin}"
+    if mask_fn and out[0].item() != 0.0:
+        raise AssertionError(f"{name}: a row with every negative masked must give 0")
+    parts, errs = [], {}
+    for key, got, want in (("out", out[keep], out_want[keep]), ("dq", dq, dq_want),
+                           ("dp", dp, dp_want), ("dn", dn, dn_want)):
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        rel = err / scale if scale else err
+        ok = bool(torch.isfinite(got.float()).all()) and (
+            rel <= PAIRWISE_TOL[key] if scale else err == 0.0)
+        if not ok:
+            log(f"  {name} {key}: max_abs_err={err:.3g} of max abs {scale:.3g}, "
+                f"tol {PAIRWISE_TOL[key]} (0 where the plain version is 0) FAIL")
+            raise AssertionError(f"{name} {key} disagrees with its plain version")
+        parts.append(f"{key} {err:.3g}" + (f" ({rel:.3g} of max abs)" if scale else " (all 0)"))
+        errs[key] = err
+    log(f"  {name}: max_abs_err " + ", ".join(parts)
+        + f"; near-tie rows left out: {int((~keep).sum())} of {r} ok")
+    return errs
+
+
 def check_pairwise() -> list[dict]:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
 
     gen = torch.Generator().manual_seed(8)
-    # of the max abs value: relu or softplus and a weighted mean for out,
-    # dl's bf16 rounding for the gradients (the bounds of
-    # tests/test_torch_cuda.py).  The kernels sum the scores on the tensor
-    # cores and the plain version in increasing k: on Gaussian inputs, out
-    # is held on the rows without a near tie (fp.near_tie_rows: a pool
-    # score within 2**-13 per 128 of D of pos with the mask on, a relu
-    # head's s within that of 0, times 1 + |c| for the hinge's s = l - pos
-    # c) and those rows take no cotangent; on exact-sum inputs every row is
-    # held.  A gradient that is zero in the plain version (dp of the heads
-    # without pos in the score, everything of the hinge at margin 0 with
-    # the mask on) must be zero in the kernel.
-    tol = {"out": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
     max_err = {}
     for shape, (r, rn, d) in PAIRWISE_SHAPES.items():
         for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
             for head in fp.HEADS:
                 for mask_fn, margin in ((True, 0.0), (False, 0.0), (True, 0.5), (False, 0.5)):
-                    q, p, n, row_valid, neg_valid = case(gen, r, rn, d)
-                    kw = dict(head=head, margin=margin, mask_false_negatives=mask_fn)
-                    keep = torch.ones(r, dtype=torch.bool, device="cuda")
-                    if inputs == "gaussian":
-                        with torch.no_grad():
-                            keep = ~fp.near_tie_rows(q, p, n, neg_valid, **kw)
-                    g = (row_valid & keep).float()
-                    out, dq, dp, dn = run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn)
-                    with torch.no_grad():
-                        out_want, den, _ = fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)
-                        dq_want, dp_want = fp.fused_pairwise_dq_reference(q, p, n, neg_valid,
-                                                                          den, g, **kw)
-                        dn_want = fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)
-                    torch.cuda.synchronize()
-                    name = (f"pairwise {head} {inputs} R={r} Rn={rn} D={d} mask={mask_fn} "
-                            f"margin={margin}")
-                    if mask_fn and out[0].item() != 0.0:
-                        raise AssertionError(f"{name}: a row with every negative masked must "
-                                             "give 0")
-                    parts = []
-                    for key, got, want in (("out", out[keep], out_want[keep]), ("dq", dq, dq_want),
-                                           ("dp", dp, dp_want), ("dn", dn, dn_want)):
-                        err = float((got.float() - want.float()).abs().max())
-                        scale = float(want.float().abs().max())
-                        rel = err / scale if scale else err
-                        ok = bool(torch.isfinite(got.float()).all()) and (
-                            rel <= tol[key] if scale else err == 0.0)
-                        if not ok:
-                            log(f"  {name} {key}: max_abs_err={err:.3g} of max abs {scale:.3g}, "
-                                f"tol {tol[key]} (0 where the plain version is 0) FAIL")
-                            raise AssertionError(f"{name} {key} disagrees with its plain version")
-                        parts.append(f"{key} {err:.3g}" + (f" ({rel:.3g} of max abs)" if scale
-                                                           else " (all 0)"))
-                        if shape != "ragged":
+                    errs = hold_pairwise(case(gen, r, rn, d), inputs, head, margin, mask_fn)
+                    if shape != "ragged":
+                        for key, err in errs.items():
                             max_err[key] = max(max_err.get(key, 0.0), err)
-                    log(f"  {name}: max_abs_err " + ", ".join(parts)
-                        + f"; near-tie rows left out: {int((~keep).sum())} of {r} ok")
         check_pairwise_copies(gen, r, rn, d)
-    log("  tol: out 1e-5 (Gaussian inputs: on the rows without a near tie), dq dp dn 1e-2 of "
-        "the plain version's max abs; exactly 0 where it is 0")
+    log(PAIRWISE_TOL_TEXT)
     sfu_rate, sfu_src = special_function_rate()
     log(f"  special-function rate {sfu_rate:.4g}/s ({sfu_src})")
     c = time_pairwise(gen, *PAIRWISE_SHAPES["C"], sfu_rate, fp.HEADS)
@@ -1358,11 +1406,16 @@ def check_pairwise() -> list[dict]:
     return rows
 
 
-def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads) -> dict:
+def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads, *, margin: float = 0.0,
+                  yardstick: str = "PairwiseLogisticLoss", plain: bool = True,
+                  iters: int = 20, reps: int = 20) -> dict:
     """Device times of the three pairwise kernels for each of ``heads`` at
-    one shape, mask on, margin 0 (path C's), and the bounds from the shape
-    and this run's counted scores; for PairwiseLogisticLoss also its plain
-    version and the composite yardstick."""
+    one shape, mask on, at ``margin`` (path C's 0 by default), and the
+    bounds from the shape and this run's counted scores; for the
+    ``yardstick`` head also the composite of stock calls and, with
+    ``plain``, the plain versions.  ``iters`` replays of ``reps`` calls
+    each (fewer where a call of the plain version or the composite takes
+    a large share of a second)."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
@@ -1379,14 +1432,18 @@ def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads) -> dict:
     work = {"pairwise_fwd": (2 * r * rn * d + 2 * r * d, ins + 3 * vec),
             "pairwise_dq": (4 * r * rn * d + 2 * r * d, ins + 3 * vec + 2 * 4 * r * d),
             "pairwise_dn": (4 * r * rn * d, ins - 2 * d * r + 3 * vec + 4 * rn * d)}
+
+    def timed(fn):
+        return time_ms(fn, iters=iters, reps=reps)
+
     for head in heads:
-        args = (head, 0.0, True)
+        args = (head, margin, True)
         _, den, pos = fp._fwd_cuda(q, p, n, neg_valid, *args)
         counted = float(den.sum())
         times = {
-            "pairwise_fwd": time_ms(lambda: fp._fwd_cuda(q, p, n, neg_valid, *args)),
-            "pairwise_dq": time_ms(lambda: fp._dq_cuda(q, p, n, neg_valid, den, g, pos, *args)),
-            "pairwise_dn": time_ms(lambda: fp._dn_cuda(q, p, n, neg_valid, den, g, pos, *args)),
+            "pairwise_fwd": timed(lambda: fp._fwd_cuda(q, p, n, neg_valid, *args)),
+            "pairwise_dq": timed(lambda: fp._dq_cuda(q, p, n, neg_valid, den, g, pos, *args)),
+            "pairwise_dn": timed(lambda: fp._dn_cuda(q, p, n, neg_valid, den, g, pos, *args)),
         }
         for name, (flops, nbytes) in work.items():
             sfu = 2 * counted if head in SMOOTH_HEADS else 0.0
@@ -1394,35 +1451,43 @@ def time_pairwise(gen, r: int, rn: int, d: int, sfu_rate: float, heads) -> dict:
             out[name][head] = {"ms": times[name], "bound_ms": bound_ms, "bound_by": bound_by,
                                "bound_kind": kind, "gflop": flops / 1e9,
                                "special_functions": sfu}
-        if head == "PairwiseLogisticLoss":
-            kw = dict(head=head, margin=0.0, mask_false_negatives=True)
+        if head == yardstick:
+            kw = dict(head=head, margin=margin, mask_false_negatives=True)
             with torch.no_grad():
-                plain = {
-                    "pairwise_fwd": time_ms(
-                        lambda: fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)),
-                    "pairwise_dq": time_ms(
-                        lambda: fp.fused_pairwise_dq_reference(q, p, n, neg_valid, den, g, **kw)),
-                    "pairwise_dn": time_ms(
-                        lambda: fp.fused_pairwise_dn_reference(q, p, n, neg_valid, den, g, **kw)),
-                }
-                library = {"pairwise_fwd": time_ms(
+                library = {"pairwise_fwd": timed(
                     lambda: composite_pairwise(q, p, n, neg_valid, *args))}
+                if plain:
+                    plain_ms = {
+                        "pairwise_fwd": timed(
+                            lambda: fp.fused_pairwise_reference(q, p, n, neg_valid, **kw)),
+                        "pairwise_dq": timed(lambda: fp.fused_pairwise_dq_reference(
+                            q, p, n, neg_valid, den, g, **kw)),
+                        "pairwise_dn": timed(lambda: fp.fused_pairwise_dn_reference(
+                            q, p, n, neg_valid, den, g, **kw)),
+                    }
             qr, pr, nr = (t.clone().requires_grad_() for t in (q, p, n))
 
-            def composite_grad(wrt):
+            def composite_grad(wrt):  # p takes none where pos is not in the score
                 return torch.autograd.grad(
-                    (composite_pairwise(qr, pr, nr, neg_valid, *args) * g).sum(), wrt)
+                    (composite_pairwise(qr, pr, nr, neg_valid, *args) * g).sum(), wrt,
+                    allow_unused=True)
 
-            library["pairwise_dq"] = time_ms(lambda: composite_grad([qr, pr]))
-            library["pairwise_dn"] = time_ms(lambda: composite_grad([nr]))
+            library["pairwise_dq"] = timed(lambda: composite_grad([qr, pr]))
+            library["pairwise_dn"] = timed(lambda: composite_grad([nr]))
             for name in out:
-                out[name][head] |= {"plain_ms": plain[name], "library_ms": library[name]}
+                out[name][head] |= {"plain_ms": plain_ms[name] if plain else None,
+                                    "library_ms": library[name]}
+        f_name = "softplus" if head in SMOOTH_HEADS else "relu"
         for name in out:
             t = out[name][head]
-            extra = (f", plain {t['plain_ms']:.4f} ms, composite (bf16 matmul + masked softplus "
-                     f"mean{'' if name == 'pairwise_fwd' else ', forward + autograd backward'}) "
-                     f"{t['library_ms']:.4f} ms" if "plain_ms" in t else "")
-            log(f"  {name} {head} R={r} Rn={rn} D={d} bf16 mask on margin 0 ({counted:.0f} "
+            extra = ""
+            if "library_ms" in t:
+                plain_text = ("not measured (a call takes most of a second)"
+                              if t["plain_ms"] is None else f"{t['plain_ms']:.4f} ms")
+                extra = (f", plain {plain_text}, composite (bf16 matmul + masked {f_name} mean"
+                         f"{'' if name == 'pairwise_fwd' else ', forward + autograd backward'}) "
+                         f"{t['library_ms']:.4f} ms")
+            log(f"  {name} {head} R={r} Rn={rn} D={d} bf16 mask on margin {margin} ({counted:.0f} "
                 f"counted scores), device time: kernel {t['ms']:.4f} ms{extra}, bound "
                 f"{t['bound_ms']:.5f} ms ({t['bound_kind']}: {t['gflop']:.2f} GFLOP, "
                 f"{t['special_functions'] / 1e6:.1f} M special functions)")
@@ -1535,6 +1600,32 @@ def check_vpu_chain() -> tuple[dict, dict]:
                    for m, r in record["results"].items()},
         "fp32_ops_per_s": record["fp32_ops_per_s"], "mufu_per_s": record["mufu_per_s"],
     }
+    # the bounds by instruction issue, from the compiled loops: the mixes
+    # fix their bits (``ops/vpu_calibration.py``), so the fma mix's three
+    # operations are three single-rounding instructions (FADD, FMUL, FMUL)
+    # that no FFMA can fuse, and each takes an FP32 lane a clock (128 an SM)
+    # where the data sheet's 67 TFLOP/s counts an FFMA as two; every
+    # instruction of the loop takes a dispatch slot (128 lanes an SM a
+    # clock), and each MUFU one of 16 an SM a clock
+    peak = record["peaks"]
+    for mix, loop in (record.get("sass_loops") or {}).items():
+        per_step = {op: c / calibrate_vpu.STEPS_PER_LOOP for op, c in loop["opcodes"].items()}
+        steps = elems * k
+        fp32 = sum(per_step.get(op, 0.0) for op in ("FADD", "FMUL", "FFMA"))
+        bounds = {
+            "fp32_pipe_bound_ms": fp32 * steps / peak["fp32_lane_ops_per_s"] * 1e3,
+            "issue_bound_ms": loop["instructions"] / calibrate_vpu.STEPS_PER_LOOP * steps
+            / peak["fp32_lane_ops_per_s"] * 1e3,
+            "mufu_bound_ms": per_step.get("MUFU", 0.0) * steps / peak["mufu_per_s"] * 1e3,
+        }
+        t = record["results"][mix]["t_lo_ms"]
+        row["by_mix"][mix] |= bounds | {"ffma_per_step": per_step.get("FFMA", 0.0)}
+        log(f"  vpu_chain {mix} K={k}: {t:.4f} ms against bounds by instruction: FP32 pipe "
+            f"({fp32:g} FADD/FMUL/FFMA a step, {per_step.get('FFMA', 0.0):g} of them FFMA) "
+            f"{bounds['fp32_pipe_bound_ms']:.4f} ms ({bounds['fp32_pipe_bound_ms'] / t:.3f}), "
+            f"issue ({loop['instructions'] / calibrate_vpu.STEPS_PER_LOOP:g} instructions a "
+            f"step) {bounds['issue_bound_ms']:.4f} ms ({bounds['issue_bound_ms'] / t:.3f}), "
+            f"MUFU {bounds['mufu_bound_ms']:.4f} ms")
     return row, launches
 
 
@@ -1645,7 +1736,13 @@ def check_sections() -> tuple[list[dict], dict]:
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only-scale", action="store_true",
+                        help="phases 1 and 17 alone (no kernels line)")
+    parser.add_argument("--scale-uncut", action="store_true",
+                        help="phase 17's fit over ML-25M's 25M events and the whole epoch, its "
+                             "test and predict over every user (~9 minutes more)")
+    args = parser.parse_args()
 
     import torch
 
@@ -1654,7 +1751,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     try:
-        from transformer_recommenders_tpu_torch.ops import cuda_build
         from transformer_recommenders_tpu_torch.tools import card
     except ModuleNotFoundError as e:  # the script alone, without the port beside it
         print(f"chip_smoke: {e}: run it from a checkout of the repository", file=sys.stderr)
@@ -1665,6 +1761,25 @@ def main() -> int:
     smi = card()
     log(f"device: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    # phase 17's data, generated beside the earlier phases
+    scale_dir = tempfile.TemporaryDirectory()
+    scale_data = pathlib.Path(scale_dir.name) / "data"
+    events = ML25M_SCALE["synthetic_num_events"] if args.scale_uncut else SCALE_EVENTS
+    data_job = start_scale_data(scale_data, events)
+    try:
+        return run_phases(args, smi, data_job, scale_data)
+    finally:
+        if data_job.poll() is None:
+            data_job.kill()
+            data_job.wait()
+        scale_dir.cleanup()
+
+
+def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
 
@@ -1678,6 +1793,10 @@ def main() -> int:
         for line in ptxas_report(text):
             log(f"  {name}: {line}")
     log(f"  built in {time.perf_counter() - t0:.1f} s")
+    if args.only_scale:
+        scale_phase(phase, data_job, scale_data, args)
+        log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 17 alone)")
+        return 0
 
     phase("2: the serving path's kernels against their plain versions")
     kernels = [check_fused_layer(), check_gather()]
@@ -1755,6 +1874,17 @@ def main() -> int:
     phase("16: the parallel layer on a 1x1 mesh over NCCL")
     launches |= parallel_phase()
 
+    scale = scale_phase(phase, data_job, scale_data, args)
+    launches |= scale["launches"]
+    for k in kernels:  # the D=256 and 62k-catalog shapes beside each row's own
+        if k["name"].startswith("pairwise_"):
+            k["by_shape"] |= {f"scale_{shape}": t[k["name"]]
+                              for shape, t in scale["pairwise"]["times"].items()}
+            k["scale_max_abs_err"] = scale["pairwise"]["max_err"]
+        elif k["name"] in scale["gather"]:
+            k["by_shape"] |= {f"scale_{shape}": t
+                              for shape, t in scale["gather"][k["name"]].items()}
+
     for k in kernels:
         # each kernel's launches on the path it was ported for: the two
         # forward kernels on serving, the backward and table kernels on the
@@ -1772,6 +1902,9 @@ def main() -> int:
         if k["name"] in FLAGSHIP_PATH and not launches["fit_flagship"][k["name"]]:
             msg = f"{k['name']} was not launched in the flagship's fit"
             raise AssertionError(msg)
+        if k["name"] in SCALE_PATH and not launches["fit_scale"][k["name"]]:
+            msg = f"{k['name']} was not launched in the scale configuration's fit"
+            raise AssertionError(msg)
         if not k["launches"]:
             msg = f"{k['name']} was not launched on its path ({path})"
             raise AssertionError(msg)
@@ -1782,6 +1915,28 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def scale_phase(phase, data_job, scale_data: pathlib.Path, args) -> dict:
+    """Phase 17, the scale configuration (configs/ml25m_ccl.yaml) at full
+    width: (a) the pairwise kernels at D=256, (b) the gather at the 62k
+    catalog, (c, d) the hot and logging steps, (e) the fit.  Returns the
+    kernels' numbers and the launch counts of one hot step and the fit."""
+    phase("17: the scale configuration (configs/ml25m_ccl.yaml) at full width")
+    phase("17 (a): the pairwise kernels at D=256, R = Rn = 8,192 and 32,768")
+    pairwise = check_scale_pairwise(special_function_rate()[0])
+    phase("17 (b): the gather at the 62k catalog's shapes")
+    gather = check_scale_gather()
+    phase("17 (c, d): the hot and logging steps")
+    hot = scale_steps_phase(scale_catalog(ML25M_SCALE["synthetic_num_items"]))
+    phase("17 (e): a fit at ML-25M's synthetic scale")
+    uncut = args.scale_uncut
+    fit = scale_fit_phase(data_job, scale_data,
+                          ML25M_SCALE["synthetic_num_events"] if uncut else SCALE_EVENTS,
+                          cut=-1 if uncut else SCALE_FIT_BATCHES,
+                          eval_cut=-1 if uncut else SCALE_EVAL_BATCHES)
+    return {"pairwise": pairwise, "gather": gather,
+            "launches": {"scale_hot": hot, "fit_scale": fit}}
 
 
 FLAGSHIP = dict(  # configs/ml1m_ssm.yaml, the flagship model
@@ -2132,6 +2287,51 @@ def compare_logs(logs: dict, want: dict, device: str) -> None:
         raise AssertionError(f"the {device} logging step's logs disagree with the CPU's")
 
 
+def check_step_against_cpu(cfg, params, table, batch, seeds, *, full_logs: bool,
+                           device: str, loss_tol: float = 1e-4) -> None:
+    """One step's loss, raw gradients and, with ``full_logs``, every log on
+    ``device`` against the same step on the CPU's plain path (the limits
+    below; ``loss_tol`` relative on the loss)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    loss_and_grad = ts.make_loss_and_grad(cfg, full_logs=full_logs)
+    loss, grads, logs = loss_and_grad(params, table, batch, seeds)
+    cpu_params = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads, cpu_logs = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    errs = {}
+    for i, (got, want) in enumerate(zip(tree_leaves(grads), tree_leaves(cpu_grads))):
+        got = got.cpu()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"non-finite gradient in leaf {i}")
+        scale = float(want.abs().max())
+        errs[i] = (float((got - want).abs().max()) / max(scale, 1e-30),
+                   float((got - want).norm() / max(float(want.norm()), 1e-30)), tuple(got.shape))
+    worst = max(errs, key=lambda i: errs[i][0])
+    worst_norm = max(e[1] for e in errs.values())
+    # bf16 through the layers, the projection and the loss: one-ulp flips
+    # of intermediate roundings.  The limits are a few times what the H100
+    # runs read (the flagship's table step: loss 2.7e-6 relative, worst
+    # leaf 0.0051 of its max abs, worst norm 0.0021): a backward kernel a
+    # few percent off fails them
+    ok = loss_rel <= loss_tol and errs[worst][0] <= 2.0**-5 and worst_norm <= 2.0**-7
+    log(f"  one step, {device} vs CPU plain path ({cpu_s:.1f} s on the CPU): loss "
+        f"{float(loss):.6f} vs {float(cpu_loss):.6f} (rel err {loss_rel:.3g}, tol "
+        f"{loss_tol:.3g}); "
+        f"raw gradients of {len(errs)} leaves: worst max abs err {errs[worst][0]:.3g} of the "
+        f"leaf's max abs (leaf {worst} {errs[worst][2]}, tol 2**-5), worst relative norm "
+        f"err {worst_norm:.3g} (tol 2**-7) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the {device} train step disagrees with the CPU's plain path")
+    if full_logs:
+        compare_logs(logs, cpu_logs, device)
+
+
 def training_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
                    batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20,
                    full_logs: bool = False) -> dict:
@@ -2146,8 +2346,7 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
 
     from transformer_recommenders_tpu_torch.configs import TrainConfig
     from transformer_recommenders_tpu_torch.models.recommender import build_item_table
-    from transformer_recommenders_tpu_torch.models.transformer import (
-        init_transformer_params, tree_leaves, tree_unflatten)
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
     from transformer_recommenders_tpu_torch.ops import cuda_build
     from transformer_recommenders_tpu_torch.training import train_state as ts
 
@@ -2178,39 +2377,7 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         f"full_logs={full_logs}, {cfg.train_loss} (margin {cfg.margin}) through the {objective} "
         f"objective, the layers through {layers_path}")
 
-    # one step's loss, raw gradients and logs, card against the CPU's plain path
-    loss_and_grad = ts.make_loss_and_grad(cfg, full_logs=full_logs)
-    loss, grads, logs = loss_and_grad(params, table, batch, seeds)
-    cpu_params = tree_unflatten(params, [t.cpu() for t in tree_leaves(params)])
-    t0 = time.perf_counter()
-    cpu_loss, cpu_grads, cpu_logs = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
-    cpu_s = time.perf_counter() - t0
-    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
-    errs = {}
-    for i, (got, want) in enumerate(zip(tree_leaves(grads), tree_leaves(cpu_grads))):
-        got = got.cpu()
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"non-finite gradient in leaf {i}")
-        scale = float(want.abs().max())
-        errs[i] = (float((got - want).abs().max()) / max(scale, 1e-30),
-                   float((got - want).norm() / max(float(want.norm()), 1e-30)), tuple(got.shape))
-    worst = max(errs, key=lambda i: errs[i][0])
-    worst_norm = max(e[1] for e in errs.values())
-    # bf16 through the layers, the projection and the loss: one-ulp flips
-    # of intermediate roundings.  The limits are a few times what the H100
-    # runs read (the flagship's table step: loss 2.7e-6 relative, worst
-    # leaf 0.0051 of its max abs, worst norm 0.0021): a backward kernel a
-    # few percent off fails them
-    ok = loss_rel <= 1e-4 and errs[worst][0] <= 2.0**-5 and worst_norm <= 2.0**-7
-    log(f"  one step, {device} vs CPU plain path ({cpu_s:.1f} s on the CPU): loss "
-        f"{float(loss):.6f} vs {float(cpu_loss):.6f} (rel err {loss_rel:.3g}, tol 1e-4); "
-        f"raw gradients of {len(errs)} leaves: worst max abs err {errs[worst][0]:.3g} of the "
-        f"leaf's max abs (leaf {worst} {errs[worst][2]}, tol 2**-5), worst relative norm "
-        f"err {worst_norm:.3g} (tol 2**-7) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"the {device} train step disagrees with the CPU's plain path")
-    if full_logs:
-        compare_logs(logs, cpu_logs, device)
+    check_step_against_cpu(cfg, params, table, batch, seeds, full_logs=full_logs, device=device)
 
     # the main path, counted: one step of make_train_step
     step = ts.make_train_step(cfg, full_logs=full_logs)
@@ -2319,14 +2486,16 @@ def accumulation_phase(*, device: str = "cuda", config: dict | None = None,
 
 
 def scan_phase(*, config: dict | None = None, num_items: int = 3706,
-               batch_size: int = TRAIN_BATCH, k: int = 8, calls: int = 5) -> dict:
+               batch_size: int = TRAIN_BATCH, k: int = 8, calls: int = 5, emb=None) -> dict:
     """The multi-step driver (``training/scan_steps.py``) on the card: K
     hot steps as CUDA-graph replays against K eager ``make_train_step``
     steps with the same batches and seeds, bit for bit (parameters,
     moments, count, logs); then, counted, one more call of K replays,
     whose launches must be K times one eager step's; ms per step graphed
     and eager from this call; a graphed call under ``torch.profiler``.
-    Returns the launch counts of that one graphed call."""
+    ``emb``: the catalog's embeddings (by default ``synthetic_records``'
+    Gaussian ones over ``num_items``).  Returns the launch counts of that
+    one graphed call."""
     import numpy as np
     import torch
 
@@ -2338,8 +2507,11 @@ def scan_phase(*, config: dict | None = None, num_items: int = 3706,
     from transformer_recommenders_tpu_torch.training.scan_steps import (
         make_scanned_train_steps, stack_batches)
 
-    cfg = TrainConfig(**(config or TRAIN))
-    _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim, cfg.max_seq_length)
+    cfg = TrainConfig.from_dict(config or TRAIN)
+    if emb is None:
+        _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim,
+                                      cfg.max_seq_length)
+    num_items = len(emb)
     table = build_item_table(emb, device="cuda")
     state0 = ts.init_train_state(cfg, init_transformer_params(torch.Generator().manual_seed(0),
                                                               cfg, device="cuda"))
@@ -2666,11 +2838,14 @@ def bench_phase() -> None:
         raise AssertionError("the bench measured no throughput")
 
 
-def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
+def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3, ops: int = 0) -> dict:
     """Where a train step's device time goes: ``n`` steps under
     ``torch.profiler``, the device time of each CUDA kernel per step, and
     the device's busy share of the steps' wall time (one stream, so the
-    kernels do not overlap)."""
+    kernels do not overlap); with ``ops``, also the ``ops`` PyTorch ops of
+    the most device time (the kernels each launched) and the port's
+    kernels (pairwise, gather) against everything else.  Returns busy and
+    wall ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2689,7 +2864,7 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
     busy_ms = sum(e.self_device_time_total for e in kernels) / n / 1e3
     if busy_ms == 0.0:
         log("  profiled steps: the profiler recorded no device time (not measured)")
-        return
+        return {}
     log(f"  profiled {n} steps: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall per step "
         f"(idle share {1.0 - busy_ms / wall_ms:.3f}, profiler on); by kernel, per step "
         "(the twelve longest, then the rest of the port's own):")
@@ -2700,6 +2875,26 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3) -> None:
     for e in ranked[:12] + own:
         log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
             f"{e.key[:90]}")
+    if ops:
+        groups = {"pairwise (#10-#12)": 0.0, "gather (#1, #2)": 0.0}
+        for e in kernels:
+            key = ("pairwise (#10-#12)" if "pairwise" in e.key else
+                   "gather (#1, #2)" if "gather_rows" in e.key or "segment_" in e.key else None)
+            if key:
+                groups[key] += e.self_device_time_total / n / 1e3
+        groups["everything else (the layer stack, projection, normalization, AdamW)"] = (
+            busy_ms - sum(groups.values()))
+        log("  by part, per step: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
+        by_op = sorted((e for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and e.self_device_time_total > 0),
+                       key=lambda e: -e.self_device_time_total)
+        log(f"  by PyTorch op (the device time of the kernels each op launched), per step, the "
+            f"{ops} longest:")
+        for e in by_op[:ops]:
+            log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:5d} calls  "
+                f"{e.key[:80]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms}
 
 
 
@@ -3123,6 +3318,449 @@ def parallel_phase(*, device: str = "cuda", config: dict | None = None, num_item
         return launches
     finally:
         dist.destroy_process_group()
+
+
+# -- phase 17: the scale configuration (configs/ml25m_ccl.yaml) -------------------------------
+
+SCALE_YAML = REPO / "configs" / "ml25m_ccl.yaml"
+# scripts/quality_run_25m.py's data: synthetic at MovieLens-25M's counts
+ML25M_SCALE = dict(synthetic_num_users=162_000, synthetic_num_items=62_000,
+                   synthetic_num_events=25_000_000)
+# the smoke's events, cut for its time (users, items and widths are not):
+# at 25M the fit's set-up (~63-87 s), the artifact's save (~26-32 s) and
+# the deploy smoke over its user store (~55-70 s) grow with the events
+# every user's history holds, and the script took 644 s on the H100
+SCALE_EVENTS = 10_000_000
+SCALE_BATCH = 256  # the file's data.batch_size
+SCALE_BENCH_BATCH = 64  # scripts/bench_config4.py's batch
+SCALE_CPU_BATCH = 8  # the card against the CPU's plain path: a batch the CPU steps quickly
+SCALE_PAIRWISE = {"B64": (8192, 8192, 256), "B256": (32768, 32768, 256)}  # R = Rn = B * S
+# #1 (and #2) where the scale path launches them: name -> (R, N, D, table dtype, output
+# dtype, parts of a (B, 128) batch)
+SCALE_GATHER = {
+    # B=256: 3 * B * S = 98,304 >= 62,001 rows, so the catalog is projected
+    # first and the gather reads exact bf16 rows of the projected table
+    "hot_B256": (98304, 62001, 256, "bfloat16", "bfloat16", 3),
+    # B=64: 24,576 < 62,001, so the gather reads exact f32 rows (the catalog
+    # is over ONEHOT_LOOKUP_MAX_ITEMS) and only they are projected
+    "hot_B64": (24576, 62001, 384, "float32", "float32", 3),
+    # the evaluator: 512 users' windows of f32 rows
+    "eval": (65536, 62001, 384, "float32", "float32", 1),
+}
+# the fit's cut, for the smoke's time (``--scale-uncut`` lifts it): 96 of
+# the epoch's 825 batches of 256 (12 graphed windows of 8; a hot step takes
+# ~250 ms on the H100), and the test and predict passes cut to 8 batches of
+# 512 users each; validation runs the full val set
+SCALE_FIT_BATCHES = 96
+SCALE_EVAL_BATCHES = 8
+
+
+def scale_sections() -> tuple[dict, dict]:
+    """configs/ml25m_ccl.yaml's model and data sections with the overrides
+    of scripts/quality_run_25m.py: a 1x1 mesh (one card; the file's model
+    axis of 2 is for more cards) and synthetic data at ML-25M's counts
+    through the hash embedder.  Every model field as the file gives it."""
+    from transformer_recommenders_tpu_torch.configs import parse_yaml
+
+    sections = parse_yaml(SCALE_YAML.read_text())
+    model = {**sections["model"], "mesh": {"data_axis_size": 1, "model_axis_size": 1}}
+    data = {**sections["data"], "dataset": "synthetic", "embedder": "hash", **ML25M_SCALE}
+    return model, data
+
+
+def start_scale_data(data_dir: pathlib.Path, events: int) -> subprocess.Popen:
+    """``SeqDataModule.prepare_data`` of the scale fit's data (phase 17) in
+    a child process, started before phase 1 so that it runs beside the
+    earlier phases; ``events`` events over ML-25M's users and items."""
+    _, data = scale_sections()
+    data |= {"data_dir": str(data_dir), "synthetic_num_events": events}
+    code = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); t0 = time.perf_counter()\n"
+            "from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig\n"
+            "from transformer_recommenders_tpu_torch.data.module import SeqDataModule\n"
+            "SeqDataModule(SeqDataModuleConfig.from_dict(json.loads(sys.argv[2]))).prepare_data()\n"
+            "print(f'  scale data: generated and processed in {time.perf_counter() - t0:.1f} s "
+            "(a child process)', flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code, str(REPO), json.dumps(data)])
+
+
+def scale_catalog(num_items: int):
+    """The synthetic catalog's item texts (``data/synthetic.generate_raw``'s,
+    which depend on the item's index alone) through the hash embedder at
+    384-d, as the fit's ``SeqDataModule`` embeds them."""
+    from transformer_recommenders_tpu_torch.data.embeddings import embed_item_texts
+    from transformer_recommenders_tpu_torch.data.synthetic import generate_raw
+
+    items, _, _ = generate_raw(num_users=1, num_items=num_items, num_events=5)
+    return embed_item_texts(list(items["item_text"]), embedder="hash", dim=384)
+
+
+def check_scale_pairwise(sfu_rate: float) -> dict:
+    """Phase 17 (a): #10-#12 at D=256 over R = Rn = 8,192 and 32,768
+    (B=64 and 256 at seq 128) against their plain versions, as phase 8
+    holds them, for the configuration's head (ContrastiveLoss, margin
+    0.5), mask on and off; copies dropped and two calls bit for bit; splits,
+    registers, times, the composite and the bounds."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(17)
+    head, margin = "ContrastiveLoss", 0.5
+    max_err = {}
+    for r, rn, d in SCALE_PAIRWISE.values():
+        for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
+            for mask_fn in (True, False):
+                for key, err in hold_pairwise(case(gen, r, rn, d), inputs, head, margin,
+                                              mask_fn).items():
+                    max_err[key] = max(max_err.get(key, 0.0), err)
+        check_pairwise_copies(gen, r, rn, d, heads=(head,))
+        torch.cuda.empty_cache()
+    log(PAIRWISE_TOL_TEXT)
+    log_registers("fused_pairwise", ("pairwise_fwd_kernel<24>", "pairwise_dq_kernel<24>",
+                                     "pairwise_dn_kernel<3>"))
+    times = {}
+    for shape, (r, rn, d) in SCALE_PAIRWISE.items():
+        splits = {k: fp._splits(0, r, rn, d, i) for i, k in enumerate(("fwd", "dn", "dq"))}
+        log(f"  pairwise R={r} Rn={rn} D={d}: {splits['fwd']} forward and {splits['dq']} dq "
+            f"splits of the pool, {splits['dn']} dn splits of the query rows")
+        # the plain versions take most of a second a call at R = 32,768 (an
+        # f32 chain over D of a 4.3 GB score matrix): timed at 8,192 alone
+        t = time_pairwise(gen, r, rn, d, sfu_rate, (head,), margin=margin, yardstick=head,
+                          plain=r * rn <= 2**26, iters=5, reps=2)
+        times[shape] = {name: {**t[name][head], "splits": splits[name.removeprefix("pairwise_")]}
+                        for name in t}
+        torch.cuda.empty_cache()
+    return {"max_err": max_err, "times": times}
+
+
+def check_scale_gather() -> dict:
+    """Phase 17 (b): #1 at the scale path's shapes against its plain
+    version (a copy: bit for bit) and timed as in phase 2; #2 at B=256's
+    3 * B * S rows into the projected 62,001 x 256 bf16 catalog, bit for
+    bit and twice, timed as in phase 4."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+
+    gen = torch.Generator().manual_seed(18)
+    times = {}
+    for name, (r, n, d, tdt, odt, parts) in SCALE_GATHER.items():
+        table = torch.randn(n, d, generator=gen).to("cuda", getattr(torch, tdt))
+        batch = train_batch(np.random.default_rng(r), r // 128 // parts, 128, n - 1)
+        keys = ("history_item_idx", "pos_item_idx", "neg_item_idx")[:parts]
+        idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in keys])).cuda()
+        got = gm.gather_rows(table, idx, getattr(torch, odt))
+        want = gm.gather_rows_reference(table, idx, getattr(torch, odt))
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        log(f"  gather_rows {name}: R={r} of {n}x{d} {tdt}->{odt}: "
+            f"{'bit for bit' if ok else 'DIFFERS from'} its plain version (a copy)")
+        if not ok:
+            raise AssertionError("gather_rows disagrees with its plain version at scale")
+        times[name] = time_gather(gen, r, n, d, tdt, odt, parts, seq=128)
+    r, n, d = SCALE_GATHER["hot_B256"][:3]
+    batch = train_batch(np.random.default_rng(0), SCALE_BATCH, 128, n - 1)
+    idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in (
+        "history_item_idx", "pos_item_idx", "neg_item_idx")])).long().cuda()
+    g = torch.randn(r, d, generator=gen).to("cuda", torch.bfloat16)
+    table = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda", requires_grad=True)
+    gm.gather_rows(table, idx, torch.bfloat16).backward(g)
+    again = gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)
+    want = gm.gather_rows_backward_reference(g, idx, n, torch.bfloat16)
+    torch.cuda.synchronize()
+    ok = torch.equal(table.grad, want) and torch.equal(table.grad, again)
+    sorted_idx, order = torch.sort(idx, stable=True)
+    acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
+    t = {
+        "ms": time_ms(lambda: gm._segment_sum_cuda(g, sorted_idx, order, n, torch.bfloat16)),
+        "sort_ms": time_ms(lambda: torch.sort(idx, stable=True)),
+        "with_sort_ms": time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)),
+        # the plain version is a loop over a chunk's rows: 1.48 s a call here
+        "plain_ms": None,
+        "library_ms": time_ms(lambda: acc.index_add_(0, idx, g)),
+        "padding_rows": int((idx == 0).sum()),
+    }
+    t["bound_ms"], t["bound_by"] = bound(0, r * (d * 2 + 8) + n * d * 2, H100_BF16_FLOPS)
+    log(f"  gather_rows_bwd hot_B256 R={r} ({t['padding_rows']} on the padding row) N={n} D={d} "
+        f"bf16: {'bit for bit' if ok else 'DIFFERS from'} its plain version (which sums in the "
+        f"kernel's order), two calls "
+        f"{'bit for bit' if torch.equal(table.grad, again) else 'DIFFER'}"
+        f"; device time: kernel {t['ms']:.4f} ms, the wrapper's stable sort {t['sort_ms']:.4f} ms, "
+        f"wrapper (sort and kernel) {t['with_sort_ms']:.4f} ms, plain not timed (a loop over "
+        f"a chunk's rows, more than a second a call), "
+        f"index_add_ (bf16 atomics) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']})")
+    if not ok:
+        raise AssertionError("gather_rows_bwd disagrees with its plain version at scale")
+    return {"gather_rows": times, "gather_rows_bwd": {"hot_B256": t}}
+
+
+def count_zero_rows(cfg, params, table, batch, seeds) -> dict:
+    """The rows of one hot step's queries, positives and pool that reach
+    the cosine head's L2 normalization with norm 0 (JAX's gradient there
+    is NaN; the port's is 0), and whether the step's gradient is finite."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.models.recommender import compute_embeds
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    dev = ts._batch_on(batch, table.device)
+    with torch.no_grad():
+        embeds = compute_embeds(params, cfg, table, *(dev[k] for k in ts._BATCH_KEYS),
+                                dropout_seeds=seeds)
+    zeros = {k: int((torch.linalg.vector_norm(embeds[k].float(), dim=-1) == 0).sum())
+             for k in ("query", "pos_embed", "neg_pool")}
+    _, grads, _ = ts.make_loss_and_grad(cfg)(params, table, batch, seeds)
+    return zeros | {"finite": bool(torch.isfinite(ts.flatten(grads)).all())}
+
+
+def scale_steps_phase(emb) -> dict:
+    """Phase 17 (c) and (d): the hot and logging steps of the scale
+    configuration at full width on the card (see the module docstring);
+    returns the launch counts of one hot step at B=256."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    model, _ = scale_sections()
+    cfg = TrainConfig.from_dict(model)
+    table = build_item_table(emb, device="cuda")
+    n = table.shape[0] - 1
+    params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    rng = np.random.default_rng(17)
+    seed_gen = torch.Generator().manual_seed(17)
+    seeds = ts.draw_dropout_seeds(seed_gen, cfg)
+    log(f"  {cfg.num_hidden_layers} layers d={cfg.hidden_size} (inputs {cfg.resolved_input_dim}) "
+        f"heads={cfg.num_attention_heads} FFN {cfg.intermediate_size} seq {cfg.max_seq_length} "
+        f"{cfg.compute_dtype}, dropout {cfg.hidden_dropout}, {cfg.train_loss} at margin "
+        f"{cfg.margin}; the hash-embedded synthetic catalog of {n} items")
+
+    def branch(b: int) -> str:
+        return ("3 * B * S >= N: the catalog projected first" if 3 * b * cfg.max_seq_length
+                >= table.shape[0] else "3 * B * S < N: the rows gathered before the projection")
+
+    log(f" the card against the CPU's plain path at B={SCALE_CPU_BATCH} "
+        f"({branch(SCALE_CPU_BATCH)})")
+    small = train_batch(rng, SCALE_CPU_BATCH, cfg.max_seq_length, n)
+    for full_logs in (False, True):
+        # the loss at margin 0.5 is a sum over rows of relu(l - 0.5) over
+        # the few pool rows a random model's cosines put above the margin
+        # (terms of ~1e-2), so the bf16 noise of the cosines (one-ulp
+        # flips in the layer stack, ~1e-3 at l ~ 0.5; the H100 read 1.8e-3
+        # relative) moves it by far more than a sum over all rows moves:
+        # held to 2**-7 relative, the gradients' norm bound
+        check_step_against_cpu(cfg, params, table, small, seeds, full_logs=full_logs,
+                               device="cuda", loss_tol=2.0**-7)
+
+    log(f" the hot step at B={SCALE_BATCH} ({branch(SCALE_BATCH)})")
+    batch = train_batch(rng, SCALE_BATCH, cfg.max_seq_length, n)
+    zeros = count_zero_rows(cfg, params, table, batch, seeds)
+    log(f"  zero rows at the cosine head's L2 normalization in one step: {zeros['pos_embed']} "
+        f"positives and {zeros['neg_pool']} pool rows (the padded positions' index 0), "
+        f"{zeros['query']} queries; the gradient is "
+        f"{'finite' if zeros['finite'] else 'NOT FINITE'} (the norm's subgradient 0)")
+    if not zeros["finite"]:
+        raise AssertionError("a zero row at the cosine normalization made the gradient NaN")
+    step = ts.make_train_step(cfg, full_logs=False)
+    state = ts.init_train_state(cfg, params)
+    expected = expected_launches(cfg, table.shape[0], ts.table_pool_rows(cfg, batch), False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    state, logs = step(state, table, batch, seeds)  # the main path, counted
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    hot_peak = torch.cuda.max_memory_allocated()
+    log(f"  launches of one hot step: {launches} (expected {expected}); peak memory "
+        f"{hot_peak / 2**30:.2f} GiB")
+    if launches != expected or launches["fused_layer"] or not all(
+            launches[k] for k in ("gather_rows", "pairwise_fwd", "pairwise_dq", "pairwise_dn")):
+        raise AssertionError("the scale hot step did not launch #1 and #10-#12 alone")
+    losses = [float(logs["loss/ContrastiveLoss"])]
+    for _ in range(29):
+        state, logs = step(state, table, batch, ts.draw_dropout_seeds(seed_gen, cfg))
+        losses.append(float(logs["loss/ContrastiveLoss"]))
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"  30 steps on one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        raise AssertionError("the scale step's fixed-batch loss did not fall")
+    profile = profile_steps(step, state, table, batch, cfg, seed_gen, ops=12)
+    # what the hash dropout costs: eager steps with and without dropout
+    # seeds (no seeds: no dropout site runs), in turns
+    with_ms, without_ms = [], []
+    for _ in range(4):
+        for seeds_, out in ((ts.draw_dropout_seeds(seed_gen, cfg), with_ms), (None, without_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, table, batch, seeds_)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    w, wo = statistics.median(with_ms), statistics.median(without_ms)
+    log(f"  eager hot step, median of 4 in turns: with dropout {w:.2f} ms, without {wo:.2f} ms: "
+        f"the hash dropout's sites cost {w - wo:.2f} ms a step")
+
+    log(f" the logging step at B={SCALE_BATCH} (full_logs=True)")
+    log_step = ts.make_train_step(cfg)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        s = ts.draw_dropout_seeds(seed_gen, cfg)
+        t0 = time.perf_counter()
+        state, logs = log_step(state, table, batch, s)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log_peak = torch.cuda.max_memory_allocated()
+    if not all(bool(torch.isfinite(v)) for v in logs.values()):
+        raise AssertionError("non-finite logging step logs at scale")
+    log(f"  logging step, eager: {statistics.median(times[1:]):.2f} ms (calls "
+        f"{[round(t, 2) for t in times]}); {len(logs)} logs; peak memory "
+        f"{log_peak / 2**30:.2f} GiB")
+
+    log(f" the multi-step driver at B={SCALE_BENCH_BATCH} (scripts/bench_config4.py's batch)")
+    scan_phase(config=model, batch_size=SCALE_BENCH_BATCH, emb=emb, calls=3)
+    log(f" the multi-step driver at B={SCALE_BATCH}")
+    scan_phase(config=model, batch_size=SCALE_BATCH, emb=emb, calls=3)
+    log(f"  scale steps: hot-step peak {hot_peak / 2**30:.2f} GiB, logging-step peak "
+        f"{log_peak / 2**30:.2f} GiB, profiled hot step busy {profile.get('busy_ms', 0):.3f} of "
+        f"{profile.get('wall_ms', 0):.3f} ms wall")
+    return launches
+
+
+# the kernels of the scale configuration's training path: #1 and #2 (B=256
+# projects the catalog first, so the gathered rows take a gradient) and the
+# pairwise kernels; the layer stack runs at seq 128, no fused layer
+SCALE_PATH = ("gather_rows", "gather_rows_bwd", "pairwise_fwd", "pairwise_dq", "pairwise_dn")
+
+
+def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: int, *,
+                    cut: int, eval_cut: int) -> dict:
+    """Phase 17 (e): the scale configuration fitted for one epoch at
+    ML-25M's synthetic scale through ``SeqDataModule`` and ``Trainer``, as
+    scripts/quality_run_25m.py drives it, the epoch cut to ``cut`` batches
+    and the test and predict passes to ``eval_cut`` (-1: uncut); returns
+    the fit's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig, TrainConfig
+    from transformer_recommenders_tpu_torch.data.module import SeqDataModule
+    from transformer_recommenders_tpu_torch.models.transformer import tree_leaves
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.serving import deploy
+    from transformer_recommenders_tpu_torch.training.trainer import Trainer
+
+    t0 = time.perf_counter()
+    if data_job.wait() != 0:
+        raise AssertionError(f"the scale data's child process exited with {data_job.returncode}")
+    waited = time.perf_counter() - t0
+    model, data = scale_sections()
+    tmp = data_dir.parent
+    t0 = time.perf_counter()
+    dm = SeqDataModule(SeqDataModuleConfig.from_dict(
+        {**data, "data_dir": str(data_dir), "synthetic_num_events": events}))
+    dm.prepare_data()  # written by the child
+    dm.setup()
+    sampler = "native" if dm.train_data._native is not None else "numpy"
+    val_users = len(dm.eval_arrays("val"))
+    log(f"  data: {len(dm.items)} items, {len(dm.users)} users, {events} events, "
+        f"{len(dm.train_data)} train rows, {dm.config.batch_size}-row batches, {sampler} "
+        f"sampler, {val_users} val users; waited {waited:.1f} s for the child, set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = TrainConfig.from_dict({
+        **model, "max_epochs": 1, "early_stopping_patience": 0, "steps_per_dispatch": 8,
+        "checkpoint_every_epoch": False, "use_mlflow": False,
+        "limit_train_batches": cut, "limit_test_batches": eval_cut,
+        "limit_predict_batches": eval_cut, "ckpt_dir": str(tmp / "ckpt")})
+    batches = list(itertools.islice(dm.train_batches(0), cut) if cut >= 0
+                   else dm.train_batches(0))
+    pos = np.concatenate([b["pos_item_idx"].reshape(-1) for b in batches])
+    neg = np.concatenate([b["neg_item_idx"].reshape(-1) for b in batches])
+    log(f"  the fit's batches: {len(batches)} of the epoch's "
+        f"{dm.train_data.num_batches(SCALE_BATCH)} batches of {SCALE_BATCH}; zero rows the "
+        f"cosine head normalizes: {int((pos == 0).sum())} of {pos.size} positives and "
+        f"{int((neg == 0).sum())} of {neg.size} pool rows (index 0)")
+    trainer = Trainer(cfg, dm, log_dir=str(tmp / "logs"))
+    val0 = trainer.validate()
+    log(f"  untrained: val ndcg {val0['val/retrieval_normalized_dcg']:.5f}, hit rate "
+        f"{val0['val/retrieval_hit_rate']:.5f}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    result = trainer.fit()  # the main path, counted
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    fit_peak = torch.cuda.max_memory_allocated()
+    steps = trainer._host_step
+    wall = trainer.epoch_walls[0]
+    log(f"  fit: 1 epoch, {steps} steps, K={cfg.steps_per_dispatch}, {fit_s:.1f} s; "
+        f"{result['train/examples_per_s']:.1f} examples/s over the fit (validation included); "
+        f"epoch wall {wall} s ({wall * 1e3 / steps:.3f} ms a step, "
+        f"{steps * SCALE_BATCH / wall:.1f} examples/s); peak memory {fit_peak / 2**30:.2f} GiB")
+    log("  phase_seconds: " + json.dumps({k: round(v, 3)
+                                           for k, v in trainer.phase_seconds.items()}))
+    log(f"  phase_counts: {trainer.phase_counts}")
+    log(f"  launches in the fit: {launches}")
+    if launches["fused_layer"] or not all(launches[k] for k in SCALE_PATH):
+        raise AssertionError("the scale fit did not go through #1, #2 and #10-#12 alone")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(trainer.model.params)):
+        raise AssertionError("non-finite parameters after the scale fit")
+
+    best = tmp / "ckpt" / "best"
+    best_val = json.loads((best / "meta.json").read_text())["metrics"]
+    t0 = time.perf_counter()
+    again = trainer.validate()
+    val_s = time.perf_counter() - t0
+    log("  trained: " + ", ".join(f"{k.split('/')[-1]} {v:.5f}"
+                                  for k, v in sorted(best_val.items()))
+        + f" (untrained ndcg {val0['val/retrieval_normalized_dcg']:.5f}); validation of "
+        f"{val_users} users x {len(dm.items)} items in {val_s:.2f} s "
+        f"({val_users / val_s:.1f} users/s)")
+    if again != best_val:
+        raise AssertionError("the fit's weights do not validate as the fit did")
+    t0 = time.perf_counter()
+    test = trainer.test()
+    users = "every test user" if eval_cut < 0 else f"the first {eval_cut * cfg.eval_batch_size}"
+    log(f"  test ({users}): ndcg {test['test/retrieval_normalized_dcg']:.5f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    recs = trainer.predict()
+    u = len(recs["user_ids"])
+    if recs["item_idx"].shape != (u, cfg.top_k) or not np.isfinite(recs["scores"]).all():
+        raise AssertionError("predict gave malformed recommendations at scale")
+    log(f"  predict: {u} users x top-{cfg.top_k} in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    trainer.save(tmp / "artifact")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deploy.main(artifact_dir=tmp / "artifact")
+    log(f"  saved in {save_s:.1f} s; served through the nine APIs (seq 128 over the "
+        f"{len(dm.items)}-item catalog) in {time.perf_counter() - t0:.1f} s")
+
+    fresh = Trainer(cfg, dm, log_dir=str(tmp / "logs_restored"))
+    meta = fresh.restore(str(best))
+    resumed = fresh.validate()
+    same = resumed == best_val
+    log(f"  a fresh trainer restored at step {meta['step']}: validation "
+        f"{'bit for bit the fit' if same else 'DIFFERS from the fit'}")
+    if not same:
+        raise AssertionError(f"resumed validation {resumed} != the fit's {best_val}")
+    fresh.close()
+    trainer.close()
+    return launches
 
 
 if __name__ == "__main__":

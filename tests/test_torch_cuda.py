@@ -779,6 +779,9 @@ PAIRWISE_SHAPES = [
     (1000, 777, 64),     # ragged: neither a multiple of a block
 ]
 PAIRWISE_HEADS = ["ContrastiveLoss", "PairwiseHingeLoss", "PairwiseLogisticLoss", "NCELoss"]
+# configs/ml25m_ccl.yaml's width at B=64, S=128 (scripts/bench_config4.py's
+# batch): one split of each kernel fills the card there
+PAIRWISE_SCALE = (8192, 8192, 256)
 
 
 def run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn):
@@ -802,7 +805,7 @@ def run_pairwise(q, p, n, neg_valid, g, head, margin, mask_fn):
 # (fused_pairwise.near_tie_rows) and those rows take no cotangent (every
 # element of dq, dp and dn is still compared); on exact-sum inputs every
 # row is held and takes its cotangent.
-@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize(("r", "rn", "d"), [*PAIRWISE_SHAPES, PAIRWISE_SCALE])
 @pytest.mark.parametrize("head", PAIRWISE_HEADS)
 @pytest.mark.parametrize(("mask_fn", "margin"), [(True, 0.0), (False, 0.5)])
 @pytest.mark.parametrize("inputs", ["gaussian", "exact"])
@@ -846,7 +849,7 @@ def test_pairwise_kernels_match_plain(cuda, r, rn, d, head, mask_fn, margin, inp
     assert max(v for k, v in errs.items() if k != "out") <= 1e-2, errs
 
 
-@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize(("r", "rn", "d"), [*PAIRWISE_SHAPES, PAIRWISE_SCALE])
 @pytest.mark.parametrize("head", PAIRWISE_HEADS)
 @pytest.mark.parametrize("margin", [0.0, 0.5])
 def test_pairwise_kernels_drop_every_copy_of_the_positive(cuda, r, rn, d, head, margin):
@@ -867,7 +870,7 @@ def test_pairwise_kernels_drop_every_copy_of_the_positive(cuda, r, rn, d, head, 
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize(("r", "rn", "d"), PAIRWISE_SHAPES)
+@pytest.mark.parametrize(("r", "rn", "d"), [*PAIRWISE_SHAPES, PAIRWISE_SCALE])
 @pytest.mark.parametrize("head", PAIRWISE_HEADS)
 def test_pairwise_kernels_are_deterministic(cuda, r, rn, d, head):
     gen = torch.Generator().manual_seed(r + rn + d + 2)
