@@ -137,15 +137,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     splits, registers, times, the composite and the bounds; (b) the gather
     at the path's shapes (98,304 bf16 rows of the projected catalog at
     B=256, 24,576 f32 rows of the raw one at B=64, the evaluator's 65,536)
-    and #2 at B=256, bit for bit, timed; (c) the hot step: loss and raw
-    gradients against the CPU's plain path at B=8, one counted step at
-    B=256 (#1, #2 and #10-#12; the layer stack, no fused layer), the zero
-    rows at the cosine normalization, 30 fixed-batch steps whose loss must
-    fall, the device time by kernel, by PyTorch op and by part, the
+    and #2 at B=256, bit for bit, timed; (c) the layer stack's kernels:
+    the hash dropout (#16) at the scale step's sites (its hidden and
+    embedding sites, the probs in bf16 and f32, a permuted view), path C's
+    f32 probs and the flagship's embedding site, forward and backward bit
+    for bit against the plain int64 chain; the attention core (#17, #18)
+    at (B, 128, 8, 32), B=256 and 64, dropout 0.1, against the plain core
+    (y within one bf16 ulp in at most 1% of the probs, ctx, dq, dk, dv
+    within 1e-2 of their max abs), two calls bit for bit; each timed
+    beside its plain version, its bound and (#17, #18)
+    ``scaled_dot_product_attention`` without dropout; (d) the hot step:
+    loss and raw gradients against the CPU's plain path at B=8, one
+    counted step at B=256 (#1, #2, #10-#12 and #16-#18; the layer stack,
+    no fused layer), the zero rows at the cosine normalization, 30
+    fixed-batch steps whose loss must fall, the device time by kernel, by
+    PyTorch op and by part, eager with and without dropout, the
     multi-step driver's K=8 graphed window bit for bit against eager at
     B=64 and 256 with ms per step graphed and eager in turns, peak memory;
-    (d) the logging step: its logs against the CPU's at B=8, its eager
-    time and peak memory at B=256; (e) a fit through ``SeqDataModule``
+    (e) the logging step: its logs against the CPU's at B=8, its eager
+    time and peak memory at B=256; (f) a fit through ``SeqDataModule``
     and ``Trainer`` (``steps_per_dispatch=8``; 96 of the epoch's batches)
     on synthetic data at ML-25M's users and items (162,000 and 62,000; 10M
     of its 25M events, for the smoke's time; the hash embedder; generated
@@ -1876,6 +1886,7 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
 
     scale = scale_phase(phase, data_job, scale_data, args)
     launches |= scale["launches"]
+    kernels += scale["stack"]
     for k in kernels:  # the D=256 and 62k-catalog shapes beside each row's own
         if k["name"].startswith("pairwise_"):
             k["by_shape"] |= {f"scale_{shape}": t[k["name"]]
@@ -1891,12 +1902,15 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
         # flagship's hot step, the pool kernels on its logging step, the
         # pairwise kernels on path C (every training path launches the
         # forward kernels too), the probe on the calibration, the section
-        # variants on the section profile
+        # variants on the section profile, the layer stack's on the scale
+        # configuration's hot step
         path = ("serving" if k["name"] in ("fused_layer", "gather_rows") else
                 "logging_A" if k["name"].startswith("pool_") else
                 "ml100k_C" if k["name"].startswith("pairwise_") else
                 "calibration" if k["name"] == "vpu_chain" else
-                "sections" if k["name"].startswith("fused_layer_stage_") else "training")
+                "sections" if k["name"].startswith("fused_layer_stage_") else
+                "scale_hot" if k["name"] in ("hash_dropout", "attn_core_fwd", "attn_core_bwd")
+                else "training")
         k["launches"] = launches[path][k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
         if k["name"] in FLAGSHIP_PATH and not launches["fit_flagship"][k["name"]]:
@@ -1920,22 +1934,29 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
 def scale_phase(phase, data_job, scale_data: pathlib.Path, args) -> dict:
     """Phase 17, the scale configuration (configs/ml25m_ccl.yaml) at full
     width: (a) the pairwise kernels at D=256, (b) the gather at the 62k
-    catalog, (c, d) the hot and logging steps, (e) the fit.  Returns the
-    kernels' numbers and the launch counts of one hot step and the fit."""
+    catalog, (c) the layer stack's kernels (#16-#18), (d, e) the hot and
+    logging steps, (f) the fit.  Returns the kernels' numbers and rows and
+    the launch counts of one hot step and the fit."""
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+
     phase("17: the scale configuration (configs/ml25m_ccl.yaml) at full width")
     phase("17 (a): the pairwise kernels at D=256, R = Rn = 8,192 and 32,768")
     pairwise = check_scale_pairwise(special_function_rate()[0])
     phase("17 (b): the gather at the 62k catalog's shapes")
     gather = check_scale_gather()
-    phase("17 (c, d): the hot and logging steps")
+    phase("17 (c): the layer stack's kernels, the hash dropout (#16) and the attention core "
+          "(#17, #18)")
+    stack = [check_hash_dropout(),
+             *check_attn_core(TrainConfig.from_dict(scale_sections()[0]).is_decoder)]
+    phase("17 (d, e): the hot and logging steps")
     hot = scale_steps_phase(scale_catalog(ML25M_SCALE["synthetic_num_items"]))
-    phase("17 (e): a fit at ML-25M's synthetic scale")
+    phase("17 (f): a fit at ML-25M's synthetic scale")
     uncut = args.scale_uncut
     fit = scale_fit_phase(data_job, scale_data,
                           ML25M_SCALE["synthetic_num_events"] if uncut else SCALE_EVENTS,
                           cut=-1 if uncut else SCALE_FIT_BATCHES,
                           eval_cut=-1 if uncut else SCALE_EVAL_BATCHES)
-    return {"pairwise": pairwise, "gather": gather,
+    return {"pairwise": pairwise, "gather": gather, "stack": stack,
             "launches": {"scale_hot": hot, "fit_scale": fit}}
 
 
@@ -2226,23 +2247,40 @@ ML100K_ITEMS = 1682  # MovieLens-100K's published catalog (943 users)
 def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> dict:
     """Launches of one train step on the card under InfoNCE or a pairwise
     head, by kernel: the fused layer's where its gate admits the model's
-    width and sequence length (else the layer stack runs, plain PyTorch
-    ops), the table-scored InfoNCE where the hot step's gate
+    width and sequence length (else the layer stack runs: PyTorch products,
+    the hash dropout (#16) at its sites and the attention core (#17/#18)
+    where its gate admits the split bf16 core), the table-scored InfoNCE
+    where the hot step's gate
     admits it, else the pool objective's kernels of the configured loss
     (the pool InfoNCE or the pairwise ones); the gather's and the pool's
     backward only where the gathered rows take a gradient, i.e. when they
     are rows of the projected table (a catalog of at most 3 * B * S rows
     is projected before the gather; a frozen, unprojected table takes
     none)."""
-    from transformer_recommenders_tpu_torch.training import train_state as ts
+    import torch
 
     from transformer_recommenders_tpu_torch.models.transformer import _fused_layer_mode
+    from transformer_recommenders_tpu_torch.ops.attn_core import kernel_admits
+    from transformer_recommenders_tpu_torch.training import train_state as ts
 
     table_path = not full_logs and ts._table_loss_enabled(cfg, table_rows, pool_rows)
     proj = cfg.resolved_input_dim != cfg.hidden_size
     # the fused layer where its gate admits the shape, else the layer stack
-    layers = cfg.num_hidden_layers if _fused_layer_mode(cfg, cfg.max_seq_length) else 0
+    s = cfg.max_seq_length
+    layers = cfg.num_hidden_layers if _fused_layer_mode(cfg, s) else 0
+    stack = cfg.num_hidden_layers - layers
     pool = "pool_infonce" if cfg.train_loss == "InfoNCELoss" else "pairwise"
+    # the stack's attention core: #17/#18 where the split bf16 core's gate
+    # admits the shape; elsewhere one probs site of #16 (the plain bf16
+    # core's backward drops y and its cotangent: two); a remat layer runs
+    # its forward again in the backward
+    impl = cfg.attention_impl if cfg.attention_impl != "auto" else (
+        "masked" if s <= 64 else "split")
+    split16 = impl == "split" and cfg.compute_dtype == "bfloat16"
+    core = stack if split16 and kernel_admits(
+        s, cfg.hidden_size // cfg.num_attention_heads, torch.bfloat16) else 0
+    fwd = 2 if cfg.remat_layers else 1
+    hid, att = int(cfg.hidden_dropout > 0), int(cfg.attention_dropout > 0)
     counts = {
         "gather_rows": 1,
         "gather_rows_bwd": int(proj and (table_path or table_rows <= 3 * pool_rows)),
@@ -2250,6 +2288,11 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
         "table_infonce_fwd": int(table_path), "table_infonce_bwd": int(table_path),
         # the measurement kernels: no train step runs them
         "vpu_chain": 0, "fused_layer_stage_fwd": 0, "fused_layer_stage_bwd": 0,
+        # #16 forward and backward at the embedding site, at each stack
+        # layer's two hidden sites and its probs where #17 does not run
+        "hash_dropout": 2 * hid + stack * 2 * hid * (fwd + 1)
+        + (stack - core) * att * (fwd + (2 if split16 else 1)),
+        "attn_core_fwd": core * fwd, "attn_core_bwd": core,
     }
     for prefix in ("pool_infonce", "pairwise"):
         on = not table_path and prefix == pool
@@ -2588,10 +2631,11 @@ ML1M_SCALE = dict(synthetic_num_users=6040, synthetic_num_items=3706,
                   synthetic_num_events=1_000_209)  # MovieLens-1M's published counts
 # the kernels of the flagship's training path: the forward and backward
 # kernels and the table InfoNCE on hot steps, the pool InfoNCE on logging
-# steps (the gather and the layer forward also on validation)
+# steps (the gather and the layer forward also on validation), the hash
+# dropout at the embedding site of every train step
 FLAGSHIP_PATH = ("gather_rows", "gather_rows_bwd", "fused_layer", "fused_layer_bwd",
                  "table_infonce_fwd", "table_infonce_bwd", "pool_infonce_fwd",
-                 "pool_infonce_dq", "pool_infonce_dn")
+                 "pool_infonce_dq", "pool_infonce_dn", "hash_dropout")
 EVAL_USERS = 256
 
 
@@ -2844,7 +2888,8 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3, ops: int
     the device's busy share of the steps' wall time (one stream, so the
     kernels do not overlap); with ``ops``, also the ``ops`` PyTorch ops of
     the most device time (the kernels each launched) and the port's
-    kernels (pairwise, gather) against everything else.  Returns busy and
+    kernels (pairwise, gather, hash dropout, attention core) against
+    everything else.  Returns busy and
     wall ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2876,14 +2921,17 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3, ops: int
         log(f"    {e.self_device_time_total / n / 1e3:9.4f} ms  {e.count // n:4d} launches  "
             f"{e.key[:90]}")
     if ops:
-        groups = {"pairwise (#10-#12)": 0.0, "gather (#1, #2)": 0.0}
+        groups = {"pairwise (#10-#12)": 0.0, "gather (#1, #2)": 0.0,
+                  "hash dropout (#16)": 0.0, "attention core (#17, #18)": 0.0}
         for e in kernels:
             key = ("pairwise (#10-#12)" if "pairwise" in e.key else
-                   "gather (#1, #2)" if "gather_rows" in e.key or "segment_" in e.key else None)
+                   "gather (#1, #2)" if "gather_rows" in e.key or "segment_" in e.key else
+                   "hash dropout (#16)" if "hash_dropout" in e.key else
+                   "attention core (#17, #18)" if "attn_core" in e.key else None)
             if key:
                 groups[key] += e.self_device_time_total / n / 1e3
-        groups["everything else (the layer stack, projection, normalization, AdamW)"] = (
-            busy_ms - sum(groups.values()))
+        rest = "everything else (the stack's products and casts, projection, normalization, AdamW)"
+        groups[rest] = busy_ms - sum(groups.values())
         log("  by part, per step: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
         by_op = sorted((e for e in prof.key_averages()
                         if e.device_type == torch.autograd.DeviceType.CPU
@@ -3496,6 +3544,215 @@ def check_scale_gather() -> dict:
     return {"gather_rows": times, "gather_rows_bwd": {"hot_B256": t}}
 
 
+# #16 where the paths launch it: name -> (shape, dtype, permutation of a
+# contiguous tensor or None); the first is the row's own (the scale step's
+# embedding and hidden sites, 13 a forward)
+STACK_DROPOUT = {
+    "scale_hidden": ((SCALE_BATCH, 128, 256), "bfloat16", None),
+    # the probs, where the plain core runs (outside #17's gate), bf16 and f32
+    "scale_probs": ((SCALE_BATCH, 8, 128, 128), "bfloat16", None),
+    "scale_probs_f32": ((SCALE_BATCH, 8, 128, 128), "float32", None),
+    # a permuted einsum output (the plain core's dp), read by its strides
+    "scale_dp_view": ((SCALE_BATCH, 128, 8, 128), "float32", (0, 2, 1, 3)),
+    "C_probs": ((TRAIN_BATCH, 4, 32, 32), "float32", None),  # path C's masked f32 probs
+    "flagship_embed": ((TRAIN_BATCH, 32, 128), "bfloat16", None),  # the fused path's one site
+}
+STACK_RATE = 0.1  # configs/ml25m_ccl.yaml's dropout (the model default)
+# #17/#18 against their plain versions (the bounds of
+# tests/test_torch_cuda.py): the kernels sum on the tensor cores, the plain
+# version in f32 torch.matmul over the same bf16 values, so a score's last
+# bit may move y across a bf16 rounding: one ulp (at most 2**-8 at y <= 1)
+# in at most 1% of the probs, and ctx, dq, dk, dv within 1e-2 of their max
+# abs values
+ATTN_Y_TOL, ATTN_Y_FLIPS, ATTN_TOL = 2.0**-8, 0.01, 1e-2
+
+
+def bits(t):
+    """``t``'s bits as integers of its width (equal bits, not values)."""
+    import torch
+
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def check_hash_dropout() -> dict:
+    """#16 at every site of STACK_DROPOUT: forward (two calls) and backward
+    bit for bit against the plain int64 chain, with the site's seed term
+    read on the card; device times of the kernel and the plain chain
+    against the bound (x read and y written once)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+
+    gen = torch.Generator().manual_seed(19)
+    term = hd.seed_terms(torch.full((1,), 0xDEADBEEF, dtype=torch.int64, device="cuda"))[0]
+    times = {}
+    for name, (shape, dt, perm) in STACK_DROPOUT.items():
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=gen).to("cuda", dtype)
+        g = torch.randn(shape, generator=gen).to("cuda", dtype)
+        if perm is not None:
+            x, g = x.permute(perm), g.permute(perm)
+        xr = x.detach().requires_grad_(True)
+        got = hd.hash_dropout(xr, STACK_RATE, term)
+        got.backward(g)
+        again = hd._hash_dropout_cuda(x, STACK_RATE, term)
+        want = hd.hash_dropout_reference(x, STACK_RATE, term)
+        want_g = hd.hash_dropout_reference(g, STACK_RATE, term)
+        torch.cuda.synchronize()
+        same = {"forward": torch.equal(bits(got), bits(want)),
+                "backward": torch.equal(bits(xr.grad), bits(want_g)),
+                "two calls": torch.equal(bits(got), bits(again))}
+        big = x.numel() > 2**24  # the plain chain takes tens of ms a call there
+        t = {"ms": time_ms(lambda: hd._hash_dropout_cuda(x, STACK_RATE, term)),
+             "plain_ms": time_ms(lambda: hd.hash_dropout_reference(x, STACK_RATE, term),
+                                 iters=5 if big else 20, reps=2 if big else 20),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = bound(0, 2 * x.numel() * x.element_size(),
+                                             H100_BF16_FLOPS)
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        times[name] = t
+        log(f"  hash_dropout {name} {tuple(x.shape)} {dt}"
+            f"{' (a strided view)' if perm else ''}: "
+            + ", ".join(f"{k} {'bit for bit' if v else 'DIFFERS'}" for k, v in same.items())
+            + f" (tol 0); device time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.5f} ms (bytes): {t['share_of_bound']:.2f} of the bound")
+        if not all(same.values()):
+            raise AssertionError(f"hash_dropout disagrees with its plain version at {name}")
+        del x, g, xr, got, again, want, want_g
+        torch.cuda.empty_cache()
+    return {
+        "name": "hash_dropout", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/hash_dropout.cu",
+        "replaces": "transformer_recommenders_tpu/models/transformer.py:184 (_dropout_from_seed, "
+                    "an XLA fusion: no Pallas kernel)",
+        "shape": "(256, 128, 256) bf16, rate 0.1",
+        "max_abs_err": 0.0, **{k: times["scale_hidden"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_shape": times,
+    }
+
+
+def attn_inputs(gen, b: int, s: int, h: int, dh: int):
+    """q, k, v as the layer stack gives them (views of one (B, S, 3 H dh)
+    bf16 qkv tensor) on the card, a (B, S) key mask of a train batch's
+    lengths, an f32 ctx cotangent."""
+    import numpy as np
+    import torch
+
+    d = h * dh
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, s, h, dh) for i in range(3))
+    batch = train_batch(np.random.default_rng(b), b, s, 1000)
+    mask = torch.from_numpy(batch["history_item_idx"] != 0).cuda()
+    g = torch.randn(b, s, h, dh, generator=gen).cuda()
+    return q, k, v, mask, g
+
+
+def check_attn_core(causal: bool) -> list[dict]:
+    """#17 and #18 at the scale step's (B, 128, 8, 32), B = 256 and 64,
+    dropout 0.1, against the plain core (ATTN_TOL; #18 from #17's y), two
+    calls bit for bit; device times of each kernel, the plain version and
+    ``scaled_dot_product_attention`` without dropout (forward; forward and
+    backward by autograd for #18), which computes another function (no
+    hash dropout, no bf16 probs) and is never called by the port, against
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+    from transformer_recommenders_tpu_torch.ops.hash_dropout import seed_terms
+
+    gen = torch.Generator().manual_seed(20)
+    term = seed_terms(torch.full((1,), 12345, dtype=torch.int64, device="cuda"))[0]
+    rows = {"attn_core_fwd": {}, "attn_core_bwd": {}}
+    err = {"attn_core_fwd": 0.0, "attn_core_bwd": 0.0}
+    for b in (SCALE_BATCH, SCALE_BENCH_BATCH):
+        s, h, dh = 128, 8, 32
+        q, k, v, mask, g = attn_inputs(gen, b, s, h, dh)
+        ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)
+        ctx2, y2, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)
+        want_ctx, want_y = ac.attn_core_reference(q, k, v, mask, term, STACK_RATE, causal)
+        grads = ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)
+        again = ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)
+        want = ac.attn_core_backward_reference(q, k, v, y, g, term, STACK_RATE)
+        torch.cuda.synchronize()
+        dy = (y.float() - want_y.float()).abs()
+        flips = float((dy > 0).float().mean())
+        rel = {n: float((a.float() - w.float()).abs().max() / w.float().abs().max())
+               for n, a, w in zip(("ctx", "dq", "dk", "dv"), (ctx, *grads), (want_ctx, *want))}
+        same = (torch.equal(bits(ctx), bits(ctx2)) and torch.equal(bits(y), bits(y2))
+                and all(torch.equal(bits(a), bits(a2)) for a, a2 in zip(grads, again)))
+        ok = (same and float(dy.max()) <= ATTN_Y_TOL and flips <= ATTN_Y_FLIPS
+              and all(r <= ATTN_TOL for r in rel.values())
+              and all(bool(torch.isfinite(t).all()) for t in (ctx, *grads)))
+        err["attn_core_fwd"] = max(err["attn_core_fwd"],
+                                   float((ctx - want_ctx).abs().max()))
+        err["attn_core_bwd"] = max(err["attn_core_bwd"], *(
+            float((a.float() - w.float()).abs().max()) for a, w in zip(grads, want)))
+        log(f"  attn_core B={b} S={s} H={h} dh={dh} bf16, causal={causal}, dropout "
+            f"{STACK_RATE}: y max abs err {float(dy.max()):.3g} in {flips:.2e} of the probs (tol "
+            f"{ATTN_Y_TOL:.3g} in {ATTN_Y_FLIPS}), relative to max abs: "
+            + ", ".join(f"{n} {r:.3g}" for n, r in rel.items())
+            + f" (tol {ATTN_TOL}); two calls {'bit for bit' if same else 'DIFFER'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the attention core's kernels disagree at B={b}")
+
+        # SDPA on the same q, k, v (as (B, H, S, dh) views) and mask, no dropout
+        keep = mask[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        qt, kt, vt = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        gt = g.to(torch.bfloat16).permute(0, 2, 1, 3)
+
+        def sdpa_grad():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+            return torch.autograd.grad(out, leaves, gt)
+
+        nbytes_in = 3 * q.numel() * 2 + mask.numel()
+        y_bytes, ctx_bytes = y.numel() * 2, ctx.numel() * 4
+        flops = 2 * b * h * s * s * dh
+        fwd = {"ms": time_ms(lambda: ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)),
+               "plain_ms": time_ms(lambda: ac.attn_core_reference(q, k, v, mask, term,
+                                                                  STACK_RATE, causal),
+                                   iters=5, reps=2),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=keep))}
+        fwd["bound_ms"], fwd["bound_by"] = bound(2 * flops, nbytes_in + y_bytes + ctx_bytes,
+                                                 H100_BF16_FLOPS)
+        bwd = {"ms": time_ms(lambda: ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)),
+               "plain_ms": time_ms(lambda: ac.attn_core_backward_reference(
+                   q, k, v, y, g, term, STACK_RATE), iters=5, reps=2),
+               "library_ms": time_ms(sdpa_grad)}
+        bwd["bound_ms"], bwd["bound_by"] = bound(4 * flops, 3 * q.numel() * 2 + y_bytes
+                                                 + g.numel() * 4 + 3 * q.numel() * 2,
+                                                 H100_BF16_FLOPS)
+        for name, t in (("attn_core_fwd", fwd), ("attn_core_bwd", bwd)):
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            rows[name][f"B{b}"] = t
+            log(f"  {name} B={b}: device time: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                f"({'forward' if name.endswith('fwd') else 'forward and backward'}, no dropout, "
+                f"another function) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+                f"({t['bound_by']}): {t['share_of_bound']:.2f} of the bound")
+        del q, k, v, g, ctx, ctx2, y, y2, want_ctx, want_y, grads, again, want, leaves
+        torch.cuda.empty_cache()
+    log_registers("attn_core", ("attn_core_fwd_kernel", "attn_core_bwd_kernel"))
+    replaces = {"attn_core_fwd": "transformer_recommenders_tpu/models/transformer.py:253 "
+                                 "(_attn_core_bf16_fwd, XLA fusions: no Pallas kernel)",
+                "attn_core_bwd": "transformer_recommenders_tpu/models/transformer.py:266 "
+                                 "(_attn_core_bf16_bwd, XLA fusions: no Pallas kernel)"}
+    return [{
+        "name": name, "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/attn_core.cu",
+        "replaces": replaces[name], "shape": "(256, 128, 8, 32) bf16, dropout 0.1",
+        "max_abs_err": err[name], **{k: rows[name][f"B{SCALE_BATCH}"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_shape": rows[name],
+    } for name in ("attn_core_fwd", "attn_core_bwd")]
+
+
 def count_zero_rows(cfg, params, table, batch, seeds) -> dict:
     """The rows of one hot step's queries, positives and pool that reach
     the cosine head's L2 normalization with norm 0 (JAX's gradient there
@@ -3516,7 +3773,7 @@ def count_zero_rows(cfg, params, table, batch, seeds) -> dict:
 
 
 def scale_steps_phase(emb) -> dict:
-    """Phase 17 (c) and (d): the hot and logging steps of the scale
+    """Phase 17 (d) and (e): the hot and logging steps of the scale
     configuration at full width on the card (see the module docstring);
     returns the launch counts of one hot step at B=256."""
     import numpy as np
@@ -3580,8 +3837,9 @@ def scale_steps_phase(emb) -> dict:
     log(f"  launches of one hot step: {launches} (expected {expected}); peak memory "
         f"{hot_peak / 2**30:.2f} GiB")
     if launches != expected or launches["fused_layer"] or not all(
-            launches[k] for k in ("gather_rows", "pairwise_fwd", "pairwise_dq", "pairwise_dn")):
-        raise AssertionError("the scale hot step did not launch #1 and #10-#12 alone")
+            launches[k] for k in SCALE_PATH):
+        raise AssertionError("the scale hot step did not launch #1, #2, #10-#12 and #16-#18 "
+                             "alone")
     losses = [float(logs["loss/ContrastiveLoss"])]
     for _ in range(29):
         state, logs = step(state, table, batch, ts.draw_dropout_seeds(seed_gen, cfg))
@@ -3635,14 +3893,16 @@ def scale_steps_phase(emb) -> dict:
 
 
 # the kernels of the scale configuration's training path: #1 and #2 (B=256
-# projects the catalog first, so the gathered rows take a gradient) and the
-# pairwise kernels; the layer stack runs at seq 128, no fused layer
-SCALE_PATH = ("gather_rows", "gather_rows_bwd", "pairwise_fwd", "pairwise_dq", "pairwise_dn")
+# projects the catalog first, so the gathered rows take a gradient), the
+# pairwise kernels, and the layer stack's at seq 128 (no fused layer): the
+# hash dropout and the attention core
+SCALE_PATH = ("gather_rows", "gather_rows_bwd", "pairwise_fwd", "pairwise_dq", "pairwise_dn",
+              "hash_dropout", "attn_core_fwd", "attn_core_bwd")
 
 
 def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: int, *,
                     cut: int, eval_cut: int) -> dict:
-    """Phase 17 (e): the scale configuration fitted for one epoch at
+    """Phase 17 (f): the scale configuration fitted for one epoch at
     ML-25M's synthetic scale through ``SeqDataModule`` and ``Trainer``, as
     scripts/quality_run_25m.py drives it, the epoch cut to ``cut`` batches
     and the test and predict passes to ``eval_cut`` (-1: uncut); returns
@@ -3714,7 +3974,8 @@ def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: 
     log(f"  phase_counts: {trainer.phase_counts}")
     log(f"  launches in the fit: {launches}")
     if launches["fused_layer"] or not all(launches[k] for k in SCALE_PATH):
-        raise AssertionError("the scale fit did not go through #1, #2 and #10-#12 alone")
+        raise AssertionError("the scale fit did not go through #1, #2, #10-#12 and #16-#18 "
+                             "alone")
     if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(trainer.model.params)):
         raise AssertionError("non-finite parameters after the scale fit")
 

@@ -12,7 +12,10 @@ Tolerances (kernel vs plain version, same inputs, same device):
 - bf16 fused layer: at most 2**-4, mean at most 2**-8 (one-ulp flips of
   intermediate bf16 roundings, outputs |y| < 8 after LayerNorm);
 - gather: exact (a copy);
-- the backward kernels: see ``GRAD_TOL`` below.
+- the backward kernels: see ``GRAD_TOL`` below;
+- the hash dropout (#16): exact (the same hash and the same true
+  division);
+- the attention core (#17, #18): see ``test_attn_core_kernels_match_plain``.
 """
 
 import math
@@ -1094,11 +1097,16 @@ SCAN_CONFIGS = {
     "ml100k_bpr": (dict(input_dim=384, hidden_size=64, num_hidden_layers=2,
                         num_attention_heads=4, intermediate_size=256, max_seq_length=32,
                         train_loss="PairwiseLogisticLoss", margin=0.0), 1682, 128),
+    # configs/ml25m_ccl.yaml at 2 of its 6 layers: the layer stack at seq
+    # 128 (the hash dropout, the attention core), the pairwise kernels
+    "scale_narrow": (dict(input_dim=384, hidden_size=256, num_hidden_layers=2,
+                          num_attention_heads=8, intermediate_size=1024, max_seq_length=128,
+                          train_loss="ContrastiveLoss", margin=0.5), 4000, 64),
 }
 
 
 @pytest.mark.parametrize(("name", "k", "accumulate"), [
-    ("flagship", 4, 1), ("flagship", 4, 2), ("ml100k_bpr", 3, 1),
+    ("flagship", 4, 1), ("flagship", 4, 2), ("ml100k_bpr", 3, 1), ("scale_narrow", 3, 1),
 ])
 def test_graphed_window_equals_eager_steps(cuda, name, k, accumulate):
     """K graphed steps against K eager ``make_train_step(full_logs=False)``
@@ -1209,3 +1217,161 @@ def test_worker_pool_on_the_card(cuda, tmp_path):
     smoke.build_artifact(tmp_path / "artifact", device="cuda", num_items=500, num_users=100)
     launches = smoke.workers_phase(tmp_path / "artifact", requests=16)
     assert launches["fused_layer"] > 0
+
+
+# -- the layer stack's kernels: the hash dropout (#16), the attention core (#17, #18) ------------
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bits as integers of its width (equal bits, not equal values:
+    -0 differs from 0)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+# name: (shape, dtype, permutation of a contiguous tensor or None); the
+# scale step's (configs/ml25m_ccl.yaml, B=256) and path C's (ml100k_bpr,
+# B=128) sites, strided views and odd sizes
+DROPOUT_SITES = {
+    "scale_probs": ((256, 8, 128, 128), torch.bfloat16, None),  # the plain core's y
+    "scale_dp_view": ((256, 128, 8, 128), torch.float32, (0, 2, 1, 3)),  # an einsum's view
+    "scale_hidden": ((256, 128, 256), torch.bfloat16, None),
+    "C_probs": ((128, 4, 32, 32), torch.float32, None),  # the masked path's f32 probs
+    "C_hidden": ((128, 32, 64), torch.bfloat16, None),
+    "odd": ((3, 7, 5), torch.bfloat16, None),
+    "transposed": ((333, 65), torch.float32, (1, 0)),
+}
+
+
+@pytest.mark.parametrize("seed_kind", ["int", "tensor"])
+@pytest.mark.parametrize("name", list(DROPOUT_SITES))
+def test_hash_dropout_kernel_matches_plain_bit_for_bit(cuda, name, seed_kind):
+    """#16 forward and backward (one launch each) against the plain int64
+    chain, bit for bit, at the main paths' sites, on contiguous and strided
+    inputs, with an int seed term and one read on the card."""
+    from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+
+    shape, dtype, perm = DROPOUT_SITES[name]
+    gen = torch.Generator().manual_seed(len(name))
+    x = torch.randn(shape, generator=gen).to(cuda, dtype)
+    g = torch.randn(shape, generator=gen).to(cuda, dtype)
+    if perm is not None:
+        x, g = x.permute(perm), g.permute(perm)
+    seed = 0xDEADBEEF
+    term = (hd.seed_terms(torch.tensor([seed], device=cuda))[0] if seed_kind == "tensor"
+            else hd.seed_terms([seed])[0])
+    xr = x.detach().requires_grad_(True)
+    cuda_build.reset_launches()
+    y = hd.hash_dropout(xr, 0.1, term)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["hash_dropout"] == 2
+    assert y.shape == x.shape and y.dtype == dtype and y.is_contiguous()
+    assert torch.equal(_bits(y), _bits(hd.hash_dropout_reference(x, 0.1, term)))
+    assert torch.equal(_bits(xr.grad), _bits(hd.hash_dropout_reference(g, 0.1, term)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_hash_dropout_kernel_takes_unaligned_views_and_tails(cuda, dtype, offset):
+    """A view that starts off a 16-byte boundary, and element counts that
+    leave a tail after the 16-byte steps."""
+    from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+
+    base = torch.randn(4099 + offset, generator=torch.Generator().manual_seed(offset))
+    x = base.to(cuda, dtype)[offset:]
+    term = hd.seed_terms([7])[0]
+    got = hd.hash_dropout(x, 0.4942, term)
+    assert torch.equal(_bits(got), _bits(hd.hash_dropout_reference(x, 0.4942, term)))
+
+
+def _attn_inputs(cuda, b, s, h, dh, seed=0):
+    """q, k, v as the layer stack gives them (views of one (B, S, 3 H dh)
+    qkv tensor), a (B, S) key mask with padded tails, an f32 cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    d = h * dh
+    qkv = torch.randn(b, s, 3 * d, generator=gen).to(cuda, torch.bfloat16)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, s, h, dh) for i in range(3))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen)
+    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(cuda)
+    g = torch.randn(b, s, h, dh, generator=gen).to(cuda)
+    return q, k, v, mask, g
+
+
+# (B, S, H, dh): the scale step's B=256 and bench_config4's B=64
+# (configs/ml25m_ccl.yaml: d=256, 8 heads, seq 128), dh 64, S off 16, S=1
+ATTN_SHAPES = [(256, 128, 8, 32), (64, 128, 8, 32), (3, 128, 4, 64), (4, 65, 2, 64),
+               (5, 33, 3, 32), (2, 1, 2, 32)]
+ATTN_TOL = 1e-2  # GRAD_TOL's bf16 bound, relative to each output's max abs
+
+
+@pytest.mark.parametrize(("b", "s", "h", "dh"), ATTN_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attn_core_kernels_match_plain(cuda, b, s, h, dh, causal, rate):
+    """#17 against the plain forward and #18 against the plain backward
+    from the same y.  The kernels sum the scores and products on the tensor
+    cores, the plain version with f32 torch.matmul over the same bf16
+    values (exact products): the orders differ, so a score's last bit may
+    move y across a bf16 rounding (one ulp, at most 2**-8 at y <= 1, in
+    at most 1% of the probs), and ctx, dq, dk, dv within ATTN_TOL of
+    their max abs values.  Two calls of each kernel give the same bits."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+    from transformer_recommenders_tpu_torch.ops.hash_dropout import seed_terms
+
+    q, k, v, mask, g = _attn_inputs(cuda, b, s, h, dh, seed=b + s + dh)
+    term = seed_terms(torch.tensor([12345], device=cuda))[0]
+    ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal)
+    ctx2, y2, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal)
+    want_ctx, want_y = ac.attn_core_reference(q, k, v, mask, term, rate, causal)
+    grads = ac._bwd_cuda(q, k, v, y, g, term, rate)
+    again = ac._bwd_cuda(q, k, v, y, g, term, rate)
+    want = ac.attn_core_backward_reference(q, k, v, y, g, term, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(ctx), _bits(ctx2)) and torch.equal(_bits(y), _bits(y2))
+    for a, a2 in zip(grads, again):
+        assert torch.equal(_bits(a), _bits(a2))
+    dy = (y.float() - want_y.float()).abs()
+    assert dy.max().item() <= 2.0**-8 and (dy > 0).float().mean().item() <= 0.01
+    for name, got, ref in zip(("ctx", "dq", "dk", "dv"), (ctx, *grads), (want_ctx, *want)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        assert torch.isfinite(got).all(), name
+        assert rel_err(got, ref) <= ATTN_TOL, name
+
+
+def test_attn_core_counts_launches_and_copies_unshared_strides(cuda):
+    """Through autograd the core launches #17 and #18 once each; q, k, v
+    with strides of their own are copied to one layout first and give the
+    same bits as views of one qkv tensor."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+
+    q, k, v, mask, g = _attn_inputs(cuda, 8, 128, 8, 32, seed=5)
+    term = 987654321
+
+    def run(q_, k_, v_):
+        leaves = [t.detach().requires_grad_(True) for t in (q_, k_, v_)]
+        out = ac.attn_core_bf16(*leaves, mask, term, 0.1, True)
+        out.backward(g)
+        return [out] + [t.grad for t in leaves]
+
+    cuda_build.reset_launches()
+    views = run(q, k, v)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["attn_core_fwd"] == 1 and cuda_build.LAUNCHES["attn_core_bwd"] == 1
+    assert cuda_build.LAUNCHES["hash_dropout"] == 0
+    copies = run(q.contiguous(), k, v)
+    for a, c in zip(views, copies):
+        assert torch.equal(_bits(a), _bits(c))
+
+
+def test_attn_core_outside_the_gate_runs_the_plain_core_with_the_dropout_kernel(cuda):
+    """S = 129 is past the gate: the plain core runs on the card, its three
+    masks through #16, and neither #17 nor #18 launches."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+
+    q, k, v, mask, g = _attn_inputs(cuda, 2, 129, 2, 32, seed=6)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    cuda_build.reset_launches()
+    ac.attn_core_bf16(*leaves, mask, 11, 0.1, False).backward(g)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["hash_dropout"] == 3
+    assert cuda_build.LAUNCHES["attn_core_fwd"] == cuda_build.LAUNCHES["attn_core_bwd"] == 0

@@ -208,10 +208,12 @@ def test_chip_smoke_expects_each_paths_kernels():
 
     flagship, reference = TrainConfig(**chip_smoke.TRAIN), TrainConfig(**chip_smoke.REFERENCE)
     ml100k = TrainConfig(**chip_smoke.ML100K)
+    # the fused paths: #16 forward and backward at the embedding site alone
     common = {"gather_rows": 1, "table_infonce_fwd": 0, "table_infonce_bwd": 0,
               "pool_infonce_fwd": 1, "pool_infonce_dq": 1, "pairwise_fwd": 0, "pairwise_dq": 0,
               "pairwise_dn": 0, "vpu_chain": 0, "fused_layer_stage_fwd": 0,
-              "fused_layer_stage_bwd": 0}
+              "fused_layer_stage_bwd": 0, "hash_dropout": 2, "attn_core_fwd": 0,
+              "attn_core_bwd": 0}
     assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=False) == {
         **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
         "table_infonce_fwd": 1, "table_infonce_bwd": 1, "pool_infonce_fwd": 0,
@@ -223,12 +225,26 @@ def test_chip_smoke_expects_each_paths_kernels():
         **common, "gather_rows_bwd": 0, "fused_layer": 1, "fused_layer_bwd": 1,
         "pool_infonce_dn": 0}
     # path C: the 1,683-row catalog is projected whole, then gathered; its
-    # d=64 layers fail the fused-layer gate and run the layer stack
+    # d=64 layers fail the fused-layer gate and run the layer stack: #16 at
+    # the embedding site and at each layer's masked f32 probs and two hidden
+    # sites, forward and backward (2 + 2 * 3 * 2)
     for full_logs in (False, True):
         assert chip_smoke.expected_launches(ml100k, 1683, 4096, full_logs) == {
             **common, "gather_rows_bwd": 1, "fused_layer": 0, "fused_layer_bwd": 0,
             "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0,
-            "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1}
+            "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1, "hash_dropout": 14}
+    # configs/ml25m_ccl.yaml: seq 128, the split bf16 core at dh 32, so #17
+    # and #18 once a layer, #16 at the embedding and the hidden sites (2 + 6
+    # * 2 * 2); with remat_layers each layer's forward runs twice
+    scale = TrainConfig.from_dict(chip_smoke.scale_sections()[0])
+    assert chip_smoke.expected_launches(scale, 62001, 32768, full_logs=False) == {
+        **common, "gather_rows_bwd": 1, "fused_layer": 0, "fused_layer_bwd": 0,
+        "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0,
+        "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1, "hash_dropout": 26,
+        "attn_core_fwd": 6, "attn_core_bwd": 6}
+    remat = TrainConfig.from_dict({**chip_smoke.scale_sections()[0], "remat_layers": True})
+    got = chip_smoke.expected_launches(remat, 62001, 32768, full_logs=False)
+    assert (got["hash_dropout"], got["attn_core_fwd"], got["attn_core_bwd"]) == (2 + 6 * 6, 12, 6)
     assert set(chip_smoke.expected_launches(reference, 3707, 1024, False)) == \
         set(cuda_build.KERNELS)
 

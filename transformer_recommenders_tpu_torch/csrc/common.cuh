@@ -27,11 +27,18 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// keep iff fmix32(idx*PREMIX_IDX + seed*PREMIX_SEED) >= threshold, all
-// arithmetic modulo 2**32
+// keep iff fmix32(idx*PREMIX_IDX + term) >= threshold, all arithmetic
+// modulo 2**32, given the site's seed term seed*PREMIX_SEED
+// (ops/hash_dropout.seed_terms)
+__device__ __forceinline__ bool keep_premixed(uint32_t idx, uint32_t term,
+                                              uint32_t threshold) {
+  return fmix32(idx * kPremixIdx + term) >= threshold;
+}
+
+// keep iff fmix32(idx*PREMIX_IDX + seed*PREMIX_SEED) >= threshold
 __device__ __forceinline__ bool keep(uint32_t idx, uint32_t seed,
                                      uint32_t threshold) {
-  return fmix32(idx * kPremixIdx + seed * kPremixSeed) >= threshold;
+  return keep_premixed(idx, seed * kPremixSeed, threshold);
 }
 
 // A layer's three dropout site seeds (attention probs, post-attention

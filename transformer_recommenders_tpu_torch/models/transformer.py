@@ -13,12 +13,14 @@ The layers run one of two paths, chosen as the JAX package chooses them
   card, its plain version on the CPU) where ``use_fused_layer`` is set,
   ``hidden_size`` is a multiple of 128 and the sequence length a multiple
   of 8 of at most 64;
-- otherwise the layer stack of plain PyTorch ops with autograd for the
+- otherwise the layer stack of PyTorch ops with autograd for the
   backward (JAX's XLA path: ``_attention`` in its ``masked`` and ``split``
   forms, the bf16 attention core with its own backward, ``_ffn``, the
   one-sweep LayerNorm variance at s > 64, ``remat_layers`` as activation
   checkpointing).  Its products are ``torch.matmul``, as JAX leaves them
-  to XLA.
+  to XLA; what XLA fuses around them has kernels of its own on the card:
+  the hash dropout at every site (``ops.hash_dropout``, #16) and the bf16
+  attention core at S <= 128, dh 32 or 64 (``ops.attn_core``, #17/#18).
 
 The stack rounds to the compute dtype where the JAX source does, op by op
 (as JAX runs its ops one at a time): each dense's output, each residual
@@ -39,12 +41,9 @@ from torch.utils.checkpoint import checkpoint
 
 from transformer_recommenders_tpu_torch import resolve_device
 from transformer_recommenders_tpu_torch.configs import ModelConfig
-from transformer_recommenders_tpu_torch.ops.fused_layer import _divisor, attention_bias, fused_layer
-from transformer_recommenders_tpu_torch.ops.hash_dropout import (
-    premixed_keep_mask,
-    seed_tensor,
-    seed_terms,
-)
+from transformer_recommenders_tpu_torch.ops.attn_core import Softmax, attn_core_bf16
+from transformer_recommenders_tpu_torch.ops.fused_layer import attention_bias, fused_layer
+from transformer_recommenders_tpu_torch.ops.hash_dropout import hash_dropout, seed_tensor, seed_terms
 
 Params = dict[str, Any]
 
@@ -178,20 +177,6 @@ def _dense(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
     return out.to(dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed_term: int | torch.Tensor | None) -> torch.Tensor:
-    """Hash dropout over the linear index of ``x`` (JAX ``_dropout``):
-    kept elements divided by ``1 - rate`` rounded to ``x.dtype``, the
-    quotient rounded to ``x.dtype``.  ``seed_term``: the site seed's
-    ``seed_terms`` value (an int or a 0-dim tensor), or ``None`` for no
-    dropout."""
-    if seed_term is None or rate <= 0.0:
-        return x
-    idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64).view(x.shape)
-    kept = (x.float() / _divisor(rate, x.dtype, x.device)).to(x.dtype)
-    keep = premixed_keep_mask(idx, seed_term, rate)
-    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def _fused_layer_mode(cfg: ModelConfig, s: int) -> bool:
     """Whether the layers run the fused layer (else the layer stack): JAX
     ``_fused_layer_mode``'s gate, by configuration and shape alone.  JAX
@@ -201,63 +186,12 @@ def _fused_layer_mode(cfg: ModelConfig, s: int) -> bool:
     return bool(cfg.use_fused_layer) and cfg.hidden_size % 128 == 0 and s % 8 == 0 and s <= 64
 
 
-class _Softmax(torch.autograd.Function):
-    """``jax.nn.softmax`` over the last axis: exp(x - max) / sum, and the
-    transpose of its custom JVP, y * (g - sum(g * y))."""
-
-    @staticmethod
-    def forward(ctx, x):
-        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-        y = e / e.sum(dim=-1, keepdim=True)
-        ctx.save_for_backward(y)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        return y * (g - (g * y).sum(dim=-1, keepdim=True))
-
-
-class _AttnCoreBf16(torch.autograd.Function):
-    """JAX ``_attn_core_bf16``: q k^T -> softmax -> bf16 -> hash dropout ->
-    P V over (B, S, H, dh) bf16 q, k, v, giving f32 ctx, with one bf16
-    probs residual.  The backward rebuilds the dropped probs from the hash,
-    rounds the cotangent ``g`` and the score gradient to bf16 before their
-    products, and gives bf16 dq, dk, dv."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, key_mask, seed_term, rate, causal):
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        scores = (torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-                  + attention_bias(key_mask, q.shape[1], causal))
-        y = _Softmax.apply(scores).to(torch.bfloat16)
-        probs = _dropout(y, rate, seed_term)
-        ctx.save_for_backward(q, k, v, y)
-        ctx.seed_term, ctx.rate = seed_term, rate
-        return torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, y16 = ctx.saved_tensors
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        g16 = g.to(torch.bfloat16).float()
-        probs = _dropout(y16, ctx.rate, ctx.seed_term).float()
-        dv = torch.einsum("bhst,bshd->bthd", probs, g16).to(v.dtype)
-        dp = _dropout(torch.einsum("bshd,bthd->bhst", g16, v.float()), ctx.rate,
-                      ctx.seed_term)
-        y = y16.float()
-        ds = (y * (dp - (dp * y).sum(dim=-1, keepdim=True)) * scale).to(torch.bfloat16).float()
-        dq = torch.einsum("bhst,bthd->bshd", ds, k.float()).to(q.dtype)
-        dk = torch.einsum("bhst,bshd->bthd", ds, q.float()).to(k.dtype)
-        return dq, dk, dv, None, None, None, None
-
-
 def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Tensor,
                seed_term: int | torch.Tensor | None) -> torch.Tensor:
     """The stack's attention block (JAX ``_attention``): the qkv dense,
     then ``masked`` (every head's scores over all D channels of a
     head-masked q, dropout on the f32 probs) or ``split`` (per-head
-    scores; under bf16 :class:`_AttnCoreBf16`), then the out dense.
+    scores; under bf16 ``ops.attn_core.attn_core_bf16``), then the out dense.
     ``auto`` is ``masked`` at s <= 64."""
     b, s, d = x.shape
     h = cfg.num_attention_heads
@@ -277,18 +211,18 @@ def _attention(x: torch.Tensor, p: Params, cfg: ModelConfig, key_mask: torch.Ten
         hmask = (torch.arange(d, device=x.device)[None, :] // dh == heads).to(dtype)
         qh = q[:, None] * hmask[None, :, None, :]
         scores = torch.einsum("bhsc,btc->bhst", qh.float(), k.float()) * scale
-        probs = _dropout(_Softmax.apply(scores + attention_bias(key_mask, s, cfg.is_decoder)),
-                         rate, seed_term)
+        probs = hash_dropout(Softmax.apply(scores + attention_bias(key_mask, s, cfg.is_decoder)),
+                             rate, seed_term)
         ctx_full = torch.einsum("bhst,btc->bhsc", probs.to(dtype).float(), v.float()).to(dtype)
         ctx = (ctx_full * hmask[None, :, None, :]).sum(dim=1)
         return _dense(ctx, p["out"], dtype)
     q, k, v = (t.reshape(b, s, h, dh) for t in (q, k, v))
     if dtype == torch.bfloat16:
-        ctx = _AttnCoreBf16.apply(q, k, v, key_mask, seed_term, rate, cfg.is_decoder)
+        ctx = attn_core_bf16(q, k, v, key_mask, seed_term, rate, cfg.is_decoder)
     else:
         scores = torch.einsum("bshd,bthd->bhst", q, k)
-        probs = _Softmax.apply(scores * scale + attention_bias(key_mask, s, cfg.is_decoder))
-        ctx = torch.einsum("bhst,bthd->bshd", _dropout(probs, rate, seed_term).to(dtype), v)
+        probs = Softmax.apply(scores * scale + attention_bias(key_mask, s, cfg.is_decoder))
+        ctx = torch.einsum("bhst,bthd->bshd", hash_dropout(probs, rate, seed_term).to(dtype), v)
     return _dense(ctx.reshape(b, s, d), p["out"], dtype)
 
 
@@ -320,9 +254,9 @@ def _stack_layer(x: torch.Tensor, layer: Params, cfg: ModelConfig, key_mask: tor
     dtype = compute_dtype(cfg)
     eps = cfg.layer_norm_eps
     r1, r2, r3 = terms if terms is not None else (None, None, None)
-    attn = _dropout(_attention(x, layer, cfg, key_mask, r1), cfg.hidden_dropout, r2)
+    attn = hash_dropout(_attention(x, layer, cfg, key_mask, r1), cfg.hidden_dropout, r2)
     x = _layer_norm(x + attn, layer["ln1"], eps, dtype, fast_variance=fast_ln)
-    ffn = _dropout(_ffn(x, layer, cfg), cfg.hidden_dropout, r3)
+    ffn = hash_dropout(_ffn(x, layer, cfg), cfg.hidden_dropout, r3)
     return _layer_norm(x + ffn, layer["ln2"], eps, dtype, fast_variance=fast_ln)
 
 
@@ -406,7 +340,7 @@ def transformer_encode(
         x = _dense(x, params["input_proj"], dtype)
     x = x.to(dtype) + params["pos_embed"][:s].to(dtype)
     x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype, fast_variance=fast_ln)
-    x = _dropout(x, cfg.hidden_dropout, terms[0] if terms is not None else None)
+    x = hash_dropout(x, cfg.hidden_dropout, terms[0] if terms is not None else None)
 
     fused = _fused_layer_mode(cfg, s)
     for i in range(n_layers):

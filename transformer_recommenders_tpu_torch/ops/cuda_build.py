@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 
 # kernel library name -> source file and the C functions' argument types
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "fused_layer": (
         "fused_layer.cu",
@@ -132,6 +133,28 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             "pairwise_dn": [_P] * 8 + [_I, _I, _I, _I, _F, _F, _I, _I, _P],
         },
     ),
+    "hash_dropout": (
+        "hash_dropout.cu",
+        # x, y, n, is_bf16, ndim, sizes, strides (host int64 arrays), seed
+        # term (an int64 on the card, or null), seed value, threshold,
+        # divisor, stream
+        {"hash_dropout": [_P, _P, _L, _I, _I, _P, _P, _P, _U, _U, _F, _P]},
+    ),
+    "attn_core": (
+        "attn_core.cu",
+        {
+            # q, k, v, their b/s/h strides, key mask, y, ctx, B S H dh
+            # causal, scale, seed term (or null), seed value, threshold,
+            # bf16 keep divisor, dropout on, stream
+            "attn_core_fwd": [_P] * 3 + [_L] * 3 + [_P] * 3 + [_I] * 5
+            + [_F, _P, _U, _U, _F, _I, _P],
+            # q, k, v, their strides, y, g, dq, dk, dv, B S H dh, scale,
+            # seed term (or null), seed value, threshold, bf16 and f32 keep
+            # divisors, dropout on, stream
+            "attn_core_bwd": [_P] * 3 + [_L] * 3 + [_P] * 5 + [_I] * 4
+            + [_F, _P, _U, _U, _F, _F, _I, _P],
+        },
+    ),
 }
 
 # the kernels a wrapper counts, by name: a C entry point that launches
@@ -144,6 +167,7 @@ KERNELS = (
     "pool_infonce_fwd", "pool_infonce_dq", "pool_infonce_dn",
     "pairwise_fwd", "pairwise_dq", "pairwise_dn",
     "vpu_chain", "fused_layer_stage_fwd", "fused_layer_stage_bwd",
+    "hash_dropout", "attn_core_fwd", "attn_core_bwd",
 )
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -48,6 +48,8 @@ import torch
 
 from transformer_recommenders_tpu_torch.ops import cuda_build
 from transformer_recommenders_tpu_torch.ops.hash_dropout import (
+    divisor,
+    keep_divisor,
     keep_mask,
     keep_threshold,
     seed_tensor,
@@ -109,27 +111,12 @@ def _layer_norm(h: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
     return (h - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
-def _keep_divisor(rate: float, dtype) -> float:
-    """``1 - rate`` as the JAX kernel divides by it: a Python float meets a
-    ``dtype`` array, so it is rounded to ``dtype`` first.  Returned as a
-    Python float (exact), so no tensor crosses to the device."""
-    return float(torch.tensor(1.0 - rate, dtype=dtype))
-
-
-def _divisor(rate: float, dtype, device) -> torch.Tensor:
-    """:func:`_keep_divisor` as a 0-dim f32 tensor made on ``device`` (no
-    copy from the host, so a CUDA graph can capture it).  A tensor, not a
-    Python float: CUDA divides by a host scalar as a product with its
-    reciprocal, which is not always the correctly rounded quotient."""
-    return torch.full((), _keep_divisor(rate, dtype), dtype=torch.float32, device=device)
-
-
 def _hidden_dropout(a: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Dropout at a hidden site: index ``row * D + c`` over (B*S, D)."""
     b, s, d = a.shape
     idx = torch.arange(b * s * d, device=a.device, dtype=torch.int64).view(b, s, d)
     keep = keep_mask(idx, seed, rate)
-    kept = (a.float() / _divisor(rate, a.dtype, a.device)).to(a.dtype)
+    kept = (a.float() / divisor(rate, a.dtype, a.device)).to(a.dtype)
     return torch.where(keep, kept, torch.zeros((), dtype=a.dtype, device=a.device))
 
 
@@ -210,7 +197,7 @@ def _layer_forward(x, p, key_mask, *, stage, num_heads, causal, attn_dropout, hi
     if attn_dropout > 0.0:
         idx = torch.arange(b * h * s * s, device=x.device, dtype=torch.int64)
         keep = keep_mask(idx.view(b, h, s, s), seeds[0], attn_dropout)
-        probs = torch.where(keep, probs / _divisor(attn_dropout, torch.float32, x.device), 0.0)
+        probs = torch.where(keep, probs / divisor(attn_dropout, torch.float32, x.device), 0.0)
     ctx = torch.matmul(probs.to(dtype).float(), v).to(dtype)
     ctx = ctx.permute(0, 2, 1, 3).reshape(b, s, d)
     if stage == "attn":
@@ -311,7 +298,7 @@ def _layer_backward(x, p, key_mask, dy, *, stage, num_heads, causal, attn_dropou
     z = torch.matmul(q, k.transpose(-1, -2)) * scale + attention_bias(key_mask, s, causal)
     e = torch.exp(z - z.amax(dim=-1, keepdim=True))
     probs = e / e.sum(dim=-1, keepdim=True)
-    attn_div = _divisor(attn_dropout, torch.float32, x.device)
+    attn_div = divisor(attn_dropout, torch.float32, x.device)
     if attn_dropout > 0.0:
         idx = torch.arange(b * h * s * s, device=x.device, dtype=torch.int64).view(b, h, s, s)
         dropped = torch.where(keep_mask(idx, seeds[0], attn_dropout), probs / attn_div, 0.0)
@@ -335,7 +322,7 @@ def _layer_backward(x, p, key_mask, dy, *, stage, num_heads, causal, attn_dropou
         return (n2 * p["ln2"]["scale"] + p["ln2"]["bias"]).to(dtype)
 
     # ---- the VJP down to dx
-    hid_div = _divisor(hidden_dropout, torch.float32, x.device)
+    hid_div = divisor(hidden_dropout, torch.float32, x.device)
     dy32 = dy.to(dtype).float()
     dh2 = _ln_bwd(dy32, n2, rstd2, p["ln2"]["scale"])
     df = dh2
@@ -492,7 +479,7 @@ def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds, dev
             msg = f"dropout_seeds needs 3 site seeds, got {seeds.numel()}"
             raise ValueError(msg)
     return (seeds, keep_threshold(attn_dropout),
-            keep_threshold(hidden_dropout), _keep_divisor(attn_dropout, torch.float32),
+            keep_threshold(hidden_dropout), keep_divisor(attn_dropout, torch.float32),
             attn_dropout, hidden_dropout)
 
 
@@ -525,7 +512,7 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
         x.data_ptr(), y.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
         b, s, d, num_heads, f, int(causal), int(bf16), hg, cluster,
         cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
-        _keep_divisor(hidden_dropout, x.dtype), int(attn_dropout > 0.0),
+        keep_divisor(hidden_dropout, x.dtype), int(attn_dropout > 0.0),
         int(hidden_dropout > 0.0), float(layer_norm_eps), smem, FWD_STAGES.index(stage), None if wt16 is None else wt16.data_ptr(),
         cuda_build.stream_handle(x.device),
     )
@@ -596,7 +583,7 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         *(None if t is None else t.data_ptr() for t in ws),
         b, s, d, num_heads, f, int(causal), int(bf16), splits,
         cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
-        _keep_divisor(hidden_dropout, x.dtype), _keep_divisor(hidden_dropout, torch.float32),
+        keep_divisor(hidden_dropout, x.dtype), keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
         BWD_STAGES.index(stage), cuda_build.stream_handle(x.device),
     )

@@ -1,6 +1,7 @@
-"""Digests of the pool, pairwise and table InfoNCE kernels' outputs on fixed
-seeded inputs, to hold a kernel's output bits across a change of the code
-it shares with others.
+"""Digests of the pool, pairwise and table InfoNCE kernels' outputs, and of
+the layer stack's (the hash dropout, the attention core forward and
+backward), on fixed seeded inputs, to hold a kernel's output bits across a
+change of the code it shares with others.
 
     python3 transformer_recommenders_tpu_torch/tools/kernel_digest.py \\
         [--tree PATH] [--out FILE]
@@ -25,6 +26,11 @@ POOL_SHAPES = {"A": (4096, 4096, 128), "B": (1024, 1024, 384), "ragged": (1000, 
 PAIRWISE_SHAPES = {"C": (4096, 4096, 64), "D128": (4096, 4096, 128), "ragged": (1000, 777, 64)}
 TABLE_SHAPE = (4096, 3707, 128)
 HEADS = ("ContrastiveLoss", "PairwiseHingeLoss", "PairwiseLogisticLoss", "NCELoss")
+# the hash dropout: the scale step's hidden site, path C's f32 probs, an odd size
+DROPOUT_SHAPES = {"scale_hidden": ((256, 128, 256), "bfloat16"),
+                  "C_probs": ((128, 4, 32, 32), "float32"), "odd": ((3, 7, 5), "bfloat16")}
+# the attention core: (B, S, H, dh) of the scale step and off the 16-row tiles
+ATTN_SHAPES = ((256, 128, 8, 32), (4, 65, 2, 64))
 
 
 def digest(*tensors) -> str:
@@ -90,7 +96,35 @@ def digests() -> dict[str, str]:
         out[f"table mask={mask_fn} fwd (ce, lse)"] = digest(ce, lse)
         out[f"table mask={mask_fn} bwd (dq, dT)"] = digest(
             *fti._bwd_cuda(q, table, pos_idx, counts, lse, g, 1.0, mask_fn))
+    out |= stack_digests()
     torch.cuda.synchronize()
+    return out
+
+
+def stack_digests() -> dict[str, str]:
+    """The hash dropout's and the attention core's outputs (seed term of
+    seed 5, dropout 0.1; the core causal, at rates 0 and 0.1)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+    from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+
+    out = {}
+    gen = torch.Generator().manual_seed(9)
+    term = hd.seed_terms([5])[0]
+    for name, (shape, dtype) in DROPOUT_SHAPES.items():
+        x = torch.randn(shape, generator=gen).to("cuda", getattr(torch, dtype))
+        out[f"hash_dropout {name}"] = digest(hd._hash_dropout_cuda(x, 0.1, term))
+    for b, s, h, dh in ATTN_SHAPES:
+        qkv = torch.randn(b, s, 3 * h * dh, generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = (t.reshape(b, s, h, dh) for t in qkv.chunk(3, dim=-1))
+        mask = (torch.arange(s)[None, :] < torch.randint(1, s + 1, (b, 1), generator=gen)).cuda()
+        g = torch.randn(b, s, h, dh, generator=gen).cuda()
+        for rate in (0.0, 0.1):
+            case = f"attn_core {b}x{s}x{h}x{dh} rate={rate}"
+            ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, True)
+            out[f"{case} fwd (ctx, y)"] = digest(ctx, y)
+            out[f"{case} bwd (dq, dk, dv)"] = digest(*ac._bwd_cuda(q, k, v, y, g, term, rate))
     return out
 
 
