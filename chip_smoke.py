@@ -144,9 +144,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     for bit against the plain int64 chain; the attention core (#17, #18)
     at (B, 128, 8, 32), B=256 and 64, dropout 0.1, against the plain core
     (y within one bf16 ulp in at most 1% of the probs, ctx, dq, dk, dv
-    within 1e-2 of their max abs), two calls bit for bit; each timed
-    beside its plain version, its bound and (#17, #18)
-    ``scaled_dot_product_attention`` without dropout; (d) the hot step:
+    within 1e-2 of their max abs), two calls bit for bit, #18's y (rebuilt
+    from #17's row statistics, read back through dv) bit for bit #17's,
+    no (B, H, S, S) tensor allocated; each timed beside its plain
+    version, its bound (the function's bytes) and (#17, #18)
+    ``scaled_dot_product_attention`` without dropout, with the CTAs an SM
+    holds; (d) the hot step:
     loss and raw gradients against the CPU's plain path at B=8, one
     counted step at B=256 (#1, #2, #10-#12 and #16-#18; the layer stack,
     no fused layer), the zero rows at the cosine normalization, 30
@@ -2986,11 +2989,14 @@ def same_answer(got, want, where: str = "") -> None:
         raise AssertionError(f"{where}: {got!r} vs {want!r}")
 
 
-# a burst's scores, pool against the in-process Service: the fused layer
-# splits a sequence over a cluster of 4, 2 or 1 CTAs by the batch size
-# (``ops/fused_layer.cluster_size``), so a user's query, encoded in one of
-# the pool's micro-batches rather than alone, differs by bf16 roundings
-# (1.3e-4 in a score on the H100); a few times that
+# a burst's scores, pool against the in-process Service: a user's query,
+# encoded in one of the pool's micro-batches rather than alone, differs by
+# bf16 roundings (1.3e-4 in a score on the H100), because cuBLAS picks its
+# f32 sgemm by the row count for the input projection (``_dense``, the
+# first op whose output moves with the batch:
+# ``tools/batch_invariance.py``), and a last-bit difference there can
+# cross a bf16 rounding; the fused layer's bits do not depend on its
+# cluster size.  A few times that
 BURST_SCORE_TOL = 2.0**-10
 
 
@@ -3648,14 +3654,38 @@ def attn_inputs(gen, b: int, s: int, h: int, dh: int):
     return q, k, v, mask, g
 
 
+def attn_core_peaks(ac, q, k, v, mask, g, causal: bool) -> tuple[int, int]:
+    """The bytes the core allocates above what was allocated before, at
+    the peak of its forward (ctx, m, l) and of its backward (dq, dk, dv),
+    through autograd as the layer stack calls it."""
+    import torch
+
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ac.attn_core_bf16(*leaves, mask, 11, STACK_RATE, causal)
+    torch.cuda.synchronize()
+    fwd = torch.cuda.max_memory_allocated() - base
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out.backward(g)
+    torch.cuda.synchronize()
+    return fwd, torch.cuda.max_memory_allocated() - base
+
+
 def check_attn_core(causal: bool) -> list[dict]:
     """#17 and #18 at the scale step's (B, 128, 8, 32), B = 256 and 64,
-    dropout 0.1, against the plain core (ATTN_TOL; #18 from #17's y), two
-    calls bit for bit; device times of each kernel, the plain version and
+    dropout 0.1, against the plain core (ATTN_TOL; #18 from #17's m and
+    l), two calls bit for bit, #18's y (read back through dv) bit for bit
+    #17's, no (B, H, S, S) tensor allocated on the main path; device
+    times of each kernel, the plain version and
     ``scaled_dot_product_attention`` without dropout (forward; forward and
     backward by autograd for #18), which computes another function (no
     hash dropout, no bf16 probs) and is never called by the port, against
-    the bound."""
+    the bound (the function's bytes: q, k, v, the mask and the f32 ctx
+    forward; q, k, v, the f32 g and the bf16 dq, dk, dv backward); the
+    CTAs an SM holds."""
     import torch
     import torch.nn.functional as F
 
@@ -3669,21 +3699,30 @@ def check_attn_core(causal: bool) -> list[dict]:
     for b in (SCALE_BATCH, SCALE_BENCH_BATCH):
         s, h, dh = 128, 8, 32
         q, k, v, mask, g = attn_inputs(gen, b, s, h, dh)
-        ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)
-        ctx2, y2, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)
-        want_ctx, want_y = ac.attn_core_reference(q, k, v, mask, term, STACK_RATE, causal)
-        grads = ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)
-        again = ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)
-        want = ac.attn_core_backward_reference(q, k, v, y, g, term, STACK_RATE)
+        ctx, m, l, y, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal, with_y=True)
+        ctx2, m2, l2, _, _ = ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)
+        want_ctx, _, _, want_y = ac.attn_core_reference(q, k, v, mask, term, STACK_RATE, causal,
+                                                        with_y=True)
+        grads = ac._bwd_cuda(q, k, v, mask, m, l, g, term, STACK_RATE, causal)
+        again = ac._bwd_cuda(q, k, v, mask, m, l, g, term, STACK_RATE, causal)
+        want = ac.attn_core_backward_reference(q, k, v, mask, m, l, g, term, STACK_RATE, causal)
+        rebuilt = ac.probs_through_dv(q, k, v, mask, m, l, causal)
         torch.cuda.synchronize()
         dy = (y.float() - want_y.float()).abs()
         flips = float((dy > 0).float().mean())
         rel = {n: float((a.float() - w.float()).abs().max() / w.float().abs().max())
                for n, a, w in zip(("ctx", "dq", "dk", "dv"), (ctx, *grads), (want_ctx, *want))}
-        same = (torch.equal(bits(ctx), bits(ctx2)) and torch.equal(bits(y), bits(y2))
-                and all(torch.equal(bits(a), bits(a2)) for a, a2 in zip(grads, again)))
-        ok = (same and float(dy.max()) <= ATTN_Y_TOL and flips <= ATTN_Y_FLIPS
-              and all(r <= ATTN_TOL for r in rel.values())
+        same = all(torch.equal(bits(a), bits(a2))
+                   for a, a2 in zip((ctx, m, l, *grads), (ctx2, m2, l2, *again)))
+        same_y = torch.equal(bits(rebuilt), bits(y))
+        probs_bytes = b * h * s * s * 2
+        peaks = attn_core_peaks(ac, q, k, v, mask, g, causal)
+        # above its outputs (ctx, m, l; dq, dk, dv), at most 1 MiB: a bf16
+        # (B, H, S, S) tensor would add probs_bytes
+        lean = (peaks[0] <= ctx.nbytes + m.nbytes + l.nbytes + (1 << 20)
+                and peaks[1] <= 3 * q.numel() * 2 + (1 << 20))
+        ok = (same and same_y and lean and float(dy.max()) <= ATTN_Y_TOL
+              and flips <= ATTN_Y_FLIPS and all(r <= ATTN_TOL for r in rel.values())
               and all(bool(torch.isfinite(t).all()) for t in (ctx, *grads)))
         err["attn_core_fwd"] = max(err["attn_core_fwd"],
                                    float((ctx - want_ctx).abs().max()))
@@ -3693,10 +3732,14 @@ def check_attn_core(causal: bool) -> list[dict]:
             f"{STACK_RATE}: y max abs err {float(dy.max()):.3g} in {flips:.2e} of the probs (tol "
             f"{ATTN_Y_TOL:.3g} in {ATTN_Y_FLIPS}), relative to max abs: "
             + ", ".join(f"{n} {r:.3g}" for n, r in rel.items())
-            + f" (tol {ATTN_TOL}); two calls {'bit for bit' if same else 'DIFFER'} "
-            f"{'ok' if ok else 'FAIL'}")
+            + f" (tol {ATTN_TOL}); two calls {'bit for bit' if same else 'DIFFER'}; #18's y "
+            f"{'bit for bit' if same_y else 'DIFFERS from'} #17's; peak above the inputs: "
+            f"forward {peaks[0]} B, backward {peaks[1]} B (a (B, H, S, S) bf16 tensor: "
+            f"{probs_bytes} B) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"the attention core's kernels disagree at B={b}")
+        del y, want_y, rebuilt, ctx2, m2, l2, again
+        torch.cuda.empty_cache()
 
         # SDPA on the same q, k, v (as (B, H, S, dh) views) and mask, no dropout
         keep = mask[:, None, None, :]
@@ -3710,24 +3753,25 @@ def check_attn_core(causal: bool) -> list[dict]:
             out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
             return torch.autograd.grad(out, leaves, gt)
 
-        nbytes_in = 3 * q.numel() * 2 + mask.numel()
-        y_bytes, ctx_bytes = y.numel() * 2, ctx.numel() * 4
+        qkv_bytes = 3 * q.numel() * 2
         flops = 2 * b * h * s * s * dh
         fwd = {"ms": time_ms(lambda: ac._fwd_cuda(q, k, v, mask, term, STACK_RATE, causal)),
                "plain_ms": time_ms(lambda: ac.attn_core_reference(q, k, v, mask, term,
                                                                   STACK_RATE, causal),
                                    iters=5, reps=2),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=keep))}
-        fwd["bound_ms"], fwd["bound_by"] = bound(2 * flops, nbytes_in + y_bytes + ctx_bytes,
-                                                 H100_BF16_FLOPS)
-        bwd = {"ms": time_ms(lambda: ac._bwd_cuda(q, k, v, y, g, term, STACK_RATE)),
+                   qt, kt, vt, attn_mask=keep)),
+               "ctas_per_sm": ac.ctas_per_sm(False, s, dh)}
+        fwd["bound_ms"], fwd["bound_by"] = bound(2 * flops, qkv_bytes + mask.numel()
+                                                 + ctx.numel() * 4, H100_BF16_FLOPS)
+        bwd = {"ms": time_ms(lambda: ac._bwd_cuda(q, k, v, mask, m, l, g, term, STACK_RATE,
+                                                  causal)),
                "plain_ms": time_ms(lambda: ac.attn_core_backward_reference(
-                   q, k, v, y, g, term, STACK_RATE), iters=5, reps=2),
-               "library_ms": time_ms(sdpa_grad)}
-        bwd["bound_ms"], bwd["bound_by"] = bound(4 * flops, 3 * q.numel() * 2 + y_bytes
-                                                 + g.numel() * 4 + 3 * q.numel() * 2,
-                                                 H100_BF16_FLOPS)
+                   q, k, v, mask, m, l, g, term, STACK_RATE, causal), iters=5, reps=2),
+               "library_ms": time_ms(sdpa_grad),
+               "ctas_per_sm": ac.ctas_per_sm(True, s, dh)}
+        bwd["bound_ms"], bwd["bound_by"] = bound(4 * flops, qkv_bytes + g.numel() * 4
+                                                 + qkv_bytes, H100_BF16_FLOPS)
         for name, t in (("attn_core_fwd", fwd), ("attn_core_bwd", bwd)):
             t["share_of_bound"] = t["bound_ms"] / t["ms"]
             rows[name][f"B{b}"] = t
@@ -3735,8 +3779,9 @@ def check_attn_core(causal: bool) -> list[dict]:
                 f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
                 f"({'forward' if name.endswith('fwd') else 'forward and backward'}, no dropout, "
                 f"another function) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-                f"({t['bound_by']}): {t['share_of_bound']:.2f} of the bound")
-        del q, k, v, g, ctx, ctx2, y, y2, want_ctx, want_y, grads, again, want, leaves
+                f"({t['bound_by']}): {t['share_of_bound']:.3f} of the bound; "
+                f"{t['ctas_per_sm']} CTAs an SM")
+        del q, k, v, g, ctx, m, l, want_ctx, grads, want, leaves
         torch.cuda.empty_cache()
     log_registers("attn_core", ("attn_core_fwd_kernel", "attn_core_bwd_kernel"))
     replaces = {"attn_core_fwd": "transformer_recommenders_tpu/models/transformer.py:253 "

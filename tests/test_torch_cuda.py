@@ -1284,17 +1284,25 @@ def test_hash_dropout_kernel_takes_unaligned_views_and_tails(cuda, dtype, offset
     assert torch.equal(_bits(got), _bits(hd.hash_dropout_reference(x, 0.4942, term)))
 
 
-def _attn_inputs(cuda, b, s, h, dh, seed=0):
+def _attn_inputs(cuda, b, s, h, dh, seed=0, mask_kind="tail"):
     """q, k, v as the layer stack gives them (views of one (B, S, 3 H dh)
-    qkv tensor), a (B, S) key mask with padded tails, an f32 cotangent."""
+    qkv tensor), a (B, S) key mask, an f32 cotangent.  The mask: padded
+    tails of random lengths (the stack's batches); keys 0-9 padded
+    (``left``: rows 0-9 have no valid key at t <= s, so the causal kernels
+    may not skip their future tiles); or holes inside the sequences."""
     gen = torch.Generator().manual_seed(seed)
     d = h * dh
     qkv = torch.randn(b, s, 3 * d, generator=gen).to(cuda, torch.bfloat16)
     q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, s, h, dh) for i in range(3))
     lengths = torch.randint(1, s + 1, (b,), generator=gen)
-    mask = (torch.arange(s)[None, :] < lengths[:, None]).to(cuda)
+    mask = torch.arange(s)[None, :] < lengths[:, None]
+    if mask_kind == "left":
+        mask = torch.arange(s)[None, :].expand(b, s) >= min(10, s - 1)
+    elif mask_kind == "holes":
+        mask = torch.rand(b, s, generator=gen) > 0.3
+        mask[:, 0] = True
     g = torch.randn(b, s, h, dh, generator=gen).to(cuda)
-    return q, k, v, mask, g
+    return q, k, v, mask.to(cuda), g
 
 
 # (B, S, H, dh): the scale step's B=256 and bench_config4's B=64
@@ -1307,28 +1315,31 @@ ATTN_TOL = 1e-2  # GRAD_TOL's bf16 bound, relative to each output's max abs
 @pytest.mark.parametrize(("b", "s", "h", "dh"), ATTN_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attn_core_kernels_match_plain(cuda, b, s, h, dh, causal, rate):
+@pytest.mark.parametrize("mask_kind", ["tail", "left", "holes"])
+def test_attn_core_kernels_match_plain(cuda, b, s, h, dh, causal, rate, mask_kind):
     """#17 against the plain forward and #18 against the plain backward
-    from the same y.  The kernels sum the scores and products on the tensor
-    cores, the plain version with f32 torch.matmul over the same bf16
-    values (exact products): the orders differ, so a score's last bit may
-    move y across a bf16 rounding (one ulp, at most 2**-8 at y <= 1, in
+    from the same (m, l).  The kernels sum the scores and products on the
+    tensor cores, the plain version with f32 torch.matmul over the same
+    bf16 values (exact products): the orders differ, so a score's last bit
+    may move y across a bf16 rounding (one ulp, at most 2**-8 at y <= 1, in
     at most 1% of the probs), and ctx, dq, dk, dv within ATTN_TOL of
-    their max abs values.  Two calls of each kernel give the same bits."""
+    their max abs values; m and l are those of the kernel's own scores, so
+    they are held through y and ctx.  Two calls of each kernel give the
+    same bits, with y written or not."""
     from transformer_recommenders_tpu_torch.ops import attn_core as ac
     from transformer_recommenders_tpu_torch.ops.hash_dropout import seed_terms
 
-    q, k, v, mask, g = _attn_inputs(cuda, b, s, h, dh, seed=b + s + dh)
+    q, k, v, mask, g = _attn_inputs(cuda, b, s, h, dh, seed=b + s + dh, mask_kind=mask_kind)
     term = seed_terms(torch.tensor([12345], device=cuda))[0]
-    ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal)
-    ctx2, y2, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal)
-    want_ctx, want_y = ac.attn_core_reference(q, k, v, mask, term, rate, causal)
-    grads = ac._bwd_cuda(q, k, v, y, g, term, rate)
-    again = ac._bwd_cuda(q, k, v, y, g, term, rate)
-    want = ac.attn_core_backward_reference(q, k, v, y, g, term, rate)
+    ctx, m, l, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal, with_y=True)
+    ctx2, m2, l2, _, _ = ac._fwd_cuda(q, k, v, mask, term, rate, causal)
+    want_ctx, _, _, want_y = ac.attn_core_reference(q, k, v, mask, term, rate, causal,
+                                                    with_y=True)
+    grads = ac._bwd_cuda(q, k, v, mask, m, l, g, term, rate, causal)
+    again = ac._bwd_cuda(q, k, v, mask, m, l, g, term, rate, causal)
+    want = ac.attn_core_backward_reference(q, k, v, mask, m, l, g, term, rate, causal)
     torch.cuda.synchronize()
-    assert torch.equal(_bits(ctx), _bits(ctx2)) and torch.equal(_bits(y), _bits(y2))
-    for a, a2 in zip(grads, again):
+    for a, a2 in zip((ctx, m, l, *grads), (ctx2, m2, l2, *again)):
         assert torch.equal(_bits(a), _bits(a2))
     dy = (y.float() - want_y.float()).abs()
     assert dy.max().item() <= 2.0**-8 and (dy > 0).float().mean().item() <= 0.01
@@ -1336,6 +1347,62 @@ def test_attn_core_kernels_match_plain(cuda, b, s, h, dh, causal, rate):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         assert torch.isfinite(got).all(), name
         assert rel_err(got, ref) <= ATTN_TOL, name
+
+
+@pytest.mark.parametrize(("b", "s", "h", "dh"), [(64, 128, 8, 32), (4, 65, 2, 64), (5, 33, 3, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("mask_kind", ["tail", "left", "holes"])
+def test_attn_core_backward_rebuilds_the_forwards_probs(cuda, b, s, h, dh, causal, mask_kind):
+    """#18's y, rebuilt from #17's (m, l) and read back through dv, equals
+    #17's optional y output bit for bit."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+
+    q, k, v, mask, _ = _attn_inputs(cuda, b, s, h, dh, seed=s + dh, mask_kind=mask_kind)
+    _, m, l, y, _ = ac._fwd_cuda(q, k, v, mask, None, 0.0, causal, with_y=True)
+    rebuilt = ac.probs_through_dv(q, k, v, mask, m, l, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(rebuilt), _bits(y))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.25, 0.5, 0.9])
+def test_attn_core_fast_division_is_the_true_one(cuda, rate):
+    """The kernels divide without __fdiv_rn's branch where the operands
+    allow (csrc/attn_core.cu, div_rn): over every float dividend in that
+    range, the bits equal __fdiv_rn's, for the dropout's two divisors
+    (1 - rate in bf16 and in f32) and for softmax sums l in [1, 128]."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+    from transformer_recommenders_tpu_torch.ops.hash_dropout import keep_divisor
+
+    gen = torch.Generator().manual_seed(int(rate * 100))
+    sums = [1.0, 1.5, 3.0, 127.99, 128.0, *(1 + 127 * torch.rand(3, generator=gen)).tolist()]
+    for b in (keep_divisor(rate, torch.bfloat16), keep_divisor(rate, torch.float32), *sums):
+        assert ac.division_mismatches(b, cuda) == 0, b
+
+
+def test_attn_core_main_path_allocates_no_probs_tensor(cuda):
+    """Through autograd at (64, 128, 8, 32), the forward allocates ctx, m
+    and l and the backward dq, dk, dv and nothing of (B, H, S, S): a bf16
+    one would add 16.8 MB to either peak."""
+    from transformer_recommenders_tpu_torch.ops import attn_core as ac
+
+    b, s, h, dh = 64, 128, 8, 32
+    q, k, v, mask, g = _attn_inputs(cuda, b, s, h, dh, seed=7)
+    leaves = [t.detach().contiguous().requires_grad_(True) for t in (q, k, v)]
+    probs_bytes = b * h * s * s * 2
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ac.attn_core_bf16(*leaves, mask, 11, 0.1, True)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    fwd_want = out.nbytes + 2 * b * h * s * 4  # ctx, m, l
+    assert fwd_peak <= fwd_want + (1 << 20) < fwd_want + probs_bytes
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out.backward(g)
+    torch.cuda.synchronize()
+    bwd_peak = torch.cuda.max_memory_allocated() - base
+    assert bwd_peak <= 3 * q.numel() * 2 + (1 << 20) < probs_bytes  # dq, dk, dv
 
 
 def test_attn_core_counts_launches_and_copies_unshared_strides(cuda):

@@ -5,10 +5,12 @@ forward, #18 backward).
 Counterpart of ``transformer_recommenders_tpu/models/transformer.py``
 ``_attn_core_bf16``, a custom-VJP function that JAX leaves to XLA (there
 is no Pallas kernel): q k^T -> f32 softmax -> bf16 -> hash dropout -> P V
-over (B, S, H, dh) bf16 q, k, v, giving f32 ctx, with one bf16 probs
-residual.  Its backward rebuilds the dropped probs from the hash, rounds
-the cotangent and the score gradient to bf16 before their products, and
-gives bf16 dq, dk, dv.
+over (B, S, H, dh) bf16 q, k, v, giving f32 ctx.  JAX keeps the bf16
+probs y as its residual; the port keeps each row's softmax max m and sum
+l (f32, (B, H, S)) instead and rebuilds y from them, with the forward's
+own ops, bit for bit.  The backward rebuilds the dropped probs from the
+hash, rounds the cotangent and the score gradient to bf16 before their
+products, and gives bf16 dq, dk, dv.
 
 :func:`attn_core_bf16` is a ``torch.autograd.Function`` that dispatches
 by a stated shape gate (:func:`kernel_admits`: S <= 128 and dh in {32,
@@ -59,21 +61,43 @@ class Softmax(torch.autograd.Function):
         return y * (g - (g * y).sum(dim=-1, keepdim=True))
 
 
-def attn_core_reference(q, k, v, key_mask, seed_term, rate: float, causal: bool):
-    """The plain forward: (ctx f32 (B, S, H, dh), y bf16 (B, H, S, S))."""
+def _scores(q, k, key_mask, causal: bool):
+    """The f32 scores (B, H, S, S): q k^T * (1 / sqrt(dh)) + the bias."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = (torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-              + attention_bias(key_mask, q.shape[1], causal))
-    y = Softmax.apply(scores).to(torch.bfloat16)
+    return (torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+            + attention_bias(key_mask, q.shape[1], causal))
+
+
+def probs_from_stats(q, k, key_mask, m, l, causal: bool):
+    """y, the bf16 probs (B, H, S, S), from the rows' max ``m`` and sum
+    ``l``: exp(scores - m) / l with the forward's own ops, so on one device
+    bit for bit the forward's y (``Softmax``'s exp(x - max) / sum)."""
+    e = torch.exp(_scores(q, k, key_mask, causal) - m[..., None])
+    return (e / l[..., None]).to(torch.bfloat16)
+
+
+def attn_core_reference(q, k, v, key_mask, seed_term, rate: float, causal: bool, *,
+                        with_y: bool = False):
+    """The plain forward: (ctx f32 (B, S, H, dh), m, l f32 (B, H, S)), and
+    with ``with_y`` y bf16 (B, H, S, S) after them."""
+    scores = _scores(q, k, key_mask, causal)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    l = e.sum(dim=-1)
+    y = (e / l[..., None]).to(torch.bfloat16)
     probs = hash_dropout(y, rate, seed_term)
-    return torch.einsum("bhst,bthd->bshd", probs.float(), v.float()), y
+    ctx = torch.einsum("bhst,bthd->bshd", probs.float(), v.float())
+    return (ctx, m, l, y) if with_y else (ctx, m, l)
 
 
-def attn_core_backward_reference(q, k, v, y16, g, seed_term, rate: float):
-    """The plain backward from the forward's ``y16`` and the ctx
-    cotangent ``g``: (dq, dk, dv), bf16.  The probs' dropout divides by
-    ``1 - rate`` rounded to bf16, their cotangent's (f32) by it in f32."""
+def attn_core_backward_reference(q, k, v, key_mask, m, l, g, seed_term, rate: float,
+                                 causal: bool):
+    """The plain backward from the forward's ``m``, ``l`` and the ctx
+    cotangent ``g``: (dq, dk, dv), bf16.  y is rebuilt from the statistics;
+    the probs' dropout divides by ``1 - rate`` rounded to bf16, their
+    cotangent's (f32) by it in f32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    y16 = probs_from_stats(q, k, key_mask, m, l, causal)
     g16 = g.to(torch.bfloat16).float()
     probs = hash_dropout(y16, rate, seed_term).float()
     dv = torch.einsum("bhst,bshd->bthd", probs, g16).to(v.dtype)
@@ -103,6 +127,11 @@ def _check(q, k, v) -> None:
         raise ValueError(msg)
 
 
+def _mask(key_mask, device):
+    """The (B, S) key mask as the kernels read it: bool, contiguous."""
+    return key_mask.to(device=device, dtype=torch.bool).contiguous()
+
+
 def _dropout_args(seed_term, rate: float, device):
     """(seed address, seed value, threshold, on) of the kernels."""
     if seed_term is None or rate <= 0.0:
@@ -111,42 +140,86 @@ def _dropout_args(seed_term, rate: float, device):
     return ptr, value, keep_threshold(rate), 1
 
 
-def _fwd_cuda(q, k, v, key_mask, seed_term, rate: float, causal: bool):
-    """#17: (ctx, y) and the q, k, v it read."""
+def _fwd_cuda(q, k, v, key_mask, seed_term, rate: float, causal: bool, *, with_y: bool = False):
+    """#17: (ctx, m, l, y, (q, k, v)): ctx f32 (B, S, H, dh), m and l f32
+    (B, H, S), y bf16 (B, H, S, S) with ``with_y`` (else None; the main
+    path never writes it), and the q, k, v it read."""
     q, k, v = _heads(q, k, v)
     b, s, h, dh = q.shape
-    y = torch.empty((b, h, s, s), dtype=torch.bfloat16, device=q.device)
+    m, l = (torch.empty((b, h, s), dtype=torch.float32, device=q.device) for _ in range(2))
+    y = torch.empty((b, h, s, s), dtype=torch.bfloat16, device=q.device) if with_y else None
     ctx = torch.empty((b, s, h, dh), dtype=torch.float32, device=q.device)
-    mask = key_mask.to(device=q.device, dtype=torch.bool).contiguous()
+    mask = _mask(key_mask, q.device)
     ptr, value, threshold, on = _dropout_args(seed_term, rate, q.device)
     status = cuda_build.library("attn_core").attn_core_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        mask.data_ptr(), y.data_ptr(), ctx.data_ptr(), b, s, h, dh, int(causal),
-        1.0 / math.sqrt(dh), ptr, value, threshold, keep_divisor(rate, torch.bfloat16) if on
-        else 1.0, on, cuda_build.stream_handle(q.device))
+        mask.data_ptr(), m.data_ptr(), l.data_ptr(), y.data_ptr() if with_y else None,
+        ctx.data_ptr(), b, s, h, dh, int(causal), 1.0 / math.sqrt(dh), ptr, value, threshold,
+        keep_divisor(rate, torch.bfloat16) if on else 1.0, on,
+        cuda_build.stream_handle(q.device))
     cuda_build.check(status, "attn_core_fwd launch")
     cuda_build.LAUNCHES["attn_core_fwd"] += 1
-    return ctx, y, (q, k, v)
+    return ctx, m, l, y, (q, k, v)
 
 
-def _bwd_cuda(q, k, v, y, g, seed_term, rate: float):
+def _bwd_cuda(q, k, v, key_mask, m, l, g, seed_term, rate: float, causal: bool):
     """#18: (dq, dk, dv), bf16 (B, S, H, dh), from q, k, v as #17 read
-    them, its ``y`` and the f32 ctx cotangent ``g``."""
+    them, the key mask, #17's ``m`` and ``l`` and the f32 ctx cotangent
+    ``g``."""
     b, s, h, dh = q.shape
     g = g.float().contiguous()  # the cotangent of #17's contiguous f32 ctx: no copy
+    mask = _mask(key_mask, q.device)
     dq, dk, dv = (torch.empty((b, s, h, dh), dtype=torch.bfloat16, device=q.device)
                   for _ in range(3))
     ptr, value, threshold, on = _dropout_args(seed_term, rate, q.device)
     status = cuda_build.library("attn_core").attn_core_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        y.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, dh,
-        1.0 / math.sqrt(dh), ptr, value, threshold,
-        keep_divisor(rate, torch.bfloat16) if on else 1.0,
+        mask.data_ptr(), m.data_ptr(), l.data_ptr(), g.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, h, dh, int(causal), 1.0 / math.sqrt(dh), ptr,
+        value, threshold, keep_divisor(rate, torch.bfloat16) if on else 1.0,
         keep_divisor(rate, torch.float32) if on else 1.0, on,
         cuda_build.stream_handle(q.device))
     cuda_build.check(status, "attn_core_bwd launch")
     cuda_build.LAUNCHES["attn_core_bwd"] += 1
     return dq, dk, dv
+
+
+def ctas_per_sm(backward: bool, s: int, dh: int) -> int:
+    """The CTAs of #17 (or #18) that one SM of the current card holds at
+    (S, dh), by the CUDA occupancy calculator."""
+    n = cuda_build.library("attn_core").attn_core_ctas_per_sm(int(backward), s, dh)
+    if n < 0:
+        msg = f"attn_core_ctas_per_sm: CUDA error at S={s}, dh={dh}"
+        raise RuntimeError(msg)
+    return n
+
+
+def probs_through_dv(q, k, v, key_mask, m, l, causal: bool):
+    """y as #18 rebuilds it from #17's ``m`` and ``l``, read back through
+    dv at rate 0: with g = 1 where s == c + j dh and 0 elsewhere, dv[t, c]
+    = y[c + j dh, t] exactly (one product by 1 in an f32 sum of zeros);
+    the windows j = 0 ... ceil(S / dh) - 1 give every row of y (B, H, S,
+    S).  A check of the backward's y against the forward's optional one."""
+    b, s, h, dh = q.shape
+    y = torch.zeros((b, h, s, s), dtype=torch.bfloat16, device=q.device)
+    for j in range(-(-s // dh)):
+        rows = torch.arange(j * dh, min((j + 1) * dh, s), device=q.device)
+        g = torch.zeros((b, s, h, dh), device=q.device)
+        g[:, rows, :, rows - j * dh] = 1.0
+        _, _, dv = _bwd_cuda(q, k, v, key_mask, m, l, g, None, 0.0, causal)
+        y[:, :, rows, :] = dv[:, :, :, rows - j * dh].permute(0, 2, 3, 1)
+    return y
+
+
+def division_mismatches(b: float, device) -> int:
+    """Of every float a in the kernels' branch-free range (0, or |a| in
+    [2^-80, 2^80]), how many the kernels' division by ``b`` (in [2^-8,
+    2^8]) gives other bits than ``__fdiv_rn`` for, on ``device``."""
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    status = cuda_build.library("attn_core").attn_core_div_check(
+        b, 0, 1 << 32, bad.data_ptr(), cuda_build.stream_handle(bad.device))
+    cuda_build.check(status, "attn_core_div_check launch")
+    return int(bad)
 
 
 class _AttnCoreBf16(torch.autograd.Function):
@@ -155,20 +228,18 @@ class _AttnCoreBf16(torch.autograd.Function):
         ctx.kernel = q.device.type != "cpu" and kernel_admits(q.shape[1], q.shape[-1], q.dtype)
         if ctx.kernel:
             _check(q, k, v)
-            out, y, (q, k, v) = _fwd_cuda(q, k, v, key_mask, seed_term, rate, causal)
+            key_mask = _mask(key_mask, q.device)
+            out, m, l, _, (q, k, v) = _fwd_cuda(q, k, v, key_mask, seed_term, rate, causal)
         else:
-            out, y = attn_core_reference(q, k, v, key_mask, seed_term, rate, causal)
-        ctx.save_for_backward(q, k, v, y)
-        ctx.seed_term, ctx.rate = seed_term, rate
+            out, m, l = attn_core_reference(q, k, v, key_mask, seed_term, rate, causal)
+        ctx.save_for_backward(q, k, v, key_mask, m, l)
+        ctx.seed_term, ctx.rate, ctx.causal = seed_term, rate, causal
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, y = ctx.saved_tensors
-        if ctx.kernel:
-            grads = _bwd_cuda(q, k, v, y, g, ctx.seed_term, ctx.rate)
-        else:
-            grads = attn_core_backward_reference(q, k, v, y, g, ctx.seed_term, ctx.rate)
+        args = (*ctx.saved_tensors, g, ctx.seed_term, ctx.rate, ctx.causal)
+        grads = _bwd_cuda(*args) if ctx.kernel else attn_core_backward_reference(*args)
         return (*grads, None, None, None, None)
 
 

@@ -143,16 +143,21 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
     "attn_core": (
         "attn_core.cu",
         {
-            # q, k, v, their b/s/h strides, key mask, y, ctx, B S H dh
-            # causal, scale, seed term (or null), seed value, threshold,
-            # bf16 keep divisor, dropout on, stream
-            "attn_core_fwd": [_P] * 3 + [_L] * 3 + [_P] * 3 + [_I] * 5
+            # q, k, v, their b/s/h strides, key mask, m, l, y (or null),
+            # ctx, B S H dh causal, scale, seed term (or null), seed value,
+            # threshold, bf16 keep divisor, dropout on, stream
+            "attn_core_fwd": [_P] * 3 + [_L] * 3 + [_P] * 5 + [_I] * 5
             + [_F, _P, _U, _U, _F, _I, _P],
-            # q, k, v, their strides, y, g, dq, dk, dv, B S H dh, scale,
-            # seed term (or null), seed value, threshold, bf16 and f32 keep
-            # divisors, dropout on, stream
-            "attn_core_bwd": [_P] * 3 + [_L] * 3 + [_P] * 5 + [_I] * 4
+            # q, k, v, their strides, key mask, m, l, g, dq, dk, dv, B S H
+            # dh causal, scale, seed term (or null), seed value, threshold,
+            # bf16 and f32 keep divisors, dropout on, stream
+            "attn_core_bwd": [_P] * 3 + [_L] * 3 + [_P] * 7 + [_I] * 5
             + [_F, _P, _U, _U, _F, _F, _I, _P],
+            # backward, S, dh: the CTAs an SM holds
+            "attn_core_ctas_per_sm": [_I] * 3,
+            # b, the first and last + 1 float bit patterns, the count (one
+            # uint64 on the card), stream: the branch-free division's check
+            "attn_core_div_check": [_F, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P],
         },
     ),
 }

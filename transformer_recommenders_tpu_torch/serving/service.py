@@ -250,7 +250,17 @@ class ModelService:
     def embed(self, queries: list[Query]) -> list[Query]:
         """Pad variable-length ``input_embeds`` to one (B, S, D) batch (B a
         power of two, so the device sees few shapes), run one forward,
-        write back ``embedding``."""
+        write back ``embedding``.
+
+        A query's embedding depends on the batch it is encoded in, in its
+        last bits: on the card cuBLAS picks the f32 product of the input
+        projection (``models/transformer._dense``) by the row count B * S,
+        which moves its sums' last bit, and where that crosses a bf16
+        rounding the difference carries on.  For the flagship on an H100,
+        2 of 64 queries encoded in a batch of 64 rather than alone moved,
+        by at most 7.6e-4 in a component (``tools/batch_invariance.py``);
+        recommendation scores stay within 2**-10 (``chip_smoke.py``'s
+        ``BURST_SCORE_TOL``)."""
         s = self.max_seq_length()
         b = 1 << (len(queries) - 1).bit_length() if queries else 1
         batch = np.zeros((b, s, self.embed_dim), np.float32)

@@ -103,7 +103,8 @@ def digests() -> dict[str, str]:
 
 def stack_digests() -> dict[str, str]:
     """The hash dropout's and the attention core's outputs (seed term of
-    seed 5, dropout 0.1; the core causal, at rates 0 and 0.1)."""
+    seed 5, dropout 0.1; the core causal, at rates 0 and 0.1: ctx and its
+    optional y, the rows' softmax statistics, the backward)."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import attn_core as ac
@@ -122,9 +123,11 @@ def stack_digests() -> dict[str, str]:
         g = torch.randn(b, s, h, dh, generator=gen).cuda()
         for rate in (0.0, 0.1):
             case = f"attn_core {b}x{s}x{h}x{dh} rate={rate}"
-            ctx, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, True)
+            ctx, m, l, y, _ = ac._fwd_cuda(q, k, v, mask, term, rate, True, with_y=True)
             out[f"{case} fwd (ctx, y)"] = digest(ctx, y)
-            out[f"{case} bwd (dq, dk, dv)"] = digest(*ac._bwd_cuda(q, k, v, y, g, term, rate))
+            out[f"{case} fwd (m, l)"] = digest(m, l)
+            out[f"{case} bwd (dq, dk, dv)"] = digest(
+                *ac._bwd_cuda(q, k, v, mask, m, l, g, term, rate, True))
     return out
 
 
