@@ -165,9 +165,29 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     by a child process started before phase 1), validating the full val
     set, testing and predicting (4,096 users each), saving, serving the
     nine APIs over the artifact, and a fresh trainer restored from the
-    checkpoint validating bit for bit.
+    checkpoint validating bit for bit;
+18. the quality protocols (``tools/quality_run.py``) against the JAX
+    package's records: (a) every kernel the two fits launch at the shapes
+    and dtypes they give it (#1's gathers, #3 and #4 at B=32 f32 and B=256
+    bf16 with dropout 0.1 and at the validation batches, #5/#6 at 8,192 x
+    3,707 x 384, #7/#8 at 1,024 and 8,192 rows of 384, #16 at the
+    embedding site) against its plain version with the earlier phases'
+    tolerances, timed at the train steps' shapes; (b) one hot step of each
+    fit's model at its batch against the CPU's plain path; (c) the seed
+    spread of
+    ``scripts/parity_seed_spread.py`` in full (5 model seeds, 2 epochs at
+    batch 32 over synthetic data of ML-1M's shape), whose mean val NDCG@10
+    must lie within the JAX seeds' mean plus or minus half their spread
+    (PARITY_SEED_SPREAD.json: [0.02022, 0.02584]); (d) the quality run of
+    ``scripts/quality_run.py`` at seed 0 (batch 256, bf16, dropout 0.1, up
+    to 8 epochs, K=8 windows), whose val NDCG@20 must be finite and above
+    the untrained model's, printed beside JAX's 0.0389.  Each fit's
+    launches must be exactly its hot steps' (graph warm-ups included),
+    logging steps' and validations'; they are the kernels line's path
+    ``quality``, and (a)'s times its rows' ``by_shape`` entries.
 
 ``--only-scale`` runs phases 1 and 17 alone (and prints no kernels line);
+``--only-quality`` phases 1 and 18 (no kernels line either);
 ``--scale-uncut`` runs phase 17's fit over all 25M events and the whole
 epoch, and tests and predicts every user (~9 minutes more).
 
@@ -335,16 +355,17 @@ LAYER_SHAPES = {  # (B, S, D, H, F): where the bf16 forward is launched
 }
 
 
-def time_fused_layer(gen, b, s, d, h, f) -> dict:
-    """Device times of the bf16 forward, its plain version and the stock
-    layer at one shape, dropout off, and the bound; then two calls
+def time_fused_layer(gen, b, s, d, h, f, dtype_name: str = "bfloat16") -> dict:
+    """Device times of the forward (bf16 by default), its plain version and
+    the stock layer at one shape, dropout off, and the bound; then two calls
     (dropout 0.1) held bit for bit."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import cuda_build
     from transformer_recommenders_tpu_torch.ops import fused_layer as fl
 
-    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16)
+    dtype = getattr(torch, dtype_name)
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=dtype)
     with torch.no_grad():
         ms = time_ms(lambda: fl.fused_layer(x, params, mask, **kwargs))
         plain_ms = time_ms(lambda: fl.fused_layer_reference(x, params, mask, **kwargs))
@@ -356,9 +377,11 @@ def time_fused_layer(gen, b, s, d, h, f) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(first, second):
         raise AssertionError(f"fused_layer B={b} D={d}: two calls differ")
-    bound_ms, bound_by = layer_bound_ms(b, s, d, h, f, 2)
-    cluster = fl.cluster_size(b, d, h, cuda_build.sm_count(x.device))
-    log(f"  fused_layer B={b} S={s} D={d} H={h} F={f} bf16 (clusters of {cluster}), device time: "
+    bound_ms, bound_by = layer_bound_ms(b, s, d, h, f, x.element_size())
+    cluster = (fl.cluster_size(b, d, h, cuda_build.sm_count(x.device))
+               if dtype_name == "bfloat16" else 1)  # the f32 kernel takes one CTA a sequence
+    log(f"  fused_layer B={b} S={s} D={d} H={h} F={f} {dtype_name} (clusters of {cluster}), "
+        "device time: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer {library_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}); one eager wrapper call {call_ms:.4f} ms; two calls "
         "bit for bit")
@@ -653,10 +676,11 @@ def check_fused_layer_bwd() -> dict:
     }
 
 
-def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
+def time_layer_bwd(gen, seeds, *, b, s, d, h, f, dtype_name: str = "bfloat16",
+                   dropout: float = 0.1) -> dict:
     """Device times of the layer backward kernel, its plain version and
-    the stock layer's autograd at one bf16 train shape, dropout 0.1, and
-    the bound from the shape."""
+    the stock layer's autograd at one train shape (bf16, dropout 0.1 by
+    default), and the bound from the shape."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_layer as fl
@@ -664,13 +688,15 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
     from transformer_recommenders_tpu_torch.tools.profile_fused_sections import (
         backward_passes_ms)
 
-    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
-                                         dropout=0.1, seeds=seeds)
-    # the seeds on the card, as the encoder passes them: the timed call is
-    # the kernel alone, with no fill writing a list of seeds there
-    kwargs["dropout_seeds"] = seed_tensor(seeds, "cuda")
+    dtype = getattr(torch, dtype_name)
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=dtype,
+                                         dropout=dropout, seeds=seeds if dropout else None)
+    if dropout:
+        # the seeds on the card, as the encoder passes them: the timed call
+        # is the kernel alone, with no fill writing a list of seeds there
+        kwargs["dropout_seeds"] = seed_tensor(seeds, "cuda")
     flat = [params[m][n] for m, n in fl._PARAM_ORDER]
-    dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen).to("cuda", dtype)
     ms = time_ms(lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs, layer_norm_eps=1e-12))
     plain_ms = time_ms(lambda: fl.fused_layer_backward_reference(x, params, mask, dy, **kwargs))
     xr = x.detach().clone().requires_grad_()
@@ -682,9 +708,11 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f) -> dict:
     # dense and four per attention product in the VJP
     flops = 6 * b * s * (4 * d * d + 2 * d * f) + 12 * b * s * s * d
     nparams = 4 * d * d + 2 * d * f + 9 * d + f
-    nbytes = 3 * b * s * d * 2 + 4 * b * s + 2 * 4 * nparams
-    bound_ms, bound_by = bound(flops, nbytes, H100_BF16_FLOPS)
-    log(f"  fused_layer_bwd B={b} S={s} D={d} H={h} F={f} bf16 dropout 0.1, device time: kernel "
+    nbytes = 3 * b * s * d * x.element_size() + 4 * b * s + 2 * 4 * nparams
+    bound_ms, bound_by = bound(flops, nbytes,
+                               H100_BF16_FLOPS if dtype_name == "bfloat16" else H100_F32_FLOPS)
+    log(f"  fused_layer_bwd B={b} S={s} D={d} H={h} F={f} {dtype_name} dropout {dropout}, device "
+        "time: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer forward + autograd backward "
         f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, {flops / 1e9:.2f} GFLOP)")
     # the four passes of one call (pass 0 rounds the weights to bf16)
@@ -849,52 +877,61 @@ def run_table_infonce(q, table, pos, counts, g, scale: float, mask_fn: bool):
     return ce.detach(), q.grad, table.grad
 
 
-def check_table_infonce() -> list[dict]:
+# of the max abs value: exp/log for ce and dl's bf16 rounding for the
+# gradients.  The kernels and the plain version sum the scores in other
+# orders: on Gaussian inputs with the mask on, ce is held on the rows
+# without a near-tie and those rows take no cotangent (a flip of the mask
+# there moves dl by about exp(-ce) g scale); on exact-sum inputs every row
+# is held
+TABLE_TOL = {"ce": 1e-5, "dq": 1e-2, "dtable": 1e-2}
+
+
+def hold_table_infonce(gen, r: int, n: int, d: int, inputs: str, mask_fn: bool,
+                       scale: float) -> dict:
+    """#5 and #6 at (R, N, D) on ``inputs`` ("gaussian" or "exact", see
+    :func:`table_case`) against their plain versions within TABLE_TOL;
+    returns the max abs errors of ce, dq and dtable."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
 
-    gen = torch.Generator().manual_seed(3)
-    r, n, d = 4096, 3707, 128
-    # of the max abs value: exp/log for ce and dl's bf16 rounding for the
-    # gradients.  The kernels and the plain version sum the scores in other
-    # orders: on Gaussian inputs with the mask on, ce is held on the rows
-    # without a near-tie and those rows take no cotangent (a flip of the
-    # mask there moves dl by about exp(-ce) g scale); on exact-sum inputs
-    # every row is held
-    tol = {"ce": 1e-5, "dq": 1e-2, "dtable": 1e-2}
-    max_err = {}
-    for inputs in ("gaussian", "exact"):
-        for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5)):
-            q, table, pos, counts, row_valid = table_case(gen, r, n, d, exact=inputs == "exact")
-            keep = torch.ones_like(row_valid)
-            if mask_fn and inputs == "gaussian":
-                with torch.no_grad():
-                    keep = ~table_near_tie_rows(q, table, pos, counts, scale)
-            g = (row_valid & keep).float()
-            ce, dq, dt = run_table_infonce(q, table, pos, counts, g, scale, mask_fn)
-            kw = dict(scale=scale, mask_false_negatives=mask_fn)
-            with torch.no_grad():
-                ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, **kw)
-                dq_want, dt_want = fti.table_infonce_backward_reference(
-                    q, table, pos, counts, lse_want, g, **kw)
-            torch.cuda.synchronize()
-            parts = []
-            for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
-                                   ("dtable", dt, dt_want)):
-                err = (got.float() - want.float()).abs()
-                rel = float(err.max() / want.float().abs().max())
-                ok = bool(torch.isfinite(got.float()).all()) and rel <= tol[key]
-                parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
-                             f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
-                if not ok:
-                    log(f"  table_infonce {key} {inputs} mask={mask_fn} scale={scale}: "
-                        f"max_rel_err={rel:.3g} tol={tol[key]} FAIL")
-                    raise AssertionError(f"table_infonce {key} disagrees with its plain version")
-                max_err[key] = max(max_err.get(key, 0.0), float(err.max()))
-            log(f"  table_infonce {inputs} R={r} N={n} D={d} mask_false_negatives={mask_fn} "
-                f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of the "
-                f"max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+    q, table, pos, counts, row_valid = table_case(gen, r, n, d, exact=inputs == "exact")
+    keep = torch.ones_like(row_valid)
+    if mask_fn and inputs == "gaussian":
+        with torch.no_grad():
+            keep = ~table_near_tie_rows(q, table, pos, counts, scale)
+    g = (row_valid & keep).float()
+    ce, dq, dt = run_table_infonce(q, table, pos, counts, g, scale, mask_fn)
+    kw = dict(scale=scale, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        ce_want, lse_want = fti.table_infonce_reference(q, table, pos, counts, **kw)
+        dq_want, dt_want = fti.table_infonce_backward_reference(
+            q, table, pos, counts, lse_want, g, **kw)
+    torch.cuda.synchronize()
+    parts, max_err = [], {}
+    for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
+                           ("dtable", dt, dt_want)):
+        err = (got.float() - want.float()).abs()
+        rel = float(err.max() / want.float().abs().max())
+        ok = bool(torch.isfinite(got.float()).all()) and rel <= TABLE_TOL[key]
+        parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
+                     f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
+        if not ok:
+            log(f"  table_infonce {key} {inputs} R={r} N={n} D={d} mask={mask_fn} "
+                f"scale={scale}: max_rel_err={rel:.3g} tol={TABLE_TOL[key]} FAIL")
+            raise AssertionError(f"table_infonce {key} disagrees with its plain version")
+        max_err[key] = float(err.max())
+    log(f"  table_infonce {inputs} R={r} N={n} D={d} mask_false_negatives={mask_fn} "
+        f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of the "
+        f"max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+    return max_err
+
+
+def hold_table_twice(gen, r: int, n: int, d: int):
+    """Two calls of #5 and #6 at (R, N, D), mask on, give the same bits;
+    returns the operands."""
+    import torch
+
     q, table, pos, counts, row_valid = table_case(gen, r, n, d)
     g = row_valid.float()
     first = run_table_infonce(q, table, pos, counts, g, 1.0, True)
@@ -903,17 +940,63 @@ def check_table_infonce() -> list[dict]:
     if not all(map(torch.equal, first, second)):
         raise AssertionError("the table kernels are not deterministic")
     log(f"  table_infonce R={r} N={n} D={d}: two calls bit for bit (ce, dq, dtable)")
+    return q, table, pos, counts, row_valid
+
+
+def check_table_infonce() -> list[dict]:
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    r, n, d = 4096, 3707, 128
+    max_err = {}
+    for inputs in ("gaussian", "exact"):
+        for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5)):
+            errs = hold_table_infonce(gen, r, n, d, inputs, mask_fn, scale)
+            max_err = {k: max(max_err.get(k, 0.0), v) for k, v in errs.items()}
+    q, table, pos, counts, row_valid = hold_table_twice(gen, r, n, d)
     # times at the train shape, mask_false_negatives on
-    qd, td = q, table
-    lse = fti._fwd_cuda(qd, td, pos, counts, 1.0, True)[1]
-    fwd_ms = time_ms(lambda: fti._fwd_cuda(qd, td, pos, counts, 1.0, True))
-    bwd_ms = time_ms(lambda: fti._bwd_cuda(qd, td, pos, counts, lse, g, 1.0, True))
+    times = time_table_infonce(q, table, pos, counts, row_valid.float())
+    fwd, bwd = times["table_infonce_fwd"], times["table_infonce_bwd"]
+    common = {"route": "cuda",
+              "source": "transformer_recommenders_tpu_torch/csrc/fused_table_infonce.cu",
+              "shape": f"R={r} N={n} D={d} bf16", "splits": times["splits"]}
+    return [
+        {"name": "table_infonce_fwd", **common,
+         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:83",
+         "max_abs_err": max_err["ce"], **fwd},
+        {"name": "table_infonce_bwd", **common,
+         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:137",
+         "max_abs_err": max(max_err["dq"], max_err["dtable"]), **bwd},
+    ]
+
+
+# the plain InfoNCE versions sum one product per k (the kernels' order):
+# over more than 2**24 scores a call takes tens of ms, and they are timed
+# over 10 calls in place of 400
+PLAIN_FEW_SCORES = 2**24
+PLAIN_FEW = {"iters": 5, "reps": 2}
+
+
+def time_table_infonce(q, table, pos, counts, g) -> dict:
+    """Device times of #5 and #6 (mask on, scale 1), their plain versions
+    and the composite yardstick on these operands, and the bounds from the
+    shapes: ``{"table_infonce_fwd": ..., "table_infonce_bwd": ..., "splits":
+    ...}``."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_table_infonce as fti
+
+    (r, d), n = q.shape, table.shape[0]
+    lse = fti._fwd_cuda(q, table, pos, counts, 1.0, True)[1]
+    fwd_ms = time_ms(lambda: fti._fwd_cuda(q, table, pos, counts, 1.0, True))
+    bwd_ms = time_ms(lambda: fti._bwd_cuda(q, table, pos, counts, lse, g, 1.0, True))
+    few = PLAIN_FEW if r * n > PLAIN_FEW_SCORES else {}
     with torch.no_grad():
-        fwd_plain = time_ms(lambda: fti.table_infonce_reference(qd, td, pos, counts))
-        bwd_plain = time_ms(lambda: fti.table_infonce_backward_reference(qd, td, pos, counts,
-                                                                         lse, g))
-        fwd_lib = time_ms(lambda: composite_table_infonce(qd, td, pos, counts, True))
-    qr, tr = qd.clone().requires_grad_(), td.clone().requires_grad_()
+        fwd_plain = time_ms(lambda: fti.table_infonce_reference(q, table, pos, counts), **few)
+        bwd_plain = time_ms(lambda: fti.table_infonce_backward_reference(q, table, pos, counts,
+                                                                         lse, g), **few)
+        fwd_lib = time_ms(lambda: composite_table_infonce(q, table, pos, counts, True))
+    qr, tr = q.clone().requires_grad_(), table.clone().requires_grad_()
     bwd_lib = time_ms(lambda: torch.autograd.grad(
         (composite_table_infonce(qr, tr, pos, counts, True) * g).sum(), [qr, tr]))
     io = r * d * 2 + n * d * 2 + n * 4 + r * 4
@@ -927,20 +1010,11 @@ def check_table_infonce() -> list[dict]:
     log(f"  table_infonce_bwd ({splits['dq']} dq splits, {splits['dt']} dT splits), device time: "
         f"kernel {bwd_ms:.4f} ms, plain {bwd_plain:.4f} ms, composite forward + autograd "
         f"backward {bwd_lib:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
-    common = {"route": "cuda",
-              "source": "transformer_recommenders_tpu_torch/csrc/fused_table_infonce.cu",
-              "shape": f"R={r} N={n} D={d} bf16", "splits": splits}
-    return [
-        {"name": "table_infonce_fwd", **common,
-         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:83",
-         "max_abs_err": max_err["ce"], "ms": fwd_ms, "plain_ms": fwd_plain,
-         "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": fwd_lib},
-        {"name": "table_infonce_bwd", **common,
-         "replaces": "transformer_recommenders_tpu/ops/fused_table_infonce.py:137",
-         "max_abs_err": max(max_err["dq"], max_err["dtable"]), "ms": bwd_ms,
-         "plain_ms": bwd_plain, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
-         "library_ms": bwd_lib},
-    ]
+    return {"table_infonce_fwd": {"ms": fwd_ms, "plain_ms": fwd_plain, "bound_ms": fwd_bound[0],
+                                  "bound_by": fwd_bound[1], "library_ms": fwd_lib},
+            "table_infonce_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "bound_ms": bwd_bound[0],
+                                  "bound_by": bwd_bound[1], "library_ms": bwd_lib},
+            "splits": splits}
 
 
 def composite_pool_infonce(q, p, n, neg_valid, mask_fn: bool, scale: float):
@@ -1066,63 +1140,78 @@ def check_pool_copies(gen, r: int, rn: int, d: int) -> None:
         raise AssertionError("the pool kernels are not deterministic or count a copy of pos")
 
 
-def check_pool_infonce() -> list[dict]:
+# of the max abs value: exp/log for ce and dl's bf16 rounding for the
+# gradients (the bounds of tests/test_torch_cuda.py).  The kernels and the
+# plain version sum the scores in other orders: on Gaussian inputs with the
+# mask on, ce is held on the rows without a near-tie and those rows take no
+# cotangent (a flip of the mask there moves dl by about exp(-ce) g scale);
+# on exact-sum inputs every row is held
+POOL_TOL = {"ce": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
+
+
+def hold_pool_infonce(gen, r: int, rn: int, d: int, inputs: str, mask_fn: bool,
+                      scale: float) -> dict:
+    """#7 and #8 (with the dn pass) at (R, Rn, D) on ``inputs``
+    ("gaussian": :func:`pool_case`, "exact": :func:`exact_pool_case`)
+    against their plain versions within POOL_TOL; returns the max abs
+    errors of ce, dq, dp and dn."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_infonce as fi
 
+    case = pool_case if inputs == "gaussian" else exact_pool_case
+    q, p, n, row_valid, neg_valid = case(gen, r, rn, d)
+    keep = torch.ones(r, dtype=torch.bool, device="cuda")
+    if mask_fn and inputs == "gaussian":
+        with torch.no_grad():
+            keep = ~near_tie_rows(q, p, n, neg_valid, scale)
+    g = (row_valid & keep).float()
+    ce, dq, dp, dn = run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn)
+    kw = dict(scale=scale, mask_false_negatives=mask_fn)
+    with torch.no_grad():
+        ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
+        dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g, **kw)
+        dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
+    torch.cuda.synchronize()
+    if mask_fn and ce[0].item() != 0.0:
+        raise AssertionError("a row with every negative masked must give ce = 0")
+    parts, max_err = [], {}
+    for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
+                           ("dp", dp, dp_want), ("dn", dn, dn_want)):
+        err = (got.float() - want.float()).abs()
+        rel = float(err.max() / want.float().abs().max())
+        if not (bool(torch.isfinite(got.float()).all()) and rel <= POOL_TOL[key]):
+            log(f"  pool_infonce {key} {inputs} R={r} Rn={rn} D={d} mask={mask_fn} "
+                f"scale={scale}: max_rel_err={rel:.3g} tol={POOL_TOL[key]} FAIL")
+            if key == "ce":
+                worst = int(keep.nonzero()[int(err.argmax())])
+                x, pos = fi._scores(q, p, n, scale)
+                gap = (x[worst] - pos[worst]).abs()[neg_valid > 0]
+                log(f"  worst row {worst}: ce {float(ce[worst]):.7g}, plain "
+                    f"{float(ce_want[worst]):.7g}, least |x - pos| over its valid "
+                    f"pool in the plain scores {float(gap.min()):.3g}")
+            raise AssertionError(f"pool_infonce {key} disagrees with its plain version")
+        parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
+                     f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
+        max_err[key] = float(err.max())
+    log(f"  pool_infonce {inputs} R={r} Rn={rn} D={d} mask_false_negatives={mask_fn} "
+        f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of "
+        f"the max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+    return max_err
+
+
+def check_pool_infonce() -> list[dict]:
+    import torch
+
     gen = torch.Generator().manual_seed(6)
-    # of the max abs value: exp/log for ce and dl's bf16 rounding for the
-    # gradients (the bounds of tests/test_torch_cuda.py).  The kernels and
-    # the plain version sum the scores in other orders: on Gaussian inputs
-    # with the mask on, ce is held on the rows without a near-tie and those
-    # rows take no cotangent (a flip of the mask there moves dl by about
-    # exp(-ce) g scale); on exact-sum inputs every row is held
-    tol = {"ce": 1e-5, "dq": 1e-2, "dp": 1e-2, "dn": 1e-2}
     max_err = {}
     for shape, (r, rn, d) in POOL_SHAPES.items():
-        for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
+        for inputs in ("gaussian", "exact"):
             for mask_fn, scale in ((True, 1.0), (False, 1.0), (True, 2.5), (False, 2.5)):
-                q, p, n, row_valid, neg_valid = case(gen, r, rn, d)
-                keep = torch.ones(r, dtype=torch.bool, device="cuda")
-                if mask_fn and inputs == "gaussian":
-                    with torch.no_grad():
-                        keep = ~near_tie_rows(q, p, n, neg_valid, scale)
-                g = (row_valid & keep).float()
-                ce, dq, dp, dn = run_pool_infonce(q, p, n, neg_valid, g, scale, mask_fn)
-                kw = dict(scale=scale, mask_false_negatives=mask_fn)
-                with torch.no_grad():
-                    ce_want, lse, _ = fi.fused_infonce_reference(q, p, n, neg_valid, **kw)
-                    dq_want, dp_want = fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g,
-                                                                     **kw)
-                    dn_want = fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g, **kw)
-                torch.cuda.synchronize()
-                if mask_fn and ce[0].item() != 0.0:
-                    raise AssertionError("a row with every negative masked must give ce = 0")
-                parts = []
-                for key, got, want in (("ce", ce[keep], ce_want[keep]), ("dq", dq, dq_want),
-                                       ("dp", dp, dp_want), ("dn", dn, dn_want)):
-                    err = (got.float() - want.float()).abs()
-                    rel = float(err.max() / want.float().abs().max())
-                    if not (bool(torch.isfinite(got.float()).all()) and rel <= tol[key]):
-                        log(f"  pool_infonce {key} {inputs} R={r} Rn={rn} D={d} mask={mask_fn} "
-                            f"scale={scale}: max_rel_err={rel:.3g} tol={tol[key]} FAIL")
-                        if key == "ce":
-                            worst = int(keep.nonzero()[int(err.argmax())])
-                            x, pos = fi._scores(q, p, n, scale)
-                            gap = (x[worst] - pos[worst]).abs()[neg_valid > 0]
-                            log(f"  worst row {worst}: ce {float(ce[worst]):.7g}, plain "
-                                f"{float(ce_want[worst]):.7g}, least |x - pos| over its valid "
-                                f"pool in the plain scores {float(gap.min()):.3g}")
-                        raise AssertionError(f"pool_infonce {key} disagrees with its plain version")
-                    parts.append(f"{key} max_abs_err={float(err.max()):.3g} "
-                                 f"mean_abs_err={float(err.mean()):.3g} max_rel_err={rel:.3g}")
-                    if shape != "ragged":
-                        max_err[(shape, key)] = max(max_err.get((shape, key), 0.0),
-                                                    float(err.max()))
-                log(f"  pool_infonce {inputs} R={r} Rn={rn} D={d} mask_false_negatives={mask_fn} "
-                    f"scale={scale}: " + "; ".join(parts) + " (tol ce 1e-5, gradients 1e-2 of "
-                    f"the max abs; near-tie rows left out: {int((~keep).sum())} of {r}) ok")
+                errs = hold_pool_infonce(gen, r, rn, d, inputs, mask_fn, scale)
+                if shape != "ragged":
+                    for key, err in errs.items():
+                        max_err[(shape, key)] = max(max_err.get((shape, key), 0.0), err)
         check_pool_copies(gen, r, rn, d)
     log_registers("fused_infonce", ("pool_infonce_", "xrt::"))
     times = {shape: time_pool_infonce(gen, *POOL_SHAPES[shape]) for shape in ("A", "B")}
@@ -1157,6 +1246,7 @@ def time_pool_infonce(gen, r: int, rn: int, d: int) -> dict:
     g = row_valid.float()
     _, lse, pos = fi._fwd_cuda(q, p, n, neg_valid, 1.0, True)
     out = {"pool_infonce_fwd": {}, "pool_infonce_dq": {}, "pool_infonce_dn": {}}
+    few = PLAIN_FEW if r * rn > PLAIN_FEW_SCORES else {}
     out["pool_infonce_fwd"]["ms"] = time_ms(lambda: fi._fwd_cuda(q, p, n, neg_valid, 1.0, True))
     out["pool_infonce_dq"]["ms"] = time_ms(
         lambda: fi._dq_cuda(q, p, n, neg_valid, lse, g, pos, 1.0, True))
@@ -1164,11 +1254,11 @@ def time_pool_infonce(gen, r: int, rn: int, d: int) -> dict:
         lambda: fi._dn_cuda(q, p, n, neg_valid, lse, g, pos, 1.0, True))
     with torch.no_grad():
         out["pool_infonce_fwd"]["plain_ms"] = time_ms(
-            lambda: fi.fused_infonce_reference(q, p, n, neg_valid))
+            lambda: fi.fused_infonce_reference(q, p, n, neg_valid), **few)
         out["pool_infonce_dq"]["plain_ms"] = time_ms(
-            lambda: fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g))
+            lambda: fi.fused_infonce_dq_reference(q, p, n, neg_valid, lse, g), **few)
         out["pool_infonce_dn"]["plain_ms"] = time_ms(
-            lambda: fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g))
+            lambda: fi.fused_infonce_dn_reference(q, p, n, neg_valid, lse, g), **few)
         out["pool_infonce_fwd"]["library_ms"] = time_ms(
             lambda: composite_pool_infonce(q, p, n, neg_valid, True, 1.0))
     qr, pr, nr = (t.clone().requires_grad_() for t in (q, p, n))
@@ -1752,6 +1842,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only-scale", action="store_true",
                         help="phases 1 and 17 alone (no kernels line)")
+    parser.add_argument("--only-quality", action="store_true",
+                        help="phases 1 and 18 alone (no kernels line)")
     parser.add_argument("--scale-uncut", action="store_true",
                         help="phase 17's fit over ML-25M's 25M events and the whole epoch, its "
                              "test and predict over every user (~9 minutes more)")
@@ -1779,11 +1871,11 @@ def main() -> int:
     scale_dir = tempfile.TemporaryDirectory()
     scale_data = pathlib.Path(scale_dir.name) / "data"
     events = ML25M_SCALE["synthetic_num_events"] if args.scale_uncut else SCALE_EVENTS
-    data_job = start_scale_data(scale_data, events)
+    data_job = None if args.only_quality else start_scale_data(scale_data, events)
     try:
         return run_phases(args, smi, data_job, scale_data)
     finally:
-        if data_job.poll() is None:
+        if data_job is not None and data_job.poll() is None:
             data_job.kill()
             data_job.wait()
         scale_dir.cleanup()
@@ -1809,6 +1901,11 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
     if args.only_scale:
         scale_phase(phase, data_job, scale_data, args)
         log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 17 alone)")
+        return 0
+    if args.only_quality:
+        phase("18: the quality protocols against the JAX package's records")
+        quality_phase()
+        log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 18 alone)")
         return 0
 
     phase("2: the serving path's kernels against their plain versions")
@@ -1890,6 +1987,12 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
     scale = scale_phase(phase, data_job, scale_data, args)
     launches |= scale["launches"]
     kernels += scale["stack"]
+
+    phase("18: the quality protocols against the JAX package's records")
+    quality = quality_phase()
+    launches["quality"] = quality["launches"]
+    for k in kernels:  # the fits' shapes beside each row's own
+        k["by_shape"] = k.get("by_shape", {}) | quality["by_shape"].get(k["name"], {})
     for k in kernels:  # the D=256 and 62k-catalog shapes beside each row's own
         if k["name"].startswith("pairwise_"):
             k["by_shape"] |= {f"scale_{shape}": t[k["name"]]
@@ -4067,6 +4170,288 @@ def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: 
     fresh.close()
     trainer.close()
     return launches
+
+
+# -- phase 18: the quality protocols ------------------------------------------------------------
+
+# the fits' catalog: 3,706 items and the pad row, 384-d f32 rows that no
+# projection maps (hidden 384 = embedding 384), so no gradient reaches it
+QUALITY_TABLE = (3707, 384)
+# the seed-spread fit's layer: the reference topology at batch 32, f32, dropout 0
+SEED_SPREAD_LAYER = (32, 32, 384, 12, 48)
+# where the two fits launch each kernel (the shapes and dtypes its wrapper
+# takes in a hot step, a logging step and a validation batch).  The seed
+# spread (B=32, f32, dropout 0, no logging step) runs the pool objective
+# over its B*S = 1,024 rows (the catalog is more than twice the pool) on
+# the 3 * 1,024 history, positive and negative rows it gathers; the quality
+# run (B=256, bf16, dropout 0.1) the table objective over its 8,192 rows on
+# hot steps and the pool over 8,192 on logging steps (3 * 8,192 rows
+# gathered), with #16 at the embedding site; both validate 256 users a
+# batch (8,192 history rows, the layer without dropout)
+QUALITY_GATHERS = ((3072, "float32"), (8192, "float32"), (8192, "bfloat16"),
+                   (24576, "bfloat16"))  # (R, output dtype) from the f32 catalog
+QUALITY_LAYERS = {  # name: (B, dtype, dropout, backward)
+    "B_f32": (32, "float32", 0.0, True),  # the seed spread's train step
+    "eval_f32": (256, "float32", 0.0, False),  # its validation batch
+    "quality": (256, "bfloat16", 0.1, True),  # the quality run's train step
+    "eval_bf16": (256, "bfloat16", 0.0, False),  # its validation batch
+}
+QUALITY_POOLS = {"seed_spread": (1024, 1024, 384), "quality_log": (8192, 8192, 384)}  # (R, Rn, D)
+QUALITY_TABLE_ROWS = 8192  # the quality run's hot step: B*S queries over the catalog
+QUALITY_DROPOUT = (256, 32, 384)  # #16 at the quality run's embedding site, bf16
+# the kernels every fit of phase 18 launches: the gather, the layer forward
+# and backward, and the pool InfoNCE's forward and dq (the seed spread's every
+# step over 1,024 pool rows, the quality run's logging steps); the frozen
+# table takes no gradient, so neither #2 nor #9 runs in the seed spread
+QUALITY_PATH = ("gather_rows", "fused_layer", "fused_layer_bwd", "pool_infonce_fwd",
+                "pool_infonce_dq")
+
+
+def hold_layer(gen, b: int, dtype_name: str, dropout: float, backward: bool) -> float:
+    """#3 (and #4 where ``backward``) at (B, 32, 384, 12, 48), ``dtype_name``,
+    both dropouts ``dropout``, against their plain versions (TOL and
+    TOL_MEAN, GRAD_TOL); returns the worst max abs error."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    _, s, d, h, f = SEED_SPREAD_LAYER
+    dtype = getattr(torch, dtype_name)
+    seeds = [0x0BADF00D, 0x600DCAFE, 2000000000] if dropout else None
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=dtype,
+                                         dropout=dropout, seeds=seeds)
+    name = f"fused_layer B={b} S={s} D={d} H={h} F={f} {dtype_name} dropout {dropout}"
+    if not backward:
+        with torch.no_grad():
+            got = fl.fused_layer(x, params, mask, **kwargs)
+            want = fl.fused_layer_reference(x, params, mask, **kwargs)
+        torch.cuda.synchronize()
+        return compare(name, got, want, dtype_name)
+    leaves = [params[m][n].requires_grad_() for m, n in fl._PARAM_ORDER]
+    x.requires_grad_()
+    dy = torch.randn(x.shape, generator=gen).to("cuda", dtype)
+    y = fl.fused_layer(x, params, mask, **kwargs)
+    y.backward(dy)
+    with torch.no_grad():
+        want = fl.fused_layer_reference(x.detach(), params, mask, **kwargs)
+        dx_want, grads = fl.fused_layer_backward_reference(x.detach(), params, mask, dy,
+                                                           **kwargs)
+    torch.cuda.synchronize()
+    fwd_err = compare(name, y.detach(), want, dtype_name)
+    errs = [compare_grad(f"{name} dx", x.grad, dx_want, dtype_name)]
+    errs += [compare_grad(f"{name} {m}/{n}", t.grad, grads[m][n], dtype_name)
+             for (m, n), t in zip(fl._PARAM_ORDER, leaves)]
+    log(f"  {name} backward: worst of dx and 12 parameter gradients max_rel_err="
+        f"{max(e[2] for e in errs):.3g}; tol={GRAD_TOL[dtype_name]} (relative to max abs) ok")
+    return max(fwd_err, *(e[0] for e in errs))
+
+
+def check_quality_kernels() -> dict:
+    """Phase 18 (a): every kernel of the two fits at the shapes and dtypes
+    the fits give it (see QUALITY_GATHERS above), against its plain version
+    with the tolerances of the earlier phases (#1 and #16 bit for bit), and
+    timed at the train steps' shapes.  Returns ``{kernel: {shape: times and
+    max_abs_err}}``, the kernels line's ``by_shape`` entries."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+    from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+
+    gen = torch.Generator().manual_seed(18)
+    out: dict = {}
+
+    def add(kernel: str, shape: str, row: dict) -> None:
+        out.setdefault(kernel, {})[shape] = row
+
+    n, d = QUALITY_TABLE
+    table = (0.3 * torch.randn(n, d, generator=gen)).cuda()
+    for r, out_dtype in QUALITY_GATHERS:
+        idx = torch.randint(0, n, (r,), generator=gen).cuda()
+        got = gm.gather_rows(table, idx, getattr(torch, out_dtype))
+        want = gm.gather_rows_reference(table, idx, getattr(torch, out_dtype))
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        log(f"  gather_rows N={n} D={d} R={r} float32->{out_dtype}: "
+            f"{'bit for bit' if ok else 'DIFFERS'} (tol 0, a copy)")
+        if not ok:
+            raise AssertionError("gather_rows disagrees with its plain version")
+    add("gather_rows", "B_f32", time_gather(gen, 3072, n, d, "float32", "float32", 3)
+        | {"max_abs_err": 0.0})
+    add("gather_rows", "quality", time_gather(gen, 8192, n, d, "float32", "bfloat16", 1)
+        | {"max_abs_err": 0.0})
+
+    errs = {name: hold_layer(gen, *case) for name, case in QUALITY_LAYERS.items()}
+    for name in ("B_f32", "quality"):  # the train steps' shapes
+        b, dtype_name, dropout, _ = QUALITY_LAYERS[name]
+        _, s, _, h, f = SEED_SPREAD_LAYER
+        add("fused_layer", name, time_fused_layer(gen, b, s, d, h, f, dtype_name)
+            | {"max_abs_err": errs[name]})
+        seeds = [0x0BADF00D, 0x600DCAFE, 2000000000] if dropout else None
+        add("fused_layer_bwd", name, time_layer_bwd(gen, seeds, b=b, s=s, d=d, h=h, f=f,
+                                                    dtype_name=dtype_name, dropout=dropout)
+            | {"max_abs_err": errs[name]})
+
+    r = QUALITY_TABLE_ROWS
+    table_errs: dict = {}
+    for inputs in ("gaussian", "exact"):
+        for k, v in hold_table_infonce(gen, r, n, d, inputs, True, 1.0).items():
+            table_errs[k] = max(table_errs.get(k, 0.0), v)
+    q, tbl, pos, counts, row_valid = hold_table_twice(gen, r, n, d)
+    times = time_table_infonce(q, tbl, pos, counts, row_valid.float())
+    add("table_infonce_fwd", "quality", times["table_infonce_fwd"]
+        | {"max_abs_err": table_errs["ce"]})
+    add("table_infonce_bwd", "quality", times["table_infonce_bwd"]
+        | {"max_abs_err": max(table_errs["dq"], table_errs["dtable"])})
+
+    for shape, (r, rn, dp) in QUALITY_POOLS.items():
+        pool_errs: dict = {}
+        for inputs in ("gaussian", "exact"):
+            for k, v in hold_pool_infonce(gen, r, rn, dp, inputs, True, 1.0).items():
+                pool_errs[k] = max(pool_errs.get(k, 0.0), v)
+        check_pool_copies(gen, r, rn, dp)
+        times = time_pool_infonce(gen, r, rn, dp)
+        for name, keys in (("pool_infonce_fwd", ("ce",)), ("pool_infonce_dq", ("dq", "dp"))):
+            add(name, shape, times[name] | {"max_abs_err": max(pool_errs[k] for k in keys)})
+
+    # #16 at the embedding site: forward, backward and a second call bit
+    # for bit against the plain int64 chain
+    rate = 0.1
+    term = hd.seed_terms(torch.full((1,), 0x5EED, dtype=torch.int64, device="cuda"))[0]
+    x = torch.randn(QUALITY_DROPOUT, generator=gen).to("cuda", torch.bfloat16)
+    g = torch.randn(QUALITY_DROPOUT, generator=gen).to("cuda", torch.bfloat16)
+    xr = x.detach().requires_grad_(True)
+    got = hd.hash_dropout(xr, rate, term)
+    got.backward(g)
+    again = hd._hash_dropout_cuda(x, rate, term)
+    torch.cuda.synchronize()
+    same = {"forward": torch.equal(bits(got), bits(hd.hash_dropout_reference(x, rate, term))),
+            "backward": torch.equal(bits(xr.grad), bits(hd.hash_dropout_reference(g, rate, term))),
+            "two calls": torch.equal(bits(got), bits(again))}
+    t = {"ms": time_ms(lambda: hd._hash_dropout_cuda(x, rate, term)),
+         "plain_ms": time_ms(lambda: hd.hash_dropout_reference(x, rate, term)),
+         "library_ms": None, "max_abs_err": 0.0}
+    t["bound_ms"], t["bound_by"] = bound(0, 2 * x.numel() * x.element_size(), H100_BF16_FLOPS)
+    log(f"  hash_dropout {QUALITY_DROPOUT} bfloat16 rate {rate}: "
+        + ", ".join(f"{k} {'bit for bit' if v else 'DIFFERS'}" for k, v in same.items())
+        + f" (tol 0); device time: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.5f} ms (bytes)")
+    if not all(same.values()):
+        raise AssertionError("hash_dropout disagrees with its plain version at the embedding site")
+    add("hash_dropout", "quality_embedding", t)
+    return out
+
+
+def expected_eval_launches(cfg, users: int) -> dict:
+    """Launches of one validation pass over ``users``: per batch of
+    ``eval_batch_size`` users the gather and each fused layer's forward (no
+    dropout at evaluation).  For an unprojected catalog, which passes
+    through no kernel, and a model the fused layer's gate admits."""
+    from transformer_recommenders_tpu_torch.models.transformer import _fused_layer_mode
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+
+    if cfg.resolved_input_dim != cfg.hidden_size or not _fused_layer_mode(cfg,
+                                                                          cfg.max_seq_length):
+        raise ValueError("counted only for an unprojected catalog and the fused layer")
+    batches = -(-users // cfg.eval_batch_size)
+    return dict.fromkeys(cuda_build.KERNELS, 0) | {
+        "gather_rows": batches, "fused_layer": batches * cfg.num_hidden_layers}
+
+
+def check_fit_launches(summary: dict) -> None:
+    """Each fit's launches of a protocol's summary (``tools/quality_run.py``)
+    exactly what its steps and validations add up to: each hot step and
+    graph warm-up step one hot step's (``expected_launches``), each logging
+    step one logging step's, each validation one validation's (the
+    untrained model's pass counted alone, itself held to
+    :func:`expected_eval_launches`)."""
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+
+    rows = summary["data"]["items"] + 1  # the catalog and its pad row
+    users = summary["data"]["val_users"]
+    for run in summary["runs"]:
+        cfg = TrainConfig(**{**summary["train_config"], "seed": run["seed"]})
+        pool = summary["data_config"]["batch_size"] * cfg.max_seq_length
+        hot = expected_launches(cfg, rows, pool, False)
+        logging = expected_launches(cfg, rows, pool, True)
+        val = expected_eval_launches(cfg, users)
+        got_val = {k: run["validate_launches"].get(k, 0) for k in val}
+        n_hot = run["steps"] - run["log_steps"] + run["warmup_steps"]
+        want = {k: n_hot * hot[k] + run["log_steps"] * logging[k] + run["validations"] * val[k]
+                for k in hot}
+        got = {k: run["launches"].get(k, 0) for k in want}
+        ok = got == want and got_val == val
+        log(f"  seed {run['seed']}: {run['steps']} steps ({run['log_steps']} logging, "
+            f"{run['warmup_steps']} graph warm-ups), {run['validations']} validations of "
+            f"{users} users; launches {({k: v for k, v in got.items() if v})} (expected "
+            f"{({k: v for k, v in want.items() if v})}), one validation "
+            f"{({k: v for k, v in got_val.items() if v})} {'ok' if ok else 'DIFFER'}")
+        if not ok:
+            raise AssertionError("a fit's launches are not its steps' and validations'")
+
+
+def quality_phase() -> dict:
+    """Phase 18: (a) every kernel of the two fits at the shapes they give
+    it, against its plain version, timed; (b) one hot step of each fit's
+    model at its batch on the card against the CPU's plain path, with its
+    launches; (c) the seed-spread
+    protocol in full (``tools/quality_run.py``: 5 seeds of 2 epochs on
+    synthetic data of ML-1M's shape), whose mean val NDCG@10 must lie in
+    the JAX seeds' range; (d) the quality protocol at seed 0, whose val
+    NDCG@20 must be finite and above the untrained model's; each fit's
+    launches exactly its steps' and validations'.  Returns the kernels'
+    rows at (a) and the fits' launch counts."""
+    import dataclasses
+
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    t_start = time.perf_counter()
+    log(" (a) the fits' kernels at their shapes against their plain versions")
+    by_shape = check_quality_kernels()
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, configs in (("seed_spread", Q.seed_spread_configs),
+                              ("quality", Q.quality_configs)):
+            # the hot step alone: the quality run's logging step (17 a fit)
+            # differs from it by the pool kernels, held at its 8,192 rows in
+            # (a), whose plain versions make its CPU path the slowest here
+            train, data = configs(0, str(tmp / "steps"))
+            log(f" (b) the {name} fit's hot step, batch {data.batch_size}, against the CPU")
+            training_phase(config=dataclasses.asdict(train), batch_size=data.batch_size,
+                           steps=0, timed_steps=0)
+        log(" (c) the seed spread (scripts/parity_seed_spread.py's protocol), 5 seeds")
+        spread = Q.seed_spread(5, device=device, root=str(tmp / "spread"),
+                               log=lambda m: log(f"  {m}"))
+        check_fit_launches(spread)
+        if not spread["passed"]:
+            lo, hi = spread["gate"]
+            msg = (f"the seed spread's mean val ndcg@10 {spread['mean_ndcg']:.5f} lies outside "
+                   f"[{lo:.5f}, {hi:.5f}]")
+            raise AssertionError(msg)
+        log(" (d) the quality run (scripts/quality_run.py's protocol), seed 0")
+        (tmp / "quality").mkdir()
+        (tmp / "quality" / "data").symlink_to(tmp / "spread" / "data")  # the same data
+        quality = Q.quality(1, device=device, root=str(tmp / "quality"),
+                            log=lambda m: log(f"  {m}"))
+        check_fit_launches(quality)
+    (run,) = quality["runs"]
+    ndcg, before = run["ndcg"], run["untrained"][Q.NDCG]
+    log(f"  val ndcg@20 {ndcg:.5f} after {run['epochs_ran']} epochs (untrained {before:.5f}); "
+        f"JAX's {quality['jax']['val_ndcg']}; time to it {run['time_to_target_s']} s")
+    if not (math.isfinite(ndcg) and ndcg > before):
+        raise AssertionError("the quality run did not raise val ndcg@20 above the untrained "
+                             "model's")
+    runs = spread["runs"] + quality["runs"]
+    launches = {k: sum(r["launches"].get(k, 0) for r in runs) for k in cuda_build.KERNELS}
+    log(f"  launches in the fits: {launches}")
+    missing = [k for k in QUALITY_PATH if not all(r["launches"].get(k) for r in runs)]
+    if missing:
+        raise AssertionError(f"a fit launched no {missing}")
+    log(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
+    return {"by_shape": by_shape, "launches": launches}
 
 
 if __name__ == "__main__":

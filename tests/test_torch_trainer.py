@@ -213,6 +213,7 @@ def test_windowed_fit_equals_single_steps(tmp_path, data_dir):
         assert torch.equal(a, b)
     assert windowed.phase_counts == {"windows": 3, "log_events": 1, "tail_steps": 1,
                                      "log_flushes": 1}
+    assert single.phase_counts == {"log_events": 1}  # both loops count their logging steps
     for key in ("host_sample", "queue_wait", "upload", "dispatch", "log", "tail_dispatch",
                 "epoch_wall"):
         assert windowed.phase_seconds[key] > 0, key

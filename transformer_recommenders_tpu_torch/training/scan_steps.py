@@ -148,8 +148,10 @@ def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True, mes
 
     On a CUDA table the K steps are CUDA-graph replays (see the module
     docstring); the graphs are captured at the first call for a table, K,
-    batch shape and parameter layout, and kept for later calls.  On the
-    CPU they run eagerly.
+    batch shape and parameter layout, and kept for later calls, in
+    ``steps.windows`` by key.  Before its capture each window runs one
+    eager warm-up step per accumulation position, whose kernel launches
+    count as a step's.  On the CPU they run eagerly.
 
     With ``mesh`` (``parallel.mesh.create_mesh``) each step is the sharded
     hot step: ``item_table`` is this rank's row shard
@@ -216,4 +218,5 @@ def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True, mes
         return new_state, _logs(config, with_logs, window.loss.clone(),
                                 window.positives.clone())
 
+    steps.windows = windows
     return steps

@@ -22,7 +22,9 @@ A plain loop around the port's train steps and evaluator:
 - ``phase_seconds`` attributes the windowed loop's wall time to host
   sampling, waiting for a window, upload, dispatch, logging and the tail,
   and both loops' to epochs, validation and checkpoints; ``epoch_walls``
-  holds each epoch's wall time without its validations.
+  holds each epoch's wall time without its validations, ``val_history``
+  each validation's metrics with its epoch, step and the wall seconds
+  since the fit began.
 
 The trainer runs on ``device`` (``None`` means ``cuda``, which raises
 without a card; the tests pass ``device="cpu"``).
@@ -129,10 +131,14 @@ class Trainer:
         # thread-CPU seconds of the main loop's phases: wall - cpu is time
         # the loop waited (for the card or the producer)
         self.phase_cpu_seconds: dict[str, float] = self._fresh_phases()
-        # counts behind the phases: windows, log events, log flushes, tail steps
+        # counts behind the phases: windows, log events (the logging steps,
+        # in both loops), log flushes, tail steps
         self.phase_counts: dict[str, int] = {}
         self.epoch_walls: list[float] = []
         self.epoch_cpu_walls: list[float] = []
+        # every validation of the LAST fit(): epoch, step, wall_s (since the
+        # fit began, the validation included) and the metrics
+        self.val_history: list[dict] = []
         # deferred log events: (step, examples, wall_s, device vector)
         self._pending_logs: list = []
         self._pending_log_keys: list[str] | None = None
@@ -271,6 +277,7 @@ class Trainer:
         self._pending_log_keys = None
         self.epoch_walls = []
         self.epoch_cpu_walls = []
+        self.val_history = []
         examples = 0
         stop = False
         epoch = 0
@@ -284,6 +291,8 @@ class Trainer:
             as an improvement."""
             nonlocal monitor_best, patience_left, best_device_state, last_val
             last_val = val
+            self.val_history.append({"epoch": at_epoch, "step": self._host_step,
+                                     "wall_s": time.time() - t_start, **val})
             if cfg.monitor not in val:
                 msg = (
                     f"monitor metric {cfg.monitor!r} missing from validation "
@@ -438,6 +447,7 @@ class Trainer:
                 logs = self._fetch_log_means(logs)
                 logs["train/examples_per_s"] = examples / max(time.time() - t_start, 1e-9)
                 self.logger.log(logs, step=self._host_step)
+                self.phase_counts["log_events"] = self.phase_counts.get("log_events", 0) + 1
             if (
                 self._midepoch_validate is not None
                 and self._host_step % cfg.val_check_interval == 0
