@@ -172,7 +172,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     bf16 with dropout 0.1 and at the validation batches, #5/#6 at 8,192 x
     3,707 x 384, #7/#8 at 1,024 and 8,192 rows of 384, #16 at the
     embedding site) against its plain version with the earlier phases'
-    tolerances, timed at the train steps' shapes; (b) one hot step of each
+    tolerances, timed at the train steps' shapes (#4 by pass); the seed
+    spread's f32 layer bit for bit at clusters of 1 to 4 CTAs, timed at
+    each, and profiled by section in f32; (b) one hot step of each
     fit's model at its batch against the CPU's plain path; (c) the seed
     spread of
     ``scripts/parity_seed_spread.py`` in full (5 model seeds, 2 epochs at
@@ -378,8 +380,8 @@ def time_fused_layer(gen, b, s, d, h, f, dtype_name: str = "bfloat16") -> dict:
     if not torch.equal(first, second):
         raise AssertionError(f"fused_layer B={b} D={d}: two calls differ")
     bound_ms, bound_by = layer_bound_ms(b, s, d, h, f, x.element_size())
-    cluster = (fl.cluster_size(b, d, h, cuda_build.sm_count(x.device))
-               if dtype_name == "bfloat16" else 1)  # the f32 kernel takes one CTA a sequence
+    cluster = (fl.cluster_size(b, d, h, cuda_build.sm_count(x.device)) if dtype_name == "bfloat16"
+               else fl._f32_cluster(b, s, d, h, f, x.device, backward=False))
     log(f"  fused_layer B={b} S={s} D={d} H={h} F={f} {dtype_name} (clusters of {cluster}), "
         "device time: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, stock layer {library_ms:.4f} ms, bound "
@@ -389,12 +391,43 @@ def time_fused_layer(gen, b, s, d, h, f, dtype_name: str = "bfloat16") -> dict:
             "bound_by": bound_by, "cluster": cluster, "eager_call_ms": call_ms}
 
 
+def time_by_cluster(gen, b, s, d, h, f, dtype_name: str, sizes) -> dict:
+    """Device ms of the layer's forward (and, in f32, its backward) with
+    each sequence forced onto a cluster of each of ``sizes`` CTAs, dropout
+    off: what the planner's choice saves against the others."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f,
+                                         dtype=getattr(torch, dtype_name))
+    flat = [params[m][n] for m, n in fl._PARAM_ORDER]
+    dy = torch.randn(x.shape, generator=gen).to("cuda", x.dtype)
+    planner, out = fl.cluster_size, {}
+    try:
+        for c in sizes:
+            fl.cluster_size = lambda *_, c=c: c
+            with torch.no_grad():
+                out[c] = {"fwd": time_ms(lambda: fl.fused_layer(x, params, mask, **kwargs))}
+            if dtype_name == "float32":
+                out[c]["bwd"] = time_ms(lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs,
+                                                             layer_norm_eps=1e-12))
+    finally:
+        fl.cluster_size = planner
+    log(f"  fused_layer B={b} D={d} {dtype_name} by forced cluster size, device ms: "
+        + "; ".join(f"{c}: " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+                    for c, t in out.items()))
+    return out
+
+
 def check_fused_layer() -> dict:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
     from transformer_recommenders_tpu_torch.ops.fused_layer import (
-        cluster_size, fused_layer, fused_layer_reference, heads_per_stage, smem_bytes)
+        _f32_cluster, cluster_size, fused_layer, fused_layer_reference, heads_per_stage,
+        smem_bytes)
 
     lib = cuda_build.library("fused_layer")
     gen = torch.Generator().manual_seed(0)
@@ -420,11 +453,12 @@ def check_fused_layer() -> dict:
             gen, b=c["b"], s=c["s"], d=c["d"], h=c["h"], f=c["f"], dtype=c["dtype"],
             causal=c.get("causal", True), dropout=c.get("dropout", 0.0), seeds=c.get("seeds"))
         elem = x.element_size()
-        cluster = cluster_size(c["b"], c["d"], c["h"], sms) if elem == 2 else 1
+        cluster = (cluster_size(c["b"], c["d"], c["h"], sms) if elem == 2 else
+                   _f32_cluster(c["b"], c["s"], c["d"], c["h"], c["f"], x.device, backward=False))
         hg = heads_per_stage(c["s"], c["d"], c["f"], c["h"], elem,
                              cuda_build.max_shared_memory(x.device), cluster)
-        c_smem = lib.fused_layer_smem_bytes(c["s"], c["d"], c["f"], hg, elem)
-        if c_smem != smem_bytes(c["s"], c["d"], c["f"], hg, elem):
+        c_smem = lib.fused_layer_smem_bytes(c["s"], c["d"], c["f"], hg, elem, c["h"])
+        if c_smem != smem_bytes(c["s"], c["d"], c["f"], hg, elem, c["h"]):
             raise AssertionError("the kernel's and the wrapper's shared-memory layouts disagree")
         with torch.no_grad():
             got = fused_layer(x, params, mask, **kwargs)
@@ -439,6 +473,8 @@ def check_fused_layer() -> dict:
     # times where the paths launch it: serving's B=64, training's B=128,
     # path B's B=32 at D=384; bf16, dropout off
     times = {name: time_fused_layer(gen, *shape) for name, shape in LAYER_SHAPES.items()}
+    times["B"]["by_cluster_ms"] = time_by_cluster(gen, *LAYER_SHAPES["B"], "bfloat16",
+                                                  fl.CLUSTER_SIZES)
     return {
         "name": "fused_layer", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
@@ -4246,6 +4282,58 @@ def hold_layer(gen, b: int, dtype_name: str, dropout: float, backward: bool) -> 
     return max(fwd_err, *(e[0] for e in errs))
 
 
+def check_f32_clusters(gen) -> dict:
+    """The seed spread's f32 layer (#3, #4) at (32, 32, 384, 12, 48) with
+    its sequences split over clusters of 1, 2, 3 and 4 CTAs: y, dx and the
+    12 parameter gradients bit for bit the same at every size, dropout 0
+    and 0.1; the planned size (3 or 4) the largest whose 32 clusters the
+    card holds at once.  Returns the times at each size."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    b, s, d, h, f = SEED_SPREAD_LAYER
+    device = torch.device("cuda")
+    planned = {bwd: fl._f32_cluster(b, s, d, h, f, device, bwd) for bwd in (False, True)}
+    limit = cuda_build.max_shared_memory(device)
+    active = {c: (fl._max_clusters(0, False, s, d, h, f,
+                                   fl.heads_per_stage(s, d, f, h, 4, limit, c), c),
+                  fl._max_clusters(0, True, s, d, h, f,
+                                   fl.bwd_heads_per_stage(s, d, h, limit, c), c))
+              for c in (2, 3, 4)}
+    log(f"  f32 clusters the card holds at once, forward and backward, by size: {active}; "
+        f"planned at B={b}: forward {planned[False]}, backward {planned[True]}")
+    if any(c < 3 or b > active[c][bwd] for bwd, c in planned.items()):
+        raise AssertionError("the f32 planner does not take the largest cluster in one wave")
+    planner = fl.cluster_size
+    for dropout in (0.0, 0.1):
+        x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.float32,
+                                             dropout=dropout,
+                                             seeds=[7, 8, 9] if dropout else None)
+        dy = torch.randn(x.shape, generator=gen).cuda()
+        outs = {}
+        try:
+            for c in fl.F32_CLUSTER_SIZES:
+                fl.cluster_size = lambda *_, c=c: c
+                xr = x.clone().requires_grad_()
+                leaves = [params[m][n].detach().clone().requires_grad_()
+                          for m, n in fl._PARAM_ORDER]
+                y = fl.fused_layer(xr, fl._unflatten(leaves), mask, **kwargs)
+                y.backward(dy)
+                outs[c] = [y.detach(), xr.grad, *(t.grad for t in leaves)]
+        finally:
+            fl.cluster_size = planner
+        torch.cuda.synchronize()
+        same = {c: all(torch.equal(a, w) for a, w in zip(o, outs[1])) for c, o in outs.items()}
+        log(f"  fused_layer f32 B={b} D={d} dropout {dropout}, clusters of 4, 3, 2, 1: y, dx "
+            "and 12 gradients against 1's "
+            + ", ".join(f"{c}: {'bit for bit' if v else 'DIFFER'}" for c, v in same.items()))
+        if not all(same.values()):
+            raise AssertionError("the f32 layer's bits depend on its cluster size")
+    return time_by_cluster(gen, b, s, d, h, f, "float32", fl.F32_CLUSTER_SIZES)
+
+
 def check_quality_kernels() -> dict:
     """Phase 18 (a): every kernel of the two fits at the shapes and dtypes
     the fits give it (see QUALITY_GATHERS above), against its plain version
@@ -4256,6 +4344,7 @@ def check_quality_kernels() -> dict:
 
     from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
     from transformer_recommenders_tpu_torch.ops import hash_dropout as hd
+    from transformer_recommenders_tpu_torch.tools import profile_fused_sections as pfs
 
     gen = torch.Generator().manual_seed(18)
     out: dict = {}
@@ -4281,6 +4370,7 @@ def check_quality_kernels() -> dict:
         | {"max_abs_err": 0.0})
 
     errs = {name: hold_layer(gen, *case) for name, case in QUALITY_LAYERS.items()}
+    by_cluster = check_f32_clusters(gen)
     for name in ("B_f32", "quality"):  # the train steps' shapes
         b, dtype_name, dropout, _ = QUALITY_LAYERS[name]
         _, s, _, h, f = SEED_SPREAD_LAYER
@@ -4290,6 +4380,14 @@ def check_quality_kernels() -> dict:
         add("fused_layer_bwd", name, time_layer_bwd(gen, seeds, b=b, s=s, d=d, h=h, f=f,
                                                     dtype_name=dtype_name, dropout=dropout)
             | {"max_abs_err": errs[name]})
+    # the seed spread's layer by section (the f32 variants #14, #15)
+    sections = pfs.profile_sections("seed_spread", dtype="float32", dropout=0.0,
+                                    log=lambda m: log(f"  {m}"))
+    for kernel, direction in (("fused_layer", "fwd"), ("fused_layer_bwd", "bwd")):
+        out[kernel]["B_f32"]["sections_ms"] = {
+            k.split("/")[1]: v["delta_ms"] for k, v in sections["results"].items()
+            if k.startswith(direction)}
+        out[kernel]["B_f32"]["by_cluster_ms"] = {c: t[direction] for c, t in by_cluster.items()}
 
     r = QUALITY_TABLE_ROWS
     table_errs: dict = {}

@@ -148,11 +148,18 @@ def test_fused_layer_forward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype)
 
 def test_shared_memory_layouts_agree(cuda):
     lib = cuda_build.library("fused_layer")
+    limit = cuda_build.max_shared_memory(cuda)
     for s, d, f, h, elem in [(32, 128, 512, 8, 2), (32, 384, 48, 12, 4), (8, 64, 256, 4, 2),
-                             (32, 384, 48, 12, 2), (64, 128, 512, 8, 2)]:
-        for cluster in (1, 2, 4) if elem == 2 else (1,):
-            hg = heads_per_stage(s, d, f, h, elem, cuda_build.max_shared_memory(cuda), cluster)
-            assert lib.fused_layer_smem_bytes(s, d, f, hg, elem) == smem_bytes(s, d, f, hg, elem)
+                             (32, 384, 48, 12, 2), (64, 128, 512, 8, 2), (64, 128, 512, 8, 4),
+                             (8, 64, 256, 4, 4)]:
+        for cluster in (1, 2, 4):
+            hg = heads_per_stage(s, d, f, h, elem, limit, cluster)
+            assert lib.fused_layer_smem_bytes(s, d, f, hg, elem, h) == smem_bytes(s, d, f, hg,
+                                                                                 elem, h)
+            if elem == 4:  # the f32 backward's first pass
+                hg = fl.bwd_heads_per_stage(s, d, h, limit, cluster)
+                assert lib.fused_layer_bwd_smem_bytes(s, d, h, hg) == fl.bwd_smem_bytes(s, d, h,
+                                                                                        hg)
 
 
 def test_fused_layer_counts_launches_forward_and_backward(cuda):
@@ -381,6 +388,94 @@ def test_gather_backward_kernel_sums_in_the_plain_order(cuda, dtype):
     assert torch.equal(first, second)
     assert torch.equal(first, want)
     assert not first[n // 2:].any() and first[0].abs().sum() > 0
+
+
+def _f32_layer_case(cuda, b, s, d, h, f, mask_kind, seed):
+    """f32 inputs, weights and a cotangent at (b, s, d, h, f) with a key
+    mask: a padded tail on the first and last sequences (``tail``), or
+    left padding of random length on every sequence (``left``, as the
+    seed spread's histories are padded; one sequence fully valid)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, s, d, generator=gen).to(cuda)
+    if mask_kind == "left":
+        lengths = torch.randint(1, s + 1, (b,), generator=gen)
+        lengths[0] = s
+        mask = torch.arange(s)[None, :] >= (s - lengths)[:, None]
+    else:
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[-1, s // 2:] = False
+        mask[0, s - 3:] = False
+    params = _weights(gen, d, f, cuda)
+    dy = torch.randn(b, s, d, generator=gen).to(cuda)
+    return x, params, mask.to(cuda), dy
+
+
+def _layer_fwd_bwd(x, params, mask, dy, kw):
+    """The layer's output, dx and the 12 parameter gradients through the
+    kernels (the forward and the backward wrapper's autograd)."""
+    xr = x.clone().requires_grad_()
+    leaves = {m: {n: t.detach().clone().requires_grad_() for n, t in v.items()}
+              for m, v in params.items()}
+    y = fused_layer(xr, leaves, mask, **kw)
+    y.backward(dy)
+    return y.detach(), xr.grad, [leaves[m][n].grad for m, n in _PARAM_ORDER]
+
+
+@pytest.mark.parametrize("mask_kind", ["tail", "left"])
+@pytest.mark.parametrize(("causal", "rate"), [(True, 0.0), (True, 0.1), (False, 0.0),
+                                              (False, 0.1)])
+def test_f32_layer_at_the_seed_spread_shape(cuda, causal, rate, mask_kind):
+    """The f32 forward and backward at the seed spread's layer (B=32, S=32,
+    D=384, 12 heads, FFN 48; clusters of 4) against their plain versions:
+    y within 2e-5, dx and the 12 parameter gradients within GRAD_TOL."""
+    b, s, d, h, f = 32, 32, 384, 12, 48
+    for backward in (False, True):  # 4 where the card holds 32 clusters of 4 at once, else 3
+        assert fl._f32_cluster(b, s, d, h, f, cuda, backward) in (3, 4)
+    x, params, mask, dy = _f32_layer_case(cuda, b, s, d, h, f, mask_kind, seed=int(causal) + 2)
+    kw = dict(num_heads=h, causal=causal, attn_dropout=rate, hidden_dropout=rate,
+              dropout_seeds=[5, 6, 7] if rate else None, ffn_dim=f)
+    y, dx, grads = _layer_fwd_bwd(x, params, mask, dy, kw)
+    with torch.no_grad():
+        want = fused_layer_reference(x, params, mask, **kw)
+        dx_want, grads_want = fused_layer_backward_reference(x, params, mask, dy, **kw)
+    torch.cuda.synchronize()
+    assert (y - want).abs().max().item() <= 2e-5
+    errs = {"dx": rel_err(dx, dx_want)}
+    errs |= {f"{m}/{n}": rel_err(g, grads_want[m][n]) for (m, n), g in zip(_PARAM_ORDER, grads)}
+    assert max(errs.values()) <= GRAD_TOL[torch.float32], errs
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f", "mask_kind"), [
+    (32, 32, 384, 12, 48, "left"),   # the seed spread's layer
+    (8, 64, 128, 8, 512, "tail"),    # S=64: two row tiles a warp, two heads a group
+    (6, 8, 64, 4, 256, "left"),      # S=8, 16-wide heads
+])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_layer_bits_do_not_depend_on_the_cluster(cuda, monkeypatch, b, s, d, h, f, mask_kind,
+                                                     rate):
+    """Each output of the f32 kernels is one thread's k-sum in a fixed
+    order whatever the split, so the forward, dx and every parameter
+    gradient have the same bits with clusters of 1 to 4 CTAs (those that
+    split the heads), and on two calls."""
+    x, params, mask, dy = _f32_layer_case(cuda, b, s, d, h, f, mask_kind, seed=b + s)
+    kw = dict(num_heads=h, causal=True, attn_dropout=rate, hidden_dropout=rate,
+              dropout_seeds=[9, 8, 7] if rate else None, ffn_dim=f)
+    outs = {}
+    for c in fl.F32_CLUSTER_SIZES:
+        if h % c or d % (4 * c):
+            continue
+        monkeypatch.setattr(fl, "cluster_size", lambda *_, c=c: c)
+        outs[c] = _layer_fwd_bwd(x, params, mask, dy, kw)
+    again = _layer_fwd_bwd(x, params, mask, dy, kw)  # a cluster of 1, a second time
+    torch.cuda.synchronize()
+    assert 4 in outs and (3 in outs) == (h % 3 == 0)
+    for got in (*outs.values(), again):
+        assert torch.equal(got[0], outs[1][0]) and torch.equal(got[1], outs[1][1])
+        for a, w in zip(got[2], outs[1][2]):
+            assert torch.equal(a, w)
+    with torch.no_grad():
+        want = fused_layer_reference(x, params, mask, **kw)
+    assert (outs[4][0] - want).abs().max().item() <= 2e-5
 
 
 @pytest.mark.parametrize(("b", "s", "d", "h", "f"), [

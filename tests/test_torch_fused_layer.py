@@ -160,7 +160,7 @@ def test_shared_memory_plan():
     limit = 232448  # an H100 block's opt-in maximum
     assert tfl.heads_per_stage(32, 128, 512, 8, 2, limit) == 8
     assert tfl.heads_per_stage(32, 384, 48, 12, 4, limit) == 6
-    assert tfl.smem_bytes(32, 384, 48, 6, 4) <= limit < tfl.smem_bytes(32, 384, 48, 12, 4)
+    assert tfl.smem_bytes(32, 384, 48, 6, 4, 12) <= limit < tfl.smem_bytes(32, 384, 48, 12, 4, 12)
     with pytest.raises(ValueError, match="shared memory"):
         tfl.heads_per_stage(64, 384, 1536, 12, 4, limit)
 
@@ -194,6 +194,87 @@ def test_tensor_core_shared_memory_plan():
 ])
 def test_cluster_plan(b, d, h, want):
     assert tfl.cluster_size(b, d, h, 132) == want
+
+
+H100_ACTIVE = {4: 30, 3: 39, 2: 66}  # the f32 clusters an H100 holds at once (whole in a GPC)
+
+
+@pytest.mark.parametrize(("b", "d", "h", "active", "want"), [
+    (32, 384, 12, None, 4),   # the seed spread's batch, one CTA an SM: 128 CTAs on 132 SMs
+    (64, 384, 12, None, 2),
+    (128, 384, 12, None, 1),  # a batch that fills the card alone
+    (256, 384, 12, None, 1),  # the seed spread's validation batch
+    (8, 48, 4, None, 4),      # 12 q columns a CTA: whole 4-column blocks in f32 (bf16 takes 2)
+    (8, 72, 6, None, 3),      # 6 heads split in 3, not in 4
+    (8, 80, 10, None, 2),
+    (8, 40, 5, None, 1),
+    (40, 384, 12, None, 3),   # 160 CTAs of 4 would not fit
+    # with the H100's counts the seed spread's B=32 takes clusters of 3
+    # (96 CTAs in one wave), not of 4 (128 CTAs in two)
+    (30, 384, 12, H100_ACTIVE, 4), (31, 384, 12, H100_ACTIVE, 3), (32, 384, 12, H100_ACTIVE, 3),
+    (39, 384, 12, H100_ACTIVE, 3), (40, 384, 12, H100_ACTIVE, 2), (66, 384, 12, H100_ACTIVE, 2),
+    (67, 384, 12, H100_ACTIVE, 1),
+])
+def test_f32_cluster_plan(b, d, h, active, want):
+    got = tfl.cluster_size(b, d, h, 132, elem=4, max_active=active)
+    assert got == want
+    assert b <= (active or {}).get(got, 132 // got) or got == 1
+    assert h % got == 0 and d % (4 * got) == 0
+
+
+@pytest.mark.parametrize(("s", "row_tiles"), [(8, 1), (32, 1), (33, 2), (48, 2), (64, 2)])
+def test_f32_tile_plan(s, row_tiles):
+    """The f32 products' register tiles: 8 warps of 4 rows, once up to
+    S=32 and twice above, cover the rows the buffers hold; each lane 4 of
+    a pass's 128 columns, 16 outputs a row tile."""
+    plan = tfl.tile_plan(s)
+    assert plan["row_tiles"] == row_tiles
+    assert plan["rows"] == plan["threads"] // 32 * 4 * row_tiles == 32 * row_tiles >= s
+    assert plan["pass_cols"] == 32 * 4 and plan["k_chunk"] == 32
+    assert plan["outputs_per_thread"] == 16 * row_tiles
+
+
+def test_f32_shared_memory_plan():
+    """The f32 forward's layout (``F32Layout`` in csrc/fused_layer.cu):
+    x, ctx then g, a head group's q|k|v then a and f, over the rows the
+    product tiles cover, each row padded to an odd count of 16 bytes, then
+    two 32 x 128 weight tiles.  A cluster of 4 at the reference shape takes
+    its 3 heads at once (3 its 4), one CTA a sequence 6 of its 12, and S=64
+    at D=128, F=512 2 heads of 16, at the card's limit exactly."""
+    limit = 232448
+    tiles = 4 * 2 * 32 * 128
+    assert tfl.smem_bytes(32, 384, 48, 3, 4, 12) == 4 * 32 * 3 * 388 + tiles == 181760
+    assert tfl.smem_bytes(32, 384, 48, 4, 4, 12) == 181760
+    assert tfl.smem_bytes(32, 384, 48, 6, 4, 12) == 4 * 32 * (2 * 388 + 580) + tiles
+    assert tfl.heads_per_stage(32, 384, 48, 12, 4, limit, cluster=4) == 3
+    assert tfl.heads_per_stage(32, 384, 48, 12, 4, limit, cluster=3) == 4
+    assert tfl.heads_per_stage(64, 128, 512, 8, 4, limit) == 2
+    assert tfl.smem_bytes(64, 128, 512, 2, 4, 8) == 4 * 64 * (132 + 516 + 132) + tiles == limit
+    assert tfl.smem_bytes(8, 128, 48, 8, 4, 8) == 4 * 32 * (132 + 132 + 388) + tiles
+    with pytest.raises(ValueError, match="num_heads"):
+        tfl.smem_bytes(32, 384, 48, 3, 4)
+
+
+def test_f32_backward_shared_memory_plan():
+    """The f32 backward's first pass (``F32BwdLayout``): two weight and two
+    activation tiles, a head group's q|k|v and gw, its d_scores and dropped
+    probs, the mask; a cluster of 4 at the reference shape stages its 3
+    heads at once, one CTA a sequence 6 of 12."""
+    limit = 232448
+    assert tfl.bwd_smem_bytes(32, 384, 12, 3) == 4 * (
+        2 * 128 * 36 + 2 * 32 * 36 + 32 * 292 + 32 * 96 + 2 * 3 * 32 * 32) + 4 * 32 == 120448
+    assert tfl.bwd_heads_per_stage(32, 384, 12, limit, cluster=4) == 3
+    assert tfl.bwd_heads_per_stage(32, 384, 12, limit) == 6
+    assert tfl.bwd_heads_per_stage(64, 128, 8, limit) == 2
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl.bwd_heads_per_stage(64, 1024, 2, limit)
+
+
+def test_f32_kernels_need_widths_of_whole_16_bytes():
+    tfl._check_f32_widths(384, 12, 48)
+    for d, h, f in ((96, 16, 48), (130, 2, 48), (128, 8, 50)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            tfl._check_f32_widths(d, h, f)
 
 
 def test_forward_workspace_holds_the_four_weights():

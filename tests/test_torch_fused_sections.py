@@ -216,6 +216,41 @@ def test_profile_entry_point_needs_a_card(monkeypatch, tmp_path, capsys):
     assert not out.exists() and "no CUDA device" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_profile_inputs_take_a_dtype(dtype):
+    """``--dtype`` sets the activations' type; bf16 rounds the weights to
+    bf16 as the JAX script casts them, f32 keeps them; ``--dropout 0``
+    passes no seeds.  The section variants run on the CPU inputs."""
+    from transformer_recommenders_tpu_torch.tools import profile_fused_sections as pfs
+
+    shape = pfs.SHAPES["tiny"]
+    layer, x, dy, mask, opts = pfs.make_inputs(shape, "cpu", dtype, dropout=0.0)
+    assert x.dtype == dy.dtype == getattr(torch, dtype) and opts["dropout_seeds"] is None
+    w = layer["qkv"]["w"]
+    assert w.dtype == torch.float32
+    assert torch.equal(w, w.to(torch.bfloat16).float()) == (dtype == "bfloat16")
+    _, _, _, _, drop = pfs.make_inputs(shape, "cpu", dtype)
+    assert drop["attn_dropout"] == drop["hidden_dropout"] == 0.1
+    y = fs.layer_stage_forward(x, layer, mask, stage="full", **opts)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    with pytest.raises(ValueError, match="dtype must be one of"):
+        pfs.make_inputs(shape, "cpu", "float16")
+
+
+def test_profile_entry_point_takes_the_seed_spread_layer_in_f32(monkeypatch, capsys):
+    """The f32 profile of the seed spread's layer parses (and, without a
+    card, exits 2 as every measurement entry point does)."""
+    from transformer_recommenders_tpu_torch.tools import profile_fused_sections as pfs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pfs.SHAPES["seed_spread"] == dict(b=32, s=32, d=384, h=12, f=48)
+    assert pfs.main(["--shape", "seed_spread", "--dtype", "float32", "--dropout", "0",
+                     "--tree", "."]) == 2
+    with pytest.raises(SystemExit):
+        pfs.main(["--dtype", "int8"])
+    assert "invalid choice" in capsys.readouterr().err
+
+
 def test_section_flops_add_up_to_the_layer():
     """The forward's sections sum to the layer's products and the
     backward's to three times its dense products plus four attention

@@ -1,5 +1,5 @@
-// One whole post-LN transformer encoder layer: the forward, one block per
-// sequence, and the backward (below).
+// One whole post-LN transformer encoder layer: the forward, one cluster of
+// 1 to 4 CTAs per sequence, and the backward (below).
 //
 // Replaces the TPU Pallas kernel ops/fused_layer.py:_fwd_kernel of the JAX
 // package (transformer_recommenders_tpu), which runs the layer for a block
@@ -41,10 +41,19 @@
 // warps run long dependent chains (fragment loads, mma, the softmax's
 // exp and divide, the LayerNorms' shuffles) with little to hide them.
 //
-// f32 (fused_layer_fwd_kernel<float>): the products stay f32 FMAs on CUDA
-// cores (TF32 would break the f32 bound), one thread per output column,
-// one block per sequence, weights read from global memory (L2-resident
-// across blocks).
+// f32 (fused_layer_fwd_f32_kernel): every product stays exact f32 FMAs on
+// the CUDA cores (TF32 would break the f32 bound), each output one
+// thread's chain over k in order.  A sequence is split across a cluster of
+// 1, 2 or 4 CTAs as in bf16 (B=32 takes 4: 128 CTAs on 132 SMs), ctx, a,
+// g and f shared through distributed shared memory.  A product (f32_product)
+// runs passes of 128 output columns: per chunk of 32 k the pass's weight
+// tile goes to shared memory by 16-byte cp.async, double-buffered, read by
+// all the CTA's rows; each warp holds 4 rows (8 for S > 32) and each lane
+// 4 columns, a register tile of 16 (32) sums fed by 16-byte shared loads.
+// The attention takes a head group at a time (all the CTA's heads where
+// they fit): a warp per (head, query row) holds the row's scores across
+// its lanes, the softmax's max and sum by shuffles, then sums P V with a
+// lane per head column.
 //
 // Numerics follow the JAX kernel: T-rounded (bf16 or f32) activations,
 // f32 accumulation plus an f32 bias then rounding to T after each dense,
@@ -57,16 +66,10 @@
 // There is no TPU layout here: no head-masked wide tiles and no FFN
 // padding to 128.
 //
-// Shared memory of the f32 kernel (elements of T unless noted), Sp = S
-// rounded up to kRows:
-//   sx   Sp x D          layer input, then x1 = LN1(...)
-//   reg  Sp x max(3D, F+D)
-//        qkv (ld 3D); ctx overwrites q head by head; a = ctx Wout goes
-//        into the dead k columns; then the FFN hidden g (ld F) and
-//        f = g Wffn_out (ld D) after it
-//   sc   hg x S x S f32  scores/probs of a stage of hg heads
-//   mask S int
-// and of the bf16 kernel (TcLayout; rows rounded up to 16): sx, ctx and hb
+// Shared memory of the f32 kernel: F32Layout below (x, ctx then g, a head
+// group's q|k|v then a and f, two weight tiles; 181,760 bytes at S=32,
+// D=384, F=48 and 3 or 4 heads a group), and of the bf16 kernel
+// (TcLayout; rows rounded up to 16): sx, ctx and hb
 // (the out and FFN-out products) at leading dimension D + 8, big at
 // max(3D, F) + 8 (qkv, then the GELU output g), bf16; the mask.  The
 // scores and probs stay in registers.  At S=32, D=128, F=512 that is
@@ -81,17 +84,17 @@
 //   0. (bf16) the four weights rounded to bf16 once, as given and
 //      transposed, so that both the recompute's products (with W) and the
 //      VJP's (with W^T) read k-contiguous pairs;
-//   1. one block per sequence recomputes the layer (with the JAX
-//      backward's own numerics: the A&S erf in the GELU under bf16, the
-//      f32 dropout divisor in the VJP) and walks the VJP down to dx.  The
-//      intermediates live in a workspace in device memory (a block's share
+//   1. one block (f32: one cluster) per sequence recomputes the layer
+//      (with the JAX backward's own numerics: the A&S erf in the GELU under
+//      bf16, the f32 dropout divisor in the VJP) and walks the VJP down to
+//      dx.  The intermediates live in a workspace in device memory (a block's share
 //      is a few hundred KB at the flagship shape, L2-resident), so any
 //      D and F fit.  The rounded operands of the weight-gradient products
 //      stay there for pass 2; the bias and LayerNorm gradients are summed
 //      over the sequence's rows into one row of a partials buffer;
-//   2. dW = X^T dY for the four weights;
-//   3. the partials summed over the sequences, and (bf16) pass 2's partial
-//      tiles over its row splits, in order.
+//   2. dW = X^T dY for the four weights, split over ranges of rows;
+//   3. the partials summed over the sequences, and pass 2's partial tiles
+//      over its row splits, in order.
 // What bounds it: ~3x the forward's products (recompute, then two
 // products per dense), ~5 GFLOP per layer at B=128, S=32, D=128, F=512,
 // so tensor-core time (5 us); the elementwise work (softmax, GELU and its
@@ -106,12 +109,19 @@
 // of blocks run.  Only the order of the f32 sums inside a product changes
 // (and inside the column sums of a product's epilogue); every rounding
 // stays where the f32 path has it.  Under f32 the products stay f32 FMAs
-// on CUDA cores (TF32 would break the f32 gradients' 1e-4 bound): one
-// thread per output column, shared memory for one head's probs, pass 2
-// one block per 64 x 64 tile of dW walking all B*S rows in order.
+// on CUDA cores (TF32 would break the f32 gradients' 1e-4 bound): pass 1
+// (fused_layer_bwd_rows_f32_kernel) splits a sequence across the
+// forward's cluster, each CTA its heads and its share of every product's
+// columns through f32_product (its operand rows staged from the workspace
+// with the weight tiles), the row-wise steps split by rows, the CTAs
+// sharing the workspace behind a fence and a cluster barrier; the
+// attention's VJP a head group at a time, a warp per (head, query row)
+// for dq and per (head, key row) for dk and dv; pass 2 the same split-K
+// tiles with 4 x 4 register tiles over cp.async-staged rows.
 //
-// Section profile.  The forward and pass 1 of the backward take a
-// compile-time kStop: the kernel stops after that stage and stores the
+// Section profile.  The forward and pass 1 of the backward take a stop
+// stage (bf16: the template argument kStop; f32: a run-time argument, so
+// that the f32 kernels compile once): the kernel stops after it and stores the
 // stage's (S, D) tensor in the input's type into its output, so the
 // differences of the cumulative variants' times attribute the layer's time
 // to its sections.  They replace the TPU kernels
@@ -125,31 +135,27 @@
 //   backward  recompute the recomputed y (A&S erf under bf16)
 //             ffn_bwd   T(dctx), the VJP through LN2, the FFN and LN1
 //             attn_bwd  dx, through the attention VJP and the qkv product
-//             full      the three passes (fused_layer_bwd)
+//             full      the four passes (fused_layer_bwd; f32 three)
 // The JAX script's attn_bwd cut (dx0 before any parameter gradient) maps
 // onto pass 1 without the per-sequence partial sums of the bias and
 // LayerNorm gradients; the workspace writes stay, because pass 1 reads each
 // rounded operand back as the input of its next product.  So full minus
 // attn_bwd is those partial sums plus passes 2 and 3.  The full variants
 // are the production kernels: a kStop branch that is not taken compiles to
-// nothing.
+// nothing, and the f32 kernels' stop tests are uniform branches.
 #include <cooperative_groups.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 256;  // the f32 kernels: 8 warps
 // pass 1 of the bf16 backward: twice the warps, so that more of the
 // block's loads from the workspace are in flight (at most 128 registers
 // a thread); every sum keeps its order whatever the thread count
-template <typename T>
-constexpr int bwd_threads() {
-  return std::is_same<T, __nv_bfloat16>::value ? 512 : kThreads;
-}
-constexpr int kRows = 16;  // rows of a dense's output tile held in registers
+constexpr int kBwdTcThreads = 512;
 constexpr float kNegInf = -1e9f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
@@ -182,21 +188,10 @@ struct Params {
   float attn_keep, hidden_keep;
   int attn_drop, hidden_drop;
   float eps;
-  int cluster;  // CTAs a sequence is split across (bf16; 1 in f32)
+  int cluster;  // CTAs a sequence is split across
 };
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-__host__ __device__ inline size_t smem_layout(int S, int D, int F, int hg,
-                                              int elem, size_t* reg_off,
-                                              size_t* sc_off, size_t* mask_off) {
-  const int sp = round_up(S, kRows);
-  const int rw = 3 * D > F + D ? 3 * D : F + D;
-  *reg_off = (size_t)sp * D * elem;
-  *sc_off = ((*reg_off + (size_t)sp * rw * elem) + 15) / 16 * 16;
-  *mask_off = *sc_off + (size_t)hg * S * S * sizeof(float);
-  return *mask_off + (size_t)S * sizeof(int);
-}
 
 // Eigen's f32 erf rational polynomial (what XLA lowers erf to), as in
 // ops/fused_layer.py:_erf.
@@ -217,45 +212,6 @@ __device__ __forceinline__ float erf_eigen(float x) {
   b = b * x2 + -7.37332916720468e-03f;
   b = b * x2 + -1.42647390514189e-02f;
   return a / b;
-}
-
-enum Epilogue { kPlain = 0, kGelu = 1, kDropout = 2 };
-
-// out[r, n] = T(in[r, :] . T(W[:, n]) + bias[n]) for r < S, then the
-// epilogue.  Each thread owns one column and kRows rows at a time.
-template <typename T>
-__device__ void dense(const T* in, int in_ld, int K, const float* __restrict__ W,
-                      const float* __restrict__ bias, int N, T* out, int out_ld,
-                      int S, int epilogue, uint32_t row0, uint32_t seed,
-                      uint32_t thr, float keep_div) {
-  using A = xrt::Act<T>;
-  const int chunks = (S + kRows - 1) / kRows;
-  for (int item = threadIdx.x; item < N * chunks; item += blockDim.x) {
-    const int n = item % N;
-    const int r0 = (item / N) * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    const T* in_r = in + r0 * in_ld;
-    for (int k = 0; k < K; ++k) {
-      const float w = A::round(__ldg(W + (size_t)k * N + n));
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(A::load(in_r[r * in_ld + k]), w, acc[r]);
-    }
-    const float b = __ldg(bias + n);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r0 + r >= S) break;
-      float v = A::round(acc[r] + b);
-      if (epilogue == kGelu) {
-        v = A::round(0.5f * v * (1.f + erf_eigen(v * kInvSqrt2)));
-      } else if (epilogue == kDropout) {
-        const uint32_t idx = (row0 + (uint32_t)(r0 + r)) * (uint32_t)N + (uint32_t)n;
-        v = xrt::keep(idx, seed, thr) ? A::round(v / keep_div) : 0.f;
-      }
-      out[(r0 + r) * out_ld + n] = A::store(v);
-    }
-  }
 }
 
 // out[r] = T(LN(T(a[r] + b[r]))) over D features for rows r = row0,
@@ -288,111 +244,6 @@ __device__ void add_layer_norm(const T* a, int a_ld, const T* b, int b_ld,
   }
 }
 
-template <typename T, int kStop>
-__global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_kernel(Params p) {
-  using A = xrt::Act<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int S = p.S, D = p.D, H = p.H, F = p.F, hg = p.hg;
-  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
-  const int dh = D / H, ld3 = 3 * D, b = blockIdx.x;
-  size_t reg_off, sc_off, mask_off;
-  smem_layout(S, D, F, hg, sizeof(T), &reg_off, &sc_off, &mask_off);
-  T* sx = reinterpret_cast<T*>(smem);
-  T* reg = reinterpret_cast<T*>(smem + reg_off);
-  float* sc = reinterpret_cast<float*>(smem + sc_off);
-  int* smask = reinterpret_cast<int*>(smem + mask_off);
-  const int sp = round_up(S, kRows);
-
-  const T* xg = static_cast<const T*>(p.x) + (size_t)b * S * D;
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) sx[i] = xg[i];
-  for (int i = threadIdx.x; i < S; i += blockDim.x) smask[i] = p.mask[b * S + i] != 0;
-  __syncthreads();
-
-  dense<T>(sx, D, D, p.qkv_w, p.qkv_b, ld3, reg, ld3, S, kPlain, 0, 0, 0, 1.f);
-  __syncthreads();
-  if constexpr (kStop == kStopQkv) {
-    store_rows<T>(reg, ld3, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
-    return;
-  }
-
-  const float scale = 1.f / sqrtf((float)dh);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int h0 = 0; h0 < H; h0 += hg) {
-    // scores = (q . k) * scale + key-padding bias + causal bias
-    for (int item = threadIdx.x; item < hg * S * S; item += blockDim.x) {
-      const int hh = item / (S * S), sq = (item / S) % S, t = item % S;
-      const T* q = reg + sq * ld3 + (h0 + hh) * dh;
-      const T* k = reg + t * ld3 + D + (h0 + hh) * dh;
-      float dot = 0.f;
-      for (int j = 0; j < dh; ++j) dot = fmaf(A::load(q[j]), A::load(k[j]), dot);
-      const float bias = (smask[t] ? 0.f : kNegInf) + ((p.causal && t > sq) ? kNegInf : 0.f);
-      sc[item] = dot * scale + bias;
-    }
-    __syncthreads();
-    // softmax over keys, dropout on the probs, rounding to T
-    for (int row = warp; row < hg * S; row += nwarps) {
-      float* pr = sc + row * S;
-      float m = -INFINITY;
-      for (int t = lane; t < S; t += 32) m = fmaxf(m, pr[t]);
-      m = xrt::warp_max(m);
-      float sum = 0.f;
-      for (int t = lane; t < S; t += 32) {
-        const float e = expf(pr[t] - m);
-        pr[t] = e;
-        sum += e;
-      }
-      sum = xrt::warp_sum(sum);
-      const uint32_t base =
-          ((uint32_t)b * H + (uint32_t)(h0 + row / S)) * (uint32_t)(S * S) + (uint32_t)(row % S) * S;
-      for (int t = lane; t < S; t += 32) {
-        float v = pr[t] / sum;
-        if (p.attn_drop) v = xrt::keep(base + t, seed[0], p.attn_thr) ? v / p.attn_keep : 0.f;
-        pr[t] = A::round(v);
-      }
-    }
-    __syncthreads();
-    // ctx = P V, written over this stage's q columns
-    for (int item = threadIdx.x; item < hg * S * dh; item += blockDim.x) {
-      const int hh = item / (S * dh), sq = (item / dh) % S, j = item % dh;
-      const int col = (h0 + hh) * dh + j;
-      const float* pr = sc + (hh * S + sq) * S;
-      float acc = 0.f;
-      for (int t = 0; t < S; ++t) acc = fmaf(pr[t], A::load(reg[t * ld3 + 2 * D + col]), acc);
-      reg[sq * ld3 + col] = A::store(acc);
-    }
-    __syncthreads();
-  }
-  if constexpr (kStop == kStopAttn) {
-    store_rows<T>(reg, ld3, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
-    return;
-  }
-
-  const uint32_t row0 = (uint32_t)b * S;
-  // a = dropout(ctx Wout + b) into the dead k columns
-  dense<T>(reg, ld3, D, p.out_w, p.out_b, D, reg + D, ld3, S,
-           p.hidden_drop ? kDropout : kPlain, row0, seed[1], p.hidden_thr, p.hidden_keep);
-  __syncthreads();
-  add_layer_norm<T, T>(sx, D, reg + D, ld3, p.ln1_s, p.ln1_b, S, D, p.eps, sx, D);
-  __syncthreads();
-  if constexpr (kStop == kStopOutLn1) {
-    store_rows<T>(sx, D, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
-    return;
-  }
-  T* g = reg;
-  T* f = reg + (size_t)sp * F;
-  dense<T>(sx, D, D, p.ffn_in_w, p.ffn_in_b, F, g, F, S, kGelu, 0, 0, 0, 1.f);
-  __syncthreads();
-  if constexpr (kStop == kStopFfnGelu) {
-    store_rows<T>(g, F, S, D, 0, D, 0, 1, static_cast<T*>(p.y) + (size_t)b * S * D);
-    return;
-  }
-  dense<T>(g, F, F, p.ffn_out_w, p.ffn_out_b, D, f, D, S,
-           p.hidden_drop ? kDropout : kPlain, row0, seed[2], p.hidden_thr, p.hidden_keep);
-  __syncthreads();
-  T* yg = static_cast<T*>(p.y) + (size_t)b * S * D;
-  add_layer_norm<T, T>(sx, D, f, D, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D);
-}
-
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
@@ -423,7 +274,7 @@ struct BwdParams {
   void *qkv, *ctx, *x1, *u, *g, *h1, *h2;  // R x 3D, D, D, F, F, D, D
   float* stats;                            // R x 4: mean1 rstd1 mean2 rstd2
   void *dfm, *dum, *dam, *dqm;             // R x D, F, D, 3D
-  float *dres, *dqkv;                      // R x D, R x 3D
+  float *dres, *dqkv;                      // R x D, R x 3D (dqkv: bf16 only)
   float* partial;                          // B x (9D + F) column sums
   int B, S, D, H, F, causal;
   xrt::Seeds seed;  // the three site seeds, read from device memory
@@ -432,12 +283,13 @@ struct BwdParams {
   int attn_drop, hidden_drop;
   float eps;
   // bf16 only (the tensor-core path): the four weights rounded to bf16 once
-  // per call, as given (w16) and transposed (wt16), at WOffsets; the
-  // weight-gradient partial tiles, splits x WOffsets::total; the heads whose
-  // attention pass 1 stages at once; pass 2's rows per split
+  // per call, as given (w16) and transposed (wt16), at WOffsets.  Both:
+  // the weight-gradient partial tiles, splits x WOffsets::total; the heads
+  // whose attention pass 1 stages at once; pass 2's rows per split.  f32:
+  // the CTAs a sequence is split across
   __nv_bfloat16 *w16, *wt16;
   float* wpart;
-  int hg, splits, rows_per_split;
+  int hg, splits, rows_per_split, cluster;
 };
 
 // offsets of the four weights (and of their gradients) laid end to end:
@@ -456,36 +308,6 @@ struct VecOffsets {
       : qkv_b(0), out_b(3 * D), ffn_in_b(4 * D), ffn_out_b(4 * D + F), ln1_s(5 * D + F),
         ln1_b(6 * D + F), ln2_s(7 * D + F), ln2_b(8 * D + F), total(9 * D + F) {}
 };
-
-// acc(r, n) = sum_k in[r, k] * T(W(k, n)) in f32 for the S rows of one
-// sequence, with W(k, n) = W[k*N + n] (kTransposed false: a (K, N) weight
-// as the forward uses it) or W[n*K + k] (true: the product with the
-// transpose of an (N, K) weight).  One thread owns a column and walks all
-// rows in order, so what ``epi(r, n, acc)`` returns sums into a column
-// total in a fixed order; the totals go to colsum[n] when it is given.
-template <typename T, bool kTransposed, typename Epi>
-__device__ void dense_rows(const T* in, int in_ld, int K, const float* __restrict__ W, int N,
-                           int S, Epi epi, float* colsum) {
-  using A = xrt::Act<T>;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    float total = 0.f;
-    for (int r0 = 0; r0 < S; r0 += kRows) {
-      const int rows = min(kRows, S - r0);
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      const T* in_r = in + (size_t)r0 * in_ld;
-      for (int k = 0; k < K; ++k) {
-        const float w = A::round(__ldg(kTransposed ? W + (size_t)n * K + k : W + (size_t)k * N + n));
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          if (r < rows) acc[r] = fmaf(A::load(in_r[(size_t)r * in_ld + k]), w, acc[r]);
-      }
-      for (int r = 0; r < rows; ++r) total += epi(r0 + r, n, acc[r]);
-    }
-    if (colsum != nullptr) colsum[n] = total;
-  }
-}
 
 // ---- tensor-core products of the bf16 backward: mma.sync m16n8k16 and its
 // fragment loaders, shared with the pool InfoNCE kernels (common.cuh)
@@ -608,19 +430,6 @@ __device__ void dense_mma(const bf16* in, int in_ld, int K, const bf16* __restri
   }
 }
 
-// a dense product of pass 1: on the tensor cores for bf16 (with the weight
-// rounded once, Wn as dense_mma takes it), else dense_rows
-template <typename T, bool kTransposed, typename Epi>
-__device__ __forceinline__ void dense_prod(const T* in, int in_ld, int K, const float* W,
-                                           const bf16* Wn, int N, int S, Epi epi,
-                                           float* colsum, bf16* sa) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    dense_mma(in, in_ld, K, Wn, N, S, epi, colsum, sa);
-  } else {
-    dense_rows<T, kTransposed>(in, in_ld, K, W, N, S, epi, colsum);
-  }
-}
-
 // h = T(a + b) row by row (written over a), its two-pass f32 LayerNorm
 // statistics into stats[r*4 + 0..1], and T(LN(h)) into out; one warp per
 // row, each lane on its own columns
@@ -700,21 +509,21 @@ __device__ __forceinline__ float hidden_drop_bwd(float d, int drop, uint32_t row
   return xrt::keep(row * (uint32_t)D + (uint32_t)c, seed, thr) ? d / keep_div : 0.f;
 }
 
-// pass 1's attention buffers: the mask, then hg heads' probs, d_probs and
-// row sums (f32) and, with tc, their T(dropped) and T(d_scores) (bf16)
-__host__ __device__ inline size_t attn_smem_bytes(int S, int hg, bool tc) {
+// the bf16 pass 1's attention buffers: the mask, then hg heads' probs,
+// d_probs and row sums (f32) and their T(dropped) and T(d_scores) (bf16)
+__host__ __device__ inline size_t attn_smem_bytes(int S, int hg) {
   const size_t bytes = (size_t)((S + 3) / 4) * 4 * sizeof(int) +
                        (size_t)hg * (2 * S * S + S) * sizeof(float) +
-                       (tc ? (size_t)hg * 2 * S * S * sizeof(bf16) : 0);
+                       (size_t)hg * 2 * S * S * sizeof(bf16);
   return (bytes + 15) / 16 * 16;
 }
 
-// pass 1's shared memory: the attention buffers and, with tc, the scratch
+// the bf16 pass 1's shared memory: the attention buffers and the scratch
 // sa: S rows of a staged operand, at most max(F, 4D + 8) + 8 wide (qkv and
 // gw side by side in the attention backward)
-__host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int F, int hg, bool tc) {
+__host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int F, int hg) {
   const int width = (F > 4 * D + 8 ? F : 4 * D + 8) + 8;
-  return attn_smem_bytes(S, hg, tc) + (tc ? (size_t)S * width * sizeof(bf16) : 0);
+  return attn_smem_bytes(S, hg) + (size_t)S * width * sizeof(bf16);
 }
 
 // Pass 1 of the backward, one block per sequence: recompute the layer from
@@ -722,26 +531,26 @@ __host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int F, int hg, bo
 // operands of the four weight-gradient products go to the workspace for
 // pass 2; the bias and LayerNorm gradients are summed over the sequence's
 // rows into one row of ``partial`` for pass 3.
-template <typename T, int kStop>
-__global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kernel(BwdParams p) {
+template <int kStop>
+__global__ void __launch_bounds__(kBwdTcThreads, 1) fused_layer_bwd_rows_kernel(BwdParams p) {
+  using T = bf16;
   using A = xrt::Act<T>;
-  constexpr bool kTC = std::is_same<T, bf16>::value;  // the products on the tensor cores
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.S, D = p.D, H = p.H, F = p.F, b = blockIdx.x;
   const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
   const int dh = D / H, ld3 = 3 * D;
-  // the attention of hg heads at a time (bf16; f32 one head): probs, d_probs
-  // (f32) and row sums, then (bf16) T(dropped) and T(d_scores)
-  const int hg = kTC ? p.hg : 1;
+  // the attention of hg heads at a time: probs, d_probs (f32) and row
+  // sums, then T(dropped) and T(d_scores)
+  const int hg = p.hg;
   int* smask = reinterpret_cast<int*>(smem);
   float* sp = reinterpret_cast<float*>(smem) + ((S + 3) / 4) * 4;  // hg x S x S probs
   float* sds = sp + hg * S * S;                                     // hg x S x S
   float* srow = sds + hg * S * S;                                   // hg x S
   bf16* spb = reinterpret_cast<bf16*>(srow + hg * S);               // hg x S x S
   bf16* sdsb = spb + hg * S * S;                                    // hg x S x S
-  // (bf16) a product's staged operand; in the attention, qkv (leading
-  // dimension 3D + 8) and then gw (D + 8)
-  bf16* sa = reinterpret_cast<bf16*>(smem + attn_smem_bytes(S, hg, kTC));
+  // a product's staged operand; in the attention, qkv (leading dimension
+  // 3D + 8) and then gw (D + 8)
+  bf16* sa = reinterpret_cast<bf16*>(smem + attn_smem_bytes(S, hg));
   const WOffsets woff(D, F);
   const bf16* w16 = p.w16;
   const bf16* wt16 = p.wt16;
@@ -765,7 +574,6 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   float* dqkv = p.dqkv + row_base * ld3;
   const VecOffsets off(D, F);
   float* part = p.partial + (size_t)b * off.total;
-  const bool approx_erf = sizeof(T) == 2;  // _APPROX_RECOMPUTE_ERF under bf16
 
   for (int i = threadIdx.x; i < S; i += blockDim.x) smask[i] = p.mask[b * S + i] != 0;
 
@@ -776,50 +584,20 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
       return 0.f;
     };
   };
-  dense_prod<T, false>(x, D, D, p.qkv_w, wt16 + woff.qkv, ld3, S, bias_round(p.qkv_b, qkv, ld3),
-                       nullptr, sa);
+  dense_mma(x, D, D, wt16 + woff.qkv, ld3, S, bias_round(p.qkv_b, qkv, ld3), nullptr, sa);
   __syncthreads();
 
   const float scale = 1.f / sqrtf((float)dh);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  // scores of head hh into sp: (q . k) * scale + key-padding and causal bias
-  auto head_scores = [&](int hh) {
-    for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
-      const int sq = item / S, t = item % S;
-      const T* q = qkv + (size_t)sq * ld3 + hh * dh;
-      const T* k = qkv + (size_t)t * ld3 + D + hh * dh;
-      float dot = 0.f;
-      for (int j = 0; j < dh; ++j) dot = fmaf(A::load(q[j]), A::load(k[j]), dot);
-      const float bias = (smask[t] ? 0.f : kNegInf) + ((p.causal && t > sq) ? kNegInf : 0.f);
-      sp[item] = dot * scale + bias;
-    }
-    __syncthreads();
-    for (int row = warp; row < S; row += nwarps) {
-      float* pr = sp + row * S;
-      float m = -INFINITY;
-      for (int t = lane; t < S; t += 32) m = fmaxf(m, pr[t]);
-      m = xrt::warp_max(m);
-      float sum = 0.f;
-      for (int t = lane; t < S; t += 32) {
-        const float e = expf(pr[t] - m);
-        pr[t] = e;
-        sum += e;
-      }
-      sum = xrt::warp_sum(sum);
-      for (int t = lane; t < S; t += 32) pr[t] = pr[t] / sum;
-    }
-    __syncthreads();
-  };
   // the dropped probability at (sq, t) of head hh, in f32
   auto dropped_at = [&](int hh, int sq, int t, float prob) {
     if (!p.attn_drop) return prob;
     const uint32_t idx = (((uint32_t)b * H + (uint32_t)hh) * (uint32_t)S + (uint32_t)sq) * (uint32_t)S + t;
     return xrt::keep(idx, seed[0], p.attn_thr) ? prob / p.attn_keep : 0.f;
   };
-  // (bf16) the probs of heads [h0, h0 + hg) into sp: the scores on the
-  // tensor cores, then the softmax as head_scores computes it; with
-  // want_dropped also T(dropped) into spb
-  // (bf16) q, k and v read from their copy in sa, leading dimension lq
+  // the probs of heads [h0, h0 + hg) into sp: the scores on the tensor
+  // cores, then the softmax; with want_dropped also T(dropped) into spb
+  // (q, k and v read from their copy in sa, leading dimension lq)
   const bf16* qkv16 = reinterpret_cast<const bf16*>(qkv);
   const int lq = ld3 + 8;
   const int causal = p.causal;
@@ -863,42 +641,26 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   };
 
   // ---- recompute: attention, ctx = T(T(dropped) V) per head
-  if constexpr (kTC) {
-    const int ntd = (dh + 7) / 8;
-    stage_rows(qkv16, ld3, S, ld3, sa);
+  const int ntd = (dh + 7) / 8;
+  stage_rows(qkv16, ld3, S, ld3, sa);
+  __syncthreads();
+  for (int h0 = 0; h0 < H; h0 += hg) {
+    group_probs(h0, true);
+    for (int item = warp; item < hg * ntd; item += nwarps) {
+      const int hh = item / ntd, col = (h0 + hh) * dh;
+      const bf16* pb = spb + hh * S * S;
+      const bf16* v = sa + 2 * D + col;
+      T* out = ctx + col;
+      float cs[2];
+      warp_mma(S, dh, S, (item % ntd) * 8,
+               [=](int sq, int t) { return row_pair(pb, S, sq, t, S, S); },
+               [=](int j, int t) { return col_pair(v, lq, t, j, S, dh); },
+               [=](int sq, int j, float acc) {
+                 out[(size_t)sq * D + j] = A::store(acc);
+                 return 0.f;
+               }, cs);
+    }
     __syncthreads();
-    for (int h0 = 0; h0 < H; h0 += hg) {
-      group_probs(h0, true);
-      for (int item = warp; item < hg * ntd; item += nwarps) {
-        const int hh = item / ntd, col = (h0 + hh) * dh;
-        const bf16* pb = spb + hh * S * S;
-        const bf16* v = sa + 2 * D + col;
-        T* out = ctx + col;
-        float cs[2];
-        warp_mma(S, dh, S, (item % ntd) * 8,
-                 [=](int sq, int t) { return row_pair(pb, S, sq, t, S, S); },
-                 [=](int j, int t) { return col_pair(v, lq, t, j, S, dh); },
-                 [=](int sq, int j, float acc) {
-                   out[(size_t)sq * D + j] = A::store(acc);
-                   return 0.f;
-                 }, cs);
-      }
-      __syncthreads();
-    }
-  } else {
-    for (int hh = 0; hh < H; ++hh) {
-      head_scores(hh);
-      for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
-        const int sq = item / dh, j = item % dh;
-        const float* pr = sp + sq * S;
-        float acc = 0.f;
-        for (int t = 0; t < S; ++t)
-          acc = fmaf(A::round(dropped_at(hh, sq, t, pr[t])),
-                     A::load(qkv[(size_t)t * ld3 + 2 * D + hh * dh + j]), acc);
-        ctx[(size_t)sq * D + hh * dh + j] = A::store(acc);
-      }
-      __syncthreads();
-    }
   }
 
   // ---- recompute: a = dropout(T(ctx Wout + b)) into h1, then h1 = T(x + a),
@@ -917,27 +679,27 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
       return 0.f;
     };
   };
-  dense_prod<T, false>(ctx, D, D, p.out_w, wt16 + woff.out, D, S,
+  dense_mma(ctx, D, D, wt16 + woff.out, D, S,
                        dense_dropout(p.out_b, h1, seed[1]), nullptr, sa);
   __syncthreads();
   add_ln_save<T>(h1, x, p.ln1_s, p.ln1_b, S, D, p.eps, stats, x1);
   __syncthreads();
 
   // ---- recompute: u = T(x1 Win + b), g = T(gelu(u))
-  dense_prod<T, false>(x1, D, D, p.ffn_in_w, wt16 + woff.ffn_in, F, S,
+  dense_mma(x1, D, D, wt16 + woff.ffn_in, F, S,
                        bias_round(p.ffn_in_b, u, F), nullptr, sa);
   __syncthreads();
 #pragma unroll 4
   for (int i = threadIdx.x; i < S * F; i += blockDim.x) {
     const float uv = A::load(u[i]);
-    const float e = approx_erf ? erf_as(uv * kInvSqrt2) : erf_eigen(uv * kInvSqrt2);
+    const float e = erf_as(uv * kInvSqrt2);  // _APPROX_RECOMPUTE_ERF
     g[i] = A::store(0.5f * uv * (1.f + e));
   }
   __syncthreads();
 
   // ---- recompute: f = dropout(T(g Wffn_out + b)) into h2, then h2 = T(x1 + f)
   // and the LN2 statistics (its output is not needed)
-  dense_prod<T, false>(g, F, F, p.ffn_out_w, wt16 + woff.ffn_out, D, S,
+  dense_mma(g, F, F, wt16 + woff.ffn_out, D, S,
                        dense_dropout(p.ffn_out_b, h2, seed[2]), nullptr, sa);
   __syncthreads();
   for (int row = warp; row < S; row += nwarps) {
@@ -994,13 +756,13 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
   // ---- FFN backward: du = (dfm Wffn_out^T) * gelu'(u), dum = T(du)
   auto gelu_bwd = [=](int r, int n, float acc) {
     const float uv = A::load(u[(size_t)r * F + n]);
-    const float e = approx_erf ? erf_as(uv * kInvSqrt2) : erf_eigen(uv * kInvSqrt2);
+    const float e = erf_as(uv * kInvSqrt2);  // _APPROX_RECOMPUTE_ERF
     const float phi = expf(-0.5f * uv * uv) * kInvSqrt2Pi;
     const float du = acc * (0.5f * (1.f + e) + uv * phi);
     dum[(size_t)r * F + n] = A::store(du);
     return du;
   };
-  dense_prod<T, true>(dfm, D, D, p.ffn_out_w, w16 + woff.ffn_out, F, S, gelu_bwd,
+  dense_mma(dfm, D, D, w16 + woff.ffn_out, F, S, gelu_bwd,
                       kStop == kBwdFull ? part + off.ffn_in_b : nullptr, sa);
   __syncthreads();
   // dx1 = dh2 + dum Win^T
@@ -1008,7 +770,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
     dres[(size_t)r * D + n] += acc;
     return 0.f;
   };
-  dense_prod<T, true>(dum, F, F, p.ffn_in_w, w16 + woff.ffn_in, D, S, add_to_dres, nullptr,
+  dense_mma(dum, F, F, w16 + woff.ffn_in, D, S, add_to_dres, nullptr,
                       sa);
   __syncthreads();
   if constexpr (kStop == kBwdFull) {
@@ -1048,133 +810,85 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
     return 0.f;
   };
   __syncthreads();
-  dense_prod<T, true>(dam, D, D, p.out_w, w16 + woff.out, D, S, store_round, nullptr, sa);
+  dense_mma(dam, D, D, w16 + woff.out, D, S, store_round, nullptr, sa);
   __syncthreads();
   if constexpr (kStop == kStopFfnBwd) {
     store_rows<T>(gw, D, S, D, 0, D, 0, 1, static_cast<T*>(p.dx) + row_base * D);
     return;
   }
 
-  // ---- attention backward into dqkv (f32): bf16 hg heads at a time on the
-  // tensor cores, f32 one head at a time
-  if constexpr (kTC) {
-    // qkv into sa again (the dense products used it), gw after it
-    bf16* sgw = sa + S * lq;
-    const int lg = D + 8;
-    stage_rows(qkv16, ld3, S, ld3, sa);
-    stage_rows(reinterpret_cast<const bf16*>(gw), D, S, D, sgw);
+  // ---- attention backward into dqkv (f32), hg heads at a time on the
+  // tensor cores: qkv into sa again (the dense products used it), gw after it
+  bf16* sgw = sa + S * lq;
+  const int lg = D + 8;
+  stage_rows(qkv16, ld3, S, ld3, sa);
+  stage_rows(reinterpret_cast<const bf16*>(gw), D, S, D, sgw);
+  __syncthreads();
+  const int attn_drop = p.attn_drop;
+  const float attn_keep = p.attn_keep;
+  const int ntn = (S + 7) / 8;
+  for (int h0 = 0; h0 < H; h0 += hg) {
+    group_probs(h0, false);  // sp = probs (f32)
+    // sds = d_probs: the dropout VJP of d_dropped = gw V^T
+    for (int item = warp; item < hg * ntn; item += nwarps) {
+      const int hh = item / ntn, col = (h0 + hh) * dh;
+      const bf16* gr = sgw + col;
+      const bf16* v = sa + 2 * D + col;
+      const float* pr = sp + hh * S * S;
+      float* out = sds + hh * S * S;
+      float cs[2];
+      warp_mma(S, S, dh, (item % ntn) * 8,
+               [=](int sq, int j) { return row_pair(gr, lg, sq, j, S, dh); },
+               [=](int t, int j) { return row_pair(v, lq, t, j, S, dh); },
+               [=](int sq, int t, float dd) {
+                 if (attn_drop)
+                   dd = dropped_at(h0 + hh, sq, t, pr[sq * S + t]) != 0.f ? dd / attn_keep : 0.f;
+                 out[sq * S + t] = dd;
+                 return 0.f;
+               }, cs);
+    }
     __syncthreads();
-    const int attn_drop = p.attn_drop;
-    const float attn_keep = p.attn_keep;
-    const int ntn = (S + 7) / 8, ntd = (dh + 7) / 8;
-    for (int h0 = 0; h0 < H; h0 += hg) {
-      group_probs(h0, false);  // sp = probs (f32)
-      // sds = d_probs: the dropout VJP of d_dropped = gw V^T
-      for (int item = warp; item < hg * ntn; item += nwarps) {
-        const int hh = item / ntn, col = (h0 + hh) * dh;
-        const bf16* gr = sgw + col;
-        const bf16* v = sa + 2 * D + col;
-        const float* pr = sp + hh * S * S;
-        float* out = sds + hh * S * S;
-        float cs[2];
-        warp_mma(S, S, dh, (item % ntn) * 8,
-                 [=](int sq, int j) { return row_pair(gr, lg, sq, j, S, dh); },
-                 [=](int t, int j) { return row_pair(v, lq, t, j, S, dh); },
-                 [=](int sq, int t, float dd) {
-                   if (attn_drop)
-                     dd = dropped_at(h0 + hh, sq, t, pr[sq * S + t]) != 0.f ? dd / attn_keep : 0.f;
-                   out[sq * S + t] = dd;
-                   return 0.f;
-                 }, cs);
-      }
-      __syncthreads();
-      for (int row = warp; row < hg * S; row += nwarps) {
-        float s = 0.f;
-        for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
-        s = xrt::warp_sum(s);
-        if (lane == 0) srow[row] = s;
-      }
-      __syncthreads();
-      // sdsb = T(probs * (d_probs - rowsum) * scale), spb = T(dropped)
-      for (int item = threadIdx.x; item < hg * S * S; item += blockDim.x) {
-        const int row = item / S, t = item % S;
-        const float prob = sp[item];
-        sdsb[item] = A::store(prob * (sds[item] - srow[row]) * scale);
-        spb[item] = A::store(dropped_at(h0 + row / S, row % S, t, prob));
-      }
-      __syncthreads();
-      // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
-      for (int item = warp; item < 3 * hg * ntd; item += nwarps) {
-        const int which = item / (hg * ntd), hh = (item / ntd) % hg, n0 = (item % ntd) * 8;
-        const int col = (h0 + hh) * dh;
-        const bf16* ds = sdsb + hh * S * S;
-        const bf16* pb = spb + hh * S * S;
-        const bf16* q = sa + col;
-        const bf16* k = sa + D + col;
-        float* out = dqkv + which * D + col;
-        auto store = [=](int s0, int j, float acc) {
-          out[(size_t)s0 * ld3 + j] = acc;
-          return 0.f;
-        };
-        float cs[2];
-        if (which == 0) {
-          warp_mma(S, dh, S, n0, [=](int s0, int t) { return row_pair(ds, S, s0, t, S, S); },
-                   [=](int j, int t) { return col_pair(k, lq, t, j, S, dh); }, store, cs);
-        } else if (which == 1) {
-          warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(ds, S, t, s0, S, S); },
-                   [=](int j, int t) { return col_pair(q, lq, t, j, S, dh); }, store, cs);
-        } else {
-          warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(pb, S, t, s0, S, S); },
-                   [=](int j, int t) { return col_pair(sgw + col, lg, t, j, S, dh); }, store, cs);
-        }
-      }
-      __syncthreads();
+    for (int row = warp; row < hg * S; row += nwarps) {
+      float s = 0.f;
+      for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
+      s = xrt::warp_sum(s);
+      if (lane == 0) srow[row] = s;
     }
-  } else {
-    for (int hh = 0; hh < H; ++hh) {
-      head_scores(hh);  // sp = probs (f32)
-      // sds = d_probs: the dropout VJP of d_dropped = gw V^T
-      for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
-        const int sq = item / S, t = item % S;
-        const T* gr = gw + (size_t)sq * D + hh * dh;
-        const T* v = qkv + (size_t)t * ld3 + 2 * D + hh * dh;
-        float dd = 0.f;
-        for (int j = 0; j < dh; ++j) dd = fmaf(A::load(gr[j]), A::load(v[j]), dd);
-        if (p.attn_drop) dd = dropped_at(hh, sq, t, sp[item]) != 0.f ? dd / p.attn_keep : 0.f;
-        sds[item] = dd;
-      }
-      __syncthreads();
-      for (int row = warp; row < S; row += nwarps) {
-        float s = 0.f;
-        for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
-        s = xrt::warp_sum(s);
-        if (lane == 0) srow[row] = s;
-      }
-      __syncthreads();
-      // d_scores = T(probs * (d_probs - rowsum) * scale); sp becomes T(dropped)
-      for (int item = threadIdx.x; item < S * S; item += blockDim.x) {
-        const int sq = item / S, t = item % S;
-        const float prob = sp[item];
-        sds[item] = A::round(prob * (sds[item] - srow[sq]) * scale);
-        sp[item] = A::round(dropped_at(hh, sq, t, prob));
-      }
-      __syncthreads();
-      // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
-      for (int item = threadIdx.x; item < S * dh; item += blockDim.x) {
-        const int s0 = item / dh, j = item % dh;
-        const int col = hh * dh + j;
-        float aq = 0.f, ak = 0.f, av = 0.f;
-        for (int t = 0; t < S; ++t) {
-          aq = fmaf(sds[s0 * S + t], A::load(qkv[(size_t)t * ld3 + D + col]), aq);
-          ak = fmaf(sds[t * S + s0], A::load(qkv[(size_t)t * ld3 + col]), ak);
-          av = fmaf(sp[t * S + s0], A::load(gw[(size_t)t * D + col]), av);
-        }
-        dqkv[(size_t)s0 * ld3 + col] = aq;
-        dqkv[(size_t)s0 * ld3 + D + col] = ak;
-        dqkv[(size_t)s0 * ld3 + 2 * D + col] = av;
-      }
-      __syncthreads();
+    __syncthreads();
+    // sdsb = T(probs * (d_probs - rowsum) * scale), spb = T(dropped)
+    for (int item = threadIdx.x; item < hg * S * S; item += blockDim.x) {
+      const int row = item / S, t = item % S;
+      const float prob = sp[item];
+      sdsb[item] = A::store(prob * (sds[item] - srow[row]) * scale);
+      spb[item] = A::store(dropped_at(h0 + row / S, row % S, t, prob));
     }
+    __syncthreads();
+    // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
+    for (int item = warp; item < 3 * hg * ntd; item += nwarps) {
+      const int which = item / (hg * ntd), hh = (item / ntd) % hg, n0 = (item % ntd) * 8;
+      const int col = (h0 + hh) * dh;
+      const bf16* ds = sdsb + hh * S * S;
+      const bf16* pb = spb + hh * S * S;
+      const bf16* q = sa + col;
+      const bf16* k = sa + D + col;
+      float* out = dqkv + which * D + col;
+      auto store = [=](int s0, int j, float acc) {
+        out[(size_t)s0 * ld3 + j] = acc;
+        return 0.f;
+      };
+      float cs[2];
+      if (which == 0) {
+        warp_mma(S, dh, S, n0, [=](int s0, int t) { return row_pair(ds, S, s0, t, S, S); },
+                 [=](int j, int t) { return col_pair(k, lq, t, j, S, dh); }, store, cs);
+      } else if (which == 1) {
+        warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(ds, S, t, s0, S, S); },
+                 [=](int j, int t) { return col_pair(q, lq, t, j, S, dh); }, store, cs);
+      } else {
+        warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(pb, S, t, s0, S, S); },
+                 [=](int j, int t) { return col_pair(sgw + col, lg, t, j, S, dh); }, store, cs);
+      }
+    }
+    __syncthreads();
   }
 
   // ---- qkv bias gradient and dqm = T(dqkv)
@@ -1195,64 +909,7 @@ __global__ void __launch_bounds__(bwd_threads<T>(), 1) fused_layer_bwd_rows_kern
     dx[(size_t)r * D + n] = A::store(dres[(size_t)r * D + n] + acc);
     return 0.f;
   };
-  dense_prod<T, true>(dqm, ld3, ld3, p.qkv_w, w16 + woff.qkv, D, S, store_dx, nullptr, sa);
-}
-
-constexpr int kTile = 64;     // weight-gradient tile: kTile x kTile outputs
-constexpr int kRowChunk = 16;  // rows staged per step
-
-// Pass 2: dW = X^T Y over all R rows for the four weights, blockIdx.z
-// picking the product; each block owns a kTile x kTile tile of dW and walks
-// the rows in order (deterministic, no atomics), 4 x 4 outputs a thread.
-template <typename T>
-__global__ void __launch_bounds__(256) weight_grad_kernel(BwdParams p) {
-  using A = xrt::Act<T>;
-  __shared__ float sx[kRowChunk][kTile];
-  __shared__ float sy[kRowChunk][kTile];
-  const int D = p.D, F = p.F, R = p.B * p.S;
-  const T* X;
-  const T* Y;
-  float* dW;
-  int K, N;
-  switch (blockIdx.z) {
-    case 0: X = static_cast<const T*>(p.x); Y = static_cast<const T*>(p.dqm); dW = p.d_qkv_w; K = D; N = 3 * D; break;
-    case 1: X = static_cast<const T*>(p.ctx); Y = static_cast<const T*>(p.dam); dW = p.d_out_w; K = D; N = D; break;
-    case 2: X = static_cast<const T*>(p.x1); Y = static_cast<const T*>(p.dum); dW = p.d_ffn_in_w; K = D; N = F; break;
-    default: X = static_cast<const T*>(p.g); Y = static_cast<const T*>(p.dfm); dW = p.d_ffn_out_w; K = F; N = D; break;
-  }
-  const int k0 = blockIdx.x * kTile, n0 = blockIdx.y * kTile;
-  if (k0 >= K || n0 >= N) return;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int r0 = 0; r0 < R; r0 += kRowChunk) {
-    for (int i = threadIdx.x; i < kRowChunk * kTile; i += blockDim.x) {
-      const int rr = i / kTile, cc = i % kTile, r = r0 + rr;
-      sx[rr][cc] = (r < R && k0 + cc < K) ? A::load(X[(size_t)r * K + k0 + cc]) : 0.f;
-      sy[rr][cc] = (r < R && n0 + cc < N) ? A::load(Y[(size_t)r * N + n0 + cc]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < kRowChunk; ++rr) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sx[rr][ty + 16 * i];
-        bv[i] = sy[rr][tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (k < K && n < N) dW[(size_t)k * N + n] = acc[i][j];
-    }
+  dense_mma(dqm, ld3, ld3, w16 + woff.qkv, D, S, store_dx, nullptr, sa);
 }
 
 // The bias and LayerNorm gradient i (of VecOffsets::total): the per-sequence
@@ -1271,12 +928,6 @@ __device__ __forceinline__ void vector_grad(const BwdParams& p, int i) {
   else if (i < off.ln2_b) dst = p.d_ln2_s + (i - off.ln2_s);
   else dst = p.d_ln2_b + (i - off.ln2_b);
   *dst = s;
-}
-
-// Pass 3 (f32): the bias and LayerNorm gradients
-__global__ void vector_grad_kernel(BwdParams p) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < VecOffsets(p.D, p.F).total) vector_grad(p, i);
 }
 
 // ---- bf16: passes 0, 2 and 3 around pass 1 on the tensor cores
@@ -1400,8 +1051,8 @@ __global__ void __launch_bounds__(128) weight_grad_mma_kernel(BwdParams p) {
     }
 }
 
-// Pass 3 (bf16): each weight gradient the sum of its partial tiles in split
-// order, then the bias and LayerNorm gradients
+// Pass 3 (bf16 and f32): each weight gradient the sum of its partial tiles
+// in split order, then the bias and LayerNorm gradients
 __global__ void grad_reduce_kernel(BwdParams p) {
   const WOffsets w(p.D, p.F);
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1418,69 +1069,84 @@ __global__ void grad_reduce_kernel(BwdParams p) {
   *dst = s;
 }
 
-template <typename T, int kStop>
-cudaError_t launch_bwd(BwdParams p, cudaStream_t stream) {
-  constexpr bool kTC = std::is_same<T, bf16>::value;
-  cudaError_t err;
+// Pass 2 (f32): dW = X^T Y for the four weights as a split-K product on the
+// CUDA cores, over the tiles and row splits of weight_grad_mma_kernel.
+// Block (t, s) stages 32 rows of X's and Y's tile columns at a time by
+// 16-byte cp.async, double-buffered; each thread sums a 4 x 4 register tile
+// (four k, four n, from 16-byte shared loads) over the rows in order, and
+// the partial tile goes to wpart[s] (no atomics).
+__global__ void __launch_bounds__(256) weight_grad_f32_kernel(BwdParams p) {
+  __shared__ __align__(16) float sx[2][kWgRows][kWgTile];  // X(r, k0 + c)
+  __shared__ __align__(16) float sy[2][kWgRows][kWgTile];  // Y(r, n0 + c)
   const WOffsets w(p.D, p.F);
-  if constexpr (kTC) {
-    // the most heads (a divisor of H) whose attention buffers fit a block
-    int dev = 0, limit = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    p.hg = 0;
-    for (int hg = p.H; hg >= 1 && !p.hg; --hg)
-      if (p.H % hg == 0 && bwd_smem_bytes(p.S, p.D, p.F, hg, true) <= (size_t)limit)
-        p.hg = hg;
-    if (!p.hg) return cudaErrorInvalidValue;
-    round_weights_kernel<<<(unsigned)((w.total + 255) / 256), 256, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  } else {
-    p.hg = 1;
+  const int D = p.D, F = p.F, R = p.B * p.S;
+  int t = blockIdx.x, K = 0, N = 0;
+  const float *X = nullptr, *Y = nullptr;
+  size_t base = 0;
+  for (int prod = 0; prod < 4; ++prod) {
+    switch (prod) {
+      case 0: X = static_cast<const float*>(p.x); Y = static_cast<const float*>(p.dqm); K = D; N = 3 * D; base = w.qkv; break;
+      case 1: X = static_cast<const float*>(p.ctx); Y = static_cast<const float*>(p.dam); K = D; N = D; base = w.out; break;
+      case 2: X = static_cast<const float*>(p.x1); Y = static_cast<const float*>(p.dum); K = D; N = F; base = w.ffn_in; break;
+      default: X = static_cast<const float*>(p.g); Y = static_cast<const float*>(p.dfm); K = F; N = D; base = w.ffn_out; break;
+    }
+    if (t < wg_tiles(K, N)) break;
+    t -= wg_tiles(K, N);
   }
-  const size_t smem = bwd_smem_bytes(p.S, p.D, p.F, p.hg, kTC);
-  err = cudaFuncSetAttribute(fused_layer_bwd_rows_kernel<T, kStop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_layer_bwd_rows_kernel<T, kStop><<<p.B, bwd_threads<T>(), smem, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if constexpr (kStop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
-  const int vec = VecOffsets(p.D, p.F).total;
-  if constexpr (kTC) {
-    const int R = p.B * p.S;
-    p.rows_per_split = ((R + p.splits - 1) / p.splits + kWgRows - 1) / kWgRows * kWgRows;
-    p.splits = (R + p.rows_per_split - 1) / p.rows_per_split;
-    const int tiles = wg_tiles(p.D, 3 * p.D) + wg_tiles(p.D, p.D) + wg_tiles(p.D, p.F) +
-                      wg_tiles(p.F, p.D);
-    weight_grad_mma_kernel<<<dim3(tiles, p.splits), 128, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    grad_reduce_kernel<<<(unsigned)((w.total + vec + 255) / 256), 256, 0, stream>>>(p);
-  } else {
-    const int tiles = (max(p.F, 3 * p.D) + kTile - 1) / kTile;
-    weight_grad_kernel<T><<<dim3(tiles, tiles, 4), 256, 0, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    vector_grad_kernel<<<(vec + 255) / 256, 256, 0, stream>>>(p);
+  const int tn = (N + kWgTile - 1) / kWgTile;
+  const int k0 = (t / tn) * kWgTile, n0 = (t % tn) * kWgTile;
+  const int r_begin = blockIdx.y * p.rows_per_split;
+  const int r_end = min(R, r_begin + p.rows_per_split);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  constexpr int kQuads = kWgRows * (kWgTile / 4);  // 16-byte pieces of a staged matrix
+  auto stage = [&](int r0, int buf) {
+    for (int i = tid; i < 2 * kQuads; i += 256) {
+      const bool y = i >= kQuads;
+      const int rr = (i % kQuads) / (kWgTile / 4), c = (i % (kWgTile / 4)) * 4, r = r0 + rr;
+      const int c0 = y ? n0 : k0, cols = y ? N : K;
+      const float* src = y ? Y : X;
+      const bool in = r < r_end && c0 + c < cols;
+      xrt::cp_async16(y ? &sy[buf][rr][c] : &sx[buf][rr][c],
+                      in ? src + (size_t)r * cols + c0 + c : src, in);
+    }
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i / 4][i % 4] = 0.f;
+  const int chunks = (r_end - r_begin + kWgRows - 1) / kWgRows;
+  stage(r_begin, 0);
+  xrt::cp_async_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) stage(r_begin + (ch + 1) * kWgRows, (ch + 1) & 1);
+    xrt::cp_async_commit();
+    xrt::cp_async_wait<1>();
+    __syncthreads();
+    const int rows = min(kWgRows, r_end - r_begin - ch * kWgRows);
+#pragma unroll 4
+    for (int rr = 0; rr < rows; ++rr) {
+      const float4 a = *reinterpret_cast<const float4*>(&sx[ch & 1][rr][4 * ty]);
+      const float4 b = *reinterpret_cast<const float4*>(&sy[ch & 1][rr][4 * tx]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
   }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_bwd_stage(const BwdParams& p, int stage, cudaStream_t stream) {
-  switch (stage) {
-    case kStopRecompute: return launch_bwd<T, kStopRecompute>(p, stream);
-    case kStopFfnBwd: return launch_bwd<T, kStopFfnBwd>(p, stream);
-    case kStopAttnBwd: return launch_bwd<T, kStopAttnBwd>(p, stream);
-    case kBwdFull: return launch_bwd<T, kBwdFull>(p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  float* out = p.wpart + (size_t)blockIdx.y * w.total + base;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = k0 + 4 * ty + i, n = n0 + 4 * tx + j;
+      if (k < K && n < N) out[(size_t)k * N + n] = acc[i][j];
+    }
 }
 
 // ---------------------------------------------------------------------------
 // the bf16 forward on the tensor cores (see the top of this file)
 // ---------------------------------------------------------------------------
-
-namespace cg = cooperative_groups;
 
 constexpr int kMaxCluster = 4;
 
@@ -1504,13 +1170,14 @@ struct TcLayout {
   }
 };
 
-// a buffer of every CTA of the cluster: put2() writes two adjacent values
-// into each copy (distributed shared memory; the CTA's own copy with a
-// cluster of 1)
+// a buffer of every CTA of the cluster: put2() writes two adjacent bf16
+// values, put() one f32 value, into each copy (distributed shared memory;
+// the CTA's own copy with a cluster of 1)
+template <typename T>
 struct Copies {
-  bf16* at[kMaxCluster];
+  T* at[kMaxCluster];
   int n;
-  __device__ Copies(bf16* local, int cluster) : n(cluster) {
+  __device__ Copies(T* local, int cluster) : n(cluster) {
     for (int r = 0; r < kMaxCluster; ++r)
       at[r] = r < cluster ? (cluster > 1 ? cg::this_cluster().map_shared_rank(local, r) : local)
                           : local;
@@ -1521,6 +1188,11 @@ struct Copies {
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < n) *reinterpret_cast<uint32_t*>(at[r] + off) = w;
+  }
+  __device__ __forceinline__ void put(int off, float v) const {
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n) at[r][off] = v;
   }
 };
 
@@ -1608,7 +1280,7 @@ __device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict_
 // shared memory.  S <= 64 and dh <= 64: at most 8 column tiles each.
 __device__ __forceinline__ void attention_tc(const Params& p, uint32_t attn_seed, int b, int h0,
                                              int h1, const bf16* big, int lbig, const int* smask,
-                                             const Copies& ctx_all, int ldx) {
+                                             const Copies<bf16>& ctx_all, int ldx) {
   const int S = p.S, D = p.D, H = p.H, dh = D / H;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
@@ -1750,7 +1422,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (C > 1) cg::this_cluster().sync();
     else __syncthreads();
   };
-  const Copies ctx_all(ctx, C), hb_all(hb, C), big_all(big, C);
+  const Copies<bf16> ctx_all(ctx, C), hb_all(hb, C), big_all(big, C);
   // the packed weights (uint2 units; WOffsets counts bf16)
   const WOffsets woff(D, F);
   const uint2* wqkv = wp + woff.qkv / 4;
@@ -1792,7 +1464,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int hidden_drop = p.hidden_drop;
   const uint32_t hidden_thr = p.hidden_thr;
   const float hidden_keep = p.hidden_keep;
-  auto dropout_into = [=](const Copies& dst, const float* bias, uint32_t seed) {
+  auto dropout_into = [=](const Copies<bf16>& dst, const float* bias, uint32_t seed) {
     return [=](int r, int n, float v0, float v1) {
       float v[2] = {v0, v1};
 #pragma unroll
@@ -1839,6 +1511,831 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D, rank, C);
 }
 
+// ---------------------------------------------------------------------------
+// the f32 layer on the CUDA cores: the forward and pass 1 of the backward
+// ---------------------------------------------------------------------------
+
+// A product's tiles (see f32_product): 128 output columns a pass, 32 of k a
+// staged tile; the transposed weight tile holds a column's k values in a row
+// of kWtLd, a staged activation tile a row's in kALd (16-byte rows whose
+// 16-byte index steps by an odd count: conflict-free 16-byte reads)
+constexpr int kPassCols = 128;
+constexpr int kKChunk = 32;
+constexpr int kWtLd = kKChunk + 4;
+constexpr int kALd = kKChunk + 4;
+constexpr int kWTileFwd = kKChunk * kPassCols;  // a (K, N) weight's tile
+constexpr int kWTile = kPassCols * kWtLd;       // either tile (the backward's buffers)
+
+// rows a product's tiles cover: the 8 warps' 4-row groups, once (S <= 32)
+// or twice
+__host__ __device__ inline int f32_rows(int S) { return S <= 32 ? 32 : 64; }
+
+// a leading dimension for rows of w floats (w % 4 == 0) read by eight
+// lanes at eight rows in 16-byte pieces without bank conflicts
+__host__ __device__ inline int odd_ld(int w) { return (w / 4) % 2 ? w : w + 4; }
+
+// bytes and offsets of the f32 forward's shared memory (the rows of
+// f32_rows; rows of D at odd_ld(D), of F at odd_ld(F)):
+//   sx  rows x D      the layer input, then x1 = LN1(...)
+//   a1  rows x max(D, F)   ctx (every CTA's heads), then the FFN hidden g
+//   a2  rows x max(odd_ld(3 hg dh), D)   a head group's q|k|v, then a =
+//       dropout(ctx Wout + b), then f = dropout(g Wffn_out + b)
+//   two (K, N) weight tiles (the key mask is read from device memory)
+struct F32Layout {
+  size_t a1, a2, wbuf, total;
+  __host__ __device__ F32Layout(int S, int D, int H, int F, int hg) {
+    const size_t rows = f32_rows(S);
+    const int ldx = odd_ld(D), ldf = odd_ld(F), w2 = odd_ld(3 * hg * (D / H));
+    a1 = rows * ldx * sizeof(float);
+    a2 = a1 + rows * (ldx > ldf ? ldx : ldf) * sizeof(float);
+    wbuf = a2 + rows * (w2 > ldx ? w2 : ldx) * sizeof(float);
+    total = wbuf + 2 * kWTileFwd * sizeof(float);
+  }
+};
+
+// and of pass 1 of the f32 backward: two weight tiles and two activation
+// tiles; a head group's q|k|v (S x odd_ld(3 hg dh)) and gw (S x hg dh), its
+// d_scores and dropped probs (hg x S x S each); the key mask
+struct F32BwdLayout {
+  size_t abuf, qkv, gw, sds, sdr, mask, total;
+  __host__ __device__ F32BwdLayout(int S, int D, int H, int hg) {
+    const int dh = D / H;
+    abuf = 2 * kWTile * sizeof(float);
+    qkv = abuf + 2 * (size_t)f32_rows(S) * kALd * sizeof(float);
+    gw = qkv + (size_t)S * odd_ld(3 * hg * dh) * sizeof(float);
+    sds = gw + (size_t)S * hg * dh * sizeof(float);
+    sdr = sds + (size_t)hg * S * S * sizeof(float);
+    mask = sdr + (size_t)hg * S * S * sizeof(float);
+    total = mask + (size_t)S * sizeof(int);
+  }
+};
+
+// output columns of a product: ``parts`` runs of ``width`` columns (a
+// multiple of 4), run i from column base + i * stride of the weight's N
+struct Cols {
+  int base, width, parts, stride;
+  __device__ __forceinline__ int count() const { return parts * width; }
+  __device__ __forceinline__ int at(int c) const {
+    return base + (c / width) * stride + c % width;
+  }
+};
+
+// CTA rank's share of N columns split across a cluster of C: whole blocks
+// of 4 columns (head-aligned for D when D % (4 C) == 0)
+__device__ __forceinline__ Cols share(int N, int rank, int C) {
+  const int nb = N / 4, b0 = rank * nb / C, b1 = (rank + 1) * nb / C;
+  return Cols{4 * b0, 4 * (b1 - b0), 1, 0};
+}
+
+template <int q>
+__device__ __forceinline__ float comp(const float4& v) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// one k step q (of four loaded) of f32_product's register tiles: kT, wv[j]
+// holds column j's four k; else wv[q] holds k step q's four columns
+template <int q, bool kT, int kMT>
+__device__ __forceinline__ void fma_k(float (&acc)[kMT][4][4], const float4 (&av)[kMT][4],
+                                      const float4 (&wv)[4]) {
+  const float w0 = kT ? comp<q>(wv[0]) : wv[q].x;
+  const float w1 = kT ? comp<q>(wv[1]) : wv[q].y;
+  const float w2 = kT ? comp<q>(wv[2]) : wv[q].z;
+  const float w3 = kT ? comp<q>(wv[3]) : wv[q].w;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = comp<q>(av[m][i]);
+      acc[m][i][0] = fmaf(x, w0, acc[m][i][0]);
+      acc[m][i][1] = fmaf(x, w1, acc[m][i][1]);
+      acc[m][i][2] = fmaf(x, w2, acc[m][i][2]);
+      acc[m][i][3] = fmaf(x, w3, acc[m][i][3]);
+    }
+}
+
+// acc(r, n) = sum_k A(r, k) W(k, n) for the rows r < S and the columns
+// ``cols`` of the weight, with W(k, n) = W[k N + n] (kT false: a (K, N)
+// weight) or W[n K + k] (kT true: the product with the transpose of an (N,
+// K) weight).  Each output is one thread's chain of f32 FMAs over k in
+// increasing order, so its bits depend on neither the cluster nor the pass.
+// Passes of 128 columns; per k chunk of 32 the pass's weight tile goes to
+// shared memory by 16-byte cp.async, double-buffered, shared by all the
+// CTA's rows, as a (k, column) tile, or for kT a (column, k) tile (so the
+// copies and the reads stay 16-byte and unit-stride).  A is in shared memory
+// (a, leading dimension lda with lda / 4 odd, f32_rows(S) rows readable)
+// or, with kAG, in device memory, its chunk staged beside the weight's.
+// Warp w holds the pass's columns [16 w, 16 w + 16), lane l = 4 g + q the
+// rows g, g + 8, g + 16, g + 24 (and 32 more for kMT = 2) and the columns
+// 16 w + 4 q .. + 3 (kT: 16 w + q + 4 j): a register tile of 4 x 4 outputs
+// per 32 rows from 16-byte shared loads of A and W, each warp load eight
+// (A) or four (W) distinct rows on distinct banks, broadcast to the lanes
+// that share them.
+// epi(r, c, n, acc) takes each output, c its index in cols.
+template <bool kT, bool kAG, int kMT, typename Epi>
+__device__ void f32_product_tiles(const float* a, int lda, int K, const float* __restrict__ W,
+                                  int N, Cols cols, int S, float* wbuf, float* abuf, Epi epi) {
+  constexpr int kWStride = kT ? kWTile : kWTileFwd;
+  constexpr int kARows = 32 * kMT;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, q = lane & 3, cw = 16 * (tid >> 5);
+  const int nk = (K + kKChunk - 1) / kKChunk, total = cols.count();
+  for (int c0 = 0; c0 < total; c0 += kPassCols) {
+    const int pc = min(kPassCols, total - c0);
+    auto stage = [&](int ch) {
+      const int k0 = ch * kKChunk;
+      float* wb = wbuf + (ch & 1) * kWStride;
+      if constexpr (kT) {
+        for (int i = tid; i < kPassCols * (kKChunk / 4); i += kThreads) {
+          const int c = i / (kKChunk / 4), k = k0 + (i % (kKChunk / 4)) * 4;
+          const bool in = c < pc && k < K;
+          xrt::cp_async16(wb + c * kWtLd + (k - k0),
+                          in ? W + (size_t)cols.at(c0 + c) * K + k : W, in);
+        }
+      } else {
+        for (int i = tid; i < kKChunk * (kPassCols / 4); i += kThreads) {
+          const int kk = i / (kPassCols / 4), c = (i % (kPassCols / 4)) * 4;
+          const bool in = c < pc && k0 + kk < K;
+          xrt::cp_async16(wb + kk * kPassCols + c,
+                          in ? W + (size_t)(k0 + kk) * N + cols.at(c0 + c) : W, in);
+        }
+      }
+      if constexpr (kAG) {
+        float* ab = abuf + (ch & 1) * kARows * kALd;
+        for (int i = tid; i < kARows * (kKChunk / 4); i += kThreads) {
+          const int r = i / (kKChunk / 4), k = k0 + (i % (kKChunk / 4)) * 4;
+          const bool in = r < S && k < K;
+          xrt::cp_async16(ab + r * kALd + (k - k0), in ? a + (size_t)r * lda + k : a, in);
+        }
+      }
+    };
+    float acc[kMT][4][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[m][i / 4][i % 4] = 0.f;
+    stage(0);
+    xrt::cp_async_commit();
+    for (int ch = 0; ch < nk; ++ch) {
+      if (ch + 1 < nk) stage(ch + 1);
+      xrt::cp_async_commit();
+      xrt::cp_async_wait<1>();
+      __syncthreads();
+      const float* wb = wbuf + (ch & 1) * kWStride;
+      const float* ab = kAG ? abuf + (ch & 1) * kARows * kALd : a + ch * kKChunk;
+      const int ald = kAG ? kALd : lda;
+      const int kt = min(kKChunk, K - ch * kKChunk);  // a multiple of 4
+#pragma unroll 2
+      for (int kk = 0; kk < kt; kk += 4) {
+        float4 av[kMT][4], wv[4];
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[m][i] = *reinterpret_cast<const float4*>(ab + (32 * m + g + 8 * i) * ald + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wv[j] = kT ? *reinterpret_cast<const float4*>(wb + (cw + q + 4 * j) * kWtLd + kk)
+                     : *reinterpret_cast<const float4*>(wb + (kk + j) * kPassCols + cw + 4 * q);
+        fma_k<0, kT>(acc, av, wv);
+        fma_k<1, kT>(acc, av, wv);
+        fma_k<2, kT>(acc, av, wv);
+        fma_k<3, kT>(acc, av, wv);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int m = 0; m < kMT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = 32 * m + g + 8 * i, c = kT ? cw + q + 4 * j : cw + 4 * q + j;
+          if (r < S && c < pc) epi(r, c0 + c, cols.at(c0 + c), acc[m][i][j]);
+        }
+  }
+}
+
+template <bool kT, bool kAG, typename Epi>
+__device__ __forceinline__ void f32_product(const float* a, int lda, int K, const float* W, int N,
+                                            Cols cols, int S, float* wbuf, float* abuf, Epi epi) {
+  if (S <= 32) f32_product_tiles<kT, kAG, 1>(a, lda, K, W, N, cols, S, wbuf, abuf, epi);
+  else f32_product_tiles<kT, kAG, 2>(a, lda, K, W, N, cols, S, wbuf, abuf, epi);
+}
+
+// what the f32 attention needs of the layer and the sequence
+struct F32Attn {
+  int S, H, dh, b, causal, drop;
+  float scale, keep;
+  uint32_t seed, thr;
+};
+
+// The probabilities of query row sq of one head against the keys t = lane
+// and lane + 32 (0 at t >= S), across the warp: the softmax over t of
+// (q . k_t) scale + the key-padding and causal bias, each dot in order over
+// dh, the max and the sum across the warp's lanes; q the row's dh values,
+// k the key rows (leading dimension ld, 16-byte aligned)
+__device__ __forceinline__ void f32_row_probs(const F32Attn& at, const float* q, const float* k,
+                                              int ld, int sq, const int* smask, float p[2]) {
+  const int lane = threadIdx.x & 31;
+  float x[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int t = lane + 32 * u;
+    x[u] = -INFINITY;
+    if (t < at.S) {
+      const float* kr = k + t * ld;
+      float dot = 0.f;
+      for (int j = 0; j < at.dh; j += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(q + j);
+        const float4 kv = *reinterpret_cast<const float4*>(kr + j);
+        dot = fmaf(qv.x, kv.x, dot);
+        dot = fmaf(qv.y, kv.y, dot);
+        dot = fmaf(qv.z, kv.z, dot);
+        dot = fmaf(qv.w, kv.w, dot);
+      }
+      const float bias = (smask[t] ? 0.f : kNegInf) + ((at.causal && t > sq) ? kNegInf : 0.f);
+      x[u] = dot * at.scale + bias;
+    }
+  }
+  const float m = xrt::warp_max(fmaxf(x[0], x[1]));
+  float sum = 0.f;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    x[u] = lane + 32 * u < at.S ? expf(x[u] - m) : 0.f;
+    sum += x[u];
+  }
+  sum = xrt::warp_sum(sum);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) p[u] = x[u] / sum;
+}
+
+// the dropped probability of prob at element idx of the probs
+__device__ __forceinline__ float f32_dropped(const F32Attn& at, float prob, uint32_t idx) {
+  if (!at.drop) return prob;
+  return xrt::keep(idx, at.seed, at.thr) ? prob / at.keep : 0.f;
+}
+
+// The attention of heads [h0, h0 + hg) of sequence at.b from their q, k and
+// v in ``qkv`` (leading dimension ld; group head i's q at columns i dh, k
+// at (hg + i) dh, v at (2 hg + i) dh): a warp per (head, query row) holds
+// the row's dropped probs across its lanes, then sums ctx(sq, j) = sum_t
+// p_t v(t, j) over t in order, lane j; out(sq, h dh + j, ctx) takes each
+template <typename Out>
+__device__ void f32_attention(const F32Attn& at, const float* qkv, int ld, int h0, int hg,
+                              const int* smask, Out out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int S = at.S, dh = at.dh;
+  for (int item = warp; item < hg * S; item += nwarps) {
+    const int i = item / S, sq = item % S, h = h0 + i;
+    const float* v = qkv + (2 * hg + i) * dh;
+    float p[2];
+    f32_row_probs(at, qkv + sq * ld + i * dh, qkv + (hg + i) * dh, ld, sq, smask, p);
+    const uint32_t base = (((uint32_t)at.b * at.H + (uint32_t)h) * S + (uint32_t)sq) * S;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) p[u] = f32_dropped(at, p[u], base + lane + 32 * u);
+    for (int j0 = 0; j0 < dh; j0 += 32) {
+      const int j = j0 + lane;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < S; ++t) {
+        const float pt = __shfl_sync(0xffffffffu, t < 32 ? p[0] : p[1], t & 31);
+        if (j < dh) acc = fmaf(pt, v[t * ld + j], acc);
+      }
+      if (j < dh) out(sq, h * dh + j, acc);
+    }
+  }
+}
+
+// The attention's VJP for heads [h0, h0 + hg): q, k and v as f32_attention
+// reads them, gw (leading dimension hg dh) the cotangent of their ctx.  A
+// warp per (head, query row) recomputes the row's probs, takes d_dropped =
+// gw(sq) . v_t, the dropout's VJP, the row sum of d_probs probs, d_scores =
+// probs (d_probs - rowsum) scale and dq(sq, j) = sum_t d_scores_t k(t, j);
+// the group's d_scores and dropped probs go to sds and sdr, and a warp per
+// (head, key row t) sums dk(t, j) = sum_sq d_scores(sq, t) q(sq, j) and
+// dv(t, j) = sum_sq dropped(sq, t) gw(sq, j) over the query rows in order.
+// dq, dk and dv into dqkv (leading dimension 3D).
+__device__ void f32_attention_bwd(const F32Attn& at, const float* qkv, int ld, const float* gw,
+                                  int h0, int hg, const int* smask, float* sds, float* sdr,
+                                  float* dqkv, int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int S = at.S, dh = at.dh, ldg = hg * dh, ld3 = 3 * D;
+  for (int item = warp; item < hg * S; item += nwarps) {
+    const int i = item / S, sq = item % S, h = h0 + i;
+    const float* k = qkv + (hg + i) * dh;
+    const float* v = qkv + (2 * hg + i) * dh;
+    const float* gr = gw + sq * ldg + i * dh;
+    float p[2], ds[2] = {0.f, 0.f};
+    f32_row_probs(at, qkv + sq * ld + i * dh, k, ld, sq, smask, p);
+    const uint32_t base = (((uint32_t)at.b * at.H + (uint32_t)h) * S + (uint32_t)sq) * S;
+    float dr[2], rs = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = lane + 32 * u;
+      dr[u] = f32_dropped(at, p[u], base + t);
+      if (t < S) {
+        const float* vr = v + t * ld;
+        float dd = 0.f;
+        for (int j = 0; j < dh; j += 4) {
+          const float4 gv = *reinterpret_cast<const float4*>(gr + j);
+          const float4 vv = *reinterpret_cast<const float4*>(vr + j);
+          dd = fmaf(gv.x, vv.x, dd);
+          dd = fmaf(gv.y, vv.y, dd);
+          dd = fmaf(gv.z, vv.z, dd);
+          dd = fmaf(gv.w, vv.w, dd);
+        }
+        if (at.drop) dd = dr[u] != 0.f ? dd / at.keep : 0.f;
+        ds[u] = dd;
+        rs += dd * p[u];
+      }
+    }
+    rs = xrt::warp_sum(rs);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int t = lane + 32 * u;
+      if (t < S) {
+        ds[u] = p[u] * (ds[u] - rs) * at.scale;
+        sds[(i * S + sq) * S + t] = ds[u];
+        sdr[(i * S + sq) * S + t] = dr[u];
+      }
+    }
+    for (int j0 = 0; j0 < dh; j0 += 32) {
+      const int j = j0 + lane;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int t = 0; t < S; ++t) {
+        const float dst = __shfl_sync(0xffffffffu, t < 32 ? ds[0] : ds[1], t & 31);
+        if (j < dh) acc = fmaf(dst, k[t * ld + j], acc);
+      }
+      if (j < dh) dqkv[(size_t)sq * ld3 + h * dh + j] = acc;
+    }
+  }
+  __syncthreads();
+  for (int item = warp; item < hg * S; item += nwarps) {
+    const int i = item / S, t = item % S, h = h0 + i;
+    const float* q = qkv + i * dh;
+    const float* g = gw + i * dh;
+    const float* dsc = sds + i * S * S + t;
+    const float* drc = sdr + i * S * S + t;
+    for (int j = lane; j < dh; j += 32) {
+      float ak = 0.f, av = 0.f;
+#pragma unroll 8
+      for (int sq = 0; sq < S; ++sq) {
+        ak = fmaf(dsc[sq * S], q[sq * ld + j], ak);
+        av = fmaf(drc[sq * S], g[sq * ldg + j], av);
+      }
+      dqkv[(size_t)t * ld3 + D + h * dh + j] = ak;
+      dqkv[(size_t)t * ld3 + 2 * D + h * dh + j] = av;
+    }
+  }
+}
+
+// The f32 layer for one sequence, split across the p.cluster CTAs of a
+// cluster (blockIdx.x / cluster is the sequence).  CTA ``rank`` computes the
+// q, k and v columns of heads [rank H / C, (rank + 1) H / C), p.hg heads at
+// a time, and their attention, and the rank-th share of the 4-column
+// blocks of the other products; ctx, a, g and f go to every CTA's copy
+// through distributed shared memory, a cluster barrier before each
+// LayerNorm and each product that reads them; each CTA runs LN1 on every
+// row of its own copy and LN2 on rows rank, rank + C, ...
+__global__ void __launch_bounds__(kThreads, 1) fused_layer_fwd_f32_kernel(Params p, int stop) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = p.S, D = p.D, H = p.H, F = p.F, C = p.cluster, hg = p.hg;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / C, dh = D / H, hpc = H / C, ldq = odd_ld(3 * hg * dh);
+  const int ldx = odd_ld(D), ldf = odd_ld(F);  // rows of D and of F in shared memory
+  const F32Layout L(S, D, H, F, hg);
+  float* sx = reinterpret_cast<float*>(smem);
+  float* a1 = reinterpret_cast<float*>(smem + L.a1);
+  float* a2 = reinterpret_cast<float*>(smem + L.a2);
+  float* wbuf = reinterpret_cast<float*>(smem + L.wbuf);
+  const int* mask = p.mask + b * S;
+  auto cluster_sync = [&]() {
+    if (C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+  };
+  const Copies<float> a1_all(a1, C), a2_all(a2, C);
+  float* yg = static_cast<float*>(p.y) + (size_t)b * S * D;
+
+  const float4* xg = reinterpret_cast<const float4*>(static_cast<const float*>(p.x) +
+                                                     (size_t)b * S * D);
+  for (int i = threadIdx.x; i < S * D / 4; i += blockDim.x)
+    *reinterpret_cast<float4*>(sx + (i / (D / 4)) * ldx + (i % (D / 4)) * 4) = xg[i];
+  cluster_sync();  // every CTA has started: its shared memory may be written
+
+  // qkv of this CTA's heads, hg at a time into a2, and their attention
+  const F32Attn at{S, H, dh, b, p.causal, p.attn_drop, 1.f / sqrtf((float)dh), p.attn_keep,
+                   seed[0], p.attn_thr};
+  const float* qkv_b = p.qkv_b;
+  for (int h0 = rank * hpc; h0 < (rank + 1) * hpc; h0 += hg) {
+    f32_product<false, false>(sx, ldx, D, p.qkv_w, 3 * D, Cols{h0 * dh, hg * dh, 3, D}, S, wbuf,
+                              nullptr, [=](int r, int c, int n, float acc) {
+                                a2[r * ldq + c] = acc + __ldg(qkv_b + n);
+                              });
+    __syncthreads();
+    if (stop == kStopQkv) {
+      store_rows<float>(a2, ldq, S, D, 0, hg * dh, 0, 1, yg + h0 * dh);
+    } else {
+      f32_attention(at, a2, ldq, h0, hg, mask,
+                    [=](int sq, int col, float v) { a1_all.put(sq * ldx + col, v); });
+    }
+    __syncthreads();
+  }
+  if (stop == kStopQkv) return;
+  cluster_sync();
+  if (stop == kStopAttn) {
+    store_rows<float>(a1, ldx, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // a = dropout(ctx Wout + b) into a2, then x1 = LN1(x + a)
+  const uint32_t row0 = (uint32_t)b * S;
+  const int hidden_drop = p.hidden_drop;
+  const uint32_t hidden_thr = p.hidden_thr;
+  const float hidden_keep = p.hidden_keep;
+  auto dropout_into = [=](const Copies<float>& dst, const float* bias, uint32_t seed) {
+    return [=](int r, int, int n, float acc) {
+      float v = acc + __ldg(bias + n);
+      if (hidden_drop) {
+        const uint32_t idx = (row0 + (uint32_t)r) * (uint32_t)D + (uint32_t)n;
+        v = xrt::keep(idx, seed, hidden_thr) ? v / hidden_keep : 0.f;
+      }
+      dst.put(r * ldx + n, v);
+    };
+  };
+  const Cols dcols = share(D, rank, C);
+  f32_product<false, false>(a1, ldx, D, p.out_w, D, dcols, S, wbuf, nullptr,
+                            dropout_into(a2_all, p.out_b, seed[1]));
+  cluster_sync();
+  add_layer_norm<float, float>(sx, ldx, a2, ldx, p.ln1_s, p.ln1_b, S, D, p.eps, sx, ldx);
+  __syncthreads();
+  if (stop == kStopOutLn1) {
+    store_rows<float>(sx, ldx, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // g = gelu(x1 Win + b) into a1
+  const float* ffn_in_b = p.ffn_in_b;
+  f32_product<false, false>(sx, ldx, D, p.ffn_in_w, F, share(F, rank, C), S, wbuf, nullptr,
+                            [=](int r, int, int n, float acc) {
+                              const float u = acc + __ldg(ffn_in_b + n);
+                              a1_all.put(r * ldf + n, 0.5f * u * (1.f + erf_eigen(u * kInvSqrt2)));
+                            });
+  cluster_sync();
+  if (stop == kStopFfnGelu) {
+    store_rows<float>(a1, ldf, S, D, 0, D, rank, C, yg);
+    return;
+  }
+
+  // f = dropout(g Wffn_out + b) into a2, then y = LN2(x1 + f)
+  f32_product<false, false>(a1, ldf, F, p.ffn_out_w, D, dcols, S, wbuf, nullptr,
+                            dropout_into(a2_all, p.ffn_out_b, seed[2]));
+  cluster_sync();
+  add_layer_norm<float, float>(sx, ldx, a2, ldx, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D, rank, C);
+}
+
+// Pass 1 of the f32 backward for one sequence, split across the p.cluster
+// CTAs of a cluster as the forward is: CTA ``rank`` recomputes its heads'
+// q, k, v and attention and its share of each other product's columns,
+// walks the VJP back through the same split and runs the row-wise steps
+// (the LayerNorms and their VJPs) on rows rank, rank + C, ...  The CTAs
+// share what they write through the workspace in device memory, a fence
+// and a cluster barrier (release, then acquire at cluster scope) between a
+// step and the next that reads another CTA's part.  Every product stages its operand
+// rows from the workspace.  The bias and LayerNorm gradients are summed
+// over the sequence's rows, each CTA its columns, into one row of
+// ``partial`` for pass 3.
+__global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_f32_kernel(BwdParams p,
+                                                                               int stop) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = p.S, D = p.D, H = p.H, F = p.F, C = p.cluster, hg = p.hg;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b = blockIdx.x / C, dh = D / H, hpc = H / C, ld3 = 3 * D;
+  const int ldq = odd_ld(3 * hg * dh), ldg = hg * dh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const F32BwdLayout L(S, D, H, hg);
+  float* wbuf = reinterpret_cast<float*>(smem);
+  float* abuf = reinterpret_cast<float*>(smem + L.abuf);
+  float* sqkv = reinterpret_cast<float*>(smem + L.qkv);
+  float* sgw = reinterpret_cast<float*>(smem + L.gw);
+  float* sds = reinterpret_cast<float*>(smem + L.sds);
+  float* sdr = reinterpret_cast<float*>(smem + L.sdr);
+  int* smask = reinterpret_cast<int*>(smem + L.mask);
+  // the workspace is written by every CTA of the cluster: a fence, then the
+  // barrier, before a step reads another CTA's part
+  auto cluster_barrier = [&]() {
+    __threadfence();
+    if (C > 1) cg::this_cluster().sync();
+    else __syncthreads();
+  };
+  // and the same within the CTA, before it reads its own writes back
+  auto block_barrier = [&]() {
+    __threadfence();
+    __syncthreads();
+  };
+  const size_t row_base = (size_t)b * S;
+  const uint32_t row0 = (uint32_t)row_base;
+  const float* x = static_cast<const float*>(p.x) + row_base * D;
+  const float* dy = static_cast<const float*>(p.dy) + row_base * D;
+  float* qkv = static_cast<float*>(p.qkv) + row_base * ld3;
+  float* ctx = static_cast<float*>(p.ctx) + row_base * D;
+  float* x1 = static_cast<float*>(p.x1) + row_base * D;
+  float* u = static_cast<float*>(p.u) + row_base * F;
+  float* g = static_cast<float*>(p.g) + row_base * F;
+  float* h1 = static_cast<float*>(p.h1) + row_base * D;
+  float* h2 = static_cast<float*>(p.h2) + row_base * D;
+  float* stats = p.stats + row_base * 4;
+  float* dfm = static_cast<float*>(p.dfm) + row_base * D;
+  float* dum = static_cast<float*>(p.dum) + row_base * F;
+  float* dam = static_cast<float*>(p.dam) + row_base * D;
+  float* dqm = static_cast<float*>(p.dqm) + row_base * ld3;
+  float* dres = p.dres + row_base * D;
+  float* dx = static_cast<float*>(p.dx) + row_base * D;
+  const VecOffsets off(D, F);
+  float* part = p.partial + (size_t)b * off.total;
+  const Cols dcols = share(D, rank, C), fcols = share(F, rank, C);
+  const int d0 = dcols.base, d1 = dcols.base + dcols.width;
+  const int f0 = fcols.base, f1 = fcols.base + fcols.width;
+  // the row-wise steps: a warp per row of rank, rank + C, ...
+  auto each_row = [&](auto body) {
+    for (int r = rank + C * warp; r < S; r += C * nwarps) body(r);
+  };
+  const F32Attn at{S, H, dh, b, p.causal, p.attn_drop, 1.f / sqrtf((float)dh), p.attn_keep,
+                   seed[0], p.attn_thr};
+  const float eps = p.eps;
+  const int hidden_drop = p.hidden_drop;
+  const uint32_t hidden_thr = p.hidden_thr;
+  const float keep_fwd = p.hidden_keep_fwd, keep_bwd = p.hidden_keep_bwd;
+
+  for (int i = tid; i < S; i += blockDim.x) smask[i] = p.mask[b * S + i] != 0;
+  __syncthreads();
+
+  // ---- recompute: this CTA's heads' q, k, v (into the workspace and, a
+  // group at a time, sqkv) and their attention into ctx
+  const float* qkv_b = p.qkv_b;
+  for (int h0 = rank * hpc; h0 < (rank + 1) * hpc; h0 += hg) {
+    f32_product<false, true>(x, D, D, p.qkv_w, ld3, Cols{h0 * dh, hg * dh, 3, D}, S, wbuf, abuf,
+                             [=](int r, int c, int n, float acc) {
+                               const float v = acc + __ldg(qkv_b + n);
+                               qkv[(size_t)r * ld3 + n] = v;
+                               sqkv[r * ldq + c] = v;
+                             });
+    __syncthreads();
+    f32_attention(at, sqkv, ldq, h0, hg, smask,
+                  [=](int sq, int col, float v) { ctx[(size_t)sq * D + col] = v; });
+    __syncthreads();
+  }
+  cluster_barrier();
+
+  // ---- recompute: a = dropout(ctx Wout + b) into h1, then (rows) h1 = x +
+  // a, the LN1 statistics, x1 = LN1(h1)
+  auto dense_dropout = [=](const float* bias, float* out, uint32_t seed) {
+    return [=](int r, int, int n, float acc) {
+      float v = acc + __ldg(bias + n);
+      if (hidden_drop) {
+        const uint32_t idx = (row0 + (uint32_t)r) * (uint32_t)D + (uint32_t)n;
+        v = xrt::keep(idx, seed, hidden_thr) ? v / keep_fwd : 0.f;
+      }
+      out[(size_t)r * D + n] = v;
+    };
+  };
+  f32_product<false, true>(ctx, D, D, p.out_w, D, dcols, S, wbuf, abuf,
+                           dense_dropout(p.out_b, h1, seed[1]));
+  cluster_barrier();
+  each_row([&](int r) {
+    float* hr = h1 + (size_t)r * D;
+    float sum = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float h = hr[c] + __ldg(x + (size_t)r * D + c);
+      hr[c] = h;
+      sum += h;
+    }
+    const float mean = xrt::warp_sum(sum) / (float)D;
+    float sq = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float h = hr[c];
+      sq += (h - mean) * (h - mean);
+    }
+    const float rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+    for (int c = lane; c < D; c += 32)
+      x1[(size_t)r * D + c] =
+          (hr[c] - mean) * rstd * __ldg(p.ln1_s + c) + __ldg(p.ln1_b + c);
+    if (lane == 0) {
+      stats[r * 4 + 0] = mean;
+      stats[r * 4 + 1] = rstd;
+    }
+  });
+  cluster_barrier();
+
+  // ---- recompute: u = x1 Win + b, g = gelu(u) (Eigen's erf, as the f32
+  // forward)
+  const float* ffn_in_b = p.ffn_in_b;
+  f32_product<false, true>(x1, D, D, p.ffn_in_w, F, fcols, S, wbuf, abuf,
+                           [=](int r, int, int n, float acc) {
+                             const float uv = acc + __ldg(ffn_in_b + n);
+                             u[(size_t)r * F + n] = uv;
+                             g[(size_t)r * F + n] = 0.5f * uv * (1.f + erf_eigen(uv * kInvSqrt2));
+                           });
+  cluster_barrier();
+
+  // ---- recompute: f = dropout(g Wffn_out + b) into h2; then (rows) h2 =
+  // f + x1 and the LN2 statistics, and the LN2 VJP: dh2 into dres (dx1 so
+  // far), dfm = dropout'(dh2)
+  f32_product<false, true>(g, F, F, p.ffn_out_w, D, dcols, S, wbuf, abuf,
+                           dense_dropout(p.ffn_out_b, h2, seed[2]));
+  cluster_barrier();
+  each_row([&](int r) {
+    float* hr = h2 + (size_t)r * D;
+    float sum = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float h = hr[c] + x1[(size_t)r * D + c];
+      hr[c] = h;
+      sum += h;
+    }
+    const float mean = xrt::warp_sum(sum) / (float)D;
+    float sq = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float h = hr[c];
+      sq += (h - mean) * (h - mean);
+    }
+    const float rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+    if (lane == 0) {
+      stats[r * 4 + 2] = mean;
+      stats[r * 4 + 3] = rstd;
+    }
+    if (stop == kStopRecompute) {  // the recomputed y = LN2(h2)
+      for (int c = lane; c < D; c += 32)
+        dx[(size_t)r * D + c] =
+            (hr[c] - mean) * rstd * __ldg(p.ln2_s + c) + __ldg(p.ln2_b + c);
+    } else {
+      float sg = 0.f, sgn = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        const float n = (hr[c] - mean) * rstd;
+        const float gv = __ldg(dy + (size_t)r * D + c) * __ldg(p.ln2_s + c);
+        sg += gv;
+        sgn += gv * n;
+      }
+      const float gm = xrt::warp_sum(sg) / (float)D;
+      const float gnm = xrt::warp_sum(sgn) / (float)D;
+      for (int c = lane; c < D; c += 32) {
+        const float n = (hr[c] - mean) * rstd;
+        const float gv = __ldg(dy + (size_t)r * D + c) * __ldg(p.ln2_s + c);
+        const float dh = rstd * (gv - gm - n * gnm);
+        dres[(size_t)r * D + c] = dh;
+        dfm[(size_t)r * D + c] = hidden_drop_bwd(dh, hidden_drop, row0 + r, c, D, seed[2],
+                                                 hidden_thr, keep_bwd);
+      }
+    }
+  });
+  if (stop == kStopRecompute) return;
+  cluster_barrier();
+  if (stop == kBwdFull) {  // the LN2 and ffn_out bias gradients
+    for (int c = d0 + tid; c < d1; c += blockDim.x) {
+      float s_scale = 0.f, s_bias = 0.f, s_fb = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r) {
+        const float dyv = __ldg(dy + (size_t)r * D + c);
+        const float n = (h2[(size_t)r * D + c] - stats[r * 4 + 2]) *
+                        stats[r * 4 + 3];
+        s_scale += dyv * n;
+        s_bias += dyv;
+        s_fb += hidden_drop_bwd(dres[(size_t)r * D + c], hidden_drop, row0 + r, c, D,
+                                seed[2], hidden_thr, keep_bwd);
+      }
+      part[off.ln2_s + c] = s_scale;
+      part[off.ln2_b + c] = s_bias;
+      part[off.ffn_out_b + c] = s_fb;
+    }
+  }
+
+  // ---- FFN: du = (dfm Wffn_out^T) gelu'(u) into dum
+  f32_product<true, true>(dfm, D, D, p.ffn_out_w, F, fcols, S, wbuf, abuf,
+                          [=](int r, int, int n, float acc) {
+                            const float uv = u[(size_t)r * F + n];
+                            const float e = erf_eigen(uv * kInvSqrt2);
+                            const float phi = expf(-0.5f * uv * uv) * kInvSqrt2Pi;
+                            dum[(size_t)r * F + n] = acc * (0.5f * (1.f + e) + uv * phi);
+                          });
+  block_barrier();
+  if (stop == kBwdFull) {  // the ffn_in bias gradient
+    for (int c = f0 + tid; c < f1; c += blockDim.x) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r) s += dum[(size_t)r * F + c];
+      part[off.ffn_in_b + c] = s;
+    }
+  }
+  cluster_barrier();
+  // dx1 = dh2 + dum Win^T into dres
+  f32_product<true, true>(dum, F, F, p.ffn_in_w, D, dcols, S, wbuf, abuf,
+                          [=](int r, int, int n, float acc) {
+                            dres[(size_t)r * D + n] = dres[(size_t)r * D + n] + acc;
+                          });
+  block_barrier();
+  if (stop == kBwdFull) {  // the LN1 gradients
+    for (int c = d0 + tid; c < d1; c += blockDim.x) {
+      float s_scale = 0.f, s_bias = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r) {
+        const float d = dres[(size_t)r * D + c];
+        const float n = (h1[(size_t)r * D + c] - stats[r * 4]) *
+                        stats[r * 4 + 1];
+        s_scale += d * n;
+        s_bias += d;
+      }
+      part[off.ln1_s + c] = s_scale;
+      part[off.ln1_b + c] = s_bias;
+    }
+  }
+  cluster_barrier();
+
+  // ---- (rows) the LN1 VJP: dh1 over dres, dam = dropout'(dh1)
+  each_row([&](int r) {
+    const float mean = stats[r * 4], rstd = stats[r * 4 + 1];
+    const float* hr = h1 + (size_t)r * D;
+    float* dr = dres + (size_t)r * D;
+    float sg = 0.f, sgn = 0.f;
+    for (int c = lane; c < D; c += 32) {
+      const float n = (hr[c] - mean) * rstd;
+      const float gv = dr[c] * __ldg(p.ln1_s + c);
+      sg += gv;
+      sgn += gv * n;
+    }
+    const float gm = xrt::warp_sum(sg) / (float)D;
+    const float gnm = xrt::warp_sum(sgn) / (float)D;
+    for (int c = lane; c < D; c += 32) {
+      const float n = (hr[c] - mean) * rstd;
+      const float gv = dr[c] * __ldg(p.ln1_s + c);
+      const float dh = rstd * (gv - gm - n * gnm);
+      dr[c] = dh;
+      dam[(size_t)r * D + c] = hidden_drop_bwd(dh, hidden_drop, row0 + r, c, D, seed[1],
+                                               hidden_thr, keep_bwd);
+    }
+  });
+  cluster_barrier();
+  if (stop == kBwdFull) {  // the out bias gradient
+    for (int c = d0 + tid; c < d1; c += blockDim.x) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r)
+        s += hidden_drop_bwd(dres[(size_t)r * D + c], hidden_drop, row0 + r, c, D,
+                             seed[1], hidden_thr, keep_bwd);
+      part[off.out_b + c] = s;
+    }
+  }
+
+  // ---- gw = dam Wout^T into h2 (no longer needed), this CTA's heads'
+  // columns (dcols: D % (4 C) == 0), which its attention alone reads
+  float* gw = h2;
+  f32_product<true, true>(dam, D, D, p.out_w, D, dcols, S, wbuf, abuf,
+                          [=](int r, int, int n, float acc) { gw[(size_t)r * D + n] = acc; });
+  block_barrier();
+  if (stop == kStopFfnBwd) {
+    for (int i = tid; i < S * dcols.width; i += blockDim.x) {
+      const int r = i / dcols.width, c = d0 + i % dcols.width;
+      dx[(size_t)r * D + c] = gw[(size_t)r * D + c];
+    }
+    return;
+  }
+
+  // ---- the attention's VJP, a head group at a time, into dqm: the group's
+  // q, k, v and gw staged into shared memory
+  for (int h0 = rank * hpc; h0 < (rank + 1) * hpc; h0 += hg) {
+    const int w4 = hg * dh / 4;
+    for (int i = tid; i < S * 4 * w4; i += blockDim.x) {
+      const int r = i / (4 * w4), part_ = (i % (4 * w4)) / w4, c = (i % w4) * 4;
+      if (part_ < 3)
+        xrt::cp_async16(sqkv + r * ldq + part_ * hg * dh + c,
+                        qkv + (size_t)r * ld3 + part_ * D + h0 * dh + c, true);
+      else
+        xrt::cp_async16(sgw + r * ldg + c, gw + (size_t)r * D + h0 * dh + c, true);
+    }
+    xrt::cp_async_commit();
+    xrt::cp_async_wait<0>();
+    __syncthreads();
+    f32_attention_bwd(at, sqkv, ldq, sgw, h0, hg, smask, sds, sdr, dqm, D);
+    block_barrier();
+  }
+  if (stop == kBwdFull) {  // the qkv bias gradient: this CTA's columns
+    const int w = hpc * dh;
+    for (int i = tid; i < 3 * w; i += blockDim.x) {
+      const int c = (i / w) * D + rank * w + i % w;
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < S; ++r) s += dqm[(size_t)r * ld3 + c];
+      part[off.qkv_b + c] = s;
+    }
+  }
+  cluster_barrier();
+
+  // ---- dx = dh1 + dqm Wqkv^T
+  f32_product<true, true>(dqm, ld3, ld3, p.qkv_w, D, dcols, S, wbuf, abuf,
+                          [=](int r, int, int n, float acc) {
+                            dx[(size_t)r * D + n] = dres[(size_t)r * D + n] + acc;
+                          });
+}
+
 // The four f32 weights rounded to bf16 once per call into wp at WOffsets,
 // each (K, N) weight packed in mma.sync's B-fragment order: for column
 // block nb = n / 8 and k-step ks = k / 16, 32 lanes x 2 words, lane
@@ -1868,15 +2365,28 @@ __global__ void pack_weights_kernel(const float* __restrict__ qkv_w,
   wp[i] = make_uint2(xrt::pack_bf16(at(k), at(k + 1)), xrt::pack_bf16(at(k + 8), at(k + 9)));
 }
 
-template <typename T, int kStop>
-cudaError_t launch(const Params& p, int B, int smem_bytes, cudaStream_t stream) {
-  size_t reg_off, sc_off, mask_off;
-  const size_t need = smem_layout(p.S, p.D, p.F, p.hg, sizeof(T), &reg_off, &sc_off, &mask_off);
-  if (need > (size_t)smem_bytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(fused_layer_fwd_kernel<T, kStop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+// B sequences on clusters of ``cluster`` CTAs (no cluster attribute for
+// 1), each CTA ``threads`` threads and ``smem`` bytes of dynamic shared
+// memory; the launch's own error or the runtime's last
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, int B, int cluster, int threads, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaError_t err = xrt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  fused_layer_fwd_kernel<T, kStop><<<B, kThreads, smem_bytes, stream>>>(p);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1888,64 +2398,129 @@ cudaError_t launch_tc(const Params& p, int B, int smem_bytes, bf16* wp, cudaStre
   const WOffsets w(p.D, p.F);
   pack_weights_kernel<<<(unsigned)((w.total / 4 + 255) / 256), 256, 0, stream>>>(
       p.qkv_w, p.out_w, p.ffn_in_w, p.ffn_out_w, p.D, p.F, reinterpret_cast<uint2*>(wp));
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(fused_layer_fwd_tc_kernel<kStop>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * p.cluster));
-  cfg.blockDim = dim3(kTcThreads);
-  cfg.dynamicSmemBytes = (size_t)smem_bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, fused_layer_fwd_tc_kernel<kStop>, p,
-                           reinterpret_cast<const uint2*>(wp));
-  if (err != cudaSuccess) return err;
+  return launch_clusters(fused_layer_fwd_tc_kernel<kStop>, B, p.cluster, kTcThreads,
+                         (size_t)smem_bytes, stream, p, reinterpret_cast<const uint2*>(wp));
+}
+
+// the f32 forward on B clusters of p.cluster CTAs
+// the f32 forward, or its section variant ``stop``, on B clusters of
+// p.cluster CTAs
+cudaError_t launch_f32(const Params& p, int B, int smem_bytes, int stop, cudaStream_t stream) {
+  if (F32Layout(p.S, p.D, p.H, p.F, p.hg).total > (size_t)smem_bytes) return cudaErrorInvalidValue;
+  return launch_clusters(fused_layer_fwd_f32_kernel, B, p.cluster, kThreads, (size_t)smem_bytes,
+                         stream, p, stop);
+}
+
+// pass 2's grid, (tiles of the four weight gradients, row splits), its
+// rows a split (whole kWgRows chunks) and the splits that have rows set in p
+dim3 weight_grad_grid(BwdParams& p) {
+  const int R = p.B * p.S;
+  p.rows_per_split = ((R + p.splits - 1) / p.splits + kWgRows - 1) / kWgRows * kWgRows;
+  p.splits = (R + p.rows_per_split - 1) / p.rows_per_split;
+  const int tiles = wg_tiles(p.D, 3 * p.D) + wg_tiles(p.D, p.D) + wg_tiles(p.D, p.F) +
+                    wg_tiles(p.F, p.D);
+  return dim3((unsigned)tiles, (unsigned)p.splits);
+}
+
+// pass 3: the splits' partial tiles and the per-sequence column sums
+cudaError_t launch_grad_reduce(const BwdParams& p, cudaStream_t stream) {
+  const size_t n = WOffsets(p.D, p.F).total + VecOffsets(p.D, p.F).total;
+  grad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int kStop>
-cudaError_t launch_any(const Params& p, int B, int smem_bytes, bf16* wp, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) return launch_tc<kStop>(p, B, smem_bytes, wp, stream);
-  else return launch<T, kStop>(p, B, smem_bytes, stream);
+// the bf16 backward: pass 0 rounds the weights, pass 1 on the tensor
+// cores, pass 2 split-K on the tensor cores, pass 3 the reductions
+template <int kStop>
+cudaError_t launch_bwd_tc(BwdParams p, cudaStream_t stream) {
+  cudaError_t err;
+  const WOffsets w(p.D, p.F);
+  // the most heads (a divisor of H) whose attention buffers fit a block
+  int dev = 0, limit = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  p.hg = 0;
+  for (int hg = p.H; hg >= 1 && !p.hg; --hg)
+    if (p.H % hg == 0 && bwd_smem_bytes(p.S, p.D, p.F, hg) <= (size_t)limit) p.hg = hg;
+  if (!p.hg) return cudaErrorInvalidValue;
+  round_weights_kernel<<<(unsigned)((w.total + 255) / 256), 256, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = bwd_smem_bytes(p.S, p.D, p.F, p.hg);
+  if ((err = xrt::allow_smem(fused_layer_bwd_rows_kernel<kStop>, smem)) != cudaSuccess) return err;
+  fused_layer_bwd_rows_kernel<kStop><<<p.B, kBwdTcThreads, smem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (kStop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
+  const dim3 grid = weight_grad_grid(p);
+  weight_grad_mma_kernel<<<grid, 128, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_grad_reduce(p, stream);
 }
 
-template <typename T>
-cudaError_t launch_stage(const Params& p, int B, int smem_bytes, int stage, bf16* wp,
-                         cudaStream_t stream) {
-  switch (stage) {
-    case kStopQkv: return launch_any<T, kStopQkv>(p, B, smem_bytes, wp, stream);
-    case kStopAttn: return launch_any<T, kStopAttn>(p, B, smem_bytes, wp, stream);
-    case kStopOutLn1: return launch_any<T, kStopOutLn1>(p, B, smem_bytes, wp, stream);
-    case kStopFfnGelu: return launch_any<T, kStopFfnGelu>(p, B, smem_bytes, wp, stream);
-    case kFwdFull: return launch_any<T, kFwdFull>(p, B, smem_bytes, wp, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// the f32 backward: pass 1 on B clusters of p.cluster CTAs, pass 2 split-K
+// on the CUDA cores, pass 3 the reductions
+cudaError_t launch_bwd_f32(const BwdParams& p, int stop, cudaStream_t stream) {
+  cudaError_t err = launch_clusters(fused_layer_bwd_rows_f32_kernel, p.B, p.cluster, kThreads,
+                                    F32BwdLayout(p.S, p.D, p.H, p.hg).total, stream, p, stop);
+  if (err != cudaSuccess) return err;
+  if (stop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
+  BwdParams q = p;
+  const dim3 grid = weight_grad_grid(q);
+  weight_grad_f32_kernel<<<grid, 256, 0, stream>>>(q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_grad_reduce(q, stream);
 }
+
 
 }  // namespace
 
 // bytes of dynamic shared memory of one block of the forward: elem 2 the
-// bf16 kernel's TcLayout (hg unused: its scores stay in registers), 4 the
-// f32 kernel's (hg heads a stage)
-extern "C" int fused_layer_smem_bytes(int S, int D, int F, int hg, int elem) {
+// bf16 kernel's TcLayout (hg and H unused: its scores stay in registers),
+// 4 the f32 kernel's F32Layout (hg heads a group)
+extern "C" int fused_layer_smem_bytes(int S, int D, int F, int hg, int elem, int H) {
   if (elem == 2) return (int)TcLayout(S, D, F).total;
-  size_t reg_off, sc_off, mask_off;
-  return (int)smem_layout(S, D, F, hg, elem, &reg_off, &sc_off, &mask_off);
+  return (int)F32Layout(S, D, H, F, hg).total;
+}
+
+// bytes of dynamic shared memory of one block of the f32 backward's pass 1
+// (F32BwdLayout, hg heads a group)
+extern "C" int fused_layer_bwd_smem_bytes(int S, int D, int H, int hg) {
+  return (int)F32BwdLayout(S, D, H, hg).total;
+}
+
+// The clusters of ``cluster`` CTAs of the f32 forward (backward: 0) or of
+// pass 1 of the f32 backward (1) that the card can hold at once, or minus
+// the CUDA error
+extern "C" int fused_layer_f32_max_clusters(int backward, int S, int D, int H, int F, int hg,
+                                            int cluster) {
+  const size_t smem = backward ? F32BwdLayout(S, D, H, hg).total : F32Layout(S, D, H, F, hg).total;
+  const void* fn = backward ? reinterpret_cast<const void*>(fused_layer_bwd_rows_f32_kernel)
+                            : reinterpret_cast<const void*>(fused_layer_fwd_f32_kernel);
+  cudaError_t err = xrt::allow_smem(fn, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 // The layer, or with stage < kFwdFull a section variant (see the top of
-// this file), for B sequences of S <= 64 rows.  bf16: each sequence on a
-// cluster of ``cluster`` (1, 2 or 4) CTAs, heads_per_stage a divisor of
-// H / cluster; wp a workspace of WOffsets::total bf16.  f32: cluster 1,
-// wp unused.
+// this file), for B sequences of S <= 64 rows, each on a cluster of
+// ``cluster`` CTAs (bf16 1, 2 or 4; f32 1 to 4), heads_per_stage a divisor
+// of H / cluster.  bf16: wp a workspace of WOffsets::total bf16; f32: wp
+// unused.
 extern "C" int fused_layer_fwd(
     const void* x, void* y, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -1956,16 +2531,18 @@ extern "C" int fused_layer_fwd(
     int attn_drop, int hidden_drop, float eps, int smem_bytes, int stage, void* wp,
     void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (S <= 0 || S > 64 || H <= 0 || D % H != 0 || heads_per_stage <= 0)
+  if (S <= 0 || S > 64 || H <= 0 || D % H != 0 || heads_per_stage <= 0 || cluster < 1 ||
+      cluster > kMaxCluster || H % cluster)
     return cudaErrorInvalidValue;
   if (stage == kStopFfnGelu && F < D) return cudaErrorInvalidValue;
   if (is_bf16) {
     // whole k-steps of the products and 8-column blocks of each CTA's
     // qkv columns; k-contiguous pairs in the attention
-    if ((cluster != 1 && cluster != 2 && cluster != 4) || H % cluster || D % 16 ||
-        D % (8 * cluster) || (D / H) % 2 || D / H > 64 || F % 16 || wp == nullptr)
+    if (cluster == 3 || D % 16 || D % (8 * cluster) || (D / H) % 2 || D / H > 64 || F % 16 ||
+        wp == nullptr)
       return cudaErrorInvalidValue;
-  } else if (cluster != 1 || H % heads_per_stage) {
+  } else if (D % (4 * cluster) || (D / H) % 4 || F % 4 || (H / cluster) % heads_per_stage) {
+    // 16-byte rows and weight copies; each CTA's heads in groups
     return cudaErrorInvalidValue;
   }
   Params p{x, y, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w, ffn_out_b,
@@ -1974,16 +2551,24 @@ extern "C" int fused_layer_fwd(
            attn_drop, hidden_drop, eps, cluster};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* w = static_cast<bf16*>(wp);
-  return is_bf16 ? launch_stage<bf16>(p, B, smem_bytes, stage, w, s)
-                 : launch_stage<float>(p, B, smem_bytes, stage, w, s);
+  if (stage < kStopQkv || stage > kFwdFull) return cudaErrorInvalidValue;
+  if (!is_bf16) return launch_f32(p, B, smem_bytes, stage, s);
+  switch (stage) {
+    case kStopQkv: return launch_tc<kStopQkv>(p, B, smem_bytes, w, s);
+    case kStopAttn: return launch_tc<kStopAttn>(p, B, smem_bytes, w, s);
+    case kStopOutLn1: return launch_tc<kStopOutLn1>(p, B, smem_bytes, w, s);
+    case kStopFfnGelu: return launch_tc<kStopFfnGelu>(p, B, smem_bytes, w, s);
+    default: return launch_tc<kFwdFull>(p, B, smem_bytes, w, s);
+  }
 }
 
 // The backward of fused_layer_fwd: dx (T) and the 12 f32 parameter
 // gradients, summed over the batch.  ws[17] is the workspace described in
-// BwdParams, in its order, allocated by the caller: bf16 also needs ws_w16
-// (2 x WOffsets::total bf16: w16, then wt16) and ws_wpart (splits x
-// WOffsets::total f32), f32 neither.  With stage < kBwdFull, pass 1's
-// section variant alone, its stage's tensor in dx.
+// BwdParams, in its order, allocated by the caller, with ws_wpart (splits x
+// WOffsets::total f32); bf16 also needs ws_dqkv and ws_w16 (2 x
+// WOffsets::total bf16: w16, then wt16), f32 neither, but cluster and
+// heads_per_stage as the forward takes them.  With stage < kBwdFull, pass
+// 1's section variant alone, its stage's tensor in dx.
 extern "C" int fused_layer_bwd(
     const void* x, const void* dy, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -1994,11 +2579,12 @@ extern "C" int fused_layer_bwd(
     void* ws_qkv, void* ws_ctx, void* ws_x1, void* ws_u, void* ws_g, void* ws_h1, void* ws_h2,
     float* ws_stats, void* ws_dfm, void* ws_dum, void* ws_dam, void* ws_dqm, float* ws_dres,
     float* ws_dqkv, float* ws_partial, void* ws_w16, float* ws_wpart, int B, int S, int D,
-    int H, int F, int causal, int is_bf16, int splits, const long long* seeds,
-    uint32_t attn_thr, uint32_t hidden_thr, float attn_keep, float hidden_keep_fwd, float hidden_keep_bwd,
-    int attn_drop, int hidden_drop, float eps, int stage, void* stream) {
+    int H, int F, int causal, int is_bf16, int splits, int cluster, int heads_per_stage,
+    const long long* seeds, uint32_t attn_thr, uint32_t hidden_thr, float attn_keep,
+    float hidden_keep_fwd, float hidden_keep_bwd, int attn_drop, int hidden_drop, float eps,
+    int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (S <= 0 || S > 64 || D % H != 0) return cudaErrorInvalidValue;
+  if (S <= 0 || S > 64 || H <= 0 || D % H != 0) return cudaErrorInvalidValue;
   BwdParams p{x, dy, mask, qkv_w, qkv_b, out_w, out_b, ffn_in_w, ffn_in_b, ffn_out_w,
               ffn_out_b, ln1_s, ln1_b, ln2_s, ln2_b, dx, d_qkv_w, d_qkv_b, d_out_w, d_out_b,
               d_ffn_in_w, d_ffn_in_b, d_ffn_out_w, d_ffn_out_b, d_ln1_s, d_ln1_b, d_ln2_s,
@@ -2012,8 +2598,24 @@ extern "C" int fused_layer_bwd(
     p.wt16 = p.w16 + WOffsets(D, F).total;
     p.wpart = ws_wpart;
     p.splits = splits;
+  } else {
+    // 16-byte rows and copies; each CTA's D columns its heads' (D % (4 C))
+    if (cluster < 1 || cluster > kMaxCluster || H % cluster || D % (4 * cluster) ||
+        (D / H) % 4 || F % 4 || heads_per_stage <= 0 || (H / cluster) % heads_per_stage ||
+        splits <= 0)
+      return cudaErrorInvalidValue;
+    p.cluster = cluster;
+    p.hg = heads_per_stage;
+    p.wpart = ws_wpart;
+    p.splits = splits;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_bwd_stage<__nv_bfloat16>(p, stage, s)
-                 : launch_bwd_stage<float>(p, stage, s);
+  if (stage < kStopRecompute || stage > kBwdFull) return cudaErrorInvalidValue;
+  if (!is_bf16) return launch_bwd_f32(p, stage, s);
+  switch (stage) {
+    case kStopRecompute: return launch_bwd_tc<kStopRecompute>(p, s);
+    case kStopFfnBwd: return launch_bwd_tc<kStopFfnBwd>(p, s);
+    case kStopAttnBwd: return launch_bwd_tc<kStopAttnBwd>(p, s);
+    default: return launch_bwd_tc<kBwdFull>(p, s);
+  }
 }

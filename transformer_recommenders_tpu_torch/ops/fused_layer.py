@@ -42,6 +42,7 @@ layer for its section profile (``FWD_STAGES``, ``BWD_STAGES``;
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -58,7 +59,6 @@ from transformer_recommenders_tpu_torch.ops.hash_dropout import (
 _NEG_INF = -1e9
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
-_ROWS = 16  # csrc/fused_layer.cu kRows: output rows of a dense tile
 _ERF_NUM = (2.77068142495902e-08, -2.10102402082508e-06, -5.69250639462346e-05,
             -7.34990630326855e-04, -2.95459980854025e-03, -1.60960333262415e-02)
 _ERF_DEN = (-2.13374055278905e-04, -1.68282697438203e-03, -7.37332916720468e-03,
@@ -372,52 +372,142 @@ def _layer_backward(x, p, key_mask, dy, *, stage, num_heads, causal, attn_dropou
     return dx, grads
 
 
-def smem_bytes(s: int, d: int, f: int, heads_per_stage: int, elem: int) -> int:
-    """Dynamic shared memory of one block of the forward kernel (the
-    layouts described in ``csrc/fused_layer.cu``): ``elem`` 2 the bf16
-    tensor-core kernel's ``TcLayout``, 4 the f32 kernel's, which stages
-    the scores of ``heads_per_stage`` heads."""
+# csrc/fused_layer.cu: the f32 products' tiles (f32_product) and passes
+F32_THREADS = 256  # kThreads: 8 warps
+PASS_COLS = 128  # kPassCols: output columns of a pass, 4 a lane
+K_CHUNK = 32  # kKChunk: k of a staged weight (and activation) tile
+_TILE_LD = K_CHUNK + 4  # kWtLd, kALd: a transposed weight tile's and an activation tile's rows
+
+
+def tile_plan(s: int) -> dict:
+    """The f32 products' register tiles at sequence length ``s``: each of
+    the 8 warps holds 4 rows, once for S <= 32 and twice above (the rows
+    the tiles cover, which the shared-memory buffers hold), each lane 4 of
+    a pass's 128 columns; weight tiles of 32 k, double-buffered."""
+    row_tiles = 1 if s <= 32 else 2
+    return {"threads": F32_THREADS, "row_tiles": row_tiles, "rows": 32 * row_tiles,
+            "pass_cols": PASS_COLS, "k_chunk": K_CHUNK, "outputs_per_thread": 16 * row_tiles}
+
+
+def _odd_ld(w: int) -> int:
+    """csrc/fused_layer.cu odd_ld: a row of ``w`` floats padded so that its
+    16-byte count is odd (conflict-free 16-byte reads across rows)."""
+    return w if (w // 4) % 2 else w + 4
+
+
+def smem_bytes(s: int, d: int, f: int, heads_per_stage: int, elem: int,
+               num_heads: int | None = None) -> int:
+    """Dynamic shared memory of one CTA of the forward kernel (the layouts
+    described in ``csrc/fused_layer.cu``): ``elem`` 2 the bf16 tensor-core
+    kernel's ``TcLayout``, 4 the f32 kernel's ``F32Layout``, which holds
+    the q, k and v of ``heads_per_stage`` of ``num_heads`` heads."""
     if elem == 2:  # the scores stay in registers: no heads_per_stage
         sp = -(-s // 16) * 16  # whole m-tiles of rows
         rows = sp * (d + 8) * 2  # sx, ctx, hb: bf16 at leading dimension D + 8
         big = sp * (max(3 * d, f) + 8) * 2  # qkv, then the GELU output
         return 3 * rows + big + s * 4  # and the mask
-    sp = -(-s // _ROWS) * _ROWS
-    reg_off = sp * d * elem
-    sc_off = -(-(reg_off + sp * max(3 * d, f + d) * elem) // 16) * 16
-    return sc_off + heads_per_stage * s * s * 4 + s * 4
+    if num_heads is None:
+        msg = "fused_layer: the f32 layout needs num_heads"
+        raise ValueError(msg)
+    rows = tile_plan(s)["rows"]
+    ldx, ldf = _odd_ld(d), _odd_ld(f)  # rows of D and of F
+    group = _odd_ld(3 * heads_per_stage * (d // num_heads))  # a head group's q|k|v
+    # sx; ctx, then g; the group, then a and f; two weight tiles
+    return 4 * rows * (ldx + max(ldx, ldf) + max(group, ldx)) + 4 * 2 * K_CHUNK * PASS_COLS
+
+
+def bwd_smem_bytes(s: int, d: int, num_heads: int, heads_per_stage: int) -> int:
+    """Dynamic shared memory of one CTA of the f32 backward's first pass
+    (``F32BwdLayout``): two weight tiles and two activation tiles, a head
+    group's q, k, v and gw, its d_scores and dropped probs, the mask."""
+    hg, dh = heads_per_stage, d // num_heads
+    rows = tile_plan(s)["rows"]
+    floats = (2 * PASS_COLS * _TILE_LD + 2 * rows * _TILE_LD + s * _odd_ld(3 * hg * dh)
+              + s * hg * dh + 2 * hg * s * s)
+    return 4 * floats + 4 * s
+
+
+def _most_heads(share: int, fits, what: str) -> int:
+    for hg in range(share, 0, -1):
+        if share % hg == 0 and fits(hg):
+            return hg
+    raise ValueError(what)
 
 
 def heads_per_stage(s: int, d: int, f: int, num_heads: int, elem: int, limit: int,
                     cluster: int = 1) -> int:
-    """The most heads whose scores fit beside the activations in ``limit``
+    """The most heads whose buffers fit beside the activations in ``limit``
     bytes (a divisor of the ``num_heads // cluster`` heads of one CTA);
     raises when not even one does."""
-    share = num_heads // cluster
-    for hg in range(share, 0, -1):
-        if share % hg == 0 and smem_bytes(s, d, f, hg, elem) <= limit:
-            return hg
-    msg = (
-        f"fused_layer: S={s}, D={d}, F={f} needs {smem_bytes(s, d, f, 1, elem)} "
+    return _most_heads(
+        num_heads // cluster,
+        lambda hg: smem_bytes(s, d, f, hg, elem, num_heads) <= limit,
+        f"fused_layer: S={s}, D={d}, F={f} needs {smem_bytes(s, d, f, 1, elem, num_heads)} "
         f"bytes of shared memory per block with {elem}-byte activations, "
-        f"more than the {limit} this device allows"
-    )
-    raise ValueError(msg)
+        f"more than the {limit} this device allows")
 
 
-CLUSTER_SIZES = (4, 2, 1)  # csrc/fused_layer.cu kMaxCluster and its divisors
+def bwd_heads_per_stage(s: int, d: int, num_heads: int, limit: int, cluster: int = 1) -> int:
+    """The f32 backward's heads a group: the most (a divisor of the CTA's
+    ``num_heads // cluster``) whose attention buffers fit in ``limit``
+    bytes; raises when not even one does."""
+    return _most_heads(
+        num_heads // cluster,
+        lambda hg: bwd_smem_bytes(s, d, num_heads, hg) <= limit,
+        f"fused_layer backward: S={s}, D={d} needs {bwd_smem_bytes(s, d, num_heads, 1)} bytes "
+        f"of shared memory per block in f32, more than the {limit} this device allows")
 
 
-def cluster_size(b: int, d: int, num_heads: int, sms: int) -> int:
-    """CTAs of the bf16 forward's cluster for one sequence: the largest of
-    4, 2, 1 that keeps ``b * cluster`` within the card's ``sms`` (one CTA
-    an SM: the layer's shared memory leaves room for one or two), splits
-    the heads evenly and gives each CTA whole 8-column blocks of q, k and
-    v.  B=64 on 132 SMs takes 2, B=32 takes 4, B >= 67 takes 1."""
-    for c in CLUSTER_SIZES:
-        if b * c <= sms and num_heads % c == 0 and d % (8 * c) == 0:
+CLUSTER_SIZES = (4, 2, 1)  # csrc/fused_layer.cu kMaxCluster and its divisors: bf16
+F32_CLUSTER_SIZES = (4, 3, 2, 1)  # the f32 kernels take any cluster up to kMaxCluster
+
+
+def cluster_size(b: int, d: int, num_heads: int, sms: int, elem: int = 2,
+                 max_active: dict | None = None) -> int:
+    """CTAs of the forward's (and the f32 backward's) cluster for one
+    sequence: the largest size (bf16, ``elem`` 2: 4, 2, 1; f32: 4, 3, 2, 1)
+    whose ``b`` clusters the card holds at once, that splits the heads
+    evenly and gives each CTA whole column blocks of q, k and v (8 columns
+    in bf16, 4 in f32).  ``max_active`` maps a size to the clusters the
+    card holds at once (the occupancy API's count, which a GPC's SMs bound:
+    30 clusters of 4 on an H100 with the f32 kernels' one CTA an SM);
+    without it, ``sms // size`` (one CTA an SM).  B=64 on 132 SMs takes 2,
+    B=32 takes 4 (f32 with the H100's counts: 3), B >= 67 takes 1."""
+    sizes, block = (CLUSTER_SIZES, 8) if elem == 2 else (F32_CLUSTER_SIZES, 4)
+    for c in sizes:
+        room = (max_active or {}).get(c, sms // c)
+        if b <= room and num_heads % c == 0 and d % (block * c) == 0:
             return c
     return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(index: int, backward: bool, s: int, d: int, h: int, f: int, hg: int,
+                  c: int) -> int:
+    """The clusters of ``c`` CTAs of the f32 forward or backward (first
+    pass) that card ``index`` holds at once (csrc/fused_layer.cu
+    fused_layer_f32_max_clusters)."""
+    with torch.cuda.device(index):
+        n = cuda_build.library("fused_layer").fused_layer_f32_max_clusters(
+            int(backward), s, d, h, f, hg, c)
+    if n < 0:
+        msg = f"fused_layer_f32_max_clusters: CUDA error {-n}"
+        raise RuntimeError(msg)
+    return n
+
+
+def _f32_cluster(b: int, s: int, d: int, h: int, f: int, device, backward: bool) -> int:
+    """The f32 kernels' cluster size on ``device``: :func:`cluster_size`
+    with the card's count of co-resident clusters at each size."""
+    index = torch.device(device).index or 0
+    limit = cuda_build.max_shared_memory(device)
+    active = {}
+    for c in F32_CLUSTER_SIZES[:-1]:
+        if h % c == 0 and d % (4 * c) == 0:
+            hg = (bwd_heads_per_stage(s, d, h, limit, c) if backward
+                  else heads_per_stage(s, d, f, h, 4, limit, c))
+            active[c] = _max_clusters(index, backward, s, d, h, f, hg, c)
+    return cluster_size(b, d, h, cuda_build.sm_count(device), 4, active)
 
 
 def forward_workspace_elems(d: int, f: int) -> int:
@@ -483,6 +573,20 @@ def _dropout_args(attn_dropout: float, hidden_dropout: float, dropout_seeds, dev
             attn_dropout, hidden_dropout)
 
 
+def _check_f32_widths(d: int, num_heads: int, f: int) -> None:
+    """The f32 kernels read rows and weights 16 bytes at a time."""
+    if d % 4 or f % 4 or (d // num_heads) % 4:
+        msg = (f"fused_layer: f32 needs D, the FFN width and the head width multiples of 4, "
+               f"got D={d}, H={num_heads}, F={f}")
+        raise ValueError(msg)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes
+    (a view at an odd offset), for the kernels' 16-byte loads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dropout,
               dropout_seeds, ffn_dim, layer_norm_eps, stage="full", counter="fused_layer"):
     """The forward kernel, or with ``stage`` a section variant of it (see
@@ -498,12 +602,16 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
         msg = (f"fused_layer: bf16 needs D and the FFN width multiples of 16 and an even head "
                f"width of at most 64, got D={d}, H={num_heads}, F={f}")
         raise ValueError(msg)
-    cluster = cluster_size(b, d, num_heads, cuda_build.sm_count(x.device)) if bf16 else 1
+    if bf16:
+        cluster = cluster_size(b, d, num_heads, cuda_build.sm_count(x.device))
+    else:
+        _check_f32_widths(d, num_heads, f)
+        cluster = _f32_cluster(b, s, d, num_heads, f, x.device, backward=False)
     hg = heads_per_stage(s, d, f, num_heads, elem, cuda_build.max_shared_memory(x.device),
                          cluster)
-    smem = smem_bytes(s, d, f, hg, elem)
-    x = x.contiguous()
-    params = [t.contiguous() for t in params]
+    smem = smem_bytes(s, d, f, hg, elem, num_heads)
+    x = _aligned(x.contiguous())
+    params = [_aligned(t.contiguous()) for t in params]
     mask = key_mask.to(torch.int32).contiguous()
     y = torch.empty_like(x)
     wt16 = (torch.empty(forward_workspace_elems(d, f), dtype=torch.bfloat16, device=x.device)
@@ -523,11 +631,11 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
 
 _WG_TILE = 64  # csrc/fused_layer.cu kWgTile: a block's tile of a weight gradient
 _WG_ROWS = 32  # kWgRows: the least rows of a split
-_WG_BLOCKS = 512  # the blocks pass 2 of the bf16 backward aims for
+_WG_BLOCKS = 512  # the blocks pass 2 of the backward aims for
 
 
 def _weight_grad_splits(r: int, d: int, f: int) -> int:
-    """Row splits of the bf16 backward's pass 2 (a split-K product): about
+    """Row splits of the backward's pass 2 (a split-K product): about
     ``_WG_BLOCKS`` blocks over the 64 x 64 tiles of the four weight
     gradients, each split at least 32 rows."""
     tiles = sum(-(-k // _WG_TILE) * -(-n // _WG_TILE)
@@ -547,15 +655,22 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
-    if x.dtype == torch.bfloat16 and (d % 2 or f % 2):
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and (d % 2 or f % 2):
         msg = f"fused_layer backward: bf16 needs an even D and FFN width, got D={d}, F={f}"
         raise ValueError(msg)
+    if bf16:  # the kernel plans its attention's heads itself
+        cluster, hg = 1, 0
+    else:
+        _check_f32_widths(d, num_heads, f)
+        cluster = _f32_cluster(b, s, d, num_heads, f, x.device, backward=True)
+        hg = bwd_heads_per_stage(s, d, num_heads, cuda_build.max_shared_memory(x.device), cluster)
     r = b * s
     seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
         attn_dropout, hidden_dropout, dropout_seeds, x.device)
-    x = x.contiguous()
-    dy = dy.to(x.dtype).contiguous()  # the JAX kernel's g.astype(x.dtype)
-    params = [t.contiguous() for t in params]
+    x = _aligned(x.contiguous())
+    dy = _aligned(dy.to(x.dtype).contiguous())  # the JAX kernel's g.astype(x.dtype)
+    params = [_aligned(t.contiguous()) for t in params]
     mask = key_mask.to(torch.int32).contiguous()
     dx = torch.empty_like(x)
     dparams = [torch.empty_like(t) for t in params]
@@ -567,21 +682,21 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         return torch.empty((rows, cols), dtype=torch.float32, device=x.device)
 
     # BwdParams order in csrc/fused_layer.cu: qkv ctx x1 u g h1 h2 stats dfm
-    # dum dam dqm dres dqkv partial
+    # dum dam dqm dres dqkv (bf16: f32 before its rounding into dqm) partial
     ws = [act(3 * d), act(d), act(d), act(f), act(f), act(d), act(d), f32(r, 4), act(d),
-          act(f), act(d), act(3 * d), f32(r, d), f32(r, 3 * d), f32(b, 9 * d + f)]
-    bf16 = x.dtype == torch.bfloat16
+          act(f), act(d), act(3 * d), f32(r, d), f32(r, 3 * d) if bf16 else None,
+          f32(b, 9 * d + f)]
     # bf16 (the tensor-core path): the weights rounded to bf16 in both
-    # layouts, and pass 2's partial weight-gradient tiles
+    # layouts; both: pass 2's partial weight-gradient tiles
     n_weights = 4 * d * d + 2 * d * f
-    splits = _weight_grad_splits(r, d, f) if bf16 else 1
-    ws += [torch.empty(2 * n_weights, dtype=torch.bfloat16, device=x.device),
-           f32(splits, n_weights)] if bf16 else [None, None]
+    splits = _weight_grad_splits(r, d, f)
+    ws += [torch.empty(2 * n_weights, dtype=torch.bfloat16, device=x.device) if bf16 else None,
+           f32(splits, n_weights)]
     status = cuda_build.library("fused_layer").fused_layer_bwd(
         x.data_ptr(), dy.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
         dx.data_ptr(), *(t.data_ptr() for t in dparams),
         *(None if t is None else t.data_ptr() for t in ws),
-        b, s, d, num_heads, f, int(causal), int(bf16), splits,
+        b, s, d, num_heads, f, int(causal), int(bf16), splits, cluster, hg,
         cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
         keep_divisor(hidden_dropout, x.dtype), keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
@@ -646,8 +761,9 @@ def fused_layer(
 
     On CPU tensors this runs :func:`fused_layer_reference` and, for the
     gradient, :func:`fused_layer_backward_reference`; on CUDA tensors it
-    launches the forward kernel (bf16: a cluster of :func:`cluster_size`
-    CTAs per sequence; f32: one block) and the backward kernel, or raises.
+    launches the forward kernel (a cluster of :func:`cluster_size` CTAs per
+    sequence) and the backward kernel (f32: its first pass on the same
+    clusters), or raises.
     """
     s = x.shape[1]
     if s > 64:

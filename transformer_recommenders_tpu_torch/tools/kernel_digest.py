@@ -1,17 +1,23 @@
-"""Digests of the pool, pairwise and table InfoNCE kernels' outputs, and of
-the layer stack's (the hash dropout, the attention core forward and
-backward), on fixed seeded inputs, to hold a kernel's output bits across a
-change of the code it shares with others.
+"""Digests of the pool, pairwise and table InfoNCE kernels' outputs, of the
+layer stack's (the hash dropout, the attention core forward and backward)
+and of the fused layer's (#3, #4, bf16 and f32), on fixed seeded inputs, to
+hold a kernel's output bits across a change of the code it shares with
+others.
 
     python3 transformer_recommenders_tpu_torch/tools/kernel_digest.py \\
-        [--tree PATH] [--out FILE]
+        [--tree PATH] [--out FILE] [--tensors FILE] [--against FILE]
 
 imports the port from the checkout at ``PATH`` (by default the one that
 holds this file), runs each kernel through its wrapper on the card at the
 training paths' shapes and a ragged one, and prints one JSON object: the
 sha256 of each output's bytes by case.  Run it on two checkouts on one
-card and compare the objects: equal digests are equal bits.  Without a
-CUDA card it exits 2 and prints nothing.
+card and compare the objects: equal digests are equal bits.  A change
+meant to move only the sum order of the f32 layer keeps the bf16 digests
+and holds the f32 outputs to the kernels' tolerances instead: ``--tensors``
+saves them (torch.save) from one run, ``--against`` holds this run's to
+the saved ones (the forward within 2e-5, dx and each parameter gradient
+within 1e-4 of its max abs) and exits 1 when one is not.  Without a CUDA
+card it exits 2 and prints nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +37,16 @@ DROPOUT_SHAPES = {"scale_hidden": ((256, 128, 256), "bfloat16"),
                   "C_probs": ((128, 4, 32, 32), "float32"), "odd": ((3, 7, 5), "bfloat16")}
 # the attention core: (B, S, H, dh) of the scale step and off the 16-row tiles
 ATTN_SHAPES = ((256, 128, 8, 32), (4, 65, 2, 64))
+# the fused layer: (B, S, D, H, F, dtype) of the serving batch, path B and
+# the quality run in bf16; the seed spread's train and validation batches,
+# the flagship's width and S=64 in f32
+LAYER_CASES = {
+    "serving": (64, 32, 128, 8, 512, "bfloat16"), "B": (32, 32, 384, 12, 48, "bfloat16"),
+    "quality": (256, 32, 384, 12, 48, "bfloat16"),
+    "seed_spread": (32, 32, 384, 12, 48, "float32"), "eval_f32": (256, 32, 384, 12, 48, "float32"),
+    "flagship_f32": (128, 32, 128, 8, 512, "float32"), "s64_f32": (8, 64, 128, 8, 512, "float32"),
+}
+LAYER_TOL = {"forward": 2e-5, "backward": 1e-4}  # tests/test_torch_cuda.py's f32 bounds
 
 
 def digest(*tensors) -> str:
@@ -131,11 +147,74 @@ def stack_digests() -> dict[str, str]:
     return out
 
 
+def layer_outputs() -> dict:
+    """Each LAYER_CASES case's forward y, and its backward's dx and 12
+    parameter gradients, at dropout 0 and 0.1 (causal; a padded tail on
+    the last sequence, left padding on the first)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    out = {}
+    for name, (b, s, d, h, f, dtype) in LAYER_CASES.items():
+        gen = torch.Generator().manual_seed(b + s + d)
+        x = torch.randn(b, s, d, generator=gen).to("cuda", getattr(torch, dtype))
+        dy = torch.randn(b, s, d, generator=gen).to("cuda", getattr(torch, dtype))
+        mask = torch.ones(b, s, dtype=torch.bool)
+        mask[-1, s // 2:] = False
+        mask[0, :s // 4] = False
+        mask = mask.cuda()
+        params = [(torch.randn(*shape, generator=gen) * scale + shift).cuda()
+                  for shape, scale, shift in (
+                      ((d, 3 * d), d ** -0.5, 0.0), ((3 * d,), 0.1, 0.0), ((d, d), d ** -0.5, 0.0),
+                      ((d,), 0.1, 0.0), ((d, f), d ** -0.5, 0.0), ((f,), 0.1, 0.0),
+                      ((f, d), f ** -0.5, 0.0), ((d,), 0.1, 0.0), ((d,), 0.1, 1.0),
+                      ((d,), 0.1, 0.0), ((d,), 0.1, 1.0), ((d,), 0.1, 0.0))]
+        for rate in (0.0, 0.1):
+            kw = dict(num_heads=h, causal=True, attn_dropout=rate, hidden_dropout=rate,
+                      dropout_seeds=[3, 4, 5] if rate else None, ffn_dim=f, layer_norm_eps=1e-12)
+            with torch.no_grad():
+                y = fl._fwd_cuda(x, params, mask, **kw)
+                dx, grads = fl._bwd_cuda(x, params, mask, dy, **kw)
+            out[f"fused_layer {dtype} {name} rate={rate}"] = {"y": y, "dx": dx, "grads": grads}
+    return out
+
+
+def layer_digests(outputs: dict) -> dict[str, str]:
+    out = {}
+    for case, t in outputs.items():
+        out[f"{case} fwd (y)"] = digest(t["y"])
+        out[f"{case} bwd (dx, 12 grads)"] = digest(t["dx"], *t["grads"])
+    return out
+
+
+def hold_f32_layer(outputs: dict, saved: dict) -> bool:
+    """This run's f32 layer outputs against ``saved`` (another checkout's):
+    y within LAYER_TOL's forward bound, dx and each gradient within its
+    backward bound of the saved one's max abs; prints each case's worst."""
+    ok = True
+    for case, t in outputs.items():
+        if "float32" not in case:
+            continue
+        want = saved[case]
+        fwd = float((t["y"].float() - want["y"].cuda()).abs().max())
+        rels = [float((g - w.cuda()).abs().max() / w.abs().max().clamp(min=1e-30))
+                for g, w in zip([t["dx"], *t["grads"]], [want["dx"], *want["grads"]])]
+        good = fwd <= LAYER_TOL["forward"] and max(rels) <= LAYER_TOL["backward"]
+        ok &= good
+        print(f"{case}: y max abs {fwd:.3g}, dx and grads worst relative {max(rels):.3g} "
+              f"({'within' if good else 'OUTSIDE'} {LAYER_TOL})", file=sys.stderr)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parents[2]),
                     help="the checkout whose port to import")
     ap.add_argument("--out", default=None, help="also write the JSON object here")
+    ap.add_argument("--tensors", default=None, help="save the f32 layer outputs here")
+    ap.add_argument("--against", default=None,
+                    help="hold the f32 layer outputs to those saved here by --tensors")
     args = ap.parse_args()
 
     import torch
@@ -144,11 +223,18 @@ def main() -> int:
         print("kernel_digest: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
-    record = digests()
+    layers = layer_outputs()
+    record = digests() | layer_digests(layers)
     text = json.dumps(record, indent=1, sort_keys=True)
     if args.out:
         pathlib.Path(args.out).write_text(text + "\n")
     print(text)
+    if args.tensors:
+        torch.save({k: {"y": v["y"].cpu(), "dx": v["dx"].cpu(),
+                        "grads": [g.cpu() for g in v["grads"]]}
+                    for k, v in layers.items() if "float32" in k}, args.tensors)
+    if args.against and not hold_f32_layer(layers, torch.load(args.against)):
+        return 1
     return 0
 
 

@@ -2,7 +2,8 @@
 the backward's time goes.
 
     python -m transformer_recommenders_tpu_torch.tools.profile_fused_sections \\
-        [--shape flagship|train|tiny] [--out PATH]
+        [--shape flagship|train|seed_spread|tiny] [--dtype bfloat16|float32]
+        [--dropout RATE] [--tree PATH] [--out PATH]
 
 Counterpart of the JAX package's ``scripts/profile_fused_sections.py``,
 with its method: each cumulative section variant of the layer's kernels
@@ -13,15 +14,24 @@ stage it prints the cumulative and the delta ms (CUDA-graph replays,
 section's FLOPs from its shapes over 989 TFLOP/s (bf16 tensor cores) and
 over 67 TFLOP/s (f32 CUDA cores).  The backward's ``full`` stage is four
 launches under bf16 (three under f32); ``torch.profiler`` splits one call
-of it by pass.
+of it by pass.  Where the FFN is narrower than D (the seed spread's F=48)
+the ``ffn_gelu`` variant, which stores D columns of the FFN, does not run
+and ``full`` takes its section.
 
 Shapes: ``flagship`` is the JAX script's (B=256, S=32, D=128, 8 heads, FFN
-512), ``train`` the flagship train step's batch (B=128), ``tiny`` a smoke
-(4/8/32/4/64).  As in the JAX script: bf16, causal, dropout 0.1 on the
-attention and the hidden sites with seeds (1, 2, 3), every valid key, the
-weights of ``init_transformer_params`` (here from a seeded
-``torch.Generator``) rounded to bf16 (passed as f32, as the port's kernels
-take them).
+512), ``train`` the flagship train step's batch (B=128), ``seed_spread``
+the reference topology's layer at the seed spread's batch (B=32, S=32,
+D=384, 12 heads, FFN 48), ``tiny`` a smoke (4/8/32/4/64).  As in the JAX
+script by default: bf16, causal, dropout 0.1 on the attention and the
+hidden sites with seeds (1, 2, 3), every valid key, the weights of
+``init_transformer_params`` (here from a seeded ``torch.Generator``)
+rounded to bf16 (passed as f32, as the port's kernels take them).
+``--dtype float32`` runs the f32 kernels on f32 inputs and unrounded
+weights (the seed spread's layer: ``--shape seed_spread --dtype float32
+--dropout 0``); the bounds are then the f32 CUDA-core ones.  ``--tree``
+profiles the kernels of another checkout of the repository (its port
+imported in place of this one's, its kernels built there) with this
+tool, so that two commits compare on one card in one call.
 """
 
 from __future__ import annotations
@@ -36,8 +46,10 @@ from transformer_recommenders_tpu_torch import tools
 SHAPES = {
     "flagship": dict(b=256, s=32, d=128, h=8, f=512),
     "train": dict(b=128, s=32, d=128, h=8, f=512),
+    "seed_spread": dict(b=32, s=32, d=384, h=12, f=48),
     "tiny": dict(b=4, s=8, d=32, h=4, f=64),
 }
+DTYPES = ("bfloat16", "float32")
 
 
 def section_flops(shape: dict) -> dict:
@@ -61,29 +73,36 @@ def section_flops(shape: dict) -> dict:
     }
 
 
-def make_inputs(shape: dict, device):
+def make_inputs(shape: dict, device, dtype: str = "bfloat16", dropout: float = 0.1):
     """The layer, inputs, cotangent and options of the profile at
-    ``shape`` on ``device``."""
+    ``shape`` on ``device``: ``dtype`` activations (bf16: the weights
+    rounded to bf16, as the JAX script casts them), ``dropout`` at every
+    site (0: no seeds, dropout off)."""
     import torch
 
     from transformer_recommenders_tpu_torch.configs import ModelConfig
     from transformer_recommenders_tpu_torch.models.transformer import (
         init_transformer_params, unstack_layer)
 
+    if dtype not in DTYPES:
+        msg = f"profile_fused_sections: dtype must be one of {DTYPES}, got {dtype!r}"
+        raise ValueError(msg)
     b, s, d, h, f = (shape[k] for k in "bsdhf")
+    act = getattr(torch, dtype)
     cfg = ModelConfig(hidden_size=d, num_hidden_layers=1, num_attention_heads=h,
-                      intermediate_size=f, max_seq_length=s, compute_dtype="bfloat16")
+                      intermediate_size=f, max_seq_length=s, compute_dtype=dtype)
     gen = torch.Generator().manual_seed(0)
     params = init_transformer_params(gen, cfg, device="cpu")
-    layer = {m: {n: t.to(torch.bfloat16).float().to(device) for n, t in v.items()}
+    layer = {m: {n: t.to(act).float().to(device) for n, t in v.items()}
              for m, v in unstack_layer(params, 0).items()}
-    x = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
-    dy = torch.randn(b, s, d, generator=gen).to(device, torch.bfloat16)
+    x = torch.randn(b, s, d, generator=gen).to(device, act)
+    dy = torch.randn(b, s, d, generator=gen).to(device, act)
     mask = torch.ones(b, s, dtype=torch.bool, device=device)
     # the seeds on the device, as the encoder passes them: a timed call is
     # the kernels alone, with no fill writing a list of seeds there
-    opts = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
-                dropout_seeds=torch.tensor([1, 2, 3], device=device), layer_norm_eps=1e-12)
+    seeds = torch.tensor([1, 2, 3], device=device) if dropout else None
+    opts = dict(num_heads=h, causal=True, attn_dropout=dropout, hidden_dropout=dropout,
+                dropout_seeds=seeds, layer_norm_eps=1e-12)
     return layer, x, dy, mask, opts
 
 
@@ -125,21 +144,29 @@ def backward_passes_ms(fn) -> dict | None:
             for p, names in PASS_KERNELS.items()}
 
 
-def profile_sections(shape_name: str, *, iters: int = 10, reps: int = 10, log=print) -> dict:
-    """Cumulative and delta ms of every stage at ``shape_name``, with the
-    least time of each delta's products and the backward's split by pass."""
+def profile_sections(shape_name: str, *, dtype: str = "bfloat16", dropout: float = 0.1,
+                     iters: int = 10, reps: int = 10, log=print) -> dict:
+    """Cumulative and delta ms of every stage at ``shape_name`` in
+    ``dtype`` with ``dropout``, with the least time of each delta's
+    products and the backward's split by pass."""
     import torch
 
     from transformer_recommenders_tpu_torch.ops import fused_sections as fs
 
     shape = SHAPES[shape_name]
-    layer, x, dy, mask, opts = make_inputs(shape, torch.device("cuda"))
+    layer, x, dy, mask, opts = make_inputs(shape, torch.device("cuda"), dtype, dropout)
     flops = section_flops(shape)
-    log(f"card {tools.card()}; shape {shape_name} {shape}, bf16, dropout 0.1")
+    log(f"card {tools.card()}; shape {shape_name} {shape}, {dtype}, dropout {dropout}; "
+        f"port {pathlib.Path(fs.__file__).resolve().parents[1]}")
     results = {}
     for direction, stages in (("fwd", fs.FWD_STAGES), ("bwd", fs.BWD_STAGES)):
-        prev = 0.0
+        prev, carried = 0.0, 0
         for stage in stages:
+            if stage == "ffn_gelu" and shape["f"] < shape["d"]:
+                # the variant stores D columns of the FFN: its work is the
+                # next section's
+                carried = flops[f"{direction}/{stage}"]
+                continue
             if direction == "fwd":
                 def run(st=stage):
                     return fs.layer_stage_forward(x, layer, mask, stage=st, **opts)
@@ -148,7 +175,7 @@ def profile_sections(shape_name: str, *, iters: int = 10, reps: int = 10, log=pr
                     return fs.layer_stage_backward(x, layer, mask, dy, stage=st, **opts)
             ms = tools.graph_ms(run, iters=iters, reps=reps)
             key = f"{direction}/{stage}"
-            fl = flops[key]
+            fl, carried = flops[key] + carried, 0
             results[key] = {
                 "cumulative_ms": ms, "delta_ms": ms - prev, "delta_gflop": fl / 1e9,
                 "delta_bound_bf16_ms": fl / tools.H100_BF16_FLOPS * 1e3,
@@ -167,19 +194,30 @@ def profile_sections(shape_name: str, *, iters: int = 10, reps: int = 10, log=pr
         log("  bwd/full by pass (torch.profiler, per launch): " + ", ".join(
             f"{p} {v:.4f} ms" for p, v in passes.items()))
     return {"card": tools.card(), "device": torch.cuda.get_device_name(0), "shape": shape,
-            "shape_name": shape_name, "results": results, "bwd_full_passes_ms": passes}
+            "shape_name": shape_name, "dtype": dtype, "dropout": dropout,
+            "port": str(pathlib.Path(fs.__file__).resolve().parents[1]), "results": results,
+            "bwd_full_passes_ms": passes}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--shape", default="flagship", choices=sorted(SHAPES))
+    parser.add_argument("--dtype", default="bfloat16", choices=DTYPES)
+    parser.add_argument("--dropout", type=float, default=0.1,
+                        help="the rate at every dropout site (0: off)")
+    parser.add_argument("--tree", type=pathlib.Path, default=None,
+                        help="profile the port of the checkout at PATH")
     parser.add_argument("--out", type=pathlib.Path, default=None,
-                        help="default: build/fused_sections_<shape>.json")
+                        help="default: build/fused_sections_<shape>_<dtype>.json")
     args = parser.parse_args(argv)
     if not tools.require_cuda("profile_fused_sections"):
         return 2
-    record = profile_sections(args.shape)
-    out = args.out or tools.BUILD_DIR / f"fused_sections_{args.shape}.json"
+    if args.tree is not None:  # the layer's modules imported anew from there
+        sys.path.insert(0, str(args.tree.resolve()))
+        for name in [m for m in sys.modules if m.startswith("transformer_recommenders_tpu_torch")]:
+            del sys.modules[name]
+    record = profile_sections(args.shape, dtype=args.dtype, dropout=args.dropout)
+    out = args.out or tools.BUILD_DIR / f"fused_sections_{args.shape}_{args.dtype}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=2))
     print(f"wrote {out}")
