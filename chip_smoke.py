@@ -380,7 +380,7 @@ def time_fused_layer(gen, b, s, d, h, f, dtype_name: str = "bfloat16") -> dict:
     if not torch.equal(first, second):
         raise AssertionError(f"fused_layer B={b} D={d}: two calls differ")
     bound_ms, bound_by = layer_bound_ms(b, s, d, h, f, x.element_size())
-    cluster = (fl.cluster_size(b, d, h, cuda_build.sm_count(x.device)) if dtype_name == "bfloat16"
+    cluster = (fl._tc_cluster(b, s, d, h, f, x.device) if dtype_name == "bfloat16"
                else fl._f32_cluster(b, s, d, h, f, x.device, backward=False))
     log(f"  fused_layer B={b} S={s} D={d} H={h} F={f} {dtype_name} (clusters of {cluster}), "
         "device time: "
@@ -420,6 +420,42 @@ def time_by_cluster(gen, b, s, d, h, f, dtype_name: str, sizes) -> dict:
     return out
 
 
+def check_tc_cluster_plan(gen, timed: dict) -> None:
+    """Path B's bf16 forward on the card's cluster plan (``_tc_cluster``,
+    the occupancy API's count of co-resident clusters): its output bit for
+    bit the same as on clusters of 4 (dropout 0.1), its time (``timed``,
+    from time_fused_layer) within 3% of the fastest forced size (two
+    timings of one kernel in one run differ by about 1%)."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+
+    b, s, d, h, f = LAYER_SHAPES["B"]
+    device = torch.device("cuda")
+    active = {c: fl._max_clusters(0, fl.TC_FWD, s, d, h, f, 0, c) for c in (2, 4)}
+    x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
+                                         dropout=0.1, seeds=[3, 1, 4])
+    planner = fl.cluster_size
+    with torch.no_grad():
+        planned = fl.fused_layer(x, params, mask, **kwargs)
+        try:
+            fl.cluster_size = lambda *_: 4
+            four = fl.fused_layer(x, params, mask, **kwargs)
+        finally:
+            fl.cluster_size = planner
+    torch.cuda.synchronize()
+    best = min(t["fwd"] for t in timed["by_cluster_ms"].values())
+    same = torch.equal(planned, four)
+    ok = same and timed["ms"] <= 1.03 * best and b <= active.get(timed["cluster"], b)
+    log(f"  fused_layer bf16 B={b} D={d}: the card holds {active} clusters of 2 and 4 at once "
+        f"(of {cuda_build.sm_count(device)} SMs); planned {timed['cluster']}: {timed['ms']:.4f} "
+        f"ms against the fastest forced size's {best:.4f} (tol 3%); output against clusters of "
+        f"4 {'bit for bit' if same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the bf16 forward's cluster plan does not take the card's count")
+
+
 def check_fused_layer() -> dict:
     import torch
 
@@ -453,8 +489,9 @@ def check_fused_layer() -> dict:
             gen, b=c["b"], s=c["s"], d=c["d"], h=c["h"], f=c["f"], dtype=c["dtype"],
             causal=c.get("causal", True), dropout=c.get("dropout", 0.0), seeds=c.get("seeds"))
         elem = x.element_size()
-        cluster = (cluster_size(c["b"], c["d"], c["h"], sms) if elem == 2 else
-                   _f32_cluster(c["b"], c["s"], c["d"], c["h"], c["f"], x.device, backward=False))
+        cluster = (fl._tc_cluster(c["b"], c["s"], c["d"], c["h"], c["f"], x.device) if elem == 2
+                   else _f32_cluster(c["b"], c["s"], c["d"], c["h"], c["f"], x.device,
+                                     backward=False))
         hg = heads_per_stage(c["s"], c["d"], c["f"], c["h"], elem,
                              cuda_build.max_shared_memory(x.device), cluster)
         c_smem = lib.fused_layer_smem_bytes(c["s"], c["d"], c["f"], hg, elem, c["h"])
@@ -475,6 +512,7 @@ def check_fused_layer() -> dict:
     times = {name: time_fused_layer(gen, *shape) for name, shape in LAYER_SHAPES.items()}
     times["B"]["by_cluster_ms"] = time_by_cluster(gen, *LAYER_SHAPES["B"], "bfloat16",
                                                   fl.CLUSTER_SIZES)
+    check_tc_cluster_plan(gen, times["B"])
     return {
         "name": "fused_layer", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
@@ -699,10 +737,13 @@ def check_fused_layer_bwd() -> dict:
         if c["dtype"] == torch.bfloat16 and c["b"] == 128:
             max_err = max(max_err, max(e[0] for e in errs.values()))
     check_backward_traps(gen)
+    check_bwd_plans(gen)
     # times at the train shapes: B=128 sequences, bf16, dropout 0.1, of the
-    # flagship and of path C (ml100k_bpr)
+    # flagship, and path B's B=32 at D=384; and at ml100k_bpr's width (D=64),
+    # which no path sends to the layer (path C's gate runs the layer stack)
     times = {"flagship": time_layer_bwd(gen, seeds, b=128, s=32, d=128, h=8, f=512),
-             "C": time_layer_bwd(gen, seeds, b=128, s=32, d=64, h=4, f=256)}
+             "D64": time_layer_bwd(gen, seeds, b=128, s=32, d=64, h=4, f=256),
+             "B": time_layer_bwd(gen, seeds, b=32, s=32, d=384, h=12, f=48)}
     return {
         "name": "fused_layer_bwd", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/fused_layer.cu",
@@ -710,6 +751,66 @@ def check_fused_layer_bwd() -> dict:
         "shape": "B=128 S=32 D=128 H=8 F=512 bf16 dropout 0.1",
         "max_abs_err": max_err, **times["flagship"], "by_shape": times,
     }
+
+
+BWD_PLAN_SHAPES = {  # (B, S, D, H, F) of the bf16 backward's plans
+    "flagship": (128, 32, 128, 8, 512), "D64": (128, 32, 64, 4, 256),
+    "B": (32, 32, 384, 12, 48), "quality": (256, 32, 384, 12, 48),
+}
+
+
+def check_bwd_plans(gen) -> dict:
+    """The bf16 backward's first pass as planned at each train shape
+    (``fl._bwd_tc_plan``: sequences a CTA, cluster, heads a stage) and at
+    one sequence a CTA without a cluster, dropout 0.1: dx, the four weight
+    gradients and the qkv and ffn_in bias gradients bit for bit the same
+    (their sums' order does not depend on the plan); the six the row steps
+    sum (the LayerNorms', out's and ffn_out's biases) within 1e-4 of their
+    max abs (the warps' share of rows moves their order).  Logs the device
+    time of the whole backward under each plan.  Returns the plans."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+    from transformer_recommenders_tpu_torch.ops import fused_layer as fl
+    from transformer_recommenders_tpu_torch.ops.hash_dropout import seed_tensor
+
+    device = torch.device("cuda")
+    limit = cuda_build.max_shared_memory(device)
+    planner, plans = fl._bwd_tc_plan, {}
+    for name, (b, s, d, h, f) in BWD_PLAN_SHAPES.items():
+        plans[name] = planner(b, s, d, h, f, device)
+        x, params, mask, kwargs = layer_case(gen, b=b, s=s, d=d, h=h, f=f, dtype=torch.bfloat16,
+                                             dropout=0.1, seeds=[4, 5, 6])
+        kwargs["dropout_seeds"] = seed_tensor([4, 5, 6], "cuda")  # timed: the kernel alone
+        flat = [params[m][n] for m, n in fl._PARAM_ORDER]
+        dy = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+        single = fl.bwd_tc_plan_for(s, d, h, f, 1, 1, limit)  # one sequence a CTA, no cluster
+        outs, ms = [], []
+        try:
+            for plan in (plans[name], single):
+                fl._bwd_tc_plan = lambda *_, plan=plan: plan
+                dx, grads = fl._bwd_cuda(x, flat, mask, dy, **kwargs, layer_norm_eps=1e-12)
+                outs.append([dx, *grads])
+                ms.append(time_ms(lambda: fl._bwd_cuda(x, flat, mask, dy, **kwargs,
+                                                       layer_norm_eps=1e-12)))
+        finally:
+            fl._bwd_tc_plan = planner
+        torch.cuda.synchronize()
+        names = [("dx", "")] + list(fl._PARAM_ORDER)
+        by_rows = {("out", "b"), ("ffn_out", "b"), ("ln1", "scale"), ("ln1", "bias"),
+                   ("ln2", "scale"), ("ln2", "bias")}
+        same = all(torch.equal(a, c) for n, a, c in zip(names, *outs) if n not in by_rows)
+        rel = max(float((a - c).abs().max() / c.abs().max().clamp(min=1e-30))
+                  for n, a, c in zip(names, *outs) if n in by_rows)
+        ok = same and rel <= 1e-4
+        log(f"  fused_layer_bwd bf16 B={b} S={s} D={d} H={h} F={f}: plan {plans[name]} "
+            f"{ms[0]:.4f} ms; against one sequence a CTA ({ms[1]:.4f} ms): dx, 4 weight and 2 "
+            f"bias gradients "
+            f"{'bit for bit' if same else 'DIFFER'}, the row steps' 6 within {rel:.3g} of their "
+            f"max abs (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the bf16 backward depends on its plan")
+    return plans
 
 
 def time_layer_bwd(gen, seeds, *, b, s, d, h, f, dtype_name: str = "bfloat16",
@@ -4297,9 +4398,9 @@ def check_f32_clusters(gen) -> dict:
     device = torch.device("cuda")
     planned = {bwd: fl._f32_cluster(b, s, d, h, f, device, bwd) for bwd in (False, True)}
     limit = cuda_build.max_shared_memory(device)
-    active = {c: (fl._max_clusters(0, False, s, d, h, f,
+    active = {c: (fl._max_clusters(0, fl.F32_FWD, s, d, h, f,
                                    fl.heads_per_stage(s, d, f, h, 4, limit, c), c),
-                  fl._max_clusters(0, True, s, d, h, f,
+                  fl._max_clusters(0, fl.F32_BWD, s, d, h, f,
                                    fl.bwd_heads_per_stage(s, d, h, limit, c), c))
               for c in (2, 3, 4)}
     log(f"  f32 clusters the card holds at once, forward and backward, by size: {active}; "

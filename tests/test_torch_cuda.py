@@ -151,7 +151,7 @@ def test_shared_memory_layouts_agree(cuda):
     limit = cuda_build.max_shared_memory(cuda)
     for s, d, f, h, elem in [(32, 128, 512, 8, 2), (32, 384, 48, 12, 4), (8, 64, 256, 4, 2),
                              (32, 384, 48, 12, 2), (64, 128, 512, 8, 2), (64, 128, 512, 8, 4),
-                             (8, 64, 256, 4, 4)]:
+                             (8, 64, 256, 4, 4), (32, 384, 48, 16, 2)]:
         for cluster in (1, 2, 4):
             hg = heads_per_stage(s, d, f, h, elem, limit, cluster)
             assert lib.fused_layer_smem_bytes(s, d, f, hg, elem, h) == smem_bytes(s, d, f, hg,
@@ -160,6 +160,33 @@ def test_shared_memory_layouts_agree(cuda):
                 hg = fl.bwd_heads_per_stage(s, d, h, limit, cluster)
                 assert lib.fused_layer_bwd_smem_bytes(s, d, h, hg) == fl.bwd_smem_bytes(s, d, h,
                                                                                         hg)
+            else:  # the bf16 backward's, one sequence a CTA or clusters
+                hg = fl.bwd_tc_heads(s, d, h, f, 1, cluster, limit)
+                assert lib.fused_layer_bwd_tc_smem_bytes(s, d, h, f, 1, cluster, hg) \
+                    == fl.bwd_tc_smem_bytes(s, d, h, f, 1, cluster, hg)
+        if elem == 2 and 64 // s >= 2:  # and two sequences a CTA
+            plan = fl.bwd_tc_plan_for(s, d, h, f, 2, 1, limit)
+            assert lib.fused_layer_bwd_tc_smem_bytes(
+                s, d, h, f, 2, 1, plan["heads_per_stage"]) == plan["smem"] <= limit
+
+
+def test_cluster_plans_use_the_cards_count(cuda):
+    """The bf16 forward's and backward's plans take the card's count of
+    co-resident clusters: every planned cluster of path B's B=32 fits at
+    once (on an H100, 30 clusters of 4 do not: the forward takes 2, pass 1
+    of the backward 3), and the quality run's B=256 backward takes two
+    sequences a CTA in one wave."""
+    b, s, d, h, f = 32, 32, 384, 12, 48
+    index = cuda.index or 0
+    c = fl._tc_cluster(b, s, d, h, f, cuda)
+    assert c == 1 or b <= fl._max_clusters(index, fl.TC_FWD, s, d, h, f, 0, c)
+    plan = fl._bwd_tc_plan(b, s, d, h, f, cuda)
+    hg, cb = plan["heads_per_stage"], plan["cluster"]
+    assert plan["seqs"] == 1
+    assert cb == 1 or b <= fl._max_clusters(index, fl.TC_BWD, s, d, h, f, hg, cb)
+    quality = fl._bwd_tc_plan(256, s, d, h, f, cuda)
+    assert quality["ctas"] <= cuda_build.sm_count(cuda) < 256
+    assert quality["seqs"] == 2 and quality["cluster"] == 1
 
 
 def test_fused_layer_counts_launches_forward_and_backward(cuda):
@@ -249,6 +276,12 @@ def rel_err(got, want) -> float:
     (128, 32, 64, 4, 256, True, 0.1),    # configs/ml100k_bpr.yaml, a train batch
     (3, 64, 128, 8, 512, True, 0.1),
     (4, 32, 384, 12, 48, True, 0.1),     # configs/ml1m_reference.yaml
+    (32, 32, 384, 12, 48, True, 0.1),    # its training batch, path B
+    (256, 32, 384, 12, 48, True, 0.1),   # the quality run's (tools/quality_run.py)
+    # head widths off the bf16 backward's k-steps of 16, staged padded:
+    (16, 32, 128, 16, 512, True, 0.1),   # 8 (16-byte copies)
+    (8, 32, 384, 16, 48, True, 0.1),     # 24, on clusters of 2
+    (4, 16, 64, 16, 256, True, 0.1),     # 4 (4-byte copies)
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_layer_backward_kernel_matches_plain(cuda, b, s, d, h, f, causal, rate, dtype):
@@ -482,6 +515,8 @@ def test_f32_layer_bits_do_not_depend_on_the_cluster(cuda, monkeypatch, b, s, d,
     (128, 32, 128, 8, 512),   # configs/ml1m_ssm.yaml
     (32, 32, 384, 12, 48),    # configs/ml1m_reference.yaml (path B)
     (128, 32, 64, 4, 256),    # configs/ml100k_bpr.yaml's width (D=64)
+    (256, 32, 384, 12, 48),   # the quality run's
+    (16, 32, 128, 16, 512),   # heads of 8, staged padded to 16
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_fused_layer_backward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype):
@@ -503,6 +538,68 @@ def test_fused_layer_backward_kernel_is_deterministic(cuda, b, s, d, h, f, dtype
     assert torch.equal(first[0], second[0])
     for a, c in zip(first[1], second[1]):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize(("b", "s", "d", "h", "f"), [
+    (32, 32, 384, 12, 48),   # path B
+    (7, 32, 128, 8, 512),    # the flagship's width, a ragged last CTA at two sequences
+    (5, 16, 64, 4, 256),     # path C's width, up to four sequences a CTA
+    (3, 48, 96, 6, 48),      # S off the 16-row tiles, six heads
+    (8, 32, 384, 16, 48),    # heads of 24, staged padded to 32, on clusters of 2 and 4
+])
+@pytest.mark.parametrize("stage", ["attn_bwd", "full"])
+def test_bf16_backward_bits_do_not_depend_on_the_plan(cuda, monkeypatch, b, s, d, h, f, stage):
+    """Pass 1 of the bf16 backward with one sequence a CTA, with several
+    (up to its 64 rows) and split across clusters of 2, 3 and 4 gives the
+    same bits in dx,
+    the four weight gradients and the qkv and ffn_in biases' (each output's
+    k-sum stays in one warp's mma chain, each of those column sums in one
+    thread's or one warp's fixed order, whatever the plan); the LayerNorm,
+    out and ffn_out bias gradients, summed by the row steps' warps and then
+    over them, move only with that order, within 1e-4 of their max abs."""
+    from transformer_recommenders_tpu_torch.ops import fused_sections as fs
+
+    x, params, mask = _layer_inputs(cuda, b, s, d, h, f, seed=b + s + d)
+    flat = [params[m][n] for m, n in _PARAM_ORDER]
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(cuda, x.dtype)
+    kw = dict(num_heads=h, causal=True, attn_dropout=0.1, hidden_dropout=0.1,
+              dropout_seeds=[5, 6, 7], ffn_dim=f, layer_norm_eps=1e-12)
+    limit = cuda_build.max_shared_memory(cuda)
+    plans = [(n, 1) for n in (1, 2, 4) if n * s <= 64 and n <= b]
+    plans += [(1, c) for c in (2, 3, 4) if h % c == 0 and d % (8 * c) == 0]
+    plans = [fl.bwd_tc_plan_for(s, d, h, f, n, c, limit) for n, c in plans]
+    outs = {}
+    for plan in plans:
+        monkeypatch.setattr(fl, "_bwd_tc_plan", lambda *_, plan=plan: plan)
+        key = (plan["seqs"], plan["cluster"])
+        with torch.no_grad():
+            if stage == "full":
+                dx, grads = fl._bwd_cuda(x, flat, mask, dy, **kw)
+                outs[key] = [dx, *grads]
+            else:
+                outs[key] = [fs.layer_stage_backward(x, params, mask, dy, stage=stage,
+                                                     **{k: v for k, v in kw.items()
+                                                        if k != "ffn_dim"})]
+    torch.cuda.synchronize()
+    assert len(plans) >= 3
+    want = next(iter(outs.values()))
+    with torch.no_grad():
+        dx_ref, grads_ref = fused_layer_backward_reference(x, params, mask, dy, **kw)
+    assert rel_err(want[0], dx_ref) <= GRAD_TOL[torch.bfloat16]
+    if stage == "full":
+        for (m, n), got in zip(_PARAM_ORDER, want[1:]):
+            assert rel_err(got, grads_ref[m][n]) <= GRAD_TOL[torch.bfloat16], (m, n)
+    # dx, then the gradients in _PARAM_ORDER: the row steps sum out/b,
+    # ffn_out/b and the LayerNorms' in the plan's order
+    by_rows = {("out", "b"), ("ffn_out", "b"), ("ln1", "scale"), ("ln1", "bias"),
+               ("ln2", "scale"), ("ln2", "bias")}
+    names = [("dx", "")] + list(_PARAM_ORDER)
+    for key, got in outs.items():
+        for name, a, c in zip(names, got, want):
+            if name in by_rows:
+                assert rel_err(a, c) <= 1e-4, (key, name)
+            else:
+                assert torch.equal(a, c), (key, name)
 
 
 def table_case(gen, cuda, r=4096, n=3707, d=128, exact=False):

@@ -182,21 +182,29 @@ def test_tensor_core_shared_memory_plan():
         tfl.heads_per_stage(64, 1024, 4096, 8, 2, limit)
 
 
-@pytest.mark.parametrize(("b", "d", "h", "want"), [
-    (64, 128, 8, 2),    # serving's batch: 128 CTAs on 132 SMs
-    (128, 128, 8, 1),   # training's batch already fills the card
-    (32, 384, 12, 4),   # path B
-    (33, 128, 8, 4),    # 132 CTAs exactly
-    (34, 128, 8, 2),
-    (8, 96, 6, 2),      # 6 heads do not split in 4
-    (8, 48, 4, 2),      # 12 q columns a CTA would cut an 8-column block
-    (1, 40, 5, 1),
+H100_ACTIVE = {4: 30, 3: 39, 2: 66}  # the clusters an H100 holds at once (whole in a GPC)
+H100_TC_ACTIVE = {4: 30, 2: 66}  # the bf16 forward's sizes, at one CTA an SM
+
+
+@pytest.mark.parametrize(("b", "d", "h", "active", "want"), [
+    (64, 128, 8, None, 2),    # serving's batch: 128 CTAs on 132 SMs
+    (128, 128, 8, None, 1),   # training's batch already fills the card
+    (32, 384, 12, None, 4),   # path B, were 33 clusters of 4 to fit
+    (33, 128, 8, None, 4),    # 132 CTAs exactly
+    (34, 128, 8, None, 2),
+    (8, 96, 6, None, 2),      # 6 heads do not split in 4
+    (8, 48, 4, None, 2),      # 12 q columns a CTA would cut an 8-column block
+    (1, 40, 5, None, 1),
+    # with the card's count (bf16 forward, one CTA an SM): path B's 32
+    # clusters of 4 would run in two waves, so it takes 2 (64 CTAs, one)
+    (32, 384, 12, H100_TC_ACTIVE, 2), (30, 384, 12, H100_TC_ACTIVE, 4),
+    (31, 384, 12, H100_TC_ACTIVE, 2), (64, 128, 8, H100_TC_ACTIVE, 2),
+    (66, 128, 8, H100_TC_ACTIVE, 2), (67, 128, 8, H100_TC_ACTIVE, 1),
 ])
-def test_cluster_plan(b, d, h, want):
-    assert tfl.cluster_size(b, d, h, 132) == want
-
-
-H100_ACTIVE = {4: 30, 3: 39, 2: 66}  # the f32 clusters an H100 holds at once (whole in a GPC)
+def test_cluster_plan(b, d, h, active, want):
+    got = tfl.cluster_size(b, d, h, 132, max_active=active)
+    assert got == want
+    assert b <= (active or {}).get(got, 132 // got) or got == 1
 
 
 @pytest.mark.parametrize(("b", "d", "h", "active", "want"), [
@@ -220,6 +228,77 @@ def test_f32_cluster_plan(b, d, h, active, want):
     assert got == want
     assert b <= (active or {}).get(got, 132 // got) or got == 1
     assert h % got == 0 and d % (4 * got) == 0
+
+
+@pytest.mark.parametrize(("shape", "active", "want"), [
+    # the quality run's batch: two sequences a CTA, 128 CTAs in one wave on
+    # 132 SMs, 64 rows a weight fragment; all 12 heads a stage
+    ((256, 32, 384, 12, 48), H100_ACTIVE, (2, 1, 12, 128)),
+    ((300, 32, 384, 12, 48), None, (2, 1, 12, 150)),  # past 264 a second wave: rows stay <= 64
+    # path B: one sequence on a cluster of 3 (39 fit at once, 30 of 4)
+    ((32, 32, 384, 12, 48), H100_ACTIVE, (1, 3, 4, 96)),
+    ((32, 32, 384, 12, 48), None, (1, 4, 3, 128)),
+    ((30, 32, 384, 12, 48), H100_ACTIVE, (1, 4, 3, 120)),
+    # the flagship's and path C's training batches fill the card alone
+    ((128, 32, 128, 8, 512), H100_ACTIVE, (1, 1, 8, 128)),
+    ((128, 32, 64, 4, 256), H100_ACTIVE, (1, 1, 4, 128)),
+    ((64, 32, 128, 8, 512), H100_ACTIVE, (1, 2, 4, 128)),
+    # S=64 (one sequence a CTA at most), S=8 and S=16
+    ((3, 64, 128, 8, 512), H100_ACTIVE, (1, 4, 2, 12)),
+    ((4, 8, 128, 8, 48), H100_ACTIVE, (1, 4, 2, 16)),
+    ((600, 16, 64, 4, 256), None, (4, 1, 4, 150)),
+    # head widths off the k-steps of 16 (staged padded to 16): 16 heads of
+    # 8 at the flagship's width, of 24 at D=384, of 4 at path C's
+    ((128, 32, 128, 16, 512), H100_ACTIVE, (1, 1, 16, 128)),
+    ((256, 32, 384, 16, 48), H100_ACTIVE, (2, 1, 16, 128)),
+    ((32, 32, 384, 16, 48), H100_ACTIVE, (1, 2, 8, 64)),  # 16 heads: no 3
+    ((128, 32, 64, 16, 256), None, (1, 1, 16, 128)),
+])
+def test_bf16_backward_plan(shape, active, want):
+    """Pass 1 of the bf16 backward: sequences a CTA for one wave (at most
+    64 rows), else the largest cluster whose B clusters fit at once, the
+    most heads a stage that fit, and each plan inside the H100's 232,448
+    bytes of shared memory a CTA."""
+    b, s, d, h, f = shape
+    limit = 232448
+    plan = tfl.bwd_tc_plan(b, s, d, h, f, 132, limit, active)
+    assert (plan["seqs"], plan["cluster"], plan["heads_per_stage"], plan["ctas"]) == want
+    assert plan["seqs"] * s <= tfl.BWD_ROWS and (plan["seqs"] == 1 or plan["cluster"] == 1)
+    assert plan["smem"] == tfl.bwd_tc_smem_bytes(s, d, h, f, plan["seqs"], plan["cluster"],
+                                                 plan["heads_per_stage"]) <= limit
+    hpc = h // plan["cluster"]
+    assert hpc % plan["heads_per_stage"] == 0 and d % (8 * plan["cluster"]) == 0
+    bigger = [hg for hg in range(plan["heads_per_stage"] + 1, hpc + 1) if hpc % hg == 0]
+    assert all(tfl.bwd_tc_smem_bytes(s, d, h, f, plan["seqs"], plan["cluster"], hg) > limit
+               for hg in bigger)
+
+
+def test_bf16_backward_shared_memory_plan():
+    """``BwdTcLayout``: the mask, then the largest of a product's operand
+    (the CTA's rows in whole m-tiles, max(3D, F) + 8 bf16 wide: dx's
+    product over dqm), the row steps' column sums (3 D f32 for each of 16
+    warps) and one sequence's attention (its rows of the CTA's heads'
+    q|k|v and gw in whole 16-row blocks, then per head bf16 dropped probs
+    and d_scores, round_up(S, 16) + 8 wide).  At the quality shape two
+    sequences take 161,024 bytes (the attention), a cluster of 3 at path B
+    74,368 (the product), S=8 24,608 (the sums), the flagship's width
+    74,880 (the attention), 16 heads of 24 (staged padded to 32) 152,704;
+    a shape too wide for even one head raises."""
+    heads12 = 12 * 2 * 32 * 40 * 2
+    assert tfl.bwd_tc_smem_bytes(32, 384, 12, 48, 2, 1, 12) == max(
+        64 * 4 + 64 * (1152 + 8) * 2, 64 * 4 + 16 * 3 * 384 * 4,
+        64 * 4 + 32 * (1152 + 8) * 2 + 32 * (384 + 8) * 2 + heads12) == 161024
+    assert tfl.bwd_tc_smem_bytes(32, 384, 12, 48, 1, 3, 4) == 32 * 4 + 32 * 1160 * 2 == 74368
+    assert tfl.bwd_tc_smem_bytes(8, 128, 8, 48, 1, 4, 2) == 8 * 4 + 16 * 3 * 128 * 4 == 24608
+    heads8 = 8 * 2 * 32 * 40 * 2
+    assert tfl.bwd_tc_smem_bytes(32, 128, 8, 512, 1, 1, 8) == (
+        32 * 4 + 32 * (384 + 8) * 2 + 32 * (128 + 8) * 2 + heads8) == 74880
+    with pytest.raises(ValueError, match="shared memory"):
+        tfl.bwd_tc_heads(64, 2048, 2, 64, 1, 1, 232448)
+    # a head width off the k-steps of 16 is staged padded to them: 16 heads
+    # of 24 take 16 x 32 columns of q, k, v and gw a row (D=384: 512)
+    pad = 32 * 4 + 32 * (3 * 512 + 8) * 2 + 32 * (512 + 8) * 2 + 4 * 2 * 32 * 40 * 2
+    assert tfl.bwd_tc_smem_bytes(32, 384, 16, 48, 1, 1, 4) == pad == 152704
 
 
 @pytest.mark.parametrize(("s", "row_tiles"), [(8, 1), (32, 1), (33, 2), (48, 2), (64, 2)])

@@ -251,14 +251,28 @@ def test_profile_entry_point_takes_the_seed_spread_layer_in_f32(monkeypatch, cap
     assert "invalid choice" in capsys.readouterr().err
 
 
-def test_section_flops_add_up_to_the_layer():
+def test_profile_entry_point_takes_the_quality_layer_in_bf16(monkeypatch):
+    """``--shape quality``, the same layer at the quality run's batch
+    (B=256, bf16, dropout 0.1 by default), parses and, without a card,
+    exits 2."""
+    from transformer_recommenders_tpu_torch.tools import profile_fused_sections as pfs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pfs.SHAPES["quality"] == dict(b=256, s=32, d=384, h=12, f=48)
+    assert pfs.main(["--shape", "quality", "--dtype", "bfloat16", "--tree", "."]) == 2
+
+
+@pytest.mark.parametrize("name", ["train", "quality"])
+def test_section_flops_add_up_to_the_layer(name):
     """The forward's sections sum to the layer's products and the
     backward's to three times its dense products plus four attention
-    products (the bound chip_smoke.py gives the layer backward)."""
+    products (the bound chip_smoke.py gives the layer backward), at the
+    flagship's training batch and the quality run's D=384 (F=48 < D: the
+    ffn_gelu variant does not run, its work counts with the next)."""
     from transformer_recommenders_tpu_torch.tools.profile_fused_sections import (
         SHAPES, section_flops)
 
-    shape = SHAPES["train"]
+    shape = SHAPES[name]
     b, s, d, f = (shape[k] for k in "bsdf")
     flops = section_flops(shape)
     fwd = sum(v for k, v in flops.items() if k.startswith("fwd/"))

@@ -81,36 +81,66 @@
 // parameter-gradient sums in VMEM across its sequential grid; blocks on the
 // card run in parallel, so the backward is a few passes, all deterministic
 // (no atomics):
-//   0. (bf16) the four weights rounded to bf16 once, as given and
-//      transposed, so that both the recompute's products (with W) and the
-//      VJP's (with W^T) read k-contiguous pairs;
-//   1. one block (f32: one cluster) per sequence recomputes the layer
-//      (with the JAX backward's own numerics: the A&S erf in the GELU under
-//      bf16, the f32 dropout divisor in the VJP) and walks the VJP down to
-//      dx.  The intermediates live in a workspace in device memory (a block's share
-//      is a few hundred KB at the flagship shape, L2-resident), so any
-//      D and F fit.  The rounded operands of the weight-gradient products
-//      stay there for pass 2; the bias and LayerNorm gradients are summed
-//      over the sequence's rows into one row of a partials buffer;
+//   0. (bf16) the four weights rounded to bf16 once and packed in
+//      B-fragment order (pack_weights_kernel), W and W^T, so that the
+//      recompute's products (with W) and the VJP's (with W^T) load a warp's
+//      fragments of a k-step as one coalesced 256-byte load;
+//   1. the layer recomputed (with the JAX backward's own numerics: the A&S
+//      erf in the GELU under bf16, the f32 dropout divisor in the VJP) and
+//      the VJP walked down to dx, through a workspace in device memory;
+//      the rounded operands of the weight-gradient products stay there for
+//      pass 2, and the bias and LayerNorm gradients are summed over each
+//      sequence's rows into its row of a partials buffer;
 //   2. dW = X^T dY for the four weights, split over ranges of rows;
 //   3. the partials summed over the sequences, and pass 2's partial tiles
 //      over its row splits, in order.
-// What bounds it: ~3x the forward's products (recompute, then two
-// products per dense), ~5 GFLOP per layer at B=128, S=32, D=128, F=512,
-// so tensor-core time (5 us); the elementwise work (softmax, GELU and its
-// derivative, the dropout hashes, LayerNorms) and the workspace's
-// round trips come on top.  Under bf16 every product runs on the tensor
-// cores (mma.sync m16n8k16, bf16 operands, f32 sums): in pass 1 each
-// dense stages its operand rows in shared memory and the weight fragments
-// come from L2 four k-steps ahead; the attention stages q, k, v (and in
-// the VJP gw) in shared memory and keeps the probs, d_probs, T(dropped)
-// and T(d_scores) of as many heads as fit; pass 2 is a split-K product,
+// What bounds the bf16 pass 1 (fused_layer_bwd_rows_kernel): ~3x the
+// forward's products (the recompute, then two products per dense), ~32
+// GFLOP at B=256, S=32, D=384 (the quality run's), against which the
+// tensor cores need ~0.03 ms.  It runs far from both.  Every CTA streams
+// every weight from L2 (2.5 MB of bf16 at D=384) for its rows, so the
+// products are suspected to be bound by L2's bandwidth shared by the card
+// (not measured: no counters on the card's machine); the rest of the layer
+// (the softmax, the dropout hashes, the LayerNorms and their VJPs) is
+// chains of dependent steps inside a CTA.  The design (where one CTA a
+// sequence read each weight fragment for 32 rows, with scalar operand
+// loads, f32 attention buffers, and the column sums and dq, dk, dv round
+// trips through device memory):
+//   - more rows per weight fragment: a CTA takes as many whole sequences
+//     as one wave of the card needs (bwd_tc_plan: 2 at B=256, 128 CTAs;
+//     at most 64 rows, four m-tiles that each fragment a warp loads feeds),
+//     or where the batch leaves SMs idle one sequence on a cluster of 2-4
+//     CTAs (path B's B=32 on 3: 96 CTAs, the card's count of co-resident
+//     clusters), each CTA its heads and its share of every product's
+//     8-column blocks, the CTAs sharing the workspace behind a fence and a
+//     cluster barrier;
+//   - the products (dense_tc, the forward's loop) stage their operand rows
+//     by cp.async and read the packed weights (W, or W^T in the VJP) four
+//     k-steps ahead from L2; the epilogues that read what they update
+//     (dres, u) load it before their stores (dense_tc_in);
+//   - the attention a warp per (head, 16 query rows) on the tensor cores
+//     with the scores in the mma accumulators and the softmax over the quad
+//     of lanes that holds a row (tc_probs, as the forward's attention_tc),
+//     the VJP to the d_scores in the same registers (tc_attention_grad),
+//     then dq, dk and dv from T(d_scores) and T(dropped) in shared memory,
+//     every operand by ldmatrix (tc_attention_products), the qkv bias's
+//     column sums in their epilogue: no f32 probs or dq, dk, dv buffer; a
+//     head's columns staged at round_up(dh, 16) with zeros past dh, so that
+//     any even head width takes whole k-steps (the padding adds 0);
+//   - the row steps (the LayerNorms and their VJPs) hold a row in
+//     registers, one load of it, and add their column sums (the LayerNorm
+//     gradients, the out and ffn_out biases) into a slot of shared memory
+//     a warp, summed over the warps in order (and over a cluster's CTAs in
+//     rank order through distributed shared memory), not re-read from
+//     device memory.
+// Only the order of the f32 sums inside a product changes (and that of
+// the column sums and of a softmax row's sum); every rounding stays where
+// the f32 path has it.  Pass 2 is a split-K product on the tensor cores,
 // one block per 64 x 64 tile of a dW and range of rows, so that hundreds
-// of blocks run.  Only the order of the f32 sums inside a product changes
-// (and inside the column sums of a product's epilogue); every rounding
-// stays where the f32 path has it.  Under f32 the products stay f32 FMAs
-// on CUDA cores (TF32 would break the f32 gradients' 1e-4 bound): pass 1
-// (fused_layer_bwd_rows_f32_kernel) splits a sequence across the
+// of blocks run, its rows staged as they lie by cp.async (double-buffered)
+// and read transposed by ldmatrix.trans.  Under f32 the products stay f32
+// FMAs on CUDA cores (TF32 would break the f32 gradients' 1e-4 bound):
+// pass 1 (fused_layer_bwd_rows_f32_kernel) splits a sequence across the
 // forward's cluster, each CTA its heads and its share of every product's
 // columns through f32_product (its operand rows staged from the workspace
 // with the weight tiles), the row-wise steps split by rows, the CTAs
@@ -152,9 +182,9 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;  // the f32 kernels: 8 warps
-// pass 1 of the bf16 backward: twice the warps, so that more of the
-// block's loads from the workspace are in flight (at most 128 registers
-// a thread); every sum keeps its order whatever the thread count
+// pass 1 of the bf16 backward: 16 warps (at most 128 registers a thread),
+// so that more of its loads are in flight; the row steps' column sums take
+// a slot a warp (ops/fused_layer.py BWD_WARPS)
 constexpr int kBwdTcThreads = 512;
 constexpr float kNegInf = -1e9f;
 constexpr float kInvSqrt2 = 0.70710678118654752f;
@@ -255,7 +285,7 @@ constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 // under a bf16 compute type
 __device__ __forceinline__ float erf_as(float x) {
   const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.47047f * ax);
+  const float t = __frcp_rn(1.f + 0.47047f * ax);  // 1 / x rounded once: the division's bits
   const float poly = t * (0.3480242f + t * (-0.0958798f + t * 0.7478556f));
   const float mag = 1.f - poly * expf(-ax * ax);
   return x < 0.f ? -mag : mag;
@@ -274,7 +304,7 @@ struct BwdParams {
   void *qkv, *ctx, *x1, *u, *g, *h1, *h2;  // R x 3D, D, D, F, F, D, D
   float* stats;                            // R x 4: mean1 rstd1 mean2 rstd2
   void *dfm, *dum, *dam, *dqm;             // R x D, F, D, 3D
-  float *dres, *dqkv;                      // R x D, R x 3D (dqkv: bf16 only)
+  float *dres, *duf;                       // R x D, R x F (duf, du before its rounding: bf16 only)
   float* partial;                          // B x (9D + F) column sums
   int B, S, D, H, F, causal;
   xrt::Seeds seed;  // the three site seeds, read from device memory
@@ -283,13 +313,15 @@ struct BwdParams {
   int attn_drop, hidden_drop;
   float eps;
   // bf16 only (the tensor-core path): the four weights rounded to bf16 once
-  // per call, as given (w16) and transposed (wt16), at WOffsets.  Both:
-  // the weight-gradient partial tiles, splits x WOffsets::total; the heads
-  // whose attention pass 1 stages at once; pass 2's rows per split.  f32:
-  // the CTAs a sequence is split across
-  __nv_bfloat16 *w16, *wt16;
+  // per call and packed in B-fragment order (pack_weights_kernel), W at
+  // WOffsets, then W^T at WOffsets::total + WOffsets; the sequences a CTA
+  // of pass 1 takes; whether its products stage each whole packed weight in
+  // shared memory.  Both: the weight-gradient partial tiles, splits x
+  // WOffsets::total; the heads whose attention pass 1 stages at once; pass
+  // 2's rows per split; the CTAs a sequence of pass 1 is split across
+  uint2* wp;
   float* wpart;
-  int hg, splits, rows_per_split, cluster;
+  int hg, splits, rows_per_split, cluster, seqs;
 };
 
 // offsets of the four weights (and of their gradients) laid end to end:
@@ -309,70 +341,13 @@ struct VecOffsets {
         ln1_b(6 * D + F), ln2_s(7 * D + F), ln2_b(8 * D + F), total(9 * D + F) {}
 };
 
-// ---- tensor-core products of the bf16 backward: mma.sync m16n8k16 and its
-// fragment loaders, shared with the pool InfoNCE kernels (common.cuh)
+// ---- tensor-core products: mma.sync m16n8k16 and its fragment loaders,
+// shared with the pool InfoNCE kernels (common.cuh)
 
 using bf16 = __nv_bfloat16;
 using xrt::col_pair;
 using xrt::mma_bf16;
 using xrt::row_pair;
-
-// One warp: C(r, n) = sum_k A(r, k) B(k, n) for rows r < M <= 64 and the
-// eight columns [n0, n0 + 8), k < K, from la(r, k) = {A(r, k), A(r, k + 1)}
-// and lb(n, k) = {B(k, n), B(k + 1, n)} (zero outside the matrices).  Each
-// output in range goes to epi(r, n, c), whose returns for the thread's two
-// columns n0 + t2 and n0 + t2 + 1 are summed into cs[0] and cs[1].
-template <typename LA, typename LB, typename Epi>
-__device__ __forceinline__ void warp_mma(int M, int N, int K, int n0, LA la, LB lb, Epi epi,
-                                         float cs[2]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
-  const int mtiles = (M + 15) >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[mt][i] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += 64) {
-    // the B fragments of four k-steps first, so their loads are in flight
-    // together (lb is zero past K)
-    uint32_t b[4][2];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      b[s][0] = lb(n0 + g, k0 + 16 * s + t2);
-      b[s][1] = lb(n0 + g, k0 + 16 * s + 8 + t2);
-    }
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int k = k0 + 16 * s;
-      if (k < K) {
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          if (mt < mtiles) {
-            const int r = mt * 16 + g;
-            const uint32_t a[4] = {la(r, k + t2), la(r + 8, k + t2), la(r, k + 8 + t2),
-                                   la(r + 8, k + 8 + t2)};
-            mma_bf16(acc[mt], a, b[s]);
-          }
-        }
-      }
-    }
-  }
-  cs[0] = cs[1] = 0.f;
-  const int n = n0 + t2;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt < mtiles) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt * 16 + g + 8 * half;
-        if (r < M) {
-          if (n < N) cs[0] += epi(r, n, acc[mt][2 * half]);
-          if (n + 1 < N) cs[1] += epi(r, n + 1, acc[mt][2 * half + 1]);
-        }
-      }
-    }
-  }
-}
 
 // rows [0, S) x columns [0, K) of a bf16 matrix (leading dimension
 // in_ld) into shared memory with leading dimension K + 8 (fragment loads
@@ -392,113 +367,64 @@ __device__ void stage_rows(const bf16* in, int in_ld, int S, int K, bf16* dst) {
   }
 }
 
-// dense_rows on the tensor cores for a bf16 ``in`` (leading dimension
-// in_ld, K even): acc(r, n) = sum_k in[r, k] * Wn[n * K + k], Wn the
-// product's weight as an (N, K) bf16 matrix.  ``in`` is staged in the
-// shared scratch ``sa`` first; warps take eight columns at a time, and the
-// column totals of what ``epi`` returns go to colsum[n] when it is given
-// (summed over the 8 row groups of a warp by shuffles, in a fixed order)
-template <typename Epi>
-__device__ void dense_mma(const bf16* in, int in_ld, int K, const bf16* __restrict__ Wn, int N,
-                          int S, Epi epi, float* colsum, bf16* sa) {
-  stage_rows(in, in_ld, S, K, sa);
-  __syncthreads();
-  const int lda = K + 8;
-  auto la = [=](int r, int k) -> uint32_t {
-    return r < S && k < K ? *reinterpret_cast<const uint32_t*>(sa + r * lda + k) : 0u;
-  };
-  auto lb = [=](int n, int k) -> uint32_t {
-    return n < N && k < K ? __ldg(reinterpret_cast<const unsigned int*>(Wn + (size_t)n * K + k))
-                          : 0u;
-  };
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int n0 = warp * 8; n0 < N; n0 += nwarps * 8) {
-    float cs[2];
-    warp_mma(S, N, K, n0, la, lb, epi, cs);
-    if (colsum != nullptr) {
+// The row steps of the bf16 pass 1 hold a row's D <= 32 kRowJ columns in
+// registers, kRowJ a lane (every load of the row in flight at once); wider
+// rows take the same sums in the same order from memory.
+constexpr int kRowJ = 12;
+
+// h = T(a + b) over one row of D (written over a), by one warp: its
+// two-pass f32 LayerNorm statistics, returned as (mean, rstd), and with
+// out T(LN(h)) into out
+__device__ float2 add_ln_row(bf16* __restrict__ a, const bf16* __restrict__ b,
+                             const float* __restrict__ gamma, const float* __restrict__ beta,
+                             int D, float eps, bf16* __restrict__ out) {
+  using A = xrt::Act<bf16>;
+  const int lane = threadIdx.x & 31;
+  float sum = 0.f, sq = 0.f, mean, rstd;
+  if (D <= 32 * kRowJ) {
+    float h[kRowJ];
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        cs[0] += __shfl_xor_sync(0xffffffffu, cs[0], off);
-        cs[1] += __shfl_xor_sync(0xffffffffu, cs[1], off);
-      }
-      const int n = n0 + (lane & 3) * 2;
-      if (lane < 4) {
-        if (n < N) colsum[n] = cs[0];
-        if (n + 1 < N) colsum[n + 1] = cs[1];
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      h[j] = c < D ? A::round(A::load(a[c]) + A::load(b[c])) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) {
+        a[c] = A::store(h[j]);
+        sum += h[j];
       }
     }
+    mean = xrt::warp_sum(sum) / (float)D;
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j)
+      if (lane + 32 * j < D) sq += (h[j] - mean) * (h[j] - mean);
+    rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+    if (out != nullptr) {
+#pragma unroll
+      for (int j = 0; j < kRowJ; ++j) {
+        const int c = lane + 32 * j;
+        if (c < D) out[c] = A::store((h[j] - mean) * rstd * __ldg(gamma + c) + __ldg(beta + c));
+      }
+    }
+    return make_float2(mean, rstd);
   }
-}
-
-// h = T(a + b) row by row (written over a), its two-pass f32 LayerNorm
-// statistics into stats[r*4 + 0..1], and T(LN(h)) into out; one warp per
-// row, each lane on its own columns
-template <typename T>
-__device__ void add_ln_save(T* a, const T* b, const float* __restrict__ gamma,
-                            const float* __restrict__ beta, int S, int D, float eps, float* stats,
-                            T* out) {
-  using A = xrt::Act<T>;
-  const int lane = threadIdx.x & 31;
-  for (int row = threadIdx.x >> 5; row < S; row += blockDim.x >> 5) {
-    T* ar = a + (size_t)row * D;
-    const T* br = b + (size_t)row * D;
-    float sum = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float h = A::round(A::load(ar[c]) + A::load(br[c]));
-      ar[c] = A::store(h);
-      sum += h;
-    }
-    const float mean = xrt::warp_sum(sum) / (float)D;
-    float sq = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float h = A::load(ar[c]);
-      sq += (h - mean) * (h - mean);
-    }
-    const float rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+  for (int c = lane; c < D; c += 32) {
+    const float h = A::round(A::load(a[c]) + A::load(b[c]));
+    a[c] = A::store(h);
+    sum += h;
+  }
+  mean = xrt::warp_sum(sum) / (float)D;
+  for (int c = lane; c < D; c += 32) {
+    const float h = A::load(a[c]);
+    sq += (h - mean) * (h - mean);
+  }
+  rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+  if (out != nullptr)
     for (int c = lane; c < D; c += 32)
-      out[(size_t)row * D + c] =
-          A::store((A::load(ar[c]) - mean) * rstd * __ldg(gamma + c) + __ldg(beta + c));
-    if (lane == 0) {
-      stats[row * 4 + 0] = mean;
-      stats[row * 4 + 1] = rstd;
-    }
-  }
-}
-
-// the LayerNorm VJP of ops/fused_layer.py:_ln_bwd, one warp per row:
-// dh = rstd * (g - mean(g) - n * mean(g * n)), g = dy * scale,
-// n = (h - mean) * rstd; dh goes to dres (which may hold dy), then
-// dm = T(dropout'(dh)) to dm when drop_seed_on
-template <typename T, typename DyT>
-__device__ void ln_bwd_rows(const DyT* dy, const T* h, const float* stats, int stat_col,
-                            const float* __restrict__ scale, int S, int D, float* dres, T* dm,
-                            uint32_t row0, int drop, uint32_t seed, uint32_t thr, float keep_div) {
-  using A = xrt::Act<T>;
-  const int lane = threadIdx.x & 31;
-  for (int row = threadIdx.x >> 5; row < S; row += blockDim.x >> 5) {
-    const float mean = stats[row * 4 + stat_col], rstd = stats[row * 4 + stat_col + 1];
-    float sg = 0.f, sgn = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float n = (A::load(h[(size_t)row * D + c]) - mean) * rstd;
-      const float g = xrt::Act<DyT>::load(dy[(size_t)row * D + c]) * __ldg(scale + c);
-      sg += g;
-      sgn += g * n;
-    }
-    const float gm = xrt::warp_sum(sg) / (float)D;
-    const float gnm = xrt::warp_sum(sgn) / (float)D;
-    for (int c = lane; c < D; c += 32) {
-      const float n = (A::load(h[(size_t)row * D + c]) - mean) * rstd;
-      const float g = xrt::Act<DyT>::load(dy[(size_t)row * D + c]) * __ldg(scale + c);
-      const float dh = rstd * (g - gm - n * gnm);
-      dres[(size_t)row * D + c] = dh;
-      float d = dh;
-      if (drop) {
-        const uint32_t idx = (row0 + (uint32_t)row) * (uint32_t)D + (uint32_t)c;
-        d = xrt::keep(idx, seed, thr) ? dh / keep_div : 0.f;
-      }
-      dm[(size_t)row * D + c] = A::store(d);
-    }
-  }
+      out[c] = A::store((A::load(a[c]) - mean) * rstd * __ldg(gamma + c) + __ldg(beta + c));
+  return make_float2(mean, rstd);
 }
 
 // the dropout VJP at a hidden site, recomputed from the undropped f32
@@ -509,414 +435,191 @@ __device__ __forceinline__ float hidden_drop_bwd(float d, int drop, uint32_t row
   return xrt::keep(row * (uint32_t)D + (uint32_t)c, seed, thr) ? d / keep_div : 0.f;
 }
 
-// the bf16 pass 1's attention buffers: the mask, then hg heads' probs,
-// d_probs and row sums (f32) and their T(dropped) and T(d_scores) (bf16)
-__host__ __device__ inline size_t attn_smem_bytes(int S, int hg) {
-  const size_t bytes = (size_t)((S + 3) / 4) * 4 * sizeof(int) +
-                       (size_t)hg * (2 * S * S + S) * sizeof(float) +
-                       (size_t)hg * 2 * S * S * sizeof(bf16);
-  return (bytes + 15) / 16 * 16;
-}
-
-// the bf16 pass 1's shared memory: the attention buffers and the scratch
-// sa: S rows of a staged operand, at most max(F, 4D + 8) + 8 wide (qkv and
-// gw side by side in the attention backward)
-__host__ __device__ inline size_t bwd_smem_bytes(int S, int D, int F, int hg) {
-  const int width = (F > 4 * D + 8 ? F : 4 * D + 8) + 8;
-  return attn_smem_bytes(S, hg) + (size_t)S * width * sizeof(bf16);
-}
-
-// Pass 1 of the backward, one block per sequence: recompute the layer from
-// x (as the TPU kernel does), then walk the VJP down to dx.  The rounded
-// operands of the four weight-gradient products go to the workspace for
-// pass 2; the bias and LayerNorm gradients are summed over the sequence's
-// rows into one row of ``partial`` for pass 3.
-template <int kStop>
-__global__ void __launch_bounds__(kBwdTcThreads, 1) fused_layer_bwd_rows_kernel(BwdParams p) {
-  using T = bf16;
-  using A = xrt::Act<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int S = p.S, D = p.D, H = p.H, F = p.F, b = blockIdx.x;
-  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
-  const int dh = D / H, ld3 = 3 * D;
-  // the attention of hg heads at a time: probs, d_probs (f32) and row
-  // sums, then T(dropped) and T(d_scores)
-  const int hg = p.hg;
-  int* smask = reinterpret_cast<int*>(smem);
-  float* sp = reinterpret_cast<float*>(smem) + ((S + 3) / 4) * 4;  // hg x S x S probs
-  float* sds = sp + hg * S * S;                                     // hg x S x S
-  float* srow = sds + hg * S * S;                                   // hg x S
-  bf16* spb = reinterpret_cast<bf16*>(srow + hg * S);               // hg x S x S
-  bf16* sdsb = spb + hg * S * S;                                    // hg x S x S
-  // a product's staged operand; in the attention, qkv (leading dimension
-  // 3D + 8) and then gw (D + 8)
-  bf16* sa = reinterpret_cast<bf16*>(smem + attn_smem_bytes(S, hg));
-  const WOffsets woff(D, F);
-  const bf16* w16 = p.w16;
-  const bf16* wt16 = p.wt16;
-  const size_t row_base = (size_t)b * S;
-  const uint32_t row0 = (uint32_t)row_base;
-  const T* x = static_cast<const T*>(p.x) + row_base * D;
-  const T* dy = static_cast<const T*>(p.dy) + row_base * D;
-  T* qkv = static_cast<T*>(p.qkv) + row_base * ld3;
-  T* ctx = static_cast<T*>(p.ctx) + row_base * D;
-  T* x1 = static_cast<T*>(p.x1) + row_base * D;
-  T* u = static_cast<T*>(p.u) + row_base * F;
-  T* g = static_cast<T*>(p.g) + row_base * F;
-  T* h1 = static_cast<T*>(p.h1) + row_base * D;
-  T* h2 = static_cast<T*>(p.h2) + row_base * D;
-  float* stats = p.stats + row_base * 4;
-  T* dfm = static_cast<T*>(p.dfm) + row_base * D;
-  T* dum = static_cast<T*>(p.dum) + row_base * F;
-  T* dam = static_cast<T*>(p.dam) + row_base * D;
-  T* dqm = static_cast<T*>(p.dqm) + row_base * ld3;
-  float* dres = p.dres + row_base * D;
-  float* dqkv = p.dqkv + row_base * ld3;
-  const VecOffsets off(D, F);
-  float* part = p.partial + (size_t)b * off.total;
-
-  for (int i = threadIdx.x; i < S; i += blockDim.x) smask[i] = p.mask[b * S + i] != 0;
-
-  // ---- recompute: qkv
-  auto bias_round = [] (const float* bias, T* out, int ld) {
-    return [=](int r, int n, float acc) {
-      out[(size_t)r * ld + n] = A::store(acc + __ldg(bias + n));
-      return 0.f;
-    };
-  };
-  dense_mma(x, D, D, wt16 + woff.qkv, ld3, S, bias_round(p.qkv_b, qkv, ld3), nullptr, sa);
-  __syncthreads();
-
-  const float scale = 1.f / sqrtf((float)dh);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  // the dropped probability at (sq, t) of head hh, in f32
-  auto dropped_at = [&](int hh, int sq, int t, float prob) {
-    if (!p.attn_drop) return prob;
-    const uint32_t idx = (((uint32_t)b * H + (uint32_t)hh) * (uint32_t)S + (uint32_t)sq) * (uint32_t)S + t;
-    return xrt::keep(idx, seed[0], p.attn_thr) ? prob / p.attn_keep : 0.f;
-  };
-  // the probs of heads [h0, h0 + hg) into sp: the scores on the tensor
-  // cores, then the softmax; with want_dropped also T(dropped) into spb
-  // (q, k and v read from their copy in sa, leading dimension lq)
-  const bf16* qkv16 = reinterpret_cast<const bf16*>(qkv);
-  const int lq = ld3 + 8;
-  const int causal = p.causal;
-  auto group_probs = [&](int h0, bool want_dropped) {
-    const int ntn = (S + 7) / 8;
-    for (int item = warp; item < hg * ntn; item += nwarps) {
-      const int hh = item / ntn;
-      const bf16* q = sa + (h0 + hh) * dh;
-      float* out = sp + hh * S * S;
-      float cs[2];
-      warp_mma(S, S, dh, (item % ntn) * 8,
-               [=](int r, int k) { return row_pair(q, lq, r, k, S, dh); },
-               [=](int t, int k) { return row_pair(q + D, lq, t, k, S, dh); },
-               [=](int sq, int t, float dot) {
-                 const float bias = (smask[t] ? 0.f : kNegInf) +
-                                    ((causal && t > sq) ? kNegInf : 0.f);
-                 out[sq * S + t] = dot * scale + bias;
-                 return 0.f;
-               }, cs);
+// the LayerNorm VJP of ops/fused_layer.py:_ln_bwd over one row of D, by one
+// warp: dh = rstd * (g - mean(g) - n * mean(g * n)), g = dy * scale,
+// n = (h - mean) * rstd; dh goes to dres (which may be dy), then
+// dm = T(dropout'(dh)) at the global row ``row``; with red, the row's terms
+// of the scale's, the bias's and the dropped cotangent's column sums (dy n,
+// dy, dropout'(dh)) added to red[c], red[D + c], red[2 D + c]
+template <typename DyT>
+__device__ void ln_bwd_row(const DyT* dy, const bf16* __restrict__ h, float2 stat,
+                           const float* __restrict__ scale, int D, float* dres,
+                           bf16* __restrict__ dm, uint32_t row, int drop, uint32_t seed,
+                           uint32_t thr, float keep_div, float* __restrict__ red) {
+  using A = xrt::Act<bf16>;
+  const int lane = threadIdx.x & 31;
+  const float mean = stat.x, rstd = stat.y;
+  float sg = 0.f, sgn = 0.f;
+  if (D <= 32 * kRowJ) {
+    float n[kRowJ], d[kRowJ];
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      n[j] = c < D ? (A::load(h[c]) - mean) * rstd : 0.f;
+      d[j] = c < D ? xrt::Act<DyT>::load(dy[c]) : 0.f;
     }
-    __syncthreads();
-    for (int row = warp; row < hg * S; row += nwarps) {
-      float* pr = sp + row * S;
-      float m = -INFINITY;
-      for (int t = lane; t < S; t += 32) m = fmaxf(m, pr[t]);
-      m = xrt::warp_max(m);
-      float sum = 0.f;
-      for (int t = lane; t < S; t += 32) {
-        const float e = expf(pr[t] - m);
-        pr[t] = e;
-        sum += e;
-      }
-      sum = xrt::warp_sum(sum);
-      for (int t = lane; t < S; t += 32) {
-        pr[t] = pr[t] / sum;
-        if (want_dropped)
-          spb[row * S + t] = __float2bfloat16_rn(dropped_at(h0 + row / S, row % S, t, pr[t]));
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) {
+        const float g = d[j] * __ldg(scale + c);
+        sg += g;
+        sgn += g * n[j];
       }
     }
-    __syncthreads();
-  };
-
-  // ---- recompute: attention, ctx = T(T(dropped) V) per head
-  const int ntd = (dh + 7) / 8;
-  stage_rows(qkv16, ld3, S, ld3, sa);
-  __syncthreads();
-  for (int h0 = 0; h0 < H; h0 += hg) {
-    group_probs(h0, true);
-    for (int item = warp; item < hg * ntd; item += nwarps) {
-      const int hh = item / ntd, col = (h0 + hh) * dh;
-      const bf16* pb = spb + hh * S * S;
-      const bf16* v = sa + 2 * D + col;
-      T* out = ctx + col;
-      float cs[2];
-      warp_mma(S, dh, S, (item % ntd) * 8,
-               [=](int sq, int t) { return row_pair(pb, S, sq, t, S, S); },
-               [=](int j, int t) { return col_pair(v, lq, t, j, S, dh); },
-               [=](int sq, int j, float acc) {
-                 out[(size_t)sq * D + j] = A::store(acc);
-                 return 0.f;
-               }, cs);
-    }
-    __syncthreads();
-  }
-
-  // ---- recompute: a = dropout(T(ctx Wout + b)) into h1, then h1 = T(x + a),
-  // LN1 statistics, x1 = T(LN1(h1))
-  const int hidden_drop = p.hidden_drop;
-  const uint32_t hidden_thr = p.hidden_thr;
-  const float hidden_keep_fwd = p.hidden_keep_fwd;
-  auto dense_dropout = [=](const float* bias, T* out, uint32_t seed) {
-    return [=](int r, int n, float acc) {
-      float v = A::round(acc + __ldg(bias + n));
-      if (hidden_drop) {
-        const uint32_t idx = (row0 + (uint32_t)r) * (uint32_t)D + (uint32_t)n;
-        v = xrt::keep(idx, seed, hidden_thr) ? A::round(v / hidden_keep_fwd) : 0.f;
+    const float gm = xrt::warp_sum(sg) / (float)D;
+    const float gnm = xrt::warp_sum(sgn) / (float)D;
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) {
+        const float dh = rstd * (d[j] * __ldg(scale + c) - gm - n[j] * gnm);
+        const float df = hidden_drop_bwd(dh, drop, row, c, D, seed, thr, keep_div);
+        dres[c] = dh;
+        dm[c] = A::store(df);
+        if (red != nullptr) {
+          red[c] += d[j] * n[j];
+          red[D + c] += d[j];
+          red[2 * D + c] += df;
+        }
       }
-      out[(size_t)r * D + n] = A::store(v);
-      return 0.f;
-    };
-  };
-  dense_mma(ctx, D, D, wt16 + woff.out, D, S,
-                       dense_dropout(p.out_b, h1, seed[1]), nullptr, sa);
-  __syncthreads();
-  add_ln_save<T>(h1, x, p.ln1_s, p.ln1_b, S, D, p.eps, stats, x1);
-  __syncthreads();
-
-  // ---- recompute: u = T(x1 Win + b), g = T(gelu(u))
-  dense_mma(x1, D, D, wt16 + woff.ffn_in, F, S,
-                       bias_round(p.ffn_in_b, u, F), nullptr, sa);
-  __syncthreads();
-#pragma unroll 4
-  for (int i = threadIdx.x; i < S * F; i += blockDim.x) {
-    const float uv = A::load(u[i]);
-    const float e = erf_as(uv * kInvSqrt2);  // _APPROX_RECOMPUTE_ERF
-    g[i] = A::store(0.5f * uv * (1.f + e));
-  }
-  __syncthreads();
-
-  // ---- recompute: f = dropout(T(g Wffn_out + b)) into h2, then h2 = T(x1 + f)
-  // and the LN2 statistics (its output is not needed)
-  dense_mma(g, F, F, wt16 + woff.ffn_out, D, S,
-                       dense_dropout(p.ffn_out_b, h2, seed[2]), nullptr, sa);
-  __syncthreads();
-  for (int row = warp; row < S; row += nwarps) {
-    T* hr = h2 + (size_t)row * D;
-    float sum = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float h = A::round(A::load(hr[c]) + A::load(x1[(size_t)row * D + c]));
-      hr[c] = A::store(h);
-      sum += h;
     }
-    const float mean = xrt::warp_sum(sum) / (float)D;
-    float sq = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      const float h = A::load(hr[c]);
-      sq += (h - mean) * (h - mean);
-    }
-    const float rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + p.eps);
-    if (lane == 0) {
-      stats[row * 4 + 2] = mean;
-      stats[row * 4 + 3] = rstd;
-    }
-    if constexpr (kStop == kStopRecompute) {  // the recomputed y = T(LN2(h2))
-      T* y = static_cast<T*>(p.dx) + (row_base + row) * D;
-      for (int c = lane; c < D; c += 32)
-        y[c] = A::store((A::load(hr[c]) - mean) * rstd * __ldg(p.ln2_s + c) + __ldg(p.ln2_b + c));
-    }
-  }
-  __syncthreads();
-  if constexpr (kStop == kStopRecompute) return;
-
-  // ---- LN2 backward: dh2 into dres (= dx1 so far), dfm = T(dropout'(dh2))
-  ln_bwd_rows<T, T>(dy, h2, stats, 2, p.ln2_s, S, D, dres, dfm, row0, p.hidden_drop, seed[2],
-                    p.hidden_thr, p.hidden_keep_bwd);
-  __syncthreads();
-  if constexpr (kStop == kBwdFull) {
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      float s_scale = 0.f, s_bias = 0.f, s_fb = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < S; ++r) {
-        const float dyv = A::load(dy[(size_t)r * D + c]);
-        const float n = (A::load(h2[(size_t)r * D + c]) - stats[r * 4 + 2]) * stats[r * 4 + 3];
-        s_scale += dyv * n;
-        s_bias += dyv;
-        s_fb += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D,
-                                seed[2], p.hidden_thr, p.hidden_keep_bwd);
-      }
-      part[off.ln2_s + c] = s_scale;
-      part[off.ln2_b + c] = s_bias;
-      part[off.ffn_out_b + c] = s_fb;
-    }
-  }
-  __syncthreads();
-
-  // ---- FFN backward: du = (dfm Wffn_out^T) * gelu'(u), dum = T(du)
-  auto gelu_bwd = [=](int r, int n, float acc) {
-    const float uv = A::load(u[(size_t)r * F + n]);
-    const float e = erf_as(uv * kInvSqrt2);  // _APPROX_RECOMPUTE_ERF
-    const float phi = expf(-0.5f * uv * uv) * kInvSqrt2Pi;
-    const float du = acc * (0.5f * (1.f + e) + uv * phi);
-    dum[(size_t)r * F + n] = A::store(du);
-    return du;
-  };
-  dense_mma(dfm, D, D, w16 + woff.ffn_out, F, S, gelu_bwd,
-                      kStop == kBwdFull ? part + off.ffn_in_b : nullptr, sa);
-  __syncthreads();
-  // dx1 = dh2 + dum Win^T
-  auto add_to_dres = [=](int r, int n, float acc) {
-    dres[(size_t)r * D + n] += acc;
-    return 0.f;
-  };
-  dense_mma(dum, F, F, w16 + woff.ffn_in, D, S, add_to_dres, nullptr,
-                      sa);
-  __syncthreads();
-  if constexpr (kStop == kBwdFull) {
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      float s_scale = 0.f, s_bias = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < S; ++r) {
-        const float d = dres[(size_t)r * D + c];
-        const float n = (A::load(h1[(size_t)r * D + c]) - stats[r * 4]) * stats[r * 4 + 1];
-        s_scale += d * n;
-        s_bias += d;
-      }
-      part[off.ln1_s + c] = s_scale;
-      part[off.ln1_b + c] = s_bias;
-    }
-  }
-  __syncthreads();
-
-  // ---- LN1 backward: dh1 over dres, dam = T(dropout'(dh1))
-  ln_bwd_rows<T, float>(dres, h1, stats, 0, p.ln1_s, S, D, dres, dam, row0, p.hidden_drop,
-                        seed[1], p.hidden_thr, p.hidden_keep_bwd);
-  __syncthreads();
-  if constexpr (kStop == kBwdFull) {
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      float s = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < S; ++r)
-        s += hidden_drop_bwd(dres[(size_t)r * D + c], p.hidden_drop, row0 + r, c, D, seed[1],
-                             p.hidden_thr, p.hidden_keep_bwd);
-      part[off.out_b + c] = s;
-    }
-  }
-  // gw = T(dam Wout^T) into h2 (no longer needed)
-  T* gw = h2;
-  auto store_round = [=](int r, int n, float acc) {
-    gw[(size_t)r * D + n] = A::store(acc);
-    return 0.f;
-  };
-  __syncthreads();
-  dense_mma(dam, D, D, w16 + woff.out, D, S, store_round, nullptr, sa);
-  __syncthreads();
-  if constexpr (kStop == kStopFfnBwd) {
-    store_rows<T>(gw, D, S, D, 0, D, 0, 1, static_cast<T*>(p.dx) + row_base * D);
     return;
   }
+  for (int c = lane; c < D; c += 32) {
+    const float n = (A::load(h[c]) - mean) * rstd;
+    const float g = xrt::Act<DyT>::load(dy[c]) * __ldg(scale + c);
+    sg += g;
+    sgn += g * n;
+  }
+  const float gm = xrt::warp_sum(sg) / (float)D;
+  const float gnm = xrt::warp_sum(sgn) / (float)D;
+  for (int c = lane; c < D; c += 32) {
+    const float n = (A::load(h[c]) - mean) * rstd;
+    const float dv = xrt::Act<DyT>::load(dy[c]);
+    const float dh = rstd * (dv * __ldg(scale + c) - gm - n * gnm);
+    const float df = hidden_drop_bwd(dh, drop, row, c, D, seed, thr, keep_div);
+    dres[c] = dh;
+    dm[c] = A::store(df);
+    if (red != nullptr) {
+      red[c] += dv * n;
+      red[D + c] += dv;
+      red[2 * D + c] += df;
+    }
+  }
+}
 
-  // ---- attention backward into dqkv (f32), hg heads at a time on the
-  // tensor cores: qkv into sa again (the dense products used it), gw after it
-  bf16* sgw = sa + S * lq;
-  const int lg = D + 8;
-  stage_rows(qkv16, ld3, S, ld3, sa);
-  stage_rows(reinterpret_cast<const bf16*>(gw), D, S, D, sgw);
-  __syncthreads();
-  const int attn_drop = p.attn_drop;
-  const float attn_keep = p.attn_keep;
-  const int ntn = (S + 7) / 8;
-  for (int h0 = 0; h0 < H; h0 += hg) {
-    group_probs(h0, false);  // sp = probs (f32)
-    // sds = d_probs: the dropout VJP of d_dropped = gw V^T
-    for (int item = warp; item < hg * ntn; item += nwarps) {
-      const int hh = item / ntn, col = (h0 + hh) * dh;
-      const bf16* gr = sgw + col;
-      const bf16* v = sa + 2 * D + col;
-      const float* pr = sp + hh * S * S;
-      float* out = sds + hh * S * S;
-      float cs[2];
-      warp_mma(S, S, dh, (item % ntn) * 8,
-               [=](int sq, int j) { return row_pair(gr, lg, sq, j, S, dh); },
-               [=](int t, int j) { return row_pair(v, lq, t, j, S, dh); },
-               [=](int sq, int t, float dd) {
-                 if (attn_drop)
-                   dd = dropped_at(h0 + hh, sq, t, pr[sq * S + t]) != 0.f ? dd / attn_keep : 0.f;
-                 out[sq * S + t] = dd;
-                 return 0.f;
-               }, cs);
+// LN2 and its VJP over one row of D, by one warp, from one load of f, x1
+// and dy: h = T(f + x1) (written over f) and its statistics (returned);
+// with y the recomputed T(LN2(h)) into y (the section variant), else the
+// VJP as ln_bwd_row (and with red its column sums' terms)
+__device__ float2 ln2_row(bf16* __restrict__ f, const bf16* __restrict__ x1,
+                          const bf16* __restrict__ dy, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, int D, float eps, bf16* __restrict__ y,
+                          float* __restrict__ dres, bf16* __restrict__ dm, uint32_t row, int drop,
+                          uint32_t seed, uint32_t thr, float keep_div, float* __restrict__ red) {
+  using A = xrt::Act<bf16>;
+  if (D > 32 * kRowJ) {
+    const float2 st = add_ln_row(f, x1, gamma, beta, D, eps, y);
+    if (y == nullptr)
+      ln_bwd_row<bf16>(dy, f, st, gamma, D, dres, dm, row, drop, seed, thr, keep_div, red);
+    return st;
+  }
+  const int lane = threadIdx.x & 31;
+  float h[kRowJ], d[kRowJ];
+#pragma unroll
+  for (int j = 0; j < kRowJ; ++j) {
+    const int c = lane + 32 * j;
+    h[j] = c < D ? A::round(A::load(f[c]) + A::load(x1[c])) : 0.f;
+    d[j] = c < D && y == nullptr ? A::load(dy[c]) : 0.f;
+  }
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRowJ; ++j) {
+    const int c = lane + 32 * j;
+    if (c < D) {
+      f[c] = A::store(h[j]);
+      sum += h[j];
     }
-    __syncthreads();
-    for (int row = warp; row < hg * S; row += nwarps) {
-      float s = 0.f;
-      for (int t = lane; t < S; t += 32) s += sds[row * S + t] * sp[row * S + t];
-      s = xrt::warp_sum(s);
-      if (lane == 0) srow[row] = s;
+  }
+  const float mean = xrt::warp_sum(sum) / (float)D;
+#pragma unroll
+  for (int j = 0; j < kRowJ; ++j)
+    if (lane + 32 * j < D) sq += (h[j] - mean) * (h[j] - mean);
+  const float rstd = 1.f / sqrtf(xrt::warp_sum(sq) / (float)D + eps);
+  if (y != nullptr) {
+#pragma unroll
+    for (int j = 0; j < kRowJ; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) y[c] = A::store((h[j] - mean) * rstd * __ldg(gamma + c) + __ldg(beta + c));
     }
-    __syncthreads();
-    // sdsb = T(probs * (d_probs - rowsum) * scale), spb = T(dropped)
-    for (int item = threadIdx.x; item < hg * S * S; item += blockDim.x) {
-      const int row = item / S, t = item % S;
-      const float prob = sp[item];
-      sdsb[item] = A::store(prob * (sds[item] - srow[row]) * scale);
-      spb[item] = A::store(dropped_at(h0 + row / S, row % S, t, prob));
+    return make_float2(mean, rstd);
+  }
+  float sg = 0.f, sgn = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRowJ; ++j) {
+    const int c = lane + 32 * j;
+    if (c < D) {
+      h[j] = (h[j] - mean) * rstd;  // n
+      const float g = d[j] * __ldg(gamma + c);
+      sg += g;
+      sgn += g * h[j];
     }
-    __syncthreads();
-    // dq = d_scores K, dk = d_scores^T Q, dv = T(dropped)^T gw
-    for (int item = warp; item < 3 * hg * ntd; item += nwarps) {
-      const int which = item / (hg * ntd), hh = (item / ntd) % hg, n0 = (item % ntd) * 8;
-      const int col = (h0 + hh) * dh;
-      const bf16* ds = sdsb + hh * S * S;
-      const bf16* pb = spb + hh * S * S;
-      const bf16* q = sa + col;
-      const bf16* k = sa + D + col;
-      float* out = dqkv + which * D + col;
-      auto store = [=](int s0, int j, float acc) {
-        out[(size_t)s0 * ld3 + j] = acc;
-        return 0.f;
-      };
-      float cs[2];
-      if (which == 0) {
-        warp_mma(S, dh, S, n0, [=](int s0, int t) { return row_pair(ds, S, s0, t, S, S); },
-                 [=](int j, int t) { return col_pair(k, lq, t, j, S, dh); }, store, cs);
-      } else if (which == 1) {
-        warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(ds, S, t, s0, S, S); },
-                 [=](int j, int t) { return col_pair(q, lq, t, j, S, dh); }, store, cs);
-      } else {
-        warp_mma(S, dh, S, n0, [=](int s0, int t) { return col_pair(pb, S, t, s0, S, S); },
-                 [=](int j, int t) { return col_pair(sgw + col, lg, t, j, S, dh); }, store, cs);
+  }
+  const float gm = xrt::warp_sum(sg) / (float)D;
+  const float gnm = xrt::warp_sum(sgn) / (float)D;
+#pragma unroll
+  for (int j = 0; j < kRowJ; ++j) {
+    const int c = lane + 32 * j;
+    if (c < D) {
+      const float dh = rstd * (d[j] * __ldg(gamma + c) - gm - h[j] * gnm);
+      const float df = hidden_drop_bwd(dh, drop, row, c, D, seed, thr, keep_div);
+      dres[c] = dh;
+      dm[c] = A::store(df);
+      if (red != nullptr) {
+        red[c] += d[j] * h[j];
+        red[D + c] += d[j];
+        red[2 * D + c] += df;
       }
     }
-    __syncthreads();
   }
-
-  // ---- qkv bias gradient and dqm = T(dqkv)
-  for (int c = threadIdx.x; c < ld3; c += blockDim.x) {
-    float s = 0.f;
-#pragma unroll 4
-    for (int r = 0; r < S; ++r) {
-      const float d = dqkv[(size_t)r * ld3 + c];
-      s += d;
-      dqm[(size_t)r * ld3 + c] = A::store(d);
-    }
-    if constexpr (kStop == kBwdFull) part[off.qkv_b + c] = s;
-  }
-  __syncthreads();
-  // dx = T(dh1 + dqm Wqkv^T)
-  T* dx = static_cast<T*>(p.dx) + row_base * D;
-  auto store_dx = [=](int r, int n, float acc) {
-    dx[(size_t)r * D + n] = A::store(dres[(size_t)r * D + n] + acc);
-    return 0.f;
-  };
-  dense_mma(dqm, ld3, ld3, w16 + woff.qkv, D, S, store_dx, nullptr, sa);
+  return make_float2(mean, rstd);
 }
+
+// The bf16 pass 1's shared memory (ops/fused_layer.py bwd_tc_smem_bytes
+// mirrors it), for a CTA of ``seqs`` sequences, or of a cluster of C CTAs
+// that split one sequence (the CTA's H / C heads): the key mask of
+// the CTA's rows, then one of two uses at a time:
+//   - a product's operand, round_up(seqs S, 16) rows (ldmatrix reads whole
+//     m-tiles) of the widest K, max(3D, F) + 8 bf16 (dqm in dx's product);
+//   - the row steps' column sums, 3 D f32 a warp;
+//   - one sequence's attention: its rows of the CTA's heads' q|k|v (3 hc +
+//     8, with hc = H / C round_up(D / H, 16): each head's columns padded to
+//     whole k-steps) and gw (hc + 8), then for hg heads T(dropped) and
+//     T(d_scores) (Sp x (Sp + 8) each), bf16, with Sp = round_up(S, 16)
+//     rows, zero past S (whole 16 x 16 blocks for ldmatrix)
+struct BwdTcLayout {
+  size_t ops, gw, heads, total;
+  __host__ __device__ BwdTcLayout(int S, int D, int H, int F, int seqs, int C, int hg) {
+    const int hc = H / C * round_up(D / H, 16), sp = round_up(S, 16);
+    ops = (size_t)round_up(seqs * S, 4) * sizeof(int);
+    size_t product =
+        (size_t)round_up(seqs * S, 16) * ((3 * D > F ? 3 * D : F) + 8) * sizeof(bf16);
+    const size_t sums = (size_t)(kBwdTcThreads / 32) * 3 * D * sizeof(float);
+    if (sums > product) product = sums;
+    gw = ops + (size_t)sp * (3 * hc + 8) * sizeof(bf16);
+    heads = gw + (size_t)sp * (hc + 8) * sizeof(bf16);
+    const size_t attention = heads + (size_t)hg * 2 * sp * (sp + 8) * sizeof(bf16);
+    total = ops + product > attention ? ops + product : attention;
+  }
+};
 
 // The bias and LayerNorm gradient i (of VecOffsets::total): the per-sequence
 // column sums added over the sequences in order
 __device__ __forceinline__ void vector_grad(const BwdParams& p, int i) {
   const VecOffsets off(p.D, p.F);
   float s = 0.f;
+#pragma unroll 16
   for (int b = 0; b < p.B; ++b) s += p.partial[(size_t)b * off.total + i];
   float* dst;
   if (i < off.out_b) dst = p.d_qkv_b + i;
@@ -930,32 +633,13 @@ __device__ __forceinline__ void vector_grad(const BwdParams& p, int i) {
   *dst = s;
 }
 
-// ---- bf16: passes 0, 2 and 3 around pass 1 on the tensor cores
-
-// Pass 0: the four f32 weights rounded to bf16 once per call (the rounding
-// A::round gives each load of the f32 path), as given (K, N) into w16 for
-// the backward's products with W^T and transposed (N, K) into wt16 for the
-// recompute's products with W: both read k-contiguous pairs
-__global__ void round_weights_kernel(BwdParams p) {
-  const WOffsets w(p.D, p.F);
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= w.total) return;
-  const float* W;
-  size_t base;
-  int K, N;
-  if (i < w.out) { W = p.qkv_w; base = w.qkv; K = p.D; N = 3 * p.D; }
-  else if (i < w.ffn_in) { W = p.out_w; base = w.out; K = p.D; N = p.D; }
-  else if (i < w.ffn_out) { W = p.ffn_in_w; base = w.ffn_in; K = p.D; N = p.F; }
-  else { W = p.ffn_out_w; base = w.ffn_out; K = p.F; N = p.D; }
-  const size_t j = i - base;
-  const bf16 v = __float2bfloat16_rn(W[j]);
-  p.w16[i] = v;
-  p.wt16[base + (j % N) * K + j / N] = v;
-}
+// ---- bf16: passes 2 and 3 around pass 1 on the tensor cores (pass 0 packs
+// the weights: pack_weights_kernel, below)
 
 constexpr int kWgTile = 64;   // pass 2: a kWgTile x kWgTile tile of dW per block
-constexpr int kWgRows = 32;   // rows staged per step, two mma k-steps
-constexpr int kWgLd = kWgRows + 8;  // staged row length (bf16): conflict-free fragment loads
+constexpr int kWgRows = 32;   // f32: rows staged per step
+constexpr int kWgChunk = 64;  // bf16: rows staged per step, four mma k-steps
+constexpr int kWgLd = kWgTile + 8;  // a staged bf16 row: conflict-free ldmatrix
 
 __host__ __device__ inline int wg_tiles(int K, int N) {
   return ((K + kWgTile - 1) / kWgTile) * ((N + kWgTile - 1) / kWgTile);
@@ -963,13 +647,15 @@ __host__ __device__ inline int wg_tiles(int K, int N) {
 
 // Pass 2: dW = X^T Y for the four weights as a split-K product on the
 // tensor cores.  Block (t, s) owns tile t of the four products' tiles and
-// rows [s * rows_per_split, (s + 1) * rows_per_split); it stages 32 rows of
-// X and Y at a time transposed into shared memory (so the mma's k, here the
-// row, is contiguous), four warps each take 16 rows of the tile across its
-// 64 columns, and the partial tile goes to wpart[s] (no atomics).
+// rows [s * rows_per_split, (s + 1) * rows_per_split).  It stages 64 rows of
+// X's and Y's tile columns at a time as they lie in the workspace (a row of
+// 64 columns) by 16-byte cp.async, double-buffered; four warps each take 16
+// rows (k) of the tile across its 64 columns (n), the A fragments (of X^T)
+// and the B fragments (of Y) by ldmatrix.trans, so nothing is transposed on
+// the way in.  The partial tile goes to wpart[s] (no atomics).
 __global__ void __launch_bounds__(128) weight_grad_mma_kernel(BwdParams p) {
-  __shared__ __align__(16) bf16 sx[kWgTile][kWgLd];  // sx[k][r] = X(r, k)
-  __shared__ __align__(16) bf16 sy[kWgTile][kWgLd];  // sy[n][r] = Y(r, n)
+  __shared__ __align__(16) bf16 sx[2][kWgChunk][kWgLd];  // X(r, k0 + c)
+  __shared__ __align__(16) bf16 sy[2][kWgChunk][kWgLd];  // Y(r, n0 + c)
   const WOffsets w(p.D, p.F);
   const int D = p.D, F = p.F, R = p.B * p.S;
   int t = blockIdx.x, K = 0, N = 0;
@@ -989,54 +675,49 @@ __global__ void __launch_bounds__(128) weight_grad_mma_kernel(BwdParams p) {
   const int k0 = (t / tn) * kWgTile, n0 = (t % tn) * kWgTile;
   const int r_begin = blockIdx.y * p.rows_per_split;
   const int r_end = min(R, r_begin + p.rows_per_split);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t2 = (lane & 3) * 2;
-  const bf16 zero = __float2bfloat16_rn(0.f);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t2 = (lane & 3) * 2;
+  constexpr int kPieces = kWgChunk * (kWgTile / 8);  // 16-byte pieces of a staged matrix
+  // rows [r0, r0 + 64) of X's and Y's tile columns into buffer buf (zero
+  // past the split's rows and the matrices' columns: D, F are multiples of 16)
+  auto stage = [&](int r0, int buf) {
+    for (int i = tid; i < 2 * kPieces; i += 128) {
+      const bool y = i >= kPieces;
+      const int rr = (i % kPieces) / (kWgTile / 8), c = (i % (kWgTile / 8)) * 8, r = r0 + rr;
+      const int c0 = y ? n0 : k0, cols = y ? N : K;
+      const bf16* src = y ? Y : X;
+      const bool in = r < r_end && c0 + c < cols;
+      xrt::cp_async16(y ? &sy[buf][rr][c] : &sx[buf][rr][c],
+                      in ? src + (size_t)r * cols + c0 + c : src, in);
+    }
+  };
   float acc[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  // 16-byte loads of eight columns where the layout allows (D and F are
-  // multiples of 8 at every configured shape)
-  const bool vec = K % 8 == 0 && N % 8 == 0 && (reinterpret_cast<uintptr_t>(X) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(Y) & 15) == 0;
-  for (int r0 = r_begin; r0 < r_end; r0 += kWgRows) {
-    if (vec) {
-      for (int i = threadIdx.x; i < kWgRows * (kWgTile / 8); i += blockDim.x) {
-        const int rr = i / (kWgTile / 8), c = (i % (kWgTile / 8)) * 8, r = r0 + rr;
-        uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
-        if (r < r_end && k0 + c < K)
-          xv = *reinterpret_cast<const uint4*>(X + (size_t)r * K + k0 + c);
-        if (r < r_end && n0 + c < N)
-          yv = *reinterpret_cast<const uint4*>(Y + (size_t)r * N + n0 + c);
-        const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-        const bf16* ye = reinterpret_cast<const bf16*>(&yv);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sx[c + j][rr] = xe[j];
-          sy[c + j][rr] = ye[j];
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < kWgRows * kWgTile; i += blockDim.x) {
-        const int rr = i / kWgTile, cc = i % kWgTile, r = r0 + rr;
-        sx[cc][rr] = (r < r_end && k0 + cc < K) ? X[(size_t)r * K + k0 + cc] : zero;
-        sy[cc][rr] = (r < r_end && n0 + cc < N) ? Y[(size_t)r * N + n0 + cc] : zero;
-      }
-    }
+  const int chunks = (r_end - r_begin + kWgChunk - 1) / kWgChunk;
+  stage(r_begin, 0);
+  xrt::cp_async_commit();
+  for (int ch = 0; ch < chunks; ++ch) {
+    if (ch + 1 < chunks) stage(r_begin + (ch + 1) * kWgChunk, (ch + 1) & 1);
+    xrt::cp_async_commit();
+    xrt::cp_async_wait<1>();
     __syncthreads();
+    const int buf = ch & 1;
 #pragma unroll
-    for (int ks = 0; ks < kWgRows; ks += 16) {
-      const int m = warp * 16 + g;
-      const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(&sx[m][ks + t2]),
-                             *reinterpret_cast<const uint32_t*>(&sx[m + 8][ks + t2]),
-                             *reinterpret_cast<const uint32_t*>(&sx[m][ks + 8 + t2]),
-                             *reinterpret_cast<const uint32_t*>(&sx[m + 8][ks + 8 + t2])};
+    for (int ks = 0; ks < kWgChunk; ks += 16) {
+      // A(m, kk) = X(kk, k0 + m): the transposed 8 x 8 blocks of the staged
+      // rows, in the fragment's order (rows 0-7, 8-15 of m, then k + 8)
+      uint32_t x4[4];
+      xrt::ldmatrix_x4_trans(x4, &sx[buf][ks][warp * 16], kWgLd);
+      const uint32_t a[4] = {x4[0], x4[2], x4[1], x4[3]};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(&sy[j * 8 + g][ks + t2]),
-                                *reinterpret_cast<const uint32_t*>(&sy[j * 8 + g][ks + 8 + t2])};
-        mma_bf16(acc[j], a, bb);
+      for (int j = 0; j < 4; ++j) {
+        uint32_t y4[4];
+        xrt::ldmatrix_x4_trans(y4, &sy[buf][ks][j * 16], kWgLd);
+        const uint32_t b0[2] = {y4[0], y4[1]}, b1[2] = {y4[2], y4[3]};
+        mma_bf16(acc[2 * j], a, b0);
+        mma_bf16(acc[2 * j + 1], a, b1);
       }
     }
     __syncthreads();
@@ -1061,6 +742,7 @@ __global__ void grad_reduce_kernel(BwdParams p) {
     return;
   }
   float s = 0.f;
+#pragma unroll 8
   for (int sp = 0; sp < p.splits; ++sp) s += p.wpart[(size_t)sp * w.total + i];
   float* dst = i < w.out      ? p.d_qkv_w + i
                : i < w.ffn_in ? p.d_out_w + (i - w.out)
@@ -1205,10 +887,13 @@ struct Copies {
 // one coalesced 8-byte load a lane.  A warp item is two column blocks, or
 // one where that leaves warps idle, or one block of one m-tile where even
 // that does; its B fragments come four k-steps ahead.  Each output's sum
-// runs over the k-steps in order inside one warp, whatever the item.
-template <typename Epi>
-__device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict__ Wp, int S,
-                         int parts, int part_blocks, int blk0, int blk1, Epi epi) {
+// runs over the k-steps in order inside one warp, whatever the item.  With
+// pre (dense_tc_in), pre(r, n) loads what epi(r, n, v0, v1, in) takes of
+// each of the item's output pairs before any epi stores, so those loads are
+// in flight together.
+template <typename Pre, typename Epi>
+__device__ void dense_tc_in(const bf16* a, int lda, int K, const uint2* __restrict__ Wp, int S,
+                            int parts, int part_blocks, int blk0, int blk1, Pre pre, Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, t2 = (lane & 3) * 2, nks = K / 16, mtiles = (S + 15) / 16;
   const int nb = blk1 - blk0;
@@ -1231,8 +916,9 @@ __device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict_
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         const int ks = ks0 + s;
-        b[s][0] = ks < nks ? __ldg(w0 + ks * 32) : make_uint2(0u, 0u);
-        b[s][1] = ks < nks && two ? __ldg(w1 + ks * 32) : make_uint2(0u, 0u);
+        const uint2 zero = make_uint2(0u, 0u);
+        b[s][0] = ks < nks ? __ldg(w0 + ks * 32) : zero;
+        b[s][1] = ks < nks && two ? __ldg(w1 + ks * 32) : zero;
       }
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
@@ -1251,6 +937,18 @@ __device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict_
         }
       }
     }
+    float2 in[4][2][2];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * mt + g + 8 * h;
+          in[mt][j][h] = mt >= mt0 && mt < mt1 && (j == 0 || two) && r < S
+                             ? pre(r, 8 * (cb + j) + t2)
+                             : make_float2(0.f, 0.f);
+        }
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
       if (mt >= mt0 && mt < mt1) {
@@ -1261,13 +959,22 @@ __device__ void dense_tc(const bf16* a, int lda, int K, const uint2* __restrict_
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int r = 16 * mt + g + 8 * h;
-              if (r < S) epi(r, n, acc[mt][j][2 * h], acc[mt][j][2 * h + 1]);
+              if (r < S) epi(r, n, acc[mt][j][2 * h], acc[mt][j][2 * h + 1], in[mt][j][h]);
             }
           }
         }
       }
     }
   }
+}
+
+template <typename Epi>
+__device__ __forceinline__ void dense_tc(const bf16* a, int lda, int K,
+                                         const uint2* __restrict__ Wp, int S, int parts,
+                                         int part_blocks, int blk0, int blk1, Epi epi) {
+  dense_tc_in(a, lda, K, Wp, S, parts, part_blocks, blk0, blk1,
+              [](int, int) { return make_float2(0.f, 0.f); },
+              [&](int r, int n, float v0, float v1, float2) { epi(r, n, v0, v1); });
 }
 
 // The attention of heads [h0, h1) for the S rows of sequence b, qkv in
@@ -1509,6 +1216,697 @@ __global__ void __launch_bounds__(kTcThreads, 1)
            dropout_into(hb_all, p.ffn_out_b, seed[2]));
   cluster_sync();
   add_layer_norm<bf16, bf16>(sx, ldx, hb, ldx, p.ln2_s, p.ln2_b, S, D, p.eps, yg, D, rank, C);
+}
+
+// ---------------------------------------------------------------------------
+// pass 1 of the bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// ---- pass 1's attention on the tensor cores, a warp per (head, 16 query
+// rows) with the scores in the mma accumulators and the softmax across the
+// quad of lanes that holds a row (as attention_tc in the forward)
+
+// B fragments of the two n8 tiles of rows [0, 8) and [8, 16) (b[0..1],
+// b[2..3]) for one k-step of 16 columns of a matrix stored as rows n, k
+// along a row (q k^T's keys, d_dropped's V), shared memory, 16-byte rows
+__device__ __forceinline__ void ldmatrix_b_nk(uint32_t b[4], const bf16* m, int ld) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const bf16* row = m + ((lane & 7) + (mi >> 1) * 8) * ld + (mi & 1) * 8;
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// what pass 1's attention needs of the layer and of one sequence
+struct TcAttn {
+  // the sequence's S rows of the CTA's heads' q|k|v (columns 0, hc, 2 hc),
+  // head hh's at hh dhp, zero past dh: dhp = round_up(dh, 16)
+  const bf16* qkv;
+  const bf16* gw;   // and of their gw
+  const int* mask;  // its key mask
+  bf16* spb;        // a stage's heads' T(dropped), S x S each
+  bf16* sdsb;       // and T(d_scores)
+  bf16* ctx;        // the sequence's ctx rows in the workspace (leading dimension D)
+  int S, D, H, dh, dhp, hc, lq, lg, causal, drop;
+  int b, hlo;  // the sequence (of B) and the CTA's first head (of H)
+  float scale, keep;
+  uint32_t seed, thr;
+};
+
+// the probabilities of query rows r0 = 16 mt + g and r1 = r0 + 8 of head
+// hh (of the CTA's) against the keys 8 j + t2 (+ 1) into x[j][0..1] and
+// x[j][2..3]: q k^T on the tensor cores (k-steps of 16 over dh in order),
+// times scale plus the key-padding and causal bias, the softmax over the
+// row's quad of lanes; zero at keys past S
+template <int kN>
+__device__ __forceinline__ void tc_probs(const TcAttn& at, int hh, int mt, float (&x)[kN][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t2 = (lane & 3) * 2;
+  const int S = at.S, ntn = (S + 7) / 8, nkh = at.dhp / 16;
+  const bf16* q = at.qkv + hh * at.dhp;
+  const bf16* k = q + at.hc;
+  const int r0 = 16 * mt + g, r1 = r0 + 8;
+  const float neg_inf = -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int i = 0; i < 4 * kN; ++i) x[i / 4][i % 4] = 0.f;
+  // fragments by ldmatrix: the rows past S and the columns past dh staged as zeros
+  for (int ks = 0; ks < nkh; ++ks) {
+    uint32_t af[4];
+    xrt::ldmatrix_x4(af, q + 16 * mt * at.lq + 16 * ks, at.lq);
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      if (j < ntn) {
+        uint32_t b4[4];
+        ldmatrix_b_nk(b4, k + 8 * j * at.lq + 16 * ks, at.lq);
+        const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+        mma_bf16(x[j], af, b0);
+        if (j + 1 < ntn) mma_bf16(x[j + 1], af, b1);
+      }
+    }
+  }
+  float m[2] = {neg_inf, neg_inf};
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+      if (t < S) {
+        const float bias =
+            (at.mask[t] ? 0.f : kNegInf) + ((at.causal && t > sq) ? kNegInf : 0.f);
+        x[j][e] = x[j][e] * at.scale + bias;
+        m[e >> 1] = fmaxf(m[e >> 1], x[j][e]);
+      }
+    }
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+    m[hf] = fmaxf(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = 8 * j + t2 + (e & 1);
+      x[j][e] = t < S ? expf(x[j][e] - m[e >> 1]) : 0.f;
+      sum[e >> 1] += x[j][e];
+    }
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = x[j][e] / sum[e >> 1];
+}
+
+// the dropped probability of (sq, t) of head hh (of the CTA's), f32
+__device__ __forceinline__ float tc_dropped(const TcAttn& at, int hh, int sq, int t, float prob) {
+  if (!at.drop) return prob;
+  const uint32_t idx = (((uint32_t)at.b * at.H + (uint32_t)(at.hlo + hh)) * (uint32_t)at.S +
+                        (uint32_t)sq) * (uint32_t)at.S + t;
+  return xrt::keep(idx, at.seed, at.thr) ? prob / at.keep : 0.f;
+}
+
+// The recompute: ctx = T(T(dropped) V) of the CTA's heads, a warp per
+// (head, m-tile), the rounded dropped probs repacked as P V's A fragments
+// (a C fragment of the scores is an A fragment of the next product), V's B
+// fragments from shared memory, ctx into the workspace
+template <int kN>
+__device__ __noinline__ void tc_attention(const TcAttn at_, int nh) {
+  const TcAttn at = at_;  // the fields in registers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, S = at.S, dh = at.dh;
+  const int mtiles = (S + 15) / 16, ntn = (S + 7) / 8, ntd = at.dhp / 8;
+  for (int item = warp; item < nh * mtiles; item += nwarps) {
+    const int hh = item / mtiles, mt = item % mtiles, r0 = 16 * mt + g, r1 = r0 + 8;
+    float x[kN][4];
+    tc_probs<kN>(at, hh, mt, x);
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+        x[j][e] = t < S && sq < S ? xrt::Act<bf16>::round(tc_dropped(at, hh, sq, t, x[j][e]))
+                                  : 0.f;
+      }
+    const bf16* v = at.qkv + 2 * at.hc + hh * at.dhp;
+    bf16* out = at.ctx + (at.hlo + hh) * dh;
+    for (int jn = 0; jn < ntd; jn += 2) {  // 16 columns of dh at a time
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < kN / 2; ++kk) {
+        if (2 * kk < ntn) {
+          const bool hi = 2 * kk + 1 < ntn;
+          auto pair = [&](int j, int e) {
+            return xrt::pack_bf16(__float2bfloat16_rn(x[j][e]), __float2bfloat16_rn(x[j][e + 1]));
+          };
+          const uint32_t af[4] = {pair(2 * kk, 0), pair(2 * kk, 2),
+                                  hi ? pair(2 * kk + 1, 0) : 0u, hi ? pair(2 * kk + 1, 2) : 0u};
+          uint32_t b4[4];
+          xrt::ldmatrix_x4_trans(b4, v + 16 * kk * at.lq + 8 * jn, at.lq);
+          const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+          mma_bf16(acc[0], af, b0);
+          mma_bf16(acc[1], af, b1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = 8 * (jn + u) + t2;
+        if (c >= dh) continue;  // the padding (dh even: c + 1 < dh too)
+        if (r0 < S)
+          *reinterpret_cast<uint32_t*>(out + (size_t)r0 * at.D + c) =
+              xrt::pack_bf16(__float2bfloat16_rn(acc[u][0]), __float2bfloat16_rn(acc[u][1]));
+        if (r1 < S)
+          *reinterpret_cast<uint32_t*>(out + (size_t)r1 * at.D + c) =
+              xrt::pack_bf16(__float2bfloat16_rn(acc[u][2]), __float2bfloat16_rn(acc[u][3]));
+      }
+    }
+  }
+}
+
+// The VJP of the attention of the CTA's heads [h0, h0 + nh) up to the
+// d_scores, a warp per (head, m-tile): the probs again (tc_probs), then
+// d_dropped = gw V^T on the tensor cores in the same layout (gw's rows as A,
+// V's as B), the dropout's VJP (the keep mask read off dropped != 0, as the
+// JAX kernel does), the softmax's (the row sum of d_probs * probs over the
+// quad) and T(d_scores) = T(probs (d_probs - row sum) scale); T(dropped)
+// and T(d_scores) go to spb and sdsb for the products over the query rows
+template <int kN>
+__device__ __noinline__ void tc_attention_grad(const TcAttn at_, int h0, int nh) {
+  const TcAttn at = at_;  // the fields in registers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, S = at.S, dhp = at.dhp;
+  const int mtiles = (S + 15) / 16, ntn = (S + 7) / 8, nkh = dhp / 16;
+  for (int item = warp; item < nh * mtiles; item += nwarps) {
+    const int hl = item / mtiles, hh = h0 + hl, mt = item % mtiles, r0 = 16 * mt + g, r1 = r0 + 8;
+    float x[kN][4], dd[kN][4];
+    tc_probs<kN>(at, hh, mt, x);
+#pragma unroll
+    for (int i = 0; i < 4 * kN; ++i) dd[i / 4][i % 4] = 0.f;
+    const bf16* gr = at.gw + hh * dhp;
+    const bf16* v = at.qkv + 2 * at.hc + hh * dhp;
+    for (int ks = 0; ks < nkh; ++ks) {
+      uint32_t af[4];
+      xrt::ldmatrix_x4(af, gr + 16 * mt * at.lg + 16 * ks, at.lg);
+#pragma unroll
+      for (int j = 0; j < kN; j += 2) {
+        if (j < ntn) {
+          uint32_t b4[4];
+          ldmatrix_b_nk(b4, v + 8 * j * at.lq + 16 * ks, at.lq);
+          const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+          mma_bf16(dd[j], af, b0);
+          if (j + 1 < ntn) mma_bf16(dd[j + 1], af, b1);
+        }
+      }
+    }
+    const int sp = round_up(S, 16), lp = sp + 8;
+    bf16* pb = at.spb + hl * sp * lp;
+    bf16* ds = at.sdsb + hl * sp * lp;
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+        if (t < S && sq < S) {
+          const float d = tc_dropped(at, hh, sq, t, x[j][e]);
+          pb[sq * lp + t] = __float2bfloat16_rn(d);
+          if (at.drop) dd[j][e] = d != 0.f ? dd[j][e] / at.keep : 0.f;
+          rs[e >> 1] += dd[j][e] * x[j][e];
+        } else if (t < sp && sq < sp) {
+          pb[sq * lp + t] = __float2bfloat16_rn(0.f);  // the 16 x 16 blocks' padding
+        }
+      }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 1);
+      rs[hf] += __shfl_xor_sync(0xffffffffu, rs[hf], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 8 * j + t2 + (e & 1), sq = e < 2 ? r0 : r1;
+        if (t < sp && sq < sp)
+          ds[sq * lp + t] = __float2bfloat16_rn(
+              t < S && sq < S ? x[j][e] * (dd[j][e] - rs[e >> 1]) * at.scale : 0.f);
+      }
+  }
+}
+
+// dq = T(d_scores) K, dk = T(d_scores)^T Q and dv = T(dropped)^T gw of the
+// CTA's heads [h0, h0 + nh) of one sequence, a warp per (product, head, 16
+// columns of dh), every operand by ldmatrix from shared memory (the
+// transposed ones by ldmatrix.trans), k over the rows in steps of 16 in
+// order (the padding past S zero); T(.) into rows (leading dimension ld)
+// at the product's third of dqm's columns, and with bias the f32 column
+// sums over the sequence's rows (each thread's rows in order, then its
+// warp's 8 row groups in a fixed order) into bias at the same columns
+__device__ __noinline__ void tc_attention_products(const TcAttn at_, int h0, int nh, bf16* rows,
+                                                   int ld, float* bias) {
+  const TcAttn at = at_;  // the fields in registers
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t2 = (lane & 3) * 2, S = at.S, dh = at.dh;
+  const int sp = round_up(S, 16), lp = sp + 8, mtiles = sp / 16, nt = (dh + 15) / 16;
+  for (int item = warp; item < 3 * nh * nt; item += nwarps) {
+    const int which = item / (nh * nt), hl = (item / nt) % nh, n0 = (item % nt) * 16;
+    const int col = (h0 + hl) * at.dhp, gcol = which * at.D + (at.hlo + h0 + hl) * dh;
+    // A: T(d_scores) (dq: as stored; dk: transposed) or T(dropped)^T (dv);
+    // B: K (dq), Q (dk), gw (dv), rows the keys or the query rows
+    const bf16* am = (which == 2 ? at.spb : at.sdsb) + hl * sp * lp;
+    const bf16* bm = which == 0 ? at.qkv + at.hc + col : which == 1 ? at.qkv + col : at.gw + col;
+    const int ldb = which == 2 ? at.lg : at.lq;
+    float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    for (int mt = 0; mt < mtiles; ++mt) {
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int ks = 0; ks < mtiles; ++ks) {
+        uint32_t af[4], b4[4];
+        if (which == 0) {
+          xrt::ldmatrix_x4(af, am + 16 * mt * lp + 16 * ks, lp);
+        } else {  // A(m, k) = stored(k, m): the transposed blocks in the fragment's order
+          uint32_t x4[4];
+          xrt::ldmatrix_x4_trans(x4, am + 16 * ks * lp + 16 * mt, lp);
+          af[0] = x4[0];
+          af[1] = x4[2];
+          af[2] = x4[1];
+          af[3] = x4[3];
+        }
+        xrt::ldmatrix_x4_trans(b4, bm + 16 * ks * ldb + n0, ldb);
+        const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+        mma_bf16(acc[0], af, b0);
+        mma_bf16(acc[1], af, b1);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = n0 + 8 * j + t2;
+        if (n < dh) {  // dh even: n + 1 < dh too
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mt + g + 8 * h;
+            if (r < S) {
+              *reinterpret_cast<uint32_t*>(rows + (size_t)r * ld + gcol + n) = xrt::pack_bf16(
+                  __float2bfloat16_rn(acc[j][2 * h]), __float2bfloat16_rn(acc[j][2 * h + 1]));
+              cs[j][0] += acc[j][2 * h];
+              cs[j][1] += acc[j][2 * h + 1];
+            }
+          }
+        }
+      }
+    }
+    if (bias != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          cs[j][0] += __shfl_xor_sync(0xffffffffu, cs[j][0], o);
+          cs[j][1] += __shfl_xor_sync(0xffffffffu, cs[j][1], o);
+        }
+        const int n = n0 + 8 * j + t2;
+        if (lane < 4 && n < dh) {
+          bias[gcol + n] = cs[j][0];
+          bias[gcol + n + 1] = cs[j][1];
+        }
+      }
+    }
+  }
+}
+
+// Pass 1 of the bf16 backward.  A CTA takes ``seqs`` whole sequences, or
+// with a cluster of C > 1 CTAs one sequence, each CTA its H / C heads and
+// its C-th of every other product's 8-column blocks (as the forward).  It
+// recomputes the layer from x (as the TPU kernel does), then walks the VJP
+// down to dx.  Every product stages its operand rows (all the CTA's rows)
+// from the workspace into shared memory by cp.async and runs dense_tc on
+// the weights packed in B-fragment order, W in the recompute and W^T in the
+// VJP, so each weight fragment a warp loads feeds every m-tile of the CTA's
+// rows (four at 2 x 32).  The row-wise steps (the LayerNorms and their VJPs)
+// take rows rank, rank + C, ...; the CTAs of a cluster share the workspace
+// behind a fence and a cluster barrier.  The rounded operands of the four
+// weight-gradient products go to the workspace for pass 2; the bias and
+// LayerNorm gradients are summed over each sequence's rows into its row of
+// ``partial`` for pass 3, the qkv bias's in the attention VJP's epilogue, so
+// that dq, dk and dv reach the workspace only rounded, as dqm.
+template <int kStop>
+__global__ void __launch_bounds__(kBwdTcThreads, 1) fused_layer_bwd_rows_kernel(BwdParams p) {
+  using T = bf16;
+  using A = xrt::Act<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = p.S, D = p.D, H = p.H, F = p.F, C = p.cluster, hg = p.hg;
+  const uint32_t seed[3] = {p.seed[0], p.seed[1], p.seed[2]};  // read once, into registers
+  const int rank = C > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int b0 = blockIdx.x / C * p.seqs;  // the CTA's first sequence
+  const int nseq = min(p.seqs, p.B - b0), M = nseq * S, Mp = round_up(M, 16);
+  const int dh = D / H, ld3 = 3 * D, hpc = H / C, hlo = rank * hpc;
+  const int dhp = round_up(dh, 16), hc = hpc * dhp;  // a head's staged columns, a third's
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const BwdTcLayout L(S, D, H, F, p.seqs, C, hg);
+  int* smask = reinterpret_cast<int*>(smem);
+  bf16* sa = reinterpret_cast<bf16*>(smem + L.ops);  // a product's operand; a sequence's q|k|v
+  float* red = reinterpret_cast<float*>(smem + L.ops);  // the row steps' column sums
+  bf16* sgw = reinterpret_cast<bf16*>(smem + L.gw);
+  bf16* spb = reinterpret_cast<bf16*>(smem + L.heads);  // hg x Sp x (Sp + 8) T(dropped)
+  bf16* sdsb = spb + hg * round_up(S, 16) * (round_up(S, 16) + 8);  // and T(d_scores)
+  const size_t row_base = (size_t)b0 * S;
+  const uint32_t row0 = (uint32_t)row_base;
+  const T* x = static_cast<const T*>(p.x) + row_base * D;
+  const T* dy = static_cast<const T*>(p.dy) + row_base * D;
+  T* qkv = static_cast<T*>(p.qkv) + row_base * ld3;
+  T* ctx = static_cast<T*>(p.ctx) + row_base * D;
+  T* x1 = static_cast<T*>(p.x1) + row_base * D;
+  T* u = static_cast<T*>(p.u) + row_base * F;
+  T* g = static_cast<T*>(p.g) + row_base * F;
+  T* h1 = static_cast<T*>(p.h1) + row_base * D;
+  T* h2 = static_cast<T*>(p.h2) + row_base * D;
+  float* stats = p.stats + row_base * 4;
+  T* dfm = static_cast<T*>(p.dfm) + row_base * D;
+  T* dum = static_cast<T*>(p.dum) + row_base * F;
+  T* dam = static_cast<T*>(p.dam) + row_base * D;
+  T* dqm = static_cast<T*>(p.dqm) + row_base * ld3;
+  float* dres = p.dres + row_base * D;
+  float* duf = p.duf + row_base * F;
+  const VecOffsets off(D, F);
+  float* part = p.partial + (size_t)b0 * off.total;  // row s: sequence b0 + s
+  const WOffsets woff(D, F);
+  const uint2* wfw = p.wp;                   // W, packed (uint2 units: WOffsets / 4)
+  const uint2* wbw = p.wp + woff.total / 4;  // W^T, packed
+  // the CTA's 8-column blocks [lo, hi) of a product of N columns
+  auto blk_lo = [&](int N) { return rank * (N / 8) / C; };
+  auto blk_hi = [&](int N) { return (rank + 1) * (N / 8) / C; };
+  const int d0 = 8 * blk_lo(D), d1 = 8 * blk_hi(D), f0 = 8 * blk_lo(F), f1 = 8 * blk_hi(F);
+  // the workspace is written by every CTA of the cluster: a fence, then the
+  // barrier, before a step reads another CTA's part (one CTA: the block
+  // barrier alone makes its writes visible to its threads)
+  auto cluster_barrier = [&]() {
+    if (C > 1) {
+      __threadfence();
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+  };
+  // the row-wise steps: a warp a row, the CTA's rows of a sequence (s S +
+  // rank + C i, i < nr) in blocks over the sequence's wps warps, so that a
+  // warp's rows are of one sequence
+  const int wps = nwarps / p.seqs, nr = (S - rank + C - 1) / C, qr = (nr + wps - 1) / wps;
+  auto each_row = [&](auto body) {
+    const int s = warp / wps, i0 = (warp % wps) * qr;
+    if (s < nseq)
+      for (int i = i0; i < min(nr, i0 + qr); ++i) body(s * S + rank + C * i);
+  };
+  // the column sums of a row step: each warp's slot of red (3 D: the row
+  // step's three sums' terms over its rows, in order), summed over the
+  // sequence's warps in order, and with a cluster over its CTAs in rank
+  // order (distributed shared memory), into the partials at o0, o1, o2
+  float* wred = red + warp * 3 * D;
+  auto zero_sums = [&]() {
+    for (int c = lane; c < 3 * D; c += 32) wred[c] = 0.f;
+    __syncwarp();
+  };
+  auto column_sums = [&](int o0, int o1, int o2) {
+    const int o[3] = {o0, o1, o2};
+    __syncthreads();
+    if (C == 1) {
+      for (int i = threadIdx.x; i < nseq * 3 * D; i += blockDim.x) {
+        const int s = i / (3 * D), qc = i % (3 * D);
+        float sum = 0.f;
+        for (int w = s * wps; w < (s + 1) * wps; ++w) sum += red[w * 3 * D + qc];
+        part[(size_t)s * off.total + o[qc / D] + qc % D] = sum;
+      }
+      __syncthreads();
+      return;
+    }
+    for (int i = threadIdx.x; i < 3 * D; i += blockDim.x) {  // the CTA's, into warp 0's slot
+      float sum = 0.f;
+      for (int w = 0; w < nwarps; ++w) sum += red[w * 3 * D + i];
+      red[i] = sum;
+    }
+    cg::this_cluster().sync();
+    for (int i = threadIdx.x; i < 3 * (d1 - d0); i += blockDim.x) {
+      const int q = i / (d1 - d0), c = d0 + i % (d1 - d0);
+      float sum = 0.f;
+      for (int k = 0; k < C; ++k) sum += cg::this_cluster().map_shared_rank(red, k)[q * D + c];
+      part[o[q] + c] = sum;
+    }
+    cg::this_cluster().sync();  // every CTA's sums read before its shared memory is reused
+  };
+  // the ffn_in bias: a thread per (sequence, column) of the CTA's [c0, c1)
+  auto each_col = [&](int c0, int c1, auto body) {
+    const int w = c1 - c0;
+    for (int i = threadIdx.x; i < nseq * w; i += blockDim.x)
+      body(part + (size_t)(i / w) * off.total, (i / w) * S, c0 + i % w);
+  };
+  // epi(r, n, v0, v1) of the CTA's 8-column blocks [blk0, blk1) of each of
+  // ``parts`` parts of A W over its M rows: A (leading dimension K) staged
+  // from the workspace, W packed (dense_tc: every m-tile of the CTA's rows
+  // takes each weight fragment a warp loads)
+  auto product_in = [&](const T* a, int K, const uint2* W, int parts, int part_blocks, int blk0,
+                        int blk1, auto pre, auto epi) {
+    xrt::stage_rows_async(a, M, K, 0, Mp, sa, K + 8);
+    xrt::cp_async_commit();
+    xrt::cp_async_wait<0>();
+    __syncthreads();
+    dense_tc_in(sa, K + 8, K, W, M, parts, part_blocks, blk0, blk1, pre, epi);
+    __syncthreads();
+  };
+  auto product = [&](const T* a, int K, const uint2* W, int parts, int part_blocks, int blk0,
+                     int blk1, auto epi) {
+    product_in(a, K, W, parts, part_blocks, blk0, blk1,
+               [](int, int) { return make_float2(0.f, 0.f); },
+               [&](int r, int n, float v0, float v1, float2) { epi(r, n, v0, v1); });
+  };
+  // what an epilogue adds to its output pair (r, n): the f32 pair of a
+  // row-major f32 matrix
+  auto f32_pair = [](const float* m, int ld) {
+    return [=](int r, int n) { return *reinterpret_cast<const float2*>(m + (size_t)r * ld + n); };
+  };
+  auto pair = [](float v0, float v1) {
+    return xrt::pack_bf16(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
+  };
+
+  for (int i = threadIdx.x; i < M; i += blockDim.x) smask[i] = p.mask[row_base + i] != 0;
+
+  // ---- recompute: qkv = T(x Wqkv + b), the CTA's heads' columns of q, k, v
+  const float* qkv_b = p.qkv_b;
+  product(x, D, wfw + woff.qkv / 4, 3, D / 8, hlo * dh / 8, (hlo + hpc) * dh / 8,
+          [=](int r, int n, float v0, float v1) {
+            *reinterpret_cast<uint32_t*>(qkv + (size_t)r * ld3 + n) =
+                pair(v0 + __ldg(qkv_b + n), v1 + __ldg(qkv_b + n + 1));
+          });
+
+  // the attention of sequence s: its rows of the CTA's heads' q|k|v into sa
+  // (q, k, v at columns 0, hc, 2 hc, head hh's at hh dhp), with want_gw gw's
+  // into sgw, zero in the rows past S and the columns past dh; 16-byte
+  // copies where dh % 8 == 0, else 4-byte loads
+  const float scale = 1.f / sqrtf((float)dh);
+  const int lq = 3 * hc + 8, lg = hc + 8;
+  const int causal = p.causal;
+  auto stage_heads = [&](int s, bool want_gw) {
+    const int hp = dhp / 8, pieces = hc / 8;  // 8-column pieces of a head, of a third
+    for (int i = threadIdx.x; i < round_up(S, 16) * 4 * pieces; i += blockDim.x) {
+      const int r = i / (4 * pieces), which = (i / pieces) % 4, hh = (i % pieces) / hp;
+      const int c = (i % hp) * 8;
+      if (which == 3 && !want_gw) continue;
+      const size_t row = (size_t)s * S + (r < S ? r : 0);
+      const T* src = which < 3 ? qkv + row * ld3 + which * D : h2 + row * D;  // gw (in h2)
+      bf16* dst = which < 3 ? sa + r * lq + which * hc : sgw + r * lg;
+      src += (hlo + hh) * dh + c;
+      dst += hh * dhp + c;
+      if (dh % 8 == 0) {
+        const bool in = r < S && c < dh;
+        xrt::cp_async16(dst, in ? src : qkv, in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; e += 2)
+          *reinterpret_cast<uint32_t*>(dst + e) =
+              r < S && c + e < dh ? *reinterpret_cast<const uint32_t*>(src + e) : 0u;
+      }
+    }
+    xrt::cp_async_commit();
+    xrt::cp_async_wait<0>();
+    __syncthreads();
+  };
+  // sequence s's attention (its q|k|v and gw staged in sa and sgw)
+  auto attn_of = [&](int s) {
+    return TcAttn{sa, sgw, smask + s * S, spb, sdsb, ctx + (size_t)s * S * D, S, D, H, dh, dhp, hc,
+                  lq, lg, causal, p.attn_drop, b0 + s, hlo, scale, p.attn_keep, seed[0],
+                  p.attn_thr};
+  };
+
+  // ---- recompute: attention, ctx = T(T(dropped) V), every head of the CTA
+  // at once
+  for (int s = 0; s < nseq; ++s) {
+    stage_heads(s, false);
+    if (S <= 32) tc_attention<4>(attn_of(s), hpc);
+    else tc_attention<8>(attn_of(s), hpc);
+    __syncthreads();
+  }
+  cluster_barrier();
+
+  // ---- recompute: a = dropout(T(ctx Wout + b)) into h1, then (rows) h1 =
+  // T(x + a), the LN1 statistics, x1 = T(LN1(h1))
+  const int hidden_drop = p.hidden_drop;
+  const uint32_t hidden_thr = p.hidden_thr;
+  const float keep_fwd = p.hidden_keep_fwd, keep_bwd = p.hidden_keep_bwd;
+  auto dense_dropout = [=](const float* bias, T* out, uint32_t sd) {
+    return [=](int r, int n, float v0, float v1) {
+      float v[2] = {v0, v1};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        v[i] = A::round(v[i] + __ldg(bias + n + i));
+        if (hidden_drop) {
+          const uint32_t idx = (row0 + (uint32_t)r) * (uint32_t)D + (uint32_t)(n + i);
+          v[i] = xrt::keep(idx, sd, hidden_thr) ? A::round(v[i] / keep_fwd) : 0.f;
+        }
+      }
+      *reinterpret_cast<uint32_t*>(out + (size_t)r * D + n) = pair(v[0], v[1]);
+    };
+  };
+  product(ctx, D, wfw + woff.out / 4, 1, 0, blk_lo(D), blk_hi(D),
+          dense_dropout(p.out_b, h1, seed[1]));
+  cluster_barrier();
+  each_row([&](int r) {
+    const float2 st = add_ln_row(h1 + (size_t)r * D, x + (size_t)r * D, p.ln1_s, p.ln1_b, D,
+                                 p.eps, x1 + (size_t)r * D);
+    if (lane == 0) {
+      stats[r * 4 + 0] = st.x;
+      stats[r * 4 + 1] = st.y;
+    }
+  });
+  cluster_barrier();
+
+  // ---- recompute: u = T(x1 Win + b), g = T(gelu(u)) with the A&S erf
+  const float* ffn_in_b = p.ffn_in_b;
+  product(x1, D, wfw + woff.ffn_in / 4, 1, 0, blk_lo(F), blk_hi(F),
+          [=](int r, int n, float v0, float v1) {
+            const float u0 = A::round(v0 + __ldg(ffn_in_b + n));
+            const float u1 = A::round(v1 + __ldg(ffn_in_b + n + 1));
+            const size_t i = (size_t)r * F + n;
+            *reinterpret_cast<uint32_t*>(u + i) = pair(u0, u1);
+            *reinterpret_cast<uint32_t*>(g + i) =  // _APPROX_RECOMPUTE_ERF
+                pair(0.5f * u0 * (1.f + erf_as(u0 * kInvSqrt2)),
+                     0.5f * u1 * (1.f + erf_as(u1 * kInvSqrt2)));
+          });
+  cluster_barrier();
+
+  // ---- recompute: f = dropout(T(g Wffn_out + b)) into h2; then (rows) h2 =
+  // T(x1 + f) and the LN2 statistics, and the LN2 VJP: dh2 into dres (= dx1
+  // so far), dfm = T(dropout'(dh2))
+  product(g, F, wfw + woff.ffn_out / 4, 1, 0, blk_lo(D), blk_hi(D),
+          dense_dropout(p.ffn_out_b, h2, seed[2]));
+  cluster_barrier();
+  if constexpr (kStop == kBwdFull) zero_sums();
+  each_row([&](int r) {
+    const size_t i = (size_t)r * D;
+    const float2 st = ln2_row(
+        h2 + i, x1 + i, dy + i, p.ln2_s, p.ln2_b, D, p.eps,
+        kStop == kStopRecompute ? static_cast<T*>(p.dx) + row_base * D + i : nullptr, dres + i,
+        dfm + i, row0 + r, hidden_drop, seed[2], hidden_thr, keep_bwd,
+        kStop == kBwdFull ? wred : nullptr);
+    if (lane == 0) {
+      stats[r * 4 + 2] = st.x;
+      stats[r * 4 + 3] = st.y;
+    }
+  });
+  if constexpr (kStop == kStopRecompute) return;
+  cluster_barrier();
+  // the LN2 and ffn_out bias gradients
+  if constexpr (kStop == kBwdFull) column_sums(off.ln2_s, off.ln2_b, off.ffn_out_b);
+
+  // ---- FFN backward: du = (dfm Wffn_out^T) * gelu'(u), dum = T(du) (and
+  // du in f32 for its bias gradient)
+  product_in(dfm, D, wbw + woff.ffn_out / 4, 1, 0, blk_lo(F), blk_hi(F),
+             [=](int r, int n) {  // u's pair, loaded before the epilogue's stores
+               const __nv_bfloat162 v =
+                   *reinterpret_cast<const __nv_bfloat162*>(u + (size_t)r * F + n);
+               return make_float2(__low2float(v), __high2float(v));
+             },
+             [=](int r, int n, float v0, float v1, float2 uu) {
+               const size_t i = (size_t)r * F + n;
+               const float acc[2] = {v0, v1}, us[2] = {uu.x, uu.y};
+               float du[2];
+#pragma unroll
+               for (int j = 0; j < 2; ++j) {
+                 const float uv = us[j];
+                 const float e = erf_as(uv * kInvSqrt2);  // _APPROX_RECOMPUTE_ERF
+                 const float phi = expf(-0.5f * uv * uv) * kInvSqrt2Pi;
+                 du[j] = acc[j] * (0.5f * (1.f + e) + uv * phi);
+               }
+               *reinterpret_cast<uint32_t*>(dum + i) = pair(du[0], du[1]);
+               duf[i] = du[0];
+               duf[i + 1] = du[1];
+             });
+  if constexpr (kStop == kBwdFull) {  // the ffn_in bias gradient
+    each_col(f0, f1, [&](float* ps, int r0, int c) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int r = r0; r < r0 + S; ++r) s += duf[(size_t)r * F + c];
+      ps[off.ffn_in_b + c] = s;
+    });
+  }
+  cluster_barrier();
+  // dx1 = dh2 + dum Win^T into dres
+  product_in(dum, F, wbw + woff.ffn_in / 4, 1, 0, blk_lo(D), blk_hi(D), f32_pair(dres, D),
+             [=](int r, int n, float v0, float v1, float2 d) {
+               *reinterpret_cast<float2*>(dres + (size_t)r * D + n) =
+                   make_float2(d.x + v0, d.y + v1);
+             });
+  cluster_barrier();
+
+  // ---- (rows) the LN1 VJP: dh1 over dres, dam = T(dropout'(dh1))
+  if constexpr (kStop == kBwdFull) zero_sums();
+  each_row([&](int r) {
+    const size_t i = (size_t)r * D;
+    ln_bwd_row<float>(dres + i, h1 + i, make_float2(stats[r * 4], stats[r * 4 + 1]), p.ln1_s, D,
+                      dres + i, dam + i, row0 + r, hidden_drop, seed[1], hidden_thr, keep_bwd,
+                      kStop == kBwdFull ? wred : nullptr);
+  });
+  // the LN1 and out bias gradients
+  if constexpr (kStop == kBwdFull) column_sums(off.ln1_s, off.ln1_b, off.out_b);
+  cluster_barrier();
+  // ---- gw = T(dam Wout^T) into h2 (no longer needed), this CTA's heads'
+  // columns (D % (8 C) == 0), which its attention alone reads
+  T* gw = h2;
+  product(dam, D, wbw + woff.out / 4, 1, 0, blk_lo(D), blk_hi(D),
+          [=](int r, int n, float v0, float v1) {
+            *reinterpret_cast<uint32_t*>(gw + (size_t)r * D + n) = pair(v0, v1);
+          });
+  if constexpr (kStop == kStopFfnBwd) {
+    store_rows<T>(gw, D, M, D, d0, d1, 0, 1, static_cast<T*>(p.dx) + row_base * D);
+    return;
+  }
+
+  // ---- attention backward, hg heads at a time on the tensor cores: dq, dk
+  // and dv rounded into dqm, their f32 column sums over the sequence's rows
+  // into its qkv bias partials
+  for (int s = 0; s < nseq; ++s) {
+    stage_heads(s, true);
+    float* ps = part + (size_t)s * off.total;
+    T* dqs = dqm + (size_t)s * S * ld3;
+    for (int h0 = 0; h0 < hpc; h0 += hg) {
+      // spb = T(dropped), sdsb = T(d_scores) of heads [h0, h0 + hg)
+      if (S <= 32) tc_attention_grad<4>(attn_of(s), h0, hg);
+      else tc_attention_grad<8>(attn_of(s), h0, hg);
+      __syncthreads();
+      // dq, dk, dv into dqm, their column sums into the qkv bias partials
+      tc_attention_products(attn_of(s), h0, hg, dqs, ld3,
+                            kStop == kBwdFull ? ps + off.qkv_b : nullptr);
+      __syncthreads();
+    }
+  }
+  cluster_barrier();
+
+  // ---- dx = T(dh1 + dqm Wqkv^T)
+  T* dx = static_cast<T*>(p.dx) + row_base * D;
+  product_in(dqm, ld3, wbw + woff.qkv / 4, 1, 0, blk_lo(D), blk_hi(D), f32_pair(dres, D),
+             [=](int r, int n, float v0, float v1, float2 d) {
+               *reinterpret_cast<uint32_t*>(dx + (size_t)r * D + n) = pair(d.x + v0, d.y + v1);
+             });
 }
 
 // ---------------------------------------------------------------------------
@@ -2342,15 +2740,21 @@ __global__ void __launch_bounds__(kThreads, 1) fused_layer_bwd_rows_f32_kernel(B
 // 4 (n % 8) + t holding the pairs (k, k + 1) at k = 16 ks + 2 t and
 // 16 ks + 2 t + 8, so dense_tc loads a warp's fragments of one k-step as
 // 256 contiguous bytes.  One thread writes one lane's 8 bytes.  K % 16 ==
-// 0 and N % 8 == 0.
+// 0 and N % 8 == 0.  With ``transposed``, the four transposes W^T follow
+// at WOffsets::total + WOffsets, each packed as an (N, K) weight (the
+// backward's products with W^T; N % 16 == 0, K % 8 == 0).
 __global__ void pack_weights_kernel(const float* __restrict__ qkv_w,
                                     const float* __restrict__ out_w,
                                     const float* __restrict__ ffn_in_w,
                                     const float* __restrict__ ffn_out_w, int D, int F,
-                                    uint2* __restrict__ wp) {
+                                    int transposed, uint2* __restrict__ wp) {
   const WOffsets w(D, F);
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;  // in uint2 (4 bf16)
-  if (i >= w.total / 4) return;
+  const size_t per = w.total / 4;  // uint2 items (4 bf16) of the four weights
+  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= per * (transposed ? 2 : 1)) return;
+  const bool tr = i >= per;
+  const size_t out = i;
+  if (tr) i -= per;
   const float* W;
   size_t base;
   int K, N;
@@ -2359,10 +2763,14 @@ __global__ void pack_weights_kernel(const float* __restrict__ qkv_w,
   else if (i < w.ffn_out / 4) { W = ffn_in_w; base = w.ffn_in; K = D; N = F; }
   else { W = ffn_out_w; base = w.ffn_out; K = F; N = D; }
   const size_t j = i - base / 4;
-  const int nks = K / 16, lane = (int)(j % 32), ks = (int)(j / 32 % nks), nb = (int)(j / 32 / nks);
+  const int kp = tr ? N : K;  // the packed matrix's k extent
+  const int nks = kp / 16, lane = (int)(j % 32), ks = (int)(j / 32 % nks), nb = (int)(j / 32 / nks);
   const int n = 8 * nb + lane / 4, k = 16 * ks + 2 * (lane % 4);
-  auto at = [&](int kk) { return __float2bfloat16_rn(W[(size_t)kk * N + n]); };
-  wp[i] = make_uint2(xrt::pack_bf16(at(k), at(k + 1)), xrt::pack_bf16(at(k + 8), at(k + 9)));
+  // element (kk, n) of W, or of W^T: W[n][kk]
+  auto at = [&](int kk) {
+    return __float2bfloat16_rn(tr ? W[(size_t)n * N + kk] : W[(size_t)kk * N + n]);
+  };
+  wp[out] = make_uint2(xrt::pack_bf16(at(k), at(k + 1)), xrt::pack_bf16(at(k + 8), at(k + 9)));
 }
 
 // B sequences on clusters of ``cluster`` CTAs (no cluster attribute for
@@ -2397,7 +2805,7 @@ cudaError_t launch_tc(const Params& p, int B, int smem_bytes, bf16* wp, cudaStre
   if (TcLayout(p.S, p.D, p.F).total > (size_t)smem_bytes) return cudaErrorInvalidValue;
   const WOffsets w(p.D, p.F);
   pack_weights_kernel<<<(unsigned)((w.total / 4 + 255) / 256), 256, 0, stream>>>(
-      p.qkv_w, p.out_w, p.ffn_in_w, p.ffn_out_w, p.D, p.F, reinterpret_cast<uint2*>(wp));
+      p.qkv_w, p.out_w, p.ffn_in_w, p.ffn_out_w, p.D, p.F, 0, reinterpret_cast<uint2*>(wp));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_clusters(fused_layer_fwd_tc_kernel<kStop>, B, p.cluster, kTcThreads,
@@ -2414,10 +2822,11 @@ cudaError_t launch_f32(const Params& p, int B, int smem_bytes, int stop, cudaStr
 }
 
 // pass 2's grid, (tiles of the four weight gradients, row splits), its
-// rows a split (whole kWgRows chunks) and the splits that have rows set in p
-dim3 weight_grad_grid(BwdParams& p) {
+// rows a split (whole chunks of ``chunk`` rows) and the splits that have
+// rows set in p
+dim3 weight_grad_grid(BwdParams& p, int chunk) {
   const int R = p.B * p.S;
-  p.rows_per_split = ((R + p.splits - 1) / p.splits + kWgRows - 1) / kWgRows * kWgRows;
+  p.rows_per_split = ((R + p.splits - 1) / p.splits + chunk - 1) / chunk * chunk;
   p.splits = (R + p.rows_per_split - 1) / p.rows_per_split;
   const int tiles = wg_tiles(p.D, 3 * p.D) + wg_tiles(p.D, p.D) + wg_tiles(p.D, p.F) +
                     wg_tiles(p.F, p.D);
@@ -2431,29 +2840,22 @@ cudaError_t launch_grad_reduce(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the bf16 backward: pass 0 rounds the weights, pass 1 on the tensor
-// cores, pass 2 split-K on the tensor cores, pass 3 the reductions
+// the bf16 backward: pass 0 packs W and W^T, pass 1 on the tensor cores
+// (p.seqs sequences a CTA, or a sequence on a cluster of p.cluster CTAs),
+// pass 2 split-K on the tensor cores, pass 3 the reductions
 template <int kStop>
 cudaError_t launch_bwd_tc(BwdParams p, cudaStream_t stream) {
   cudaError_t err;
   const WOffsets w(p.D, p.F);
-  // the most heads (a divisor of H) whose attention buffers fit a block
-  int dev = 0, limit = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  pack_weights_kernel<<<(unsigned)((w.total / 2 + 255) / 256), 256, 0, stream>>>(
+      p.qkv_w, p.out_w, p.ffn_in_w, p.ffn_out_w, p.D, p.F, 1, p.wp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = BwdTcLayout(p.S, p.D, p.H, p.F, p.seqs, p.cluster, p.hg).total;
+  err = launch_clusters(fused_layer_bwd_rows_kernel<kStop>, (p.B + p.seqs - 1) / p.seqs,
+                        p.cluster, kBwdTcThreads, smem, stream, p);
   if (err != cudaSuccess) return err;
-  p.hg = 0;
-  for (int hg = p.H; hg >= 1 && !p.hg; --hg)
-    if (p.H % hg == 0 && bwd_smem_bytes(p.S, p.D, p.F, hg) <= (size_t)limit) p.hg = hg;
-  if (!p.hg) return cudaErrorInvalidValue;
-  round_weights_kernel<<<(unsigned)((w.total + 255) / 256), 256, 0, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t smem = bwd_smem_bytes(p.S, p.D, p.F, p.hg);
-  if ((err = xrt::allow_smem(fused_layer_bwd_rows_kernel<kStop>, smem)) != cudaSuccess) return err;
-  fused_layer_bwd_rows_kernel<kStop><<<p.B, kBwdTcThreads, smem, stream>>>(p);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if constexpr (kStop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
-  const dim3 grid = weight_grad_grid(p);
+  const dim3 grid = weight_grad_grid(p, kWgChunk);
   weight_grad_mma_kernel<<<grid, 128, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_grad_reduce(p, stream);
@@ -2467,12 +2869,11 @@ cudaError_t launch_bwd_f32(const BwdParams& p, int stop, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (stop != kBwdFull) return cudaSuccess;  // a section variant: pass 1 only
   BwdParams q = p;
-  const dim3 grid = weight_grad_grid(q);
+  const dim3 grid = weight_grad_grid(q, kWgRows);
   weight_grad_f32_kernel<<<grid, 256, 0, stream>>>(q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return launch_grad_reduce(q, stream);
 }
-
 
 }  // namespace
 
@@ -2490,19 +2891,52 @@ extern "C" int fused_layer_bwd_smem_bytes(int S, int D, int H, int hg) {
   return (int)F32BwdLayout(S, D, H, hg).total;
 }
 
-// The clusters of ``cluster`` CTAs of the f32 forward (backward: 0) or of
-// pass 1 of the f32 backward (1) that the card can hold at once, or minus
-// the CUDA error
-extern "C" int fused_layer_f32_max_clusters(int backward, int S, int D, int H, int F, int hg,
-                                            int cluster) {
-  const size_t smem = backward ? F32BwdLayout(S, D, H, hg).total : F32Layout(S, D, H, F, hg).total;
-  const void* fn = backward ? reinterpret_cast<const void*>(fused_layer_bwd_rows_f32_kernel)
-                            : reinterpret_cast<const void*>(fused_layer_fwd_f32_kernel);
+// and of the bf16 backward's pass 1 (BwdTcLayout: seqs sequences a CTA, or
+// a sequence on a cluster of ``cluster``; hg heads a stage)
+extern "C" int fused_layer_bwd_tc_smem_bytes(int S, int D, int H, int F, int seqs, int cluster,
+                                             int hg) {
+  return (int)BwdTcLayout(S, D, H, F, seqs, cluster, hg).total;
+}
+
+// The clusters of ``cluster`` CTAs of one of the layer's kernels that the
+// card holds at once (the occupancy API), or minus the CUDA error: kernel 0
+// the f32 forward, 1 pass 1 of the f32 backward (hg heads a group), 2 the
+// bf16 forward, 3 pass 1 of the bf16 backward (one sequence a cluster, hg
+// heads a stage)
+extern "C" int fused_layer_max_clusters(int kernel, int S, int D, int H, int F, int hg,
+                                        int cluster) {
+  size_t smem;
+  const void* fn;
+  int threads;
+  switch (kernel) {
+    case 0:
+      smem = F32Layout(S, D, H, F, hg).total;
+      fn = reinterpret_cast<const void*>(fused_layer_fwd_f32_kernel);
+      threads = kThreads;
+      break;
+    case 1:
+      smem = F32BwdLayout(S, D, H, hg).total;
+      fn = reinterpret_cast<const void*>(fused_layer_bwd_rows_f32_kernel);
+      threads = kThreads;
+      break;
+    case 2:
+      smem = TcLayout(S, D, F).total;
+      fn = reinterpret_cast<const void*>(fused_layer_fwd_tc_kernel<kFwdFull>);
+      threads = kTcThreads;
+      break;
+    case 3:
+      smem = BwdTcLayout(S, D, H, F, 1, cluster, hg).total;
+      fn = reinterpret_cast<const void*>(fused_layer_bwd_rows_kernel<kBwdFull>);
+      threads = kBwdTcThreads;
+      break;
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
   cudaError_t err = xrt::allow_smem(fn, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster);
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -2565,10 +2999,11 @@ extern "C" int fused_layer_fwd(
 // The backward of fused_layer_fwd: dx (T) and the 12 f32 parameter
 // gradients, summed over the batch.  ws[17] is the workspace described in
 // BwdParams, in its order, allocated by the caller, with ws_wpart (splits x
-// WOffsets::total f32); bf16 also needs ws_dqkv and ws_w16 (2 x
-// WOffsets::total bf16: w16, then wt16), f32 neither, but cluster and
-// heads_per_stage as the forward takes them.  With stage < kBwdFull, pass
-// 1's section variant alone, its stage's tensor in dx.
+// WOffsets::total f32); bf16 also needs ws_duf and ws_wp (2 x
+// WOffsets::total bf16: W and W^T packed), f32 neither.  cluster and
+// heads_per_stage as the forward takes them (bf16: the planner's, with
+// seqs); with stage < kBwdFull, pass 1's section variant alone,
+// its stage's tensor in dx.
 extern "C" int fused_layer_bwd(
     const void* x, const void* dy, const int* mask, const float* qkv_w, const float* qkv_b,
     const float* out_w, const float* out_b, const float* ffn_in_w, const float* ffn_in_b,
@@ -2578,9 +3013,9 @@ extern "C" int fused_layer_bwd(
     float* d_ffn_out_b, float* d_ln1_s, float* d_ln1_b, float* d_ln2_s, float* d_ln2_b,
     void* ws_qkv, void* ws_ctx, void* ws_x1, void* ws_u, void* ws_g, void* ws_h1, void* ws_h2,
     float* ws_stats, void* ws_dfm, void* ws_dum, void* ws_dam, void* ws_dqm, float* ws_dres,
-    float* ws_dqkv, float* ws_partial, void* ws_w16, float* ws_wpart, int B, int S, int D,
+    float* ws_duf, float* ws_partial, void* ws_wp, float* ws_wpart, int B, int S, int D,
     int H, int F, int causal, int is_bf16, int splits, int cluster, int heads_per_stage,
-    const long long* seeds, uint32_t attn_thr, uint32_t hidden_thr, float attn_keep,
+    int seqs, const long long* seeds, uint32_t attn_thr, uint32_t hidden_thr, float attn_keep,
     float hidden_keep_fwd, float hidden_keep_bwd, int attn_drop, int hidden_drop, float eps,
     int stage, void* stream) {
   if (B <= 0) return cudaSuccess;
@@ -2589,25 +3024,28 @@ extern "C" int fused_layer_bwd(
               ffn_out_b, ln1_s, ln1_b, ln2_s, ln2_b, dx, d_qkv_w, d_qkv_b, d_out_w, d_out_b,
               d_ffn_in_w, d_ffn_in_b, d_ffn_out_w, d_ffn_out_b, d_ln1_s, d_ln1_b, d_ln2_s,
               d_ln2_b, ws_qkv, ws_ctx, ws_x1, ws_u, ws_g, ws_h1, ws_h2, ws_stats, ws_dfm,
-              ws_dum, ws_dam, ws_dqm, ws_dres, ws_dqkv, ws_partial, B, S, D, H, F, causal,
+              ws_dum, ws_dam, ws_dqm, ws_dres, ws_duf, ws_partial, B, S, D, H, F, causal,
               {seeds}, attn_thr, hidden_thr, attn_keep, hidden_keep_fwd,
               hidden_keep_bwd, attn_drop, hidden_drop, eps};
+  if (cluster < 1 || cluster > kMaxCluster || H % cluster || heads_per_stage <= 0 ||
+      (H / cluster) % heads_per_stage || splits <= 0)
+    return cudaErrorInvalidValue;
+  p.cluster = cluster;
+  p.hg = heads_per_stage;
+  p.wpart = ws_wpart;
+  p.splits = splits;
   if (is_bf16) {
-    if (D % 2 || F % 2 || splits <= 0) return cudaErrorInvalidValue;  // k-contiguous pairs
-    p.w16 = static_cast<bf16*>(ws_w16);
-    p.wt16 = p.w16 + WOffsets(D, F).total;
-    p.wpart = ws_wpart;
-    p.splits = splits;
-  } else {
-    // 16-byte rows and copies; each CTA's D columns its heads' (D % (4 C))
-    if (cluster < 1 || cluster > kMaxCluster || H % cluster || D % (4 * cluster) ||
-        (D / H) % 4 || F % 4 || heads_per_stage <= 0 || (H / cluster) % heads_per_stage ||
-        splits <= 0)
+    // whole k-steps of the products (W and W^T) and 8-column blocks of
+    // each CTA's columns; a CTA's rows in four m-tiles at most; an even
+    // head width (its pairs of columns; staged padded to 16)
+    if (D % 16 || F % 16 || (D / H) % 2 || D % (8 * cluster) || seqs < 1 || seqs * S > 64 ||
+        (seqs > 1 && cluster > 1) || ws_wp == nullptr || ws_duf == nullptr)
       return cudaErrorInvalidValue;
-    p.cluster = cluster;
-    p.hg = heads_per_stage;
-    p.wpart = ws_wpart;
-    p.splits = splits;
+    p.wp = static_cast<uint2*>(ws_wp);
+    p.seqs = seqs;
+  } else if (D % (4 * cluster) || (D / H) % 4 || F % 4) {
+    // 16-byte rows and copies; each CTA's D columns its heads' (D % (4 C))
+    return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (stage < kStopRecompute || stage > kBwdFull) return cudaErrorInvalidValue;

@@ -55,17 +55,21 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             "fused_layer_smem_bytes": [_I] * 6,
             # S, D, H, heads per stage: the f32 backward's pass 1
             "fused_layer_bwd_smem_bytes": [_I] * 4,
-            # backward, S, D, H, F, heads per stage, cluster: the f32
-            # kernels' clusters the card holds at once
-            "fused_layer_f32_max_clusters": [_I] * 7,
+            # S, D, H, F, sequences a CTA, cluster, heads per stage: the
+            # bf16 backward's pass 1
+            "fused_layer_bwd_tc_smem_bytes": [_I] * 7,
+            # kernel (0 f32 forward, 1 f32 pass 1, 2 bf16 forward, 3 bf16
+            # pass 1), S, D, H, F, heads per stage, cluster: the clusters
+            # the card holds at once
+            "fused_layer_max_clusters": [_I] * 7,
             # x, dy, mask, 12 params, dx, 12 param grads, 17 workspace
             # buffers, B S D H F causal is_bf16 splits cluster
-            # heads_per_stage, seeds (as the forward's), attn/hidden
+            # heads_per_stage seqs, seeds (as the forward's), attn/hidden
             # thresholds, attn keep divisor, hidden keep divisors of the
             # forward recompute and of the backward, attn/hidden dropout on,
             # eps, stage, stream
             "fused_layer_bwd": [_P, _P, _P] + [_P] * 12 + [_P] + [_P] * 12 + [_P] * 17
-            + [_I] * 10 + [_P] + [_U, _U, _F, _F, _F, _I, _I, _F, _I, _P],
+            + [_I] * 11 + [_P] + [_U, _U, _F, _F, _F, _I, _I, _F, _I, _P],
         },
     ),
     "vpu_calibration": (

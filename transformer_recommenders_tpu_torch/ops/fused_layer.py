@@ -458,56 +458,160 @@ def bwd_heads_per_stage(s: int, d: int, num_heads: int, limit: int, cluster: int
         f"of shared memory per block in f32, more than the {limit} this device allows")
 
 
-CLUSTER_SIZES = (4, 2, 1)  # csrc/fused_layer.cu kMaxCluster and its divisors: bf16
-F32_CLUSTER_SIZES = (4, 3, 2, 1)  # the f32 kernels take any cluster up to kMaxCluster
+CLUSTER_SIZES = (4, 2, 1)  # csrc/fused_layer.cu kMaxCluster and its divisors: the bf16 forward
+F32_CLUSTER_SIZES = (4, 3, 2, 1)  # the f32 kernels and the bf16 pass 1: any size up to 4
 
 
 def cluster_size(b: int, d: int, num_heads: int, sms: int, elem: int = 2,
-                 max_active: dict | None = None) -> int:
-    """CTAs of the forward's (and the f32 backward's) cluster for one
-    sequence: the largest size (bf16, ``elem`` 2: 4, 2, 1; f32: 4, 3, 2, 1)
-    whose ``b`` clusters the card holds at once, that splits the heads
-    evenly and gives each CTA whole column blocks of q, k and v (8 columns
-    in bf16, 4 in f32).  ``max_active`` maps a size to the clusters the
-    card holds at once (the occupancy API's count, which a GPC's SMs bound:
-    30 clusters of 4 on an H100 with the f32 kernels' one CTA an SM);
-    without it, ``sms // size`` (one CTA an SM).  B=64 on 132 SMs takes 2,
-    B=32 takes 4 (f32 with the H100's counts: 3), B >= 67 takes 1."""
-    sizes, block = (CLUSTER_SIZES, 8) if elem == 2 else (F32_CLUSTER_SIZES, 4)
-    for c in sizes:
+                 max_active: dict | None = None, sizes: tuple | None = None) -> int:
+    """CTAs of a cluster for one sequence: the largest size (``sizes``,
+    by default bf16, ``elem`` 2: 4, 2, 1; f32: 4, 3, 2, 1) whose ``b``
+    clusters the card holds at once, that splits the heads evenly and
+    gives each CTA whole column blocks of q, k and v (8 columns in bf16, 4
+    in f32).  ``max_active`` maps a size to the clusters the card holds at
+    once (the occupancy API's count, which a GPC's SMs bound: 30 clusters
+    of 4 on an H100 with the f32 kernels' one CTA an SM); without it,
+    ``sms // size`` (one CTA an SM).  B=64 on 132 SMs takes 2, B=32 takes 4
+    (f32 with the H100's counts: 3), B >= 67 takes 1."""
+    block = 8 if elem == 2 else 4
+    for c in sizes or (CLUSTER_SIZES if elem == 2 else F32_CLUSTER_SIZES):
         room = (max_active or {}).get(c, sms // c)
         if b <= room and num_heads % c == 0 and d % (block * c) == 0:
             return c
     return 1
 
 
+# csrc/fused_layer.cu fused_layer_max_clusters: the kernels it counts
+F32_FWD, F32_BWD, TC_FWD, TC_BWD = range(4)
+
+
 @functools.lru_cache(maxsize=None)
-def _max_clusters(index: int, backward: bool, s: int, d: int, h: int, f: int, hg: int,
+def _max_clusters(index: int, kernel: int, s: int, d: int, h: int, f: int, hg: int,
                   c: int) -> int:
-    """The clusters of ``c`` CTAs of the f32 forward or backward (first
-    pass) that card ``index`` holds at once (csrc/fused_layer.cu
-    fused_layer_f32_max_clusters)."""
+    """The clusters of ``c`` CTAs of one of the layer's kernels (``F32_FWD``,
+    ``F32_BWD``, ``TC_FWD``, ``TC_BWD``: the forwards and the backwards'
+    first passes) that card ``index`` holds at once (csrc/fused_layer.cu
+    fused_layer_max_clusters, the occupancy API)."""
     with torch.cuda.device(index):
-        n = cuda_build.library("fused_layer").fused_layer_f32_max_clusters(
-            int(backward), s, d, h, f, hg, c)
+        n = cuda_build.library("fused_layer").fused_layer_max_clusters(kernel, s, d, h, f, hg, c)
     if n < 0:
-        msg = f"fused_layer_f32_max_clusters: CUDA error {-n}"
+        msg = f"fused_layer_max_clusters: CUDA error {-n}"
         raise RuntimeError(msg)
     return n
+
+
+def _active_clusters(device, kernel: int, sizes: tuple, block: int, s: int, d: int, h: int,
+                     f: int, heads_of) -> dict:
+    """The card's count of co-resident clusters of ``kernel`` at each size
+    of ``sizes`` above 1 that splits the ``h`` heads evenly and ``d`` into
+    whole ``block``-column blocks a CTA, ``heads_of(size)`` heads a stage:
+    the ``max_active`` of :func:`cluster_size`."""
+    index = torch.device(device).index or 0
+    return {c: _max_clusters(index, kernel, s, d, h, f, heads_of(c), c)
+            for c in sizes[:-1] if h % c == 0 and d % (block * c) == 0}
 
 
 def _f32_cluster(b: int, s: int, d: int, h: int, f: int, device, backward: bool) -> int:
     """The f32 kernels' cluster size on ``device``: :func:`cluster_size`
     with the card's count of co-resident clusters at each size."""
-    index = torch.device(device).index or 0
     limit = cuda_build.max_shared_memory(device)
-    active = {}
-    for c in F32_CLUSTER_SIZES[:-1]:
-        if h % c == 0 and d % (4 * c) == 0:
-            hg = (bwd_heads_per_stage(s, d, h, limit, c) if backward
-                  else heads_per_stage(s, d, f, h, 4, limit, c))
-            active[c] = _max_clusters(index, backward, s, d, h, f, hg, c)
+    active = _active_clusters(
+        device, F32_BWD if backward else F32_FWD, F32_CLUSTER_SIZES, 4, s, d, h, f,
+        lambda c: (bwd_heads_per_stage(s, d, h, limit, c) if backward
+                   else heads_per_stage(s, d, f, h, 4, limit, c)))
     return cluster_size(b, d, h, cuda_build.sm_count(device), 4, active)
+
+
+def _tc_cluster(b: int, s: int, d: int, h: int, f: int, device) -> int:
+    """The bf16 forward's cluster size on ``device``: :func:`cluster_size`
+    with the card's count of co-resident clusters of its kernel at each
+    size (the H100 holds 30 of 4 at one CTA an SM, so path B's B=32 takes
+    2, not 4)."""
+    active = _active_clusters(device, TC_FWD, CLUSTER_SIZES, 8, s, d, h, f, lambda c: 0)
+    return cluster_size(b, d, h, cuda_build.sm_count(device), 2, active)
+
+
+BWD_ROWS = 64  # the most rows a CTA of the bf16 backward's pass 1 takes: four m-tiles
+BWD_WARPS = 16  # its warps (csrc/fused_layer.cu kBwdTcThreads / 32)
+
+
+def bwd_tc_smem_bytes(s: int, d: int, num_heads: int, f: int, seqs: int, cluster: int,
+                      heads_per_stage: int) -> int:
+    """Dynamic shared memory of one CTA of the bf16 backward's first pass
+    (``BwdTcLayout`` in csrc/fused_layer.cu): the mask of its ``seqs * s``
+    rows, then the largest of a product's operand (those rows in whole
+    m-tiles, ``max(3d, f) + 8`` bf16 wide), the row steps' column sums
+    (``3 d`` f32 for each of the 16 warps) and one sequence's attention
+    (its rows of the CTA's heads' q|k|v and gw, each head's columns padded
+    to whole k-steps of 16, then ``heads_per_stage`` heads' bf16 dropped
+    probs and d_scores), the attention's rows in whole 16-row blocks, its
+    S x S buffers (round_up(s, 16) + 8) wide."""
+    hg, sp = heads_per_stage, -(-s // 16) * 16
+    hc = num_heads // cluster * -(-(d // num_heads) // 16) * 16
+    ops = -(-seqs * s // 4) * 4 * 4
+    operand = -(-seqs * s // 16) * 16 * (max(3 * d, f) + 8) * 2
+    product = max(operand, BWD_WARPS * 3 * d * 4)
+    attention = ops + sp * (3 * hc + 8) * 2 + sp * (hc + 8) * 2 + hg * 2 * sp * (sp + 8) * 2
+    return max(ops + product, attention)
+
+
+def bwd_tc_heads(s: int, d: int, num_heads: int, f: int, seqs: int, cluster: int,
+                 limit: int) -> int:
+    """The bf16 backward's heads a stage: the most (a divisor of the CTA's
+    ``num_heads // cluster``) whose buffers fit in ``limit`` bytes; raises
+    when not even one does."""
+    return _most_heads(
+        num_heads // cluster,
+        lambda hg: bwd_tc_smem_bytes(s, d, num_heads, f, seqs, cluster, hg) <= limit,
+        f"fused_layer backward: S={s}, D={d}, H={num_heads}, F={f} needs "
+        f"{bwd_tc_smem_bytes(s, d, num_heads, f, seqs, cluster, 1)} bytes of shared memory per "
+        f"block in "
+        f"bf16, more than the {limit} this device allows")
+
+
+def bwd_tc_plan_for(s: int, d: int, num_heads: int, f: int, seqs: int, cluster: int,
+                    limit: int) -> dict:
+    """The rest of the first pass's plan for ``seqs`` sequences a CTA on
+    clusters of ``cluster``: the most heads a stage that fit (``limit``
+    bytes) and the layout's bytes."""
+    hg = bwd_tc_heads(s, d, num_heads, f, seqs, cluster, limit)
+    return {"seqs": seqs, "cluster": cluster, "heads_per_stage": hg,
+            "smem": bwd_tc_smem_bytes(s, d, num_heads, f, seqs, cluster, hg)}
+
+
+def bwd_tc_plan(b: int, s: int, d: int, num_heads: int, f: int, sms: int, limit: int,
+                max_active: dict | None = None) -> dict:
+    """The bf16 backward's first pass at (``b``, ``s``, ``d``, ``num_heads``,
+    ``f``) on a card of ``sms`` SMs (one CTA an SM) and ``limit`` bytes of
+    shared memory a CTA:
+
+    - ``seqs``: the sequences a CTA takes, as many as one wave of ``sms``
+      CTAs needs, at most ``BWD_ROWS`` rows (the quality run's B=256 takes
+      2: 128 CTAs, each weight fragment feeding 64 rows);
+    - ``cluster``: with one sequence a CTA, the CTAs it is split across,
+      the largest size (4, 3, 2) whose ``b`` clusters the card holds at once
+      (``max_active``: the card's count by size, else ``sms // size``) that
+      splits the heads evenly in whole 8-column blocks (path B's B=32 on an
+      H100 takes 3);
+    - ``heads_per_stage`` and the layout's ``smem`` bytes as
+      :func:`bwd_tc_plan_for` gives them;
+    - ``ctas``: the grid.
+
+    Raises when not even one head fits."""
+    seqs = max(1, min(BWD_ROWS // s, -(-b // sms)))
+    cluster = 1 if seqs > 1 else cluster_size(b, d, num_heads, sms, 2, max_active,
+                                              F32_CLUSTER_SIZES)
+    return bwd_tc_plan_for(s, d, num_heads, f, seqs, cluster, limit) | {
+        "ctas": -(-b // seqs) * cluster}
+
+
+def _bwd_tc_plan(b: int, s: int, d: int, h: int, f: int, device) -> dict:
+    """:func:`bwd_tc_plan` on ``device``, with the card's count of
+    co-resident clusters of the first pass at each size."""
+    limit = cuda_build.max_shared_memory(device)
+    active = _active_clusters(device, TC_BWD, F32_CLUSTER_SIZES, 8, s, d, h, f,
+                              lambda c: bwd_tc_heads(s, d, h, f, 1, c, limit))
+    return bwd_tc_plan(b, s, d, h, f, cuda_build.sm_count(device), limit, active)
 
 
 def forward_workspace_elems(d: int, f: int) -> int:
@@ -603,7 +707,7 @@ def _fwd_cuda(x, params, key_mask, *, num_heads, causal, attn_dropout, hidden_dr
                f"width of at most 64, got D={d}, H={num_heads}, F={f}")
         raise ValueError(msg)
     if bf16:
-        cluster = cluster_size(b, d, num_heads, cuda_build.sm_count(x.device))
+        cluster = _tc_cluster(b, s, d, num_heads, f, x.device)
     else:
         _check_f32_widths(d, num_heads, f)
         cluster = _f32_cluster(b, s, d, num_heads, f, x.device, backward=False)
@@ -647,24 +751,28 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
               dropout_seeds, ffn_dim, layer_norm_eps, stage="full", counter="fused_layer_bwd"):
     """The backward kernel: recompute, dx and the 12 f32 parameter
     gradients.  Its device-memory workspace (the recomputed activations and
-    the per-sequence partial sums, ~35 MB at B=128, S=32, D=128, F=512 in
-    bf16) is allocated here and freed with the call.  With ``stage`` a
-    section variant of its first pass alone (see ``BWD_STAGES``): the
-    stage's tensor in ``dx``, the parameter gradients left unwritten.
-    Adds one to ``LAUNCHES[counter]``."""
+    the per-sequence partial sums: ~36 MB at B=128, S=32, D=128, F=512 in
+    bf16, ~92 MB at the quality run's B=256, D=384, F=48) is allocated here
+    and freed with the call; bf16 plans its first pass with
+    :func:`bwd_tc_plan`.  With ``stage`` a section variant of its first pass
+    alone (see ``BWD_STAGES``): the stage's tensor in ``dx``, the parameter
+    gradients left unwritten.  Adds one to ``LAUNCHES[counter]``."""
     del ffn_dim
     f = _check_cuda(x, params, key_mask, num_heads)
     b, s, d = x.shape
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and (d % 2 or f % 2):
-        msg = f"fused_layer backward: bf16 needs an even D and FFN width, got D={d}, F={f}"
+    if bf16 and (d % 16 or f % 16 or (d // num_heads) % 2):
+        msg = (f"fused_layer backward: bf16 needs D and the FFN width multiples of 16 and an "
+               f"even head width, got D={d}, H={num_heads}, F={f}")
         raise ValueError(msg)
-    if bf16:  # the kernel plans its attention's heads itself
-        cluster, hg = 1, 0
+    if bf16:
+        plan = _bwd_tc_plan(b, s, d, num_heads, f, x.device)
+        cluster, hg, seqs = plan["cluster"], plan["heads_per_stage"], plan["seqs"]
     else:
         _check_f32_widths(d, num_heads, f)
         cluster = _f32_cluster(b, s, d, num_heads, f, x.device, backward=True)
         hg = bwd_heads_per_stage(s, d, num_heads, cuda_build.max_shared_memory(x.device), cluster)
+        seqs = 1
     r = b * s
     seeds, attn_thr, hidden_thr, attn_div, attn_dropout, hidden_dropout = _dropout_args(
         attn_dropout, hidden_dropout, dropout_seeds, x.device)
@@ -682,12 +790,13 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         return torch.empty((rows, cols), dtype=torch.float32, device=x.device)
 
     # BwdParams order in csrc/fused_layer.cu: qkv ctx x1 u g h1 h2 stats dfm
-    # dum dam dqm dres dqkv (bf16: f32 before its rounding into dqm) partial
+    # dum dam dqm dres duf (bf16: du in f32, before its rounding into dum)
+    # partial
     ws = [act(3 * d), act(d), act(d), act(f), act(f), act(d), act(d), f32(r, 4), act(d),
-          act(f), act(d), act(3 * d), f32(r, d), f32(r, 3 * d) if bf16 else None,
+          act(f), act(d), act(3 * d), f32(r, d), f32(r, f) if bf16 else None,
           f32(b, 9 * d + f)]
-    # bf16 (the tensor-core path): the weights rounded to bf16 in both
-    # layouts; both: pass 2's partial weight-gradient tiles
+    # bf16 (the tensor-core path): the weights rounded to bf16 and packed,
+    # W and W^T; both: pass 2's partial weight-gradient tiles
     n_weights = 4 * d * d + 2 * d * f
     splits = _weight_grad_splits(r, d, f)
     ws += [torch.empty(2 * n_weights, dtype=torch.bfloat16, device=x.device) if bf16 else None,
@@ -696,7 +805,7 @@ def _bwd_cuda(x, params, key_mask, dy, *, num_heads, causal, attn_dropout, hidde
         x.data_ptr(), dy.data_ptr(), mask.data_ptr(), *(t.data_ptr() for t in params),
         dx.data_ptr(), *(t.data_ptr() for t in dparams),
         *(None if t is None else t.data_ptr() for t in ws),
-        b, s, d, num_heads, f, int(causal), int(bf16), splits, cluster, hg,
+        b, s, d, num_heads, f, int(causal), int(bf16), splits, cluster, hg, seqs,
         cuda_build.pointer(seeds), attn_thr, hidden_thr, attn_div,
         keep_divisor(hidden_dropout, x.dtype), keep_divisor(hidden_dropout, torch.float32),
         int(attn_dropout > 0.0), int(hidden_dropout > 0.0), float(layer_norm_eps),
@@ -762,8 +871,8 @@ def fused_layer(
     On CPU tensors this runs :func:`fused_layer_reference` and, for the
     gradient, :func:`fused_layer_backward_reference`; on CUDA tensors it
     launches the forward kernel (a cluster of :func:`cluster_size` CTAs per
-    sequence) and the backward kernel (f32: its first pass on the same
-    clusters), or raises.
+    sequence) and the backward kernel (bf16: its first pass as
+    :func:`bwd_tc_plan` says; f32: on the forward's clusters), or raises.
     """
     s = x.shape[1]
     if s > 64:

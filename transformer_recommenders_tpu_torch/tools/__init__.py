@@ -2,8 +2,8 @@
 
     python -m transformer_recommenders_tpu_torch.tools.calibrate_vpu [--out PATH]
     python -m transformer_recommenders_tpu_torch.tools.profile_fused_sections \\
-        [--shape flagship|train|seed_spread|tiny] [--dtype bfloat16|float32] \\
-        [--dropout RATE] [--tree PATH] [--out PATH]
+        [--shape flagship|train|seed_spread|quality|path_b|path_c|tiny] \\
+        [--dtype bfloat16|float32] [--dropout RATE] [--tree PATH] [--out PATH]
 
 Each exits non-zero without a CUDA card (it never times the CPU), prints
 its table with the card's name and power limit, and writes a JSON record

@@ -12,12 +12,14 @@ holds this file), runs each kernel through its wrapper on the card at the
 training paths' shapes and a ragged one, and prints one JSON object: the
 sha256 of each output's bytes by case.  Run it on two checkouts on one
 card and compare the objects: equal digests are equal bits.  A change
-meant to move only the sum order of the f32 layer keeps the bf16 digests
-and holds the f32 outputs to the kernels' tolerances instead: ``--tensors``
-saves them (torch.save) from one run, ``--against`` holds this run's to
-the saved ones (the forward within 2e-5, dx and each parameter gradient
-within 1e-4 of its max abs) and exits 1 when one is not.  Without a CUDA
-card it exits 2 and prints nothing.
+meant to move only the sum order of a layer kernel holds its outputs to
+the kernels' tolerances instead: ``--tensors`` saves the layer's outputs
+(torch.save) from one run, ``--against`` holds this run's to the saved
+ones and exits 1 when one is not held: f32, the forward within 2e-5, dx
+and each parameter gradient within 1e-4 of its max abs; bf16, the forward
+bit for bit, dx and each gradient within 1e-2 of its max abs (the bf16
+backward's bound against its plain version, ``tests/test_torch_cuda.py``
+``GRAD_TOL``).  Without a CUDA card it exits 2 and prints nothing.
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ LAYER_CASES = {
     "seed_spread": (32, 32, 384, 12, 48, "float32"), "eval_f32": (256, 32, 384, 12, 48, "float32"),
     "flagship_f32": (128, 32, 128, 8, 512, "float32"), "s64_f32": (8, 64, 128, 8, 512, "float32"),
 }
-LAYER_TOL = {"forward": 2e-5, "backward": 1e-4}  # tests/test_torch_cuda.py's f32 bounds
+# tests/test_torch_cuda.py's bounds: f32 y (abs) and gradients (of their max
+# abs); bf16 y bit for bit (0), gradients as GRAD_TOL
+LAYER_TOL = {"float32": {"forward": 2e-5, "backward": 1e-4},
+             "bfloat16": {"forward": 0.0, "backward": 1e-2}}
 
 
 def digest(*tensors) -> str:
@@ -188,22 +193,22 @@ def layer_digests(outputs: dict) -> dict[str, str]:
     return out
 
 
-def hold_f32_layer(outputs: dict, saved: dict) -> bool:
-    """This run's f32 layer outputs against ``saved`` (another checkout's):
-    y within LAYER_TOL's forward bound, dx and each gradient within its
+def hold_layer(outputs: dict, saved: dict) -> bool:
+    """This run's layer outputs against ``saved`` (another checkout's): y
+    within LAYER_TOL's forward bound, dx and each gradient within its
     backward bound of the saved one's max abs; prints each case's worst."""
     ok = True
     for case, t in outputs.items():
-        if "float32" not in case:
-            continue
+        tol = LAYER_TOL["float32" if "float32" in case else "bfloat16"]
         want = saved[case]
-        fwd = float((t["y"].float() - want["y"].cuda()).abs().max())
-        rels = [float((g - w.cuda()).abs().max() / w.abs().max().clamp(min=1e-30))
+        fwd = float((t["y"].float() - want["y"].cuda().float()).abs().max())
+        rels = [float((g.float() - w.cuda().float()).abs().max()
+                      / w.float().abs().max().clamp(min=1e-30))
                 for g, w in zip([t["dx"], *t["grads"]], [want["dx"], *want["grads"]])]
-        good = fwd <= LAYER_TOL["forward"] and max(rels) <= LAYER_TOL["backward"]
+        good = fwd <= tol["forward"] and max(rels) <= tol["backward"]
         ok &= good
         print(f"{case}: y max abs {fwd:.3g}, dx and grads worst relative {max(rels):.3g} "
-              f"({'within' if good else 'OUTSIDE'} {LAYER_TOL})", file=sys.stderr)
+              f"({'within' if good else 'OUTSIDE'} {tol})", file=sys.stderr)
     return ok
 
 
@@ -212,9 +217,9 @@ def main() -> int:
     ap.add_argument("--tree", default=str(pathlib.Path(__file__).resolve().parents[2]),
                     help="the checkout whose port to import")
     ap.add_argument("--out", default=None, help="also write the JSON object here")
-    ap.add_argument("--tensors", default=None, help="save the f32 layer outputs here")
+    ap.add_argument("--tensors", default=None, help="save the layer outputs here")
     ap.add_argument("--against", default=None,
-                    help="hold the f32 layer outputs to those saved here by --tensors")
+                    help="hold the layer outputs to those saved here by --tensors")
     args = ap.parse_args()
 
     import torch
@@ -232,8 +237,8 @@ def main() -> int:
     if args.tensors:
         torch.save({k: {"y": v["y"].cpu(), "dx": v["dx"].cpu(),
                         "grads": [g.cpu() for g in v["grads"]]}
-                    for k, v in layers.items() if "float32" in k}, args.tensors)
-    if args.against and not hold_f32_layer(layers, torch.load(args.against)):
+                    for k, v in layers.items()}, args.tensors)
+    if args.against and not hold_layer(layers, torch.load(args.against)):
         return 1
     return 0
 

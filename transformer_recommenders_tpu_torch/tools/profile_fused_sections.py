@@ -2,8 +2,8 @@
 the backward's time goes.
 
     python -m transformer_recommenders_tpu_torch.tools.profile_fused_sections \\
-        [--shape flagship|train|seed_spread|tiny] [--dtype bfloat16|float32]
-        [--dropout RATE] [--tree PATH] [--out PATH]
+        [--shape flagship|train|seed_spread|quality|path_b|path_c|tiny]
+        [--dtype bfloat16|float32] [--dropout RATE] [--tree PATH] [--out PATH]
 
 Counterpart of the JAX package's ``scripts/profile_fused_sections.py``,
 with its method: each cumulative section variant of the layer's kernels
@@ -21,7 +21,11 @@ and ``full`` takes its section.
 Shapes: ``flagship`` is the JAX script's (B=256, S=32, D=128, 8 heads, FFN
 512), ``train`` the flagship train step's batch (B=128), ``seed_spread``
 the reference topology's layer at the seed spread's batch (B=32, S=32,
-D=384, 12 heads, FFN 48), ``tiny`` a smoke (4/8/32/4/64).  As in the JAX
+D=384, 12 heads, FFN 48), ``quality`` the same layer at the quality run's
+batch (B=256, bf16, dropout 0.1: ``tools/quality_run.py``), ``path_b``
+at ``ml1m_reference.yaml``'s train batch (B=32), ``path_c`` at
+``ml100k_bpr.yaml``'s width (B=128, D=64, 4 heads, FFN 256), ``tiny`` a
+smoke (4/8/32/4/64).  As in the JAX
 script by default: bf16, causal, dropout 0.1 on the attention and the
 hidden sites with seeds (1, 2, 3), every valid key, the weights of
 ``init_transformer_params`` (here from a seeded ``torch.Generator``)
@@ -47,6 +51,9 @@ SHAPES = {
     "flagship": dict(b=256, s=32, d=128, h=8, f=512),
     "train": dict(b=128, s=32, d=128, h=8, f=512),
     "seed_spread": dict(b=32, s=32, d=384, h=12, f=48),
+    "quality": dict(b=256, s=32, d=384, h=12, f=48),
+    "path_b": dict(b=32, s=32, d=384, h=12, f=48),
+    "path_c": dict(b=128, s=32, d=64, h=4, f=256),
     "tiny": dict(b=4, s=8, d=32, h=4, f=64),
 }
 DTYPES = ("bfloat16", "float32")
@@ -128,9 +135,10 @@ def pass_split(fn, n: int = 5) -> dict | None:
 
 
 # csrc/fused_layer.cu's backward kernels by pass, as the profiler names
-# them: pass 0 (the weights rounded to bf16) runs only under bf16, and the
-# last pass is vector_grad (f32) or grad_reduce (bf16)
-PASS_KERNELS = {"pass0": ("round_weights",), "pass1": ("fused_layer_bwd_rows",),
+# them: pass 0 (the weights rounded to bf16 and packed; round_weights before
+# the packed layout, for --tree) runs only under bf16, and the last pass is
+# vector_grad (f32) or grad_reduce (bf16)
+PASS_KERNELS = {"pass0": ("pack_weights", "round_weights"), "pass1": ("fused_layer_bwd_rows",),
                 "pass2": ("weight_grad",), "pass3": ("vector_grad", "grad_reduce")}
 
 
