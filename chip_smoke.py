@@ -32,7 +32,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 4. the training path's kernels (the fused-layer and gather backwards, the
    table-scored InfoNCE forward and backward) against their plain versions
    at the training shapes (the gather backward bit for bit: its plain
-   version sums in the kernel's order; the table kernels as the pool
+   version sums in the kernel's order; its grouping kernel against
+   ``torch.sort(stable=True)``, and its time beside the grouping's own, the
+   sort path (``torch.sort`` and the passes) and ``index_add_``,
+   at the hot and logging steps' shapes; the table kernels as the pool
    kernels in phase 6: on Gaussian inputs ce on the rows without a
    near-tie, which alone take a cotangent, their count printed, and on
    exact-sum inputs every row; two calls bit for bit), with their times,
@@ -864,14 +867,63 @@ def time_layer_bwd(gen, seeds, *, b, s, d, h, f, dtype_name: str = "bfloat16",
             "library_ms": library_ms, "passes_ms": passes}
 
 
+def time_gather_bwd(name: str, idx, g, n: int, plain: bool = True) -> dict:
+    """#2 at one main-path shape (bf16 cotangents into an (n, D) bf16
+    catalog), after holding its grouping against ``torch.sort(stable=True)``
+    on every in-range position.  Device times (CUDA-graph replays): the
+    function as the main path calls it (``ms``: the grouping kernel, then
+    the two passes), the grouping alone, the sort path (``torch.sort`` of
+    the int64 indices, then the passes with pass 2 searching the sorted
+    indices: the same bits without the grouping kernel), ``torch.sort``
+    alone, the plain version and ``index_add_``.
+    Bounds: the function's rows and indices read and catalog written once;
+    the grouping's indices read and order written once."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import gather_matmul as gm
+
+    r, d = g.shape
+    keys, order, _ = gm._group_cuda(idx, n)
+    sorted_idx, sorted_rows = torch.sort(idx, stable=True)
+    valid = (sorted_idx >= 0) & (sorted_idx < n)
+    if not (torch.equal(keys.long()[valid], sorted_idx[valid])
+            and torch.equal(order.long()[valid], sorted_rows[valid])):
+        raise AssertionError(f"gather_rows_bwd {name}: the grouping is not the stable sort")
+    acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
+    t = {
+        "ms": time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)),
+        "group_ms": time_ms(lambda: gm._group_cuda(idx, n)),
+        "sort_path_ms": time_ms(lambda: gm._segment_sum_cuda(
+            g, *torch.sort(idx, stable=True), n, torch.bfloat16)),
+        "sort_ms": time_ms(lambda: torch.sort(idx, stable=True)),
+        # the plain version is a loop over a chunk's rows: over a second a
+        # call at the scale's shape
+        "plain_ms": time_ms(lambda: gm.gather_rows_backward_reference(
+            g, idx, n, torch.bfloat16)) if plain else None,
+        "library_ms": time_ms(lambda: acc.index_add_(0, idx, g)),
+        "padding_rows": int((idx == 0).sum()),
+    }
+    t["bound_ms"], t["bound_by"] = bound(0, r * (d * 2 + idx.element_size()) + n * d * 2,
+                                         H100_BF16_FLOPS)
+    t["group_bound_ms"], _ = bound(0, r * (idx.element_size() + 4), H100_BF16_FLOPS)
+    log(f"  gather_rows_bwd {name} R={r} ({t['padding_rows']} on the padding row) N={n} D={d} "
+        f"bf16, the grouping the stable sort's on every in-range position; device time: "
+        f"function {t['ms']:.4f} ms (grouping {t['group_ms']:.4f} ms, bound "
+        f"{t['group_bound_ms']:.6f}), the sort path (torch.sort and the passes) "
+        f"{t['sort_path_ms']:.4f} ms, torch.sort(stable=True) {t['sort_ms']:.4f} ms, plain "
+        + (f"{t['plain_ms']:.4f} ms" if plain else "not timed (over a second a call)")
+        + f", index_add_ (bf16 atomics) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
+        f"({t['bound_by']}); {t['sort_path_ms'] / t['ms']:.2f}x the sort path's speed, "
+        f"{t['library_ms'] / t['ms']:.2f}x index_add_'s speed")
+    return t
+
+
 def check_gather_bwd() -> dict:
     """#2 against its plain version, which sums in the kernel's order: bit
     for bit, and two calls give the same bits.  Times at the hot step's
     shape (the 128 x 32 history rows into the projected 3,707 x 128 bf16
     catalog) and the logging step's (history, positives and negatives:
-    3 x 128 x 32 rows): the kernel (its two passes over indices sorted
-    beforehand), the wrapper's stable sort, the wrapper (sort and kernel),
-    the plain version and ``index_add_``."""
+    3 x 128 x 32 rows), by ``time_gather_bwd``."""
     import numpy as np
     import torch
 
@@ -906,29 +958,9 @@ def check_gather_bwd() -> dict:
     batch = train_batch(np.random.default_rng(0), 128, 32, 3706)
     for name, keys in (("hot", ("history_item_idx",)),
                        ("logging", ("history_item_idx", "pos_item_idx", "neg_item_idx"))):
-        n, d = 3707, 128
         idx = torch.from_numpy(np.concatenate([batch[k].reshape(-1) for k in keys])).long().cuda()
-        r = idx.numel()
-        g = torch.randn(r, d, generator=gen).to("cuda", torch.bfloat16)
-        sorted_idx, order = torch.sort(idx, stable=True)
-        acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
-        t = {
-            "ms": time_ms(lambda: gm._segment_sum_cuda(g, sorted_idx, order, n, torch.bfloat16)),
-            "sort_ms": time_ms(lambda: torch.sort(idx, stable=True)),
-            "with_sort_ms": time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)),
-            "plain_ms": time_ms(lambda: gm.gather_rows_backward_reference(g, idx, n,
-                                                                          torch.bfloat16)),
-            "library_ms": time_ms(lambda: acc.index_add_(0, idx, g)),
-        }
-        # each cotangent row and index read once, each catalog row written once
-        t["bound_ms"], t["bound_by"] = bound(0, r * (d * 2 + 8) + n * d * 2, H100_BF16_FLOPS)
-        t["padding_rows"] = int((idx == 0).sum())
-        times[name] = t
-        log(f"  gather_rows_bwd {name} R={r} ({t['padding_rows']} on the padding row) N={n} "
-            f"D={d} bf16, device time: kernel {t['ms']:.4f} ms, the wrapper's stable sort "
-            f"{t['sort_ms']:.4f} ms, wrapper (sort and kernel) {t['with_sort_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, index_add_ (bf16 atomics) {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
+        g = torch.randn(idx.numel(), 128, generator=gen).to("cuda", torch.bfloat16)
+        times[name] = time_gather_bwd(name, idx, g, 3707)
     return {
         "name": "gather_rows_bwd", "route": "cuda",
         "source": "transformer_recommenders_tpu_torch/csrc/gather_rows.cu",
@@ -3764,29 +3796,13 @@ def check_scale_gather() -> dict:
     want = gm.gather_rows_backward_reference(g, idx, n, torch.bfloat16)
     torch.cuda.synchronize()
     ok = torch.equal(table.grad, want) and torch.equal(table.grad, again)
-    sorted_idx, order = torch.sort(idx, stable=True)
-    acc = torch.zeros(n, d, dtype=torch.bfloat16, device="cuda")
-    t = {
-        "ms": time_ms(lambda: gm._segment_sum_cuda(g, sorted_idx, order, n, torch.bfloat16)),
-        "sort_ms": time_ms(lambda: torch.sort(idx, stable=True)),
-        "with_sort_ms": time_ms(lambda: gm._gather_bwd_cuda(g, idx, n, torch.bfloat16)),
-        # the plain version is a loop over a chunk's rows: 1.48 s a call here
-        "plain_ms": None,
-        "library_ms": time_ms(lambda: acc.index_add_(0, idx, g)),
-        "padding_rows": int((idx == 0).sum()),
-    }
-    t["bound_ms"], t["bound_by"] = bound(0, r * (d * 2 + 8) + n * d * 2, H100_BF16_FLOPS)
-    log(f"  gather_rows_bwd hot_B256 R={r} ({t['padding_rows']} on the padding row) N={n} D={d} "
-        f"bf16: {'bit for bit' if ok else 'DIFFERS from'} its plain version (which sums in the "
+    log(f"  gather_rows_bwd hot_B256 R={r} N={n} D={d} bf16: "
+        f"{'bit for bit' if ok else 'DIFFERS from'} its plain version (which sums in the "
         f"kernel's order), two calls "
-        f"{'bit for bit' if torch.equal(table.grad, again) else 'DIFFER'}"
-        f"; device time: kernel {t['ms']:.4f} ms, the wrapper's stable sort {t['sort_ms']:.4f} ms, "
-        f"wrapper (sort and kernel) {t['with_sort_ms']:.4f} ms, plain not timed (a loop over "
-        f"a chunk's rows, more than a second a call), "
-        f"index_add_ (bf16 atomics) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-        f"({t['bound_by']})")
+        f"{'bit for bit' if torch.equal(table.grad, again) else 'DIFFER'}")
     if not ok:
         raise AssertionError("gather_rows_bwd disagrees with its plain version at scale")
+    t = time_gather_bwd("hot_B256", idx, g, n, plain=False)
     return {"gather_rows": times, "gather_rows_bwd": {"hot_B256": t}}
 
 

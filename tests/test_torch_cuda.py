@@ -423,6 +423,76 @@ def test_gather_backward_kernel_sums_in_the_plain_order(cuda, dtype):
     assert not first[n // 2:].any() and first[0].abs().sum() > 0
 
 
+# the gathers whose gradient the main path takes: the flagship's hot and
+# logging (A) steps into its projected catalog, and the scale
+# configuration's hot step at B=256 (``chip_smoke.py`` phases 4 and 17);
+# and R a multiple of no warp step, item group, tile or chunk: (N, D, R,
+# rows on the padding row 0)
+GROUP_SHAPES = {"hot": (3707, 128, 4096, 1472), "A": (3707, 128, 12288, 4701),
+                "scale": (62001, 256, 98304, 36892), "ragged": (1000, 72, 5001, 1700)}
+
+
+def _group_case(cuda, shape, idx_dtype):
+    n, d, r, pad = GROUP_SHAPES[shape]
+    gen = torch.Generator().manual_seed(r)
+    idx = torch.randint(1, n, (r,), generator=gen)
+    idx[torch.randperm(r, generator=gen)[:pad]] = 0
+    idx[:5] = torch.tensor([-1, n, n + 7, -3, n])
+    return n, d, idx.to(cuda, idx_dtype), gen
+
+
+@pytest.mark.parametrize("shape", list(GROUP_SHAPES))
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_grouping_kernel_is_the_stable_sort(cuda, shape, idx_dtype, tiled):
+    """The grouping kernel (as planned: one block but at the scale; or
+    forced to tiles) places every in-range row where
+    ``torch.sort(stable=True)`` does, every out-of-range index as -1 or N,
+    and gives each bucket's bounds."""
+    n, _, idx, _ = _group_case(cuda, shape, idx_dtype)
+    keys, order, bounds = gm._group_cuda(idx, n, tiled=tiled)
+    sorted_idx, sorted_rows = torch.sort(idx.long(), stable=True)
+    torch.cuda.synchronize()
+    valid = (sorted_idx >= 0) & (sorted_idx < n)
+    assert torch.equal(keys.long()[valid], sorted_idx[valid])
+    assert torch.equal(order.long()[valid], sorted_rows[valid])
+    assert torch.equal(keys.long(), sorted_idx.clamp(-1, n))
+    counts = torch.bincount(idx.long().clamp(-1, n) + 1, minlength=n + 2)
+    first = torch.cat([counts.new_zeros(1), counts.cumsum(0)[:-1]])
+    bounds = bounds.long()
+    assert torch.equal(bounds[:, 1] - bounds[:, 0], counts)
+    assert torch.equal(bounds[counts > 0, 0], first[counts > 0])
+
+
+@pytest.mark.parametrize("shape", list(GROUP_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_backward_bits_eager_twice_and_graphed(cuda, shape, dtype):
+    """The backward as the main path calls it (the grouping kernel, then
+    the two passes) equals the plain version bit for bit, two calls give
+    the same bits, and a CUDA-graph capture of it, replayed, gives the
+    eager call's bits."""
+    n, d, idx, gen = _group_case(cuda, shape, torch.int64)
+    g = torch.randn(idx.numel(), d, generator=gen).to(cuda, dtype)
+    cuda_build.reset_launches()
+    first = gm._gather_bwd_cuda(g, idx, n, dtype)
+    second = gm._gather_bwd_cuda(g, idx, n, dtype)
+    assert cuda_build.LAUNCHES["gather_rows_bwd"] == 2
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gm._gather_bwd_cuda(g, idx, n, dtype)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        graphed = gm._gather_bwd_cuda(g, idx, n, dtype)
+    graph.replay()
+    want = gather_rows_backward_reference(g, idx, n, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want)
+    assert torch.equal(first, second)
+    assert torch.equal(graphed, first)
+
+
 def _f32_layer_case(cuda, b, s, d, h, f, mask_kind, seed):
     """f32 inputs, weights and a cotangent at (b, s, d, h, f) with a key
     mask: a padded tail on the first and last sequences (``tail``), or

@@ -23,6 +23,7 @@ from transformer_recommenders_tpu.ops.gather_matmul import gather_rows as jax_ga
 from transformer_recommenders_tpu_torch.ops.gather_matmul import (
     gather_rows,
     gather_rows_backward_reference,
+    group_rows_reference,
 )
 
 
@@ -119,3 +120,57 @@ def test_backward_reference_sums_in_row_order_and_skips_out_of_range():
     got = gather_rows_backward_reference(g, idx, 4, torch.float32)
     torch.testing.assert_close(got, torch.tensor([[0.0, 0.0], [0.0, 0.0], [6.0, 8.0], [0.0, 0.0]]))
     assert gather_rows_backward_reference(g, idx, 4, torch.bfloat16).dtype == torch.bfloat16
+
+
+def _grouping_case(case: str, rng):
+    """(indices, N) for one grouping case."""
+    if case == "skewed":  # a train batch: a third of the rows on the padding row 0
+        n, r = 3707, 4096
+        idx = rng.integers(1, n, size=r)
+        idx[rng.random(r) < 1 / 3] = 0
+    elif case == "out_of_range":  # negative and >= N indices of several values
+        n, r = 50, 999
+        idx = rng.integers(-7, n + 7, size=r)
+    elif case == "one_row":
+        n, idx = 20, np.array([13])
+    elif case == "one_table_row":
+        n, idx = 1, rng.integers(-2, 3, size=300)
+    elif case == "all_equal":
+        n, idx = 300, np.full(1000, 17)
+    else:  # "ragged": R a multiple of no warp step, part or chunk
+        n, r = 257, 32 * 64 * 3 + 17
+        idx = rng.integers(-1, n + 1, size=r)
+    return idx, n
+
+
+def _assert_bounds(bounds, idx, n):
+    """Each bucket's first position and one past its last (an empty
+    bucket's two equal), against the counts of ``clamp(idx, -1, n) + 1``."""
+    counts = torch.bincount(idx.long().clamp(-1, n) + 1, minlength=n + 2)
+    first = torch.cat([counts.new_zeros(1), counts.cumsum(0)[:-1]])
+    assert torch.equal(bounds[:, 1] - bounds[:, 0], counts)
+    assert torch.equal(bounds[counts > 0, 0], first[counts > 0])
+
+
+@pytest.mark.parametrize("case", ["skewed", "out_of_range", "one_row", "one_table_row",
+                                  "all_equal", "ragged"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize(("bits", "items"), [(4, 4), (4, 12), (8, 16), (3, 5)])
+def test_grouping_reference_is_the_stable_sort(case, idx_dtype, bits, items):
+    """The backward's grouping as ``csrc/gather_rows.cu`` runs it (an LSD
+    radix sort of the buckets ``clamp(idx, -1, N) + 1``, ``bits`` a pass,
+    each owner of ``items`` consecutive positions counting its own; the
+    one-block kernel's 4 and the tiled kernel's 8 and 16, and an odd
+    plan), in torch ops, against ``torch.sort(stable=True)``: the same keys
+    and rows on every in-range position, every out-of-range key as -1 or N,
+    and each bucket's bounds."""
+    idx, n = _grouping_case(case, np.random.default_rng(len(case) + bits + items))
+    idx = torch.from_numpy(idx).to(idx_dtype)
+    keys, order, bounds = group_rows_reference(idx, n, bits=bits, items=items)
+    sorted_idx, sorted_rows = torch.sort(idx.long(), stable=True)
+    valid = (sorted_idx >= 0) & (sorted_idx < n)
+    assert torch.equal(keys[valid], sorted_idx[valid])
+    assert torch.equal(order[valid], sorted_rows[valid])
+    assert torch.equal(keys, sorted_idx.clamp(-1, n))
+    assert sorted(order.tolist()) == list(range(idx.numel()))
+    _assert_bounds(bounds, idx, n)

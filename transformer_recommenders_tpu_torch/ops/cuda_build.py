@@ -86,9 +86,13 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             # an empty kernel on gather_rows_fwd's grid: D, R, out_is_bf16,
             # stream
             "gather_rows_launch_floor": [_I, _I, _I, _P],
-            # g, sorted idx (int64), order (int64), dtable, partial sums
-            # (f32 workspace), N, D, R, g_is_bf16, dtable_is_bf16, stream
-            "gather_rows_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            # idx, int32 workspace (keys, order, bounds, the tiled sort's buffers), N, R,
+            # idx_is_64, tiled (1 forces the tiled sort), stream
+            "gather_rows_group": [_P, _P, _I, _I, _I, _I, _P],
+            # g, sorted idx, order, bounds (or null), idx_is_64, dtable,
+            # partial sums (f32 workspace), N, D, R, g_is_bf16,
+            # dtable_is_bf16, stream
+            "gather_rows_bwd": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
         },
     ),
     "fused_table_infonce": (

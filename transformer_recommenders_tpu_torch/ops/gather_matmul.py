@@ -7,7 +7,8 @@ Counterpart of ``transformer_recommenders_tpu/ops/gather_matmul.py``
 and its transpose as one-hot MXU matmuls because row gathers and scatters
 are slow there; the functions are the same here (an index outside
 ``[0, N)`` gives a zero row and receives no gradient) and the kernels are a
-row copy and a segmented reduction over the sorted indices.
+row copy and, for the gradient, a stable radix sort of the rows by index
+(the grouping) and a segmented reduction over the sorted rows.
 
 Rows: a bf16 table is copied as it is; an f32 table gives bf16-rounded
 rows (the JAX kernel's values) or exact f32 rows (the JAX package reaches
@@ -31,6 +32,7 @@ from transformer_recommenders_tpu_torch.ops import cuda_build
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _CHUNK = 64  # csrc/gather_rows.cu kChunk: sorted positions a block of pass 1 sums
+_GROUP_TILE = 4096  # csrc/gather_rows.cu kTile: positions a tile of the tiled grouping sorts
 
 
 def gather_rows_reference(
@@ -87,6 +89,62 @@ def gather_rows_backward_reference(
     return dtable[:num_rows].to(table_dtype)
 
 
+def _radix_pass_reference(keys, rows, shift: int, bits: int, items: int):
+    """One pass of the grouping's radix sort (``csrc/gather_rows.cu``):
+    ``keys`` (clamped indices) and ``rows`` stably sorted by the digit
+    ``((keys + 1) >> shift) % 2**bits``.  Owner ``o`` holds positions
+    ``[o * items, (o + 1) * items)`` and counts them by digit; the counts of
+    (digit, owner) scanned in digit-major order give each its first
+    position, and each owner places its positions in order."""
+    n = keys.numel()
+    digit = ((keys + 1) >> shift) & ((1 << bits) - 1)
+    owners = -(-n // items)
+    owner = torch.arange(n, device=keys.device) // items
+    cell = digit * owners + owner
+    counts = torch.bincount(cell, minlength=(1 << bits) * owners)
+    first = counts.cumsum(0) - counts
+    # a position's rank among its owner's earlier positions of its digit
+    onehot = torch.nn.functional.one_hot(
+        torch.cat([digit, digit.new_zeros(owners * items - n)]), 1 << bits).view(owners, items, -1)
+    rank = (onehot.cumsum(1) - onehot).view(-1, 1 << bits)[:n].gather(1, digit[:, None])[:, 0]
+    pos = first[cell] + rank
+    out_keys, out_rows = torch.empty_like(keys), torch.empty_like(rows)
+    out_keys[pos], out_rows[pos] = keys, rows
+    return out_keys, out_rows
+
+
+def group_rows_reference(idx: torch.Tensor, num_rows: int, bits: int = 4, items: int = 4):
+    """The backward's grouping, the algorithm of ``csrc/gather_rows.cu``
+    (``gather_rows_group``) in torch ops: ``(keys, order, bounds)``, the
+    indices sorted stably (every negative one as -1, every one at or above
+    ``num_rows`` as ``num_rows``), the row each came from, and, for each
+    bucket ``clamp(idx, -1, num_rows) + 1``, its first position and one
+    past its last (``(num_rows + 2, 2)``; an empty bucket's two are equal).
+    On every in-range position, keys and order are ``torch.sort(idx,
+    stable=True)``'s.
+
+    An LSD radix sort of the buckets, ``bits`` a pass (the one-block kernel
+    4 with ``items`` a thread, the tiled one 8 with 16), then the bounds
+    from the positions where the bucket changes."""
+    keys = idx.reshape(-1).long().clamp(-1, num_rows)
+    order = torch.arange(keys.numel(), device=keys.device)
+    top = max(1, int(num_rows + 1).bit_length())  # the bits of the largest bucket
+    for shift in range(0, top, bits):
+        keys, order = _radix_pass_reference(keys, order, shift, bits, items)
+    # a position whose bucket differs from the one before starts its bucket
+    # and ends that one
+    bucket = keys + 1
+    bounds = torch.zeros(num_rows + 2, 2, dtype=torch.long, device=keys.device)
+    change = torch.ones_like(bucket, dtype=torch.bool)
+    change[1:] = bucket[1:] != bucket[:-1]
+    pos = torch.arange(keys.numel(), device=keys.device)
+    bounds[bucket[change], 0] = pos[change]
+    last = torch.roll(change, -1)
+    last[-1:] = True
+    bounds[bucket[last], 1] = pos[last] + 1
+    return keys, order, bounds
+
+
 def _check(table: torch.Tensor, idx: torch.Tensor, out_dtype) -> None:
     if table.device.type != "cuda" or idx.device != table.device:
         msg = f"gather_rows: table on {table.device}, idx on {idx.device}"
@@ -124,27 +182,51 @@ def launch_floor(d: int, r: int, out_dtype, device) -> None:
     cuda_build.check(status, "gather_rows_launch_floor launch")
 
 
+def _group_cuda(idx: torch.Tensor, num_rows: int, tiled: bool = False):
+    """The grouping kernel (``gather_rows_group``): ``(keys, order,
+    bounds)`` as :func:`group_rows_reference` gives them, int32 views of
+    one workspace.  One block where the shape allows it; ``tiled`` forces
+    the tiled sort."""
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int64)
+    idx = idx.contiguous()
+    r, n = idx.numel(), num_rows
+    tiles = -(-r // _GROUP_TILE)
+    ws = torch.empty(4 * r + 2 * (n + 2) + 256 * tiles, dtype=torch.int32, device=idx.device)
+    status = cuda_build.library("gather_rows").gather_rows_group(
+        idx.data_ptr(), ws.data_ptr(), n, r, int(idx.dtype == torch.int64), int(tiled),
+        cuda_build.stream_handle(idx.device),
+    )
+    cuda_build.check(status, "gather_rows_group launch")
+    return ws[:r], ws[r:2 * r], ws[2 * r:2 * r + 2 * (n + 2)].view(n + 2, 2)
+
+
 def _gather_bwd_cuda(g: torch.Tensor, idx: torch.Tensor, num_rows: int, table_dtype):
-    sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
-    return _segment_sum_cuda(g, sorted_idx, order, num_rows, table_dtype)
+    keys, order, bounds = _group_cuda(idx, num_rows)
+    dtable = _segment_sum_cuda(g, keys, order, num_rows, table_dtype, bounds)
+    cuda_build.LAUNCHES["gather_rows_bwd"] += 1
+    return dtable
 
 
 def _segment_sum_cuda(g: torch.Tensor, sorted_idx: torch.Tensor, order: torch.Tensor,
-                      num_rows: int, table_dtype) -> torch.Tensor:
+                      num_rows: int, table_dtype, bounds: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """The backward kernel's two passes over stably sorted indices and the
-    row each came from."""
+    row each came from (int32 or int64, one dtype), with each bucket's
+    bounds from the grouping, or without (pass 2 then searches the sorted
+    indices)."""
     g = g.contiguous()  # the cotangent of a bf16 or f32 output (``_check``)
     r, d = g.shape
     dtable = torch.empty((num_rows, d), dtype=table_dtype, device=g.device)
     partial = torch.empty((2 * -(-r // _CHUNK), d), dtype=torch.float32, device=g.device)
     lib = cuda_build.library("gather_rows")
     status = lib.gather_rows_bwd(
-        g.data_ptr(), sorted_idx.data_ptr(), order.data_ptr(), dtable.data_ptr(),
-        partial.data_ptr(), num_rows, d, r, int(g.dtype == torch.bfloat16),
-        int(table_dtype == torch.bfloat16), cuda_build.stream_handle(g.device),
+        g.data_ptr(), sorted_idx.data_ptr(), order.data_ptr(), cuda_build.pointer(bounds),
+        int(sorted_idx.dtype == torch.int64), dtable.data_ptr(), partial.data_ptr(), num_rows,
+        d, r, int(g.dtype == torch.bfloat16), int(table_dtype == torch.bfloat16),
+        cuda_build.stream_handle(g.device),
     )
     cuda_build.check(status, "gather_rows_bwd launch")
-    cuda_build.LAUNCHES["gather_rows_bwd"] += 1
     return dtable
 
 
