@@ -189,10 +189,35 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the untrained model's, printed beside JAX's 0.0389.  Each fit's
     launches must be exactly its hot steps' (graph warm-ups included),
     logging steps' and validations'; they are the kernels line's path
-    ``quality``, and (a)'s times its rows' ``by_shape`` entries.
+    ``quality``, and (a)'s times its rows' ``by_shape`` entries;
+19. the ML-1M parity protocol of ``scripts/parity_ml1m.py``
+    (``tools/quality_run.py parity-ml1m``) and the serving bench
+    (``tools/bench_serving.py``): (a) #7-#9 at the d=64 configs' 1,024
+    pool rows of 64, #10-#12 there and at the reference shape's 1,024 rows
+    of 384, for BPR (margin 0) and CCL (margin 0.5), against their plain
+    versions as phases 6 and 8 hold them, timed (``by_shape`` entries);
+    (b) one hot step of each of the five d=64 configs (on the first batch
+    of the fit's own data, the native sampler's where it builds) and of the
+    reference shape's three, against the CPU's plain path; under the 32
+    hard negatives the positions whose mask may differ between the card and
+    the CPU are left out first (where the masks differ, and the near ties
+    at the k-th place and at the positive), and the step must launch none
+    of #5-#12; (c) the lookahead-8 fit's data keyed by its lookahead, and
+    its sampler's positives all within 8 events of their query (the
+    unbounded sampler's not); (d) seed 0 of the InfoNCE, hard32 and
+    lookahead8 fits at ML-1M's shape, each mean at or above its range's
+    lower edge (PARITY_ML1M.json's two columns widened by the seed spread's
+    relative range) and hard32 above InfoNCE, each fit's launches exactly
+    its steps' and validations', hard32's none of #5-#12; (e) one short run
+    of each bench mode (http, device, workers; 4 clients, 64 requests, 2
+    workers) on the card, every request answered 200 and the JAX scripts'
+    keys in each record.
 
 ``--only-scale`` runs phases 1 and 17 alone (and prints no kernels line);
 ``--only-quality`` phases 1 and 18 (no kernels line either);
+``--only-parity`` phases 1 and 19 (a)-(d), (d) with every config at 3
+seeds and both shapes; ``--only-serving`` phases 1 and 19 (e) with each
+mode at its defaults (neither prints a kernels line);
 ``--scale-uncut`` runs phase 17's fit over all 25M events and the whole
 epoch, and tests and predicts every user (~9 minutes more).
 
@@ -2013,6 +2038,12 @@ def main() -> int:
                         help="phases 1 and 17 alone (no kernels line)")
     parser.add_argument("--only-quality", action="store_true",
                         help="phases 1 and 18 alone (no kernels line)")
+    parser.add_argument("--only-parity", action="store_true",
+                        help="phases 1 and 19's parity part with the full protocol (every "
+                             "config at 3 seeds, both shapes; no kernels line)")
+    parser.add_argument("--only-serving", action="store_true",
+                        help="phases 1 and 19's serving bench at each mode's defaults (no "
+                             "kernels line)")
     parser.add_argument("--scale-uncut", action="store_true",
                         help="phase 17's fit over ML-25M's 25M events and the whole epoch, its "
                              "test and predict over every user (~9 minutes more)")
@@ -2036,21 +2067,27 @@ def main() -> int:
     log(f"device: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # phase 17's data, generated beside the earlier phases
+    # phase 17's and phase 19's data, generated beside the earlier phases
     scale_dir = tempfile.TemporaryDirectory()
     scale_data = pathlib.Path(scale_dir.name) / "data"
+    parity_root = pathlib.Path(scale_dir.name) / "parity"
     events = ML25M_SCALE["synthetic_num_events"] if args.scale_uncut else SCALE_EVENTS
-    data_job = None if args.only_quality else start_scale_data(scale_data, events)
+    only = args.only_scale or args.only_quality or args.only_parity or args.only_serving
+    data_job = (start_scale_data(scale_data, events) if args.only_scale or not only
+                else None)
+    parity_job = (start_parity_data(parity_root) if args.only_parity or not only else None)
     try:
-        return run_phases(args, smi, data_job, scale_data)
+        return run_phases(args, smi, data_job, scale_data, parity_root)
     finally:
-        if data_job is not None and data_job.poll() is None:
-            data_job.kill()
-            data_job.wait()
+        for job in (data_job, parity_job):
+            if job is not None and job.poll() is None:
+                job.kill()
+                job.wait()
         scale_dir.cleanup()
 
 
-def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
+def run_phases(args, smi: str, data_job, scale_data: pathlib.Path,
+               parity_root: pathlib.Path) -> int:
     import torch
 
     from transformer_recommenders_tpu_torch.ops import cuda_build
@@ -2075,6 +2112,17 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
         phase("18: the quality protocols against the JAX package's records")
         quality_phase()
         log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 18 alone)")
+        return 0
+    if args.only_parity:
+        phase("19: the ML-1M parity protocol, every config at 3 seeds, both shapes")
+        parity_phase(parity_root, full=True)
+        log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 19's parity part alone)")
+        return 0
+    if args.only_serving:
+        phase("19 (e): the serving bench, each mode at its defaults")
+        serving_bench_phase(smoke=False)
+        log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 19's serving bench "
+            "alone)")
         return 0
 
     phase("2: the serving path's kernels against their plain versions")
@@ -2160,8 +2208,15 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path) -> int:
     phase("18: the quality protocols against the JAX package's records")
     quality = quality_phase()
     launches["quality"] = quality["launches"]
-    for k in kernels:  # the fits' shapes beside each row's own
-        k["by_shape"] = k.get("by_shape", {}) | quality["by_shape"].get(k["name"], {})
+
+    phase("19: the ML-1M parity protocol and the serving bench")
+    parity = parity_phase(parity_root)
+    launches |= parity["launches"]
+    log(" (e) the serving bench, one short run of each mode")
+    serving_bench_phase()
+    for k in kernels:  # the fits' and the parity steps' shapes beside each row's own
+        k["by_shape"] = (k.get("by_shape", {}) | quality["by_shape"].get(k["name"], {})
+                         | parity["by_shape"].get(k["name"], {}))
     for k in kernels:  # the D=256 and 62k-catalog shapes beside each row's own
         if k["name"].startswith("pairwise_"):
             k["by_shape"] |= {f"scale_{shape}": t[k["name"]]
@@ -2527,7 +2582,8 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
     where its gate admits the split bf16 core), the table-scored InfoNCE
     where the hot step's gate
     admits it, else the pool objective's kernels of the configured loss
-    (the pool InfoNCE or the pairwise ones); the gather's and the pool's
+    (the pool InfoNCE or the pairwise ones), none of them where hard
+    negatives turn the fused loss off; the gather's and the pool's
     backward only where the gathered rows take a gradient, i.e. when they
     are rows of the projected table (a catalog of at most 3 * B * S rows
     is projected before the gather; a frozen, unprojected table takes
@@ -2539,6 +2595,7 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
     from transformer_recommenders_tpu_torch.training import train_state as ts
 
     table_path = not full_logs and ts._table_loss_enabled(cfg, table_rows, pool_rows)
+    fused = ts._fused_loss_enabled(cfg)  # off under hard negatives: the plain objective
     proj = cfg.resolved_input_dim != cfg.hidden_size
     # the fused layer where its gate admits the shape, else the layer stack
     s = cfg.max_seq_length
@@ -2570,7 +2627,7 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
         "attn_core_fwd": core * fwd, "attn_core_bwd": core,
     }
     for prefix in ("pool_infonce", "pairwise"):
-        on = not table_path and prefix == pool
+        on = fused and not table_path and prefix == pool
         counts |= {f"{prefix}_fwd": int(on), f"{prefix}_dq": int(on),
                    f"{prefix}_dn": int(on and proj)}
     return counts
@@ -2621,7 +2678,7 @@ def check_step_against_cpu(cfg, params, table, batch, seeds, *, full_logs: bool,
     t0 = time.perf_counter()
     cpu_loss, cpu_grads, cpu_logs = loss_and_grad(cpu_params, table.cpu(), batch, seeds)
     cpu_s = time.perf_counter() - t0
-    loss_rel = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    loss_rel = abs(float(loss) - float(cpu_loss)) / (abs(float(cpu_loss)) or 1.0)
     errs = {}
     for i, (got, want) in enumerate(zip(tree_leaves(grads), tree_leaves(cpu_grads))):
         got = got.cpu()
@@ -2652,13 +2709,16 @@ def check_step_against_cpu(cfg, params, table, batch, seeds, *, full_logs: bool,
 
 def training_phase(*, device: str = "cuda", config: dict | None = None, num_items: int = 3706,
                    batch_size: int = TRAIN_BATCH, steps: int = 30, timed_steps: int = 20,
-                   full_logs: bool = False) -> dict:
+                   full_logs: bool = False, batch: dict | None = None, emb=None) -> dict:
     """One train step variant on ``device`` (the flagship's hot step by
     default): one step's loss, raw gradients and, with ``full_logs``,
     every log against the CPU's plain path; the launch counts of one step;
     a fixed batch's loss over ``steps`` steps; the eager step time over
     ``timed_steps`` and the device time by kernel (where it is timed).
-    Returns the launch counts of one step."""
+    ``batch`` and ``emb`` (the catalog's rows) replace the synthetic batch
+    and catalog.  Under hard negatives the positions whose mask may differ
+    between the card and the CPU are left out first
+    (:func:`hard_negative_ties`).  Returns the launch counts of one step."""
     import numpy as np
     import torch
 
@@ -2676,13 +2736,19 @@ def training_phase(*, device: str = "cuda", config: dict | None = None, num_item
         if cuda:
             torch.cuda.synchronize()
 
-    _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim, cfg.max_seq_length)
+    if emb is None:
+        _, _, emb = synthetic_records(0, num_items, 0, cfg.resolved_input_dim,
+                                      cfg.max_seq_length)
+    num_items = len(emb)
     table = build_item_table(emb, device=device)
     params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device=device)
     rng = np.random.default_rng(4)
-    batch = train_batch(rng, batch_size, cfg.max_seq_length, num_items)
+    if batch is None:
+        batch = train_batch(rng, batch_size, cfg.max_seq_length, num_items)
     seed_gen = torch.Generator().manual_seed(1)
     seeds = ts.draw_dropout_seeds(seed_gen, cfg)
+    if cfg.num_hard_negatives:
+        batch = hard_negative_ties(cfg, params, table, batch, seeds, device)
     pool = ts.table_pool_rows(cfg, batch)
     expected = expected_launches(cfg, table.shape[0], pool, full_logs)
     objective = "table-scored" if expected["table_infonce_fwd"] else "pool"
@@ -4559,17 +4625,24 @@ def check_quality_kernels() -> dict:
 def expected_eval_launches(cfg, users: int) -> dict:
     """Launches of one validation pass over ``users``: per batch of
     ``eval_batch_size`` users the gather and each fused layer's forward (no
-    dropout at evaluation).  For an unprojected catalog, which passes
-    through no kernel, and a model the fused layer's gate admits."""
+    dropout at evaluation), or, where the gate sends the model to the layer
+    stack, the gather alone.  For an unprojected catalog, which passes
+    through no kernel, and a stack whose attention core runs no kernel
+    (f32, or the masked core)."""
     from transformer_recommenders_tpu_torch.models.transformer import _fused_layer_mode
     from transformer_recommenders_tpu_torch.ops import cuda_build
 
-    if cfg.resolved_input_dim != cfg.hidden_size or not _fused_layer_mode(cfg,
-                                                                          cfg.max_seq_length):
-        raise ValueError("counted only for an unprojected catalog and the fused layer")
+    s = cfg.max_seq_length
+    fused = _fused_layer_mode(cfg, s)
+    impl = cfg.attention_impl if cfg.attention_impl != "auto" else (
+        "masked" if s <= 64 else "split")
+    if cfg.resolved_input_dim != cfg.hidden_size or not (
+            fused or cfg.compute_dtype == "float32" or impl == "masked"):
+        raise ValueError("counted only for an unprojected catalog, and the fused layer or a "
+                         "stack without the attention core's kernels")
     batches = -(-users // cfg.eval_batch_size)
     return dict.fromkeys(cuda_build.KERNELS, 0) | {
-        "gather_rows": batches, "fused_layer": batches * cfg.num_hidden_layers}
+        "gather_rows": batches, "fused_layer": batches * cfg.num_hidden_layers * int(bool(fused))}
 
 
 def check_fit_launches(summary: dict) -> None:
@@ -4667,6 +4740,395 @@ def quality_phase() -> dict:
         raise AssertionError(f"a fit launched no {missing}")
     log(f"  phase 18 took {time.perf_counter() - t_start:.1f} s")
     return {"by_shape": by_shape, "launches": launches}
+
+
+# -- phase 19: the ML-1M parity protocol and the serving bench --------------------
+
+
+# the parity models' loss kernels at the shapes their hot steps give them:
+# #7-#9 at d=64 over the B*S = 64*16 = 1,024 pool rows of the InfoNCE
+# configs (the 3,707-row catalog is over twice the pool: no table
+# kernels), #10-#12 there and at the reference shape's 32*32 rows of 384
+PARITY_POOL = (1024, 1024, 64)  # (R, Rn, D)
+ML1M_ITEMS = 3706  # the parity data's catalog
+PARITY_PAIRWISE = {"ml1m": (1024, 1024, 64), "refshape": (1024, 1024, 384)}
+PARITY_HEADS = {"BPR": ("PairwiseLogisticLoss", 0.0), "CCL": ("ContrastiveLoss", 0.5)}
+# the fits of the default run, seed 0: plain InfoNCE and the two paths no
+# card run had taken before, the mined hard negatives and the windowed
+# positive (--only-parity runs every config at 3 seeds, both shapes)
+PARITY_FITS = ("InfoNCE", "InfoNCE+hard32", "InfoNCE+lookahead8")
+# the fused loss kernels (#5-#12), which hard negatives turn off
+FUSED_LOSS_KERNELS = ("table_infonce_fwd", "table_infonce_bwd", "pool_infonce_fwd",
+                      "pool_infonce_dq", "pool_infonce_dn", "pairwise_fwd", "pairwise_dq",
+                      "pairwise_dn")
+# a near tie of the hard-negative mask, card against CPU: two f32 logits
+# of the plain heads (cuBLAS against the CPU's product: sums in other
+# orders, ~1e-6 relative) within this share of the row's largest |logit|
+HARD_TIE = 2.0**-16
+# the default run's short window of each bench mode
+SERVING_SMOKE = dict(clients=4, requests=64, workers=2)
+# the keys of the JAX scripts' outputs (scripts/bench_serving*.py)
+SERVING_KEYS = {
+    "http": {"clients", "requests_ok", "errors", "qps", "p50_ms", "p95_ms"},
+    "device": {"mode", "backend", "clients", "sweep", "best", "sequential_1_client"},
+    "workers": {"backend", "host_cpus", "clients", "n_workers", "best_config", "speedup"},
+}
+
+
+def start_parity_data(root: pathlib.Path) -> subprocess.Popen:
+    """``SeqDataModule.prepare_data`` of the d=64 parity configs' two data
+    directories (``data_la0``, ``data_la8``) in a child process, started
+    before phase 1 so that it runs beside the earlier phases."""
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    dirs = [Q.parity_configs(spec, 0, str(root))[1] for spec in Q.PARITY_CONFIGS
+            if spec["name"] in ("InfoNCE", "InfoNCE+lookahead8")]
+    import dataclasses
+
+    code = ("import json, sys, time; sys.path.insert(0, sys.argv[1]); t0 = time.perf_counter()\n"
+            "from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig\n"
+            "from transformer_recommenders_tpu_torch.data.module import SeqDataModule\n"
+            "for d in json.loads(sys.argv[2]):\n"
+            "    SeqDataModule(SeqDataModuleConfig.from_dict(d)).prepare_data()\n"
+            "print(f'  parity data: generated and processed in {time.perf_counter() - t0:.1f} s "
+            "(a child process)', flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code, str(REPO),
+                             json.dumps([dataclasses.asdict(d) for d in dirs])])
+
+
+def check_parity_kernels() -> dict:
+    """Phase 19 (a): #7-#9 at (1,024, 1,024, 64) and #10-#12 at 1,024 rows
+    of 64 and of 384 for BPR (the logistic head at margin 0) and CCL (the
+    contrastive head at margin 0.5), against their plain versions as
+    phases 6 and 8 hold them (Gaussian inputs without the near-tie rows,
+    exact-sum inputs on every row, copies of a shared positive dropped bit
+    for bit, two calls bit for bit), timed beside the plain version, the
+    composite of stock calls and the bound.  Returns ``{kernel: {shape:
+    times and max_abs_err}}``, the kernels line's ``by_shape`` entries."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import fused_pairwise as fp
+
+    gen = torch.Generator().manual_seed(19)
+    out: dict = {}
+    r, rn, d = PARITY_POOL
+    errs: dict = {}
+    for inputs in ("gaussian", "exact"):
+        for k, v in hold_pool_infonce(gen, r, rn, d, inputs, True, 1.0).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    check_pool_copies(gen, r, rn, d)
+    times = time_pool_infonce(gen, r, rn, d)
+    for name, keys in (("pool_infonce_fwd", ("ce",)), ("pool_infonce_dq", ("dq", "dp")),
+                       ("pool_infonce_dn", ("dn",))):
+        out.setdefault(name, {})["parity_ml1m"] = times[name] | {
+            "max_abs_err": max(errs[k] for k in keys)}
+    sfu_rate = special_function_rate()[0]
+    for shape, (r, rn, d) in PARITY_PAIRWISE.items():
+        for label, (head, margin) in PARITY_HEADS.items():
+            errs = {}
+            for inputs, case in (("gaussian", pool_case), ("exact", exact_pool_case)):
+                for k, v in hold_pairwise(case(gen, r, rn, d), inputs, head, margin,
+                                          True).items():
+                    errs[k] = max(errs.get(k, 0.0), v)
+            t = time_pairwise(gen, r, rn, d, sfu_rate, (head,), margin=margin, yardstick=head)
+            for i, (name, keys) in enumerate((("pairwise_fwd", ("out",)),
+                                              ("pairwise_dn", ("dn",)),
+                                              ("pairwise_dq", ("dq", "dp")))):
+                out.setdefault(name, {})[f"parity_{shape}_{label}"] = t[name][head] | {
+                    "max_abs_err": max(errs[k] for k in keys), "splits": fp._splits(0, r, rn, d, i),
+                    "margin": margin, "head": head}
+        check_pairwise_copies(gen, r, rn, d, heads=[h for h, _ in PARITY_HEADS.values()])
+    log(PAIRWISE_TOL_TEXT)
+    return out
+
+
+def hard_negative_ties(cfg, params, table, batch: dict, seeds, device: str) -> dict:
+    """``batch`` with the positions whose hard-negative mask may differ
+    between ``device`` and the CPU left out (their positive set to 0, so
+    they count no term): where the two masks differ, and where, in the
+    CPU's f32 logits of the plain head, the k-th and (k+1)-th masked logits
+    or a counted logit and the positive (the false-negative filter) lie
+    within ``HARD_TIE`` of the row's largest |logit| and are not equal (equal
+    logits are copies of one item, ranked by index on both; where a copy's
+    bits differ between the two, so do the masks).  Prints the counts,
+    and the exact zeros among the masked logits (``lax.top_k`` ranks -0.0
+    below +0.0; the port's mask does too)."""
+    import numpy as np
+    import torch
+
+    from transformer_recommenders_tpu_torch.models.recommender import compute_embeds
+    from transformer_recommenders_tpu_torch.models.transformer import tree_leaves, tree_unflatten
+    from transformer_recommenders_tpu_torch.ops import losses as L
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+
+    k = cfg.num_hard_negatives
+    sim = L.LOSS_FNS[cfg.train_loss][1]
+    got = {}
+    for dev in (device, "cpu"):
+        p = params if dev == device else tree_unflatten(params, [t.cpu() for t in
+                                                                 tree_leaves(params)])
+        tbl = table.to(dev)
+        b = ts._batch_on(batch, tbl.device)
+        with torch.no_grad():
+            e = compute_embeds(p, cfg, tbl, b["history_item_idx"], b["pos_item_idx"],
+                               b["neg_item_idx"], dropout_seeds=seeds)
+            pos, neg = L.compute_pair_logits(e["query"], e["pos_embed"], e["neg_pool"],
+                                             similarity=sim)
+            mask = L.negative_mask(cfg, pos, neg, e["neg_valid"])
+        got[dev] = (pos.cpu(), neg.cpu(), mask.cpu(), e["row_valid"].cpu().bool(),
+                    e["neg_valid"].cpu().bool())
+    pos, neg, mask, row_valid, neg_valid = got["cpu"]
+    differ = (got[device][2] != mask).any(dim=1)
+    counted = neg_valid[None, :].expand_as(neg)
+    if cfg.mask_false_negatives:
+        counted = counted & (neg < pos[:, None])
+    masked = torch.where(counted, neg, float("-inf"))
+    scale = torch.maximum(neg.abs().amax(dim=1), pos.abs()) * HARD_TIE
+    def near(gap):  # within the rounding margin, not equal: copies of one row tie exactly
+        return (gap != 0) & (gap.abs() <= scale.reshape(-1, *[1] * (gap.dim() - 1)))
+
+    kth = exact = torch.zeros_like(differ)
+    if k < neg.shape[1]:
+        top = masked.sort(dim=1, descending=True).values
+        gap = (top[:, k - 1] - top[:, k]).where(torch.isfinite(top[:, k]), torch.inf)
+        kth, exact = near(gap), gap == 0
+    near_pos = torch.zeros_like(differ)
+    if cfg.mask_false_negatives:
+        near_pos = (near(neg - pos[:, None]) & neg_valid[None, :]).any(dim=1)
+    drop = (differ | kth | near_pos) & row_valid
+    zeros = int(((masked == 0) & counted).sum())
+    log(f"  hard negatives (k={k}): {int(drop.sum())} of {int(row_valid.sum())} valid positions "
+        f"left out (masks differ {int((differ & row_valid).sum())}; within {HARD_TIE:.3g} of the "
+        f"row's max |logit| but not equal: the k-th and (k+1)-th counted logits "
+        f"{int((kth & row_valid).sum())}, a pool logit and the positive "
+        f"{int((near_pos & row_valid).sum())}); kept with exact ties at the k-th place (copies "
+        f"of one item, ranked by index on both) {int((exact & row_valid & ~drop).sum())}; exact "
+        f"zeros among the counted logits: {zeros}")
+    if int(drop.sum()) * 2 > int(row_valid.sum()):
+        raise AssertionError("the hard-negative step check would leave out most positions")
+    out = {key: np.array(v, copy=True) for key, v in batch.items()}
+    out["pos_item_idx"].reshape(-1)[drop.numpy()] = 0
+    return out
+
+
+def beyond_window(datamodule, lookahead: int) -> tuple[int, int, str]:
+    """The first train batch of epoch 0 as the fit reads it (the native
+    sampler where it built): of its valid positives, how many lie more than
+    ``lookahead`` events after every occurrence of their query item in the
+    user's history (none may, under a windowed positive).  Returns (that
+    count, the positives, the sampler)."""
+    import numpy as np
+
+    data = datamodule.train_data
+    batch = next(iter(datamodule.train_batches(0)))
+    n = len(data.rows)
+    if data._native is not None:
+        order, sampler = data._native.shuffled_order(n, data.seed, 0), "native"
+    else:
+        order = np.random.default_rng(np.random.SeedSequence([data.seed, 0, n])).permutation(n)
+        sampler = "numpy"
+    far = total = 0
+    for b, row in enumerate(order[: len(batch["history_item_idx"])]):
+        idx, labels = data.rows[int(row)]
+        positives = np.flatnonzero(labels)
+        for q, p in zip(batch["history_item_idx"][b], batch["pos_item_idx"][b]):
+            if q == 0 or p == 0:
+                continue
+            total += 1
+            near = False
+            for at in np.flatnonzero(idx == q):
+                window = positives[(positives > at) & (positives <= at + lookahead)]
+                near |= bool((idx[window] == p).any())
+            far += not near
+    return far, total, sampler
+
+
+def check_windowed_positive(datamodules: dict, configs: dict) -> None:
+    """The lookahead-8 fit reads the data keyed by its lookahead, and its
+    sampler's positives lie within 8 events of their query; the unbounded
+    sampler's do not (the check can fail)."""
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    counts = {}
+    for name in ("InfoNCE", "InfoNCE+lookahead8"):
+        data_cfg = configs[name][1]
+        dm = Q.load_data(data_cfg, datamodules, log=lambda m: log(f"  {m}"))
+        counts[name] = beyond_window(dm, 8) + (data_cfg.data_dir, dm.config.pos_lookahead)
+    (far0, n0, sampler0, dir0, la0), (far8, n8, sampler8, dir8, la8) = counts.values()
+    ok = (far8 == 0 and far0 > 0 and la8 == 8 and la0 == 0 and dir8.endswith("data_la8")
+          and dir0.endswith("data_la0"))
+    log(f"  the windowed positive: {dir8} (pos_lookahead {la8}, the {sampler8} sampler): "
+        f"{far8} of {n8} positives more than 8 events after their query; {dir0} (pos_lookahead "
+        f"{la0}, the {sampler0} sampler): {far0} of {n0} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the lookahead-8 fit does not read windowed positives")
+
+
+def parity_steps(datamodules: dict, configs: dict, root: pathlib.Path) -> dict:
+    """Phase 19 (b): one hot step of each parity model against the CPU's
+    plain path at its batch (the d=64 configs on their data's first batch
+    and catalog, the reference shape's three on phase 5's synthetic batch
+    over the fit's catalog, the hash embedder's 384-d rows, whose cosines
+    reach CCL's margin where unit Gaussian rows' do not), each step's
+    launches; hard32's none of #5-#12.  Returns the launches by config."""
+    import dataclasses
+
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    launches = {}
+    for reference_shape in (False, True):
+        for spec in Q.parity_specs(reference_shape):
+            train, data = configs[spec["name"]] if not reference_shape else Q.parity_configs(
+                spec, 0, str(root), reference_shape=True)
+            label = f"{spec['name']}{' (reference shape)' if reference_shape else ''}"
+            log(f" (b) {label}'s hot step, batch {data.batch_size}, against the CPU")
+            if not reference_shape:
+                dm = Q.load_data(data, datamodules, log=lambda m: log(f"  {m}"))
+                kw = dict(batch=next(iter(dm.train_batches(0))), emb=dm.item_embeddings)
+            else:  # the fit's catalog: the hash embedder at 384-d
+                kw = dict(emb=scale_catalog(ML1M_ITEMS))
+            launches[label] = training_phase(config=dataclasses.asdict(train),
+                                             batch_size=data.batch_size, steps=0,
+                                             timed_steps=0, **kw)
+    hard = launches["InfoNCE+hard32"]
+    if any(hard[k] for k in FUSED_LOSS_KERNELS) or not hard["gather_rows"]:
+        raise AssertionError(f"the hard-negative step launched a fused loss kernel: {hard}")
+    log("  hard negatives: the step launched none of #5-#12 (the plain objective) ok")
+    return launches
+
+
+def check_parity_fits(summary: dict) -> dict:
+    """Each config's fit launches exactly its steps' and validations'
+    (:func:`check_fit_launches`); the hard negatives' none of #5-#12, the
+    InfoNCE configs' the pool kernels.  Returns the launches summed over
+    the fits."""
+    from transformer_recommenders_tpu_torch.ops import cuda_build
+
+    for name, config in summary["configs"].items():
+        log(f"  {name}: launches against the steps and validations")
+        check_fit_launches(config)
+        fused = {k: sum(r["launches"].get(k, 0) for r in config["runs"])
+                 for k in FUSED_LOSS_KERNELS}
+        if "hard32" in name and any(fused.values()):
+            raise AssertionError(f"the hard-negative fit launched fused loss kernels: {fused}")
+        if name.startswith("InfoNCE") and "hard32" not in name and not fused["pool_infonce_fwd"]:
+            raise AssertionError(f"{name}'s fit launched no pool InfoNCE kernel")
+    runs = [r for c in summary["configs"].values() for r in c["runs"]]
+    return {k: sum(r["launches"].get(k, 0) for r in runs) for k in cuda_build.KERNELS}
+
+
+def parity_table(summary: dict) -> None:
+    """One line a config: the seeds' mean val NDCG@10 beside JAX's and the
+    torch reference's, the range and the untrained model's."""
+    for name, c in summary["configs"].items():
+        jax = c["jax"]
+        log(f"  | {name} | {c['mean_ndcg']:.5f} | {[round(x, 5) for x in c['ndcgs']]} | "
+            f"{jax['ndcg_ours']:.5f} | {jax['ndcg_torch']:.5f} | [{c['gate'][0]:.5f}, "
+            f"{c['gate'][1]:.5f}] | {c['verdict']} | untrained "
+            f"{[round(x, 5) for x in c['untrained_ndcg']]} | "
+            f"{statistics.fmean(r['ms_per_step'] for r in c['runs']):.3f} ms a step |")
+
+
+def parity_phase(parity_root: pathlib.Path, *, full: bool = False) -> dict:
+    """Phase 19, the ML-1M parity protocol (``tools/quality_run.py
+    parity-ml1m``): (a) the loss kernels at the parity shapes, (b) one hot
+    step of each config against the CPU, hard32's without #5-#12, (c) the
+    windowed positive, (d) the fits: seed 0 of InfoNCE, hard32 and
+    lookahead8 (``full``: every config at 3 seeds, both shapes), each
+    config's mean at or above its range's lower edge and hard32 above
+    InfoNCE, each fit's launches exactly its steps' and validations'.
+    Returns the kernels' ``by_shape`` rows and the launches."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    t_start = time.perf_counter()
+    log(" (a) the loss kernels at the parity shapes against their plain versions")
+    by_shape = check_parity_kernels()
+    device = torch.device("cuda")
+    datamodules: dict = {}
+    configs = {spec["name"]: Q.parity_configs(spec, 0, str(parity_root))
+               for spec in Q.PARITY_CONFIGS}
+    launches = {f"parity {k}": v for k, v in
+                parity_steps(datamodules, configs, parity_root).items()}
+    log(" (c) the windowed positive through the fit's sampler")
+    check_windowed_positive(datamodules, configs)
+    summaries = []
+    for reference_shape in ((False, True) if full else (False,)):
+        seeds = 3 if full else 1
+        names = None if full else PARITY_FITS
+        log(f" (d) the parity fits{' at the reference shape' if reference_shape else ''}: "
+            f"{names or 'every config'}, {seeds} seed(s)")
+        summary = Q.parity_ml1m(
+            seeds, device=device,
+            root=str(parity_root / "refshape" if reference_shape else parity_root),
+            reference_shape=reference_shape, names=names, log=lambda m: log(f"  {m}"),
+            datamodules=None if reference_shape else datamodules)
+        launches[f"parity fits{' refshape' if reference_shape else ''}"] = check_parity_fits(
+            summary)
+        log("  | config | port mean | seeds | JAX | torch reference | range | verdict | "
+            "untrained | eager step |")
+        parity_table(summary)
+        if not summary["passed"]:
+            raise AssertionError("the parity gate failed: " + "; ".join(summary["failures"]))
+        summaries.append(summary)
+    log(f"  phase 19's parity part took {time.perf_counter() - t_start:.1f} s")
+    return {"by_shape": by_shape, "launches": launches, "summaries": summaries}
+
+
+def serving_bench_phase(*, smoke: bool = True, device: str = "cuda") -> dict:
+    """Phase 19 (e): each mode of ``tools/bench_serving.py`` on the card
+    over one artifact (``smoke``: 4 clients, 64 requests, 2 workers; else
+    each mode's defaults): every request answered 200, the JAX scripts'
+    keys in each record.  Returns the records by mode."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.tools import bench_serving as B
+
+    device = torch.device(device)
+    kw = SERVING_SMOKE if smoke else {}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = B.make_artifact(tmp, device)
+        for mode in ("http", "device", "workers"):
+            t0 = time.perf_counter()
+            record = B.run(mode, device=device, artifact=artifact, log=lambda m: None,
+                           **{k: v for k, v in kw.items() if k != "workers" or mode == "workers"})
+            requests = record["requests_sent"]  # clients * (requests // clients)
+            if mode == "http":
+                points = {"http": record}
+            elif mode == "device":
+                points = {f"window {p['window_ms']} ms, max_batch {p['max_batch']}": p
+                          for p in record["sweep"]}
+            else:
+                points = {k: v for k, v in record.items() if k.startswith("workers=")}
+            missing = SERVING_KEYS[mode] - set(record)
+            bad = {k: (p["requests_ok"], p["errors"]) for k, p in points.items()
+                   if p["errors"] or p["requests_ok"] != requests}
+            if mode == "device":
+                seq = record["sequential_1_client"]
+                if seq["errors"] or seq["requests_ok"] != 96:
+                    bad["sequential"] = (seq["requests_ok"], seq["errors"])
+            for k, p in points.items():
+                log(f"  {mode} {k}: {p['requests_ok']} of {requests} answered 200, "
+                    f"{p['qps']:.1f} QPS, p50 {p['p50_ms']:.2f} ms, p95 {p['p95_ms']:.2f} ms, "
+                    f"p99 {p['p99_ms']:.2f} ms" + (f", mean batch {p['batch'].get('mean_batch')}"
+                                                   if "batch" in p else "")
+                    + f", launches {p['launches']}")
+            if mode == "device":
+                seq = record["sequential_1_client"]
+                log(f"  device sequential, one client, window 0: {seq['qps']:.1f} QPS, p50 "
+                    f"{seq['p50_ms']:.2f} ms, p95 {seq['p95_ms']:.2f} ms, p99 {seq['p99_ms']:.2f} ms")
+            if mode == "workers":
+                log(f"  workers: best {record['best_config']}, speedup {record['speedup']:.3f} "
+                    f"over workers=1 ({record['host_cpus']} host cores)")
+            log(f"  {mode}: {time.perf_counter() - t0:.1f} s; the JAX script's keys "
+                f"{'present' if not missing else f'MISSING {sorted(missing)}'}")
+            if missing or bad:
+                raise AssertionError(f"the {mode} bench: missing keys {sorted(missing)}, requests "
+                                     f"not answered 200: {bad}")
+            out[mode] = record
+    return out
 
 
 if __name__ == "__main__":

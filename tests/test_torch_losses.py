@@ -107,6 +107,30 @@ def test_hard_negative_ties_keep_the_lower_index():
     assert ((tied > 0) & (tied < 5)).any()  # the k-th place splits the ties
 
 
+def test_hard_negatives_rank_negative_zero_below_positive_zero():
+    """``jax.lax.top_k`` ranks -0.0 below +0.0 (a sort of the floats ties
+    them): where signed zeros straddle the k-th place, the port keeps the
+    +0.0 entries, as JAX does.  The logits are given directly: a dot head
+    meets an exact zero only at a zero row, so the test builds one."""
+    neg = np.array([[-0.0, 0.0, -0.0, 0.0, 1.0, -1.0, -0.0, 0.0],
+                    [0.0, -0.0, -0.0, -0.0, -2.0, 0.5, 0.0, -0.0]], np.float32)
+    pos = np.full(2, 4.0, np.float32)
+    neg_valid = np.ones(8, bool)
+    neg_valid[3] = False
+    for k in (2, 3, 4):
+        jcfg, tcfg = configs(num_hard_negatives=k)
+        want = np.asarray(JL.negative_mask(jcfg, jnp.asarray(pos), jnp.asarray(neg),
+                                           jnp.asarray(neg_valid)))
+        got = TL.negative_mask(tcfg, t(pos), t(neg), t(neg_valid)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
+    # k=3: row 0 keeps 1.0 and its two valid +0.0 (columns 1, 7), no -0.0;
+    # a stable sort of the floats would keep column 0's -0.0 instead of 7
+    jcfg, tcfg = configs(num_hard_negatives=3)
+    got = TL.negative_mask(tcfg, t(pos), t(neg), t(neg_valid)).numpy()
+    assert set(np.flatnonzero(got[0])) == {1, 4, 7}
+    assert set(np.flatnonzero(got[1])) == {0, 5, 6}
+
+
 @pytest.mark.parametrize("hard", [0, 5], ids=["all", "top5"])
 @pytest.mark.parametrize("mask_fn", [True, False], ids=["fnmask", "nofnmask"])
 def test_every_loss_head_matches_jax(mask_fn, hard):

@@ -91,14 +91,14 @@ def sgd(lr: float, array_module):
     return make
 
 
-def tiny_protocol(root: pathlib.Path, **model):
+def tiny_protocol(root: pathlib.Path, data=None, **model):
     """The seed-spread protocol's configs at the tiny size."""
-    train, data = Q.seed_spread_configs(0, str(root))
+    train, data_cfg = Q.seed_spread_configs(0, str(root))
     return (train.replace(**TINY_MODEL, **model),
-            data.replace(**TINY_DATA, data_dir=str(root / "data")))
+            data_cfg.replace(**TINY_DATA, **(data or {}), data_dir=str(root / "data")))
 
 
-def fit_both(root: pathlib.Path, monkeypatch, **model):
+def fit_both(root: pathlib.Path, monkeypatch, data=None, **model):
     """The tool's fit (``fit_run``) and the JAX trainer's over the same
     batches from JAX's initial parameters: (port run, JAX val metrics by
     epoch)."""
@@ -107,7 +107,7 @@ def fit_both(root: pathlib.Path, monkeypatch, **model):
     monkeypatch.setattr(jax_module, "SeqData",
                         functools.partial(jax_dataset.SeqData, backend="numpy"))
     monkeypatch.setattr(port_module, "SeqData", functools.partial(SeqData, backend="numpy"))
-    train, data = tiny_protocol(root, **model)
+    train, data = tiny_protocol(root, data, **model)
 
     jt = JaxTrainer(JaxTrainConfig.model_validate(dataclasses.asdict(train) |
                                                   {"ckpt_dir": str(root / "jck")}),
@@ -132,11 +132,23 @@ def fit_both(root: pathlib.Path, monkeypatch, **model):
     return run, want_epochs
 
 
-def test_fit_with_sgd_matches_jax_every_epoch(tmp_path, monkeypatch):
+# the parity protocol's two loss paths at the tiny size: its 32 hard
+# negatives of a 1,024-row pool as 4 of the tiny batch's 128 rows, and its
+# positive from the next 8 events (the tiny seq is 8)
+SGD_CASES = {
+    "infonce": ({}, {}),
+    "hard32": ({"num_hard_negatives": 4}, {}),
+    "lookahead8": ({}, {"pos_lookahead": 8}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SGD_CASES))
+def test_fit_with_sgd_matches_jax_every_epoch(tmp_path, monkeypatch, case):
     monkeypatch.setattr(JTS, "make_flat_update", sgd(1e-4, jnp))
     monkeypatch.setattr(TTS, "make_flat_update", sgd(1e-4, torch))
-    run, want = fit_both(tmp_path, monkeypatch, use_fused_loss=False,
-                         mask_false_negatives=False)
+    model, data = SGD_CASES[case]
+    run, want = fit_both(tmp_path, monkeypatch, data, use_fused_loss=False,
+                         mask_false_negatives=False, **model)
     got = run["val_history"]
     assert [r["epoch"] for r in got] == [0, 1, 2]
     assert [r["step"] for r in got] == [r["step"] for r in want]
@@ -144,7 +156,8 @@ def test_fit_with_sgd_matches_jax_every_epoch(tmp_path, monkeypatch):
         "val/retrieval_normalized_dcg"]  # the fit moved the ranks
     worst = max(abs(g[f"val/retrieval_{k}"] - w[f"val/retrieval_{k}"])
                 for g, w in zip(got, want) for k in VAL_KEYS)
-    print(f"max |val metric difference| over {len(got)} epochs: {worst:.3g}")
+    print(f"{case}: final val ndcg {run['ndcg']:.6f}; max |val metric difference| over "
+          f"{len(got)} epochs: {worst:.3g}")
     for g, w in zip(got, want):
         for key in VAL_KEYS:
             name = f"val/retrieval_{key}"
@@ -222,6 +235,147 @@ def test_config_configs_are_the_jax_script(tmp_path, name):
     assert_same_config(got, want)
     assert_same_config(got_data, JaxDataConfig.model_validate(payload["data"]))
     assert overrides == {"model": model, "data": data}
+
+
+# scripts/parity_ml1m.py:54-78: (D, L, H, F, S), the batch, the loss configs
+JAX_PARITY_SHAPES = {False: ((64, 2, 4, 128, 16), 64), True: ((384, 1, 12, 48, 32), 32)}
+JAX_PARITY_CONFIGS = [
+    {"name": "InfoNCE", "train_loss": "InfoNCELoss"},
+    {"name": "BPR", "train_loss": "PairwiseLogisticLoss", "margin": 0.0},
+    {"name": "CCL-cosine", "train_loss": "ContrastiveLoss", "margin": 0.5},
+    {"name": "InfoNCE+lookahead8", "train_loss": "InfoNCELoss", "pos_lookahead": 8},
+    {"name": "InfoNCE+hard32", "train_loss": "InfoNCELoss", "num_hard_negatives": 32},
+]
+
+
+@pytest.mark.parametrize("reference_shape", [False, True], ids=["ml1m", "refshape"])
+def test_parity_configs_are_the_jax_script(tmp_path, reference_shape):
+    root = str(tmp_path)
+    specs = Q.parity_specs(reference_shape)
+    assert list(specs) == JAX_PARITY_CONFIGS[:3 if reference_shape else 5]
+    (d, layers, heads, ffn, s), batch = JAX_PARITY_SHAPES[reference_shape]
+    for spec in specs:
+        for seed in (0, 2):
+            got, got_data = Q.parity_configs(spec, seed, root, reference_shape=reference_shape)
+            # scripts/parity_ml1m.py:84-121, the paths the tool's and the model seed
+            lookahead = spec.get("pos_lookahead", 0)
+            want_data = JaxDataConfig(
+                data_dir=f"{root}/data_la{lookahead}", dataset="synthetic", embedder="hash",
+                embedding_dim=d, max_seq_length=s, pos_lookahead=lookahead, batch_size=batch,
+                synthetic_num_users=6040, synthetic_num_items=3706,
+                synthetic_num_events=1_000_000)
+            want = JaxTrainConfig(
+                hidden_size=d, num_hidden_layers=layers, num_attention_heads=heads,
+                intermediate_size=ffn, max_seq_length=s, compute_dtype="float32",
+                hidden_dropout=0.0, attention_dropout=0.0, train_loss=spec["train_loss"],
+                margin=spec.get("margin", 0.5),
+                num_hard_negatives=spec.get("num_hard_negatives", 0), learning_rate=1e-3,
+                max_epochs=2, early_stopping_patience=99, eval_batch_size=256, top_k=10,
+                log_every_n_steps=100_000, use_mlflow=False, seed=seed,
+                ckpt_dir=f"{root}/ckpt_{spec['name']}_s{seed}")
+            assert_same_config(got, want)
+            assert_same_config(got_data, want_data)
+            assert got.steps_per_dispatch == 1  # eager, as JAX's default
+
+
+def test_the_parity_records_as_read():
+    r = Q.relative_spread()
+    assert r == pytest.approx(0.00562 / 0.02303)
+    ml1m, ref = Q.parity_record(False), Q.parity_record(True)
+    assert list(ml1m) == [c["name"] for c in JAX_PARITY_CONFIGS]
+    assert list(ref) == [c["name"] for c in JAX_PARITY_CONFIGS[:3]]
+    for name, ours, theirs in (("InfoNCE", 0.014044436431865474, 0.013612177222967148),
+                               ("InfoNCE+hard32", 0.03834071337197131, 0.039407216012477875)):
+        entry = ml1m[name]
+        assert (entry["ndcg_ours"], entry["ndcg_torch"]) == (ours, theirs)
+        assert entry["val_ndcg"] == ours and entry["file"] == "PARITY_ML1M.json"
+        assert Q.parity_gate(entry, r) == pytest.approx((min(ours, theirs) * (1 - r),
+                                                         max(ours, theirs) * (1 + r)))
+    # the ranges to four places: hard32 [0.0290, 0.0490], InfoNCE [0.0103, 0.0175]
+    assert Q.parity_gate(ml1m["InfoNCE+hard32"], r) == pytest.approx((0.0290, 0.0490), abs=1e-4)
+    assert Q.parity_gate(ml1m["InfoNCE"], r) == pytest.approx((0.0103, 0.0175), abs=1e-4)
+    assert ref["InfoNCE"]["ndcg_ours"] == 0.026601559745074825
+    assert ref["CCL-cosine"]["file"] == "PARITY_REFSHAPE.json"
+    # the ordering the gate holds the port to: hard32 above InfoNCE in both columns
+    for key in ("ndcg_ours", "ndcg_torch"):
+        assert ml1m["InfoNCE+hard32"][key] > ml1m["InfoNCE"][key]
+
+
+def fake_fit(means: dict):
+    """A stand-in for ``fit_seeds``: each config's seeds read its mean."""
+    def fit(configs, seeds, *, device, root, record, test, log=print, datamodules=None):
+        train, data = configs(0)
+        name = pathlib.Path(root).name
+        mean = means[name]
+        runs = [{"seed": s, "ndcg": mean, "untrained": {Q.NDCG: 0.004},
+                 "val_history": [{Q.NDCG: 0.03}, {Q.NDCG: mean}]} for s in range(seeds)]
+        return {"jax": record, "runs": runs, "mean_ndcg": mean,
+                "train_config": dataclasses.asdict(train), "data_config": dataclasses.asdict(data)}
+
+    return fit
+
+
+# each config's mean: in its range, one below it, the ordering lost, one above
+PARITY_GATE_CASES = {
+    "in_range": ({}, 0),
+    "below": ({"BPR": 0.004}, 1),
+    "ordering": ({"InfoNCE": 0.0310, "InfoNCE+hard32": 0.0300}, 1),
+    "above_is_reported": ({"CCL-cosine": 0.05}, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARITY_GATE_CASES))
+def test_cli_parity_gate(tmp_path, monkeypatch, capsys, case):
+    r = Q.relative_spread()
+    records = Q.parity_record(False)
+    means = {name: (e["ndcg_ours"] + e["ndcg_torch"]) / 2 for name, e in records.items()}
+    change, want_rc = PARITY_GATE_CASES[case]
+    means |= change
+    monkeypatch.setattr(Q, "fit_seeds", fake_fit(means))
+    out = tmp_path / "parity.json"
+    rc = Q.main(["parity-ml1m", "--seeds", "2", "--device", "cpu", "--root",
+                 str(tmp_path / "w"), "--out", str(out)])
+    record = json.loads(out.read_text())
+    assert rc == want_rc and record["passed"] is (want_rc == 0)
+    assert record["protocol"] == "parity-ml1m" and record["reference_shape"] is False
+    assert record["relative_spread"] == r and record["seeds"] == [0, 1]
+    assert list(record["configs"]) == list(records)
+    for name, got in record["configs"].items():
+        assert got["gate"] == pytest.approx(Q.parity_gate(records[name], r))
+        assert got["ndcgs"] == [means[name]] * 2 and got["untrained_ndcg"] == [0.004] * 2
+    assert record["ordering"] is (case != "ordering")
+    verdicts = {name: c["verdict"] for name, c in record["configs"].items()}
+    assert verdicts["BPR"] == ("below its range" if case == "below" else "in range")
+    assert verdicts["CCL-cosine"] == ("above its range" if case == "above_is_reported"
+                                      else "in range")
+    assert len(record["failures"]) == want_rc
+    assert ("FAIL" if want_rc else "PASS") in capsys.readouterr().err
+
+
+def test_parity_protocol_on_the_cpu(tmp_path, monkeypatch):
+    """The two loss paths the card had never run, through the real fits at a
+    tiny size: each reads the data keyed by its lookahead and writes a
+    record with the keys the gate reads."""
+    monkeypatch.setitem(Q.ML1M_SHAPE, "synthetic_num_users", 60)
+    monkeypatch.setitem(Q.ML1M_SHAPE, "synthetic_num_items", 80)
+    monkeypatch.setitem(Q.ML1M_SHAPE, "synthetic_num_events", 3000)
+    monkeypatch.setitem(Q.PARITY_SHAPES, False, (dict(Q.PARITY_SHAPES[False][0],
+                                                      max_seq_length=8), 16))
+    names = ("InfoNCE+lookahead8", "InfoNCE+hard32")
+    out = Q.parity_ml1m(1, device=torch.device("cpu"), root=str(tmp_path), names=names,
+                        log=lambda m: None)
+    assert list(out["configs"]) == list(names) and out["ordering"] is None
+    la8, hard = (out["configs"][n] for n in names)
+    assert la8["data_config"]["data_dir"] == f"{tmp_path}/data_la8"
+    assert la8["data_config"]["pos_lookahead"] == 8
+    assert hard["data_config"]["data_dir"] == f"{tmp_path}/data_la0"
+    assert hard["train_config"]["num_hard_negatives"] == 32
+    for summary in (la8, hard):
+        (run,) = summary["runs"]
+        assert np.isfinite(run["ndcg"]) and run["launches"] == {}
+        assert summary["untrained_ndcg"] == [run["untrained"][Q.NDCG]]
+        assert summary["verdict"] in ("below its range", "in range", "above its range")
+    assert (tmp_path / "data_la8" / "synthetic" / "users.json").is_file()
 
 
 # -- the CLI -------------------------------------------------------------------------------------

@@ -247,6 +247,16 @@ def test_chip_smoke_expects_each_paths_kernels():
     assert (got["hash_dropout"], got["attn_core_fwd"], got["attn_core_bwd"]) == (2 + 6 * 6, 12, 6)
     assert set(chip_smoke.expected_launches(reference, 3707, 1024, False)) == \
         set(cuda_build.KERNELS)
+    # hard negatives turn the fused losses off: the plain objective, no #5-#12
+    # (the parity protocol's hard32 at d=64: the layer stack, f32, dropout 0)
+    from transformer_recommenders_tpu_torch.tools import quality_run as Q
+
+    hard32 = Q.parity_configs(Q.PARITY_CONFIGS[4], 0, "/unused")[0]
+    assert chip_smoke.expected_launches(hard32, 3707, 1024, full_logs=False) == {
+        **common, "gather_rows_bwd": 0, "fused_layer": 0, "fused_layer_bwd": 0,
+        "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0, "hash_dropout": 0}
+    assert chip_smoke.expected_eval_launches(hard32, 600) == dict.fromkeys(
+        cuda_build.KERNELS, 0) | {"gather_rows": 3}
 
 
 @pytest.mark.parametrize("train_loss", ["PairwiseLogisticLoss", "ContrastiveLoss", "NCELoss",

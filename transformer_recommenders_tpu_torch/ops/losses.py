@@ -11,8 +11,8 @@ positive is a rowwise dot.  Validity is carried as fixed-shape masks:
 
 Rounding follows the JAX functions: products of mixed dtypes promote as
 JAX promotes them, the pool product sums in f32 whatever its operands
-(``preferred_element_type=float32``), and top-k ties go to the lower
-index, as ``jax.lax.top_k`` breaks them.
+(``preferred_element_type=float32``), and the hard-negative top-k ranks
+as ``jax.lax.top_k`` does: ties to the lower index, -0.0 below +0.0.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from transformer_recommenders_tpu_torch.configs import LossConfig
+from transformer_recommenders_tpu_torch.ops.topk import top_k_columns
 
 _NEG_INF = float("-inf")
 
@@ -61,10 +62,11 @@ def compute_pair_logits(query: torch.Tensor, pos_embed: torch.Tensor, neg_pool: 
 
 
 def _top_k_mask(masked: torch.Tensor, k: int) -> torch.Tensor:
-    """(R, N) bool, True at each row's ``k`` largest entries; among equal
-    values the lower index wins (``jax.lax.top_k``'s order; a stable
-    descending sort keeps equal values in index order)."""
-    top_idx = torch.sort(masked, dim=1, descending=True, stable=True).indices[:, :k]
+    """(R, N) bool, True at each row's ``k`` largest entries in
+    ``jax.lax.top_k``'s order: -0.0 below +0.0, and among equal values the
+    lower index first (``ops/topk.top_k_columns``, whose keys order the
+    f32 bits; a sort of the floats would tie -0.0 with +0.0)."""
+    top_idx = top_k_columns(masked, k)
     keep = torch.zeros_like(masked, dtype=torch.bool)
     return keep.scatter(1, top_idx, True)
 

@@ -11,7 +11,8 @@ provides the minimal equivalent with zero dependencies:
 - :class:`TestClient`: drives any ASGI app in-process (own event loop),
   starlette-TestClient style;
 - :func:`serve`: a tiny threaded HTTP server for real serving without
-  uvicorn (stdlib ``http.server`` bridging into the ASGI app);
+  uvicorn (stdlib ``http.server`` bridging into the ASGI app), and
+  :func:`make_server`, the same server bound but not yet serving;
 - :func:`serve_workers`: a pool of such servers, one fresh process each,
   sharing one port.
 
@@ -312,10 +313,6 @@ def serve(
     (each loading the artifact); they share one port with ``reuse_port``,
     which sets SO_REUSEPORT before bind (kernel load-balancing).
     """
-    import http.server
-    import socket
-    import socketserver
-
     if workers > 1:
         import torch
 
@@ -333,6 +330,19 @@ def serve(
             "worker processes that each load the artifact."
         )
         raise RuntimeError(msg)
+
+    with make_server(app, host, port, reuse_port=reuse_port) as server:
+        server.serve_forever()
+
+
+def make_server(app: JSONApp, host: str = "0.0.0.0", port: int = 3000, *,
+                reuse_port: bool = False):
+    """The bound threaded HTTP server of :func:`serve`, not yet serving:
+    the caller runs ``serve_forever()`` (on a thread of its own, say) and
+    ends it with ``shutdown()`` and ``server_close()``.  ``port`` 0 binds
+    a free port, read back from ``server_address``."""
+    import http.server
+    import socketserver
 
     class Bridge(http.server.BaseHTTPRequestHandler):
         def _respond(self) -> None:
@@ -378,8 +388,7 @@ def serve(
                 self.socket.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
             super().server_bind()
 
-    with Server((host, port), Bridge) as server:
-        server.serve_forever()
+    return Server((host, port), Bridge)
 
 
 def http_post(host: str, port: int, name: str, payload: Any = None, *,

@@ -9,9 +9,9 @@ Each exits non-zero without a CUDA card (it never times the CPU), prints
 its table with the card's name and power limit, and writes a JSON record
 only where ``--out`` points (by default under ``build/`` at the root of the
 repository).  Below: what both share.  ``quality_run`` (the JAX scripts'
-quality protocols against the JAX package's records) also writes under
-``build/`` and names the card; it runs on the CPU where told
-``--device cpu``.
+quality protocols against the JAX package's records) and ``bench_serving``
+(the JAX scripts' serving benchmarks) also write under ``build/`` and name
+the card; they run on the CPU where told ``--device cpu``.
 """
 
 from __future__ import annotations

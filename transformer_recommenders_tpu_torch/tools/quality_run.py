@@ -6,11 +6,14 @@ package's quality records (the root ``PARITY_SEED_SPREAD.json`` and
     python -m transformer_recommenders_tpu_torch.tools.quality_run quality [--epochs 8]
     python -m transformer_recommenders_tpu_torch.tools.quality_run config \\
         --config configs/ml1m_ssm.yaml --users 6040 --items 3706 --events 1000000 --epochs 6
+    python -m transformer_recommenders_tpu_torch.tools.quality_run parity-ml1m \\
+        [--reference-shape] [--seeds 3]
 
 each with ``[--seeds N] [--device cuda|cpu] [--root DIR] [--out PATH]``.
-``--seeds N`` fits model seeds 0..N-1 (5 for ``seed-spread``, else 1, the
-JAX run's seed 0) on one data directory: the data stay those of the JAX
-record.  The protocols, with the JAX scripts' settings:
+``--seeds N`` fits model seeds 0..N-1 (5 for ``seed-spread``, 3 for
+``parity-ml1m``, else 1, the JAX run's seed 0) on one data directory: the
+data stay those of the JAX record.  The protocols, with the JAX scripts'
+settings:
 
 - ``seed-spread`` (``scripts/parity_seed_spread.py``): the reference
   topology (1 layer, d=384, 12 heads, FFN 48, seq 32) at batch 32, f32,
@@ -30,6 +33,23 @@ record.  The protocols, with the JAX scripts' settings:
   checkpoint, a 1x1 mesh, which is the port's one-device trainer) and
   synthetic data of the given shape with the hash embedder; then
   ``test()``.  The overrides are recorded in the output.
+- ``parity-ml1m`` (``scripts/parity_ml1m.py``): five loss configs
+  (:data:`PARITY_CONFIGS`: InfoNCE, BPR, CCL-cosine, InfoNCE with the
+  positive drawn from the next 8 events, InfoNCE over each row's 32
+  hardest negatives) at ML-1M's shape, f32, dropout 0, lr 1e-3, 2 epochs,
+  patience 99, top_k 10, a model of 2 layers, d=64, 4 heads, FFN 128, seq
+  16 at batch 64, the hash embedder at the model's width and one data
+  directory per ``pos_lookahead`` (``data_la{k}``); ``--reference-shape``
+  the first three at the reference topology (1 layer, d=384, 12 heads, FFN
+  48, seq 32, batch 32).  Held against ``PARITY_ML1M.json`` or
+  ``PARITY_REFSHAPE.json``, whose configs give JAX's val NDCG@10
+  (``ndcg_ours``) and the torch reference pipeline's (``ndcg_torch``):
+  :func:`parity_gate` sets each config's range from them and the seed
+  spread's relative range.  The run fails (exit 1) where a config's seed
+  mean lies below its range, or where the hard negatives' mean does not
+  read above plain InfoNCE's, as both JAX columns do; above the range it is
+  reported, not failed (the card trains through its fused heads over
+  bf16-rounded rows, where JAX's records took the plain f32 head).
 
 Each run records the val metrics before the fit and after every epoch
 (``val_history``, with the wall seconds since the fit began), the time to
@@ -75,6 +95,26 @@ CONFIG_RECORDS = {  # by the config file's stem
     "ml1m_ssm": "QUALITY_RUN_ML1M_SSM.json",
     "ml100k_bpr": "QUALITY_RUN_100K.json",
 }
+# the parity protocol's records, by --reference-shape
+PARITY_RECORDS = {False: "PARITY_ML1M.json", True: "PARITY_REFSHAPE.json"}
+# its models (scripts/parity_ml1m.py:54-66): the width, depth, heads, FFN and
+# sequence length, and the batch
+PARITY_SHAPES = {
+    False: (dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=128, max_seq_length=16), 64),
+    True: (REFERENCE, 32),
+}
+# its loss configs (scripts/parity_ml1m.py:72-78); --reference-shape runs
+# the first three
+PARITY_CONFIGS = (
+    {"name": "InfoNCE", "train_loss": "InfoNCELoss"},
+    {"name": "BPR", "train_loss": "PairwiseLogisticLoss", "margin": 0.0},
+    {"name": "CCL-cosine", "train_loss": "ContrastiveLoss", "margin": 0.5},
+    {"name": "InfoNCE+lookahead8", "train_loss": "InfoNCELoss", "pos_lookahead": 8},
+    {"name": "InfoNCE+hard32", "train_loss": "InfoNCELoss", "num_hard_negatives": 32},
+)
+# the ordering both JAX columns show: mined hard negatives above plain InfoNCE
+PARITY_ORDER = ("InfoNCE+hard32", "InfoNCE")
 
 
 # -- the JAX records ----------------------------------------------------------
@@ -85,11 +125,7 @@ def jax_record(name: str) -> dict:
     repository: ``{"file", "val_ndcg", "test_ndcg"}``, and for the seed
     spread the seeds' NDCG@10 and hit@10, their spread and ``val_ndcg`` their
     mean.  A missing record raises ``FileNotFoundError``."""
-    path = REPO / name
-    if not path.is_file():
-        msg = f"the JAX record {name} is not at {REPO}: nothing to hold the run against"
-        raise FileNotFoundError(msg)
-    payload = json.loads(path.read_text())
+    payload = read_record(name)
     if name == SEED_SPREAD_RECORD:
         return {"file": name, "val_ndcg": payload["ndcg10_mean"], "test_ndcg": None,
                 "spread": payload["ndcg10_spread"],
@@ -97,6 +133,42 @@ def jax_record(name: str) -> dict:
                 "hit10": [r["hit10"] for r in payload["runs"]]}
     return {"file": name, "val_ndcg": payload["val"][NDCG],
             "test_ndcg": payload["test"]["test/retrieval_normalized_dcg"]}
+
+
+def read_record(name: str) -> dict:
+    """The JSON of the JAX record ``name`` at the root of the repository;
+    a missing record raises ``FileNotFoundError``."""
+    path = REPO / name
+    if not path.is_file():
+        msg = f"the JAX record {name} is not at {REPO}: nothing to hold the run against"
+        raise FileNotFoundError(msg)
+    return json.loads(path.read_text())
+
+
+def parity_record(reference_shape: bool = False) -> dict[str, dict]:
+    """The parity record's configs by name: each config's JAX val NDCG@10
+    and hit@10 (``ndcg_ours``, ``hit_ours``) and the torch reference
+    pipeline's (``ndcg_torch``, ``hit_torch``; the same initial weights and
+    batches), and ``val_ndcg`` JAX's."""
+    name = PARITY_RECORDS[reference_shape]
+    return {r["config"]["name"]: {
+        "file": name, "config": r["config"], "val_ndcg": r["ndcg_ours"],
+        **{k: r[k] for k in ("ndcg_ours", "ndcg_torch", "hit_ours", "hit_torch")},
+    } for r in read_record(name)["results"]}
+
+
+def relative_spread() -> float:
+    """The relative range of JAX's own seeds at the reference topology:
+    the seed spread's NDCG@10 range over its mean."""
+    record = jax_record(SEED_SPREAD_RECORD)
+    return record["spread"] / record["val_ndcg"]
+
+
+def parity_gate(entry: dict, r: float) -> tuple[float, float]:
+    """A parity config's range: from the lower of JAX's and the torch
+    reference's NDCG less ``r`` of it to the higher plus ``r`` of it."""
+    low, high = sorted((entry["ndcg_ours"], entry["ndcg_torch"]))
+    return low * (1 - r), high * (1 + r)
 
 
 def config_record(config_path: str) -> str:
@@ -147,6 +219,33 @@ def quality_configs(seed: int, root: str, epochs: int = 8):
         early_stopping_patience=3, eval_batch_size=256, top_k=20, log_every_n_steps=50,
         steps_per_dispatch=8, checkpoint_every_epoch=False, seed=seed,
         ckpt_dir=f"{root}/ckpt_s{seed}")
+    return train, data
+
+
+def parity_specs(reference_shape: bool = False) -> tuple[dict, ...]:
+    """The loss configs of the parity protocol at its shape."""
+    return PARITY_CONFIGS[:3] if reference_shape else PARITY_CONFIGS
+
+
+def parity_configs(spec: dict, seed: int, root: str, *, reference_shape: bool = False):
+    """``(TrainConfig, SeqDataModuleConfig)`` of ``scripts/parity_ml1m.py:84-121``
+    for the loss config ``spec`` (one of :data:`PARITY_CONFIGS`) and the
+    model seed; the data directory keyed by the config's ``pos_lookahead``
+    as the script keys it."""
+    from transformer_recommenders_tpu_torch.configs import SeqDataModuleConfig, TrainConfig
+
+    model, batch = PARITY_SHAPES[reference_shape]
+    lookahead = spec.get("pos_lookahead", 0)
+    data = SeqDataModuleConfig(
+        data_dir=f"{root}/data_la{lookahead}", dataset="synthetic", embedder="hash",
+        embedding_dim=model["hidden_size"], max_seq_length=model["max_seq_length"],
+        pos_lookahead=lookahead, batch_size=batch, **ML1M_SHAPE)
+    train = TrainConfig(
+        **model, compute_dtype="float32", hidden_dropout=0.0, attention_dropout=0.0,
+        train_loss=spec["train_loss"], margin=spec.get("margin", 0.5),
+        num_hard_negatives=spec.get("num_hard_negatives", 0), learning_rate=1e-3, max_epochs=2,
+        early_stopping_patience=99, eval_batch_size=256, top_k=10, log_every_n_steps=100_000,
+        use_mlflow=False, seed=seed, ckpt_dir=f"{root}/ckpt_{spec['name']}_s{seed}")
     return train, data
 
 
@@ -268,24 +367,38 @@ def fit_run(train_cfg, datamodule, *, device, log_dir: str, target: float,
     }
 
 
-def fit_seeds(configs, seeds: int, *, device, root: str, record: dict, test: bool,
-              log=print) -> dict:
-    """``configs(seed)`` -> ``(TrainConfig, SeqDataModuleConfig)`` fitted for
-    seeds 0..seeds-1 over one datamodule; the runs and their summary
-    beside the JAX record."""
+def load_data(data_cfg, datamodules: dict | None = None, log=print):
+    """The set-up datamodule of ``data_cfg``, the one in ``datamodules``
+    (keyed by the config) where it is there, else generated or read and
+    kept there."""
     from transformer_recommenders_tpu_torch.data.module import SeqDataModule
 
+    key = json.dumps(dataclasses.asdict(data_cfg), sort_keys=True)
+    if datamodules is not None and key in datamodules:
+        return datamodules[key]
+    t0 = time.time()
+    datamodule = SeqDataModule(data_cfg)
+    datamodule.prepare_data()
+    datamodule.setup()
+    log(f"data {data_cfg.data_dir}: {len(datamodule.items)} items, {len(datamodule.users)} "
+        f"users, {len(datamodule.train_data)} train rows in {time.time() - t0:.1f} s")
+    if datamodules is not None:
+        datamodules[key] = datamodule
+    return datamodule
+
+
+def fit_seeds(configs, seeds: int, *, device, root: str, record: dict, test: bool,
+              log=print, datamodules: dict | None = None) -> dict:
+    """``configs(seed)`` -> ``(TrainConfig, SeqDataModuleConfig)`` fitted for
+    seeds 0..seeds-1 over one datamodule (shared with other calls through
+    ``datamodules``, see :func:`load_data`); the runs and their summary
+    beside the JAX record."""
     datamodule = None
     runs = []
-    t0 = time.time()
     for seed in range(seeds):
         train_cfg, data_cfg = configs(seed)
         if datamodule is None:
-            datamodule = SeqDataModule(data_cfg)
-            datamodule.prepare_data()
-            datamodule.setup()
-            log(f"data: {len(datamodule.items)} items, {len(datamodule.users)} users, "
-                f"{len(datamodule.train_data)} train rows in {time.time() - t0:.1f} s")
+            datamodule = load_data(data_cfg, datamodules, log)
         run = fit_run(train_cfg, datamodule, device=device, log_dir=f"{root}/logs_s{seed}",
                       target=record["val_ndcg"], test=test)
         runs.append(run)
@@ -360,12 +473,64 @@ def config_run(config_path: str, seeds: int, *, device, root: str, users: int, i
     return out
 
 
+def parity_ml1m(seeds: int, *, device, root: str, reference_shape: bool = False,
+                names=None, log=print, datamodules: dict | None = None) -> dict:
+    """``seeds`` seeds of each parity config (those named in ``names``,
+    else all of the shape's), each held to its :func:`parity_gate` range,
+    and the hard negatives' mean against plain InfoNCE's where both ran.
+    The configs of one ``pos_lookahead`` share a datamodule (kept in
+    ``datamodules``, see :func:`load_data`)."""
+    records = parity_record(reference_shape)
+    r = relative_spread()
+    specs = [s for s in parity_specs(reference_shape) if names is None or s["name"] in names]
+    datamodules = {} if datamodules is None else datamodules
+    configs, failures = {}, []
+    for spec in specs:
+        entry = records[spec["name"]]
+        lo, hi = parity_gate(entry, r)
+        log(f"[{spec['name']}] JAX {entry['ndcg_ours']:.5f}, torch reference "
+            f"{entry['ndcg_torch']:.5f}: range [{lo:.5f}, {hi:.5f}]")
+        summary = fit_seeds(
+            lambda s, spec=spec: parity_configs(spec, s, root, reference_shape=reference_shape),
+            seeds, device=device, root=f"{root}/{spec['name']}", record=entry, test=False,
+            log=log, datamodules=datamodules)
+        mean = summary["mean_ndcg"]
+        untrained = [run["untrained"][NDCG] for run in summary["runs"]]
+        verdict = "below its range" if mean < lo else "above its range" if mean > hi else "in range"
+        if mean < lo:
+            failures.append(f"{spec['name']}: mean val ndcg@10 {mean:.5f} below {lo:.5f}")
+        configs[spec["name"]] = summary | {"spec": spec, "gate": [lo, hi],
+                                           "ndcgs": [run["ndcg"] for run in summary["runs"]],
+                                           "untrained_ndcg": untrained, "verdict": verdict}
+        log(f"[{spec['name']}] mean val ndcg@10 {mean:.5f} over seeds "
+            f"{[round(run['ndcg'], 5) for run in summary['runs']]} (untrained "
+            f"{[round(u, 5) for u in untrained]}); range [{lo:.5f}, {hi:.5f}]: {verdict}")
+    hard, plain = PARITY_ORDER
+    ordering = None
+    if hard in configs and plain in configs:
+        ordering = configs[hard]["mean_ndcg"] > configs[plain]["mean_ndcg"]
+        log(f"{hard} {configs[hard]['mean_ndcg']:.5f} against {plain} "
+            f"{configs[plain]['mean_ndcg']:.5f}: {'above' if ordering else 'NOT above'}")
+        if not ordering:
+            failures.append(f"{hard}'s mean val ndcg@10 does not read above {plain}'s")
+    model, batch = PARITY_SHAPES[reference_shape]
+    log(f"parity-ml1m{' --reference-shape' if reference_shape else ''}: "
+        + ("PASS" if not failures else "FAIL: " + "; ".join(failures)))
+    return {"protocol": "parity-ml1m", "reference_shape": reference_shape,
+            "jax_file": PARITY_RECORDS[reference_shape], "relative_spread": r,
+            "model": {**model, "batch_size": batch}, "seeds": list(range(seeds)),
+            "configs": configs, "ordering": ordering, "failures": failures,
+            "passed": not failures}
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="quality_run", description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="protocol", required=True)
-    protocols = {name: sub.add_parser(name) for name in ("seed-spread", "quality", "config")}
+    protocols = {name: sub.add_parser(name)
+                 for name in ("seed-spread", "quality", "config", "parity-ml1m")}
+    default_seeds = {"seed-spread": 5, "parity-ml1m": 3}
     for name, p in protocols.items():
-        p.add_argument("--seeds", type=int, default=5 if name == "seed-spread" else 1,
+        p.add_argument("--seeds", type=int, default=default_seeds.get(name, 1),
                        help="fit model seeds 0..N-1")
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
         p.add_argument("--root", default=None,
@@ -378,6 +543,9 @@ def main(argv: list[str] | None = None) -> int:
     for flag in ("--users", "--items", "--events"):
         cfg.add_argument(flag, type=int, required=True)
     cfg.add_argument("--epochs", type=int, default=4)
+    protocols["parity-ml1m"].add_argument(
+        "--reference-shape", action="store_true",
+        help="the reference topology (1 layer, d=384, batch 32) and the first three configs")
     args = parser.parse_args(argv)
 
     from transformer_recommenders_tpu_torch import resolve_device
@@ -386,6 +554,8 @@ def main(argv: list[str] | None = None) -> int:
     name = args.protocol.replace("-", "_")
     if args.protocol == "config":
         name += "_" + pathlib.Path(args.config).stem
+    elif args.protocol == "parity-ml1m":
+        name = "parity-ml1m-refshape" if args.reference_shape else "parity-ml1m"
     root = args.root or str(REPO / "build" / "quality" / name)
     out_path = pathlib.Path(args.out or REPO / "build" / "quality" / f"{name}.json")
     if out_path.resolve().parent == REPO:
@@ -402,9 +572,12 @@ def main(argv: list[str] | None = None) -> int:
         out = seed_spread(args.seeds, device=device, root=root, log=log)
     elif args.protocol == "quality":
         out = quality(args.seeds, device=device, root=root, epochs=args.epochs, log=log)
-    else:
+    elif args.protocol == "config":
         out = config_run(args.config, args.seeds, device=device, root=root, users=args.users,
                          items=args.items, events=args.events, epochs=args.epochs, log=log)
+    else:
+        out = parity_ml1m(args.seeds, device=device, root=root,
+                          reference_shape=args.reference_shape, log=log)
     out |= {"device": device_record(device), "build_s": build_s, "wall_s": time.time() - t0}
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(out, indent=2))
