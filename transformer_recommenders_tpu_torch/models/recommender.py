@@ -17,7 +17,7 @@ import pathlib
 import numpy as np
 import torch
 
-from transformer_recommenders_tpu_torch import resolve_device
+from transformer_recommenders_tpu_torch import resolve_device, tracing
 from transformer_recommenders_tpu_torch.configs import ModelConfig
 from transformer_recommenders_tpu_torch.models.transformer import (
     Params,
@@ -50,7 +50,8 @@ def model_forward(
     if item_embeds is not None:
         input_embeds = item_embeds[:, -cfg.max_seq_length :, :]
     elif item_idx is not None:
-        input_embeds = lookup(item_idx[:, -cfg.max_seq_length :])
+        with tracing.span("embed", request=False):
+            input_embeds = lookup(item_idx[:, -cfg.max_seq_length :])
     else:
         msg = "either `item_idx` or `item_embeds` must be provided"
         raise ValueError(msg)
@@ -122,33 +123,36 @@ def compute_embeds(
     ``pos_embed`` and ``neg_pool`` (R, D) in the compute dtype,
     ``row_valid`` and ``neg_valid`` (R,) bool, ``attention_mask`` and
     ``positive_mask`` (B, S) bool."""
-    hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
-    b, s = hist_t.shape
-    all_idx = torch.cat([hist_t.reshape(-1), pos_flat, neg_flat])
-    r = b * s
-    if table_lookup is not None:
-        rows = table_lookup(all_idx)
-        projected = lookup_projected
-        pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
-        if "input_proj" in params and not projected:
-            dtype = compute_dtype(cfg)
-            pos_embed = _dense(pos_embed, params["input_proj"], dtype)
-            neg_pool = _dense(neg_pool, params["input_proj"], dtype)
-    else:
-        projected = "input_proj" in params
-        if projected and item_table.shape[0] > all_idx.numel():
-            raw = fast_table_lookup(item_table, all_idx, compute_dtype=cfg.compute_dtype)
-            rows = _dense(raw, params["input_proj"], compute_dtype(cfg))
-            rows = rows * (all_idx != 0)[:, None].to(rows.dtype)
+    with tracing.span("embed", request=False):
+        hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
+        b, s = hist_t.shape
+        all_idx = torch.cat([hist_t.reshape(-1), pos_flat, neg_flat])
+        r = b * s
+        if table_lookup is not None:
+            rows = table_lookup(all_idx)
+            projected = lookup_projected
+            pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
+            if "input_proj" in params and not projected:
+                dtype = compute_dtype(cfg)
+                pos_embed = _dense(pos_embed, params["input_proj"], dtype)
+                neg_pool = _dense(neg_pool, params["input_proj"], dtype)
         else:
-            table = _projected_table(params, cfg, item_table) if projected else item_table
-            rows = fast_table_lookup(table, all_idx, compute_dtype=cfg.compute_dtype)
-        pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
+            projected = "input_proj" in params
+            if projected and item_table.shape[0] > all_idx.numel():
+                raw = fast_table_lookup(item_table, all_idx, compute_dtype=cfg.compute_dtype)
+                rows = _dense(raw, params["input_proj"], compute_dtype(cfg))
+                rows = rows * (all_idx != 0)[:, None].to(rows.dtype)
+            else:
+                table = _projected_table(params, cfg, item_table) if projected else item_table
+                rows = fast_table_lookup(table, all_idx, compute_dtype=cfg.compute_dtype)
+            pos_embed, neg_pool = rows[r:2 * r], rows[2 * r:]
     out = model_forward(
         params, cfg, None, item_embeds=rows[:r].reshape(b, s, -1),
         dropout_seeds=dropout_seeds, inputs_projected=projected,
     )
-    query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
+    with tracing.span("encoder", request=False):
+        query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
+    query = tracing.mark_backward(query, "encoder")
     return {
         "query": query,
         "pos_embed": pos_embed,
@@ -185,18 +189,22 @@ def compute_query_embeds(
     in the compute dtype, ``pos_idx``/``neg_idx`` (R,), ``row_valid``
     (attention-valid and the positive is not padding) and ``neg_valid``
     (attention-valid)."""
-    hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
-    b, s = hist_t.shape
-    projected = table_projected or "input_proj" in params
-    table_use = item_table
-    if "input_proj" in params and not table_projected:
-        table_use = _projected_table(params, cfg, item_table)
-    hist_rows = fast_table_lookup(table_use, hist_t.reshape(-1), compute_dtype=cfg.compute_dtype)
+    with tracing.span("embed", request=False):
+        hist_t, pos_flat, neg_flat = _window(cfg, history_item_idx, pos_item_idx, neg_item_idx)
+        b, s = hist_t.shape
+        projected = table_projected or "input_proj" in params
+        table_use = item_table
+        if "input_proj" in params and not table_projected:
+            table_use = _projected_table(params, cfg, item_table)
+        hist_rows = fast_table_lookup(table_use, hist_t.reshape(-1),
+                                      compute_dtype=cfg.compute_dtype)
     out = model_forward(
         params, cfg, None, item_embeds=hist_rows.reshape(b, s, -1),
         dropout_seeds=dropout_seeds, inputs_projected=projected,
     )
-    query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
+    with tracing.span("encoder", request=False):
+        query, row_valid, neg_valid = _queries(cfg, out, pos_flat)
+    query = tracing.mark_backward(query, "encoder")
     return {
         "query": query,
         "table": table_use,

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from transformer_recommenders_tpu_torch import resolve_device
+from transformer_recommenders_tpu_torch import resolve_device, tracing
 from transformer_recommenders_tpu_torch.configs import ModelConfig
 from transformer_recommenders_tpu_torch.ops.attn_core import Softmax, attn_core_bf16
 from transformer_recommenders_tpu_torch.ops.fused_layer import attention_bias, fused_layer
@@ -309,73 +309,75 @@ def transformer_encode(
         ``token_embeddings`` (B, S, D) f32, ``sentence_embedding`` (B, D)
         f32 and ``attention_mask`` (B, S) bool.
     """
-    if attention_mask is None:
-        attention_mask = (input_embeds != 0).any(dim=-1)
-    attention_mask = attention_mask.bool()
     s = input_embeds.shape[-2]
     if s > cfg.max_seq_length:
         msg = f"sequence length {s} exceeds max_seq_length {cfg.max_seq_length}"
         raise ValueError(msg)
     dtype = compute_dtype(cfg)
     n_layers = cfg.num_hidden_layers
-    seeds = terms = None
-    if dropout_seeds is not None:
-        # a tensor becomes one int64 tensor on the inputs' device, read
-        # there by every dropout site (no copy to the host: a CUDA graph of
-        # the step reads each replay's seeds); a list stays host ints.  The
-        # plain sites take their seeds' share of the hash, worked out here
-        # once for all of them
-        if isinstance(dropout_seeds, torch.Tensor):
-            seeds = seed_tensor(dropout_seeds, input_embeds.device)
-        else:
-            seeds = [int(v) for v in dropout_seeds]
-        if len(seeds) != 1 + 3 * n_layers:
-            msg = f"dropout_seeds needs {1 + 3 * n_layers} seeds, got {len(seeds)}"
-            raise ValueError(msg)
-        terms = seed_terms(seeds)
-
     fast_ln = s > 64  # JAX's one-sweep variance where no fused layer runs
-    x = input_embeds
-    if "input_proj" in params and not inputs_projected:
-        x = _dense(x, params["input_proj"], dtype)
-    x = x.to(dtype) + params["pos_embed"][:s].to(dtype)
-    x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype, fast_variance=fast_ln)
-    x = hash_dropout(x, cfg.hidden_dropout, terms[0] if terms is not None else None)
+    with tracing.span("embed", request=False):
+        if attention_mask is None:
+            attention_mask = (input_embeds != 0).any(dim=-1)
+        attention_mask = attention_mask.bool()
+        seeds = terms = None
+        if dropout_seeds is not None:
+            # a tensor becomes one int64 tensor on the inputs' device, read
+            # there by every dropout site (no copy to the host: a CUDA graph
+            # of the step reads each replay's seeds); a list stays host
+            # ints.  The plain sites take their seeds' share of the hash,
+            # worked out here once for all of them
+            if isinstance(dropout_seeds, torch.Tensor):
+                seeds = seed_tensor(dropout_seeds, input_embeds.device)
+            else:
+                seeds = [int(v) for v in dropout_seeds]
+            if len(seeds) != 1 + 3 * n_layers:
+                msg = f"dropout_seeds needs {1 + 3 * n_layers} seeds, got {len(seeds)}"
+                raise ValueError(msg)
+            terms = seed_terms(seeds)
 
-    fused = _fused_layer_mode(cfg, s)
-    for i in range(n_layers):
-        layer = unstack_layer(params, i)
-        layer_seeds = seeds[1 + 3 * i : 4 + 3 * i] if seeds is not None else None
-        layer_terms = terms[1 + 3 * i : 4 + 3 * i] if terms is not None else None
-        if fused:
-            x = fused_layer(
-                x,
-                layer,
-                attention_mask,
-                num_heads=cfg.num_attention_heads,
-                causal=cfg.is_decoder,
-                attn_dropout=cfg.attention_dropout if seeds is not None else 0.0,
-                hidden_dropout=cfg.hidden_dropout if seeds is not None else 0.0,
-                dropout_seeds=layer_seeds,
-                ffn_dim=cfg.intermediate_size,
-                layer_norm_eps=cfg.layer_norm_eps,
-            )
-        elif cfg.remat_layers and torch.is_grad_enabled():
-            # recompute the layer's internals in the backward instead of
-            # keeping them (the hash dropout recomputes the same masks)
-            x = checkpoint(_stack_layer, x, layer, cfg, attention_mask, layer_terms, fast_ln,
-                           use_reentrant=False)
-        else:
-            x = _stack_layer(x, layer, cfg, attention_mask, layer_terms, fast_ln)
+        x = input_embeds
+        if "input_proj" in params and not inputs_projected:
+            x = _dense(x, params["input_proj"], dtype)
+        x = x.to(dtype) + params["pos_embed"][:s].to(dtype)
+        x = _layer_norm(x, params["embed_ln"], cfg.layer_norm_eps, dtype, fast_variance=fast_ln)
+        x = hash_dropout(x, cfg.hidden_dropout, terms[0] if terms is not None else None)
+    x = tracing.mark_backward(x, "embed")
+    with tracing.span("encoder", request=False):
+        fused = _fused_layer_mode(cfg, s)
+        for i in range(n_layers):
+            layer = unstack_layer(params, i)
+            layer_seeds = seeds[1 + 3 * i : 4 + 3 * i] if seeds is not None else None
+            layer_terms = terms[1 + 3 * i : 4 + 3 * i] if terms is not None else None
+            if fused:
+                x = fused_layer(
+                    x,
+                    layer,
+                    attention_mask,
+                    num_heads=cfg.num_attention_heads,
+                    causal=cfg.is_decoder,
+                    attn_dropout=cfg.attention_dropout if seeds is not None else 0.0,
+                    hidden_dropout=cfg.hidden_dropout if seeds is not None else 0.0,
+                    dropout_seeds=layer_seeds,
+                    ffn_dim=cfg.intermediate_size,
+                    layer_norm_eps=cfg.layer_norm_eps,
+                )
+            elif cfg.remat_layers and torch.is_grad_enabled():
+                # recompute the layer's internals in the backward instead of
+                # keeping them (the hash dropout recomputes the same masks)
+                x = checkpoint(_stack_layer, x, layer, cfg, attention_mask, layer_terms, fast_ln,
+                               use_reentrant=False)
+            else:
+                x = _stack_layer(x, layer, cfg, attention_mask, layer_terms, fast_ln)
 
-    token_embeddings = x.float()
-    sentence_embedding = pool_tokens(token_embeddings, attention_mask, cfg.pooling_mode)
-    if cfg.is_normalized:
-        norm = torch.linalg.vector_norm(sentence_embedding, dim=-1, keepdim=True)
-        sentence_embedding = sentence_embedding / norm.clamp(min=1e-12)
-    return {
-        "token_embeddings": token_embeddings,
-        "sentence_embedding": sentence_embedding,
-        "attention_mask": attention_mask,
-    }
+        token_embeddings = x.float()
+        sentence_embedding = pool_tokens(token_embeddings, attention_mask, cfg.pooling_mode)
+        if cfg.is_normalized:
+            norm = torch.linalg.vector_norm(sentence_embedding, dim=-1, keepdim=True)
+            sentence_embedding = sentence_embedding / norm.clamp(min=1e-12)
+        return {
+            "token_embeddings": token_embeddings,
+            "sentence_embedding": sentence_embedding,
+            "attention_mask": attention_mask,
+        }
 

@@ -25,80 +25,25 @@ the server's listen backlog is the system's maximum (not socketserver's
 from __future__ import annotations
 
 import asyncio
-import contextlib
-import contextvars
 import json
 import os
 import socket
 import time
 from typing import Any, Awaitable, Callable
 
+# request-level tracing lives in ``tracing.py`` (one span system for the
+# requests, the profiler and graph captures); re-exported for its importers
+from transformer_recommenders_tpu_torch.tracing import (  # noqa: F401
+    CURRENT_TRACE,
+    Trace,
+    trace_span,
+)
+
 Handler = Callable[[dict], Awaitable[Any]]
 
 
 class NotFound(Exception):
     """404 error for missing resources (parity: bentoml.exceptions.NotFound)."""
-
-
-# -- request-level tracing (ROADMAP serving item, round 3) --------------------
-#
-# Each dispatched request gets a Trace in a contextvar; service code wraps
-# its stages in ``trace_span`` (a no-op when no request is active, so the
-# same code paths run un-traced in scripts/tests).  Spans surface two ways:
-# per-request on the standard ``Server-Timing`` response header
-# (``span;dur=<ms>``), and aggregated at /metrics as
-# ``xrt_span_seconds_total{span=...}``.
-
-
-class Trace:
-    __slots__ = ("spans", "metrics", "header_spans")
-
-    def __init__(self) -> None:
-        self.spans: list[tuple[str, float]] = []
-        # count-valued annotations (e.g. batch_size) — rendered on the
-        # header like spans (Server-Timing allows arbitrary metrics) but
-        # aggregated separately so they never pollute the seconds counter
-        self.metrics: list[tuple[str, float]] = []
-        # header-only spans: shown per-request but NEVER aggregated into
-        # /metrics — for quantities shared across requests (a micro-batch's
-        # full encoder forward) that would overcount the aggregate if every
-        # waiter added them
-        self.header_spans: list[tuple[str, float]] = []
-
-    def add(self, name: str, seconds: float) -> None:
-        self.spans.append((name, seconds))
-
-    def add_metric(self, name: str, value: float) -> None:
-        self.metrics.append((name, value))
-
-    def add_header_only(self, name: str, seconds: float) -> None:
-        self.header_spans.append((name, seconds))
-
-    def header(self) -> str:
-        parts = [f"{n};dur={s * 1e3:.2f}" for n, s in self.spans]
-        parts += [f"{n};dur={s * 1e3:.2f}" for n, s in self.header_spans]
-        parts += [f"{n};dur={v:.2f}" for n, v in self.metrics]
-        return ", ".join(parts)
-
-
-CURRENT_TRACE: contextvars.ContextVar[Trace | None] = contextvars.ContextVar(
-    "xrt_trace", default=None
-)
-
-
-@contextlib.contextmanager
-def trace_span(name: str):
-    """Record wall time of the enclosed block (awaits included) on the
-    active request trace; free when no trace is active."""
-    tr = CURRENT_TRACE.get()
-    if tr is None:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        tr.add(name, time.perf_counter() - t0)
 
 
 class JSONApp:

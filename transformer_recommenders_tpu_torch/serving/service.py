@@ -20,7 +20,7 @@ from typing import Any
 
 import numpy as np
 
-from transformer_recommenders_tpu_torch import resolve_device
+from transformer_recommenders_tpu_torch import resolve_device, tracing
 from transformer_recommenders_tpu_torch.configs import IndexConfig
 from transformer_recommenders_tpu_torch.index import INDEX_BACKENDS
 from transformer_recommenders_tpu_torch.models.recommender import RecommenderModel
@@ -32,12 +32,7 @@ from transformer_recommenders_tpu_torch.params import (
     TRANSFORMER_PATH,
     USERS_TABLE_NAME,
 )
-from transformer_recommenders_tpu_torch.serving.asgi import (
-    CURRENT_TRACE,
-    JSONApp,
-    NotFound,
-    trace_span,
-)
+from transformer_recommenders_tpu_torch.serving.asgi import JSONApp, NotFound
 
 # -- IO schemas ---------------------------------------------------------------
 
@@ -186,9 +181,9 @@ class MicroBatcher:
         if flush_now:
             self._flush()
         wait_span = "batch_wait" if self._span == "encode" else f"{self._span}_wait"
-        with trace_span(wait_span):
+        with tracing.span(wait_span):
             res, fn_s, batch_n = await fut
-        tr = CURRENT_TRACE.get()
+        tr = tracing.CURRENT_TRACE.get()
         if tr is not None:
             # the batched fn is SHARED by batch_n waiters: each reports its
             # amortized share to the aggregate, the full time on its header
@@ -442,14 +437,14 @@ class Service:
     # -- async APIs ------------------------------------------------------------
 
     async def recommend_with_query(self, query: Query) -> list[ItemCandidate]:
-        with trace_span("process"):
+        with tracing.span("process"):
             query = await self.process_query(query)
         query = await self.embed_query(query)
         # query item ids are always excluded from the results
         query.exclude_item_ids = [*(query.exclude_item_ids or []), *(query.item_ids or [])]
         if query.embedding is None:
             return []
-        with trace_span("search"):
+        with tracing.span("search"):
             return await self.item_index.search_batched(query)
 
     async def process_query(self, query: Query) -> Query:
@@ -503,7 +498,7 @@ class Service:
         self, text: str, exclude_item_ids: list[str] | None = None, top_k: int = TOP_K
     ) -> list[ItemCandidate]:
         # "search" is the vector search's span; lexical search has its own
-        with trace_span("search_text"):
+        with tracing.span("search_text"):
             return self.item_index.search_text(
                 text, exclude_item_ids=exclude_item_ids, top_k=top_k
             )

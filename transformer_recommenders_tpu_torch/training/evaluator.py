@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from transformer_recommenders_tpu_torch import tracing
 from transformer_recommenders_tpu_torch.configs import TrainConfig
 from transformer_recommenders_tpu_torch.data.module import EvalArrays
 from transformer_recommenders_tpu_torch.models.recommender import (
@@ -76,24 +77,28 @@ def make_eval_step(config: TrainConfig):
     @torch.no_grad()
     def eval_step(params, item_table, items, history_window, history_full, targets, n_targets,
                   *, return_recs: bool = False):
-        device = item_table.device
+        with tracing.span("eval_step", request=False):
+            device = item_table.device
 
-        def put(a):
-            return torch.as_tensor(a).to(device=device, dtype=torch.int64)
+            def put(a):
+                return torch.as_tensor(a).to(device=device, dtype=torch.int64)
 
-        history_window, history_full, targets = map(put, (history_window, history_full, targets))
-        n_targets = put(n_targets)
-        queries = model_forward(params, config, item_table, history_window)["sentence_embedding"]
-        scores = score_items(queries, items, metric="cosine", items_prenormalized=True)
-        scores = mask_excluded(scores, history_full)
-        top_cols = top_k_columns(scores, config.top_k)
-        top_scores = scores.gather(1, top_cols)
-        top_idx = top_cols + 1  # 1-based item idx
-        rel = ((top_idx[:, :, None] == targets[:, None, :]) & (targets[:, None, :] > 0)).any(-1)
-        metrics = retrieval_metrics(rel, n_targets, config.top_k)
-        if return_recs:
-            return metrics, top_idx.to(torch.int32), top_scores
-        return metrics
+            history_window, history_full, targets = map(put, (history_window, history_full,
+                                                              targets))
+            n_targets = put(n_targets)
+            queries = model_forward(params, config, item_table,
+                                    history_window)["sentence_embedding"]
+            with tracing.span("retrieval", request=False):
+                scores = score_items(queries, items, metric="cosine", items_prenormalized=True)
+                scores = mask_excluded(scores, history_full)
+                top_cols = top_k_columns(scores, config.top_k)
+                top_scores = scores.gather(1, top_cols)
+            top_idx = top_cols + 1  # 1-based item idx
+            rel = ((top_idx[:, :, None] == targets[:, None, :]) & (targets[:, None, :] > 0)).any(-1)
+            metrics = retrieval_metrics(rel, n_targets, config.top_k)
+            if return_recs:
+                return metrics, top_idx.to(torch.int32), top_scores
+            return metrics
 
     return prepare_items, eval_step
 

@@ -26,6 +26,11 @@ adds a graph's counts at each replay.
 
 On the CPU (the tests) the same step runs eagerly, K times.
 
+A call is the span ``xrt.steps`` (``tracing.py``); the copies into and out
+of the static buffers, per call and per replay, are ``xrt.state``.  With
+tracing enabled each capture labels its nodes by the spans that captured
+them (``tracing.capture``), so a replayed kernel has its layer.
+
 With a mesh (``mesh=``) each step is the sharded hot step of
 ``parallel/train.py``, its collectives inside the graph.  NCCL creates a
 communicator at a group's first collective, which a capture cannot do:
@@ -38,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from transformer_recommenders_tpu_torch import tracing
 from transformer_recommenders_tpu_torch.configs import TrainConfig
 from transformer_recommenders_tpu_torch.models.transformer import tree_leaves
 from transformer_recommenders_tpu_torch.ops import cuda_build
@@ -88,7 +94,7 @@ class _GraphedWindow:
         for j in range(positions):
             before = dict(cuda_build.LAUNCHES)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph), tracing.capture():
                 self._body(j)
             # the capture launched nothing: its counts go to the replays
             counts = {n: cuda_build.LAUNCHES[n] - before[n] for n in before}
@@ -99,18 +105,20 @@ class _GraphedWindow:
     def _body(self, position: int) -> None:
         """One step at window position ``position``, the batch and seeds of
         row ``self.row``; its results written into the static buffers."""
-        batch = {k: v.index_select(0, self.row)[0] for k, v in self.batches.items()}
-        seeds = self.seeds.index_select(0, self.row)[0]
-        opt = ts.FlatAdamWState(self.count, self.mu, self.nu, self.acc, position)
+        with tracing.span("state", request=False):
+            batch = {k: v.index_select(0, self.row)[0] for k, v in self.batches.items()}
+            seeds = self.seeds.index_select(0, self.row)[0]
+            opt = ts.FlatAdamWState(self.count, self.mu, self.nu, self.acc, position)
         new_p, opt, loss, positives = self.step(self.flat, self.template, opt, self.table, batch,
                                                 seeds)
-        for dst, src in ((self.flat, new_p), (self.count, opt.count), (self.mu, opt.mu),
-                         (self.nu, opt.nu), (self.acc, opt.acc)):
-            if dst is not None and src is not dst:
-                dst.copy_(src)
-        self.loss.index_copy_(0, self.row, loss.reshape(1))
-        self.positives.index_copy_(0, self.row, positives.reshape(1))
-        self.row += 1
+        with tracing.span("state", request=False):
+            for dst, src in ((self.flat, new_p), (self.count, opt.count), (self.mu, opt.mu),
+                             (self.nu, opt.nu), (self.acc, opt.acc)):
+                if dst is not None and src is not dst:
+                    dst.copy_(src)
+            self.loss.index_copy_(0, self.row, loss.reshape(1))
+            self.positives.index_copy_(0, self.row, positives.reshape(1))
+            self.row += 1
 
     def load(self, state: ts.TrainState, batches: dict, seeds: torch.Tensor) -> None:
         self.flat.copy_(ts.flatten(state.params))
@@ -165,7 +173,9 @@ def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True, mes
         def loss_and_grad(params, item_table, batch, seeds):
             loss, grads, _, row_valid = ts.loss_grads_and_positives(config, False, params,
                                                                     item_table, batch, seeds)
-            return loss, ts.flatten(grads), row_valid.float().sum()
+            with tracing.span("optimizer", request=False):
+                flat_grad = ts.flatten(grads)
+            return loss, flat_grad, row_valid.float().sum()
     else:
         sharded = make_sharded_loss_and_grad(config, mesh, full_logs=False)
 
@@ -180,43 +190,48 @@ def make_scanned_train_steps(config: TrainConfig, *, with_logs: bool = True, mes
         return new_p, opt_state, loss, positives
 
     def steps(state: ts.TrainState, item_table: torch.Tensor, batches: dict, dropout_seeds):
-        batches = {k: torch.as_tensor(batches[k]) for k in ts._BATCH_KEYS}
-        seeds = torch.as_tensor(dropout_seeds)
-        k = seeds.shape[0]
-        if seeds.dim() != 2 or any(v.shape[0] != k for v in batches.values()):
-            msg = (f"steps: dropout_seeds {tuple(seeds.shape)} and batches "
-                   f"{ {n: tuple(v.shape) for n, v in batches.items()} } need one row per step")
-            raise ValueError(msg)
-        mini_step = state.opt_state.mini_step
-        if item_table.device.type == "cpu":
-            flat, opt = ts.flatten(state.params), state.opt_state
-            losses, positives = [], []
-            for i in range(k):
-                batch = {n: v[i] for n, v in batches.items()}
-                flat, opt, loss, pos = one_step(flat, state.params, opt, item_table, batch,
-                                                seeds[i])
-                losses.append(loss)
-                positives.append(pos)
-            new_state = ts.TrainState(ts.unflatten(state.params, flat), opt, state.step + k)
-            return new_state, _logs(config, with_logs, torch.stack(losses),
-                                    torch.stack(positives))
+        with tracing.span("steps", request=False):
+            batches = {k: torch.as_tensor(batches[k]) for k in ts._BATCH_KEYS}
+            seeds = torch.as_tensor(dropout_seeds)
+            k = seeds.shape[0]
+            if seeds.dim() != 2 or any(v.shape[0] != k for v in batches.values()):
+                msg = (f"steps: dropout_seeds {tuple(seeds.shape)} and batches "
+                       f"{ {n: tuple(v.shape) for n, v in batches.items()} } need one row per step")
+                raise ValueError(msg)
+            mini_step = state.opt_state.mini_step
+            if item_table.device.type == "cpu":
+                with tracing.span("state", request=False):
+                    flat, opt = ts.flatten(state.params), state.opt_state
+                losses, positives = [], []
+                for i in range(k):
+                    batch = {n: v[i] for n, v in batches.items()}
+                    flat, opt, loss, pos = one_step(flat, state.params, opt, item_table, batch,
+                                                    seeds[i])
+                    losses.append(loss)
+                    positives.append(pos)
+                with tracing.span("state", request=False):
+                    new_state = ts.TrainState(ts.unflatten(state.params, flat), opt, state.step + k)
+                    logs = _logs(config, with_logs, torch.stack(losses), torch.stack(positives))
+                return new_state, logs
 
-        key = (item_table.data_ptr(), tuple(item_table.shape), item_table.dtype, k,
-               tuple(next(iter(batches.values())).shape), state.opt_state.acc is None,
-               tuple(tuple(leaf.shape) for leaf in tree_leaves(state.params)))
-        window = windows.get(key)
-        if window is None:
-            window = windows[key] = _GraphedWindow(one_step, state, item_table, batches, seeds,
-                                                   positions)
-        window.load(state, batches, seeds)
-        window.run(mini_step, k)
-        opt = ts.FlatAdamWState(
-            window.count.clone(), window.mu.clone(), window.nu.clone(),
-            None if window.acc is None else window.acc.clone(), (mini_step + k) % positions)
-        new_state = ts.TrainState(ts.unflatten(state.params, window.flat.clone()), opt,
-                                  state.step + k)
-        return new_state, _logs(config, with_logs, window.loss.clone(),
-                                window.positives.clone())
+            key = (item_table.data_ptr(), tuple(item_table.shape), item_table.dtype, k,
+                   tuple(next(iter(batches.values())).shape), state.opt_state.acc is None,
+                   tuple(tuple(leaf.shape) for leaf in tree_leaves(state.params)))
+            window = windows.get(key)
+            if window is None:
+                window = windows[key] = _GraphedWindow(one_step, state, item_table, batches, seeds,
+                                                       positions)
+            with tracing.span("state", request=False):
+                window.load(state, batches, seeds)
+            window.run(mini_step, k)
+            with tracing.span("state", request=False):
+                opt = ts.FlatAdamWState(
+                    window.count.clone(), window.mu.clone(), window.nu.clone(),
+                    None if window.acc is None else window.acc.clone(), (mini_step + k) % positions)
+                new_state = ts.TrainState(ts.unflatten(state.params, window.flat.clone()), opt,
+                                          state.step + k)
+                logs = _logs(config, with_logs, window.loss.clone(), window.positives.clone())
+            return new_state, logs
 
     steps.windows = windows
     return steps

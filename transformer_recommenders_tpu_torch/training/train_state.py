@@ -28,6 +28,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from transformer_recommenders_tpu_torch import tracing
 from transformer_recommenders_tpu_torch.configs import TrainConfig
 from transformer_recommenders_tpu_torch.models.recommender import (
     compute_embeds,
@@ -110,8 +111,15 @@ def make_flat_update(config: TrainConfig):
         new_p = p - lr * (mu_hat / (torch.sqrt(nu_hat) + eps) + wd * p)
         return new_p, opt_state._replace(count=count, mu=mu, nu=nu), gnorm
 
+    def traced(step):
+        def flat_update(p: torch.Tensor, g: torch.Tensor, opt_state: FlatAdamWState):
+            with tracing.span("optimizer", request=False):
+                return step(p, g, opt_state)
+
+        return flat_update
+
     if k <= 1:
-        return update
+        return traced(update)
 
     def accumulate(p: torch.Tensor, g: torch.Tensor, opt_state: FlatAdamWState):
         gnorm = torch.sqrt(torch.sum(g * g))
@@ -124,7 +132,7 @@ def make_flat_update(config: TrainConfig):
         new_p, opt_state, _ = update(p, acc, opt_state)
         return new_p, opt_state._replace(acc=torch.zeros_like(acc), mini_step=0), gnorm
 
-    return accumulate
+    return traced(accumulate)
 
 
 def init_train_state(config: TrainConfig, params) -> TrainState:
@@ -268,23 +276,28 @@ def _objective_and_logs(config: TrainConfig, full_logs: bool, params, item_table
             params, config, item_table, batch["history_item_idx"], batch["pos_item_idx"],
             batch["neg_item_idx"], dropout_seeds=dropout_seeds,
         )
-        objective = fused_table_infonce_loss(
-            qe["query"], qe["table"], qe["pos_idx"], qe["neg_idx"], qe["row_valid"],
-            qe["neg_valid"], scale=config.scale,
-            mask_false_negatives=config.mask_false_negatives,
-        )
+        with tracing.span("loss", request=False):
+            objective = fused_table_infonce_loss(
+                qe["query"], qe["table"], qe["pos_idx"], qe["neg_idx"], qe["row_valid"],
+                qe["neg_valid"], scale=config.scale,
+                mask_false_negatives=config.mask_false_negatives,
+            )
+        objective = tracing.mark_backward(objective, "loss")
         return objective, {f"loss/{name}": objective.detach()}, qe["row_valid"]
     embeds = compute_embeds(
         params, config, item_table, batch["history_item_idx"], batch["pos_item_idx"],
         batch["neg_item_idx"], dropout_seeds=dropout_seeds,
     )
-    objective = _fused_objective(config, embeds)
-    if objective is None:
-        objective = loss_lib.compute_losses(config, *_loss_args(embeds), loss_names=(name,))[name]
+    with tracing.span("loss", request=False):
+        objective = _fused_objective(config, embeds)
+        if objective is None:
+            objective = loss_lib.compute_losses(config, *_loss_args(embeds),
+                                                loss_names=(name,))[name]
+    objective = tracing.mark_backward(objective, "loss")
     if not full_logs:
         return objective, {f"loss/{name}": objective.detach()}, embeds["row_valid"]
     # the logs are the JAX step's aux: computed alongside, never differentiated
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("loss", request=False):
         logs = _full_logs(config, {k: v.detach() for k, v in embeds.items()})
     return objective, logs, embeds["row_valid"]
 

@@ -80,9 +80,6 @@ from transformer_recommenders_tpu_torch.training.scan_steps import (
     stack_batches,
 )
 
-_IN_EPOCH_PHASES = ("queue_wait", "upload", "dispatch", "log", "tail_dispatch")
-
-
 class Trainer:
     def __init__(
         self,
@@ -128,14 +125,10 @@ class Trainer:
         # writes), tail_dispatch, epoch_wall, validate, checkpoint,
         # final_checkpoint
         self.phase_seconds: dict[str, float] = self._fresh_phases()
-        # thread-CPU seconds of the main loop's phases: wall - cpu is time
-        # the loop waited (for the card or the producer)
-        self.phase_cpu_seconds: dict[str, float] = self._fresh_phases()
         # counts behind the phases: windows, log events (the logging steps,
         # in both loops), log flushes, tail steps
         self.phase_counts: dict[str, int] = {}
         self.epoch_walls: list[float] = []
-        self.epoch_cpu_walls: list[float] = []
         # every validation of the LAST fit(): epoch, step, wall_s (since the
         # fit began, the validation included) and the metrics
         self.val_history: list[dict] = []
@@ -271,12 +264,10 @@ class Trainer:
         self._seed_gen = torch.Generator().manual_seed(cfg.seed)
         t_start = time.time()
         self.phase_seconds = self._fresh_phases()
-        self.phase_cpu_seconds = self._fresh_phases()
         self.phase_counts = {}
         self._pending_logs = []
         self._pending_log_keys = None
         self.epoch_walls = []
-        self.epoch_cpu_walls = []
         self.val_history = []
         examples = 0
         stop = False
@@ -347,7 +338,6 @@ class Trainer:
             for epoch in range(cfg.max_epochs):
                 t_ep = time.perf_counter()
                 val_before = self.phase_seconds["validate"]
-                cpu_before = sum(self.phase_cpu_seconds[k] for k in _IN_EPOCH_PHASES)
                 if cfg.steps_per_dispatch > 1:
                     stop, examples = self._run_epoch_scanned(epoch, t_start, examples)
                     self._flush_pending_logs()
@@ -358,8 +348,6 @@ class Trainer:
                 dt_ep -= self.phase_seconds["validate"] - val_before
                 self.phase_seconds["epoch_wall"] += dt_ep
                 self.epoch_walls.append(round(dt_ep, 3))
-                cpu_now = sum(self.phase_cpu_seconds[k] for k in _IN_EPOCH_PHASES)
-                self.epoch_cpu_walls.append(round(cpu_now - cpu_before, 3))
 
                 self.model.params = self.state.params
                 cur_step = self._host_step
@@ -516,17 +504,16 @@ class Trainer:
         cfg = self.config
         k = cfg.steps_per_dispatch
         log_every = max(cfg.log_every_n_steps // k, 1)
-        phases, cpu, counts = self.phase_seconds, self.phase_cpu_seconds, self.phase_counts
+        phases, counts = self.phase_seconds, self.phase_counts
 
         def bump(name: str, n: int = 1) -> None:
             counts[name] = counts.get(name, 0) + n
 
         table = self._step_table
         while True:
-            t0, c0 = time.perf_counter(), time.thread_time()
+            t0 = time.perf_counter()
             item = window_queue.get()
             phases["queue_wait"] += time.perf_counter() - t0
-            cpu["queue_wait"] += time.thread_time() - c0
             if item is done:
                 self._flush_pending_logs()
                 return False, examples
@@ -534,40 +521,36 @@ class Trainer:
                 raise item
             kind, payload, n_steps, n_examples = item
             seeds = torch.tensor([self._dropout_seeds() for _ in range(n_steps)])
-            t0, c0 = time.perf_counter(), time.thread_time()
+            t0 = time.perf_counter()
             payload = self._to_device(payload, window=True)
             phases["upload" if kind == "full" else "tail_dispatch"] += time.perf_counter() - t0
-            cpu["upload" if kind == "full" else "tail_dispatch"] += time.thread_time() - c0
             if kind == "full":
                 will_log = (self._host_step + n_steps) // k % log_every == 0
                 graphed = n_steps - 1 if will_log else n_steps
-                t0, c0 = time.perf_counter(), time.thread_time()
+                t0 = time.perf_counter()
                 self.state, _ = self._scan_step(
                     self.state, table, {key: v[:graphed] for key, v in payload.items()},
                     seeds[:graphed])
                 phases["dispatch"] += time.perf_counter() - t0
-                cpu["dispatch"] += time.thread_time() - c0
                 bump("windows")
                 examples += n_examples
                 self._host_step += n_steps
                 if will_log:
                     # the window's last step is the logging step; its logs
                     # stay on the device until the next flush
-                    t0, c0 = time.perf_counter(), time.thread_time()
+                    t0 = time.perf_counter()
                     self.state, logs = self._train_step(
                         self.state, table, {key: v[-1] for key, v in payload.items()},
                         seeds[-1].tolist())
                     self._queue_log_event(logs, examples, time.time() - t_start)
                     phases["log"] += time.perf_counter() - t0
-                    cpu["log"] += time.thread_time() - c0
                     bump("log_events")
             else:  # the ragged tail: one graphed call at its length
-                t0, c0 = time.perf_counter(), time.thread_time()
+                t0 = time.perf_counter()
                 self.state, _ = self._scan_step(self.state, table, payload, seeds)
                 examples += n_examples
                 self._host_step += n_steps
                 phases["tail_dispatch"] += time.perf_counter() - t0
-                cpu["tail_dispatch"] += time.thread_time() - c0
                 bump("tail_steps", n_steps)
             if (
                 self._midepoch_validate is not None
