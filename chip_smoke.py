@@ -152,9 +152,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     no (B, H, S, S) tensor allocated; each timed beside its plain
     version, its bound (the function's bytes) and (#17, #18)
     ``scaled_dot_product_attention`` without dropout, with the CTAs an SM
-    holds; (d) the hot step:
+    holds; the dense (#19) as phase 20 checks it; (d) the hot step:
     loss and raw gradients against the CPU's plain path at B=8, one
-    counted step at B=256 (#1, #2, #10-#12 and #16-#18; the layer stack,
+    counted step at B=256 (#1, #2, #10-#12 and #16-#19; the layer stack,
     no fused layer), the zero rows at the cosine normalization, 30
     fixed-batch steps whose loss must fall, the device time by kernel, by
     PyTorch op and by part, eager with and without dropout, the
@@ -213,11 +213,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     workers) on the card, every request answered 200 and the JAX scripts'
     keys in each record.
 
+20. the layer stack's dense (#19; part of phase 17 (c), alone under
+    ``--only-dense``): the forward, dgrad and wgrad kernels against the
+    plain graph at every shape the benchmark's cells give them (the scale
+    step's and recommend call's four denses a layer at T = 32,768 and
+    65,536, the catalog's and the window rows' projections, the
+    flagship's) and at K and N that no 64-wide block divides, y, dx and dW within one
+    bf16 ulp (plus the f32 sum order's slack where a sum cancels), db
+    within an f32 sum-order bound; a row's forward bit for bit at M = 64
+    and inside M = 65,536; the wgrad twice bit for bit; each timed beside
+    its bound, the plain graph's ops and ``torch.mm`` on bf16 with f32
+    output plus the bias and the cast (never called by the port); one row
+    a kernel in the kernels line, its shapes under ``by_shape``.
+
 ``--only-scale`` runs phases 1 and 17 alone (and prints no kernels line);
 ``--only-quality`` phases 1 and 18 (no kernels line either);
 ``--only-parity`` phases 1 and 19 (a)-(d), (d) with every config at 3
 seeds and both shapes; ``--only-serving`` phases 1 and 19 (e) with each
-mode at its defaults (neither prints a kernels line);
+mode at its defaults (neither prints a kernels line); ``--only-dense`` phases
+1 and 20 (no kernels line);
 ``--scale-uncut`` runs phase 17's fit over all 25M events and the whole
 epoch, and tests and predicts every user (~9 minutes more).
 
@@ -2044,6 +2058,8 @@ def main() -> int:
     parser.add_argument("--only-serving", action="store_true",
                         help="phases 1 and 19's serving bench at each mode's defaults (no "
                              "kernels line)")
+    parser.add_argument("--only-dense", action="store_true",
+                        help="phases 1 and 20 alone (no kernels line)")
     parser.add_argument("--scale-uncut", action="store_true",
                         help="phase 17's fit over ML-25M's 25M events and the whole epoch, its "
                              "test and predict over every user (~9 minutes more)")
@@ -2072,7 +2088,8 @@ def main() -> int:
     scale_data = pathlib.Path(scale_dir.name) / "data"
     parity_root = pathlib.Path(scale_dir.name) / "parity"
     events = ML25M_SCALE["synthetic_num_events"] if args.scale_uncut else SCALE_EVENTS
-    only = args.only_scale or args.only_quality or args.only_parity or args.only_serving
+    only = (args.only_scale or args.only_quality or args.only_parity or args.only_serving
+            or args.only_dense)
     data_job = (start_scale_data(scale_data, events) if args.only_scale or not only
                 else None)
     parity_job = (start_parity_data(parity_root) if args.only_parity or not only else None)
@@ -2117,6 +2134,11 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path,
         phase("19: the ML-1M parity protocol, every config at 3 seeds, both shapes")
         parity_phase(parity_root, full=True)
         log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 19's parity part alone)")
+        return 0
+    if args.only_dense:
+        phase("20: the layer stack's dense (#19) against the plain graph")
+        check_dense()
+        log(f"[{time.perf_counter() - t_start:.0f} s] done (phases 1 and 20 alone)")
         return 0
     if args.only_serving:
         phase("19 (e): the serving bench, each mode at its defaults")
@@ -2232,15 +2254,15 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path,
         # flagship's hot step, the pool kernels on its logging step, the
         # pairwise kernels on path C (every training path launches the
         # forward kernels too), the probe on the calibration, the section
-        # variants on the section profile, the layer stack's on the scale
-        # configuration's hot step
+        # variants on the section profile, the layer stack's (the dense's
+        # too) on the scale configuration's hot step
         path = ("serving" if k["name"] in ("fused_layer", "gather_rows") else
                 "logging_A" if k["name"].startswith("pool_") else
                 "ml100k_C" if k["name"].startswith("pairwise_") else
                 "calibration" if k["name"] == "vpu_chain" else
                 "sections" if k["name"].startswith("fused_layer_stage_") else
                 "scale_hot" if k["name"] in ("hash_dropout", "attn_core_fwd", "attn_core_bwd")
-                else "training")
+                or k["name"].startswith("dense_") else "training")
         k["launches"] = launches[path][k["name"]]
         k["launches_by_path"] = {p: counts[k["name"]] for p, counts in launches.items()}
         if k["name"] in FLAGSHIP_PATH and not launches["fit_flagship"][k["name"]]:
@@ -2264,7 +2286,7 @@ def run_phases(args, smi: str, data_job, scale_data: pathlib.Path,
 def scale_phase(phase, data_job, scale_data: pathlib.Path, args) -> dict:
     """Phase 17, the scale configuration (configs/ml25m_ccl.yaml) at full
     width: (a) the pairwise kernels at D=256, (b) the gather at the 62k
-    catalog, (c) the layer stack's kernels (#16-#18), (d, e) the hot and
+    catalog, (c) the layer stack's kernels (#16-#19), (d, e) the hot and
     logging steps, (f) the fit.  Returns the kernels' numbers and rows and
     the launch counts of one hot step and the fit."""
     from transformer_recommenders_tpu_torch.configs import TrainConfig
@@ -2274,10 +2296,11 @@ def scale_phase(phase, data_job, scale_data: pathlib.Path, args) -> dict:
     pairwise = check_scale_pairwise(special_function_rate()[0])
     phase("17 (b): the gather at the 62k catalog's shapes")
     gather = check_scale_gather()
-    phase("17 (c): the layer stack's kernels, the hash dropout (#16) and the attention core "
-          "(#17, #18)")
+    phase("17 (c): the layer stack's kernels, the hash dropout (#16), the attention core "
+          "(#17, #18) and the dense (#19)")
     stack = [check_hash_dropout(),
-             *check_attn_core(TrainConfig.from_dict(scale_sections()[0]).is_decoder)]
+             *check_attn_core(TrainConfig.from_dict(scale_sections()[0]).is_decoder),
+             *check_dense()]
     phase("17 (d, e): the hot and logging steps")
     hot = scale_steps_phase(scale_catalog(ML25M_SCALE["synthetic_num_items"]))
     phase("17 (f): a fit at ML-25M's synthetic scale")
@@ -2613,6 +2636,12 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
         s, cfg.hidden_size // cfg.num_attention_heads, torch.bfloat16) else 0
     fwd = 2 if cfg.remat_layers else 1
     hid, att = int(cfg.hidden_dropout > 0), int(cfg.attention_dropout > 0)
+    # #19 under bf16 (every width of the repo's configurations is a multiple
+    # of 8): each stack layer's four denses, forward (again in a remat
+    # layer's backward), dgrad and wgrad, and the input projection's one
+    # call a step, whose frozen table rows take no dgrad
+    bf16 = int(cfg.compute_dtype == "bfloat16")
+    denses = 4 * stack
     counts = {
         "gather_rows": 1,
         "gather_rows_bwd": int(proj and (table_path or table_rows <= 3 * pool_rows)),
@@ -2625,6 +2654,8 @@ def expected_launches(cfg, table_rows: int, pool_rows: int, full_logs: bool) -> 
         "hash_dropout": 2 * hid + stack * 2 * hid * (fwd + 1)
         + (stack - core) * att * (fwd + (2 if split16 else 1)),
         "attn_core_fwd": core * fwd, "attn_core_bwd": core,
+        "dense_fwd": bf16 * (denses * fwd + int(proj)), "dense_dgrad": bf16 * denses,
+        "dense_wgrad": bf16 * (denses + int(proj)), "dense_plain": 0,
     }
     for prefix in ("pool_infonce", "pairwise"):
         on = fused and not table_path and prefix == pool
@@ -3229,8 +3260,8 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3, ops: int
     the device's busy share of the steps' wall time (one stream, so the
     kernels do not overlap); with ``ops``, also the ``ops`` PyTorch ops of
     the most device time (the kernels each launched) and the port's
-    kernels (pairwise, gather, hash dropout, attention core) against
-    everything else.  Returns busy and
+    kernels (pairwise, gather, hash dropout, attention core, dense)
+    against everything else.  Returns busy and
     wall ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -3263,15 +3294,18 @@ def profile_steps(step, state, table, batch, cfg, seed_gen, n: int = 3, ops: int
             f"{e.key[:90]}")
     if ops:
         groups = {"pairwise (#10-#12)": 0.0, "gather (#1, #2)": 0.0,
-                  "hash dropout (#16)": 0.0, "attention core (#17, #18)": 0.0}
+                  "hash dropout (#16)": 0.0, "attention core (#17, #18)": 0.0,
+                  "dense (#19)": 0.0}
         for e in kernels:
             key = ("pairwise (#10-#12)" if "pairwise" in e.key else
                    "gather (#1, #2)" if "gather_rows" in e.key or "segment_" in e.key else
                    "hash dropout (#16)" if "hash_dropout" in e.key else
-                   "attention core (#17, #18)" if "attn_core" in e.key else None)
+                   "attention core (#17, #18)" if "attn_core" in e.key else
+                   "dense (#19)" if "dense_gemm" in e.key or "dense_wgrad" in e.key else
+                   None)
             if key:
                 groups[key] += e.self_device_time_total / n / 1e3
-        rest = "everything else (the stack's products and casts, projection, normalization, AdamW)"
+        rest = "everything else (the stack's casts, normalization, GELU and residuals, AdamW)"
         groups[rest] = busy_ms - sum(groups.values())
         log("  by part, per step: " + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
         by_op = sorted((e for e in prof.key_averages()
@@ -4205,7 +4239,7 @@ def scale_steps_phase(emb) -> dict:
         f"{hot_peak / 2**30:.2f} GiB")
     if launches != expected or launches["fused_layer"] or not all(
             launches[k] for k in SCALE_PATH):
-        raise AssertionError("the scale hot step did not launch #1, #2, #10-#12 and #16-#18 "
+        raise AssertionError("the scale hot step did not launch #1, #2, #10-#12 and #16-#19 "
                              "alone")
     losses = [float(logs["loss/ContrastiveLoss"])]
     for _ in range(29):
@@ -4262,9 +4296,10 @@ def scale_steps_phase(emb) -> dict:
 # the kernels of the scale configuration's training path: #1 and #2 (B=256
 # projects the catalog first, so the gathered rows take a gradient), the
 # pairwise kernels, and the layer stack's at seq 128 (no fused layer): the
-# hash dropout and the attention core
+# hash dropout, the attention core and the dense
 SCALE_PATH = ("gather_rows", "gather_rows_bwd", "pairwise_fwd", "pairwise_dq", "pairwise_dn",
-              "hash_dropout", "attn_core_fwd", "attn_core_bwd")
+              "hash_dropout", "attn_core_fwd", "attn_core_bwd", "dense_fwd", "dense_dgrad",
+              "dense_wgrad")
 
 
 def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: int, *,
@@ -4341,7 +4376,7 @@ def scale_fit_phase(data_job: subprocess.Popen, data_dir: pathlib.Path, events: 
     log(f"  phase_counts: {trainer.phase_counts}")
     log(f"  launches in the fit: {launches}")
     if launches["fused_layer"] or not all(launches[k] for k in SCALE_PATH):
-        raise AssertionError("the scale fit did not go through #1, #2, #10-#12 and #16-#18 "
+        raise AssertionError("the scale fit did not go through #1, #2, #10-#12 and #16-#19 "
                              "alone")
     if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(trainer.model.params)):
         raise AssertionError("non-finite parameters after the scale fit")
@@ -4622,11 +4657,129 @@ def check_quality_kernels() -> dict:
     return out
 
 
+# -- phase 20: the layer stack's dense (#19) -----------------------------------------------------
+
+# (M, K, N) by the cells that give them: the scale recommend call's (B=512
+# x S=128) and step's (B=256) four denses a layer, the scale catalog's
+# projection (62,424 rows, the step's), the flagship's catalog (3,706) and
+# its recommend call's window rows (2,048 users x 32); and K and N that the
+# gate admits but no 64-wide k-block or 64-column store box divides
+DENSE_CASES = {
+    "recommend qkv": (65536, 256, 768), "recommend out": (65536, 256, 256),
+    "recommend ffn_in": (65536, 256, 1024), "recommend ffn_out": (65536, 1024, 256),
+    "recommend proj": (65536, 384, 256),
+    "step qkv": (32768, 256, 768), "step out": (32768, 256, 256),
+    "step ffn_in": (32768, 256, 1024), "step ffn_out": (32768, 1024, 256),
+    "step catalog": (62424, 384, 256),
+    "flagship catalog": (3706, 384, 128), "flagship window": (65536, 384, 128),
+    "ragged k-block": (1000, 72, 200), "ragged column tile": (3706, 392, 136),
+}
+
+
+def dense_error(got, want, scale) -> tuple[float, float]:
+    """(the worst |got - want| over one bf16 ulp of |want| plus 2**-16 of
+    ``scale``, the sum of the terms' magnitudes; the share of outputs that
+    differ): at most 1 where the two differ by the f32 sum order alone."""
+    got, want = got.float(), want.float()
+    slack = want.abs() * 2.0**-7 + 2.0**-133 + 2.0**-16 * scale
+    return float(((got - want).abs() / slack).max()), float((got != want).float().mean())
+
+
+def check_dense() -> list[dict]:
+    """Phase 20 (see the module docstring); returns the kernels' rows,
+    one a kernel, timed at the scale recommend call's qkv and at every
+    shape under ``by_shape``."""
+    import torch
+
+    from transformer_recommenders_tpu_torch.ops import dense as D
+
+    bf16 = torch.bfloat16
+    times = {d: {} for d in ("fwd", "dgrad", "wgrad")}
+    max_err = dict.fromkeys(times, 0.0)
+    for name, (m, k, n) in DENSE_CASES.items():
+        gen = torch.Generator().manual_seed(m + k + n)
+        x = torch.randn(m, k, generator=gen).to("cuda", bf16)
+        w = (torch.randn(k, n, generator=gen) / math.sqrt(k)).cuda()
+        b = (0.1 * torch.randn(n, generator=gen)).cuda()
+        g = torch.randn(m, n, generator=gen).to("cuda", bf16)
+        w16 = w.to(bf16)
+        xa, wa, ga = x.float().abs(), w16.float().abs(), g.float().abs()
+        y = D._fwd_cuda(x, w16, b)
+        dx = D._dgrad_cuda(g, w16)
+        dw, db = D._wgrad_cuda(x, g)
+        dw2, db2 = D._wgrad_cuda(x, g)
+        plain = {
+            "fwd": lambda: D.dense_reference(x, w, b, bf16),
+            "dgrad": lambda: (g.float() @ w16.float().t()).to(bf16),
+            "wgrad": lambda: ((x.float().t() @ g.float()).to(bf16).float(), g.float().sum(0)),
+        }
+        f32 = torch.float32  # cuBLAS's bf16 GEMM with f32 output
+        library = {
+            "fwd": lambda: (torch.mm(x, w16, out_dtype=f32) + b).to(bf16),
+            "dgrad": lambda: torch.mm(g, w16.t(), out_dtype=f32).to(bf16),
+            "wgrad": lambda: (torch.mm(x.t(), g, out_dtype=f32).to(bf16).float(),
+                              g.float().sum(0)),
+        }
+        kernel = {"fwd": lambda: D._fwd_cuda(x, w16, b), "dgrad": lambda: D._dgrad_cuda(g, w16),
+                  "wgrad": lambda: D._wgrad_cuda(x, g)}
+        want_dw, want_db = plain["wgrad"]()
+        want = {"fwd": plain["fwd"](), "dgrad": plain["dgrad"](), "wgrad": want_dw}
+        errs = {
+            "fwd": dense_error(y, want["fwd"], xa @ wa + b.abs()),
+            "dgrad": dense_error(dx, want["dgrad"], ga @ wa.t()),
+            "wgrad": dense_error(dw, want["wgrad"], xa.t() @ ga),
+        }
+        for d, got in (("fwd", y), ("dgrad", dx), ("wgrad", dw)):
+            max_err[d] = max(max_err[d], float((got.float() - want[d].float()).abs().max()))
+        db_err = float(((db - want_db).abs() / (2.0**-16 * ga.sum(0))).max())
+        with torch.no_grad():
+            invariant = all(torch.equal(D._fwd_cuda(x[lo:lo + 64].clone(), w16, b),
+                                        y[lo:lo + 64]) for lo in (0, m // 2, m - 64))
+        repeat = torch.equal(dw, dw2) and torch.equal(db, db2)
+        ok = (all(e <= 1.0 and share <= 0.01 for e, share in errs.values()) and db_err <= 1.0
+              and invariant and repeat)
+        log(f"  {name} M={m} K={k} N={n}: " + ", ".join(
+            f"{d} {e:.3g} of its slack, {share:.2e} differ" for d, (e, share) in errs.items())
+            + f"; db {db_err:.3g} of its slack; rows at M=64 bit for bit: {invariant}; wgrad "
+            f"twice bit for bit: {repeat} ({D.wgrad_splits(m, k, n, 'cuda')} splits) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"#19 disagrees with the plain graph at {name}")
+        flops = 2.0 * m * k * n
+        nbytes = {"fwd": 2 * (m * k + k * n + m * n) + 4 * n,
+                  "dgrad": 2 * (m * n + k * n + m * k),
+                  "wgrad": 2 * (m * k + m * n) + 4 * (k * n + n)}
+        for d in ("fwd", "dgrad", "wgrad"):
+            t = {"ms": time_ms(kernel[d]), "plain_ms": time_ms(plain[d]),
+                 "library_ms": time_ms(library[d])}
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes[d], H100_BF16_FLOPS)
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            log(f"    {d}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}): "
+                f"{t['share_of_bound']:.3f} of it")
+            times[d][name] = t
+        del x, g, y, dx, dw, db
+        torch.cuda.empty_cache()
+    what = {"fwd": "forward: bf16(x w + b)", "dgrad": "autograd of it in x",
+            "wgrad": "autograd of it in w and b"}
+    head = "recommend qkv"
+    return [{
+        "name": f"dense_{d}", "route": "cuda",
+        "source": "transformer_recommenders_tpu_torch/csrc/dense.cu",
+        "replaces": "transformer_recommenders_tpu/models/transformer.py:135 (_dense, "
+                    f"{what[d]}; one jnp.dot that XLA runs: no Pallas kernel)",
+        "shape": f"{head} {DENSE_CASES[head]} bf16", "max_abs_err": max_err[d],
+        **{k: times[d][head][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+        "by_shape": times[d],
+    } for d in ("fwd", "dgrad", "wgrad")]
+
+
 def expected_eval_launches(cfg, users: int) -> dict:
     """Launches of one validation pass over ``users``: per batch of
     ``eval_batch_size`` users the gather and each fused layer's forward (no
     dropout at evaluation), or, where the gate sends the model to the layer
-    stack, the gather alone.  For an unprojected catalog, which passes
+    stack, the gather and under bf16 the stack's denses (#19).  For an unprojected catalog, which passes
     through no kernel, and a stack whose attention core runs no kernel
     (f32, or the masked core)."""
     from transformer_recommenders_tpu_torch.models.transformer import _fused_layer_mode
@@ -4641,8 +4794,11 @@ def expected_eval_launches(cfg, users: int) -> dict:
         raise ValueError("counted only for an unprojected catalog, and the fused layer or a "
                          "stack without the attention core's kernels")
     batches = -(-users // cfg.eval_batch_size)
+    stack = cfg.num_hidden_layers * int(not fused)
     return dict.fromkeys(cuda_build.KERNELS, 0) | {
-        "gather_rows": batches, "fused_layer": batches * cfg.num_hidden_layers * int(bool(fused))}
+        "gather_rows": batches, "fused_layer": batches * cfg.num_hidden_layers * int(bool(fused)),
+        # #19: the stack's four denses a layer under bf16
+        "dense_fwd": batches * 4 * stack * int(cfg.compute_dtype == "bfloat16")}
 
 
 def check_fit_launches(summary: dict) -> None:

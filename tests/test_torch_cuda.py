@@ -1704,3 +1704,165 @@ def test_attn_core_outside_the_gate_runs_the_plain_core_with_the_dropout_kernel(
     torch.cuda.synchronize()
     assert cuda_build.LAUNCHES["hash_dropout"] == 3
     assert cuda_build.LAUNCHES["attn_core_fwd"] == cuda_build.LAUNCHES["attn_core_bwd"] == 0
+
+
+# -- the layer stack's dense (#19) -----------------------------------------------------------------
+
+
+# (M, K, N): the scale recommend call's qkv, out and FFN (B=512 x S=128),
+# the scale step's (B=256 x S=128), the scale catalog's projection (62,424
+# rows), the flagship's (3,706), path C's d=64, a ragged M, and K and N
+# that the gate admits (multiples of 8) but no 64-wide k-block or 64-column
+# store box divides: the last k-block read partly out of range (zeros into
+# wgmma) and the last output box stored clipped
+DENSE_SHAPES = [
+    (65536, 256, 768), (65536, 256, 256), (65536, 256, 1024), (65536, 1024, 256),
+    (32768, 256, 768), (32768, 1024, 256), (62424, 384, 256), (3706, 384, 128),
+    (1000, 64, 192), (1000, 256, 128), (1000, 72, 200), (3706, 392, 136),
+]
+
+
+def _dense_inputs(cuda, m, k, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen).to(cuda, torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen) / math.sqrt(k)).to(cuda)
+    b = (0.1 * torch.randn(n, generator=gen)).to(cuda)
+    g = torch.randn(m, n, generator=gen).to(cuda, torch.bfloat16)
+    return x, w, b, g
+
+
+def _dense_grads(fn, x, w, b, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+    y = fn(*leaves, torch.bfloat16)
+    y.backward(g)
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+def _within_sum_order(got, want, scale):
+    """``got`` against ``want``, sums of the same exact products in other
+    orders rounded to bf16: one bf16 ulp of |want|, plus what the f32 sum
+    order can move (2**-16 of ``scale``, the sum of the terms' magnitudes)
+    where the sum cancels.  Returns the share of outputs that differ."""
+    got, want = got.float(), want.float()
+    ulp = torch.abs(want) * 2.0**-7 + 2.0**-133
+    assert (torch.abs(got - want) <= ulp + 2.0**-16 * scale).all()
+    return float((got != want).float().mean())
+
+
+@pytest.mark.parametrize(("m", "k", "n"), DENSE_SHAPES)
+def test_dense_kernels_match_plain(cuda, m, k, n):
+    """#19 forward, dgrad and wgrad against the plain graph on the card: y
+    and dx within one bf16 ulp where they differ (at most 1% of them), dW
+    likewise before its rounding, db within an f32 sum-order bound."""
+    from transformer_recommenders_tpu_torch.ops import dense as D
+
+    x, w, b, g = _dense_inputs(cuda, m, k, n, seed=m + k + n)
+    cuda_build.reset_launches()
+    got = _dense_grads(D.dense, x, w, b, g)
+    torch.cuda.synchronize()
+    assert {name: cuda_build.LAUNCHES[name] for name in
+            ("dense_fwd", "dense_dgrad", "dense_wgrad", "dense_plain")} == {
+        "dense_fwd": 1, "dense_dgrad": 1, "dense_wgrad": 1, "dense_plain": 0}
+    want = _dense_grads(D.dense_reference, x, w, b, g)
+    xa, wa, ga = x.float().abs(), w.to(torch.bfloat16).float().abs(), g.float().abs()
+    assert _within_sum_order(got[0], want[0], xa @ wa + b.abs()) <= 0.01
+    assert _within_sum_order(got[1], want[1], ga @ wa.t()) <= 0.01
+    assert _within_sum_order(got[2], want[2], xa.t() @ ga) <= 0.01
+    assert got[2].dtype == torch.float32 and torch.equal(got[2], got[2].to(torch.bfloat16).float())
+    assert (torch.abs(got[3] - want[3]) <= 2.0**-16 * ga.sum(0)).all()
+
+
+@pytest.mark.parametrize(("k", "n"), [(384, 256), (256, 768), (1024, 256), (64, 192)])
+def test_dense_rows_do_not_depend_on_the_batch(cuda, k, n):
+    """A row's forward output is the same bits at M = 64 as inside M =
+    65,536 (no split of K, one K-loop order whatever M is): ROADMAP C.1."""
+    from transformer_recommenders_tpu_torch.ops import dense as D
+
+    x, w, b, _ = _dense_inputs(cuda, 65536, k, n, seed=k * n)
+    with torch.no_grad():
+        whole = D.dense(x, w, b, torch.bfloat16)
+        for lo in (0, 1000, 65536 - 64):
+            part = D.dense(x[lo:lo + 64].clone(), w, b, torch.bfloat16)
+            assert torch.equal(_bits(part), _bits(whole[lo:lo + 64]))
+
+
+@pytest.mark.parametrize(("m", "k", "n"), [(32768, 256, 768), (62424, 384, 256), (3706, 384, 128),
+                                         (3706, 392, 136)])
+def test_dense_wgrad_bits_eager_twice_and_graphed(cuda, m, k, n):
+    """The wgrad (its splits of T summed in a fixed order, no atomics) gives
+    the same bits on two eager runs and on a CUDA graph's capture and
+    replay."""
+    from transformer_recommenders_tpu_torch.ops import dense as D
+
+    x, _, _, g = _dense_inputs(cuda, m, k, n, seed=m)
+    first = D._wgrad_cuda(x, g)
+    second = D._wgrad_cuda(x, g)
+    assert D.wgrad_splits(m, k, n, cuda) > 1
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        D._wgrad_cuda(x, g)  # the capture's warm-up
+        with torch.cuda.graph(graph, stream=stream):
+            captured = D._wgrad_cuda(x, g)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, e, c in zip(first, second, captured):
+        assert torch.equal(_bits(a), _bits(e)) and torch.equal(_bits(a), _bits(c))
+
+
+def test_dense_plain_path_on_the_card_is_counted(cuda):
+    """A bf16 dense the kernels do not take (N not a multiple of 8) runs the
+    plain ops and is counted; an f32 one is not."""
+    from transformer_recommenders_tpu_torch.ops import dense as D
+
+    x, w, b, _ = _dense_inputs(cuda, 64, 64, 20, seed=1)
+    cuda_build.reset_launches()
+    y = D.dense(x, w, b, torch.bfloat16)
+    D.dense(x.float(), w, b, torch.float32)
+    assert cuda_build.LAUNCHES["dense_plain"] == 1 and cuda_build.LAUNCHES["dense_fwd"] == 0
+    assert torch.equal(y, D.dense_reference(x, w, b, torch.bfloat16))
+
+
+def test_dense_counts_over_a_scale_step_and_a_recommend_call(cuda):
+    """``configs/ml25m_ccl.yaml`` at full width and depth: one hot step
+    launches #19 as ``chip_smoke.expected_launches`` counts (25 forwards, 24
+    dgrads, 25 wgrads: the 6 layers' 4 denses and the catalog's
+    projection), one recommend call of 512 users 25 forwards; neither
+    takes the plain path."""
+    from transformer_recommenders_tpu_torch.configs import TrainConfig
+    from transformer_recommenders_tpu_torch.models.recommender import build_item_table
+    from transformer_recommenders_tpu_torch.models.transformer import init_transformer_params
+    from transformer_recommenders_tpu_torch.training import train_state as ts
+    from transformer_recommenders_tpu_torch.training.evaluator import make_eval_step
+
+    import numpy as np
+
+    smoke = _chip_smoke()
+    cfg = TrainConfig.from_dict(smoke.scale_sections()[0])
+    n_items, b, s = 62423, smoke.SCALE_BATCH, cfg.max_seq_length
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(n_items, cfg.resolved_input_dim)).astype(np.float32)
+    table = build_item_table(emb / np.linalg.norm(emb, axis=1, keepdims=True), device=cuda)
+    params = init_transformer_params(torch.Generator().manual_seed(0), cfg, device=cuda)
+    batch = smoke.train_batch(rng, b, s, n_items)
+    seeds = ts.draw_dropout_seeds(torch.Generator().manual_seed(1), cfg)
+    step = ts.make_train_step(cfg, full_logs=False)
+    want = smoke.expected_launches(cfg, table.shape[0], ts.table_pool_rows(cfg, batch), False)
+    cuda_build.reset_launches()
+    step(ts.init_train_state(cfg, params), table, batch, seeds)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES == want
+    assert (want["dense_fwd"], want["dense_dgrad"], want["dense_wgrad"]) == (25, 24, 25)
+
+    prepare, eval_step = make_eval_step(cfg)
+    items = prepare(params, table)
+    users = 512
+    window = rng.integers(1, n_items + 1, size=(users, s))
+    cuda_build.reset_launches()
+    eval_step(params, table, items, window, window, window[:, :1], np.ones(users))
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["dense_fwd"] == 25 and cuda_build.LAUNCHES["dense_plain"] == 0
+    assert cuda_build.LAUNCHES["dense_dgrad"] == cuda_build.LAUNCHES["dense_wgrad"] == 0

@@ -213,14 +213,18 @@ def test_chip_smoke_expects_each_paths_kernels():
               "pool_infonce_fwd": 1, "pool_infonce_dq": 1, "pairwise_fwd": 0, "pairwise_dq": 0,
               "pairwise_dn": 0, "vpu_chain": 0, "fused_layer_stage_fwd": 0,
               "fused_layer_stage_bwd": 0, "hash_dropout": 2, "attn_core_fwd": 0,
-              "attn_core_bwd": 0}
+              "attn_core_bwd": 0, "dense_fwd": 0, "dense_dgrad": 0, "dense_wgrad": 0,
+              "dense_plain": 0}
+    # #19 under bf16: the catalog's projection, forward and wgrad (its
+    # frozen rows take no dgrad), and each stack layer's four denses
+    projection = {"dense_fwd": 1, "dense_wgrad": 1}
     assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=False) == {
         **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
         "table_infonce_fwd": 1, "table_infonce_bwd": 1, "pool_infonce_fwd": 0,
-        "pool_infonce_dq": 0, "pool_infonce_dn": 0}
+        "pool_infonce_dq": 0, "pool_infonce_dn": 0, **projection}
     assert chip_smoke.expected_launches(flagship, 3707, 4096, full_logs=True) == {
         **common, "gather_rows_bwd": 1, "fused_layer": 4, "fused_layer_bwd": 4,
-        "pool_infonce_dn": 1}
+        "pool_infonce_dn": 1, **projection}
     assert chip_smoke.expected_launches(reference, 3707, 1024, full_logs=False) == {
         **common, "gather_rows_bwd": 0, "fused_layer": 1, "fused_layer_bwd": 1,
         "pool_infonce_dn": 0}
@@ -232,7 +236,8 @@ def test_chip_smoke_expects_each_paths_kernels():
         assert chip_smoke.expected_launches(ml100k, 1683, 4096, full_logs) == {
             **common, "gather_rows_bwd": 1, "fused_layer": 0, "fused_layer_bwd": 0,
             "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0,
-            "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1, "hash_dropout": 14}
+            "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1, "hash_dropout": 14,
+            "dense_fwd": 1 + 2 * 4, "dense_dgrad": 2 * 4, "dense_wgrad": 1 + 2 * 4}
     # configs/ml25m_ccl.yaml: seq 128, the split bf16 core at dh 32, so #17
     # and #18 once a layer, #16 at the embedding and the hidden sites (2 + 6
     # * 2 * 2); with remat_layers each layer's forward runs twice
@@ -241,10 +246,12 @@ def test_chip_smoke_expects_each_paths_kernels():
         **common, "gather_rows_bwd": 1, "fused_layer": 0, "fused_layer_bwd": 0,
         "pool_infonce_fwd": 0, "pool_infonce_dq": 0, "pool_infonce_dn": 0,
         "pairwise_fwd": 1, "pairwise_dq": 1, "pairwise_dn": 1, "hash_dropout": 26,
-        "attn_core_fwd": 6, "attn_core_bwd": 6}
+        "attn_core_fwd": 6, "attn_core_bwd": 6,
+        "dense_fwd": 1 + 6 * 4, "dense_dgrad": 6 * 4, "dense_wgrad": 1 + 6 * 4}
     remat = TrainConfig.from_dict({**chip_smoke.scale_sections()[0], "remat_layers": True})
     got = chip_smoke.expected_launches(remat, 62001, 32768, full_logs=False)
     assert (got["hash_dropout"], got["attn_core_fwd"], got["attn_core_bwd"]) == (2 + 6 * 6, 12, 6)
+    assert (got["dense_fwd"], got["dense_dgrad"], got["dense_wgrad"]) == (1 + 2 * 24, 24, 25)
     assert set(chip_smoke.expected_launches(reference, 3707, 1024, False)) == \
         set(cuda_build.KERNELS)
     # hard negatives turn the fused losses off: the plain objective, no #5-#12

@@ -17,10 +17,11 @@ The layers run one of two paths, chosen as the JAX package chooses them
   backward (JAX's XLA path: ``_attention`` in its ``masked`` and ``split``
   forms, the bf16 attention core with its own backward, ``_ffn``, the
   one-sweep LayerNorm variance at s > 64, ``remat_layers`` as activation
-  checkpointing).  Its products are ``torch.matmul``, as JAX leaves them
-  to XLA; what XLA fuses around them has kernels of its own on the card:
-  the hash dropout at every site (``ops.hash_dropout``, #16) and the bf16
-  attention core at S <= 128, dh 32 or 64 (``ops.attn_core``, #17/#18).
+  checkpointing).  What JAX leaves to XLA has kernels of its own on the
+  card: the denses under bf16 (``ops.dense``, #19, forward and both
+  gradients; the plain ops elsewhere), the hash dropout at every site
+  (``ops.hash_dropout``, #16) and the bf16 attention core at S <= 128,
+  dh 32 or 64 (``ops.attn_core``, #17/#18).
 
 The stack rounds to the compute dtype where the JAX source does, op by op
 (as JAX runs its ops one at a time): each dense's output, each residual
@@ -42,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from transformer_recommenders_tpu_torch import resolve_device, tracing
 from transformer_recommenders_tpu_torch.configs import ModelConfig
 from transformer_recommenders_tpu_torch.ops.attn_core import Softmax, attn_core_bf16
+from transformer_recommenders_tpu_torch.ops.dense import dense
 from transformer_recommenders_tpu_torch.ops.fused_layer import attention_bias, fused_layer
 from transformer_recommenders_tpu_torch.ops.hash_dropout import hash_dropout, seed_tensor, seed_terms
 
@@ -170,11 +172,10 @@ def _layer_norm(
 
 def _dense(x: torch.Tensor, p: Params, dtype: torch.dtype) -> torch.Tensor:
     """Matmul on ``dtype``-rounded operands with f32 products and sums, an
-    f32 bias, and the result narrowed back to ``dtype``.  A plain matrix
-    product outside any kernel (the JAX package leaves it to XLA); f32
-    matmuls stay in full f32 (TF32 is off by default)."""
-    out = x.to(dtype).float() @ p["w"].to(dtype).float() + p["b"]
-    return out.to(dtype)
+    f32 bias, and the result narrowed back to ``dtype``: ``ops.dense.dense``
+    (#19 on the card under bf16, else the plain ops; f32 matmuls stay in
+    full f32, TF32 is off by default)."""
+    return dense(x, p["w"], p["b"], dtype)
 
 
 def _fused_layer_mode(cfg: ModelConfig, s: int) -> bool:

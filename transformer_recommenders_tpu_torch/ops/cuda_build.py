@@ -174,6 +174,20 @@ SIGNATURES: dict[str, tuple[str, dict[str, list]]] = {
             "attn_core_div_check": [_F, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P],
         },
     ),
+    "dense": (
+        "dense.cu",
+        {
+            # x, w (bf16), bias (f32), y (bf16), M, K, N, stream
+            "dense_fwd": [_P] * 4 + [_I] * 3 + [_P],
+            # g, w (bf16), dx (bf16), M, K, N, stream
+            "dense_dgrad": [_P] * 3 + [_I] * 3 + [_P],
+            # T, K, N: the splits of T a wgrad takes
+            "dense_wgrad_splits": [_I] * 3,
+            # x, g (bf16), the dW and db partials (f32 workspaces), dW, db
+            # (f32), T, K, N, splits, stream
+            "dense_wgrad": [_P] * 6 + [_I] * 4 + [_P],
+        },
+    ),
 }
 
 # the kernels a wrapper counts, by name: a C entry point that launches
@@ -187,6 +201,9 @@ KERNELS = (
     "pairwise_fwd", "pairwise_dq", "pairwise_dn",
     "vpu_chain", "fused_layer_stage_fwd", "fused_layer_stage_bwd",
     "hash_dropout", "attn_core_fwd", "attn_core_bwd",
+    "dense_fwd", "dense_dgrad", "dense_wgrad",
+    # not a kernel: the bf16 denses on the card that took the plain path
+    "dense_plain",
 )
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -247,13 +247,14 @@ class ModelService:
         power of two, so the device sees few shapes), run one forward,
         write back ``embedding``.
 
-        A query's embedding depends on the batch it is encoded in, in its
-        last bits: on the card cuBLAS picks the f32 product of the input
-        projection (``models/transformer._dense``) by the row count B * S,
-        which moves its sums' last bit, and where that crosses a bf16
-        rounding the difference carries on.  For the flagship on an H100,
-        2 of 64 queries encoded in a batch of 64 rather than alone moved,
-        by at most 7.6e-4 in a component (``tools/batch_invariance.py``);
+        Under bf16 on the card a query's embedding does not depend on the
+        batch it is encoded in: the input projection's product
+        (``models/transformer._dense``, the kernel of ``ops/dense.py``)
+        sums each row in one order whatever the row count, and for the
+        flagship on an H100 no query encoded in a batch of 64 or 256
+        rather than alone moved (``tools/batch_invariance.py``).  The
+        plain products (f32 configurations) are cuBLAS's, picked by the
+        row count B * S, so their sums' last bit can move with the batch;
         recommendation scores stay within 2**-10 (``chip_smoke.py``'s
         ``BURST_SCORE_TOL``)."""
         s = self.max_seq_length()
